@@ -1,0 +1,104 @@
+"""Bridge between the JAX classifier pytree and the port's parameters.
+
+The JAX tree (``arsvt_tpu/models/classifier.py::init_image_classifier``)
+is ``{"backbone": ..., "classifier": ...}`` with the encoder blocks
+stacked on a leading depth axis. The port holds the same keys with the
+blocks as a list of per-layer dicts; the patch kernel stays (p·p·C, D) in
+(p, p, C) row-major order. Leaves cross as numpy arrays, so neither side
+imports the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from arsvt_tpu_torch.core.dtypes import tree_map
+from arsvt_tpu_torch.models.vit import BackboneConfig
+
+
+def jax_layout_shapes(cfg: BackboneConfig, num_classes: int) -> dict:
+    """The shape of every leaf of the JAX classifier tree for `cfg`."""
+    d, depth, m = cfg.embed_dim, cfg.depth, cfg.mlp_dim
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
+
+    def ln(*lead):
+        return {"scale": (*lead, d), "bias": (*lead, d)}
+
+    def linear(fan_in, fan_out, *lead):
+        return {"kernel": (*lead, fan_in, fan_out), "bias": (*lead, fan_out)}
+
+    backbone = {
+        "patch_embed": linear(patch_dim, d),
+        "cls_token": (1, 1, d),
+        "pos_embed": (1, cfg.seq_len, d),
+        "blocks": {
+            "ln1": ln(depth),
+            "attn": {"qkv": linear(d, 3 * d, depth),
+                     "proj": linear(d, d, depth)},
+            "ln2": ln(depth),
+            "mlp": {"fc1": linear(d, m, depth), "fc2": linear(m, d, depth)},
+        },
+        "ln_f": ln(),
+    }
+    if cfg.distilled:
+        backbone["dist_token"] = (1, 1, d)
+    classifier = {"head": linear(d, num_classes)}
+    if cfg.distilled:
+        classifier["head_dist"] = linear(d, num_classes)
+    return {"backbone": backbone, "classifier": classifier}
+
+
+def _check_tree(tree, spec, path: str = "") -> None:
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict):
+            raise ValueError(f"{path or 'params'}: expected a dict, got "
+                             f"{type(tree).__name__}")
+        if set(tree) != set(spec):
+            raise ValueError(
+                f"{path or 'params'}: keys {sorted(tree)} do not match the "
+                f"config's {sorted(spec)}")
+        for k in spec:
+            _check_tree(tree[k], spec[k], f"{path}/{k}")
+        return
+    shape = tuple(np.shape(tree))
+    if shape != tuple(spec):
+        raise ValueError(f"{path}: shape {shape} does not match the "
+                         f"config's {tuple(spec)}")
+
+
+def from_jax_params(tree: dict, cfg: BackboneConfig, *,
+                    device="cpu") -> dict:
+    """JAX classifier pytree (numpy leaves) -> the port's parameter tree.
+
+    Refuses a tree whose keys or shapes do not match `cfg`; the number of
+    classes is read from the head kernel.
+    """
+    try:
+        num_classes = np.shape(tree["classifier"]["head"]["kernel"])[1]
+    except (KeyError, TypeError, IndexError) as e:
+        raise ValueError("params lack classifier/head/kernel") from e
+    _check_tree(tree, jax_layout_shapes(cfg, num_classes))
+    port = tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    tree)
+    stacked = port["backbone"]["blocks"]
+    port["backbone"]["blocks"] = [
+        tree_map(lambda t, i=i: t[i].clone(), stacked)
+        for i in range(cfg.depth)
+    ]
+    return port
+
+
+def to_jax_params(params: dict) -> dict:
+    """The port's parameter tree -> the JAX layout with numpy leaves
+    (blocks stacked on a leading depth axis)."""
+    out = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    out["backbone"]["blocks"] = _stack(out["backbone"]["blocks"])
+    return out
+
+
+def _stack(layers: list[dict]) -> dict:
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return np.stack(layers)

@@ -1,0 +1,38 @@
+"""Full image classifier = backbone + classifier head (counterpart of
+``arsvt_tpu/models/classifier.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from arsvt_tpu_torch.models.heads import (
+    ClassifierConfig,
+    apply_classifier,
+    init_classifier,
+)
+from arsvt_tpu_torch.models.vit import (
+    BackboneConfig,
+    apply_backbone,
+    init_backbone,
+)
+
+
+def init_image_classifier(backbone_cfg: BackboneConfig, num_classes: int,
+                          seed: int = 0, *, device="cpu") -> dict:
+    head_cfg = ClassifierConfig(num_classes=num_classes,
+                                distilled=backbone_cfg.distilled)
+    return {
+        "backbone": init_backbone(backbone_cfg, seed, device=device),
+        "classifier": init_classifier(head_cfg, backbone_cfg.embed_dim,
+                                      device=device),
+    }
+
+
+def apply_image_classifier(params: dict, images: torch.Tensor,
+                           backbone_cfg: BackboneConfig,
+                           num_classes: int) -> torch.Tensor:
+    """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32."""
+    tokens = apply_backbone(params["backbone"], images, backbone_cfg)
+    head_cfg = ClassifierConfig(num_classes=num_classes,
+                                distilled=backbone_cfg.distilled)
+    return apply_classifier(params["classifier"], tokens, head_cfg)

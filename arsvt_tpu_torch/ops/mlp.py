@@ -1,0 +1,28 @@
+"""tanh-GELU MLP forward (counterpart of ``arsvt_tpu/ops/mlp.py``).
+
+Both products stay ``torch.matmul``, as the JAX package leaves them to
+XLA (its fused-MLP Pallas kernel is opt-in and not on this path).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_C = 0.7978845608028654  # sqrt(2/pi)
+_A = 0.044715
+
+
+def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, in u's dtype — not the erf GELU."""
+    t = torch.tanh(_C * (u + _A * u * u * u))
+    return 0.5 * u * (1.0 + t)
+
+
+def gelu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x: (..., D); w1: (D, M); w2: (M, D). Returns (..., D) in x.dtype.
+
+    Each product emits x's dtype and its bias is added in that dtype.
+    """
+    u = torch.matmul(x, w1.to(x.dtype)) + b1.to(x.dtype)
+    h = gelu_tanh(u)
+    return torch.matmul(h, w2.to(u.dtype)) + b2.to(u.dtype)

@@ -1,0 +1,160 @@
+"""HTTP inference server for the physical sorter loop (counterpart of
+``arsvt_tpu/serving/server.py``, classify only).
+
+    POST /classify   body = JPEG/PNG bytes -> {"class", "class_name",
+                     "probs", "latency_ms"}
+    GET  /healthz    -> {"status": "ok", "backend": <torch device type>, ...}
+    GET  /stats      -> rolling latency percentiles (+ batching counters)
+
+Built from an in-memory `StreamingClassifier`:
+
+    server = InferenceServer(classifier=StreamingClassifier(params, cfg, 6))
+    host, port = server.start_background(port=0)
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+from arsvt_tpu_torch.data.pipeline import letterbox
+from arsvt_tpu_torch.data.taxonomy import class_name
+from arsvt_tpu_torch.serving.batching import MicroBatcher
+
+
+class InferenceServer:
+    def __init__(self, *, classifier=None, detector=None,
+                 max_batch: int = 1, batch_window_ms: float = 3.0):
+        """Pass a StreamingClassifier.
+
+        `max_batch > 1` turns on dynamic micro-batching for /classify:
+        concurrent requests within `batch_window_ms` share one padded
+        device forward (serving/batching.py)."""
+        if detector is not None:
+            raise NotImplementedError("/detect is not ported yet")
+        if classifier is None:
+            raise ValueError("need a classifier")
+        if max_batch < 1:
+            raise ValueError(
+                f"max_batch must be >= 1 (1 = unbatched), got {max_batch}"
+            )
+        self._clf = classifier
+        self._lock = threading.Lock()  # serialize device access
+        self._httpd = None
+        self._batcher = None
+        if max_batch > 1:
+            self._batcher = MicroBatcher(
+                classifier.infer_batch, max_batch=max_batch,
+                window_ms=batch_window_ms, lock=self._lock,
+            )
+            # warm the one padded batch shape now, so the first real
+            # request does not pay for the library's first-shape set-up
+            s = classifier.image_size
+            classifier.infer_batch(
+                np.zeros((max_batch, s, s, 3), np.float32)
+            )
+
+    # ----------------------------------------------------------- handlers
+    def _decode(self, body: bytes):
+        from PIL import Image, ImageOps
+
+        # EXIF orientation applied exactly as the path-based decode does
+        # (data/pipeline.py::_open_upright)
+        img = ImageOps.exif_transpose(Image.open(io.BytesIO(body)))
+        return np.asarray(img.convert("RGB"), np.float32) / 255.0
+
+    def _classify(self, body: bytes) -> dict:
+        t0 = time.perf_counter()
+        # rescale + normalization happen inside the classifier's forward,
+        # per its normalize_inputs contract
+        img, _ = letterbox(self._decode(body), self._clf.image_size)
+        if self._batcher is not None:
+            # decode/letterbox ran on this request thread (parallel); the
+            # batcher coalesces concurrent forwards into one device call
+            idx, probs = self._batcher.infer(img)
+            self._clf.note_latency(time.perf_counter() - t0)
+            name = class_name(idx)
+        else:
+            with self._lock:
+                idx, name, probs = self._clf(img)
+            # /stats means the same in both modes: decode + letterbox +
+            # forward under one sample
+            self._clf.replace_last_latency(time.perf_counter() - t0)
+        return {
+            "class": int(idx),
+            "class_name": name,
+            "probs": [round(float(p), 4) for p in probs],
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 2),
+        }
+
+    def _stats(self) -> dict:
+        stats = {"classify": self._clf.latency_stats()}
+        if self._batcher is not None:
+            stats["batching"] = self._batcher.stats()
+        return stats
+
+    # -------------------------------------------------------------- serve
+    def _make_handler(server_self):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _send(self, code: int, payload: dict):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._send(200, {
+                        "status": "ok",
+                        "backend": server_self._clf.device.type,
+                        "endpoints": ["/classify"],
+                    })
+                elif self.path == "/stats":
+                    self._send(200, server_self._stats())
+                else:
+                    self._send(404, {"error": "unknown path"})
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n)
+                try:
+                    if self.path == "/classify":
+                        self._send(200, server_self._classify(body))
+                    else:
+                        self._send(404, {"error": "unknown path"})
+                except (BrokenPipeError, ConnectionError):
+                    # the client went away mid-write — a 400 on the same
+                    # stream would follow an already-sent 200 status line
+                    pass
+                except Exception as e:  # undecodable image etc.
+                    try:
+                        self._send(400, {"error": str(e)[:200]})
+                    except (BrokenPipeError, ConnectionError):
+                        pass
+
+        return Handler
+
+    def start_background(self, *, host: str = "127.0.0.1", port: int = 8000):
+        self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
+        t = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+        t.start()
+        return self._httpd.server_address
+
+    def shutdown(self):
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()  # free the listening socket fd now
+            self._httpd = None
+        if self._batcher is not None:
+            self._batcher.shutdown()
+            self._batcher = None
