@@ -3,13 +3,20 @@
 A second package beside the JAX one, which stays the numerical reference.
 Module names mirror ``arsvt_tpu`` so each has an obvious counterpart:
 
-    core/        dtype policy, unit-float rescale
-    data/        taxonomy, host decode + letterbox, ImageNet normalize
-    ops/         patch embed, LayerNorm, tanh-GELU MLP, attention references,
-                 and the hand-written Hopper kernels (``csrc/*.cu``) with
-                 their plain PyTorch versions
+    core/        dtype policy, unit-float rescale, tree helpers, seeded
+                 generators
+    data/        taxonomy, host decode + letterbox, ImageNet normalize,
+                 crop/flip and eval augmentation
+    ops/         patch embed, LayerNorm, tanh-GELU MLP (with their
+                 backward), attention references, and the hand-written
+                 Hopper kernels (``csrc/*.cu``: encoder attention forward
+                 and backward, AdamW) with their plain PyTorch versions
     models/      ViT/DeiT backbone, classifier head, presets, JAX bridge
-    evaluation/  streaming single-image classifier
+                 (parameters and optimizer state)
+    objectives/  cross-entropy, top-1, confusion matrix
+    train/       config, optimizer and schedules, gradient accumulation,
+                 classifier train and eval steps
+    evaluation/  classifier evaluation, streaming single-image classifier
     serving/     HTTP server and micro-batcher
 
 The package imports neither JAX nor ``arsvt_tpu``. Importing it loads

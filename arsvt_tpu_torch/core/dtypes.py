@@ -40,6 +40,41 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """Like `tree_map`, with fn(path, leaf): "/"-joined keys and list
+    indices as the path."""
+    def join(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, join(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def named_leaves(tree, prefix: str = "") -> list:
+    """[(path, leaf)] of a tree of dicts and lists, with dict keys in
+    sorted order (as JAX flattens dicts), so two trees of the same
+    structure give their leaves in the same order whatever order their
+    dicts were built in."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out += named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return [leaf for _, leaf in named_leaves(tree)]
+
+
 def _cast_floating(tree, dtype):
     return tree_map(
         lambda x: x.to(dtype) if isinstance(x, torch.Tensor)

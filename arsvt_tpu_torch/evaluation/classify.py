@@ -1,9 +1,12 @@
-"""The streaming sorter-loop classifier (counterpart of
-``arsvt_tpu/evaluation/classify.py::StreamingClassifier``).
+"""Classification evaluation and the streaming sorter-loop classifier
+(counterpart of ``arsvt_tpu/evaluation/classify.py``'s
+``evaluate_classifier`` and ``StreamingClassifier``).
 
-JPEG/PNG decode -> letterbox -> rescale/normalize on the device ->
-classify, with a rolling p50 latency meter. Runs on the card unless the
-caller asks for the CPU.
+`evaluate_classifier` sweeps batches into top-1, per-class accuracy and a
+confusion matrix. `StreamingClassifier`: JPEG/PNG decode -> letterbox ->
+rescale/normalize on the device -> classify, with a rolling p50 latency
+meter. Both run on the card unless the caller asks for the CPU. The int8
+option (``quantize``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ from arsvt_tpu_torch.core.dtypes import (
     to_unit_float,
     tree_map,
 )
-from arsvt_tpu_torch.data.augment import normalize
+from arsvt_tpu_torch.data.augment import eval_preprocess, normalize
 from arsvt_tpu_torch.data.pipeline import letterbox_u8, load_image_u8
-from arsvt_tpu_torch.data.taxonomy import class_name
+from arsvt_tpu_torch.data.taxonomy import RECYCLING_CLASSES, class_name
 from arsvt_tpu_torch.models.classifier import apply_image_classifier
+from arsvt_tpu_torch.objectives.classification import confusion_matrix
 from arsvt_tpu_torch.utils.latency import LatencyWindow
 
 
@@ -34,6 +38,47 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def evaluate_classifier(params, batches, backbone_cfg, num_classes: int, *,
+                        compute_dtype=torch.bfloat16,
+                        normalize_inputs: bool = False, device=None) -> dict:
+    """Full eval sweep -> {top1, per_class_accuracy, confusion_matrix, n}.
+
+    `batches` yields {"image": (B, H, W, C) uint8 or [0,1] float, "label":
+    (B,) int}, as numpy arrays or tensors. `normalize_inputs` must match
+    the training contract (``cfg.augment != "none"``): then each image is
+    resized to the model's size and ImageNet-normalized, as the train
+    step's eval does.
+    """
+    dev = resolve_device(device)
+    params = tree_map(lambda t: t.to(dev), params)
+    correct, total = 0, 0
+    conf = np.zeros((num_classes, num_classes), np.int64)
+    with torch.inference_mode():
+        for batch in batches:
+            images = torch.as_tensor(np.asarray(batch["image"])).to(dev)
+            labels = torch.as_tensor(np.asarray(batch["label"])).to(dev)
+            x = to_unit_float(images, torch.float32)
+            if normalize_inputs:
+                x = eval_preprocess(x, size=backbone_cfg.image_size)
+            logits = apply_image_classifier(
+                params, x.to(compute_dtype), backbone_cfg, num_classes)
+            preds = logits.argmax(dim=-1)
+            correct += int((preds == labels).sum())
+            total += int(labels.shape[0])
+            conf += confusion_matrix(preds, labels,
+                                     num_classes).cpu().numpy()
+    per_class = {}
+    for i, name in enumerate(RECYCLING_CLASSES[:num_classes]):
+        row = conf[i].sum()
+        per_class[name] = float(conf[i, i] / row) if row else float("nan")
+    return {
+        "top1": correct / total if total else float("nan"),
+        "per_class_accuracy": per_class,
+        "confusion_matrix": conf.tolist(),
+        "n": total,
+    }
 
 
 class StreamingClassifier(LatencyWindow):

@@ -79,6 +79,10 @@ def from_jax_params(tree: dict, cfg: BackboneConfig, *,
     except (KeyError, TypeError, IndexError) as e:
         raise ValueError("params lack classifier/head/kernel") from e
     _check_tree(tree, jax_layout_shapes(cfg, num_classes))
+    return _unstack_blocks(tree, cfg, device)
+
+
+def _unstack_blocks(tree: dict, cfg: BackboneConfig, device) -> dict:
     port = tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
                     tree)
     stacked = port["backbone"]["blocks"]
@@ -102,3 +106,41 @@ def _stack(layers: list[dict]) -> dict:
     if isinstance(first, dict):
         return {k: _stack([layer[k] for layer in layers]) for k in first}
     return np.stack(layers)
+
+
+# The optimizer state crosses as a plain dict of numpy leaves: the JAX side
+# reads it out of the optax chain (``arsvt_tpu.train.optim._find_state`` for
+# ``ScaleByAdamState`` and ``ScaleByScheduleState``, plus the
+# inject_hyperparams state's ``count`` and ``hyperparams["lr_scale"]``);
+# this module imports no optax.
+OPT_STATE_KEYS = ("count", "lr_scale", "adam_count", "mu", "nu",
+                  "schedule_count")
+
+
+def opt_state_from_jax(state: dict, cfg: BackboneConfig, *,
+                       device="cpu") -> dict:
+    """{count, lr_scale, adam_count, mu, nu, schedule_count} with numpy
+    leaves (mu and nu in the JAX classifier layout) -> the port's optimizer
+    state (``train/optim.py::init_opt_state``'s layout)."""
+    if set(state) != set(OPT_STATE_KEYS):
+        raise ValueError(f"optimizer state keys {sorted(state)} are not "
+                         f"{sorted(OPT_STATE_KEYS)}")
+    out = {k: int(np.asarray(state[k])) for k in
+           ("count", "adam_count", "schedule_count")}
+    out["lr_scale"] = float(np.float32(np.asarray(state["lr_scale"])))
+    for k in ("mu", "nu"):
+        num_classes = np.shape(state[k]["classifier"]["head"]["kernel"])[1]
+        _check_tree(state[k], jax_layout_shapes(cfg, num_classes), k)
+        out[k] = _unstack_blocks(state[k], cfg, device)
+    return out
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The port's optimizer state -> the plain dict with numpy leaves (mu
+    and nu with the blocks stacked on a leading depth axis)."""
+    out = {k: np.asarray(state[k], np.int32) for k in
+           ("count", "adam_count", "schedule_count")}
+    out["lr_scale"] = np.asarray(state["lr_scale"], np.float32)
+    for k in ("mu", "nu"):
+        out[k] = to_jax_params(state[k])
+    return out

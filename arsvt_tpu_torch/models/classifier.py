@@ -30,9 +30,11 @@ def init_image_classifier(backbone_cfg: BackboneConfig, num_classes: int,
 
 def apply_image_classifier(params: dict, images: torch.Tensor,
                            backbone_cfg: BackboneConfig,
-                           num_classes: int) -> torch.Tensor:
+                           num_classes: int, *,
+                           train: bool = False) -> torch.Tensor:
     """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32."""
-    tokens = apply_backbone(params["backbone"], images, backbone_cfg)
+    tokens = apply_backbone(params["backbone"], images, backbone_cfg,
+                            train=train)
     head_cfg = ClassifierConfig(num_classes=num_classes,
                                 distilled=backbone_cfg.distilled)
     return apply_classifier(params["classifier"], tokens, head_cfg)

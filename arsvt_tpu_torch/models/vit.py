@@ -1,14 +1,15 @@
-"""ViT / DeiT backbone, eval forward (counterpart of ``arsvt_tpu/models/vit.py``).
+"""ViT / DeiT backbone (counterpart of ``arsvt_tpu/models/vit.py``).
 
 Parameters are a plain tree of tensors with the JAX tree's keys and
 per-layer shapes; where JAX stacks the blocks on a leading depth axis for
 ``lax.scan``, this tree holds a list of per-layer dicts and the forward is
 a Python loop. Images are NHWC. Pre-LN blocks:
 ``x += out_proj(attn(qkv_proj(LN1(x)))); x += mlp(LN2(x))``, then a
-final LN. The attention core between the two projections is the
-encoder-attention kernel (``ops/encoder_attention.py``), so the backbone
-takes head_dim 64, which every ViT preset has. No dropout: this is the
-serving forward.
+final LN. qkv-proj → attention → out-proj is one autograd Function over
+the encoder-attention kernels (``ops/encoder_attention.py``), for serving
+and training alike, so the backbone takes head_dim 64, which every ViT
+preset has. Dropout (residual, positional and attention) and remat are not
+ported: a training forward that would need them raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import dataclasses
 import torch
 
 from arsvt_tpu_torch.core.dtypes import tree_map
-from arsvt_tpu_torch.ops.encoder_attention import encoder_attention_fwd
+from arsvt_tpu_torch.ops.encoder_attention import fused_encoder_attention
 from arsvt_tpu_torch.ops.layernorm import layer_norm
 from arsvt_tpu_torch.ops.mlp import gelu_mlp
 from arsvt_tpu_torch.ops.patch_embed import patch_embed
@@ -114,12 +115,14 @@ def _encoder_block(x: torch.Tensor, bp: dict,
     emits x's dtype and adds its bias in that dtype, as the JAX block."""
     attn_p = bp["attn"]
     y = layer_norm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], eps=cfg.ln_eps)
-    qkv = (torch.matmul(y, attn_p["qkv"]["kernel"].to(y.dtype))
-           + attn_p["qkv"]["bias"].to(x.dtype))
-    attn, _ = encoder_attention_fwd(qkv, cfg.num_heads)
-    attn = (torch.matmul(attn, attn_p["proj"]["kernel"].to(attn.dtype))
-            + attn_p["proj"]["bias"].to(x.dtype))
-    x = x + attn
+    x = x + fused_encoder_attention(
+        y,
+        attn_p["qkv"]["kernel"].to(y.dtype),
+        attn_p["qkv"]["bias"].to(y.dtype),
+        attn_p["proj"]["kernel"].to(y.dtype),
+        attn_p["proj"]["bias"].to(y.dtype),
+        cfg.num_heads,
+    )
 
     y = layer_norm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], eps=cfg.ln_eps)
     mlp = bp["mlp"]
@@ -128,10 +131,29 @@ def _encoder_block(x: torch.Tensor, bp: dict,
     return x + y
 
 
+def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
+    """Raise for the training features this port does not have yet."""
+    if cfg.dropout > 0.0 or cfg.attn_dropout > 0.0:
+        raise NotImplementedError(
+            f"training with dropout={cfg.dropout} / attn_dropout="
+            f"{cfg.attn_dropout} is not ported yet (ROADMAP Queue A item 7, "
+            "the detector slice, brings in-kernel attention dropout)")
+    if remat:
+        raise NotImplementedError(
+            "remat is not ported yet (ROADMAP Queue A item 5, the ViT-L "
+            "recipe)")
+
+
 def apply_backbone(params: dict, images: torch.Tensor,
-                   cfg: BackboneConfig) -> torch.Tensor:
+                   cfg: BackboneConfig, *, train: bool = False) -> torch.Tensor:
     """images: (B, H, W, C) in the compute dtype -> all tokens (B, S, D)
-    after the final LN (special tokens first; heads pick what they use)."""
+    after the final LN (special tokens first; heads pick what they use).
+
+    `train` marks a training forward: it is the same computation (no
+    dropout is ported) and raises where the config would need dropout.
+    """
+    if train:
+        check_train_supported(cfg)
     b = images.shape[0]
     x = patch_embed(images, params["patch_embed"]["kernel"],
                     params["patch_embed"]["bias"],

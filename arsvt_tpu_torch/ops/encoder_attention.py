@@ -1,14 +1,21 @@
-"""Encoder attention core on the packed (B, S, 3D) projection output.
+"""Encoder attention on the packed (B, S, 3D) projection output.
 
-Counterpart of ``arsvt_tpu/ops/pallas/flash_attention.py::_fwd_direct``
-(the forward Pallas kernel ``_fwd_kernel_direct``). On a CUDA tensor
-`encoder_attention_fwd` launches the hand-written kernel in
-``csrc/encoder_attention_fwd.cu`` or raises; on a CPU tensor it runs
-`encoder_attention_fwd_plain`, which repeats the kernel's arithmetic in
-plain PyTorch. There is no fallback from one to the other.
+Counterpart of ``arsvt_tpu/ops/pallas/flash_attention.py``'s direct-layout
+kernels and of its ``fused_encoder_attention`` custom VJP:
 
-Outputs keep the JAX layouts: O as (B, S, D) with head h in columns
-h*d .. h*d+d, and the log-sum-exp as (B, H, 1, S) fp32.
+- `encoder_attention_fwd` (``_fwd_direct`` → ``_fwd_kernel_direct``),
+  kernel ``csrc/encoder_attention_fwd.cu``;
+- `encoder_attention_bwd` (``_bwd_direct`` → ``_bwd_kernel_direct``),
+  kernel ``csrc/encoder_attention_bwd.cu``;
+- `fused_encoder_attention`, qkv-proj → attention → out-proj as one
+  `torch.autograd.Function` whose forward runs the first kernel and whose
+  backward runs the second.
+
+On a CUDA tensor each wrapper launches its hand-written kernel or raises;
+on a CPU tensor it runs its ``*_plain`` version, which repeats the
+kernel's arithmetic in plain PyTorch. There is no fallback from one to the
+other. Layouts are the JAX ones: O, dq, dk and dv as (B, S, D) with head h
+in columns h*d .. h*d+d, the log-sum-exp as (B, H, 1, S) fp32. No dropout.
 """
 
 from __future__ import annotations
@@ -24,14 +31,20 @@ from arsvt_tpu_torch.ops.attention import merge_heads, split_heads
 SUPPORTED_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches in this process: the wrapper adds one per launch and
-# nowhere else, so a run can show that its path went through the kernel.
+# Kernel launches in this process: each wrapper adds to its own count where
+# it launches and nowhere else, so a run can show that its path went
+# through the kernels. One backward call launches two kernels (dq, then
+# dk/dv) and counts both.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_LAUNCHES_PER_CALL = 2
 
 _fn = None
+_bwd_fn = None
 
 
 def _check(qkv: torch.Tensor, num_heads: int) -> int:
+    """Validate the packed qkv; returns the head dim."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, S, 3D), got {tuple(qkv.shape)}")
     d = qkv.shape[-1] // 3
@@ -111,3 +124,139 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int):
             f"encoder_attention_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out, lse
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, D) -> (B, H, S, d)."""
+    b, s, d = x.shape
+    return x.reshape(b, s, num_heads, d // num_heads).permute(0, 2, 1, 3)
+
+
+def encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads: int):
+    """Plain PyTorch version of the backward kernel, at its rounding
+    points: p = exp(s - lse) from fp32 scores, delta = rowsum(O * dO) and
+    dP = dO v^T in fp32, dS = p (dP - delta); dS is rounded to q/k's dtype
+    before dq and dk, p to dO's dtype before dv; products summed in fp32.
+    Returns (dq, dk, dv), each (B, S, D) in qkv's dtype."""
+    q, k, v = split_heads(qkv, num_heads)
+    o, do = _heads(out, num_heads), _heads(dout, num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse.transpose(-1, -2))
+    delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      do.float())
+    return tuple(merge_heads(t.to(qkv.dtype)) for t in (dq, dk, dv))
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("encoder_attention_bwd").arsvt_encoder_attention_bwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int):
+    """Backward of `encoder_attention_fwd`: qkv (B, S, 3D); out and dout
+    (B, S, D) in qkv's dtype; lse (B, H, 1, S) fp32 from the forward.
+
+    Returns (dq, dk, dv), each (B, S, D) in qkv's dtype.
+    """
+    global BWD_LAUNCHES
+    head_dim = _check(qkv, num_heads)
+    b, s, three_d = qkv.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, s, three_d // 3) or t.dtype != qkv.dtype:
+            raise ValueError(
+                f"{name} must be {(b, s, three_d // 3)} {qkv.dtype}, got "
+                f"{tuple(t.shape)} {t.dtype}")
+    if lse.shape != (b, num_heads, 1, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be {(b, num_heads, 1, s)} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    tensors = (qkv, out, dout, lse)
+    if all(t.device.type == "cpu" for t in tensors):
+        return encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads)
+    if any(t.device != qkv.device for t in tensors) or \
+            qkv.device.type != "cuda":
+        raise ValueError("encoder attention backward runs on cpu or cuda "
+                         "with every input on one device")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("encoder attention backward needs contiguous, "
+                             "16-byte aligned inputs")
+    dq, dk, dv = (torch.empty_like(out) for _ in range(3))
+    delta = torch.empty((b, num_heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, s, num_heads, head_dim,
+                 _DTYPE_CODES[qkv.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"encoder_attention_bwd kernel launch failed: CUDA error {err}")
+    BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
+    return dq, dk, dv
+
+
+class _FusedEncoderAttention(torch.autograd.Function):
+    """Mirror of ``flash_attention.py::_enc_attn_nodrop``'s custom VJP
+    (``_enc_attn_fwd_impl`` / ``_enc_attn_bwd_impl``)."""
+
+    @staticmethod
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads):
+        qkv = torch.matmul(y, wqkv) + bqkv
+        attn, lse = encoder_attention_fwd(qkv, num_heads)
+        out = torch.matmul(attn, wproj) + bproj
+        ctx.save_for_backward(y, qkv, attn, lse, wqkv, wproj)
+        ctx.num_heads = num_heads
+        ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, qkv, attn, lse, wqkv, wproj = ctx.saved_tensors
+        b, s, d = y.shape
+        y2, g2, a2 = (t.reshape(b * s, d) for t in (y, g, attn))
+        # output projection
+        dwproj = a2.T @ g2
+        dbproj = g2.sum(dim=0)
+        dattn = (g2 @ wproj.T).reshape(b, s, d)
+        # attention core, then the qkv projection per column slice of the
+        # packed weight: no (B, S, 3D) cotangent is ever formed
+        dq, dk, dv = encoder_attention_bwd(
+            qkv, attn, dattn.to(attn.dtype).contiguous(), lse, ctx.num_heads)
+        slices = [t.reshape(b * s, d) for t in (dq, dk, dv)]
+        weights = (wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:])
+        dy = sum(t @ w.T for t, w in zip(slices, weights)).reshape(b, s, d)
+        dwqkv = torch.cat([y2.T @ t for t in slices], dim=1)
+        dbqkv = torch.cat([t.sum(dim=0) for t in slices])
+        dt_bqkv, dt_bproj = ctx.bias_dtypes
+        return (dy.to(y.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(dt_bqkv),
+                dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None)
+
+
+def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int):
+    """out_proj(attention(qkv_proj(y))): y (B, S, D); wqkv (D, 3D), bqkv
+    (3D,), wproj (D, D), bproj (D,), all in the compute dtype. Returns
+    (B, S, D).
+
+    A `torch.autograd.Function` that saves (y, qkv, attn, lse) and the
+    weights and runs the backward kernel; under `torch.inference_mode`
+    (serving) it builds no graph and runs the forward alone. One attention
+    path thus serves and trains.
+    """
+    return _FusedEncoderAttention.apply(y, wqkv, bqkv, wproj, bproj,
+                                        num_heads)

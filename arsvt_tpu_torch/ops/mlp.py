@@ -1,7 +1,9 @@
-"""tanh-GELU MLP forward (counterpart of ``arsvt_tpu/ops/mlp.py``).
+"""tanh-GELU MLP (counterpart of ``arsvt_tpu/ops/mlp.py``).
 
 Both products stay ``torch.matmul``, as the JAX package leaves them to
 XLA (its fused-MLP Pallas kernel is opt-in and not on this path).
+`gelu_tanh` has the JAX package's compact VJP: it saves only u and applies
+the closed-form derivative in fp32.
 """
 
 from __future__ import annotations
@@ -12,10 +14,26 @@ _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
 
 
+class _GeluTanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u):
+        ctx.save_for_backward(u)
+        t = torch.tanh(_C * (u + _A * u * u * u))
+        return 0.5 * u * (1.0 + t)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        uf = u.float()
+        t = torch.tanh(_C * (uf + _A * uf * uf * uf))
+        d = 0.5 * (1.0 + t) + 0.5 * uf * (1.0 - t * t) * _C * (
+            1.0 + 3.0 * _A * uf * uf)
+        return (g.float() * d).to(u.dtype)
+
+
 def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
     """The tanh approximation of GELU, in u's dtype — not the erf GELU."""
-    t = torch.tanh(_C * (u + _A * u * u * u))
-    return 0.5 * u * (1.0 + t)
+    return _GeluTanh.apply(u)
 
 
 def gelu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:

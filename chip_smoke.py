@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -11,20 +13,31 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
 2. build every kernel under ``arsvt_tpu_torch/csrc`` (one nvcc each, all
    started together) and print the compiler's resource report;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes in bf16 and fp32 plus an odd shape, then timed with
-   CUDA events beside its bound and the library's call on the same work;
+   main paths' shapes in bf16 and fp32 plus odd shapes, then timed with
+   CUDA events beside its bound and a library call on the same work;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
 5. the HTTP server: /classify single and micro-batched, /healthz, /stats;
 6. a torch.profiler window over bf16 forwards at B=1 and B=8: the device's
-   busy share and the kernels by device time.
+   busy share and the kernels by device time;
+7. ViT-B/16@224 training through ``make_classifier_step_fns``: (a) two
+   fp32 steps on the card against the same steps on the CPU; (a2) 7 bf16
+   steps against 7 fp32 steps on the card, the configuration of (b) with a
+   seeded random head; (b) the ``bench.py::bench_train`` configuration (batch 512 as 16 x 32, bf16,
+   crop/flip on the 256 canvas, fused AdamW), 2 warm-up and 5 timed
+   steps: images/s and ms/step; (c) one ``eval_step`` and
+   ``evaluate_classifier`` over two batches; (d) a torch.profiler window
+   over one bf16 train step.
 
 Kernel launch counts are zeroed just before phase 4 and read after phase
-5; every kernel of the path must have launched exactly once per layer and
-forward. Any failure exits non-zero. The last lines are the kernels'
-record, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+5 (serving: one forward-kernel launch per layer and forward, no training
+kernel), and zeroed again just before (b) and read after (c) (training:
+forward launches = layers x (microbatches x steps + eval forwards),
+backward launches = layers x microbatches x steps x 2 kernels per call,
+one AdamW launch per step). Any failure exits non-zero. The last lines
+are the kernels' record, the card's ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,12 +55,19 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from arsvt_tpu_torch.core.dtypes import named_leaves, tree_leaves
 from arsvt_tpu_torch.data.pipeline import letterbox
-from arsvt_tpu_torch.evaluation.classify import StreamingClassifier
+from arsvt_tpu_torch.evaluation.classify import (
+    StreamingClassifier,
+    evaluate_classifier,
+)
 from arsvt_tpu_torch.models.classifier import init_image_classifier
 from arsvt_tpu_torch.models.registry import PRESETS
-from arsvt_tpu_torch.ops import build, encoder_attention
+from arsvt_tpu_torch.ops import build, encoder_attention, fused_adamw
 from arsvt_tpu_torch.serving.server import InferenceServer
+from arsvt_tpu_torch.train.config import TrainConfig
+from arsvt_tpu_torch.train.optim import _wd_mask
+from arsvt_tpu_torch.train.train_step import make_classifier_step_fns
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense tensor-core bf16, H100 SXM data sheet
@@ -175,6 +195,168 @@ def phase_kernel_checks(cfg) -> dict:
     return {"max_abs_err": errs[key8], **timings[8]}
 
 
+# Backward kernel against its plain version. fp32: the same fp32 arithmetic
+# with exp and the three sums in another order; dq/dk/dv reach ~10 at
+# these inputs, so a few fp32 ulps of that scale: atol = rtol = 1e-4.
+# bf16: on top of that, dS and p are rounded to bf16 before three of the
+# products, and a last-bit difference in fp32 can flip single roundings,
+# then the output's own bf16 rounding: a few bf16 ulps, atol = rtol = 2^-6.
+TOL_BWD_FP32 = 1e-4
+TOL_BWD_BF16 = 2.0 ** -6
+# AdamW kernel against its plain version: both round each operation once
+# in the same order with IEEE sqrt and division, so they should agree to
+# the bit; 1e-7 absolute on parameters of magnitude <= 1 allows one ulp.
+TOL_ADAMW = 1e-7
+
+
+def bwd_bound(b, s, d, num_heads, elem=2):
+    head_dim = d // num_heads
+    nbytes = (b * s * 3 * d * elem + 2 * b * s * d * elem
+              + b * num_heads * s * 4 + 3 * b * s * d * elem)
+    flops = 10 * b * num_heads * s * s * head_dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
+def library_attention_bwd_ms(qkv, dout, num_heads) -> float:
+    """The backward of `F.scaled_dot_product_attention` through autograd,
+    timed as (forward + backward) less forward: a yardstick only."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(
+        b, s, 3, num_heads, d // num_heads).permute(2, 0, 3, 1, 4).unbind(0))
+    g = dout.view(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), g)
+
+    return cuda_ms(fwd_bwd, iters=20) - cuda_ms(fwd, iters=20)
+
+
+def phase_bwd_checks(cfg) -> dict:
+    d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
+    cases = [(32, s, d, h, torch.bfloat16), (32, s, d, h, torch.float32),
+             (1, s, d, h, torch.bfloat16), (1, s, d, h, torch.float32),
+             (3, 17, 128, 2, torch.bfloat16), (3, 17, 128, 2, torch.float32)]
+    errs = {}
+    for i, (b, s_, d_, h_, dtype) in enumerate(cases):
+        qkv = seeded_qkv(b, s_, d_, dtype, seed=200 + i)
+        out, lse = encoder_attention.encoder_attention_fwd_plain(qkv, h_)
+        gen = torch.Generator().manual_seed(300 + i)
+        dout = torch.randn(b, s_, d_, generator=gen).to(dtype).cuda()
+        got = encoder_attention.encoder_attention_bwd(qkv, out, dout, lse, h_)
+        torch.cuda.synchronize()
+        ref = encoder_attention.encoder_attention_bwd_plain(qkv, out, dout,
+                                                            lse, h_)
+        tol = TOL_BWD_FP32 if dtype == torch.float32 else TOL_BWD_BF16
+        key = f"B{b}_S{s_}_D{d_}_H{h_}_{str(dtype).split('.')[-1]}"
+        rec = {"check": "encoder_attention_bwd", "case": key}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            check(x.shape == r.shape and x.dtype == r.dtype,
+                  f"{name} shape/dtype at {key}")
+            check(bool(torch.isfinite(x.float()).all()),
+                  f"non-finite {name} at {key}")
+            rec[f"max_abs_err_{name}"] = max_err(x, r)
+            rec[f"max_abs_{name}"] = float(r.float().abs().max())
+            ok = bool(((x.float() - r.float()).abs()
+                       <= tol + tol * r.float().abs()).all())
+            check(ok, f"encoder_attention_bwd {name} disagrees at {key}: "
+                      f"{rec[f'max_abs_err_{name}']}")
+        log(json.dumps(rec))
+        errs[key] = max(rec[f"max_abs_err_{n}"] for n in ("dq", "dk", "dv"))
+
+    timings = {}
+    for b in (1, 32):
+        qkv = seeded_qkv(b, s, d, torch.bfloat16, seed=9)
+        out, lse = encoder_attention.encoder_attention_fwd(qkv, h)
+        gen = torch.Generator().manual_seed(10)
+        dout = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).cuda()
+        ms = cuda_ms(lambda: encoder_attention.encoder_attention_bwd(
+            qkv, out, dout, lse, h), iters=50 if b == 1 else 20)
+        plain_ms = cuda_ms(lambda: encoder_attention.encoder_attention_bwd_plain(
+            qkv, out, dout, lse, h), iters=5)
+        library_ms = library_attention_bwd_ms(qkv, dout, h)
+        bound_ms, bound_by, nbytes, flops = bwd_bound(b, s, d, h)
+        timings[b] = {"ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        log(json.dumps({
+            "timing": "encoder_attention_bwd", "B": b, "S": s, "D": d,
+            "H": h, "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "bound_share": bound_ms / ms,
+        }))
+    return {"max_abs_err": errs[f"B32_S{s}_D{d}_H{h}_bfloat16"],
+            **timings[32]}
+
+
+def adamw_leaves(tree, gen):
+    """Random (g, m, v, p) for every leaf of `tree`, on the card."""
+    out = []
+    for shape in (t.shape for t in tree_leaves(tree)):
+        p = torch.randn(shape, generator=gen) * 0.02
+        g = torch.randn(shape, generator=gen) * 1e-3
+        m = torch.randn(shape, generator=gen) * 1e-4
+        v = torch.rand(shape, generator=gen) * 1e-6
+        out.append(tuple(t.cuda() for t in (g, m, v, p)))
+    return out
+
+
+def phase_adamw_checks(cfg) -> dict:
+    tree = init_image_classifier(cfg, 6, seed=0)
+    tree["odd"] = {"a": torch.zeros(7), "b": torch.zeros(1000, 3),
+                   "c": torch.zeros(13, 129), "d": torch.zeros(2049)}
+    decayed = tree_leaves(_wd_mask(tree))
+    gen = torch.Generator().manual_seed(11)
+    leaves = adamw_leaves(tree, gen)
+    n = sum(p.numel() for *_, p in leaves)
+    scalars = torch.tensor([0.5, 0.1, 0.001, 1e-3], device="cuda")
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
+    work = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    fused_adamw.fused_adamw(scalars, *zip(*work), decayed, **hyper)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (g, m, v, p), (_, m2, v2, p2), dflag in zip(leaves, work, decayed):
+        rp, rm, rv = fused_adamw.adamw_plain(
+            scalars, g, m, v, p, **{**hyper, "wd": hyper["wd"] if dflag
+                                    else 0.0})
+        err = max(err, max_err(p2, rp), max_err(m2, rm), max_err(v2, rv))
+    log(json.dumps({"check": "fused_adamw", "leaves": len(leaves),
+                    "params": n, "max_abs_err": err}))
+    check(err <= TOL_ADAMW, f"fused_adamw disagrees with its plain version: "
+                            f"{err}")
+
+    # timing on the ViT-B leaf set alone
+    vit = leaves[:-4]
+    vflags = decayed[:-4]
+    n_vit = sum(p.numel() for *_, p in vit)
+    grads, ms_, vs, ps = (list(t) for t in zip(*vit))
+    ms = cuda_ms(lambda: fused_adamw.fused_adamw(
+        scalars, grads, ms_, vs, ps, vflags, **hyper), iters=20)
+
+    plain_ms = cuda_ms(lambda: fused_adamw.adamw_plain_update(
+        scalars, grads, ms_, vs, ps, vflags, **hyper), iters=3, warmup=1)
+    params = [p.clone().requires_grad_(True) for p in ps]
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=0.05, fused=True)
+    library_ms = cuda_ms(opt.step, iters=20)
+    nbytes = 28 * n_vit
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes"}
+    log(json.dumps({"timing": "fused_adamw", "params": n_vit,
+                    "leaves": len(vit), "bytes": nbytes, **rec,
+                    "bound_share": bound_ms / ms}))
+    return {"max_abs_err": err, **rec}
+
+
 def seeded_head(params, d, num_classes, seed):
     """A zero head makes every answer uniform and hides faults: fill it
     with seeded values giving logits of a few units."""
@@ -255,6 +437,300 @@ def phase_model(cfg, params, images, batch):
                         "B": b, "p50_ms": float(np.median(t) * 1e3),
                         "min_ms": float(np.min(t) * 1e3)}))
     return gpu16, forwards
+
+
+# fp32 train step on the card against the same step on the CPU (ViT-B,
+# 12 layers, 2 steps): the same fp32 arithmetic in other summation orders.
+# Loss: 1e-4 relative. grad_norm: 1e-3 relative. Parameters: step 0 has
+# lr 0; step 1's Adam update is close to lr * sign-like, so an element
+# whose gradient is within fp32 noise of zero moves differently, by at
+# most ~2 lr; held as the relative L2 norm of the difference of the two
+# updates, <= 1e-2, and the largest parameter difference, <= 2.5 lr.
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_NORM = 1e-3
+TOL_TRAIN_UPDATE = 1e-2
+
+
+def train_cfg(**kw) -> TrainConfig:
+    """`bench.py::bench_train`'s configuration: ViT-B/16@224, crop/flip on
+    the 256 canvas, fused AdamW, no remat; warmup 1."""
+    return TrainConfig(preset="vit_base_16_224", augment="crop_flip",
+                       canvas=256, fused_adamw=True, warmup_steps=1,
+                       total_steps=10**6, **kw)
+
+
+def set_head(params, d, num_classes, seed):
+    """Write a seeded random head into the state's (zero) head in place."""
+    head = seeded_head({"classifier": {}}, d, num_classes, seed)[
+        "classifier"]["head"]
+    with torch.no_grad():
+        for k, t in head.items():
+            params["classifier"]["head"][k].copy_(t)
+
+
+def phase_train_parity(cfg) -> dict:
+    """(a) 2 fp32 steps of batch 8 as 2 microbatches, crop/flip, on the
+    card and on the CPU from the same init, batches and draws."""
+    tcfg = train_cfg(batch_size=8, grad_accum=2, bf16=False)
+    rng = np.random.default_rng(5)
+    batches = [{"image": rng.integers(0, 256, (8, 256, 256, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 6, 8).astype(np.int32)}
+               for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        init_fn, step, _ = make_classifier_step_fns(tcfg, device=dev)
+        state = init_fn()
+        set_head(state["params"], cfg.embed_dim, 6, seed=1)
+        start = [p.detach().cpu().clone()
+                 for p in tree_leaves(state["params"])]
+        losses, norms = [], []
+        for batch in batches:
+            state, m = step(state, batch, step_seed=3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        final = [p.detach().cpu() for p in tree_leaves(state["params"])]
+        runs[dev] = (losses, norms, start, final,
+                     time.perf_counter() - t0)
+    (l_gpu, n_gpu, s_gpu, f_gpu, t_gpu), (l_cpu, n_cpu, s_cpu, f_cpu,
+                                          t_cpu) = runs["cuda"], runs["cpu"]
+    lr = tcfg.learning_rate
+    for a, b in zip(s_gpu, s_cpu):
+        check(torch.equal(a, b), "card and CPU start from different weights")
+    upd_gpu = torch.cat([(f - s).flatten() for f, s in zip(f_gpu, s_gpu)])
+    upd_cpu = torch.cat([(f - s).flatten() for f, s in zip(f_cpu, s_cpu)])
+    rel_update = float((upd_gpu - upd_cpu).norm() / upd_cpu.norm())
+    max_param = max(max_err(a, b) for a, b in zip(f_gpu, f_cpu))
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    rel_norm = max(abs(a - b) / abs(b) for a, b in zip(n_gpu, n_cpu))
+    rec = {"check": "train step fp32 cuda vs cpu", "batch": 8,
+           "grad_accum": 2, "steps": 2, "loss_cuda": l_gpu,
+           "loss_cpu": l_cpu, "grad_norm_cuda": n_gpu,
+           "grad_norm_cpu": n_cpu, "max_rel_err_loss": rel_loss,
+           "max_rel_err_grad_norm": rel_norm,
+           "rel_l2_err_update": rel_update,
+           "max_abs_err_params": max_param, "lr": lr,
+           "seconds_cuda": t_gpu, "seconds_cpu": t_cpu}
+    log(json.dumps(rec))
+    check(all(np.isfinite(l_gpu + n_gpu)), "non-finite card train metrics")
+    check(rel_loss <= TOL_TRAIN_LOSS, f"train loss cuda vs cpu {rel_loss}")
+    check(rel_norm <= TOL_TRAIN_NORM, f"grad_norm cuda vs cpu {rel_norm}")
+    check(rel_update <= TOL_TRAIN_UPDATE,
+          f"parameter update cuda vs cpu {rel_update}")
+    check(max_param <= 2.5 * lr, f"parameters cuda vs cpu {max_param}")
+    return rec
+
+
+# bf16 card steps against fp32 card steps, the bench configuration with a
+# seeded random head. Steps 0 and 1 take their gradients at the init
+# weights (step 0 has lr 0; step 1's gradient comes before its update), so
+# there the two runs differ by bf16's rounding alone: 2^-8 relative per
+# rounding, compounding through 12 layers, averaged over 512 images. Loss
+# and grad_norm of steps 0 and 1: 2e-2 and 5e-2 relative. The first moment
+# after step 1 (a mix of the two clipped gradients), leaf by leaf: relative
+# L2 <= 1e-1; over all leaves: <= 5e-2. The later steps follow updates at
+# the full lr and are recorded for both precisions, held only finite.
+TOL_BF16_LOSS = 2e-2
+TOL_BF16_NORM = 5e-2
+TOL_BF16_MOMENT_LEAF = 1e-1
+TOL_BF16_MOMENT = 5e-2
+
+
+def bench_batch():
+    """The bench phase's fixed batch of 512 float images on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"image": torch.rand((512, 256, 256, 3), generator=gen,
+                                device="cuda"),
+            "label": torch.randint(0, 6, (512,), generator=gen,
+                                   device="cuda")}
+
+
+def phase_train_bf16(cfg) -> dict:
+    """(a2) 7 steps of the bench configuration with a seeded random head,
+    in fp32 and in bf16 on the card, from the same init, batch and
+    draws."""
+    steps, batch = 7, bench_batch()
+    runs = {}
+    for bf16 in (False, True):
+        t0 = time.perf_counter()
+        init_fn, step, _ = make_classifier_step_fns(
+            train_cfg(batch_size=512, grad_accum=16, bf16=bf16))
+        state = init_fn()
+        set_head(state["params"], cfg.embed_dim, 6, seed=1)
+        losses, norms = [], []
+        for t in range(steps):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+            if t == 1:
+                mu = [(name, x.clone()) for name, x in
+                      named_leaves(state["opt_state"]["mu"])]
+        runs[bf16] = ([float(v) for v in losses], [float(v) for v in norms],
+                      mu, time.perf_counter() - t0)
+        del state
+    (l32, n32, mu32, t32), (l16, n16, mu16, t16) = runs[False], runs[True]
+    diff2 = ref2 = 0.0
+    worst = ("", 0.0)
+    for (name, a), (_, b) in zip(mu16, mu32):
+        d2, r2 = float((a - b).square().sum()), float(b.square().sum())
+        diff2, ref2 = diff2 + d2, ref2 + r2
+        if (d2 / r2) ** 0.5 > worst[1]:
+            worst = (name, (d2 / r2) ** 0.5)
+    rel_mu = (diff2 / ref2) ** 0.5
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(l16[:2], l32[:2]))
+    rel_norm = max(abs(a - b) / abs(b) for a, b in zip(n16[:2], n32[:2]))
+    rec = {"check": "train step bf16 vs fp32 on the card, random head",
+           "batch": 512, "grad_accum": 16, "steps": steps,
+           "loss_fp32": l32, "loss_bf16": l16,
+           "grad_norm_fp32": n32, "grad_norm_bf16": n16,
+           "max_rel_err_loss_steps01": rel_loss,
+           "max_rel_err_grad_norm_steps01": rel_norm,
+           "rel_l2_err_mu_step1": rel_mu,
+           "worst_leaf_mu_step1": {"leaf": worst[0], "rel_l2_err": worst[1]},
+           "seconds_fp32": t32, "seconds_bf16": t16}
+    log(json.dumps(rec))
+    check(all(np.isfinite(l32 + l16 + n32 + n16)),
+          "non-finite bf16/fp32 train metrics")
+    check(rel_loss <= TOL_BF16_LOSS, f"bf16 vs fp32 loss {rel_loss}")
+    check(rel_norm <= TOL_BF16_NORM, f"bf16 vs fp32 grad_norm {rel_norm}")
+    check(rel_mu <= TOL_BF16_MOMENT, f"bf16 vs fp32 first moment {rel_mu}")
+    check(worst[1] <= TOL_BF16_MOMENT_LEAF,
+          f"bf16 vs fp32 first moment of {worst[0]}: {worst[1]}")
+    return rec
+
+
+def zero_counts() -> None:
+    encoder_attention.LAUNCHES = 0
+    encoder_attention.BWD_LAUNCHES = 0
+    fused_adamw.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"encoder_attention_fwd": encoder_attention.LAUNCHES,
+            "encoder_attention_bwd": encoder_attention.BWD_LAUNCHES,
+            "fused_adamw": fused_adamw.LAUNCHES}
+
+
+def phase_train_bench(cfg, smi: str):
+    """(b) the bench configuration: batch 512 as 16 x 32, bf16, crop/flip on
+    the 256 canvas, fused AdamW; 2 warm-up and 5 timed steps on one fixed
+    batch made on the card; (c) one eval_step and evaluate_classifier over
+    two batches. Returns (record, counts, state, step fn, batch)."""
+    steps_warm, steps_timed, micro = 2, 5, 16
+    tcfg = train_cfg(batch_size=512, grad_accum=micro, bf16=True)
+    init_fn, step, eval_step = make_classifier_step_fns(tcfg)
+    # bench_train's own init, zero head; (a2) holds the same steps with a
+    # random head, in bf16 against fp32
+    state = init_fn()
+    batch = bench_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the training path starts here
+    losses = []
+    for _ in range(steps_warm):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps_timed):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    rec = {"timing": "train step vit_base_16_224 bench config",
+           "batch": 512, "grad_accum": micro, "dtype": "bfloat16",
+           "augment": "crop_flip", "canvas": 256, "steps_timed": steps_timed,
+           "ms_per_step": dt / steps_timed * 1e3,
+           "train_images_per_s": 512 * steps_timed / dt,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "card": smi}
+    log(json.dumps(rec))
+    check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
+    check(losses[-1] < losses[1],
+          f"loss did not fall over the timed steps: {losses}")
+
+    ev = {"image": batch["image"][:64], "label": batch["label"][:64]}
+    e = eval_step(state["params"], ev)
+    check(int(e["count"]) == 64 and int(e["confusion"].sum()) == 64 and
+          0 <= int(e["correct"]) <= 64 and bool(torch.isfinite(e["loss"])),
+          f"eval_step {e}")
+    rng = np.random.default_rng(6)
+    eval_batches = [{"image": rng.integers(0, 256, (32, 256, 256, 3),
+                                           dtype=np.uint8),
+                     "label": rng.integers(0, 6, 32).astype(np.int32)}
+                    for _ in range(2)]
+    res = evaluate_classifier(state["params"], iter(eval_batches), cfg, 6,
+                              normalize_inputs=True)
+    check(res["n"] == 64 and sum(map(sum, res["confusion_matrix"])) == 64
+          and 0.0 <= res["top1"] <= 1.0, f"evaluate_classifier {res}")
+    counts = read_counts()
+    fwd_expected = cfg.depth * (micro * (steps_warm + steps_timed) + 1 + 2)
+    bwd_expected = (cfg.depth * micro * (steps_warm + steps_timed)
+                    * encoder_attention.BWD_LAUNCHES_PER_CALL)
+    log(json.dumps({"check": "eval", "eval_step_loss": float(e["loss"]),
+                    "eval_step_correct": int(e["correct"]),
+                    "evaluate_classifier_top1": res["top1"],
+                    "evaluate_classifier_n": res["n"]}))
+    log(json.dumps({"launches": counts, "expected": {
+        "encoder_attention_fwd": fwd_expected,
+        "encoder_attention_bwd": bwd_expected,
+        "fused_adamw": steps_warm + steps_timed}}))
+    check(counts["encoder_attention_fwd"] == fwd_expected,
+          f"forward launches {counts} != {fwd_expected}")
+    check(counts["encoder_attention_bwd"] == bwd_expected,
+          f"backward launches {counts} != {bwd_expected}")
+    check(counts["fused_adamw"] == steps_warm + steps_timed,
+          f"AdamW launches {counts}")
+    return rec, counts, state, step, batch
+
+
+# Device kernels by the layer they belong to (first match wins).
+PROFILE_CATEGORIES = (
+    ("attention forward kernel", ("encoder_attention_fwd_kernel",)),
+    ("attention backward kernels", ("attn_bwd_",)),
+    ("AdamW kernel", ("fused_adamw_kernel",)),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("copies and casts", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def phase_train_profile(state, step, batch, wall_ms: float) -> dict:
+    """(d) torch.profiler over one bf16 train step: the device's busy share
+    of the unprofiled step time from (b), and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = per_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us()
+            rec[1] += 1
+    busy_us = sum(v[0] for v in per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    by_category: dict[str, float] = {}
+    for name, (us, _) in per_name.items():
+        cat = next((c for c, keys in PROFILE_CATEGORIES
+                    if any(k in name for k in keys)), "elementwise and other")
+        by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
+    rec = {"profile": "train step vit_base_16_224 bench config",
+           "wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy_us / 1e3,
+           # None: the profiler saw no device time (not measured)
+           "device_busy_share": busy_us / 1e3 / wall_ms if busy_us else None,
+           "kernels_per_step": sum(v[1] for v in per_name.values()),
+           "ms_by_category": by_category,
+           "top": [{"name": k[:80], "ms": v[0] / 1e3, "calls": v[1]}
+                   for k, v in top]}
+    log(json.dumps(rec))
+    return rec
 
 
 def png_bytes(image_u8: np.ndarray) -> bytes:
@@ -432,6 +908,11 @@ def main() -> int:
     cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")
     attn = phase_kernel_checks(cfg)
+    attn_bwd = phase_bwd_checks(cfg)
+    adamw = phase_adamw_checks(cfg)
+    if "--kernels" in sys.argv[1:]:
+        log("# --kernels: stopping after phase 3")
+        return 0
 
     params = seeded_head(init_image_classifier(cfg, 6, seed=0),
                          cfg.embed_dim, 6, seed=1)
@@ -443,33 +924,49 @@ def main() -> int:
               for shape in ((224, 224, 3), (180, 240, 3), (300, 200, 3),
                             (224, 224, 3))]
 
-    encoder_attention.LAUNCHES = 0  # the main path starts here
+    zero_counts()  # the serving path starts here
     log("# phase 4: ViT-B/16@224 StreamingClassifier")
     direct, forwards = phase_model(cfg, params, images, batch)
     log("# phase 5: InferenceServer")
     forwards += phase_server(cfg, params, direct, bodies)
-    launches = encoder_attention.LAUNCHES
+    serving = read_counts()
+    launches = serving["encoder_attention_fwd"]
     log(json.dumps({"launches": launches, "forwards": forwards,
                     "depth": cfg.depth}))
     check(launches > 0, "encoder_attention_fwd never launched")
     check(launches == cfg.depth * forwards,
           f"LAUNCHES {launches} != depth {cfg.depth} x {forwards} forwards")
+    check(serving["encoder_attention_bwd"] == serving["fused_adamw"] == 0,
+          f"serving launched a training kernel: {serving}")
     log("# phase 6: profile of the bf16 forward")
     phase_profile(direct, batch)
 
-    print(json.dumps({"kernels": [{
-        "name": "encoder_attention_fwd",
-        "route": "cuda",
-        "source": "arsvt_tpu_torch/csrc/encoder_attention_fwd.cu",
-        "replaces": "arsvt_tpu/ops/pallas/flash_attention.py:533",
-        "launches": launches,
-        "max_abs_err": attn["max_abs_err"],
-        "ms": attn["ms"],
-        "plain_ms": attn["plain_ms"],
-        "bound_ms": attn["bound_ms"],
-        "bound_by": attn["bound_by"],
-        "library_ms": attn["library_ms"],
-    }]}))
+    log("# phase 7: ViT-B/16@224 training")
+    phase_train_parity(cfg)
+    phase_train_bf16(cfg)
+    bench, train, state, step, train_batch = phase_train_bench(cfg, smi)
+    phase_train_profile(state, step, train_batch, bench["ms_per_step"])
+
+    def row(name, source, replaces, rec, launched):
+        return {"name": name, "route": "cuda",
+                "source": f"arsvt_tpu_torch/csrc/{source}",
+                "replaces": f"arsvt_tpu/ops/pallas/{replaces}",
+                "launches": launched, "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"]}
+
+    print(json.dumps({"kernels": [
+        # forward: the serving path's launches plus the training path's
+        row("encoder_attention_fwd", "encoder_attention_fwd.cu",
+            "flash_attention.py:533", attn,
+            launches + train["encoder_attention_fwd"]),
+        row("encoder_attention_bwd", "encoder_attention_bwd.cu",
+            "flash_attention.py:629", attn_bwd,
+            train["encoder_attention_bwd"]),
+        row("fused_adamw", "fused_adamw.cu", "fused_adamw.py:40", adamw,
+            train["fused_adamw"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,13 @@ MODULES = [
     "arsvt_tpu_torch.evaluation.classify",
     "arsvt_tpu_torch.serving.batching",
     "arsvt_tpu_torch.serving.server",
+    "arsvt_tpu_torch.core.prng",
+    "arsvt_tpu_torch.ops.fused_adamw",
+    "arsvt_tpu_torch.objectives.classification",
+    "arsvt_tpu_torch.train.config",
+    "arsvt_tpu_torch.train.optim",
+    "arsvt_tpu_torch.train.accum",
+    "arsvt_tpu_torch.train.train_step",
 ]
 
 _PROBE = """
@@ -42,8 +49,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "arsvt_tpu")
-             or k.startswith(("jax.", "jaxlib.", "arsvt_tpu.")))
+             if k in ("jax", "jaxlib", "arsvt_tpu", "optax")
+             or k.startswith(("jax.", "jaxlib.", "arsvt_tpu.", "optax.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -63,11 +70,13 @@ def test_no_library_attention_and_no_jax_imports_in_the_package():
     files = sorted(PACKAGE.rglob("*.py")) + sorted(PACKAGE.rglob("*.cu"))
     assert len(files) >= len(MODULES)
     importing = re.compile(
-        r"^\s*(from|import)\s+(jax|jaxlib|arsvt_tpu)(\.|\s|$)", re.M)
+        r"^\s*(from|import)\s+(jax|jaxlib|arsvt_tpu|optax)(\.|\s|$)",
+        re.M)
     for path in files:
         text = path.read_text()
         assert "scaled_dot_product_attention" not in text, path
         assert "torch.compile" not in text, path
+        assert "torch.optim" not in text, path
         assert not importing.search(text), path
 
 
