@@ -12,8 +12,7 @@ the sample falls outside [-0.5, n - 0.5]; applied with two batched
 products. ``F.interpolate(antialias=True)`` is a different filter.
 
 Not ported yet: RandAugment, color jitter and the bf16 augmentation
-opt-in (``ARSVT_AUGMENT_BF16``) — the ViT-L recipe (ROADMAP Queue A
-item 5).
+opt-in (``ARSVT_AUGMENT_BF16``) — the ViT-L recipe (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -166,7 +165,7 @@ def _check_supported(cfg: ClassifyAugmentConfig) -> None:
     if cfg.rand_augment or cfg.jitter_p > 0:
         raise NotImplementedError(
             "RandAugment and color jitter are not ported yet (ROADMAP Queue "
-            "A item 5, the ViT-L recipe)")
+            "A, the ViT-L recipe)")
 
 
 def draw_classification_augment(gen: torch.Generator, n: int,

@@ -1,5 +1,6 @@
 """Host decode and letterbox (copy of the single-image part of
-``arsvt_tpu/data/pipeline.py``).
+``arsvt_tpu/data/pipeline.py`` and of the PIL path of
+``arsvt_tpu/evaluation/classify.py::_load_letterboxed_single``).
 
 Letterboxing = resize the longest side to the canvas, then center
 reflect-pad to a square, with the matching normalized-bbox remap.
@@ -74,3 +75,10 @@ def letterbox(image: np.ndarray, canvas: int):
         canvas,
     )
     return u8.astype(np.float32) / 255.0, box_transform
+
+
+def load_letterboxed_single(path: str, size: int) -> np.ndarray:
+    """Decode one image (PIL, EXIF-upright) and letterbox it to
+    (size, size, 3) raw uint8; the device rescales it."""
+    image, _ = letterbox_u8(load_image_u8(path), size)
+    return image

@@ -1,12 +1,15 @@
-"""Classification evaluation and the streaming sorter-loop classifier
+"""Classification evaluation and the streaming sorter-loop engines
 (counterpart of ``arsvt_tpu/evaluation/classify.py``'s
-``evaluate_classifier`` and ``StreamingClassifier``).
+``evaluate_classifier``, ``StreamingClassifier`` and
+``StreamingDetector``).
 
 `evaluate_classifier` sweeps batches into top-1, per-class accuracy and a
 confusion matrix. `StreamingClassifier`: JPEG/PNG decode -> letterbox ->
-rescale/normalize on the device -> classify, with a rolling p50 latency
-meter. Both run on the card unless the caller asks for the CPU. The int8
-option (``quantize``) is not ported yet.
+rescale/normalize on the device -> classify. `StreamingDetector`: the same
+front end -> DETR forward -> post-processing (confidence threshold and
+class-aware NMS). Both engines keep a rolling latency window. All run on
+the card unless the caller asks for the CPU. The int8 option
+(``quantize``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from arsvt_tpu_torch.core.dtypes import (
     tree_map,
 )
 from arsvt_tpu_torch.data.augment import eval_preprocess, normalize
-from arsvt_tpu_torch.data.pipeline import letterbox_u8, load_image_u8
+from arsvt_tpu_torch.data.pipeline import load_letterboxed_single
 from arsvt_tpu_torch.data.taxonomy import RECYCLING_CLASSES, class_name
+from arsvt_tpu_torch.evaluation.detect import post_process
 from arsvt_tpu_torch.models.classifier import apply_image_classifier
+from arsvt_tpu_torch.models.detector import apply_detector
 from arsvt_tpu_torch.objectives.classification import confusion_matrix
 from arsvt_tpu_torch.utils.latency import LatencyWindow
 
@@ -153,7 +158,89 @@ class StreamingClassifier(LatencyWindow):
         -> rescale/normalize -> classify. The latency sample includes the
         decode."""
         t0 = time.perf_counter()
-        image, _ = letterbox_u8(load_image_u8(path), self._cfg.image_size)
-        result = self(image)
+        result = self(load_letterboxed_single(path, self._cfg.image_size))
         self.replace_last_latency(time.perf_counter() - t0)
+        return result
+
+
+class StreamingDetector(LatencyWindow):
+    """Single-image detect path for the sorter's detection mode: decode ->
+    letterbox -> rescale/normalize on the device -> DETR forward -> one
+    copy of the raw outputs to the host -> `post_process` there
+    (confidence threshold, class-aware NMS, sort by score).
+
+    `normalize_inputs` must match the training contract: True for
+    checkpoints trained with augment="detection" (the pipeline
+    normalizes), False for augment="none". `params` is the port's detector
+    tree (``models/bridge.py`` or ``init_detector``); it is moved to
+    `device` once.
+    """
+
+    def __init__(self, params, detector_cfg, *, compute_dtype=torch.bfloat16,
+                 conf_threshold: float = 0.5, nms_threshold: float = 0.5,
+                 normalize_inputs: bool = True, quantize: str | None = None,
+                 device=None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int8":
+            raise NotImplementedError(
+                "int8 detector serving is not ported yet (ROADMAP Queue A)")
+        self._device = resolve_device(device)
+        self._cfg = detector_cfg
+        self._compute_dtype = compute_dtype
+        self._conf = conf_threshold
+        self._nms = nms_threshold
+        self._normalize_inputs = normalize_inputs
+        self._latencies = self.new_window()
+        self._params = tree_map(lambda t: t.to(self._device), params)
+        # warm-up: the first CUDA forward builds the kernels and creates
+        # the library handles, so the first real frame is not an outlier
+        s = self.image_size
+        self.forward(np.zeros((s, s, 3), np.uint8))
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def image_size(self) -> int:
+        return self._cfg.backbone.image_size
+
+    def forward(self, image) -> dict:
+        """One HWC uint8 or [0,1]-float image -> the raw head outputs on
+        the host: {"class_logits": (Q, C+1), "boxes_cxcywh": (Q, 4)}, fp32
+        tensors."""
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(image))
+            x = to_unit_float(x.to(self._device), torch.float32)
+            if self._normalize_inputs:
+                x = normalize(x)
+            out = apply_detector(self._params,
+                                 x[None].to(self._compute_dtype), self._cfg)
+            # the one device-to-host copy of the call
+            raw = torch.cat([out["class_logits"][0],
+                             out["boxes_cxcywh"][0]], dim=-1).cpu()
+        c = out["class_logits"].shape[-1]
+        return {"class_logits": raw[:, :c], "boxes_cxcywh": raw[:, c:]}
+
+    def detect_path(self, path: str) -> dict:
+        """Full sorter-loop step from an image file -> {"boxes": (N, 4)
+        xyxy in [0,1] of the letterboxed frame, "labels": (N,) int32,
+        "scores": (N,), "class_names"}: the kept detections, highest score
+        first, as numpy arrays. The latency sample includes the decode."""
+        t0 = time.perf_counter()
+        raw = self.forward(load_letterboxed_single(path, self.image_size))
+        out = post_process(raw["class_logits"][None],
+                           raw["boxes_cxcywh"][None],
+                           conf_threshold=self._conf,
+                           nms_threshold=self._nms)
+        out = {k: v[0].numpy() for k, v in out.items()}
+        sel = out["valid"]
+        result = {
+            "boxes": out["boxes"][sel],
+            "labels": out["labels"][sel],
+            "scores": out["scores"][sel],
+            "class_names": [class_name(i) for i in out["labels"][sel]],
+        }
+        self._latencies.append(time.perf_counter() - t0)
         return result

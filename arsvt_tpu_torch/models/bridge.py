@@ -1,11 +1,14 @@
-"""Bridge between the JAX classifier pytree and the port's parameters.
+"""Bridge between the JAX classifier and detector pytrees and the port's
+parameters.
 
-The JAX tree (``arsvt_tpu/models/classifier.py::init_image_classifier``)
-is ``{"backbone": ..., "classifier": ...}`` with the encoder blocks
-stacked on a leading depth axis. The port holds the same keys with the
-blocks as a list of per-layer dicts; the patch kernel stays (p·p·C, D) in
-(p, p, C) row-major order. Leaves cross as numpy arrays, so neither side
-imports the other.
+The JAX classifier tree (``arsvt_tpu/models/classifier.py::
+init_image_classifier``) is ``{"backbone": ..., "classifier": ...}``, the
+detector tree (``arsvt_tpu/models/detector.py::init_detector``)
+``{"backbone": ..., "detr": ..., "triplet_proj": ...}``; both stack the
+encoder and decoder blocks on a leading depth axis. The port holds the
+same keys with the blocks as a list of per-layer dicts; the patch kernel
+stays (p·p·C, D) in (p, p, C) row-major order. Leaves cross as numpy
+arrays, so neither side imports the other.
 """
 
 from __future__ import annotations
@@ -14,39 +17,74 @@ import numpy as np
 import torch
 
 from arsvt_tpu_torch.core.dtypes import tree_map
+from arsvt_tpu_torch.models.detector import DetectorConfig
 from arsvt_tpu_torch.models.vit import BackboneConfig
+
+
+def _ln(d, *lead):
+    return {"scale": (*lead, d), "bias": (*lead, d)}
+
+
+def _linear(fan_in, fan_out, *lead):
+    return {"kernel": (*lead, fan_in, fan_out), "bias": (*lead, fan_out)}
+
+
+def _backbone_shapes(cfg: BackboneConfig) -> dict:
+    d, depth, m = cfg.embed_dim, cfg.depth, cfg.mlp_dim
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
+    backbone = {
+        "patch_embed": _linear(patch_dim, d),
+        "cls_token": (1, 1, d),
+        "pos_embed": (1, cfg.seq_len, d),
+        "blocks": {
+            "ln1": _ln(d, depth),
+            "attn": {"qkv": _linear(d, 3 * d, depth),
+                     "proj": _linear(d, d, depth)},
+            "ln2": _ln(d, depth),
+            "mlp": {"fc1": _linear(d, m, depth),
+                    "fc2": _linear(m, d, depth)},
+        },
+        "ln_f": _ln(d),
+    }
+    if cfg.distilled:
+        backbone["dist_token"] = (1, 1, d)
+    return backbone
 
 
 def jax_layout_shapes(cfg: BackboneConfig, num_classes: int) -> dict:
     """The shape of every leaf of the JAX classifier tree for `cfg`."""
-    d, depth, m = cfg.embed_dim, cfg.depth, cfg.mlp_dim
-    patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
+    d = cfg.embed_dim
+    classifier = {"head": _linear(d, num_classes)}
+    if cfg.distilled:
+        classifier["head_dist"] = _linear(d, num_classes)
+    return {"backbone": _backbone_shapes(cfg), "classifier": classifier}
 
-    def ln(*lead):
-        return {"scale": (*lead, d), "bias": (*lead, d)}
 
-    def linear(fan_in, fan_out, *lead):
-        return {"kernel": (*lead, fan_in, fan_out), "bias": (*lead, fan_out)}
-
-    backbone = {
-        "patch_embed": linear(patch_dim, d),
-        "cls_token": (1, 1, d),
-        "pos_embed": (1, cfg.seq_len, d),
+def jax_detector_layout_shapes(cfg: DetectorConfig) -> dict:
+    """The shape of every leaf of the JAX detector tree for `cfg`."""
+    d, h = cfg.backbone.embed_dim, cfg.head
+    depth = h.depth
+    detr = {
+        "queries": (h.num_queries, d),
         "blocks": {
-            "ln1": ln(depth),
-            "attn": {"qkv": linear(d, 3 * d, depth),
-                     "proj": linear(d, d, depth)},
-            "ln2": ln(depth),
-            "mlp": {"fc1": linear(d, m, depth), "fc2": linear(m, d, depth)},
+            "ln_self": _ln(d, depth),
+            "self_attn": {"qkv": _linear(d, 3 * d, depth),
+                          "proj": _linear(d, d, depth)},
+            "ln_cross_q": _ln(d, depth),
+            "ln_cross_kv": _ln(d, depth),
+            "cross_attn": {"q": _linear(d, d, depth),
+                           "kv": _linear(d, 2 * d, depth),
+                           "proj": _linear(d, d, depth)},
+            "ln_mlp": _ln(d, depth),
+            "mlp": {"fc1": _linear(d, h.ffn_dim, depth),
+                    "fc2": _linear(h.ffn_dim, d, depth)},
         },
-        "ln_f": ln(),
+        "ln_f": _ln(d),
+        "class_head": _linear(d, h.num_classes + 1),
+        "bbox_head": _linear(d, 4),
     }
-    if cfg.distilled:
-        backbone["dist_token"] = (1, 1, d)
-    classifier = {"head": linear(d, num_classes)}
-    if cfg.distilled:
-        classifier["head_dist"] = linear(d, num_classes)
-    return {"backbone": backbone, "classifier": classifier}
+    return {"backbone": _backbone_shapes(cfg.backbone), "detr": detr,
+            "triplet_proj": _linear(d, cfg.triplet_dim)}
 
 
 def _check_tree(tree, spec, path: str = "") -> None:
@@ -82,14 +120,16 @@ def from_jax_params(tree: dict, cfg: BackboneConfig, *,
     return _unstack_blocks(tree, cfg, device)
 
 
+def _unstack(stacked: dict, depth: int) -> list[dict]:
+    return [tree_map(lambda t, i=i: t[i].clone(), stacked)
+            for i in range(depth)]
+
+
 def _unstack_blocks(tree: dict, cfg: BackboneConfig, device) -> dict:
     port = tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
                     tree)
-    stacked = port["backbone"]["blocks"]
-    port["backbone"]["blocks"] = [
-        tree_map(lambda t, i=i: t[i].clone(), stacked)
-        for i in range(cfg.depth)
-    ]
+    port["backbone"]["blocks"] = _unstack(port["backbone"]["blocks"],
+                                          cfg.depth)
     return port
 
 
@@ -98,6 +138,24 @@ def to_jax_params(params: dict) -> dict:
     (blocks stacked on a leading depth axis)."""
     out = tree_map(lambda t: t.detach().cpu().numpy(), params)
     out["backbone"]["blocks"] = _stack(out["backbone"]["blocks"])
+    return out
+
+
+def detector_from_jax_params(tree: dict, cfg: DetectorConfig, *,
+                             device="cpu") -> dict:
+    """JAX detector pytree (numpy leaves) -> the port's parameter tree.
+    Refuses a tree whose keys or shapes do not match `cfg`."""
+    _check_tree(tree, jax_detector_layout_shapes(cfg))
+    port = _unstack_blocks(tree, cfg.backbone, device)
+    port["detr"]["blocks"] = _unstack(port["detr"]["blocks"], cfg.head.depth)
+    return port
+
+
+def detector_to_jax_params(params: dict) -> dict:
+    """The port's detector parameters -> the JAX layout with numpy leaves
+    (encoder and decoder blocks stacked on a leading depth axis)."""
+    out = to_jax_params(params)
+    out["detr"]["blocks"] = _stack(out["detr"]["blocks"])
     return out
 
 

@@ -1,13 +1,14 @@
-"""Named backbone presets (copy of the backbone part of
-``arsvt_tpu/models/registry.py``).
+"""Named model presets (copy of ``arsvt_tpu/models/registry.py``).
 
-The backbone forward takes head_dim 64 only (its attention kernel's
-width): ``deit_ref_400_16_224`` (d=16) and the ``*_test_8_32`` presets
-(d=16) are listed for parity with the JAX table but do not run yet.
+Every preset runs: head_dim 64 backbones through the encoder-attention
+kernels, the others (``deit_ref_400_16_224`` and the ``*_test_8_32``
+presets, d=16) through the head-major attention kernel, forward only.
 """
 
 from __future__ import annotations
 
+from arsvt_tpu_torch.models.detector import DetectorConfig
+from arsvt_tpu_torch.models.heads import DetrHeadConfig
 from arsvt_tpu_torch.models.vit import BackboneConfig
 
 PRESETS: dict[str, BackboneConfig] = {
@@ -46,8 +47,45 @@ PRESETS: dict[str, BackboneConfig] = {
     ),
 }
 
+DETECTOR_PRESETS: dict[str, DetectorConfig] = {
+    # reference train config: 5 queries, 6-layer decoder, 8 heads, ffn 2048
+    "deit_detector_ref": DetectorConfig(
+        backbone=PRESETS["deit_ref_400_16_224"],
+        head=DetrHeadConfig(num_classes=6, num_queries=5, depth=6,
+                            num_heads=8, ffn_dim=2048, dropout=0.1,
+                            attn_dropout=0.1),
+    ),
+    # reference eval-script config: ViT-B backbone, 100 queries
+    "vit_base_detector": DetectorConfig(
+        backbone=PRESETS["vit_base_16_224"],
+        head=DetrHeadConfig(num_classes=6, num_queries=100, depth=6,
+                            num_heads=8, ffn_dim=2048),
+    ),
+    "detector_test": DetectorConfig(
+        backbone=PRESETS["deit_test_8_32"],
+        head=DetrHeadConfig(num_classes=6, num_queries=5, depth=2,
+                            num_heads=2, ffn_dim=64),
+    ),
+    "detector_demo_96": DetectorConfig(
+        backbone=BackboneConfig(
+            image_size=96, patch_size=8, embed_dim=192, depth=6,
+            num_heads=3, mlp_dim=768,
+        ),
+        head=DetrHeadConfig(num_classes=6, num_queries=10, depth=3,
+                            num_heads=4, ffn_dim=512),
+    ),
+}
+
 
 def get_preset(name: str) -> BackboneConfig:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[name]
+
+
+def get_detector_preset(name: str) -> DetectorConfig:
+    if name not in DETECTOR_PRESETS:
+        raise KeyError(
+            f"unknown detector preset {name!r}; have "
+            f"{sorted(DETECTOR_PRESETS)}")
+    return DETECTOR_PRESETS[name]

@@ -5,11 +5,15 @@ per-layer shapes; where JAX stacks the blocks on a leading depth axis for
 ``lax.scan``, this tree holds a list of per-layer dicts and the forward is
 a Python loop. Images are NHWC. Pre-LN blocks:
 ``x += out_proj(attn(qkv_proj(LN1(x)))); x += mlp(LN2(x))``, then a
-final LN. qkv-proj → attention → out-proj is one autograd Function over
-the encoder-attention kernels (``ops/encoder_attention.py``), for serving
-and training alike, so the backbone takes head_dim 64, which every ViT
-preset has. Dropout (residual, positional and attention) and remat are not
-ported: a training forward that would need them raises.
+final LN. The attention routes by what the port's kernels take: at
+head_dim 64 (every ViT preset) qkv-proj → attention → out-proj is one
+autograd Function over the encoder-attention kernels
+(``ops/encoder_attention.py``), for serving and training alike; any other
+head_dim (the DeiT-400 detector backbone's 16) runs qkv-proj → the
+head-major attention kernel (``ops/flash_attention.py``, forward only) →
+out-proj, as ``vit.py``'s non-fused branch does. Dropout (residual,
+positional and attention) and remat are not ported: a training forward
+that would need them raises.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ import dataclasses
 import torch
 
 from arsvt_tpu_torch.core.dtypes import tree_map
-from arsvt_tpu_torch.ops.encoder_attention import fused_encoder_attention
+from arsvt_tpu_torch.ops.attention import self_attention_from_qkv
+from arsvt_tpu_torch.ops.encoder_attention import (
+    SUPPORTED_HEAD_DIM,
+    fused_encoder_attention,
+)
 from arsvt_tpu_torch.ops.layernorm import layer_norm
 from arsvt_tpu_torch.ops.mlp import gelu_mlp
 from arsvt_tpu_torch.ops.patch_embed import patch_embed
@@ -115,14 +123,16 @@ def _encoder_block(x: torch.Tensor, bp: dict,
     emits x's dtype and adds its bias in that dtype, as the JAX block."""
     attn_p = bp["attn"]
     y = layer_norm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], eps=cfg.ln_eps)
-    x = x + fused_encoder_attention(
-        y,
-        attn_p["qkv"]["kernel"].to(y.dtype),
-        attn_p["qkv"]["bias"].to(y.dtype),
-        attn_p["proj"]["kernel"].to(y.dtype),
-        attn_p["proj"]["bias"].to(y.dtype),
-        cfg.num_heads,
-    )
+    wqkv, bqkv = (attn_p["qkv"][k].to(y.dtype) for k in ("kernel", "bias"))
+    wproj, bproj = (attn_p["proj"][k].to(y.dtype)
+                    for k in ("kernel", "bias"))
+    if cfg.head_dim == SUPPORTED_HEAD_DIM:
+        x = x + fused_encoder_attention(y, wqkv, bqkv, wproj, bproj,
+                                        cfg.num_heads)
+    else:
+        attn = self_attention_from_qkv(torch.matmul(y, wqkv) + bqkv,
+                                       cfg.num_heads)
+        x = x + (torch.matmul(attn, wproj) + bproj)
 
     y = layer_norm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], eps=cfg.ln_eps)
     mlp = bp["mlp"]
@@ -136,12 +146,11 @@ def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
     if cfg.dropout > 0.0 or cfg.attn_dropout > 0.0:
         raise NotImplementedError(
             f"training with dropout={cfg.dropout} / attn_dropout="
-            f"{cfg.attn_dropout} is not ported yet (ROADMAP Queue A item 7, "
-            "the detector slice, brings in-kernel attention dropout)")
+            f"{cfg.attn_dropout} is not ported yet (ROADMAP Queue A, "
+            "detector training, brings in-kernel attention dropout)")
     if remat:
         raise NotImplementedError(
-            "remat is not ported yet (ROADMAP Queue A item 5, the ViT-L "
-            "recipe)")
+            "remat is not ported yet (ROADMAP Queue A, the ViT-L recipe)")
 
 
 def apply_backbone(params: dict, images: torch.Tensor,

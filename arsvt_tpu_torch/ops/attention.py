@@ -1,9 +1,12 @@
-"""Attention references (counterpart of ``arsvt_tpu/ops/attention.py``).
+"""Multi-head attention (counterpart of ``arsvt_tpu/ops/attention.py``).
 
-`sdpa_reference` is the numerics oracle with an fp32 softmax; the
-head split and merge of the packed (B, S, 3D) layout are shared with the
-encoder-attention kernel's plain version (``ops/encoder_attention.py``).
-The model does not call these: its attention core is that kernel.
+`sdpa_reference` is the numerics oracle with an fp32 softmax; the head
+split and merge of the packed (B, S, 3D) layout are shared with the
+kernels' plain versions. `multi_head_attention` and
+`self_attention_from_qkv` dispatch as the JAX functions do: to the
+head-major attention kernel (``ops/flash_attention.py``) unless the caller
+forces the reference, as the DETR decoder's self-attention over its few
+queries does on every device.
 """
 
 from __future__ import annotations
@@ -28,22 +31,44 @@ def merge_heads(out: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
-def sdpa_reference(q, k, v) -> torch.Tensor:
+def sdpa_reference(q, k, v, *, mask=None) -> torch.Tensor:
     """Scaled dot-product attention, fp32 softmax island.
 
-    q: (B, H, Sq, d), k/v: (B, H, Sk, d). Returns (B, H, Sq, d) in
-    q.dtype. The probabilities are normalized before the cast to v's dtype.
+    q: (B, H, Sq, d), k/v: (B, H, Sk, d); mask: broadcastable to
+    (B, H, Sq, Sk) with True = attend (others get -1e30). Returns
+    (B, H, Sq, d) in q.dtype. The probabilities are normalized before the
+    cast to v's dtype.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
 
 
-def self_attention_from_qkv(qkv_flat: torch.Tensor,
-                            num_heads: int) -> torch.Tensor:
-    """Packed self-attention through the reference: (B, S, 3D) -> (B, S, D)."""
+def multi_head_attention(q, k, v, *, mask=None,
+                         force_reference: bool = False) -> torch.Tensor:
+    """q (B, H, Sq, d), k/v (B, H, Sk, d) -> (B, H, Sq, d): the kernel, or
+    `sdpa_reference` when forced or when a `mask` is given."""
+    if force_reference:
+        return sdpa_reference(q, k, v, mask=mask)
+    from arsvt_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, mask=mask)
+
+
+def self_attention_from_qkv(qkv_flat: torch.Tensor, num_heads: int, *,
+                            force_reference: bool = False) -> torch.Tensor:
+    """Packed self-attention: (B, S, 3D) projection output -> (B, S, D),
+    through `flash_self_attention_packed` or, when forced, the reference."""
+    if not force_reference:
+        from arsvt_tpu_torch.ops.flash_attention import (
+            flash_self_attention_packed,
+        )
+
+        return flash_self_attention_packed(qkv_flat, num_heads)
     q, k, v = split_heads(qkv_flat, num_heads)
     return merge_heads(sdpa_reference(q, k, v))

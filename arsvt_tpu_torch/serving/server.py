@@ -1,14 +1,18 @@
 """HTTP inference server for the physical sorter loop (counterpart of
-``arsvt_tpu/serving/server.py``, classify only).
+``arsvt_tpu/serving/server.py``).
 
     POST /classify   body = JPEG/PNG bytes -> {"class", "class_name",
                      "probs", "latency_ms"}
-    GET  /healthz    -> {"status": "ok", "backend": <torch device type>, ...}
+    POST /detect     body = JPEG/PNG bytes -> {"boxes", "labels",
+                     "scores", "class_names"}
+    GET  /healthz    -> {"status": "ok", "backend": <torch device type>,
+                     "endpoints": [...]}
     GET  /stats      -> rolling latency percentiles (+ batching counters)
 
-Built from an in-memory `StreamingClassifier`:
+Built from an in-memory `StreamingClassifier` and/or `StreamingDetector`:
 
-    server = InferenceServer(classifier=StreamingClassifier(params, cfg, 6))
+    server = InferenceServer(classifier=StreamingClassifier(params, cfg, 6),
+                             detector=StreamingDetector(det_params, det_cfg))
     host, port = server.start_background(port=0)
 """
 
@@ -16,6 +20,8 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -30,24 +36,26 @@ from arsvt_tpu_torch.serving.batching import MicroBatcher
 class InferenceServer:
     def __init__(self, *, classifier=None, detector=None,
                  max_batch: int = 1, batch_window_ms: float = 3.0):
-        """Pass a StreamingClassifier.
+        """Pass a StreamingClassifier and/or StreamingDetector.
 
         `max_batch > 1` turns on dynamic micro-batching for /classify:
         concurrent requests within `batch_window_ms` share one padded
         device forward (serving/batching.py)."""
-        if detector is not None:
-            raise NotImplementedError("/detect is not ported yet")
-        if classifier is None:
-            raise ValueError("need a classifier")
+        if classifier is None and detector is None:
+            raise ValueError("need a classifier and/or a detector")
         if max_batch < 1:
             raise ValueError(
                 f"max_batch must be >= 1 (1 = unbatched), got {max_batch}"
             )
         self._clf = classifier
+        self._det = detector
         self._lock = threading.Lock()  # serialize device access
         self._httpd = None
         self._batcher = None
         if max_batch > 1:
+            if classifier is None:
+                raise ValueError("max_batch > 1 needs a classifier "
+                                 "(/detect stays single-image)")
             self._batcher = MicroBatcher(
                 classifier.infer_batch, max_batch=max_batch,
                 window_ms=batch_window_ms, lock=self._lock,
@@ -92,11 +100,43 @@ class InferenceServer:
             "latency_ms": round((time.perf_counter() - t0) * 1e3, 2),
         }
 
+    def _detect(self, body: bytes) -> dict:
+        # the detector's surface is path-based (sorter cameras write
+        # frames), so the upload is spooled to a file first
+        with tempfile.NamedTemporaryFile(suffix=".jpg", delete=False) as f:
+            f.write(body)
+            path = f.name
+        try:
+            with self._lock:
+                out = self._det.detect_path(path)
+        finally:
+            os.unlink(path)
+        return {
+            "boxes": np.asarray(out["boxes"]).round(4).tolist(),
+            "labels": np.asarray(out["labels"]).tolist(),
+            "scores": np.asarray(out["scores"]).round(4).tolist(),
+            "class_names": out["class_names"],
+        }
+
     def _stats(self) -> dict:
-        stats = {"classify": self._clf.latency_stats()}
+        stats = {}
+        if self._clf is not None:
+            stats["classify"] = self._clf.latency_stats()
+        if self._det is not None:
+            stats["detect"] = self._det.latency_stats()
         if self._batcher is not None:
             stats["batching"] = self._batcher.stats()
         return stats
+
+    def _health(self) -> dict:
+        engine = self._clf if self._clf is not None else self._det
+        return {
+            "status": "ok",
+            "backend": engine.device.type,
+            "endpoints": [p for p, e in (("/classify", self._clf),
+                                         ("/detect", self._det))
+                          if e is not None],
+        }
 
     # -------------------------------------------------------------- serve
     def _make_handler(server_self):
@@ -114,11 +154,7 @@ class InferenceServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
-                    self._send(200, {
-                        "status": "ok",
-                        "backend": server_self._clf.device.type,
-                        "endpoints": ["/classify"],
-                    })
+                    self._send(200, server_self._health())
                 elif self.path == "/stats":
                     self._send(200, server_self._stats())
                 else:
@@ -128,8 +164,11 @@ class InferenceServer:
                 n = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(n)
                 try:
-                    if self.path == "/classify":
+                    clf, det = server_self._clf, server_self._det
+                    if self.path == "/classify" and clf is not None:
                         self._send(200, server_self._classify(body))
+                    elif self.path == "/detect" and det is not None:
+                        self._send(200, server_self._detect(body))
                     else:
                         self._send(404, {"error": "unknown path"})
                 except (BrokenPipeError, ConnectionError):

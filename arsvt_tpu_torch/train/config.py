@@ -116,7 +116,8 @@ def input_canvas(cfg: TrainConfig) -> int:
         return cfg.image_size
     if cfg.task == "detect":
         raise NotImplementedError(
-            "detection is not ported yet (ROADMAP Queue A item 7)")
+            "detector training is not ported yet (ROADMAP Queue A, "
+            "detector training)")
     return resolve_backbone(cfg).image_size
 
 

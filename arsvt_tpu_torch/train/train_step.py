@@ -13,8 +13,8 @@ one. The state is a dict {"params", "opt_state", "step"} updated in place
 (parameters and Adam moments; the returned dict is new), which keeps one
 copy of the fp32 master weights and moments on the card.
 
-Not ported yet: distillation (ROADMAP Queue A item 6), mixup, RandAugment
-and remat (item 5), dropout (item 7).
+Not ported yet (ROADMAP Queue A): distillation, mixup, RandAugment and
+remat (the ViT-L recipe), dropout (detector training).
 """
 
 from __future__ import annotations
@@ -77,10 +77,11 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                          f"got {cfg.task!r}")
     if cfg.distillation != "none":
         raise NotImplementedError(
-            "distillation is not ported yet (ROADMAP Queue A item 6)")
+            "distillation is not ported yet (ROADMAP Queue A)")
     if cfg.mixup_alpha > 0.0:
         raise NotImplementedError(
-            "mixup is not ported yet (ROADMAP Queue A item 5)")
+            "mixup is not ported yet (ROADMAP Queue A, the ViT-L "
+            "recipe)")
     backbone_cfg = resolve_backbone(cfg)
     check_train_supported(backbone_cfg, remat=cfg.remat)
     compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -96,7 +97,8 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
         )
         if aug_cfg.rand_augment:
             raise NotImplementedError(
-                "RandAugment is not ported yet (ROADMAP Queue A item 5)")
+                "RandAugment is not ported yet (ROADMAP Queue A, the "
+                "ViT-L recipe)")
     elif cfg.augment != "none":
         raise ValueError(f"unknown augment mode {cfg.augment!r} for classify")
 

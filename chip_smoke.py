@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training and detector-serving
+paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
@@ -28,24 +28,37 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    crop/flip on the 256 canvas, fused AdamW), 2 warm-up and 5 timed
    steps: images/s and ms/step; (c) one ``eval_step`` and
    ``evaluate_classifier`` over two batches; (d) a torch.profiler window
-   over one bf16 train step.
+   over one bf16 train step;
+8. detector serving, ``deit_detector_ref`` (DeiT-400 backbone, 6-layer
+   DETR head) from a seeded init through ``StreamingDetector``: (a) fp32
+   on the card against the plain path on the CPU, raw logits and boxes;
+   (b) bf16 against fp32 on the card; (c) ``post_process`` on the card
+   and on the CPU from the same raw outputs; (d) /detect, /healthz and
+   /stats through ``InferenceServer``; (e) detect_path latency over 60
+   calls; (f) a torch.profiler window over one bf16 forward; (g)
+   ``vit_base_detector`` through (a) and (d).
 
-Kernel launch counts are zeroed just before phase 4 and read after phase
-5 (serving: one forward-kernel launch per layer and forward, no training
-kernel), and zeroed again just before (b) and read after (c) (training:
-forward launches = layers x (microbatches x steps + eval forwards),
-backward launches = layers x microbatches x steps x 2 kernels per call,
-one AdamW launch per step). Any failure exits non-zero. The last lines
-are the kernels' record, the card's ``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``.
+Kernel launch counts are zeroed just before each path and read just after
+it: phases 4-5 (classify serving: one encoder-attention forward launch per
+layer and forward, no training kernel); 7(b)-(c) (training: forward
+launches = layers x (microbatches x steps + eval forwards), backward
+launches = layers x microbatches x steps x 2 kernels per call, one AdamW
+launch per step); 8(a)-(f) (``deit_detector_ref``: 12 encoder + 6
+cross-attention launches of the head-major kernel per forward, no other
+kernel); 8(g) (``vit_base_detector``: 12 encoder-attention and 6
+head-major launches per forward). Any failure exits non-zero. The last
+lines are the kernels' record, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -59,11 +72,19 @@ from arsvt_tpu_torch.core.dtypes import named_leaves, tree_leaves
 from arsvt_tpu_torch.data.pipeline import letterbox
 from arsvt_tpu_torch.evaluation.classify import (
     StreamingClassifier,
+    StreamingDetector,
     evaluate_classifier,
 )
+from arsvt_tpu_torch.evaluation.detect import post_process
 from arsvt_tpu_torch.models.classifier import init_image_classifier
-from arsvt_tpu_torch.models.registry import PRESETS
-from arsvt_tpu_torch.ops import build, encoder_attention, fused_adamw
+from arsvt_tpu_torch.models.detector import init_detector
+from arsvt_tpu_torch.models.registry import DETECTOR_PRESETS, PRESETS
+from arsvt_tpu_torch.ops import (
+    build,
+    encoder_attention,
+    flash_attention,
+    fused_adamw,
+)
 from arsvt_tpu_torch.serving.server import InferenceServer
 from arsvt_tpu_torch.train.config import TrainConfig
 from arsvt_tpu_torch.train.optim import _wd_mask
@@ -193,6 +214,104 @@ def phase_kernel_checks(cfg) -> dict:
         }))
     key8 = f"B8_S{s}_D{d}_H{h}_bfloat16"
     return {"max_abs_err": errs[key8], **timings[8]}
+
+
+# (H, Sq, Sk, d) of the head-major kernel's calls on the detector paths:
+# the DeiT-400 encoder's self-attention, deit_detector_ref's and
+# vit_base_detector's DETR cross-attention over the 196 patch tokens.
+FLASH_PATH_SHAPES = {
+    "deit_encoder": (25, 198, 198, 16),
+    "deit_cross": (8, 5, 196, 50),
+    "vit_base_cross": (8, 100, 196, 96),
+}
+
+
+def seeded_heads(b, h, sq, sk, d, dtype, seed):
+    """q (B, H, Sq, d), k and v (B, H, Sk, d) on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(dtype).cuda()
+                 for shape in ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d)))
+
+
+def flash_bound(b, h, sq, sk, d, elem=2):
+    """Each of q, k, v read once, O and lse written once; 4*B*H*Sq*Sk*d
+    FLOPs (both products)."""
+    nbytes = b * h * (2 * sq * d + 2 * sk * d) * elem + b * h * sq * 4
+    flops = 4 * b * h * sq * sk * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
+def phase_flash_checks() -> dict:
+    """The head-major kernel against its plain version at the detector
+    paths' shapes (B=1 and B=8), a masked odd shape and one query row, in
+    bf16 and fp32 (tolerances of the encoder-attention forward: the same
+    arithmetic in another summation order); then timed at the path shapes.
+    Returns the record of the DeiT-400 encoder shape at B=1, the most
+    launched."""
+    cases = [(f"{name}_B{b}", b, h, sq, sk, d, sk)
+             for name, (h, sq, sk, d) in FLASH_PATH_SHAPES.items()
+             for b in (1, 8)]
+    cases += [("odd_kv_len", 3, 2, 17, 33, 50, 20),
+              ("one_query", 2, 4, 1, 77, 128, 77)]
+    errs = {}
+    for i, (name, b, h, sq, sk, d, kv_len) in enumerate(cases):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            q, k, v = seeded_heads(b, h, sq, sk, d, dtype, 400 + 2 * i + j)
+            out, lse = flash_attention.flash_attention_fwd(q, k, v,
+                                                           kv_len=kv_len)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_attention.flash_attention_fwd_plain(
+                q, k, v, kv_len)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            check(out.shape == ref_out.shape and out.dtype == dtype and
+                  lse.shape == (b, h, 1, sq), f"shapes at {key}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"non-finite O at {key}")
+            e_out, e_lse = max_err(out, ref_out), max_err(lse, ref_lse)
+            if dtype == torch.float32:
+                ok = e_out <= TOL_FP32
+            else:
+                ok = bool(((out.float() - ref_out.float()).abs()
+                           <= TOL_BF16 + TOL_BF16 * ref_out.float().abs()
+                           ).all())
+            log(json.dumps({"check": "flash_attention_fwd", "case": key,
+                            "shape": [b, h, sq, sk, d], "kv_len": kv_len,
+                            "max_abs_err_out": e_out,
+                            "max_abs_err_lse": e_lse}))
+            check(ok, f"flash_attention_fwd O disagrees at {key}: {e_out}")
+            check(e_lse <= TOL_LSE, f"lse disagrees at {key}: {e_lse}")
+            errs[key] = e_out
+
+    timings = {}
+    for name, (h, sq, sk, d) in FLASH_PATH_SHAPES.items():
+        for b in (1, 8):
+            q, k, v = seeded_heads(b, h, sq, sk, d, torch.bfloat16, seed=8)
+            ms = cuda_ms(lambda: flash_attention.flash_attention_fwd(q, k, v),
+                         iters=200)
+            plain_ms = cuda_ms(
+                lambda: flash_attention.flash_attention_fwd_plain(q, k, v,
+                                                                  sk),
+                iters=50)
+            # the library yardstick on the same q, k, v: timed, never
+            # called by the port
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), iters=200)
+            bound_ms, bound_by, nbytes, flops = flash_bound(b, h, sq, sk, d)
+            timings[(name, b)] = {"ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": library_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+            log(json.dumps({
+                "timing": "flash_attention_fwd", "shape_of": name, "B": b,
+                "H": h, "Sq": sq, "Sk": sk, "d": d, "dtype": "bfloat16",
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                "flops": flops, "bound_share": bound_ms / ms,
+            }))
+    return {"max_abs_err": errs["deit_encoder_B1_bfloat16"],
+            **timings[("deit_encoder", 1)]}
 
 
 # Backward kernel against its plain version. fp32: the same fp32 arithmetic
@@ -604,12 +723,14 @@ def zero_counts() -> None:
     encoder_attention.LAUNCHES = 0
     encoder_attention.BWD_LAUNCHES = 0
     fused_adamw.LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     return {"encoder_attention_fwd": encoder_attention.LAUNCHES,
             "encoder_attention_bwd": encoder_attention.BWD_LAUNCHES,
-            "fused_adamw": fused_adamw.LAUNCHES}
+            "fused_adamw": fused_adamw.LAUNCHES,
+            "flash_attention_fwd": flash_attention.LAUNCHES}
 
 
 def phase_train_bench(cfg, smi: str):
@@ -689,6 +810,7 @@ def phase_train_bench(cfg, smi: str):
 # Device kernels by the layer they belong to (first match wins).
 PROFILE_CATEGORIES = (
     ("attention forward kernel", ("encoder_attention_fwd_kernel",)),
+    ("head-major attention kernel", ("flash_attention_fwd_kernel",)),
     ("attention backward kernels", ("attn_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -881,6 +1003,282 @@ def phase_profile(clf, batch) -> None:
         }))
 
 
+# Detector raw outputs. fp32 card against fp32 CPU: the same arithmetic in
+# another summation order through 12 encoder and 6 decoder layers;
+# logits and boxes are O(1), so 1e-4 absolute (the classifier's
+# probabilities agree to ~3e-6). bf16 against fp32 on the card: bf16
+# rounds every activation to 8 mantissa bits through 18 layers; the CPU
+# test of a 2-layer detector sees 0.02 on logits and 0.005 on boxes
+# against JAX, so 0.25 on logits and 0.05 on boxes (sigmoids, slope <=
+# 1/4) at full depth.
+TOL_DET_FP32 = 1e-4
+TOL_DET_BF16_LOGITS = 0.25
+TOL_DET_BF16_BOXES = 0.05
+# post_process on the card against the CPU from the same raw outputs: the
+# same fp32 operations, but the card's and the host's exp may differ in
+# the last bits, so the scores are held to 1e-6 (a few ulps of a
+# probability) and everything else (kept set, labels, boxes, order) to
+# equality.
+TOL_POST_SCORES = 1e-6
+DETECT_LATENCY_CALLS = 60
+
+
+def phase_detector_parity(name, cfg, params, images, *, bf16=True):
+    """(a) fp32 on the card against the plain path on the CPU, raw head
+    outputs; (b) bf16 against fp32 on the card. Returns (bf16 engine or
+    None, CUDA forwards run, CPU raw outputs stacked)."""
+    cpu = StreamingDetector(params, cfg, compute_dtype=torch.float32,
+                            device="cpu")
+    gpu32 = StreamingDetector(params, cfg, compute_dtype=torch.float32,
+                              device="cuda")
+    forwards = 1
+    ref = [cpu.forward(img) for img in images]
+    r32 = [gpu32.forward(img) for img in images]
+    forwards += len(images)
+    stack = {k: torch.stack([r[k] for r in ref]) for k in ref[0]}
+    rec = {"check": f"{name} detector raw outputs", "images": len(images)}
+    for k in ("class_logits", "boxes_cxcywh"):
+        got = torch.stack([r[k] for r in r32])
+        check(got.shape == stack[k].shape, f"{k} shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"non-finite fp32 {k}")
+        rec[f"max_abs_err_{k}_fp32_cuda_vs_cpu"] = max_err(got, stack[k])
+        rec[f"max_abs_{k}"] = float(stack[k].abs().max())
+    boxes = stack["boxes_cxcywh"]
+    check(bool(((boxes >= 0) & (boxes <= 1)).all()), "boxes outside [0,1]")
+    gpu16 = None
+    if bf16:
+        gpu16 = StreamingDetector(params, cfg, device="cuda")
+        r16 = [gpu16.forward(img) for img in images]
+        forwards += 1 + len(images)
+        l16 = torch.stack([r["class_logits"] for r in r16])
+        l32 = torch.stack([r["class_logits"] for r in r32])
+        b16 = torch.stack([r["boxes_cxcywh"] for r in r16])
+        b32 = torch.stack([r["boxes_cxcywh"] for r in r32])
+        check(bool(torch.isfinite(l16).all() & torch.isfinite(b16).all()),
+              "non-finite bf16 outputs")
+        rec["max_abs_err_class_logits_bf16_vs_fp32"] = max_err(l16, l32)
+        rec["max_abs_err_boxes_cxcywh_bf16_vs_fp32"] = max_err(b16, b32)
+        # the best foreground class must agree wherever fp32's top two are
+        # further apart than the comparison's tolerance
+        fg32, fg16 = l32[..., :-1], l16[..., :-1]
+        top = fg32.topk(2, dim=-1).values
+        clear = (top[..., 0] - top[..., 1]) > 2 * TOL_DET_BF16_LOGITS
+        agree = fg16.argmax(-1) == fg32.argmax(-1)
+        rec["label_agreement_bf16_clear_margin"] = (
+            f"{int(agree[clear].sum())}/{int(clear.sum())}")
+        check(rec["max_abs_err_class_logits_bf16_vs_fp32"]
+              <= TOL_DET_BF16_LOGITS, f"bf16 logits {rec}")
+        check(rec["max_abs_err_boxes_cxcywh_bf16_vs_fp32"]
+              <= TOL_DET_BF16_BOXES, f"bf16 boxes {rec}")
+        check(bool(agree[clear].all()), "bf16 labels vs fp32")
+    log(json.dumps(rec))
+    for k in ("class_logits", "boxes_cxcywh"):
+        check(rec[f"max_abs_err_{k}_fp32_cuda_vs_cpu"] <= TOL_DET_FP32,
+              f"fp32 {k} cuda vs cpu {rec}")
+    return gpu16, forwards, stack
+
+
+def phase_post_process(raw) -> None:
+    """(c) post_process on the card and on the CPU from the CPU's raw
+    outputs, at the defaults and at conf 0.05."""
+    for conf in (0.5, 0.05):
+        args = (raw["class_logits"], raw["boxes_cxcywh"])
+        cpu = post_process(*args, conf_threshold=conf, nms_threshold=0.5)
+        gpu = post_process(*(t.cuda() for t in args), conf_threshold=conf,
+                           nms_threshold=0.5)
+        gpu = {k: v.cpu() for k, v in gpu.items()}
+        for k in ("valid", "labels", "boxes"):
+            check(torch.equal(gpu[k], cpu[k]),
+                  f"post_process {k} differs at conf {conf}")
+        e = max_err(gpu["scores"], cpu["scores"])
+        valid = cpu["valid"]
+        above = int((torch.softmax(raw["class_logits"], -1)[..., :-1]
+                     .amax(-1) >= conf).sum())
+        log(json.dumps({"check": "post_process cuda vs cpu", "conf": conf,
+                        "kept": int(valid.sum()),
+                        "above_threshold": above,
+                        "suppressed_by_nms": above - int(valid.sum()),
+                        "scores_identical": bool(torch.equal(
+                            gpu["scores"], cpu["scores"])),
+                        "max_abs_err_scores": e}))
+        check(e <= TOL_POST_SCORES, f"post_process scores differ by {e}")
+
+
+def jpeg_bytes(image_u8: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(image_u8).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def phase_detect_server(engine, bodies, tmp) -> int:
+    """(d) /detect through InferenceServer against detect_path on the same
+    bytes with the same engine, plus /healthz and /stats. Returns the
+    number of CUDA forwards run."""
+    expected = []
+    for i, body in enumerate(bodies):
+        path = os.path.join(tmp, f"direct_{i}")
+        with open(path, "wb") as f:
+            f.write(body)
+        out = engine.detect_path(path)
+        expected.append({"boxes": np.asarray(out["boxes"]).round(4).tolist(),
+                         "labels": np.asarray(out["labels"]).tolist(),
+                         "scores": np.asarray(out["scores"]).round(4)
+                         .tolist(),
+                         "class_names": out["class_names"]})
+    n_before = engine.latency_stats()["n"]
+    srv = InferenceServer(detector=engine)
+    host, port = srv.start_background(port=0)
+    url = f"http://{host}:{port}"
+    try:
+        client_ms = []
+        for body, exp in zip(bodies, expected):
+            t0 = time.perf_counter()
+            status, data = post(url + "/detect", body)
+            client_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"/detect status {status}")
+            # the same engine on the same bytes; the response rounds boxes
+            # and scores to 4 decimals, so one rounding step apart at most
+            same = (data["labels"] == exp["labels"]
+                    and data["class_names"] == exp["class_names"])
+            for k in ("boxes", "scores"):
+                same = same and np.allclose(data[k], exp[k], rtol=0,
+                                            atol=1.01e-4)
+            check(same, f"/detect {data} != detect_path {exp}")
+        health = get(url + "/healthz")
+        check(health == {"status": "ok", "backend": "cuda",
+                         "endpoints": ["/detect"]}, f"/healthz {health}")
+        stats = get(url + "/stats")
+        check(stats["detect"]["n"] == n_before + len(bodies),
+              f"/stats {stats}")
+        log(json.dumps({"server": "/detect", "requests": len(bodies),
+                        "detections": [len(e["labels"]) for e in expected],
+                        "healthz": health, "stats": stats,
+                        "client_p50_ms": float(np.median(client_ms))}))
+    finally:
+        srv.shutdown()
+    return 2 * len(bodies)
+
+
+def phase_detect_latency(engine, image, tmp, smi) -> int:
+    """(e) detect_path p50/p99 on the host clock over single-image calls
+    (each ends in the one device-to-host copy)."""
+    path = os.path.join(tmp, "latency.png")
+    Image.fromarray(image).save(path)
+    engine.detect_path(path)
+    t = []
+    for _ in range(DETECT_LATENCY_CALLS):
+        t0 = time.perf_counter()
+        engine.detect_path(path)
+        t.append((time.perf_counter() - t0) * 1e3)
+    log(json.dumps({"timing": "StreamingDetector.detect_path bf16",
+                    "calls": len(t), "p50_ms": float(np.percentile(t, 50)),
+                    "p99_ms": float(np.percentile(t, 99)),
+                    "min_ms": float(np.min(t)), "card": smi}))
+    return 1 + DETECT_LATENCY_CALLS
+
+
+def phase_detect_profile(engine, image) -> int:
+    """(f) where a bf16 detector forward's time goes: the device's busy
+    share of the host's wall time and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 5
+    engine.forward(image)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.forward(image)
+    wall_us = (time.perf_counter() - t0) / reps * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.forward(image)
+    per_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = per_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / reps
+            rec[1] += 1
+    busy_us = sum(v[0] for v in per_name.values())
+    by_category: dict[str, float] = {}
+    for name, (us, _) in per_name.items():
+        cat = next((c for c, keys in PROFILE_CATEGORIES
+                    if any(k in name for k in keys)), "elementwise and other")
+        by_category[cat] = by_category.get(cat, 0.0) + us
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]
+    log(json.dumps({
+        "profile": "StreamingDetector.forward bf16 deit_detector_ref",
+        "wall_us_per_forward": wall_us,
+        "device_busy_us_per_forward": busy_us,
+        # None: the profiler saw no device time (not measured)
+        "device_busy_share": busy_us / wall_us if busy_us else None,
+        "kernels_per_forward": sum(v[1] for v in per_name.values()) / reps,
+        "us_by_category": by_category,
+        "top": [{"name": k[:80], "us": v[0], "calls": v[1] / reps}
+                for k, v in top]}))
+    return 1 + 2 * reps
+
+
+def check_detector_counts(name, counts, forwards, per_forward) -> None:
+    expected = {k: per_forward.get(k, 0) * forwards for k in counts}
+    log(json.dumps({"launches": counts, "expected": expected,
+                    "forwards": forwards, "path": name}))
+    check(counts["flash_attention_fwd"] > 0,
+          f"{name}: flash_attention_fwd never launched")
+    check(counts == expected, f"{name}: launches {counts} != {expected}")
+
+
+def phase_detector(smi) -> dict:
+    """Phase 8. Returns the head-major and encoder-attention launches of
+    the detector paths."""
+    rng = np.random.default_rng(8)
+    images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+              for _ in range(3)]
+    bodies = [png_bytes(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)),
+              jpeg_bytes(rng.integers(0, 256, (180, 240, 3),
+                                      dtype=np.uint8)),
+              png_bytes(rng.integers(0, 256, (300, 200, 3), dtype=np.uint8))]
+    launched = {"flash_attention_fwd": 0, "encoder_attention_fwd": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = DETECTOR_PRESETS["deit_detector_ref"]
+        params = init_detector(cfg, seed=0)
+        zero_counts()  # the deit_detector_ref serving path starts here
+        log("# phase 8(a-b): deit_detector_ref raw outputs")
+        engine, forwards, raw = phase_detector_parity(
+            "deit_detector_ref", cfg, params, images)
+        log("# phase 8(c): post_process on the card and on the CPU")
+        phase_post_process(raw)
+        log("# phase 8(d): /detect")
+        forwards += phase_detect_server(engine, bodies, tmp)
+        log("# phase 8(e): detect_path latency")
+        forwards += phase_detect_latency(engine, images[0], tmp, smi)
+        log("# phase 8(f): profile of the bf16 detector forward")
+        forwards += phase_detect_profile(engine, images[0])
+        counts = read_counts()
+        per_forward = {"flash_attention_fwd":
+                       cfg.backbone.depth + cfg.head.depth}
+        check_detector_counts("deit_detector_ref", counts, forwards,
+                              per_forward)
+        launched["flash_attention_fwd"] += counts["flash_attention_fwd"]
+        del engine, params
+
+        log("# phase 8(g): vit_base_detector")
+        cfg = DETECTOR_PRESETS["vit_base_detector"]
+        params = init_detector(cfg, seed=0)
+        zero_counts()  # the vit_base_detector serving path starts here
+        _, forwards, _ = phase_detector_parity(
+            "vit_base_detector", cfg, params, images[:2], bf16=False)
+        engine = StreamingDetector(params, cfg, device="cuda")
+        forwards += 1 + phase_detect_server(engine, bodies[:2], tmp)
+        counts = read_counts()
+        check_detector_counts("vit_base_detector", counts, forwards, {
+            "encoder_attention_fwd": cfg.backbone.depth,
+            "flash_attention_fwd": cfg.head.depth})
+        for k in launched:
+            launched[k] += counts[k]
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -907,6 +1305,7 @@ def main() -> int:
 
     cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")
+    flash = phase_flash_checks()
     attn = phase_kernel_checks(cfg)
     attn_bwd = phase_bwd_checks(cfg)
     adamw = phase_adamw_checks(cfg)
@@ -936,8 +1335,9 @@ def main() -> int:
     check(launches > 0, "encoder_attention_fwd never launched")
     check(launches == cfg.depth * forwards,
           f"LAUNCHES {launches} != depth {cfg.depth} x {forwards} forwards")
-    check(serving["encoder_attention_bwd"] == serving["fused_adamw"] == 0,
-          f"serving launched a training kernel: {serving}")
+    check(serving["encoder_attention_bwd"] == serving["fused_adamw"] ==
+          serving["flash_attention_fwd"] == 0,
+          f"classify serving launched another kernel: {serving}")
     log("# phase 6: profile of the bf16 forward")
     phase_profile(direct, batch)
 
@@ -946,6 +1346,12 @@ def main() -> int:
     phase_train_bf16(cfg)
     bench, train, state, step, train_batch = phase_train_bench(cfg, smi)
     phase_train_profile(state, step, train_batch, bench["ms_per_step"])
+    check(train["flash_attention_fwd"] == 0,
+          f"training launched the head-major kernel: {train}")
+    del state, step, train_batch
+
+    log("# phase 8: detector serving")
+    detect = phase_detector(smi)
 
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
@@ -957,15 +1363,19 @@ def main() -> int:
                 "library_ms": rec["library_ms"]}
 
     print(json.dumps({"kernels": [
-        # forward: the serving path's launches plus the training path's
+        # forward: the launches of classify serving, training and the
+        # ViT-B detector
         row("encoder_attention_fwd", "encoder_attention_fwd.cu",
             "flash_attention.py:533", attn,
-            launches + train["encoder_attention_fwd"]),
+            launches + train["encoder_attention_fwd"]
+            + detect["encoder_attention_fwd"]),
         row("encoder_attention_bwd", "encoder_attention_bwd.cu",
             "flash_attention.py:629", attn_bwd,
             train["encoder_attention_bwd"]),
         row("fused_adamw", "fused_adamw.cu", "fused_adamw.py:40", adamw,
             train["fused_adamw"]),
+        row("flash_attention_fwd", "flash_attention_fwd.cu",
+            "flash_attention.py:93", flash, detect["flash_attention_fwd"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

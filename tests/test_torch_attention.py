@@ -76,7 +76,7 @@ def test_encoder_attention_bf16_vs_normalise_first_reference():
     unnormalised p. They agree only loosely: a few bf16 ulps of O."""
     x = torch.from_numpy(_qkv(seed=1)).to(torch.bfloat16)
     out, _ = encoder_attention_fwd(x, 2)
-    ref = self_attention_from_qkv(x, 2)
+    ref = self_attention_from_qkv(x, 2, force_reference=True)
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
                                atol=2.0 ** -6, rtol=2.0 ** -6)
 
@@ -96,8 +96,10 @@ def test_self_attention_from_qkv_matches_jax():
     x = _qkv(b=2, s=29, d=96, seed=3)
     ref = jax_self_attention_from_qkv(jnp.asarray(x), 3,
                                       force_reference=True)
-    got = self_attention_from_qkv(torch.from_numpy(x), 3)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    for force in (True, False):  # the reference, and the kernel's order
+        got = self_attention_from_qkv(torch.from_numpy(x), 3,
+                                      force_reference=force)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
 @pytest.mark.parametrize("d,heads", [(32, 2), (128, 4), (400, 25)])

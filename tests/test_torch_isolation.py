@@ -38,6 +38,10 @@ MODULES = [
     "arsvt_tpu_torch.train.optim",
     "arsvt_tpu_torch.train.accum",
     "arsvt_tpu_torch.train.train_step",
+    "arsvt_tpu_torch.ops.flash_attention",
+    "arsvt_tpu_torch.models.detector",
+    "arsvt_tpu_torch.objectives.boxes",
+    "arsvt_tpu_torch.evaluation.detect",
 ]
 
 _PROBE = """

@@ -229,7 +229,17 @@ def test_micro_batched_server_matches_jax_server(engines, servers):
 
 
 def test_server_takes_no_detector(engines):
-    with pytest.raises(NotImplementedError, match="/detect"):
-        InferenceServer(classifier=engines["port"], detector=object())
+    """A classify-only server serves no /detect (404, as the JAX server),
+    and a server needs at least one engine."""
+    with pytest.raises(ValueError, match="classifier and/or a detector"):
+        InferenceServer()
     with pytest.raises(ValueError, match="max_batch"):
         InferenceServer(classifier=engines["port"], max_batch=0)
+    srv = InferenceServer(classifier=engines["port"])
+    host, port = srv.start_background(port=0)
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(f"http://{host}:{port}/detect", _png(_image(43)))
+        assert e.value.code == 404
+    finally:
+        srv.shutdown()

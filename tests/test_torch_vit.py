@@ -1,6 +1,8 @@
 """The port's ViT ops, parameter bridge and classifier against the JAX
 package, on the CPU at a small config with head_dim 64."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -248,10 +250,30 @@ def test_distilled_head_requires_head_dist():
 
 
 def test_backbone_takes_head_dim_64_only():
+    """The fused encoder-attention path takes head_dim 64 only, which every
+    ViT preset has; a backbone of another head_dim (vit_test_8_32, d=16)
+    runs qkv-proj → the head-major attention kernel → out-proj instead,
+    and matches JAX (fp32, summation order only)."""
+    from arsvt_tpu_torch.ops.encoder_attention import fused_encoder_attention
+
     cfg = get_preset("vit_test_8_32")  # head_dim 16
+    w = torch.zeros(32, 96)
     with pytest.raises(ValueError, match="head_dim"):
-        apply_image_classifier(init_image_classifier(cfg, 6),
-                               torch.zeros(1, 32, 32, 3), cfg, 6)
+        fused_encoder_attention(torch.zeros(1, 17, 32), w, w[0],
+                                torch.zeros(32, 32), torch.zeros(32), 2)
     for name in ("vit_tiny_16_224", "vit_small_16_224", "vit_base_16_224",
                  "vit_large_16_384"):
         assert get_preset(name).head_dim == 64
+    jcfg = JaxBackboneConfig(**dataclasses.asdict(cfg))
+    params = jax_init_image_classifier(jax.random.PRNGKey(1), jcfg, 6)
+    params["classifier"] = jax.tree_util.tree_map(
+        lambda x: 0.2 * jax.random.normal(jax.random.PRNGKey(7), x.shape,
+                                          x.dtype), params["classifier"])
+    port = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg)
+    x = np.random.default_rng(13).uniform(size=(2, 32, 32, 3)).astype(
+        np.float32)
+    ref = np.asarray(jax_apply_image_classifier(params, jnp.asarray(x),
+                                                jcfg, 6))
+    with torch.inference_mode():
+        got = apply_image_classifier(port, torch.from_numpy(x), cfg, 6)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
