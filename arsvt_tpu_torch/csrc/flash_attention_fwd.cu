@@ -10,8 +10,14 @@
 // MASK_VALUE is -0.7 * float32 max, as the TPU kernel's (not -inf). The
 // unnormalised p is rounded to the input type T before the product, and
 // the division by l comes after it. O is written as (B, H, Sq, d) in T,
-// lse as (B, H, 1, Sq) fp32 (the layout the TPU backward reads). No
-// dropout.
+// lse as (B, H, 1, Sq) fp32 (the layout the backward reads).
+//
+// Dropout (rate > 0, _fwd_kernel's dropout branch): p stays unnormalised;
+// a dropped p becomes 0 and a kept one is multiplied by 1/keep before the
+// rounding to T and the p v product; l and lse are the values before
+// dropout. Keep iff philox_bits(seed, b*H + h, row, col) < threshold
+// (philox.cuh), so the backward kernels and the plain version rebuild the
+// same mask. The rate-0 kernel is a separate instantiation without it.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the kernel reads
 // q, k and v once and writes O and lse once, and does 4*B*H*Sq*Sk*d FLOPs.
@@ -51,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -157,13 +165,15 @@ __device__ __forceinline__ void scores(const float* Qs, const float* Ks,
     for (int j = 0; j < 4; ++j) s[i][j] *= scale;
 }
 
-template <typename T, int kMaxD>
+template <typename T, int kMaxD, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_fwd_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, T* __restrict__ out,
                                float* __restrict__ lse, int heads, int sq,
-                               int sk, int kv_len, int d, float scale) {
+                               int sk, int kv_len, int d, float scale,
+                               uint32_t seed, uint32_t threshold,
+                               float inv_keep) {
   using L = Layout<kMaxD>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -229,7 +239,14 @@ __global__ void __launch_bounds__(kThreads)
         const float sij = col < kv_len ? s[i][j] : kMaskValue;
         const float p = col < sk ? expf(sij - m[i]) : 0.f;
         l[i] += p;
-        Ps[(rg * 4 + i) * kPStride + lg + 16 * j] = round_to(p, T());
+        float p_use = p;
+        if constexpr (kDropout) {
+          const bool keep = philox_bits(seed, (uint32_t)bh,
+                                        (uint32_t)(row0 + rg * 4 + i),
+                                        (uint32_t)col) < threshold;
+          p_use = keep ? p * inv_keep : 0.f;
+        }
+        Ps[(rg * 4 + i) * kPStride + lg + 16 * j] = round_to(p_use, T());
       }
     __syncthreads();
 #pragma unroll
@@ -282,34 +299,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int kMaxD>
+struct Dropout {
+  uint32_t seed;
+  uint32_t threshold;
+  float inv_keep;
+  bool on;
+};
+
+template <typename T, int kMaxD, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int batch, int heads, int sq, int sk,
-                   int kv_len, int d, float scale, cudaStream_t stream) {
+                   int kv_len, int d, float scale, Dropout drop,
+                   cudaStream_t stream) {
   constexpr size_t smem = Layout<kMaxD>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_fwd_kernel<T, kMaxD>,
+      flash_attention_fwd_kernel<T, kMaxD, kDropout>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
-  flash_attention_fwd_kernel<T, kMaxD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), heads, sq, sk, kv_len, d, scale);
+  flash_attention_fwd_kernel<T, kMaxD, kDropout>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out),
+          static_cast<float*>(lse), heads, sq, sk, kv_len, d, scale,
+          drop.seed, drop.threshold, drop.inv_keep);
   return cudaGetLastError();
+}
+
+template <typename T, int kMaxD>
+cudaError_t launch_for_dropout(const void* q, const void* k, const void* v,
+                               void* out, void* lse, int batch, int heads,
+                               int sq, int sk, int kv_len, int d,
+                               float scale, Dropout drop,
+                               cudaStream_t stream) {
+  if (drop.on)
+    return launch<T, kMaxD, true>(q, k, v, out, lse, batch, heads, sq, sk,
+                                  kv_len, d, scale, drop, stream);
+  return launch<T, kMaxD, false>(q, k, v, out, lse, batch, heads, sq, sk,
+                                 kv_len, d, scale, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch_for_dim(const void* q, const void* k, const void* v,
                            void* out, void* lse, int batch, int heads,
                            int sq, int sk, int kv_len, int d, float scale,
-                           cudaStream_t stream) {
+                           Dropout drop, cudaStream_t stream) {
   // 51,200 B of shared memory for d <= 64, 92,160 B up to 128
   if (d <= 64)
-    return launch<T, 64>(q, k, v, out, lse, batch, heads, sq, sk, kv_len, d,
-                         scale, stream);
-  return launch<T, kMaxHeadDim>(q, k, v, out, lse, batch, heads, sq, sk,
-                                kv_len, d, scale, stream);
+    return launch_for_dropout<T, 64>(q, k, v, out, lse, batch, heads, sq, sk,
+                                     kv_len, d, scale, drop, stream);
+  return launch_for_dropout<T, kMaxHeadDim>(q, k, v, out, lse, batch, heads,
+                                            sq, sk, kv_len, d, scale, drop,
+                                            stream);
 }
 
 }  // namespace
@@ -317,25 +358,31 @@ cudaError_t launch_for_dim(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers to
 // contiguous tensors: q (batch, heads, sq, head_dim), k and v (batch,
 // heads, sk, head_dim); out like q, lse (batch, heads, 1, sq) fp32.
+// dropout 0 or 1; with 1, keep iff philox_bits(seed, ...) < threshold and
+// scale kept probabilities by inv_keep.
 extern "C" int arsvt_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* out, void* lse,
                                          int batch, int heads, int sq, int sk,
                                          int kv_len, int head_dim,
-                                         float scale, int dtype,
+                                         float scale, uint32_t seed,
+                                         uint32_t threshold, float inv_keep,
+                                         int dropout, int dtype,
                                          void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 ||
       sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1 ||
-      head_dim > kMaxHeadDim)
+      head_dim > kMaxHeadDim || (dropout != 0 && dropout != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{seed, threshold, inv_keep, dropout == 1};
   switch (dtype) {
     case 0:
       return (int)launch_for_dim<float>(q, k, v, out, lse, batch, heads, sq,
-                                        sk, kv_len, head_dim, scale, st);
+                                        sk, kv_len, head_dim, scale, drop,
+                                        st);
     case 1:
       return (int)launch_for_dim<__nv_bfloat16>(q, k, v, out, lse, batch,
                                                 heads, sq, sk, kv_len,
-                                                head_dim, scale, st);
+                                                head_dim, scale, drop, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

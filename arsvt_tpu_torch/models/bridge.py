@@ -175,17 +175,22 @@ OPT_STATE_KEYS = ("count", "lr_scale", "adam_count", "mu", "nu",
                   "schedule_count")
 
 
-def opt_state_from_jax(state: dict, cfg: BackboneConfig, *,
-                       device="cpu") -> dict:
-    """{count, lr_scale, adam_count, mu, nu, schedule_count} with numpy
-    leaves (mu and nu in the JAX classifier layout) -> the port's optimizer
-    state (``train/optim.py::init_opt_state``'s layout)."""
+def _opt_scalars(state: dict) -> dict:
     if set(state) != set(OPT_STATE_KEYS):
         raise ValueError(f"optimizer state keys {sorted(state)} are not "
                          f"{sorted(OPT_STATE_KEYS)}")
     out = {k: int(np.asarray(state[k])) for k in
            ("count", "adam_count", "schedule_count")}
     out["lr_scale"] = float(np.float32(np.asarray(state["lr_scale"])))
+    return out
+
+
+def opt_state_from_jax(state: dict, cfg: BackboneConfig, *,
+                       device="cpu") -> dict:
+    """{count, lr_scale, adam_count, mu, nu, schedule_count} with numpy
+    leaves (mu and nu in the JAX classifier layout) -> the port's optimizer
+    state (``train/optim.py::init_opt_state``'s layout)."""
+    out = _opt_scalars(state)
     for k in ("mu", "nu"):
         num_classes = np.shape(state[k]["classifier"]["head"]["kernel"])[1]
         _check_tree(state[k], jax_layout_shapes(cfg, num_classes), k)
@@ -193,12 +198,32 @@ def opt_state_from_jax(state: dict, cfg: BackboneConfig, *,
     return out
 
 
-def opt_state_to_jax(state: dict) -> dict:
-    """The port's optimizer state -> the plain dict with numpy leaves (mu
-    and nu with the blocks stacked on a leading depth axis)."""
+def _opt_state_to_jax(state: dict, tree_to_jax) -> dict:
     out = {k: np.asarray(state[k], np.int32) for k in
            ("count", "adam_count", "schedule_count")}
     out["lr_scale"] = np.asarray(state["lr_scale"], np.float32)
     for k in ("mu", "nu"):
-        out[k] = to_jax_params(state[k])
+        out[k] = tree_to_jax(state[k])
     return out
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The port's optimizer state -> the plain dict with numpy leaves (mu
+    and nu with the blocks stacked on a leading depth axis)."""
+    return _opt_state_to_jax(state, to_jax_params)
+
+
+def detector_opt_state_from_jax(state: dict, cfg: DetectorConfig, *,
+                                device="cpu") -> dict:
+    """The detector's counterpart of `opt_state_from_jax`: mu and nu in
+    the JAX detector layout (`jax_detector_layout_shapes`)."""
+    out = _opt_scalars(state)
+    for k in ("mu", "nu"):
+        out[k] = detector_from_jax_params(state[k], cfg, device=device)
+    return out
+
+
+def detector_opt_state_to_jax(state: dict) -> dict:
+    """The port's detector optimizer state -> the plain dict with numpy
+    leaves (encoder and decoder blocks stacked)."""
+    return _opt_state_to_jax(state, detector_to_jax_params)

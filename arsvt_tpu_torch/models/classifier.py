@@ -30,11 +30,12 @@ def init_image_classifier(backbone_cfg: BackboneConfig, num_classes: int,
 
 def apply_image_classifier(params: dict, images: torch.Tensor,
                            backbone_cfg: BackboneConfig,
-                           num_classes: int, *,
-                           train: bool = False) -> torch.Tensor:
-    """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32."""
+                           num_classes: int, *, train: bool = False,
+                           rng=None) -> torch.Tensor:
+    """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32;
+    `train` and `rng` as `apply_backbone`'s."""
     tokens = apply_backbone(params["backbone"], images, backbone_cfg,
-                            train=train)
+                            train=train, rng=rng)
     head_cfg = ClassifierConfig(num_classes=num_classes,
                                 distilled=backbone_cfg.distilled)
     return apply_classifier(params["classifier"], tokens, head_cfg)

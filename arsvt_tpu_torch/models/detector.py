@@ -3,7 +3,9 @@ counterpart of ``arsvt_tpu/models/detector.py``.
 
 Backbone tokens → strip the special tokens → DETR decoder head. With
 `return_features` the CLS feature also goes through the L2-normalised
-triplet projection that the metric-learning loss reads.
+triplet projection that the metric-learning loss reads. A training
+forward's `rng` splits as JAX's key: ``rng.fold_in(0)`` for the backbone,
+``rng.fold_in(1)`` for the head.
 """
 
 from __future__ import annotations
@@ -50,18 +52,21 @@ def init_detector(cfg: DetectorConfig, seed: int = 0, *,
 
 
 def apply_detector(params: dict, images: torch.Tensor, cfg: DetectorConfig,
-                   *, train: bool = False, return_features: bool = False,
-                   return_aux: bool = False):
+                   *, train: bool = False, rng=None,
+                   return_features: bool = False, return_aux: bool = False):
     """images (B, H, W, C) in the compute dtype -> {'class_logits':
     (B, Q, C+1) fp32, 'boxes_cxcywh': (B, Q, 4) fp32}, plus 'aux' with
     `return_aux` (when the decoder has two layers or more); with
     `return_features`, (outputs, L2-normalised triplet features (B, T)
-    fp32)."""
+    fp32). `train` with an `rng` (``core/prng.py::Rng``) applies the
+    configs' dropout."""
     tokens = apply_backbone(params["backbone"], images, cfg.backbone,
-                            train=train)
+                            train=train,
+                            rng=None if rng is None else rng.fold_in(0))
     memory = tokens[:, cfg.backbone.num_special_tokens:]
     head_out = apply_detr_head(params["detr"], memory, cfg.head,
                                cfg.backbone.embed_dim, train=train,
+                               rng=None if rng is None else rng.fold_in(1),
                                return_aux=return_aux)
     if return_aux:
         outputs, aux = head_out

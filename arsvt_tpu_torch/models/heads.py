@@ -9,10 +9,14 @@ DETR: learned object queries go through pre-LN decoder blocks
 tanh-GELU FFN), then fp32 class logits (background last) and sigmoid
 cxcywh boxes through heads shared by every layer. The blocks are a list
 of per-layer dicts with the JAX tree's keys, run by a Python loop where
-JAX scans. The cross-attention runs the head-major attention kernel; the
-self-attention over the few queries runs the reference on every device,
-as in JAX. Inference only: the attention backward and dropout are not
-ported, so `train=True` raises.
+JAX scans. The cross-attention runs the head-major attention kernels
+(forward and backward, with in-kernel dropout); the self-attention over
+the few queries runs the reference on every device, as in JAX. A training
+forward takes an `rng` (``core/prng.py::Rng``): layer i draws from
+``rng.fold_in(i)``, its three residual sites (self-attention,
+cross-attention, FFN) at ``fold_in(0..2)`` and its self- and
+cross-attention probabilities at ``fold_in(3)`` and ``(4)``, as JAX splits
+the layer key five ways.
 """
 
 from __future__ import annotations
@@ -22,7 +26,12 @@ import dataclasses
 import torch
 
 from arsvt_tpu_torch.core.dtypes import tree_map
-from arsvt_tpu_torch.models.vit import _linear_init, _trunc_normal
+from arsvt_tpu_torch.core.prng import Rng
+from arsvt_tpu_torch.models.vit import (
+    _linear_init,
+    _trunc_normal,
+    site_dropout,
+)
 from arsvt_tpu_torch.ops.attention import (
     multi_head_attention,
     self_attention_from_qkv,
@@ -130,31 +139,35 @@ def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return torch.matmul(x, p["kernel"].to(x.dtype)) + p["bias"].to(x.dtype)
 
 
-def _mha_from_proj(x_q, x_kv, num_heads: int, head_dim: int):
+def _mha_from_proj(x_q, x_kv, num_heads: int, head_dim: int, *,
+                   dropout_rate: float = 0.0, dropout_rng: Rng | None = None):
     """Cross-attention of projected queries (B, Sq, D) over projected
-    keys/values (B, Sk, 2D) -> (B, Sq, D), through the kernel."""
+    keys/values (B, Sk, 2D) -> (B, Sq, D), through the kernels."""
     b, sq, d = x_q.shape
     sk = x_kv.shape[1]
     q = x_q.reshape(b, sq, num_heads, head_dim).permute(0, 2, 1, 3)
     kv = x_kv.reshape(b, sk, 2, num_heads, head_dim).permute(2, 0, 3, 1, 4)
-    out = multi_head_attention(q, kv[0], kv[1])
+    out = multi_head_attention(q, kv[0], kv[1], dropout_rate=dropout_rate,
+                               dropout_rng=dropout_rng)
     return out.permute(0, 2, 1, 3).reshape(b, sq, d)
 
 
 def _decoder_block(x, memory, bp: dict, cfg: DetrHeadConfig, head_dim: int,
-                   *, train: bool = False):
-    if train:
-        raise NotImplementedError(
-            "DETR training is not ported yet: it needs the head-major "
-            "attention backward (Pallas kernel #4) and dropout (ROADMAP "
-            "Queue A, the detector-training slice)")
+                   *, train: bool = False, rng: Rng | None = None):
+    k1 = k2 = k3 = kp1 = kp2 = None
+    if train and rng is not None:
+        k1, k2, k3, kp1, kp2 = (rng.fold_in(site) for site in range(5))
+    attn_rate = cfg.attn_dropout if train else 0.0
+
     # self-attention over the queries: the packed reference on every
     # device, as JAX forces it (a kernel launch costs more than Q <= 100)
     y = layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"],
                    eps=cfg.ln_eps)
     sa = self_attention_from_qkv(_linear(y, bp["self_attn"]["qkv"]),
-                                 cfg.num_heads, force_reference=True)
-    x = x + _linear(sa, bp["self_attn"]["proj"])
+                                 cfg.num_heads, force_reference=True,
+                                 dropout_rate=attn_rate, dropout_rng=kp1)
+    x = x + site_dropout(_linear(sa, bp["self_attn"]["proj"]), cfg.dropout,
+                         k1, train=train)
 
     # cross-attention to the patch tokens
     yq = layer_norm(x, bp["ln_cross_q"]["scale"], bp["ln_cross_q"]["bias"],
@@ -163,15 +176,18 @@ def _decoder_block(x, memory, bp: dict, cfg: DetrHeadConfig, head_dim: int,
                      bp["ln_cross_kv"]["bias"], eps=cfg.ln_eps)
     ca = _mha_from_proj(_linear(yq, bp["cross_attn"]["q"]),
                         _linear(ykv, bp["cross_attn"]["kv"]),
-                        cfg.num_heads, head_dim)
-    x = x + _linear(ca, bp["cross_attn"]["proj"])
+                        cfg.num_heads, head_dim, dropout_rate=attn_rate,
+                        dropout_rng=kp2)
+    x = x + site_dropout(_linear(ca, bp["cross_attn"]["proj"]), cfg.dropout,
+                         k2, train=train)
 
     # FFN
     y = layer_norm(x, bp["ln_mlp"]["scale"], bp["ln_mlp"]["bias"],
                    eps=cfg.ln_eps)
     mlp = bp["mlp"]
-    return x + gelu_mlp(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
-                        mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    y = gelu_mlp(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
+                 mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    return x + site_dropout(y, cfg.dropout, k3, train=train)
 
 
 def _detr_outputs(params: dict, h: torch.Tensor, cfg: DetrHeadConfig):
@@ -184,9 +200,10 @@ def _detr_outputs(params: dict, h: torch.Tensor, cfg: DetrHeadConfig):
 
 def apply_detr_head(params: dict, memory: torch.Tensor, cfg: DetrHeadConfig,
                     embed_dim: int, *, train: bool = False,
-                    return_aux: bool = False):
+                    rng: Rng | None = None, return_aux: bool = False):
     """memory: patch tokens (B, N, D) -> {'class_logits': (B, Q, C+1),
-    'boxes_cxcywh': (B, Q, 4) in [0, 1]}, both fp32.
+    'boxes_cxcywh': (B, Q, 4) in [0, 1]}, both fp32. `train` with an `rng`
+    applies the config's dropout (see the module docstring).
 
     `return_aux=True` returns (outputs, aux) with aux the outputs of the
     intermediate layers through the shared heads, {'class_logits':
@@ -200,8 +217,9 @@ def apply_detr_head(params: dict, memory: torch.Tensor, cfg: DetrHeadConfig,
     x = params["queries"][None].expand(b, cfg.num_queries,
                                        embed_dim).to(memory.dtype)
     states = []
-    for bp in params["blocks"]:
-        x = _decoder_block(x, memory, bp, cfg, head_dim, train=train)
+    for i, bp in enumerate(params["blocks"]):
+        x = _decoder_block(x, memory, bp, cfg, head_dim, train=train,
+                           rng=None if rng is None else rng.fold_in(i))
         states.append(x)
     outputs = _detr_outputs(params, x, cfg)
     if not return_aux:

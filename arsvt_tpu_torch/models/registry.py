@@ -2,7 +2,8 @@
 
 Every preset runs: head_dim 64 backbones through the encoder-attention
 kernels, the others (``deit_ref_400_16_224`` and the ``*_test_8_32``
-presets, d=16) through the head-major attention kernel, forward only.
+presets, d=16) through the head-major attention kernels, forward and
+backward.
 """
 
 from __future__ import annotations

@@ -4,16 +4,22 @@ Parameters are a plain tree of tensors with the JAX tree's keys and
 per-layer shapes; where JAX stacks the blocks on a leading depth axis for
 ``lax.scan``, this tree holds a list of per-layer dicts and the forward is
 a Python loop. Images are NHWC. Pre-LN blocks:
-``x += out_proj(attn(qkv_proj(LN1(x)))); x += mlp(LN2(x))``, then a
-final LN. The attention routes by what the port's kernels take: at
+``x += drop(out_proj(attn(qkv_proj(LN1(x))))); x += drop(mlp(LN2(x)))``,
+then a final LN. The attention routes by what the port's kernels take: at
 head_dim 64 (every ViT preset) qkv-proj → attention → out-proj is one
 autograd Function over the encoder-attention kernels
 (``ops/encoder_attention.py``), for serving and training alike; any other
 head_dim (the DeiT-400 detector backbone's 16) runs qkv-proj → the
-head-major attention kernel (``ops/flash_attention.py``, forward only) →
-out-proj, as ``vit.py``'s non-fused branch does. Dropout (residual,
-positional and attention) and remat are not ported: a training forward
-that would need them raises.
+head-major attention kernels (``ops/flash_attention.py``, forward and
+backward, with in-kernel attention dropout) → out-proj, as ``vit.py``'s
+non-fused branch does.
+
+A training forward takes an explicit `rng` (``core/prng.py::Rng``) in
+place of JAX's key: positional dropout from ``rng.fold_in(0)``, layer i
+from ``rng.fold_in(1, i)`` with its attention-residual, MLP-residual and
+attention-probability sites at ``fold_in(0)``, ``(1)`` and ``(2)``.
+Without an rng nothing is dropped, as in JAX. Not ported (raising): remat,
+and attention dropout at head_dim 64, whose kernels have no dropout yet.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ import dataclasses
 import torch
 
 from arsvt_tpu_torch.core.dtypes import tree_map
+from arsvt_tpu_torch.core.prng import Rng
 from arsvt_tpu_torch.ops.attention import self_attention_from_qkv
+from arsvt_tpu_torch.ops.dropout import dropout
 from arsvt_tpu_torch.ops.encoder_attention import (
     SUPPORTED_HEAD_DIM,
     fused_encoder_attention,
@@ -117,49 +125,67 @@ def init_backbone(cfg: BackboneConfig, seed: int = 0, *,
     return tree_map(lambda t: t.to(device), params)
 
 
-def _encoder_block(x: torch.Tensor, bp: dict,
-                   cfg: BackboneConfig) -> torch.Tensor:
+def site_dropout(x: torch.Tensor, rate: float, rng: Rng | None, *,
+                 train: bool) -> torch.Tensor:
+    """`dropout` at one residual or positional site, from a generator on
+    x's device seeded by the site's rng (made only when it drops)."""
+    if not train or rate == 0.0 or rng is None:
+        return x
+    return dropout(x, rate, rng.generator(x.device), train=True)
+
+
+def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
+                   train: bool = False,
+                   rng: Rng | None = None) -> torch.Tensor:
     """One pre-LN block; bp holds one layer's parameters. Each projection
     emits x's dtype and adds its bias in that dtype, as the JAX block."""
+    k1 = k2 = kp = None
+    if train and rng is not None:
+        k1, k2, kp = (rng.fold_in(site) for site in range(3))
     attn_p = bp["attn"]
     y = layer_norm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], eps=cfg.ln_eps)
     wqkv, bqkv = (attn_p["qkv"][k].to(y.dtype) for k in ("kernel", "bias"))
     wproj, bproj = (attn_p["proj"][k].to(y.dtype)
                     for k in ("kernel", "bias"))
     if cfg.head_dim == SUPPORTED_HEAD_DIM:
-        x = x + fused_encoder_attention(y, wqkv, bqkv, wproj, bproj,
-                                        cfg.num_heads)
-    else:
-        attn = self_attention_from_qkv(torch.matmul(y, wqkv) + bqkv,
+        attn = fused_encoder_attention(y, wqkv, bqkv, wproj, bproj,
                                        cfg.num_heads)
-        x = x + (torch.matmul(attn, wproj) + bproj)
+    else:
+        attn = self_attention_from_qkv(
+            torch.matmul(y, wqkv) + bqkv, cfg.num_heads,
+            dropout_rate=cfg.attn_dropout if train else 0.0, dropout_rng=kp)
+        attn = torch.matmul(attn, wproj) + bproj
+    x = x + site_dropout(attn, cfg.dropout, k1, train=train)
 
     y = layer_norm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], eps=cfg.ln_eps)
     mlp = bp["mlp"]
     y = gelu_mlp(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
                  mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
-    return x + y
+    return x + site_dropout(y, cfg.dropout, k2, train=train)
 
 
 def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
     """Raise for the training features this port does not have yet."""
-    if cfg.dropout > 0.0 or cfg.attn_dropout > 0.0:
+    if cfg.attn_dropout > 0.0 and cfg.head_dim == SUPPORTED_HEAD_DIM:
         raise NotImplementedError(
-            f"training with dropout={cfg.dropout} / attn_dropout="
-            f"{cfg.attn_dropout} is not ported yet (ROADMAP Queue A, "
-            "detector training, brings in-kernel attention dropout)")
+            f"training with attn_dropout={cfg.attn_dropout} at head_dim "
+            f"{SUPPORTED_HEAD_DIM} is not ported yet: the encoder-attention "
+            "kernels have no dropout (ROADMAP Queue A, dropout in kernels "
+            "#1/#2)")
     if remat:
         raise NotImplementedError(
             "remat is not ported yet (ROADMAP Queue A, the ViT-L recipe)")
 
 
 def apply_backbone(params: dict, images: torch.Tensor,
-                   cfg: BackboneConfig, *, train: bool = False) -> torch.Tensor:
+                   cfg: BackboneConfig, *, train: bool = False,
+                   rng: Rng | None = None) -> torch.Tensor:
     """images: (B, H, W, C) in the compute dtype -> all tokens (B, S, D)
     after the final LN (special tokens first; heads pick what they use).
 
-    `train` marks a training forward: it is the same computation (no
-    dropout is ported) and raises where the config would need dropout.
+    `train` with an `rng` applies the config's positional, residual and
+    attention dropout (see the module docstring); it raises for attention
+    dropout at head_dim 64.
     """
     if train:
         check_train_supported(cfg)
@@ -172,7 +198,10 @@ def apply_backbone(params: dict, images: torch.Tensor,
         specials.append(params["dist_token"].expand(b, 1, cfg.embed_dim))
     x = torch.cat([t.to(x.dtype) for t in specials] + [x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
-    for bp in params["blocks"]:
-        x = _encoder_block(x, bp, cfg)
+    x = site_dropout(x, cfg.dropout, None if rng is None else rng.fold_in(0),
+                     train=train)
+    for i, bp in enumerate(params["blocks"]):
+        x = _encoder_block(x, bp, cfg, train=train,
+                           rng=None if rng is None else rng.fold_in(1, i))
     return layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"],
                       eps=cfg.ln_eps)

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from arsvt_tpu_torch.ops.dropout import dropout
+
 
 def split_heads(qkv_flat: torch.Tensor, num_heads: int):
     """(B, S, 3D) packed projection -> q, k, v, each (B, H, S, d)."""
@@ -31,44 +33,70 @@ def merge_heads(out: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
-def sdpa_reference(q, k, v, *, mask=None) -> torch.Tensor:
+def sdpa_reference(q, k, v, *, mask=None, dropout_rate: float = 0.0,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
     """Scaled dot-product attention, fp32 softmax island.
 
     q: (B, H, Sq, d), k/v: (B, H, Sk, d); mask: broadcastable to
     (B, H, Sq, Sk) with True = attend (others get -1e30). Returns
     (B, H, Sq, d) in q.dtype. The probabilities are normalized before the
-    cast to v's dtype.
+    cast to v's dtype. With `dropout_rate` > 0 and a `generator` (on the
+    operands' device), inverted dropout on the normalized probabilities,
+    as JAX's (a Bernoulli mask from the generator, not the kernels'
+    Philox mask).
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         scores = torch.where(mask, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate, generator,
+                    train=True)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
 
 
-def multi_head_attention(q, k, v, *, mask=None,
-                         force_reference: bool = False) -> torch.Tensor:
-    """q (B, H, Sq, d), k/v (B, H, Sk, d) -> (B, H, Sq, d): the kernel, or
-    `sdpa_reference` when forced or when a `mask` is given."""
+def dropout_generator(dropout_rate, dropout_rng, device):
+    """The generator a reference attention call drops from: one on `device`
+    from the call's ``core/prng.py::Rng``, or None (no dropout)."""
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        return dropout_rng.generator(device)
+    return None
+
+
+def multi_head_attention(q, k, v, *, mask=None, force_reference: bool = False,
+                         dropout_rate: float = 0.0,
+                         dropout_rng=None) -> torch.Tensor:
+    """q (B, H, Sq, d), k/v (B, H, Sk, d) -> (B, H, Sq, d): the kernels, or
+    `sdpa_reference` when forced or when a `mask` is given. Dropout on the
+    probabilities with `dropout_rate` > 0 and a `dropout_rng`
+    (``core/prng.py::Rng``), in-kernel or in the reference."""
     if force_reference:
-        return sdpa_reference(q, k, v, mask=mask)
+        return sdpa_reference(
+            q, k, v, mask=mask, dropout_rate=dropout_rate,
+            generator=dropout_generator(dropout_rate, dropout_rng, q.device))
     from arsvt_tpu_torch.ops.flash_attention import flash_attention
 
-    return flash_attention(q, k, v, mask=mask)
+    return flash_attention(q, k, v, mask=mask, dropout_rate=dropout_rate,
+                           dropout_rng=dropout_rng)
 
 
 def self_attention_from_qkv(qkv_flat: torch.Tensor, num_heads: int, *,
-                            force_reference: bool = False) -> torch.Tensor:
+                            force_reference: bool = False,
+                            dropout_rate: float = 0.0,
+                            dropout_rng=None) -> torch.Tensor:
     """Packed self-attention: (B, S, 3D) projection output -> (B, S, D),
-    through `flash_self_attention_packed` or, when forced, the reference."""
+    through `flash_self_attention_packed` or, when forced, the reference;
+    dropout as `multi_head_attention`'s."""
     if not force_reference:
         from arsvt_tpu_torch.ops.flash_attention import (
             flash_self_attention_packed,
         )
 
-        return flash_self_attention_packed(qkv_flat, num_heads)
+        return flash_self_attention_packed(qkv_flat, num_heads,
+                                           dropout_rate=dropout_rate,
+                                           dropout_rng=dropout_rng)
     q, k, v = split_heads(qkv_flat, num_heads)
-    return merge_heads(sdpa_reference(q, k, v))
+    gen = dropout_generator(dropout_rate, dropout_rng, qkv_flat.device)
+    return merge_heads(sdpa_reference(q, k, v, dropout_rate=dropout_rate,
+                                      generator=gen))

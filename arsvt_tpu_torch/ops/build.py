@@ -45,7 +45,11 @@ def kernel_names() -> list[str]:
 
 
 def library_path(name: str) -> Path:
+    """Named by a hash of the source, the shared headers beside it and the
+    flags."""
     digest = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,8 +1,8 @@
 """One config for train and eval (counterpart of ``arsvt_tpu/train/config.py``).
 
 `TrainConfig` has every field of the JAX dataclass with the same names and
-defaults, so JSON written by either package reads in the other. The
-detector fields are carried but not used yet (detector slice).
+defaults, so JSON written by either package reads in the other.
+`resolve_backbone` and `resolve_detector` turn a config into the model's.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ import dataclasses
 import json
 from typing import Any
 
+from arsvt_tpu_torch.models.detector import DetectorConfig
+from arsvt_tpu_torch.models.heads import DetrHeadConfig
 from arsvt_tpu_torch.models.vit import BackboneConfig
 
 
@@ -107,6 +109,35 @@ def resolve_backbone(cfg: TrainConfig) -> BackboneConfig:
     return bb
 
 
+def resolve_detector(cfg: TrainConfig) -> DetectorConfig:
+    """The detector of `cfg.preset` (a detector preset, or a backbone
+    preset under the default DETR head) with the config's num_classes,
+    attn_dropout and ln_eps overrides, as JAX's."""
+    from arsvt_tpu_torch.models.registry import DETECTOR_PRESETS, get_preset
+
+    if cfg.preset in DETECTOR_PRESETS:
+        det = DETECTOR_PRESETS[cfg.preset]
+    else:
+        det = DetectorConfig(backbone=get_preset(cfg.preset),
+                             head=DetrHeadConfig(num_classes=cfg.num_classes))
+    if det.head.num_classes != cfg.num_classes:
+        det = dataclasses.replace(det, head=dataclasses.replace(
+            det.head, num_classes=cfg.num_classes))
+    if cfg.attn_dropout is not None:
+        det = dataclasses.replace(
+            det,
+            backbone=dataclasses.replace(det.backbone,
+                                         attn_dropout=cfg.attn_dropout),
+            head=dataclasses.replace(det.head,
+                                     attn_dropout=cfg.attn_dropout))
+    if cfg.ln_eps:
+        det = dataclasses.replace(
+            det,
+            backbone=dataclasses.replace(det.backbone, ln_eps=cfg.ln_eps),
+            head=dataclasses.replace(det.head, ln_eps=cfg.ln_eps))
+    return det
+
+
 def input_canvas(cfg: TrainConfig) -> int:
     """Host-pipeline letterbox size for this config: the augmentation
     canvas when the step augments, else the model's own size."""
@@ -115,13 +146,11 @@ def input_canvas(cfg: TrainConfig) -> int:
     if cfg.image_size:
         return cfg.image_size
     if cfg.task == "detect":
-        raise NotImplementedError(
-            "detector training is not ported yet (ROADMAP Queue A, "
-            "detector training)")
+        return resolve_detector(cfg).backbone.image_size
     return resolve_backbone(cfg).image_size
 
 
-# The classify entries of the JAX package's named train presets.
+# The JAX package's named train presets.
 TRAIN_PRESETS: dict[str, TrainConfig] = {
     "smoke": TrainConfig(
         preset="vit_test_8_32", batch_size=16, total_steps=30,
@@ -141,5 +170,14 @@ TRAIN_PRESETS: dict[str, TrainConfig] = {
         preset="vit_large_16_384", batch_size=256, mixup_alpha=0.2,
         label_smoothing=0.1, remat=True,
         augment="randaugment", canvas=416,
+    ),
+    # the reference's own detector training config: the detection
+    # augmentation on a 224 canvas, dropout 0.1 including the attention
+    # probabilities (in-kernel)
+    "deit_detector_ref": TrainConfig(
+        preset="deit_detector_ref", task="detect", batch_size=32,
+        learning_rate=1e-4, weight_decay=1e-4, schedule="plateau",
+        max_objects=25, augment="detection", canvas=224,
+        attn_dropout=0.1,
     ),
 }

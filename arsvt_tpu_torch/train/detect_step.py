@@ -1,0 +1,173 @@
+"""Train and eval steps for the DETR detector (counterpart of
+``arsvt_tpu/train/detect_step.py::make_detector_step_fns``).
+
+A train step: images -> `to_unit_float` -> the detection augmentation
+(when the config augments; boxes and their validity move with the
+images) -> cast of the parameters to the compute dtype -> forward
+(backbone + DETR decoder with aux outputs + triplet features, dropout
+drawn from ``Rng(seed, step, microbatch)``) -> Hungarian matching of the
+final and every aux layer (one copy of the stacked costs to the host,
+scipy, one copy of the indices back) -> `detection_loss` plus the summed
+aux-layer losses -> backward, accumulated over ``grad_accum``
+microbatches -> one AdamW update -> step + 1. The matcher's round trip is
+the step's only wait on the card; metrics stay on the device.
+
+The state is a dict {"params", "opt_state", "step"} updated in place, as
+the classifier step's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from arsvt_tpu_torch.core.dtypes import Policy, to_unit_float, tree_leaves
+from arsvt_tpu_torch.core.prng import Rng, generator
+from arsvt_tpu_torch.data.augment import (
+    DetectionAugmentConfig,
+    check_detection_supported,
+    detection_train_augment,
+    draw_detection_augment,
+    eval_preprocess,
+)
+from arsvt_tpu_torch.evaluation.classify import resolve_device
+from arsvt_tpu_torch.models.detector import apply_detector, init_detector
+from arsvt_tpu_torch.models.vit import check_train_supported
+from arsvt_tpu_torch.objectives.detection_loss import (
+    DetectionLossConfig,
+    detection_loss,
+)
+from arsvt_tpu_torch.objectives.matcher import match_layers
+from arsvt_tpu_torch.train.accum import accumulated_value_and_grad
+from arsvt_tpu_torch.train.config import TrainConfig, resolve_detector
+from arsvt_tpu_torch.train.optim import fused_adamw_update, init_opt_state
+from arsvt_tpu_torch.train.train_step import _to_device
+
+
+def make_detector_step_fns(cfg: TrainConfig, device=None):
+    """Build (init_fn, train_step, eval_step) for the detection task.
+
+    init_fn(seed=None) -> state, seeded from `cfg.seed` by default.
+    train_step(state, batch, step_seed=None, *, draws=None) -> (state,
+        {"loss", "loss_ce", "loss_bbox", "loss_giou", "cardinality_error",
+        "loss_triplet", "grad_norm"}); microbatch a draws its augmentation
+        from a CPU generator seeded with (step_seed or cfg.seed,
+        state["step"], a), unless `draws` gives one `DetectionDraws` per
+        microbatch, and its dropout from ``Rng`` of the same three.
+    eval_step(params, batch) -> {"loss", "loss_ce", "loss_bbox",
+        "loss_giou", "cardinality_error", "total", "count", "outputs"},
+        pad rows (batch "valid" 0) weighted out.
+    batch = {"image": (B, H, W, C) uint8 or [0, 1] float, "boxes": (B, M,
+    4) normalised xyxy, "labels": (B, M) int, "mask": (B, M) bool[,
+    "valid": (B,) 0/1]}, numpy arrays or tensors.
+
+    `device` None means the card; without one that raises unless the
+    caller passes device="cpu".
+    """
+    dev = resolve_device(device)
+    if cfg.task != "detect":
+        raise ValueError(f"make_detector_step_fns needs task='detect', got "
+                         f"{cfg.task!r}")
+    det_cfg = resolve_detector(cfg)
+    check_train_supported(det_cfg.backbone, remat=cfg.remat)
+    compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    policy = Policy(compute_dtype=compute_dtype)
+    loss_cfg = DetectionLossConfig(
+        num_classes=det_cfg.head.num_classes,
+        background_weight=cfg.background_weight, w_ce=cfg.w_ce,
+        w_bbox=cfg.w_bbox, w_giou=cfg.w_giou, w_triplet=cfg.w_triplet,
+        triplet_margin=cfg.triplet_margin)
+    if cfg.augment not in ("detection", "none"):
+        raise ValueError(f"unknown augment mode {cfg.augment!r} for detect "
+                         "(expected 'detection' or 'none')")
+    aug_cfg = None
+    if cfg.augment == "detection":
+        aug_cfg = DetectionAugmentConfig(
+            image_size=det_cfg.backbone.image_size,
+            warp_variant=cfg.warp_variant)
+        check_detection_supported(aug_cfg)
+
+    def init_fn(seed: int | None = None) -> dict:
+        params = init_detector(det_cfg, cfg.seed if seed is None else seed,
+                               device=dev)
+        return {"params": params, "opt_state": init_opt_state(params),
+                "step": 0}
+
+    def layer_losses(outputs, feats, targets):
+        """Final-layer loss and parts plus the aux layers' totals, every
+        layer matched in one host round trip."""
+        aux = outputs.pop("aux", None)
+        layers = [(outputs["class_logits"], outputs["boxes_cxcywh"])]
+        if aux is not None:
+            layers += list(zip(aux["class_logits"].unbind(0),
+                               aux["boxes_cxcywh"].unbind(0)))
+        assignments = match_layers(layers, targets["labels"],
+                                   targets["boxes"], targets["mask"],
+                                   loss_cfg.matcher)
+        total, parts = detection_loss(outputs, targets, loss_cfg, feats,
+                                      assignment=assignments[0])
+        for (cl, bx), asg in zip(layers[1:], assignments[1:]):
+            total = total + detection_loss(
+                {"class_logits": cl, "boxes_cxcywh": bx}, targets, loss_cfg,
+                assignment=asg)[0]
+        return total, {k: v for k, v in parts.items() if k != "total"}
+
+    def train_step(state: dict, batch, step_seed: int | None = None, *,
+                   draws=None):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        seed = cfg.seed if step_seed is None else step_seed
+        step = state["step"]
+        data = {k: _to_device(batch[k], dev)
+                for k in ("image", "boxes", "labels", "mask")}
+
+        def loss_fn(mb, a):
+            compute_params = policy.cast_to_compute(params)
+            images = to_unit_float(mb["image"])
+            boxes, mask = mb["boxes"].float(), mb["mask"].bool()
+            if aug_cfg is not None:
+                d = (draws[a] if draws is not None else
+                     draw_detection_augment(generator(seed, step, a),
+                                            images.shape[0], aug_cfg))
+                images, boxes, mask = detection_train_augment(
+                    images, boxes, mask, d.to(dev), aug_cfg)
+            outputs, feats = apply_detector(
+                compute_params, images.to(compute_dtype), det_cfg,
+                train=True, rng=Rng(seed, step, a), return_features=True,
+                return_aux=cfg.aux_loss)
+            targets = {"boxes": boxes, "labels": mb["labels"], "mask": mask}
+            return layer_losses(outputs, feats, targets)
+
+        (loss, parts), grads = accumulated_value_and_grad(
+            loss_fn, leaves, data, cfg.grad_accum)
+        params, opt_state, grad_norm = fused_adamw_update(
+            cfg, grads, state["opt_state"], params)
+        new_state = {"params": params, "opt_state": opt_state,
+                     "step": step + 1}
+        return new_state, {"loss": loss, **parts, "grad_norm": grad_norm}
+
+    def eval_step(params, batch) -> dict:
+        with torch.inference_mode():
+            compute_params = policy.cast_to_compute(params)
+            images = to_unit_float(_to_device(batch["image"], dev))
+            if aug_cfg is not None:
+                images = eval_preprocess(images,
+                                         size=det_cfg.backbone.image_size)
+            outputs = apply_detector(compute_params,
+                                     images.to(compute_dtype), det_cfg)
+            targets = {"boxes": _to_device(batch["boxes"], dev).float(),
+                       "labels": _to_device(batch["labels"], dev),
+                       "mask": _to_device(batch["mask"], dev).bool()}
+            valid = batch.get("valid")
+            if valid is not None:
+                valid = _to_device(valid, dev)
+            total, parts = detection_loss(outputs, targets, loss_cfg, None,
+                                          image_weight=valid)
+            count = (torch.full((), images.shape[0], dtype=torch.int32,
+                                device=dev) if valid is None
+                     else valid.to(torch.int32).sum())
+            return {"loss": total, **parts, "count": count,
+                    "outputs": outputs}
+
+    return init_fn, train_step, eval_step

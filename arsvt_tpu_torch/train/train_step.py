@@ -13,8 +13,10 @@ one. The state is a dict {"params", "opt_state", "step"} updated in place
 (parameters and Adam moments; the returned dict is new), which keeps one
 copy of the fp32 master weights and moments on the card.
 
-Not ported yet (ROADMAP Queue A): distillation, mixup, RandAugment and
-remat (the ViT-L recipe), dropout (detector training).
+Residual and positional dropout draw from ``Rng(seed, step,
+microbatch)``. Not ported yet (ROADMAP Queue A): distillation, mixup,
+RandAugment and remat (the ViT-L recipe), attention dropout at head_dim
+64 (kernels #1/#2).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from arsvt_tpu_torch.core.dtypes import Policy, to_unit_float, tree_leaves
-from arsvt_tpu_torch.core.prng import generator
+from arsvt_tpu_torch.core.prng import Rng, generator
 from arsvt_tpu_torch.data.augment import (
     ClassifyAugmentConfig,
     classification_train_augment,
@@ -63,7 +65,8 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
         (state, {"loss", "accuracy", "grad_norm"}); the augmentation of
         microbatch a is drawn from a CPU generator seeded with (step_seed
         or cfg.seed, state["step"], a), unless `draws` gives one
-        `CropFlipDraws` per microbatch.
+        `CropFlipDraws` per microbatch; its dropout from ``Rng`` of the
+        same three.
     eval_step(params, batch) -> {"loss", "correct", "count", "confusion"}.
     batch = {"image": (B, H, W, C) uint8 or float, "label": (B,) int[,
     "valid": (B,) 0/1 for eval]}, numpy arrays or tensors.
@@ -131,7 +134,7 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                                                       aug_cfg)
             logits = apply_image_classifier(
                 compute_params, images.to(compute_dtype), backbone_cfg,
-                num_classes, train=True)
+                num_classes, train=True, rng=Rng(seed, state["step"], a))
             labels = mb["label"]
             loss = softmax_cross_entropy(
                 logits, labels, num_classes=num_classes,

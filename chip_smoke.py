@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and detector-serving
-paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, detector-serving and
+detector-training paths on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
@@ -14,7 +14,10 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    started together) and print the compiler's resource report;
 3. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes in bf16 and fp32 plus odd shapes, then timed with
-   CUDA events beside its bound and a library call on the same work;
+   CUDA events beside its bound and a library call on the same work; the
+   head-major kernels (#3 with dropout, #4) also at one detector train
+   step's shapes, and a probe that reads back the dropout mask each of
+   their three launches used;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
@@ -36,7 +39,17 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    and on the CPU from the same raw outputs; (d) /detect, /healthz and
    /stats through ``InferenceServer``; (e) detect_path latency over 60
    calls; (f) a torch.profiler window over one bf16 forward; (g)
-   ``vit_base_detector`` through (a) and (d).
+   ``vit_base_detector`` through (a) and (d);
+9. detector training through ``make_detector_step_fns``: (a) two fp32
+   ``deit_detector_ref`` steps of batch 4 with every dropout rate 0 on the
+   card against the same steps on the CPU (matched pairs, loss, update);
+   (b) 3 bf16 steps against 3 fp32 steps on the card, the configuration of
+   (c); (c) the ``bench.py::bench_detect`` configuration (batch 32, bf16,
+   detection augmentation on the 256 canvas, dropout 0.1 with attention
+   dropout in the kernels), 2 warm-up and 5 timed steps: images/s,
+   ms/step, peak memory; one step run twice from the same state; (d)
+   ``eval_step`` and ``evaluate_detector``; (e) a torch.profiler window
+   over one step.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -46,15 +59,19 @@ launches = layers x microbatches x steps x 2 kernels per call, one AdamW
 launch per step); 8(a)-(f) (``deit_detector_ref``: 12 encoder + 6
 cross-attention launches of the head-major kernel per forward, no other
 kernel); 8(g) (``vit_base_detector``: 12 encoder-attention and 6
-head-major launches per forward). Any failure exits non-zero. The last
+head-major launches per forward); 9(c)-(e) (detector training: 18
+head-major forward and 18 backward calls and one AdamW launch per step,
+18 forward calls per eval forward). Any failure exits non-zero. The last
 lines are the kernels' record, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,14 +85,14 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from arsvt_tpu_torch.core.dtypes import named_leaves, tree_leaves
+from arsvt_tpu_torch.core.dtypes import named_leaves, tree_leaves, tree_map
 from arsvt_tpu_torch.data.pipeline import letterbox
 from arsvt_tpu_torch.evaluation.classify import (
     StreamingClassifier,
     StreamingDetector,
     evaluate_classifier,
 )
-from arsvt_tpu_torch.evaluation.detect import post_process
+from arsvt_tpu_torch.evaluation.detect import evaluate_detector, post_process
 from arsvt_tpu_torch.models.classifier import init_image_classifier
 from arsvt_tpu_torch.models.detector import init_detector
 from arsvt_tpu_torch.models.registry import DETECTOR_PRESETS, PRESETS
@@ -86,7 +103,9 @@ from arsvt_tpu_torch.ops import (
     fused_adamw,
 )
 from arsvt_tpu_torch.serving.server import InferenceServer
-from arsvt_tpu_torch.train.config import TrainConfig
+from arsvt_tpu_torch.train import detect_step
+from arsvt_tpu_torch.train.config import TRAIN_PRESETS, TrainConfig
+from arsvt_tpu_torch.train.detect_step import make_detector_step_fns
 from arsvt_tpu_torch.train.optim import _wd_mask
 from arsvt_tpu_torch.train.train_step import make_classifier_step_fns
 
@@ -312,6 +331,200 @@ def phase_flash_checks() -> dict:
             }))
     return {"max_abs_err": errs["deit_encoder_B1_bfloat16"],
             **timings[("deit_encoder", 1)]}
+
+
+# The head-major kernels (#3 with dropout, #4) against their plain versions:
+# the largest error over the tensor, against the largest magnitude of the
+# plain result. fp32: the same fp32 arithmetic with the sums in another
+# order (sequential FMAs against cuBLAS), a few ulps of the largest term.
+# bf16: p and dS are rounded to bf16 before three products, and a last-bit
+# difference in fp32 can flip single roundings, then the output's own
+# rounding: a few bf16 ulps of the largest term, plus 2^-7 absolute.
+TOL_FLASH_REL_FP32 = 2e-5
+TOL_FLASH_REL_BF16 = 2.0 ** -6
+TOL_FLASH_ABS_BF16 = 2.0 ** -7
+DROPOUT_RATE = 0.1
+DROPOUT_SEED = 0xDEADBEEF  # high bit set: the seed travels as a uint32
+
+# (B, H, Sq, Sk, d) of one detector train step's attention calls
+# (deit_detector_ref at batch 32): 12 encoder, 6 cross-attention.
+FLASH_TRAIN_SHAPES = {
+    "deit_encoder_B32": (32, 25, 198, 198, 16),
+    "deit_cross_B32": (32, 8, 5, 196, 50),
+}
+
+
+def flash_limit(ref, dtype) -> float:
+    top = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        return TOL_FLASH_REL_FP32 * top
+    return TOL_FLASH_REL_BF16 * top + TOL_FLASH_ABS_BF16
+
+
+def flash_bwd_bound(b, h, sq, sk, d, elem=2):
+    """q, k, v, O and dO read once, lse read once, dq, dk and dv written
+    once; 10*B*H*Sq*Sk*d FLOPs (s, dP, dq, dk, dv)."""
+    nbytes = b * h * (3 * sq * d + 2 * sk * d) * elem + b * h * sq * 4 \
+        + b * h * (sq * d + 2 * sk * d) * elem
+    flops = 10 * b * h * sq * sk * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), nbytes, flops
+
+
+def mask_probe(b, h, sq, sk, seed, device="cuda"):
+    """Recover the keep mask each head-major kernel used, on the card.
+
+    q = 0 makes p uniform (1/Sk) whatever k is; k = v = I (d = Sk) read
+    the probabilities back. Forward: O[i, j] = keep(i, j) / (Sk·keep_prob).
+    Backward with dO = e_i (row i one-hot, Sq <= d): dv[j, i] = p_v[i, j],
+    the dk/dv launch's mask. Backward with dO = 1: dq[i, j] = scale·p·
+    (keep(i, j)/keep_prob - delta_i), the dq launch's, decoded against
+    delta_i = sum_j O[i, j]. Returns mismatches against `keep_mask` per
+    launch."""
+    from arsvt_tpu_torch.ops.dropout import keep_mask
+
+    d = sk
+    kp = 1.0 - DROPOUT_RATE
+    q = torch.zeros(b, h, sq, d, device=device)
+    eye = torch.eye(sk, device=device).expand(b, h, sk, sk).contiguous()
+    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed)
+    o, lse = flash_attention.flash_attention_fwd(q, eye, eye, **kw)
+    one_hot = torch.eye(sq, d, device=device).expand(b, h, sq, d)
+    _, _, dv = flash_attention.flash_attention_bwd(
+        q, eye, eye, o, one_hot.contiguous(), lse, **kw)
+    ones = torch.ones(b, h, sq, d, device=device)
+    dq, _, _ = flash_attention.flash_attention_bwd(q, eye, eye, o, ones, lse,
+                                                   **kw)
+    torch.cuda.synchronize()
+    want = keep_mask(seed, b, h, sq, sk, DROPOUT_RATE, device)
+    delta = o.sum(dim=-1, keepdim=True)
+    got = {"fwd": o > 0,
+           "bwd_dkdv": dv[..., :sq].transpose(-1, -2) > 0,
+           "bwd_dq": (dq * math.sqrt(d) * sk + delta) * kp > 0.5}
+    return {k: int((v != want).sum()) for k, v in got.items()}
+
+
+def library_flash_fwd_bwd_ms(q, k, v, do, rate) -> float:
+    """`F.scaled_dot_product_attention` forward and backward through
+    autograd on the same operands: a yardstick, never called by the
+    port."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    return cuda_ms(fwd_bwd, iters=20)
+
+
+def phase_flash_train_checks() -> dict:
+    """#4 against its plain version at one detector train step's shapes,
+    at d = 96 and at kv_len < Sk, bf16 and fp32; #3 and #4 with dropout
+    0.1 against their plain versions at the train shapes; the probe of
+    each launch's mask; then #4 (and #3 with dropout) timed at the train
+    shapes. Returns #4's record at the encoder shape."""
+    cases = [(name, *shape, shape[3], 0.0)
+             for name, shape in FLASH_TRAIN_SHAPES.items()]
+    cases += [("d96", 4, 8, 100, 196, 96, 196, 0.0),
+              ("odd_kv_len", 3, 2, 17, 33, 50, 20, 0.0)]
+    cases += [(f"{name}_dropout", *shape, shape[3], DROPOUT_RATE)
+              for name, shape in FLASH_TRAIN_SHAPES.items()]
+    errs = {}
+    for i, (name, b, h, sq, sk, d, kv_len, rate) in enumerate(cases):
+        for j, dtype in enumerate((torch.bfloat16, torch.float32)):
+            q, k, v = seeded_heads(b, h, sq, sk, d, dtype, 600 + 2 * i + j)
+            gen = torch.Generator().manual_seed(700 + 2 * i + j)
+            do = torch.randn(b, h, sq, d, generator=gen).to(dtype).cuda()
+            kw = dict(kv_len=kv_len, dropout_rate=rate, seed=DROPOUT_SEED)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            rec = {"check": "flash_attention_bwd", "case": key,
+                   "shape": [b, h, sq, sk, d], "kv_len": kv_len,
+                   "dropout_rate": rate}
+            if rate > 0.0:  # #3's dropout branch first
+                out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+                torch.cuda.synchronize()
+                ref_out, ref_lse = flash_attention.flash_attention_fwd_plain(
+                    q, k, v, kv_len, rate, DROPOUT_SEED)
+                rec["max_abs_err_fwd_out"] = max_err(out, ref_out)
+                rec["max_abs_err_fwd_lse"] = max_err(lse, ref_lse)
+                check(rec["max_abs_err_fwd_out"] <= flash_limit(ref_out, dtype)
+                      and rec["max_abs_err_fwd_lse"] <= TOL_LSE,
+                      f"flash_attention_fwd with dropout at {key}: {rec}")
+            # the plain forward's O and lse feed both backward versions
+            out, lse = flash_attention.flash_attention_fwd_plain(
+                q, k, v, kv_len, rate, DROPOUT_SEED)
+            got = flash_attention.flash_attention_bwd(q, k, v, out, do, lse,
+                                                      **kw)
+            torch.cuda.synchronize()
+            ref = flash_attention.flash_attention_bwd_plain(
+                q, k, v, out, do, lse, kv_len, rate, DROPOUT_SEED)
+            for gname, x, r in zip(("dq", "dk", "dv"), got, ref):
+                check(x.shape == r.shape and x.dtype == r.dtype,
+                      f"{gname} shape/dtype at {key}")
+                check(bool(torch.isfinite(x.float()).all()),
+                      f"non-finite {gname} at {key}")
+                rec[f"max_abs_err_{gname}"] = max_err(x, r)
+                rec[f"max_abs_{gname}"] = float(r.float().abs().max())
+                check(rec[f"max_abs_err_{gname}"] <= flash_limit(r, dtype),
+                      f"flash_attention_bwd {gname} disagrees at {key}: "
+                      f"{rec}")
+            if kv_len < sk:
+                check(float(got[1][:, :, kv_len:].float().abs().max()) == 0.0
+                      and float(got[2][:, :, kv_len:].float().abs().max())
+                      == 0.0, f"masked keys got a gradient at {key}")
+            log(json.dumps(rec))
+            errs[key] = max(rec[f"max_abs_err_{n}"]
+                            for n in ("dq", "dk", "dv"))
+
+    mismatches = mask_probe(4, 5, 70, 96, DROPOUT_SEED)
+    log(json.dumps({"check": "dropout mask probe", "shape": [4, 5, 70, 96],
+                    "rate": DROPOUT_RATE, "mismatches": mismatches}))
+    check(all(v == 0 for v in mismatches.values()),
+          f"a kernel's dropout mask differs from keep_mask: {mismatches}")
+
+    timings = {}
+    for name, (b, h, sq, sk, d) in FLASH_TRAIN_SHAPES.items():
+        q, k, v = seeded_heads(b, h, sq, sk, d, torch.bfloat16, seed=12)
+        gen = torch.Generator().manual_seed(13)
+        do = torch.randn(b, h, sq, d, generator=gen).to(torch.bfloat16).cuda()
+        for rate in (0.0, DROPOUT_RATE):
+            kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+            out, lse = flash_attention.flash_attention_fwd(q, k, v, **kw)
+            fwd_ms = cuda_ms(lambda: flash_attention.flash_attention_fwd(
+                q, k, v, **kw), iters=50)
+            fwd_plain_ms = cuda_ms(
+                lambda: flash_attention.flash_attention_fwd_plain(
+                    q, k, v, sk, rate, DROPOUT_SEED), iters=5, warmup=1)
+            ms = cuda_ms(lambda: flash_attention.flash_attention_bwd(
+                q, k, v, out, do, lse, **kw), iters=50)
+            plain_ms = cuda_ms(
+                lambda: flash_attention.flash_attention_bwd_plain(
+                    q, k, v, out, do, lse, sk, rate, DROPOUT_SEED),
+                iters=5, warmup=1)
+            lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=rate), iters=50)
+            library_ms = library_flash_fwd_bwd_ms(q, k, v, do, rate) \
+                - lib_fwd_ms
+            bound_ms, bound_by, nbytes, flops = flash_bwd_bound(b, h, sq, sk,
+                                                                d)
+            fwd_bound_ms, fwd_bound_by, _, _ = flash_bound(b, h, sq, sk, d)
+            timings[(name, rate)] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log(json.dumps({
+                "timing": "flash_attention_bwd", "shape_of": name,
+                "B": b, "H": h, "Sq": sq, "Sk": sk, "d": d,
+                "dtype": "bfloat16", "dropout_rate": rate, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                "flops": flops, "bound_share": bound_ms / ms,
+                "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+                "fwd_library_ms": lib_fwd_ms, "fwd_bound_ms": fwd_bound_ms,
+                "fwd_bound_by": fwd_bound_by}))
+    return {"max_abs_err": errs["deit_encoder_B32_bfloat16"],
+            **timings[("deit_encoder_B32", 0.0)]}
 
 
 # Backward kernel against its plain version. fp32: the same fp32 arithmetic
@@ -724,13 +937,15 @@ def zero_counts() -> None:
     encoder_attention.BWD_LAUNCHES = 0
     fused_adamw.LAUNCHES = 0
     flash_attention.LAUNCHES = 0
+    flash_attention.LAUNCHES_BWD = 0
 
 
 def read_counts() -> dict:
     return {"encoder_attention_fwd": encoder_attention.LAUNCHES,
             "encoder_attention_bwd": encoder_attention.BWD_LAUNCHES,
             "fused_adamw": fused_adamw.LAUNCHES,
-            "flash_attention_fwd": flash_attention.LAUNCHES}
+            "flash_attention_fwd": flash_attention.LAUNCHES,
+            "flash_attention_bwd": flash_attention.LAUNCHES_BWD}
 
 
 def phase_train_bench(cfg, smi: str):
@@ -812,6 +1027,7 @@ PROFILE_CATEGORIES = (
     ("attention forward kernel", ("encoder_attention_fwd_kernel",)),
     ("head-major attention kernel", ("flash_attention_fwd_kernel",)),
     ("attention backward kernels", ("attn_bwd_",)),
+    ("head-major attention backward kernels", ("flash_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copies and casts", ("copy",)),
@@ -819,7 +1035,8 @@ PROFILE_CATEGORIES = (
 )
 
 
-def phase_train_profile(state, step, batch, wall_ms: float) -> dict:
+def phase_train_profile(state, step, batch, wall_ms: float,
+                        title="train step vit_base_16_224 bench config"):
     """(d) torch.profiler over one bf16 train step: the device's busy share
     of the unprofiled step time from (b), and the kernels by device time."""
     from torch.autograd import DeviceType
@@ -842,8 +1059,7 @@ def phase_train_profile(state, step, batch, wall_ms: float) -> dict:
         cat = next((c for c, keys in PROFILE_CATEGORIES
                     if any(k in name for k in keys)), "elementwise and other")
         by_category[cat] = by_category.get(cat, 0.0) + us / 1e3
-    rec = {"profile": "train step vit_base_16_224 bench config",
-           "wall_ms_per_step": wall_ms,
+    rec = {"profile": title, "wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": busy_us / 1e3,
            # None: the profiler saw no device time (not measured)
            "device_busy_share": busy_us / 1e3 / wall_ms if busy_us else None,
@@ -1279,6 +1495,299 @@ def phase_detector(smi) -> dict:
     return launched
 
 
+# Phase 9: detector training. (a) fp32 card against fp32 CPU, dropout off:
+# the same arithmetic in other summation orders through 18 layers and
+# their backward, with the same matched pairs; loss 1e-5 relative,
+# grad_norm 1e-4. The update after step 1 (step 0 has lr 0) is close to
+# lr * sign(g), so an element whose gradient lies within fp32 noise of
+# zero moves differently: held as the relative L2 norm of the difference
+# of the two updates, 1e-4. (b) bf16 against fp32 on the card, the bench
+# configuration with dropout on (the same masks: Philox from host seeds,
+# the residual masks from device generators drawn in fp32): bf16 rounds
+# every activation to 8 mantissa bits through 18 layers, and a near-tie in
+# the matcher may pick another pair; the warm-up keeps the weights at the
+# init over the 3 steps, so each step is held: loss 2e-2, grad_norm 5e-2
+# relative (the classifier step's bf16 limits).
+DET_TRAIN_PRESET = "deit_detector_ref"
+DET_NODROP_PRESET = "deit_detector_ref_nodrop"
+TOL_DET_TRAIN_LOSS = 1e-5
+TOL_DET_TRAIN_NORM = 1e-4
+TOL_DET_TRAIN_UPDATE = 1e-4
+TOL_DET_BF16_LOSS = 2e-2
+TOL_DET_BF16_NORM = 5e-2
+DET_METRICS = ("loss", "loss_ce", "loss_bbox", "loss_giou",
+               "cardinality_error", "loss_triplet", "grad_norm")
+
+
+def det_train_cfg(**kw) -> TrainConfig:
+    """`bench.py::bench_detect`'s configuration: the `deit_detector_ref`
+    train preset (batch 32, bf16, plateau schedule, aux loss) with the
+    detection augmentation on the 256 canvas, 25 box slots and attention
+    dropout 0.1 (residual dropout 0.1 from the model preset)."""
+    base = dict(preset=DET_TRAIN_PRESET, canvas=256, augment="detection",
+                max_objects=25, attn_dropout=0.1)
+    return TRAIN_PRESETS["deit_detector_ref"].with_overrides(**{**base, **kw})
+
+
+def det_bench_batch(batch_size: int = 32) -> dict:
+    """`bench_detect`'s fixed batch (numpy seed 3: 256² float images, one
+    box tiled over 25 slots, random labels, 1-5 real boxes), on the
+    card."""
+    rng = np.random.default_rng(3)
+    batch = {
+        "image": rng.uniform(size=(batch_size, 256, 256, 3)).astype(
+            np.float32),
+        "boxes": np.tile(np.array([0.2, 0.2, 0.6, 0.6], np.float32),
+                         (batch_size, 25, 1)),
+        "labels": rng.integers(0, 6, (batch_size, 25)).astype(np.int32),
+        "mask": np.arange(25)[None, :] < rng.integers(1, 6, (batch_size, 1)),
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def det_random_batch(rng, n: int, size: int = 256, m: int = 25) -> dict:
+    """uint8 images and distinct random boxes (unique optimal matchings),
+    1-5 real boxes an image, numpy."""
+    lo = rng.uniform(0.05, 0.6, (n, m, 2))
+    wh = rng.uniform(0.1, 0.35, (n, m, 2))
+    return {"image": rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            "boxes": np.concatenate([lo, lo + wh], -1).astype(np.float32),
+            "labels": rng.integers(0, 6, (n, m)).astype(np.int32),
+            "mask": np.arange(m)[None, :] < rng.integers(1, 6, (n, 1))}
+
+
+class RecordMatches:
+    """Record the assignments `make_detector_step_fns` gets from the
+    matcher (and the host time spent in it: the wait for the forward, the
+    copy, the solves), by wrapping the name its module calls."""
+
+    def __enter__(self):
+        self.orig = detect_step.match_layers
+        self.assignments, self.seconds = [], 0.0
+
+        def recording(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            self.seconds += time.perf_counter() - t0
+            self.assignments.append(torch.stack([i for i, _ in out]).cpu())
+            return out
+
+        detect_step.match_layers = recording
+        return self
+
+    def __exit__(self, *exc):
+        detect_step.match_layers = self.orig
+
+
+def clone_state(state) -> dict:
+    def copy(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    return {"params": tree_map(copy, state["params"]),
+            "opt_state": tree_map(copy, state["opt_state"]),
+            "step": state["step"]}
+
+
+def phase_det_train_parity() -> dict:
+    """(a) 2 fp32 steps of batch 4 at `deit_detector_ref` with every
+    dropout rate 0, detection augmentation on, on the card and on the CPU
+    from the same init, batches and draws."""
+    cfg = DETECTOR_PRESETS[DET_TRAIN_PRESET]
+    DETECTOR_PRESETS[DET_NODROP_PRESET] = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dropout=0.0,
+                                          attn_dropout=0.0),
+        head=dataclasses.replace(cfg.head, dropout=0.0, attn_dropout=0.0))
+    tcfg = det_train_cfg(preset=DET_NODROP_PRESET, batch_size=4, bf16=False,
+                         attn_dropout=0.0, warmup_steps=1)
+    rng = np.random.default_rng(9)
+    batches = [det_random_batch(rng, 4) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        init_fn, step, _ = make_detector_step_fns(tcfg, device=dev)
+        state = init_fn()
+        start = [p.detach().cpu().clone()
+                 for p in tree_leaves(state["params"])]
+        metrics = []
+        with RecordMatches() as rec:
+            for batch in batches:
+                state, m = step(state, batch, step_seed=3)
+                metrics.append({k: float(m[k]) for k in DET_METRICS})
+        final = [p.detach().cpu() for p in tree_leaves(state["params"])]
+        runs[dev] = (metrics, start, final, rec.assignments,
+                     time.perf_counter() - t0)
+        del state
+    (m_gpu, s_gpu, f_gpu, a_gpu, t_gpu), (m_cpu, s_cpu, f_cpu, a_cpu,
+                                          t_cpu) = runs["cuda"], runs["cpu"]
+    for a, b in zip(s_gpu, s_cpu):
+        check(torch.equal(a, b), "card and CPU start from different weights")
+    upd_gpu = torch.cat([(f - s).flatten() for f, s in zip(f_gpu, s_gpu)])
+    upd_cpu = torch.cat([(f - s).flatten() for f, s in zip(f_cpu, s_cpu)])
+    rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                  for a, b in zip(m_gpu, m_cpu)) for k in DET_METRICS}
+    same_matches = len(a_gpu) == len(a_cpu) and all(
+        torch.equal(a, b) for a, b in zip(a_gpu, a_cpu))
+    rec = {"check": "detector train step fp32 cuda vs cpu", "batch": 4,
+           "steps": 2, "dropout": 0.0, "augment": "detection",
+           "metrics_cuda": m_gpu, "metrics_cpu": m_cpu,
+           "max_rel_err": rel,
+           "rel_l2_err_update": float((upd_gpu - upd_cpu).norm()
+                                      / upd_cpu.norm()),
+           "matched_indices_identical": same_matches,
+           "matched_layers_per_step": int(a_gpu[0].shape[0]),
+           "seconds_cuda": t_gpu, "seconds_cpu": t_cpu}
+    log(json.dumps(rec))
+    check(all(np.isfinite(list(m.values())).all() for m in m_gpu),
+          "non-finite card detector train metrics")
+    check(same_matches, "the card and the CPU matched different pairs")
+    check(rel["loss"] <= TOL_DET_TRAIN_LOSS,
+          f"detector train loss cuda vs cpu {rel['loss']}")
+    check(rel["grad_norm"] <= TOL_DET_TRAIN_NORM,
+          f"detector grad_norm cuda vs cpu {rel['grad_norm']}")
+    check(rec["rel_l2_err_update"] <= TOL_DET_TRAIN_UPDATE,
+          f"detector update cuda vs cpu {rec['rel_l2_err_update']}")
+    return rec
+
+
+def phase_det_train_bf16() -> dict:
+    """(b) 3 steps of the bench configuration in fp32 and in bf16 on the
+    card, from the same init, batch, draws and dropout masks."""
+    batch = det_bench_batch()
+    runs = {}
+    for bf16 in (False, True):
+        init_fn, step, _ = make_detector_step_fns(det_train_cfg(bf16=bf16))
+        state = init_fn()
+        metrics = []
+        with RecordMatches() as rec:
+            for _ in range(3):
+                state, m = step(state, batch)
+                metrics.append({k: float(m[k]) for k in DET_METRICS})
+        runs[bf16] = (metrics, rec.assignments)
+        del state
+    (m32, a32), (m16, a16) = runs[False], runs[True]
+    rel = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                  for a, b in zip(m16, m32)) for k in DET_METRICS}
+    agree = sum(int((a == b).all(dim=-1).sum()) for a, b in zip(a16, a32))
+    total = sum(a.shape[0] * a.shape[1] for a in a32)
+    rec = {"check": "detector train step bf16 vs fp32 on the card",
+           "batch": 32, "steps": 3, "metrics_fp32": m32, "metrics_bf16": m16,
+           "max_rel_err": rel,
+           "images_matched_alike": f"{agree}/{total}"}
+    log(json.dumps(rec))
+    check(all(np.isfinite(list(m.values())).all() for m in m16 + m32),
+          "non-finite bf16/fp32 detector train metrics")
+    check(rel["loss"] <= TOL_DET_BF16_LOSS, f"bf16 vs fp32 loss {rel}")
+    check(rel["grad_norm"] <= TOL_DET_BF16_NORM,
+          f"bf16 vs fp32 grad_norm {rel}")
+    return rec
+
+
+def phase_det_train_bench(smi: str):
+    """(c) the bench configuration: 2 warm-up and 5 timed steps on the
+    fixed batch; one step run twice from the same state and seed; (d)
+    eval_step and evaluate_detector over two batches; (e) a profile of one
+    step. Returns the launch counts of (c)-(e)."""
+    steps_warm, steps_timed = 2, 5
+    tcfg = det_train_cfg()
+    init_fn, step, eval_step = make_detector_step_fns(tcfg)
+    state = init_fn()
+    batch = det_bench_batch()
+    det_cfg = DETECTOR_PRESETS[DET_TRAIN_PRESET]
+    per_step = det_cfg.backbone.depth + det_cfg.head.depth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()  # the detector training path starts here
+    losses = []
+    for _ in range(steps_warm):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    with RecordMatches() as matches:
+        t0 = time.perf_counter()
+        for _ in range(steps_timed):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    last = {k: float(m[k]) for k in DET_METRICS}
+    rec = {"timing": "detector train step deit_detector_ref bench config",
+           "batch": tcfg.batch_size, "dtype": "bfloat16",
+           "augment": "detection", "canvas": 256, "attn_dropout": 0.1,
+           "steps_timed": steps_timed,
+           "ms_per_step": dt / steps_timed * 1e3,
+           "train_images_per_s": tcfg.batch_size * steps_timed / dt,
+           "match_layers_ms_per_step": matches.seconds / steps_timed * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "last_metrics": last, "card": smi}
+    log(json.dumps(rec))
+    check(all(np.isfinite(losses)) and all(np.isfinite(list(last.values()))),
+          f"non-finite detector train metrics {rec}")
+
+    # the same state, batch and seed give the same step
+    base = clone_state(state)
+    repeat = []
+    for _ in range(2):
+        _, m = step(clone_state(base), batch)
+        repeat.append(float(m["loss"]))
+    log(json.dumps({"check": "detector train step repeated", "losses":
+                    repeat}))
+    check(repeat[0] == repeat[1], f"a repeated step differs: {repeat}")
+
+    log("# phase 9(d): detector eval_step and evaluate_detector")
+    rng = np.random.default_rng(10)
+    evs = [dict(det_random_batch(rng, 16),
+                valid=(np.arange(16) < 15).astype(np.int32)),
+           det_random_batch(rng, 16)]
+    e = eval_step(state["params"], evs[0])
+    check(int(e["count"]) == 15 and bool(torch.isfinite(e["loss"]))
+          and tuple(e["outputs"]["class_logits"].shape) == (16, 5, 7),
+          f"detector eval_step {e}")
+    res = evaluate_detector(eval_step, state["params"], evs, num_classes=6,
+                            conf_threshold=0.05)
+    check(np.isfinite(res["loss"]) and 0.0 <= res["mAP"] <= 1.0
+          and len(res["per_class"]) == 6, f"evaluate_detector {res}")
+    log(json.dumps({"check": "detector eval",
+                    "eval_step_loss": float(e["loss"]),
+                    "eval_step_count": int(e["count"]),
+                    **{k: res[k] for k in ("loss", "mAP", "AP50",
+                                           "total_predictions",
+                                           "predictions_per_image")}}))
+
+    log("# phase 9(e): profile of one detector train step")
+    prof = phase_train_profile(state, step, batch, rec["ms_per_step"],
+                               title="detector train step deit_detector_ref "
+                                     "bench config")
+    counts = read_counts()
+    steps = steps_warm + steps_timed + 2 + 1
+    forwards = steps + 1 + len(evs)
+    expected = {"encoder_attention_fwd": 0, "encoder_attention_bwd": 0,
+                "fused_adamw": steps,
+                "flash_attention_fwd": per_step * forwards,
+                "flash_attention_bwd": per_step * steps}
+    log(json.dumps({"launches": counts, "expected": expected,
+                    "steps": steps, "eval_forwards": forwards - steps,
+                    "path": "deit_detector_ref training",
+                    "per_step": {"flash_attention_fwd": per_step,
+                                 "flash_attention_bwd": per_step,
+                                 "kernels": prof["kernels_per_step"]}}))
+    check(counts["flash_attention_bwd"] > 0,
+          "flash_attention_bwd never launched")
+    check(counts == expected, f"detector training launches {counts} != "
+                              f"{expected}")
+    return counts
+
+
+def phase_detector_training(smi) -> dict:
+    """Phase 9. Returns the launch counts of the training path, (c)-(e)."""
+    log("# phase 9(a): deit_detector_ref fp32 train step, card vs CPU")
+    phase_det_train_parity()
+    log("# phase 9(b): bf16 vs fp32 train steps on the card")
+    phase_det_train_bf16()
+    log("# phase 9(c): the bench_detect configuration")
+    return phase_det_train_bench(smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1306,6 +1815,7 @@ def main() -> int:
     cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")
     flash = phase_flash_checks()
+    flash_bwd = phase_flash_train_checks()
     attn = phase_kernel_checks(cfg)
     attn_bwd = phase_bwd_checks(cfg)
     adamw = phase_adamw_checks(cfg)
@@ -1353,6 +1863,9 @@ def main() -> int:
     log("# phase 8: detector serving")
     detect = phase_detector(smi)
 
+    log("# phase 9: detector training")
+    det_train = phase_detector_training(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -1373,9 +1886,15 @@ def main() -> int:
             "flash_attention.py:629", attn_bwd,
             train["encoder_attention_bwd"]),
         row("fused_adamw", "fused_adamw.cu", "fused_adamw.py:40", adamw,
-            train["fused_adamw"]),
+            train["fused_adamw"] + det_train["fused_adamw"]),
+        # forward: detector serving and training
         row("flash_attention_fwd", "flash_attention_fwd.cu",
-            "flash_attention.py:93", flash, detect["flash_attention_fwd"]),
+            "flash_attention.py:93", flash,
+            detect["flash_attention_fwd"]
+            + det_train["flash_attention_fwd"]),
+        row("flash_attention_bwd", "flash_attention_bwd.cu",
+            "flash_attention.py:172", flash_bwd,
+            det_train["flash_attention_bwd"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -236,9 +236,17 @@ def test_attention_routes_by_head_dim(name, encoder_calls, flash_calls,
 
 
 def test_training_forward_raises():
+    """A training forward runs through kernels #3/#4 with dropout; it
+    raises only for attention dropout at head_dim 64, whose kernels (#1,
+    #2) have none yet."""
     cfg = get_detector_preset("detector_test")
-    with pytest.raises(NotImplementedError, match="kernel #4"):
-        apply_detector(init_detector(cfg), torch.zeros(1, 32, 32, 3), cfg,
+    out = apply_detector(init_detector(cfg), torch.zeros(1, 32, 32, 3), cfg,
+                         train=True)
+    assert out["class_logits"].shape == (1, 5, 7)
+    wide = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, embed_dim=128, num_heads=2, attn_dropout=0.1))
+    with pytest.raises(NotImplementedError, match="kernels #1/#2"):
+        apply_detector(init_detector(wide), torch.zeros(1, 32, 32, 3), wide,
                        train=True)
 
 

@@ -183,7 +183,8 @@ def test_wrapper_rejects_bad_operands(q, k, v, kw, err, match):
 def test_forward_that_would_build_a_graph_raises():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 3, 4, 16, seed=8))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(RuntimeError, match="backward runs "
+                                           "flash_attention_bwd"):
         flash_attention_fwd(q, k, v)
     with torch.inference_mode():
         flash_attention_fwd(q, k, v)

@@ -224,9 +224,13 @@ def test_train_config_json_reads_in_both_packages():
         **dataclasses.asdict(cfg))
     assert TrainConfig.from_json(JaxTrainConfig(**dataclasses.asdict(
         cfg)).to_json()) == cfg
+    from arsvt_tpu.train.config import TRAIN_PRESETS as JAX_TRAIN_PRESETS
+
     for name, preset in TRAIN_PRESETS.items():
-        assert preset.task == "classify", name
+        assert dataclasses.asdict(preset) == dataclasses.asdict(
+            JAX_TRAIN_PRESETS[name]), name
     assert input_canvas(TRAIN_PRESETS["vit_base_finetune"]) == 256
+    assert input_canvas(TRAIN_PRESETS["deit_detector_ref"]) == 224
     assert input_canvas(TrainConfig(preset="vit_base_16_224")) == 224
     assert resolve_backbone(TrainConfig(preset="vit_base_16_224",
                                         ln_eps=1e-6)).ln_eps == 1e-6
