@@ -42,129 +42,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "encoder_tile.cuh"
+
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kRows = 32;     // query rows per block
-constexpr int kKeys = 64;     // keys per shared-memory chunk
-constexpr int kThreads = 128;
-constexpr int kQkStride = kHeadDim + 4;  // floats; 16-byte aligned rows,
-                                         // conflict-free float4 reads
-constexpr int kVStride = kHeadDim;
-constexpr int kPStride = kKeys + 4;
+using namespace enc;
+
+constexpr int kRows = kTile;   // query rows per block
+constexpr int kKeys = kChunk;  // keys per shared-memory chunk
 constexpr size_t kSmemBytes =
-    sizeof(float) * (kRows * kQkStride + kKeys * kQkStride +
-                     kKeys * kVStride + kRows * kPStride);
-
-static_assert(kThreads == (kRows / 4) * 16, "4x4 tiles over 16 lanes");
-static_assert(kKeys == 4 * 16 && kHeadDim == 4 * 16, "tile widths");
-
-template <typename T>
-struct VecWidth;
-template <>
-struct VecWidth<float> {
-  static constexpr int n = 4;
-};
-template <>
-struct VecWidth<__nv_bfloat16> {
-  static constexpr int n = 8;
-};
-
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
-                                         float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = packed;
-}
-
-// Stage `rows` rows (starting at sequence row `row0`) of one head's 64
-// columns into shared memory as fp32; rows at or past `seq` become zeros.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ head_base,
-                                      int row0, int rows, int seq,
-                                      int64_t row_stride, float* dst,
-                                      int dst_stride) {
-  constexpr int n = VecWidth<T>::n;
-  constexpr int per_row = kHeadDim / n;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
-    const int r = idx / per_row;
-    const int c = (idx % per_row) * n;
-    float vals[n];
-    if (row0 + r < seq) {
-      load_vec(head_base + (int64_t)(row0 + r) * row_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < n; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < n; i += 4) store4(dst + r * dst_stride + c + i, vals + i);
-  }
-}
-
-// s[i][j] = scale * <q row rg*4+i, k row lg+16j> over the 64 head dims.
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
-                                       int rg, int lg, float scale,
-                                       float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int dd = 0; dd < kHeadDim; dd += 4) {
-    float4 q[4], k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      q[i] = *reinterpret_cast<const float4*>(Qs + (rg * 4 + i) * kQkStride + dd);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      k[j] = *reinterpret_cast<const float4*>(Ks + (lg + 16 * j) * kQkStride + dd);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(q[i].x, k[j].x, s[i][j]);
-        s[i][j] = fmaf(q[i].y, k[j].y, s[i][j]);
-        s[i][j] = fmaf(q[i].z, k[j].z, s[i][j]);
-        s[i][j] = fmaf(q[i].w, k[j].w, s[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] *= scale;
-}
+    sizeof(float) * kStride * (kRows + 2 * kKeys + kRows);
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -173,9 +60,9 @@ __global__ void __launch_bounds__(kThreads)
                                  int seq, int heads, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kRows * kQkStride;
-  float* Vs = Ks + kKeys * kQkStride;
-  float* Ps = Vs + kKeys * kVStride;
+  float* Ks = Qs + kRows * kStride;
+  float* Vs = Ks + kKeys * kStride;
+  float* Ps = Vs + kKeys * kStride;
 
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
@@ -190,16 +77,16 @@ __global__ void __launch_bounds__(kThreads)
   const int rg = threadIdx.x / 16;  // rows rg*4 .. rg*4+3 of the tile
   const int lg = threadIdx.x % 16;  // keys lg+16j; output dims lg*4+j
 
-  stage(q_base, row0, kRows, seq, row_stride, Qs, kQkStride);
+  stage(q_base, row0, kRows, seq, row_stride, Qs);
 
   // pass 1: row max over all keys
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int k0 = 0; k0 < seq; k0 += kKeys) {
     __syncthreads();  // the previous chunk has been read
-    stage(k_base, k0, kKeys, seq, row_stride, Ks, kQkStride);
+    stage(k_base, k0, kKeys, seq, row_stride, Ks);
     __syncthreads();
     float s[4][4];
-    scores(Qs, Ks, rg, lg, scale, s);
+    dot_tile(Qs, Ks, rg, lg, scale, s);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       if (k0 + lg + 16 * j < seq)
@@ -222,39 +109,21 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < seq; k0 += kKeys) {
     __syncthreads();
-    stage(k_base, k0, kKeys, seq, row_stride, Ks, kQkStride);
-    stage(v_base, k0, kKeys, seq, row_stride, Vs, kVStride);
+    stage(k_base, k0, kKeys, seq, row_stride, Ks);
+    stage(v_base, k0, kKeys, seq, row_stride, Vs);
     __syncthreads();
     float s[4][4];
-    scores(Qs, Ks, rg, lg, scale, s);
+    dot_tile(Qs, Ks, rg, lg, scale, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = (k0 + lg + 16 * j < seq) ? expf(s[i][j] - m[i]) : 0.f;
         l[i] += p;
-        Ps[(rg * 4 + i) * kPStride + lg + 16 * j] = round_to(p, T());
+        Ps[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(p, T());
       }
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kKeys; kk += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(Ps + (rg * 4 + i) * kPStride + kk);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float4 v = *reinterpret_cast<const float4*>(Vs + (kk + t) * kVStride + lg * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = t == 0 ? p4[i].x : t == 1 ? p4[i].y : t == 2 ? p4[i].z : p4[i].w;
-          acc[i][0] = fmaf(p, v.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v.w, acc[i][3]);
-        }
-      }
-    }
+    accumulate(Ps, Vs, rg, lg, acc);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)

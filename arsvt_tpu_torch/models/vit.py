@@ -8,18 +8,22 @@ a Python loop. Images are NHWC. Pre-LN blocks:
 then a final LN. The attention routes by what the port's kernels take: at
 head_dim 64 (every ViT preset) qkv-proj → attention → out-proj is one
 autograd Function over the encoder-attention kernels
-(``ops/encoder_attention.py``), for serving and training alike; any other
-head_dim (the DeiT-400 detector backbone's 16) runs qkv-proj → the
+(``ops/encoder_attention.py``), for serving and training alike, and a
+training forward with ``ARSVT_ATTN_SAVE_PROBS`` set takes its save-probs
+variant instead (``vit.py:182-185``; eval keeps the default kernels); any
+other head_dim (the DeiT-400 detector backbone's 16) runs qkv-proj → the
 head-major attention kernels (``ops/flash_attention.py``, forward and
 backward, with in-kernel attention dropout) → out-proj, as ``vit.py``'s
-non-fused branch does.
+non-fused branch does. The MLP is ``ops/mlp.py::gelu_mlp``, which takes the
+fused-MLP kernels when ``ARSVT_ENABLE_FUSED_MLP`` is set.
 
 A training forward takes an explicit `rng` (``core/prng.py::Rng``) in
 place of JAX's key: positional dropout from ``rng.fold_in(0)``, layer i
 from ``rng.fold_in(1, i)`` with its attention-residual, MLP-residual and
 attention-probability sites at ``fold_in(0)``, ``(1)`` and ``(2)``.
 Without an rng nothing is dropped, as in JAX. Not ported (raising): remat,
-and attention dropout at head_dim 64, whose kernels have no dropout yet.
+and attention dropout at head_dim 64, whose kernels (on both routes) have
+no dropout yet.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ import torch
 from arsvt_tpu_torch.core.dtypes import tree_map
 from arsvt_tpu_torch.core.prng import Rng
 from arsvt_tpu_torch.ops.attention import self_attention_from_qkv
+from arsvt_tpu_torch.ops.dispatch import use_attn_save_probs
 from arsvt_tpu_torch.ops.dropout import dropout
 from arsvt_tpu_torch.ops.encoder_attention import (
     SUPPORTED_HEAD_DIM,
     fused_encoder_attention,
+    fused_encoder_attention_savep,
 )
 from arsvt_tpu_torch.ops.layernorm import layer_norm
 from arsvt_tpu_torch.ops.mlp import gelu_mlp
@@ -148,8 +154,10 @@ def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
     wproj, bproj = (attn_p["proj"][k].to(y.dtype)
                     for k in ("kernel", "bias"))
     if cfg.head_dim == SUPPORTED_HEAD_DIM:
-        attn = fused_encoder_attention(y, wqkv, bqkv, wproj, bproj,
-                                       cfg.num_heads)
+        fused = (fused_encoder_attention_savep
+                 if train and use_attn_save_probs()
+                 else fused_encoder_attention)
+        attn = fused(y, wqkv, bqkv, wproj, bproj, cfg.num_heads)
     else:
         attn = self_attention_from_qkv(
             torch.matmul(y, wqkv) + bqkv, cfg.num_heads,
@@ -170,8 +178,9 @@ def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
         raise NotImplementedError(
             f"training with attn_dropout={cfg.attn_dropout} at head_dim "
             f"{SUPPORTED_HEAD_DIM} is not ported yet: the encoder-attention "
-            "kernels have no dropout (ROADMAP Queue A, dropout in kernels "
-            "#1/#2)")
+            "kernels have no dropout, on the default route (#1/#2) or the "
+            "save-probs one (#5/#6) (ROADMAP Queue A, dropout in kernels "
+            "#1/#2/#5/#6)")
     if remat:
         raise NotImplementedError(
             "remat is not ported yet (ROADMAP Queue A, the ViT-L recipe)")

@@ -9,13 +9,22 @@ kernels and of its ``fused_encoder_attention`` custom VJP:
   kernel ``csrc/encoder_attention_bwd.cu``;
 - `fused_encoder_attention`, qkv-proj → attention → out-proj as one
   `torch.autograd.Function` whose forward runs the first kernel and whose
-  backward runs the second.
+  backward runs the second;
+- the save-probs variants (``ARSVT_ATTN_SAVE_PROBS``, training only):
+  `encoder_attention_fwd_savep` (``_fwd_direct_savep`` →
+  ``_fwd_kernel_direct_savep``, kernel ``csrc/encoder_attention_savep_
+  fwd.cu``), which also writes the normalised probabilities P in bf16;
+  `encoder_attention_bwd_savep` (``_bwd_direct_savep`` →
+  ``_bwd_kernel_direct_savep``, kernel ``csrc/encoder_attention_savep_
+  bwd.cu``), which reads P back instead of rebuilding it; and
+  `fused_encoder_attention_savep`, the Function over the two.
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 on a CPU tensor it runs its ``*_plain`` version, which repeats the
 kernel's arithmetic in plain PyTorch. There is no fallback from one to the
 other. Layouts are the JAX ones: O, dq, dk and dv as (B, S, D) with head h
-in columns h*d .. h*d+d, the log-sum-exp as (B, H, 1, S) fp32. No dropout.
+in columns h*d .. h*d+d, the log-sum-exp as (B, H, 1, S) fp32, P as
+(B, H, S, S) bf16. No kernel here has dropout.
 """
 
 from __future__ import annotations
@@ -38,9 +47,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_LAUNCHES_PER_CALL = 2
+SAVEP_LAUNCHES = 0
+SAVEP_BWD_LAUNCHES = 0
+SAVEP_BWD_LAUNCHES_PER_CALL = 2
 
 _fn = None
 _bwd_fn = None
+_savep_fn = None
+_savep_bwd_fn = None
 
 
 def _check(qkv: torch.Tensor, num_heads: int) -> int:
@@ -93,6 +107,18 @@ def _kernel():
     return _fn
 
 
+def _check_cuda(tensors, what: str) -> None:
+    """Every tensor contiguous, 16-byte aligned and on qkv's CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} runs on cpu or cuda with every input on "
+                         "one device")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} needs contiguous, 16-byte aligned "
+                             "inputs")
+
+
 def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int):
     """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64.
 
@@ -102,13 +128,7 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int):
     head_dim = _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return encoder_attention_fwd_plain(qkv, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"encoder attention runs on cpu or cuda, got "
-                         f"{qkv.device}")
-    if not qkv.is_contiguous():
-        raise ValueError("encoder attention needs a contiguous qkv")
-    if qkv.data_ptr() % 16:
-        raise ValueError("encoder attention needs a 16-byte aligned qkv")
+    _check_cuda((qkv,), "encoder attention")
     b, s, three_d = qkv.shape
     out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
                       device=qkv.device)
@@ -186,14 +206,7 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int):
     tensors = (qkv, out, dout, lse)
     if all(t.device.type == "cpu" for t in tensors):
         return encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads)
-    if any(t.device != qkv.device for t in tensors) or \
-            qkv.device.type != "cuda":
-        raise ValueError("encoder attention backward runs on cpu or cuda "
-                         "with every input on one device")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("encoder attention backward needs contiguous, "
-                             "16-byte aligned inputs")
+    _check_cuda(tensors, "encoder attention backward")
     dq, dk, dv = (torch.empty_like(out) for _ in range(3))
     delta = torch.empty((b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
@@ -208,6 +221,132 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int):
         raise RuntimeError(
             f"encoder_attention_bwd kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
+    return dq, dk, dv
+
+
+def encoder_attention_fwd_savep_plain(qkv: torch.Tensor, num_heads: int):
+    """Plain PyTorch version of the save-probs forward kernel, at its
+    rounding points: fp32 scores, p = exp(s - rowmax), l = rowsum(p), the
+    normalised p / l stored as bf16 P and, rounded to v's dtype, multiplied
+    by v with fp32 sums; no division after the product. Returns (out
+    (B, S, D) in qkv's dtype, P (B, H, S, S) bf16)."""
+    q, k, v = split_heads(qkv, num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return merge_heads(o.to(qkv.dtype)), p.to(torch.bfloat16)
+
+
+def _savep_kernel():
+    global _savep_fn
+    if _savep_fn is None:
+        fn = build.load(
+            "encoder_attention_savep_fwd").arsvt_encoder_attention_savep_fwd
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _savep_fn = fn
+    return _savep_fn
+
+
+def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int):
+    """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64.
+
+    Returns (out (B, S, D) in qkv's dtype, P (B, H, S, S) bf16: the
+    normalised attention probabilities, for `encoder_attention_bwd_savep`).
+    """
+    global SAVEP_LAUNCHES
+    head_dim = _check(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        return encoder_attention_fwd_savep_plain(qkv, num_heads)
+    _check_cuda((qkv,), "save-probs attention")
+    b, s, three_d = qkv.shape
+    out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
+                      device=qkv.device)
+    probs = torch.empty((b, num_heads, s, s), dtype=torch.bfloat16,
+                        device=qkv.device)
+    fn = _savep_kernel()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), out.data_ptr(), probs.data_ptr(), b, s,
+                 num_heads, head_dim, _DTYPE_CODES[qkv.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_attention_fwd_savep kernel launch "
+                           f"failed: CUDA error {err}")
+    SAVEP_LAUNCHES += 1
+    return out, probs
+
+
+def encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads: int):
+    """Plain PyTorch version of the save-probs backward kernel, at its
+    rounding points: p = P in fp32, dP = dO v^T in fp32, delta =
+    rowsum(dP * p), dS = p (dP - delta); dS is rounded to q/k's dtype before
+    dq and dk, p to dO's dtype before dv; products summed in fp32. No
+    scores, no lse, no O. Returns (dq, dk, dv), each (B, S, D) in qkv's
+    dtype."""
+    q, k, v = split_heads(qkv, num_heads)
+    do = _heads(dout, num_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = probs.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      do.float())
+    return tuple(merge_heads(t.to(qkv.dtype)) for t in (dq, dk, dv))
+
+
+def _savep_bwd_kernel():
+    global _savep_bwd_fn
+    if _savep_bwd_fn is None:
+        fn = build.load(
+            "encoder_attention_savep_bwd").arsvt_encoder_attention_savep_bwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _savep_bwd_fn = fn
+    return _savep_bwd_fn
+
+
+def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int):
+    """Backward of `encoder_attention_fwd_savep`: qkv (B, S, 3D); P
+    (B, H, S, S) bf16 from the forward; dout (B, S, D) in qkv's dtype.
+
+    Returns (dq, dk, dv), each (B, S, D) in qkv's dtype.
+    """
+    global SAVEP_BWD_LAUNCHES
+    head_dim = _check(qkv, num_heads)
+    b, s, three_d = qkv.shape
+    if dout.shape != (b, s, three_d // 3) or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout must be {(b, s, three_d // 3)} {qkv.dtype}, "
+                         f"got {tuple(dout.shape)} {dout.dtype}")
+    if probs.shape != (b, num_heads, s, s) or probs.dtype != torch.bfloat16:
+        raise ValueError(f"probs must be {(b, num_heads, s, s)} bfloat16, "
+                         f"got {tuple(probs.shape)} {probs.dtype}")
+    tensors = (qkv, probs, dout)
+    if all(t.device.type == "cpu" for t in tensors):
+        return encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads)
+    _check_cuda(tensors, "save-probs attention backward")
+    dq, dk, dv = (torch.empty_like(dout) for _ in range(3))
+    delta = torch.empty((b, num_heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    fn = _savep_bwd_kernel()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, s, num_heads, head_dim,
+                 _DTYPE_CODES[qkv.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_attention_bwd_savep kernel launch "
+                           f"failed: CUDA error {err}")
+    SAVEP_BWD_LAUNCHES += SAVEP_BWD_LAUNCHES_PER_CALL
     return dq, dk, dv
 
 
@@ -228,24 +367,57 @@ class _FusedEncoderAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, qkv, attn, lse, wqkv, wproj = ctx.saved_tensors
-        b, s, d = y.shape
-        y2, g2, a2 = (t.reshape(b * s, d) for t in (y, g, attn))
-        # output projection
-        dwproj = a2.T @ g2
-        dbproj = g2.sum(dim=0)
-        dattn = (g2 @ wproj.T).reshape(b, s, d)
-        # attention core, then the qkv projection per column slice of the
-        # packed weight: no (B, S, 3D) cotangent is ever formed
-        dq, dk, dv = encoder_attention_bwd(
-            qkv, attn, dattn.to(attn.dtype).contiguous(), lse, ctx.num_heads)
-        slices = [t.reshape(b * s, d) for t in (dq, dk, dv)]
-        weights = (wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:])
-        dy = sum(t @ w.T for t, w in zip(slices, weights)).reshape(b, s, d)
-        dwqkv = torch.cat([y2.T @ t for t in slices], dim=1)
-        dbqkv = torch.cat([t.sum(dim=0) for t in slices])
-        dt_bqkv, dt_bproj = ctx.bias_dtypes
-        return (dy.to(y.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(dt_bqkv),
-                dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None)
+        return _encoder_attention_grads(
+            ctx, g, y, attn, wqkv, wproj,
+            lambda dattn: encoder_attention_bwd(qkv, attn, dattn, lse,
+                                                ctx.num_heads))
+
+
+def _encoder_attention_grads(ctx, g, y, attn, wqkv, wproj, core_bwd):
+    """The backward shared by both Functions: the output projection, the
+    attention core (`core_bwd`, dattn -> dq, dk, dv), then the qkv
+    projection."""
+    b, s, d = y.shape
+    g2, a2 = g.reshape(b * s, d), attn.reshape(b * s, d)
+    dwproj = a2.T @ g2
+    dbproj = g2.sum(dim=0)
+    dattn = (g2 @ wproj.T).reshape(b, s, d)
+    # the qkv projection per column slice of the packed weight: no
+    # (B, S, 3D) cotangent is ever formed
+    slices = [t.reshape(b * s, d) for t in core_bwd(
+        dattn.to(attn.dtype).contiguous())]
+    weights = (wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:])
+    dy = sum(t @ w.T for t, w in zip(slices, weights)).reshape(b, s, d)
+    y2 = y.reshape(b * s, d)
+    dwqkv = torch.cat([y2.T @ t for t in slices], dim=1)
+    dbqkv = torch.cat([t.sum(dim=0) for t in slices])
+    dt_bqkv, dt_bproj = ctx.bias_dtypes
+    return (dy.to(y.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(dt_bqkv),
+            dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None)
+
+
+class _FusedEncoderAttentionSaveP(torch.autograd.Function):
+    """Mirror of ``flash_attention.py::_enc_attn_savep_nodrop``'s custom
+    VJP (``_enc_attn_savep_fwd_impl`` / ``_enc_attn_savep_bwd_impl``):
+    saves (y, qkv, attn, P) and the weights, no lse."""
+
+    @staticmethod
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads):
+        qkv = torch.matmul(y, wqkv) + bqkv
+        attn, probs = encoder_attention_fwd_savep(qkv, num_heads)
+        out = torch.matmul(attn, wproj) + bproj
+        ctx.save_for_backward(y, qkv, attn, probs, wqkv, wproj)
+        ctx.num_heads = num_heads
+        ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, qkv, attn, probs, wqkv, wproj = ctx.saved_tensors
+        return _encoder_attention_grads(
+            ctx, g, y, attn, wqkv, wproj,
+            lambda dattn: encoder_attention_bwd_savep(qkv, probs, dattn,
+                                                      ctx.num_heads))
 
 
 def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int):
@@ -260,3 +432,13 @@ def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int):
     """
     return _FusedEncoderAttention.apply(y, wqkv, bqkv, wproj, bproj,
                                         num_heads)
+
+
+def fused_encoder_attention_savep(y, wqkv, bqkv, wproj, bproj,
+                                  num_heads: int):
+    """`fused_encoder_attention` with the save-probs backward: saves P
+    (B, H, S, S) bf16 in place of the lse, so the backward kernel skips
+    the q k^T recompute, the exp and the O operand. Same arguments and
+    result."""
+    return _FusedEncoderAttentionSaveP.apply(y, wqkv, bqkv, wproj, bproj,
+                                             num_heads)

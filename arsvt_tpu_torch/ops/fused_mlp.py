@@ -1,0 +1,234 @@
+"""Fused tanh-GELU MLP (counterpart of ``arsvt_tpu/ops/pallas/fused_mlp.py``,
+taken when ``ARSVT_ENABLE_FUSED_MLP`` is set, see ``ops/dispatch.py``).
+
+- `fused_mlp_fwd` (``_fwd`` → ``_fwd_kernel``), kernel
+  ``csrc/fused_mlp_fwd.cu``: out = gelu(x w1 + b1) w2 + b2 with the hidden
+  kept on chip, and the pre-activation u emitted in bf16;
+- `fused_mlp_bwd` (``_bwd`` → ``_bwd_dx_kernel`` and ``_bwd_dw_kernel``),
+  kernel ``csrc/fused_mlp_bwd.cu``, two launches: dx (and du in bf16), then
+  dw1, db1, dw2 in fp32, from the saved u with no product recomputed;
+- `fused_gelu_mlp`, a `torch.autograd.Function` over the two that saves
+  (x, u, w1, w2).
+
+On a CUDA tensor each wrapper launches its hand-written kernel or raises;
+on a CPU tensor it runs its ``*_plain`` version, which repeats the
+kernel's arithmetic in plain PyTorch. There is no fallback from one to the
+other. The kernels take D and M that are multiples of 8 and D <= 768
+(every ViT-B-or-smaller and DeiT-400 width).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from arsvt_tpu_torch.ops import build
+
+_C = 0.7978845608028654  # sqrt(2/pi)
+_A = 0.044715
+MAX_D = 768  # mlp_tile.cuh::kMaxD
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches in this process, counted where each wrapper launches. One
+# backward call launches two kernels (dx/du, then dw) and counts both.
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_LAUNCHES_PER_CALL = 2
+
+_fwd_fn = None
+_bwd_fn = None
+
+
+def _gelu(u: torch.Tensor) -> torch.Tensor:
+    t = torch.tanh(_C * (u + _A * u * u * u))
+    return 0.5 * u * (1.0 + t)
+
+
+def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    t = torch.tanh(_C * (u + _A * u * u * u))
+    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _C * (
+        1.0 + 3.0 * _A * u * u)
+
+
+def _check(x2d, w1, w2) -> tuple[int, int, int]:
+    """Validate shapes and types; returns (n, D, M)."""
+    if x2d.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
+        raise ValueError("fused MLP takes x (n, D), w1 (D, M), w2 (M, D)")
+    n, d = x2d.shape
+    m = w1.shape[1]
+    if w1.shape != (d, m) or w2.shape != (m, d):
+        raise ValueError(f"fused MLP shapes x {tuple(x2d.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} disagree")
+    if x2d.dtype not in _DTYPE_CODES or w1.dtype != x2d.dtype or \
+            w2.dtype != x2d.dtype:
+        raise TypeError(f"fused MLP takes x, w1 and w2 all float32 or all "
+                        f"bfloat16, got {x2d.dtype}, {w1.dtype}, {w2.dtype}")
+    if n < 1 or d % 8 or m % 8 or d < 8 or m < 8:
+        raise ValueError(f"fused MLP needs n >= 1 and D, M positive "
+                         f"multiples of 8, got n={n} D={d} M={m}")
+    return n, d, m
+
+
+def _cuda_args(tensors, d: int, what: str) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} runs on cpu or cuda with every input on "
+                         "one device")
+    if d > MAX_D:
+        raise ValueError(f"the {what} kernel takes D <= {MAX_D}, got {d}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} needs contiguous, 16-byte aligned "
+                             "inputs")
+
+
+def fused_mlp_fwd_plain(x2d, w1, b1, w2, b2):
+    """Plain PyTorch version of the forward kernel, at its rounding points:
+    u = x w1 + b1 in fp32, h = gelu(u) rounded to x's dtype, out = h w2 +
+    b2 in fp32 cast to x's dtype. Returns (out (n, D), u (n, M) bf16)."""
+    u = x2d.float() @ w1.float() + b1.float()
+    h = _gelu(u).to(x2d.dtype)
+    out = h.float() @ w2.float() + b2.float()
+    return out.to(x2d.dtype), u.to(torch.bfloat16)
+
+
+def _fwd_kernel():
+    global _fwd_fn
+    if _fwd_fn is None:
+        fn = build.load("fused_mlp_fwd").arsvt_fused_mlp_fwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fwd_fn = fn
+    return _fwd_fn
+
+
+def fused_mlp_fwd(x2d, w1, b1, w2, b2):
+    """x2d (n, D), w1 (D, M), w2 (M, D) in one of float32 and bfloat16;
+    b1 (M,) and b2 (D,) in any float dtype, added in fp32.
+
+    Returns (out (n, D) in x's dtype, u (n, M) bf16).
+    """
+    global LAUNCHES
+    n, d, m = _check(x2d, w1, w2)
+    if b1.shape != (m,) or b2.shape != (d,):
+        raise ValueError(f"biases must be ({m},) and ({d},), got "
+                         f"{tuple(b1.shape)} and {tuple(b2.shape)}")
+    if all(t.device.type == "cpu" for t in (x2d, w1, b1, w2, b2)):
+        return fused_mlp_fwd_plain(x2d, w1, b1, w2, b2)
+    b1, b2 = b1.float().contiguous(), b2.float().contiguous()
+    _cuda_args((x2d, w1, b1, w2, b2), d, "fused MLP forward")
+    out = torch.empty_like(x2d)
+    u = torch.empty((n, m), dtype=torch.bfloat16, device=x2d.device)
+    fn = _fwd_kernel()
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = fn(x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(), u.data_ptr(),
+                 n, d, m, _DTYPE_CODES[x2d.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_mlp_fwd kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out, u
+
+
+def fused_mlp_bwd_plain(x2d, u, w1, w2, dout):
+    """Plain PyTorch version of the backward kernels, at their rounding
+    points: dh = dO w2^T in fp32, du = dh gelu'(u) from the bf16 u, rounded
+    to bf16; dx = du w1^T in fp32 cast to x's dtype; h = gelu(u) rounded to
+    dO's dtype; dw1 = x^T du, db1 = sum(du), dw2 = h^T dO in fp32.
+    Returns (dx (n, D), dw1 (D, M), db1 (M,), dw2 (M, D))."""
+    uf = u.float()
+    du = ((dout.float() @ w2.float().T) * _gelu_grad(uf)).to(torch.bfloat16)
+    dx = (du.float() @ w1.float().T).to(x2d.dtype)
+    h = _gelu(uf).to(dout.dtype)
+    dw1 = x2d.float().T @ du.float()
+    db1 = du.float().sum(dim=0)
+    dw2 = h.float().T @ dout.float()
+    return dx, dw1, db1, dw2
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("fused_mlp_bwd").arsvt_fused_mlp_bwd
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def fused_mlp_bwd(x2d, u, w1, w2, dout):
+    """Backward of `fused_mlp_fwd`: x2d (n, D), u (n, M) bf16 from the
+    forward, w1 (D, M), w2 (M, D), dout (n, D) in x's dtype.
+
+    Returns (dx (n, D) in x's dtype, dw1 (D, M), db1 (M,), dw2 (M, D) in
+    fp32).
+    """
+    global BWD_LAUNCHES
+    n, d, m = _check(x2d, w1, w2)
+    if u.shape != (n, m) or u.dtype != torch.bfloat16:
+        raise ValueError(f"u must be {(n, m)} bfloat16, got "
+                         f"{tuple(u.shape)} {u.dtype}")
+    if dout.shape != (n, d) or dout.dtype != x2d.dtype:
+        raise ValueError(f"dout must be {(n, d)} {x2d.dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    tensors = (x2d, u, w1, w2, dout)
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_mlp_bwd_plain(x2d, u, w1, w2, dout)
+    _cuda_args(tensors, d, "fused MLP backward")
+    dev = x2d.device
+    dx = torch.empty_like(x2d)
+    du = torch.empty_like(u)
+    h = torch.empty((n, m), dtype=x2d.dtype, device=dev)
+    dw1 = torch.empty((d, m), dtype=torch.float32, device=dev)
+    db1 = torch.empty((m,), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((m, d), dtype=torch.float32, device=dev)
+    fn = _bwd_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x2d.data_ptr(), u.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                 dout.data_ptr(), dx.data_ptr(), du.data_ptr(), h.data_ptr(),
+                 dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), n, d, m,
+                 _DTYPE_CODES[x2d.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_mlp_bwd kernel launch failed: CUDA error {err}")
+    BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
+    return dx, dw1, db1, dw2
+
+
+class _FusedGeluMlp(torch.autograd.Function):
+    """Mirror of ``fused_mlp.py::_fused_mlp``'s custom VJP (``_vjp_fwd`` /
+    ``_vjp_bwd``): saves (x, u, w1, w2); db2 = sum(g) in fp32 outside the
+    kernel; every weight gradient is cast to its parameter's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, w1, b1, w2, b2):
+        out, u = fused_mlp_fwd(x2d, w1, b1, w2, b2)
+        ctx.save_for_backward(x2d, u, w1, w2)
+        ctx.bias_dtypes = (b1.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, u, w1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2 = fused_mlp_bwd(x2d, u, w1, w2, g.contiguous())
+        db2 = g.float().sum(dim=0)
+        dt_b1, dt_b2 = ctx.bias_dtypes
+        return (dx, dw1.to(w1.dtype), db1.to(dt_b1), dw2.to(w2.dtype),
+                db2.to(dt_b2))
+
+
+def fused_gelu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x: (..., D); w1: (D, M); w2: (M, D) -> (..., D) in x's dtype. The
+    weights are cast to x's dtype (as the JAX callers do); the biases are
+    added in fp32 from their own dtype."""
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1]).contiguous()
+    out = _FusedGeluMlp.apply(x2d, w1.to(x.dtype).contiguous(), b1,
+                              w2.to(x.dtype).contiguous(), b2)
+    return out.reshape(shape)

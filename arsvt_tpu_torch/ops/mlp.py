@@ -1,14 +1,20 @@
 """tanh-GELU MLP (counterpart of ``arsvt_tpu/ops/mlp.py``).
 
-Both products stay ``torch.matmul``, as the JAX package leaves them to
-XLA (its fused-MLP Pallas kernel is opt-in and not on this path).
-`gelu_tanh` has the JAX package's compact VJP: it saves only u and applies
-the closed-form derivative in fp32.
+By default both products stay ``torch.matmul``, as the JAX package leaves
+them to XLA, and `gelu_tanh` has the JAX package's compact VJP: it saves
+only u and applies the closed-form derivative in fp32. With
+``ARSVT_ENABLE_FUSED_MLP`` set (``ops/dispatch.py``), `gelu_mlp` runs fc1 →
+GELU → fc2 as the fused kernels of ``ops/fused_mlp.py`` instead, in
+training and eval, wherever it is called: the ViT blocks and the DETR
+head's FFN.
 """
 
 from __future__ import annotations
 
 import torch
+
+from arsvt_tpu_torch.ops.dispatch import use_fused_mlp
+from arsvt_tpu_torch.ops.fused_mlp import fused_gelu_mlp
 
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -39,8 +45,12 @@ def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
 def gelu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """x: (..., D); w1: (D, M); w2: (M, D). Returns (..., D) in x.dtype.
 
-    Each product emits x's dtype and its bias is added in that dtype.
+    Unfused, each product emits x's dtype and its bias is added in that
+    dtype; fused, the kernel's fp32 sums and bias adds round once at the
+    end (`fused_gelu_mlp`).
     """
+    if use_fused_mlp():
+        return fused_gelu_mlp(x, w1, b1, w2, b2)
     u = torch.matmul(x, w1.to(x.dtype)) + b1.to(x.dtype)
     h = gelu_tanh(u)
     return torch.matmul(h, w2.to(u.dtype)) + b2.to(u.dtype)

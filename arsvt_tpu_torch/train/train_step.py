@@ -14,9 +14,13 @@ one. The state is a dict {"params", "opt_state", "step"} updated in place
 copy of the fp32 master weights and moments on the card.
 
 Residual and positional dropout draw from ``Rng(seed, step,
-microbatch)``. Not ported yet (ROADMAP Queue A): distillation, mixup,
-RandAugment and remat (the ViT-L recipe), attention dropout at head_dim
-64 (kernels #1/#2).
+microbatch)``. The JAX package's two no-remat opt-ins route the step
+from the environment, as there (``ops/dispatch.py``):
+``ARSVT_ATTN_SAVE_PROBS`` takes the save-probs attention kernels in the
+training forward and backward, ``ARSVT_ENABLE_FUSED_MLP`` the fused-MLP
+kernels in training and eval. Not ported yet (ROADMAP Queue A):
+distillation, mixup, RandAugment and remat (the ViT-L recipe), attention
+dropout at head_dim 64 (kernels #1/#2 and #5/#6).
 """
 
 from __future__ import annotations
