@@ -1,8 +1,8 @@
 // Direct-layout encoder attention backward for Hopper (sm_90a).
 //
 // Replaces arsvt_tpu/ops/pallas/flash_attention.py::_bwd_kernel_direct
-// (called through _bwd_direct), without dropout. For each batch item b and
-// head h it reads the (S, 64) column blocks of q, k and v straight out of
+// (called through _bwd_direct), with its dropout branch. For each batch
+// item b and head h it reads the (S, 64) column blocks of q, k and v straight out of
 // the packed (B, S, 3D) projection output, and of O and dO out of (B, S, D),
 // and computes with the TPU kernel's rounding points:
 //   s = q k^T * 64^-1/2 (fp32), p = exp(s - lse),
@@ -10,7 +10,11 @@
 //   dq = (dS.to(T) k) * scale, dk = (dS.to(T)^T q) * scale, dv = p.to(T)^T dO,
 // every product summed in fp32 and cast to T at the end. dq, dk and dv are
 // written into columns h*64 of (B, S, D) outputs: no (B, S, 3D) cotangent
-// and no transpose.
+// and no transpose. With dropout (flash_attention.py:662-671) the forward's
+// mask is replayed (encoder_tile.cuh::keeps) on dP and on the p that
+// multiplies dO: dP = keep ? dP/keep_prob : 0, p_v = keep ? p/keep_prob : 0,
+// dv = p_v.to(T)^T dO; delta = rowsum(O * dO) with the dropped-out O, and
+// dS = p * (dP - delta) with the p before dropout.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the call reads qkv,
 // O, dO and lse and writes dq, dk, dv: at ViT-B (S=197, D=768, H=12) and
@@ -62,13 +66,13 @@ constexpr size_t kDkvSmemBytes =
     sizeof(float) * (2 * kRows * kStride + 2 * kCols * kStride +
                      2 * kRows * kStride + 2 * kCols);
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
                        const T* __restrict__ dout,
                        const float* __restrict__ lse, T* __restrict__ dq,
                        float* __restrict__ delta_out, int seq, int heads,
-                       float scale) {
+                       float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kRows * kStride;
@@ -79,6 +83,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t qkv_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * qkv_stride;
@@ -130,9 +135,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float ds = 0.f;
-        if (k0 + lg + 16 * j < seq) {
+        const int key = k0 + lg + 16 * j;
+        if (key < seq) {
           const float p = expf(s[i][j] - lrow[i]);
-          ds = p * (dp[i][j] - delta[i]);
+          float dpv = dp[i][j];
+          if constexpr (kDrop)
+            dpv = keeps(drop, bh, row0 + rg * 4 + i, key) ? dpv * drop.inv_keep
+                                                           : 0.f;
+          ds = p * (dpv - delta[i]);
         }
         DSs[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(ds, T());
       }
@@ -151,14 +161,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkdv_kernel(const T* __restrict__ qkv,
                          const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int seq,
-                         int heads, float scale) {
+                         int heads, float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kRows * kStride;
@@ -172,6 +182,7 @@ __global__ void __launch_bounds__(kThreads)
   const int key0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t qkv_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * qkv_stride;
@@ -211,12 +222,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = lg + 16 * j;
-        float p = 0.f, ds = 0.f;
+        float p_v = 0.f, ds = 0.f;
         if (q0 + c < seq) {
-          p = expf(s[i][j] - Ls[c]);
-          ds = p * (dp[i][j] - Ds[c]);
+          const float p = expf(s[i][j] - Ls[c]);
+          float dpv = dp[i][j];
+          p_v = p;
+          if constexpr (kDrop) {
+            const bool keep = keeps(drop, bh, q0 + c, key0 + rg * 4 + i);
+            dpv = keep ? dpv * drop.inv_keep : 0.f;
+            p_v = keep ? p * drop.inv_keep : 0.f;
+          }
+          ds = p * (dpv - Ds[c]);
         }
-        Ps[(rg * 4 + i) * kStride + c] = round_to(p, T());
+        Ps[(rg * 4 + i) * kStride + c] = round_to(p_v, T());
         DSs[(rg * 4 + i) * kStride + c] = round_to(ds, T());
       }
     __syncthreads();
@@ -237,30 +255,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch(const void* qkv, const void* out, const void* dout,
                    const void* lse, void* delta, void* dq, void* dk, void* dv,
-                   int batch, int seq, int heads, cudaStream_t stream) {
+                   int batch, int seq, int heads, Dropout drop,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmemBytes);
+      attn_bwd_dq_kernel<T, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmemBytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDkvSmemBytes);
+      attn_bwd_dkdv_kernel<T, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
   const float scale = 1.0f / sqrtf((float)kHeadDim);
-  attn_bwd_dq_kernel<T><<<grid, kThreads, kDqSmemBytes, stream>>>(
+  attn_bwd_dq_kernel<T, kDrop><<<grid, kThreads, kDqSmemBytes, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(out),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), seq, heads, scale);
+      static_cast<T*>(dq), static_cast<float*>(delta), seq, heads, scale,
+      drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<T><<<grid, kThreads, kDkvSmemBytes, stream>>>(
+  attn_bwd_dkdv_kernel<T, kDrop><<<grid, kThreads, kDkvSmemBytes, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), seq, heads, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), seq, heads, scale, drop);
   return cudaGetLastError();
 }
 
@@ -270,25 +290,33 @@ cudaError_t launch(const void* qkv, const void* out, const void* dout,
 // aligned; qkv is a contiguous (batch, seq, 3 * heads * 64) tensor, out,
 // dout, dq, dk and dv contiguous (batch, seq, heads * 64) tensors of the
 // same type, lse and delta contiguous (batch, heads, seq) fp32 (delta is
-// scratch written by the first kernel and read by the second).
+// scratch written by the first kernel and read by the second). dropout,
+// seed, threshold and inv_keep as the forward's.
 extern "C" int arsvt_encoder_attention_bwd(const void* qkv, const void* out,
                                            const void* dout, const void* lse,
                                            void* delta, void* dq, void* dk,
                                            void* dv, int batch, int seq,
-                                           int heads, int head_dim, int dtype,
-                                           void* stream) {
+                                           int heads, int head_dim,
+                                           uint32_t seed, uint32_t threshold,
+                                           float inv_keep, int dropout,
+                                           int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(qkv, out, dout, lse, delta, dq, dk, dv, batch,
-                                seq, heads, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(qkv, out, dout, lse, delta, dq, dk,
-                                        dv, batch, seq, heads, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Dropout drop{seed, threshold, inv_keep};
+  return (int)with_dropout(dropout, [&](auto flag) {
+    constexpr bool kDrop = decltype(flag)::value;
+    switch (dtype) {
+      case 0:
+        return launch<float, kDrop>(qkv, out, dout, lse, delta, dq, dk, dv,
+                                    batch, seq, heads, drop, st);
+      case 1:
+        return launch<__nv_bfloat16, kDrop>(qkv, out, dout, lse, delta, dq,
+                                            dk, dv, batch, seq, heads, drop,
+                                            st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }

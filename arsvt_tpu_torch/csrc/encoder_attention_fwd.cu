@@ -1,7 +1,8 @@
 // Direct-layout encoder attention forward for Hopper (sm_90a).
 //
 // Replaces arsvt_tpu/ops/pallas/flash_attention.py::_fwd_kernel_direct
-// (called through _fwd_direct). For each batch item b and head h it reads
+// (called through _fwd_direct), with its dropout branch. For each batch
+// item b and head h it reads
 // the (S, 64) column blocks of q, k and v straight out of the packed
 // (B, S, 3D) projection output, at columns h*64, D + h*64 and 2D + h*64,
 // and computes with the TPU kernel's arithmetic order:
@@ -10,6 +11,9 @@
 // The unnormalised p is rounded to the input type T before the product, and
 // the division by l comes after it. O is written into columns h*64 of a
 // (B, S, D) output and lse as (B, H, 1, S) fp32: no transpose either way.
+// With dropout (flash_attention.py:553-559) the unnormalised p is zeroed
+// where the mask drops and scaled by 1/keep where it keeps, before the
+// rounding to T and the product; l and lse stay the sums before dropout.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the core reads
 // B*S*3D*2 bytes and writes B*S*D*2 + B*H*S*4 bytes, and does 4*B*H*S^2*d
@@ -53,11 +57,12 @@ constexpr int kKeys = kChunk;  // keys per shared-memory chunk
 constexpr size_t kSmemBytes =
     sizeof(float) * kStride * (kRows + 2 * kKeys + kRows);
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     encoder_attention_fwd_kernel(const T* __restrict__ qkv,
                                  T* __restrict__ out, float* __restrict__ lse,
-                                 int seq, int heads, float scale) {
+                                 int seq, int heads, float scale,
+                                 Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kRows * kStride;
@@ -67,6 +72,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t row_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * row_stride;
@@ -118,9 +124,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = (k0 + lg + 16 * j < seq) ? expf(s[i][j] - m[i]) : 0.f;
+        const int key = k0 + lg + 16 * j;
+        const float p = key < seq ? expf(s[i][j] - m[i]) : 0.f;
         l[i] += p;
-        Ps[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(p, T());
+        float p_use = p;
+        if constexpr (kDrop)
+          p_use = keeps(drop, bh, row0 + rg * 4 + i, key) ? p * drop.inv_keep
+                                                           : 0.f;
+        Ps[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(p_use, T());
       }
     __syncthreads();
     accumulate(Ps, Vs, rg, lg, acc);
@@ -143,18 +154,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch(const void* qkv, void* out, void* lse, int batch, int seq,
-                   int heads, cudaStream_t stream) {
+                   int heads, Dropout drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_fwd_kernel<T>,
+      encoder_attention_fwd_kernel<T, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
   const float scale = 1.0f / sqrtf((float)kHeadDim);
-  encoder_attention_fwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out),
-      static_cast<float*>(lse), seq, heads, scale);
+  encoder_attention_fwd_kernel<T, kDrop>
+      <<<grid, kThreads, kSmemBytes, stream>>>(
+          static_cast<const T*>(qkv), static_cast<T*>(out),
+          static_cast<float*>(lse), seq, heads, scale, drop);
   return cudaGetLastError();
 }
 
@@ -162,20 +174,30 @@ cudaError_t launch(const void* qkv, void* out, void* lse, int batch, int seq,
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers, 16-byte
 // aligned; qkv is a contiguous (batch, seq, 3 * heads * head_dim) tensor.
+// dropout 0 or 1; with 1, keep iff philox_bits(seed, b * heads + h, row,
+// col) < threshold and scale kept probabilities by inv_keep.
 extern "C" int arsvt_encoder_attention_fwd(const void* qkv, void* out,
                                            void* lse, int batch, int seq,
-                                           int heads, int head_dim, int dtype,
-                                           void* stream) {
+                                           int heads, int head_dim,
+                                           uint32_t seed, uint32_t threshold,
+                                           float inv_keep, int dropout,
+                                           int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(qkv, out, lse, batch, seq, heads, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(qkv, out, lse, batch, seq, heads, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Dropout drop{seed, threshold, inv_keep};
+  return (int)with_dropout(dropout, [&](auto flag) {
+    constexpr bool kDrop = decltype(flag)::value;
+    switch (dtype) {
+      case 0:
+        return launch<float, kDrop>(qkv, out, lse, batch, seq, heads, drop,
+                                    st);
+      case 1:
+        return launch<__nv_bfloat16, kDrop>(qkv, out, lse, batch, seq, heads,
+                                            drop, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }

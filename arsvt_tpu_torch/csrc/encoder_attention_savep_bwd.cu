@@ -2,8 +2,8 @@
 // for Hopper (sm_90a).
 //
 // Replaces arsvt_tpu/ops/pallas/flash_attention.py::_bwd_kernel_direct_savep
-// (called through _bwd_direct_savep), without dropout. For each batch item
-// b and head h it reads the (S, 64) column blocks of q, k and v out of the
+// (called through _bwd_direct_savep), with its dropout branch. For each
+// batch item b and head h it reads the (S, 64) column blocks of q, k and v out of the
 // packed (B, S, 3D) projection output, of dO out of (B, S, D), and the
 // forward's normalised probabilities P (B, H, S, S) bf16, and computes with
 // the TPU kernel's rounding points:
@@ -12,6 +12,10 @@
 //   dq = (dS.to(T) k) * scale, dk = (dS.to(T)^T q) * scale, dv = p.to(T)^T dO,
 // every product summed in fp32 and cast to T at the end. There is no q k^T,
 // no exp, no lse and no O: delta = rowsum(dP * P) equals rowsum(dO * O).
+// With dropout (flash_attention.py:836-846) the forward's mask
+// (encoder_tile.cuh::keeps) is replayed on dP, dP = keep ? dP/keep_prob : 0,
+// before delta = rowsum(dP * P) and dS = P (dP - delta), both with the saved
+// P before dropout; dv = p_v.to(T)^T dO with p_v = keep ? P/keep_prob : 0.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the call reads qkv,
 // P and dO and writes dq, dk and dv: at ViT-B (S=197, D=768, H=12) and B=32
@@ -85,13 +89,13 @@ __device__ __forceinline__ void stage_probs_t(const __nv_bfloat16* p_head,
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     savep_bwd_dq_kernel(const T* __restrict__ qkv,
                         const __nv_bfloat16* __restrict__ probs,
                         const T* __restrict__ dout, T* __restrict__ dq,
                         float* __restrict__ delta_out, int seq, int heads,
-                        float scale) {
+                        float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* dOs = smem;
   float* Ks = dOs + kRows * kStride;
@@ -102,6 +106,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t qkv_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * qkv_stride;
@@ -116,6 +121,15 @@ __global__ void __launch_bounds__(kThreads)
 
   stage(dout + o_off, row0, kRows, seq, d_model, dOs);
 
+  // dP where the mask keeps (scaled), else 0
+  auto masked = [&](float dp, int i, int j, int k0) {
+    if constexpr (kDrop)
+      return keeps(drop, bh, row0 + rg * 4 + i, k0 + lg + 16 * j)
+                 ? dp * drop.inv_keep
+                 : 0.f;
+    return dp;
+  };
+
   // pass 1: delta = rowsum(dP * P) in fp32
   float delta[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k0 = 0; k0 < seq; k0 += kCols) {
@@ -129,8 +143,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        delta[i] = fmaf(dp[i][j], Ps[(rg * 4 + i) * kStride + lg + 16 * j],
-                        delta[i]);
+        delta[i] = fmaf(masked(dp[i][j], i, j, k0),
+                        Ps[(rg * 4 + i) * kStride + lg + 16 * j], delta[i]);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -161,7 +175,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int at = (rg * 4 + i) * kStride + lg + 16 * j;
-        DSs[at] = round_to(Ps[at] * (dp[i][j] - delta[i]), T());
+        DSs[at] = round_to(Ps[at] * (masked(dp[i][j], i, j, k0) - delta[i]),
+                           T());
       }
     __syncthreads();
     accumulate(DSs, Ks, rg, lg, acc);
@@ -178,14 +193,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     savep_bwd_dkdv_kernel(const T* __restrict__ qkv,
                           const __nv_bfloat16* __restrict__ probs,
                           const T* __restrict__ dout,
                           const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int seq,
-                          int heads, float scale) {
+                          int heads, float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kRows * kStride;
@@ -198,6 +213,7 @@ __global__ void __launch_bounds__(kThreads)
   const int key0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t qkv_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * qkv_stride;
@@ -236,7 +252,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 4; ++j) {
         const int c = lg + 16 * j;
         const int at = (rg * 4 + i) * kStride + c;
-        DSs[at] = round_to(Ps[at] * (dp[i][j] - Ds[c]), T());
+        float dpv = dp[i][j];
+        if constexpr (kDrop) {
+          // this thread alone reads and writes entry `at` of P^T: dS takes
+          // the saved P, dv the dropped-out p_v in its place
+          const bool keep = keeps(drop, bh, q0 + c, key0 + rg * 4 + i);
+          dpv = keep ? dpv * drop.inv_keep : 0.f;
+          DSs[at] = round_to(Ps[at] * (dpv - Ds[c]), T());
+          Ps[at] = round_to(keep ? Ps[at] * drop.inv_keep : 0.f, T());
+        } else {
+          DSs[at] = round_to(Ps[at] * (dpv - Ds[c]), T());
+        }
       }
     __syncthreads();
     accumulate(Ps, dOs, rg, lg, dv_acc);
@@ -256,30 +282,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch(const void* qkv, const void* probs, const void* dout,
                    void* delta, void* dq, void* dk, void* dv, int batch,
-                   int seq, int heads, cudaStream_t stream) {
+                   int seq, int heads, Dropout drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      savep_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDqSmemBytes);
+      savep_bwd_dq_kernel<T, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmemBytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      savep_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDkvSmemBytes);
+      savep_bwd_dkdv_kernel<T, kDrop>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
   const float scale = 1.0f / sqrtf((float)kHeadDim);
   const auto* p = static_cast<const __nv_bfloat16*>(probs);
-  savep_bwd_dq_kernel<T><<<grid, kThreads, kDqSmemBytes, stream>>>(
+  savep_bwd_dq_kernel<T, kDrop><<<grid, kThreads, kDqSmemBytes, stream>>>(
       static_cast<const T*>(qkv), p, static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<float*>(delta), seq, heads, scale);
+      static_cast<T*>(dq), static_cast<float*>(delta), seq, heads, scale,
+      drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  savep_bwd_dkdv_kernel<T><<<grid, kThreads, kDkvSmemBytes, stream>>>(
+  savep_bwd_dkdv_kernel<T, kDrop><<<grid, kThreads, kDkvSmemBytes, stream>>>(
       static_cast<const T*>(qkv), p, static_cast<const T*>(dout),
       static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), seq, heads, scale);
+      static_cast<T*>(dv), seq, heads, scale, drop);
   return cudaGetLastError();
 }
 
@@ -290,23 +317,29 @@ cudaError_t launch(const void* qkv, const void* probs, const void* dout,
 // contiguous (batch, heads, seq, seq) bfloat16 tensor, dout, dq, dk and dv
 // contiguous (batch, seq, heads * 64) tensors of qkv's type, delta a
 // contiguous (batch, heads, seq) fp32 scratch written by the first kernel
-// and read by the second.
+// and read by the second. dropout, seed, threshold and inv_keep as the
+// forward's.
 extern "C" int arsvt_encoder_attention_savep_bwd(
     const void* qkv, const void* probs, const void* dout, void* delta,
     void* dq, void* dk, void* dv, int batch, int seq, int heads,
-    int head_dim, int dtype, void* stream) {
+    int head_dim, uint32_t seed, uint32_t threshold, float inv_keep,
+    int dropout, int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(qkv, probs, dout, delta, dq, dk, dv, batch,
-                                seq, heads, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(qkv, probs, dout, delta, dq, dk, dv,
-                                        batch, seq, heads, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Dropout drop{seed, threshold, inv_keep};
+  return (int)with_dropout(dropout, [&](auto flag) {
+    constexpr bool kDrop = decltype(flag)::value;
+    switch (dtype) {
+      case 0:
+        return launch<float, kDrop>(qkv, probs, dout, delta, dq, dk, dv,
+                                    batch, seq, heads, drop, st);
+      case 1:
+        return launch<__nv_bfloat16, kDrop>(qkv, probs, dout, delta, dq, dk,
+                                            dv, batch, seq, heads, drop, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }

@@ -2,8 +2,8 @@
 // probabilities, for Hopper (sm_90a).
 //
 // Replaces arsvt_tpu/ops/pallas/flash_attention.py::_fwd_kernel_direct_savep
-// (called through _fwd_direct_savep), without dropout. For each batch item
-// b and head h it reads the (S, 64) column blocks of q, k and v straight out
+// (called through _fwd_direct_savep), with its dropout branch. For each
+// batch item b and head h it reads the (S, 64) column blocks of q, k and v straight out
 // of the packed (B, S, 3D) projection output and computes with the TPU
 // kernel's rounding points:
 //   s = q k^T * 64^-1/2 (fp32), m = rowmax(s), p = exp(s - m), l = rowsum(p),
@@ -11,7 +11,10 @@
 //   O = P.to(T) v accumulated in fp32 and cast to T.
 // Unlike kernel #1 (encoder_attention_fwd.cu), p is normalised before the
 // product and O is not divided afterwards, so the row's max and sum must be
-// known before any of O.
+// known before any of O. With dropout (flash_attention.py:762-769) P is
+// written before the mask; the P that multiplies v is then zeroed where the
+// mask (encoder_tile.cuh::keeps) drops and scaled by 1/keep where it keeps,
+// before its rounding to T.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the call reads
 // B*S*3D*2 bytes and writes B*S*D*2 + B*H*S^2*2 bytes, and does
@@ -51,12 +54,13 @@ constexpr int kKeys = kChunk;  // keys per shared-memory chunk
 constexpr size_t kSmemBytes =
     sizeof(float) * kStride * (kRows + 2 * kKeys + kRows);
 
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     encoder_attention_savep_fwd_kernel(const T* __restrict__ qkv,
                                        T* __restrict__ out,
                                        __nv_bfloat16* __restrict__ probs,
-                                       int seq, int heads, float scale) {
+                                       int seq, int heads, float scale,
+                                       Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kRows * kStride;
@@ -66,6 +70,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const uint32_t bh = (uint32_t)(b * heads + h);
   const int d_model = heads * kHeadDim;
   const int64_t row_stride = 3 * (int64_t)d_model;
   const T* base = qkv + (int64_t)b * seq * row_stride;
@@ -142,7 +147,10 @@ __global__ void __launch_bounds__(kThreads)
         const float p = key < seq ? expf(s[i][j] - m[i]) / l[i] : 0.f;
         if (row < seq && key < seq)
           p_base[(int64_t)row * seq + key] = __float2bfloat16(p);
-        Ps[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(p, T());
+        float p_use = p;
+        if constexpr (kDrop)
+          p_use = keeps(drop, bh, row, key) ? p * drop.inv_keep : 0.f;
+        Ps[(rg * 4 + i) * kStride + lg + 16 * j] = round_to(p_use, T());
       }
     }
     __syncthreads();
@@ -158,19 +166,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 cudaError_t launch(const void* qkv, void* out, void* probs, int batch,
-                   int seq, int heads, cudaStream_t stream) {
+                   int seq, int heads, Dropout drop, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_savep_fwd_kernel<T>,
+      encoder_attention_savep_fwd_kernel<T, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
   const float scale = 1.0f / sqrtf((float)kHeadDim);
-  encoder_attention_savep_fwd_kernel<T><<<grid, kThreads, kSmemBytes,
-                                          stream>>>(
+  encoder_attention_savep_fwd_kernel<T, kDrop><<<grid, kThreads, kSmemBytes,
+                                                 stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out),
-      static_cast<__nv_bfloat16*>(probs), seq, heads, scale);
+      static_cast<__nv_bfloat16*>(probs), seq, heads, scale, drop);
   return cudaGetLastError();
 }
 
@@ -179,23 +187,29 @@ cudaError_t launch(const void* qkv, void* out, void* probs, int batch,
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers, 16-byte
 // aligned; qkv is a contiguous (batch, seq, 3 * heads * 64) tensor, out a
 // contiguous (batch, seq, heads * 64) tensor of the same type, probs a
-// contiguous (batch, heads, seq, seq) bfloat16 tensor.
-extern "C" int arsvt_encoder_attention_savep_fwd(const void* qkv, void* out,
-                                                 void* probs, int batch,
-                                                 int seq, int heads,
-                                                 int head_dim, int dtype,
-                                                 void* stream) {
+// contiguous (batch, heads, seq, seq) bfloat16 tensor. dropout 0 or 1;
+// with 1, keep iff philox_bits(seed, b * heads + h, row, col) < threshold
+// and scale kept probabilities by inv_keep.
+extern "C" int arsvt_encoder_attention_savep_fwd(
+    const void* qkv, void* out, void* probs, int batch, int seq, int heads,
+    int head_dim, uint32_t seed, uint32_t threshold, float inv_keep,
+    int dropout, int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch<float>(qkv, out, probs, batch, seq, heads, st);
-    case 1:
-      return (int)launch<__nv_bfloat16>(qkv, out, probs, batch, seq, heads,
-                                        st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Dropout drop{seed, threshold, inv_keep};
+  return (int)with_dropout(dropout, [&](auto flag) {
+    constexpr bool kDrop = decltype(flag)::value;
+    switch (dtype) {
+      case 0:
+        return launch<float, kDrop>(qkv, out, probs, batch, seq, heads, drop,
+                                    st);
+      case 1:
+        return launch<__nv_bfloat16, kDrop>(qkv, out, probs, batch, seq,
+                                            heads, drop, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }

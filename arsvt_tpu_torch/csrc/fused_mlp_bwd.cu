@@ -22,8 +22,9 @@
 //      one block of 8 warps per 48 rows (16 in fp32) keeps its rows of dO
 //      in shared memory, walks M in chunks of 128, forms du for its chunk
 //      (stored as bf16, and kept in shared memory as the left operand) and
-//      accumulates du w1^T for all D columns in registers; w2 and w1
-//      stream through a ring of 128 x 64 tiles.
+//      accumulates du w1^T for all D columns in registers (D > 768: for its
+//      slice of ceil(D / 768) equal slices); w2 and w1 stream through a
+//      ring of 128 x 64 tiles.
 //   2. dw_kernel: one block of 8 warps per 64 x 64 tile of dw1 (blockIdx.z
 //      = 0) or of dw2 (blockIdx.z = 1) walks all n rows in steps of 32,
 //      copying the rows of x and du (or h and dO) as they lie through a
@@ -206,13 +207,15 @@ extern "C" int arsvt_fused_mlp_bwd(const void* x, const void* u,
                                    void* h, void* dw1, void* db1, void* dw2,
                                    int n, int D, int M, int dtype,
                                    void* stream) {
-  if (!mlp::shapes_ok(n, D, M)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
+      if (!mlp::shapes_ok<float>(n, D, M)) return (int)cudaErrorInvalidValue;
       return (int)launch<float>(x, u, w1, w2, dout, dx, du, h, dw1, db1, dw2,
                                 n, D, M, st);
     case 1:
+      if (!mlp::shapes_ok<__nv_bfloat16>(n, D, M))
+        return (int)cudaErrorInvalidValue;
       return (int)launch<__nv_bfloat16>(x, u, w1, w2, dout, dx, du, h, dw1,
                                         db1, dw2, n, D, M, st);
     default:

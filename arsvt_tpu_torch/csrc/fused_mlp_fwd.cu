@@ -14,7 +14,9 @@
 // 9.7 + 4.7 + 4.7 + 9.7 + 38.7 = 67.5 MB, 20.2 us: bound by operations.
 //
 // Design: mlp_tile.cuh's row-tile kernel. One block of 8 warps owns 48
-// rows (16 in fp32) and all D output columns, keeps its rows of x in
+// rows (16 in fp32) and all D output columns (D > 768: one of
+// ceil(D / 768) equal slices of them, each block of a row tile redoing
+// u for its slice's product), keeps its rows of x in
 // shared memory and walks M in chunks of 128. Per chunk it computes u for
 // its rows x 128 tile over D, writes u as bf16, puts gelu(u) in T into
 // shared memory, and adds h w2 for the chunk into an fp32 accumulator of
@@ -29,7 +31,8 @@
 //
 // C interface: arsvt_fused_mlp_fwd launches on the given stream, allocates
 // nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
-// arguments it does not take).
+// arguments it does not take); arsvt_fused_mlp_max_d gives the largest D
+// that both fused-MLP kernels take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,15 +64,29 @@ extern "C" int arsvt_fused_mlp_fwd(const void* x, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, void* out, void* u, int n,
                                    int D, int M, int dtype, void* stream) {
-  if (!mlp::shapes_ok(n, D, M)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
+      if (!mlp::shapes_ok<float>(n, D, M)) return (int)cudaErrorInvalidValue;
       return (int)launch<float>(x, w1, b1, w2, b2, out, u, n, D, M, st);
     case 1:
+      if (!mlp::shapes_ok<__nv_bfloat16>(n, D, M))
+        return (int)cudaErrorInvalidValue;
       return (int)launch<__nv_bfloat16>(x, w1, b1, w2, b2, out, u, n, D, M,
                                         st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dtype as above; 0 for a dtype the kernels do not take.
+extern "C" int arsvt_fused_mlp_max_d(int dtype) {
+  switch (dtype) {
+    case 0:
+      return mlp::max_d<float>();
+    case 1:
+      return mlp::max_d<__nv_bfloat16>();
+    default:
+      return 0;
   }
 }

@@ -228,24 +228,31 @@ __device__ __forceinline__ void warp_mma(float (&acc)[kM][kN][4],
 // ------------------------------------------------------ the row-tile kernel
 //
 // One block of 256 threads (8 warps) owns R rows (48 in bf16, 16 in fp32)
-// and all D columns of the output. Its R rows of A (R x D) are staged once
-// and stay in shared memory; it walks M in chunks of 128:
+// and one slice of the output's columns: all D of them when D <= 768,
+// else blockIdx.y's share of ceil(D / 768) equal slices of 128-column
+// groups (at most kMaxNg groups, so the accumulator keeps its register
+// budget). Its R rows of A (R x D, the full depth) are staged once and stay
+// in shared memory; it walks M in chunks of 128:
 //   G1: C = A[rows] (R x D) . W_a chunk (D x 128), in depth steps of 64;
 //   epilogue on C (R x 128): forward u = C + b1, stored as bf16, h =
 //     gelu(u) rounded to T into shared memory (Hs), never to device
 //     memory; backward du = C * gelu'(u) from the saved bf16 u, stored as
 //     bf16 and, as bf16, into Hs, and h = gelu(u) rounded to T stored for
 //     the dw launch (one tanh gives both);
-//   G2: Out (R x D) += Hs (R x 128) . W_b chunk (128 x D), one 128-column
-//     output group at a time in two depth halves of 64, the accumulator in
-//     registers across all of M.
+//   G2: Out (R x slice) += Hs (R x 128) . W_b chunk (128 x slice), one
+//     128-column output group at a time in two depth halves of 64, the
+//     accumulator in registers across all of M.
+// A block of a second slice redoes G1 and its epilogue (the TPU kernel
+// keeps the whole D in one block; this is the simple way past the
+// register budget) and leaves u, du and h to the blocks of slice 0.
 // Every step of G1 and G2 reads one 64 (depth) x 128 tile of a weight,
 // copied from device memory as it lies there (cp.async, 16-byte vectors)
 // into a ring of S slots (6 in bf16, 3 in fp32), S - 1 tiles ahead of the
 // one in use; the MMA reads [k][n] tiles through ldmatrix.trans, so no tile
 // is transposed on the way in. Warp w computes columns 16w .. 16w + 15 of
-// each 128-column group of C and of Out, ng = ceil(D / 128) <= kMaxNg
-// groups, so D <= 768. Forward (#8, fused_mlp.py::_fwd_kernel): A = x, W_a
+// each 128-column group of C and of Out. The staged rows of A bound D:
+// row_tile_smem_bytes must fit the 227 KB a block can have (D <= 1,088 in
+// bf16, 1,728 in fp32). Forward (#8, fused_mlp.py::_fwd_kernel): A = x, W_a
 // = w1 (D, M), W_b = w2 (M, D), out = acc + b2. Backward dx/du (#9's first
 // launch, _bwd_dx_kernel): A = dO, W_a = w2^T, W_b = w1^T, dx = acc. At
 // ViT-B's n = 6,304, 48-row blocks make 132 blocks: one wave on the H100's
@@ -254,8 +261,8 @@ __device__ __forceinline__ void warp_mma(float (&acc)[kM][kN][4],
 constexpr int kRowThreads = 256;
 constexpr int kDepth = 64;   // depth of a weight tile
 constexpr int kChunk = 128;  // M per chunk, and columns per output group
-constexpr int kMaxNg = 6;    // D <= 6 x 128 = 768
-constexpr int kMaxD = kMaxNg * kChunk;
+constexpr int kMaxNg = 6;    // output groups per block: 6 x 128 = 768 columns
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
 // Row strides of the staged tiles, 8 elements past their width: 16-byte
 // aligned, conflict-free ldmatrix rows.
 constexpr int kLdKN = kChunk + 8;  // a [k][n] tile: 64 x 128
@@ -296,7 +303,12 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   constexpr int kLdW = kBwd ? kLdNK : kLdKN;  // weight tiles: [n][k] or [k][n]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nk = (D + kDepth - 1) / kDepth;  // G1 depth steps
-  const int ng = (D + kChunk - 1) / kChunk;  // G2 output groups
+  // G2 output groups: this block's slice of the ceil(D / 128)
+  const int ng_all = (D + kChunk - 1) / kChunk;
+  const int per_slice = (ng_all + gridDim.y - 1) / gridDim.y;  // <= kMaxNg
+  const int grp0 = blockIdx.y * per_slice;
+  const int ng = min(per_slice, ng_all - grp0);
+  const bool writer = blockIdx.y == 0;  // stores u (fwd) or du and h (bwd)
   const int ldx = nk * kDepth + 8;
   T* Xs = reinterpret_cast<T*>(smem_raw);  // kRows x ldx, zeros past D, n
   T* Hs = Xs + kRows * ldx;                // kRows x kLdKN
@@ -323,7 +335,8 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           copy_tile_async<kRowThreads>(dst, kLdW, wa + (int64_t)k0 * M + c0,
                                        M, kDepth, kChunk, D - k0, M - c0);
       } else {  // G2 into output columns d0 .., at depth c0 + h0
-        const int d0 = (s - nk) / 2 * kChunk, h0 = (s - nk) % 2 * kDepth;
+        const int d0 = (grp0 + (s - nk) / 2) * kChunk;
+        const int h0 = (s - nk) % 2 * kDepth;
         if (kBwd)  // (n = d, k = c) = w1[d][c]
           copy_tile_async<kRowThreads>(dst, kLdW,
                                        wb + (int64_t)d0 * M + c0 + h0, M,
@@ -393,7 +406,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
             if (!kBwd) {
               const float u0 = acc[m][i][2 * p] + b1[col];
               const float u1 = acc[m][i][2 * p + 1] + b1[col + 1];
-              if (row < n) store2(u_out + at, u0, u1);
+              if (writer && row < n) store2(u_out + at, u0, u1);
               h0 = gelu(u0);
               h1 = gelu(u1);
             } else if (row < n) {
@@ -404,8 +417,10 @@ __global__ void __launch_bounds__(kRowThreads, 1)
               const float dg1 = gelu_and_grad(uf.y, &g1);
               const __nv_bfloat162 du = __floats2bfloat162_rn(
                   acc[m][i][2 * p] * dg0, acc[m][i][2 * p + 1] * dg1);
-              *reinterpret_cast<__nv_bfloat162*>(u_out + at) = du;
-              store2(h_out + at, g0, g1);
+              if (writer) {
+                *reinterpret_cast<__nv_bfloat162*>(u_out + at) = du;
+                store2(h_out + at, g0, g1);
+              }
               const float2 duf = __bfloat1622float2(du);
               h0 = duf.x;
               h1 = duf.y;
@@ -438,7 +453,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const int row = row0 + m * 16 + g + 8 * p;
-          const int col = j * kChunk + warp * 16 + i * 8 + 2 * t;
+          const int col = (grp0 + j) * kChunk + warp * 16 + i * 8 + 2 * t;
           if (row >= n || col >= D) continue;  // D is even
           float v0 = acc_o[j][m][i][2 * p], v1 = acc_o[j][m][i][2 * p + 1];
           if (!kBwd) {
@@ -451,7 +466,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 }
 
 // Launch the row-tile kernel on `stream`: one block per 48 (bf16) or 16
-// (fp32) rows.
+// (fp32) rows and slice of at most kMaxNg output groups.
 template <typename T, bool kBwd>
 cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
                             const float* b1, const float* b2,
@@ -464,17 +479,28 @@ cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
       (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int kRows = 16 * RowTile<T>::kMTiles;
-  const dim3 grid((n + kRows - 1) / kRows);
+  const int groups = (D + kChunk - 1) / kChunk;
+  const dim3 grid((n + kRows - 1) / kRows, (groups + kMaxNg - 1) / kMaxNg);
   row_tile_kernel<T, kBwd><<<grid, kRowThreads, smem, stream>>>(
       a, wa, wb, b1, b2, u_in, u_out, h_out, out, n, D, M);
   return cudaGetLastError();
 }
 
+// The largest D whose staged rows fit the row-tile kernel's shared memory:
+// 1,088 in bf16, 1,728 in fp32.
+template <typename T>
+int max_d() {
+  int nk = 1;
+  while (row_tile_smem_bytes<T>(nk + 1) <= kMaxSmem) ++nk;
+  return nk * kDepth;
+}
+
 // Shapes every fused-MLP entry point takes: n >= 1 rows, D and M positive
-// multiples of 8, D <= kMaxD.
-inline bool shapes_ok(int n, int D, int M) {
+// multiples of 8 (16-byte cp.async rows), and D up to max_d.
+template <typename T>
+bool shapes_ok(int n, int D, int M) {
   return n >= 1 && D >= 8 && M >= 8 && D % 8 == 0 && M % 8 == 0 &&
-         D <= kMaxD;
+         D <= max_d<T>();
 }
 
 }  // namespace mlp

@@ -19,15 +19,22 @@ two-tap weights (``torch.einsum``; XLA's dots in JAX), chunked over
 columns and rows as JAX chunks them. Boxes move through the affine matrix
 itself (the ellipse or corner rule) and lose validity as JAX's.
 
+JAX's warp switches are read from the environment at each call:
+``ARSVT_SHEAR_MAXSKEW`` sizes the shear warp's pad (JAX reads it once, at
+import) and ``ARSVT_WARP_VARIANT`` names the warp where the config leaves
+``warp_variant`` empty; a variant other than ``shear_matmul`` raises.
+
 Not ported yet: RandAugment, color jitter in the classification pipeline,
 the gather warps and Lanczos-4, and the bf16 augmentation opt-in
-(``ARSVT_AUGMENT_BF16``) — the ViT-L recipe (ROADMAP Queue A).
+(``ARSVT_AUGMENT_BF16``, which raises) — the ViT-L recipe (ROADMAP Queue
+A item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -356,11 +363,14 @@ def affine_matrix(h: int, w: int, theta_deg, scale, translate, shear_deg):
     return out
 
 
-# the shear warp's intermediate canvas covers |x shear| up to this skew
-# (JAX's default ``ARSVT_SHEAR_MAXSKEW``)
-_SHEAR_MAX_SKEW = 1.75
 _PASS2_COLS = 128
 _PASS3_ROWS = 32
+
+
+def shear_max_skew() -> float:
+    """The |x shear| the shear warp's intermediate canvas covers:
+    ``ARSVT_SHEAR_MAXSKEW``, 1.75 by default, as in JAX."""
+    return float(os.environ.get("ARSVT_SHEAR_MAXSKEW", "1.75"))
 
 
 def _band_weights(pos, n: int):
@@ -384,7 +394,7 @@ def shear_matmul_warp(images, inv):
     m10, m11, m12 = m[:, 1, 0], m[:, 1, 1], m[:, 1, 2]
     b3 = m01 / m00
     a2 = m11 - m10 * b3
-    pad = int(np.ceil(_SHEAR_MAX_SKEW * max(h, w)))
+    pad = int(np.ceil(shear_max_skew() * max(h, w)))
     wp = w + 2 * pad
     dev = images.device
 
@@ -566,14 +576,25 @@ class DetectionDraws:
                          for f in dataclasses.fields(self))))
 
 
+def warp_variant(cfg: DetectionAugmentConfig) -> str:
+    """The bilinear warp JAX's `_bilinear_warp` takes: the config's, else
+    ``ARSVT_WARP_VARIANT``, else ``shear_matmul``."""
+    return cfg.warp_variant or os.environ.get("ARSVT_WARP_VARIANT",
+                                              "shear_matmul")
+
+
 def check_detection_supported(cfg: DetectionAugmentConfig) -> None:
-    if cfg.interpolation != "bilinear" or cfg.warp_variant not in (
-            "", "shear_matmul"):
+    variant = warp_variant(cfg)
+    if cfg.interpolation != "bilinear" or variant != "shear_matmul":
         raise NotImplementedError(
             f"detection augmentation with interpolation="
-            f"{cfg.interpolation!r}, warp_variant={cfg.warp_variant!r} is "
-            "not ported yet: the port resamples with the shear warp only "
-            "(ROADMAP Queue A, the ViT-L recipe's warps)")
+            f"{cfg.interpolation!r}, warp variant {variant!r} is not ported "
+            "yet: the port resamples with the shear warp only (ROADMAP "
+            "Queue A item 8, the ViT-L recipe's warps)")
+    if os.environ.get("ARSVT_AUGMENT_BF16"):
+        raise NotImplementedError(
+            "ARSVT_AUGMENT_BF16 (the warp and the ops after it in bf16) is "
+            "not ported yet (ROADMAP Queue A item 8, the ViT-L recipe)")
 
 
 def draw_detection_augment(gen: torch.Generator, n: int,

@@ -21,9 +21,9 @@ A training forward takes an explicit `rng` (``core/prng.py::Rng``) in
 place of JAX's key: positional dropout from ``rng.fold_in(0)``, layer i
 from ``rng.fold_in(1, i)`` with its attention-residual, MLP-residual and
 attention-probability sites at ``fold_in(0)``, ``(1)`` and ``(2)``.
-Without an rng nothing is dropped, as in JAX. Not ported (raising): remat,
-and attention dropout at head_dim 64, whose kernels (on both routes) have
-no dropout yet.
+Without an rng nothing is dropped, as in JAX. Attention dropout runs in
+the kernels on every route, seeded from the probability site's
+``seed32()``. Not ported (raising): remat.
 """
 
 from __future__ import annotations
@@ -154,10 +154,13 @@ def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
     wproj, bproj = (attn_p["proj"][k].to(y.dtype)
                     for k in ("kernel", "bias"))
     if cfg.head_dim == SUPPORTED_HEAD_DIM:
+        attn_dropping = train and cfg.attn_dropout > 0.0 and kp is not None
         fused = (fused_encoder_attention_savep
                  if train and use_attn_save_probs()
                  else fused_encoder_attention)
-        attn = fused(y, wqkv, bqkv, wproj, bproj, cfg.num_heads)
+        attn = fused(y, wqkv, bqkv, wproj, bproj, cfg.num_heads,
+                     dropout_rate=cfg.attn_dropout if attn_dropping else 0.0,
+                     dropout_rng=kp)
     else:
         attn = self_attention_from_qkv(
             torch.matmul(y, wqkv) + bqkv, cfg.num_heads,
@@ -174,13 +177,6 @@ def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
 
 def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
     """Raise for the training features this port does not have yet."""
-    if cfg.attn_dropout > 0.0 and cfg.head_dim == SUPPORTED_HEAD_DIM:
-        raise NotImplementedError(
-            f"training with attn_dropout={cfg.attn_dropout} at head_dim "
-            f"{SUPPORTED_HEAD_DIM} is not ported yet: the encoder-attention "
-            "kernels have no dropout, on the default route (#1/#2) or the "
-            "save-probs one (#5/#6) (ROADMAP Queue A, dropout in kernels "
-            "#1/#2/#5/#6)")
     if remat:
         raise NotImplementedError(
             "remat is not ported yet (ROADMAP Queue A, the ViT-L recipe)")
@@ -193,8 +189,7 @@ def apply_backbone(params: dict, images: torch.Tensor,
     after the final LN (special tokens first; heads pick what they use).
 
     `train` with an `rng` applies the config's positional, residual and
-    attention dropout (see the module docstring); it raises for attention
-    dropout at head_dim 64.
+    attention dropout (see the module docstring).
     """
     if train:
         check_train_supported(cfg)

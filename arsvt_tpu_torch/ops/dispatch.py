@@ -11,7 +11,10 @@ the same environment variables at call time.
 
 The JAX package also gates both on ``use_pallas()`` (a TPU backend or
 ``ARSVT_FORCE_PALLAS``). The port honours them on any device, so a CPU
-run takes the same route through the kernels' plain versions.
+run takes the same route through the kernels' plain versions, and
+``ARSVT_DISABLE_PALLAS=1`` turns both off, as it turns off ``use_pallas()``
+in JAX. The port's default-route kernels (#1/#2, #3/#4, AdamW) are not
+Pallas and keep running under it.
 """
 
 from __future__ import annotations
@@ -19,9 +22,15 @@ from __future__ import annotations
 import os
 
 
+def _opt_in(name: str) -> bool:
+    if os.environ.get("ARSVT_DISABLE_PALLAS"):
+        return False
+    return bool(os.environ.get(name))
+
+
 def use_attn_save_probs() -> bool:
-    return bool(os.environ.get("ARSVT_ATTN_SAVE_PROBS"))
+    return _opt_in("ARSVT_ATTN_SAVE_PROBS")
 
 
 def use_fused_mlp() -> bool:
-    return bool(os.environ.get("ARSVT_ENABLE_FUSED_MLP"))
+    return _opt_in("ARSVT_ENABLE_FUSED_MLP")

@@ -20,6 +20,7 @@ generator on the tensor's device (XLA ops in JAX, so no kernel here).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PHILOX_M0 = 0xD2511F53
@@ -35,6 +36,35 @@ def keep_threshold(rate: float) -> int:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     return min(int((1.0 - rate) * 2**32), 2**32 - 1)
+
+
+def inv_keep(rate: float) -> float:
+    """1/(1 - rate) rounded to fp32: JAX multiplies by the Python
+    constant, which the fp32 product rounds so."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+def apply_mask(x: torch.Tensor, keep: torch.Tensor, rate: float):
+    """x where kept, scaled by 1/(1 - rate); 0 where dropped."""
+    return torch.where(keep, x * inv_keep(rate), torch.zeros_like(x))
+
+
+def kernel_args(rate: float, seed: int) -> tuple:
+    """(seed, threshold, inv_keep, dropout flag): the attention kernels'
+    C arguments for one call; no dropout at rate 0."""
+    if rate > 0.0:
+        return (int(seed) & 0xFFFFFFFF, keep_threshold(rate), inv_keep(rate),
+                1)
+    return 0, 0, 1.0, 0
+
+
+def call_dropout(rate: float, rng) -> tuple[float, int]:
+    """(rate, seed) of one attention call: dropout only with a rate and an
+    rng (a ``core/prng.py::Rng``), as JAX drops only with a rate and a key;
+    the seed is the rng's `seed32`, taken on the host."""
+    if rate > 0.0 and rng is not None:
+        return float(rate), rng.seed32()
+    return 0.0, 0
 
 
 def _mulhilo(m: int, x: torch.Tensor):

@@ -24,7 +24,15 @@ on a CPU tensor it runs its ``*_plain`` version, which repeats the
 kernel's arithmetic in plain PyTorch. There is no fallback from one to the
 other. Layouts are the JAX ones: O, dq, dk and dv as (B, S, D) with head h
 in columns h*d .. h*d+d, the log-sum-exp as (B, H, 1, S) fp32, P as
-(B, H, S, S) bf16. No kernel here has dropout.
+(B, H, S, S) bf16.
+
+Attention dropout (``dropout_rate`` > 0, the TPU kernels' dropout
+branches): every kernel and plain version takes ``dropout_rate`` and
+``seed`` and draws ``ops/dropout.py``'s Philox mask keyed on (seed, b·H +
+h) with counter (query row, key column), the mask of the head-major
+kernels; the Functions carry (rate, seed) from the forward to the
+backward, and the seed is the ``kp`` site's ``Rng.seed32()``, taken on the
+host. l, lse and P are the values before dropout.
 """
 
 from __future__ import annotations
@@ -36,6 +44,13 @@ import torch
 
 from arsvt_tpu_torch.ops import build
 from arsvt_tpu_torch.ops.attention import merge_heads, split_heads
+from arsvt_tpu_torch.ops.dropout import (
+    apply_mask,
+    call_dropout,
+    kernel_args,
+    keep_mask,
+    keep_threshold,
+)
 
 SUPPORTED_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,13 +58,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Kernel launches in this process: each wrapper adds to its own count where
 # it launches and nowhere else, so a run can show that its path went
 # through the kernels. One backward call launches two kernels (dq, then
-# dk/dv) and counts both.
+# dk/dv) and counts both. The DROPOUT_ counts add, beside those, the
+# launches that ran the dropout branch (dropout flag 1).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_LAUNCHES_PER_CALL = 2
 SAVEP_LAUNCHES = 0
 SAVEP_BWD_LAUNCHES = 0
 SAVEP_BWD_LAUNCHES_PER_CALL = 2
+DROPOUT_LAUNCHES = 0
+DROPOUT_BWD_LAUNCHES = 0
+DROPOUT_SAVEP_LAUNCHES = 0
+DROPOUT_SAVEP_BWD_LAUNCHES = 0
 
 _fn = None
 _bwd_fn = None
@@ -57,8 +77,9 @@ _savep_fn = None
 _savep_bwd_fn = None
 
 
-def _check(qkv: torch.Tensor, num_heads: int) -> int:
-    """Validate the packed qkv; returns the head dim."""
+def _check(qkv: torch.Tensor, num_heads: int,
+           dropout_rate: float = 0.0) -> int:
+    """Validate the packed qkv and the rate; returns the head dim."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, S, 3D), got {tuple(qkv.shape)}")
     d = qkv.shape[-1] // 3
@@ -75,21 +96,40 @@ def _check(qkv: torch.Tensor, num_heads: int) -> int:
             f"encoder attention takes float32 or bfloat16, got {qkv.dtype}")
     if qkv.shape[0] < 1 or qkv.shape[1] < 1:
         raise ValueError(f"empty qkv {tuple(qkv.shape)}")
+    keep_threshold(dropout_rate)  # raises outside [0, 1)
     return head_dim
 
 
-def encoder_attention_fwd_plain(qkv: torch.Tensor, num_heads: int):
+def _keep(p: torch.Tensor, dropout_rate: float, seed: int):
+    """The call's keep mask for probabilities shaped like p (B, H, S, S),
+    or None at rate 0."""
+    if dropout_rate == 0.0:
+        return None
+    b, h, sq, sk = p.shape
+    return keep_mask(seed, b, h, sq, sk, dropout_rate, p.device)
+
+
+def _dropped(x: torch.Tensor, keep, dropout_rate: float) -> torch.Tensor:
+    return x if keep is None else apply_mask(x, keep, dropout_rate)
+
+
+def encoder_attention_fwd_plain(qkv: torch.Tensor, num_heads: int,
+                                dropout_rate: float = 0.0, seed: int = 0):
     """Plain PyTorch version of the kernel, in its arithmetic order:
-    fp32 scores, p = exp(s - rowmax) left unnormalised and rounded to v's
-    dtype before the product, the product summed in fp32, then divided by
-    l = rowsum(p). Returns (out (B, S, D), lse (B, H, 1, S) fp32)."""
+    fp32 scores, p = exp(s - rowmax) left unnormalised; under dropout p is
+    zeroed where dropped and scaled by 1/(1 - rate) where kept; p is rounded
+    to v's dtype before the product, the product summed in fp32, then
+    divided by l = rowsum(p) taken before dropout. Returns (out (B, S, D),
+    lse (B, H, 1, S) fp32)."""
     q, k, v = split_heads(qkv, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    p_use = _dropped(p, _keep(p, dropout_rate, seed), dropout_rate)
+    o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(),
+                     v.float())
     out = merge_heads((o / l).to(qkv.dtype))
     lse = (m + torch.log(l)).transpose(-1, -2)  # (B, H, 1, S)
     return out, lse.contiguous()
@@ -99,9 +139,9 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("encoder_attention_fwd").arsvt_encoder_attention_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -119,15 +159,20 @@ def _check_cuda(tensors, what: str) -> None:
                              "inputs")
 
 
-def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int):
-    """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64.
+def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
+                          dropout_rate: float = 0.0, seed: int = 0):
+    """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64; with
+    `dropout_rate` > 0 the probabilities are dropped by the mask of call
+    seed `seed`.
 
-    Returns (out (B, S, D) in qkv's dtype, lse (B, H, 1, S) fp32).
+    Returns (out (B, S, D) in qkv's dtype, lse (B, H, 1, S) fp32, taken
+    before dropout).
     """
-    global LAUNCHES
-    head_dim = _check(qkv, num_heads)
+    global LAUNCHES, DROPOUT_LAUNCHES
+    head_dim = _check(qkv, num_heads, dropout_rate)
     if qkv.device.type == "cpu":
-        return encoder_attention_fwd_plain(qkv, num_heads)
+        return encoder_attention_fwd_plain(qkv, num_heads, dropout_rate,
+                                           seed)
     _check_cuda((qkv,), "encoder attention")
     b, s, three_d = qkv.shape
     out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
@@ -135,14 +180,16 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int):
     lse = torch.empty((b, num_heads, 1, s), dtype=torch.float32,
                       device=qkv.device)
     fn = _kernel()
+    args = kernel_args(dropout_rate, seed)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s,
-                 num_heads, head_dim, _DTYPE_CODES[qkv.dtype], stream)
+                 num_heads, head_dim, *args, _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"encoder_attention_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    DROPOUT_LAUNCHES += args[3]
     return out, lse
 
 
@@ -152,25 +199,31 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, s, num_heads, d // num_heads).permute(0, 2, 1, 3)
 
 
-def encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads: int):
+def encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads: int,
+                                dropout_rate: float = 0.0, seed: int = 0):
     """Plain PyTorch version of the backward kernel, at its rounding
     points: p = exp(s - lse) from fp32 scores, delta = rowsum(O * dO) and
-    dP = dO v^T in fp32, dS = p (dP - delta); dS is rounded to q/k's dtype
-    before dq and dk, p to dO's dtype before dv; products summed in fp32.
-    Returns (dq, dk, dv), each (B, S, D) in qkv's dtype."""
+    dP = dO v^T in fp32; under dropout dP and p_v = p are zeroed where
+    dropped and scaled by 1/(1 - rate) where kept (p_v = p without); dS =
+    p (dP - delta); dS is rounded to q/k's dtype before dq and dk, p_v to
+    dO's dtype before dv; products summed in fp32. Returns (dq, dk, dv),
+    each (B, S, D) in qkv's dtype."""
     q, k, v = split_heads(qkv, num_heads)
     o, do = _heads(out, num_heads), _heads(dout, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - lse.transpose(-1, -2))
     delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    keep = _keep(p, dropout_rate, seed)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
+                  keep, dropout_rate)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                       k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
                       q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+    p_v = _dropped(p, keep, dropout_rate)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_v.to(dout.dtype).float(),
                       do.float())
     return tuple(merge_heads(t.to(qkv.dtype)) for t in (dq, dk, dv))
 
@@ -179,21 +232,24 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = build.load("encoder_attention_bwd").arsvt_encoder_attention_bwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
 
-def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int):
+def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int, *,
+                          dropout_rate: float = 0.0, seed: int = 0):
     """Backward of `encoder_attention_fwd`: qkv (B, S, 3D); out and dout
-    (B, S, D) in qkv's dtype; lse (B, H, 1, S) fp32 from the forward.
+    (B, S, D) in qkv's dtype; lse (B, H, 1, S) fp32 from the forward;
+    `dropout_rate` and `seed` as the forward's.
 
     Returns (dq, dk, dv), each (B, S, D) in qkv's dtype.
     """
-    global BWD_LAUNCHES
-    head_dim = _check(qkv, num_heads)
+    global BWD_LAUNCHES, DROPOUT_BWD_LAUNCHES
+    head_dim = _check(qkv, num_heads, dropout_rate)
     b, s, three_d = qkv.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != (b, s, three_d // 3) or t.dtype != qkv.dtype:
@@ -205,37 +261,45 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int):
                          f"{tuple(lse.shape)} {lse.dtype}")
     tensors = (qkv, out, dout, lse)
     if all(t.device.type == "cpu" for t in tensors):
-        return encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads)
+        return encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads,
+                                           dropout_rate, seed)
     _check_cuda(tensors, "encoder attention backward")
     dq, dk, dv = (torch.empty_like(out) for _ in range(3))
     delta = torch.empty((b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
     fn = _bwd_kernel()
+    args = kernel_args(dropout_rate, seed)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, s, num_heads, head_dim,
-                 _DTYPE_CODES[qkv.dtype], stream)
+                 *args, _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"encoder_attention_bwd kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
+    DROPOUT_BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL * args[3]
     return dq, dk, dv
 
 
-def encoder_attention_fwd_savep_plain(qkv: torch.Tensor, num_heads: int):
+def encoder_attention_fwd_savep_plain(qkv: torch.Tensor, num_heads: int,
+                                      dropout_rate: float = 0.0,
+                                      seed: int = 0):
     """Plain PyTorch version of the save-probs forward kernel, at its
     rounding points: fp32 scores, p = exp(s - rowmax), l = rowsum(p), the
-    normalised p / l stored as bf16 P and, rounded to v's dtype, multiplied
-    by v with fp32 sums; no division after the product. Returns (out
-    (B, S, D) in qkv's dtype, P (B, H, S, S) bf16)."""
+    normalised p / l stored as bf16 P; then, under dropout, zeroed where
+    dropped and scaled by 1/(1 - rate) where kept; rounded to v's dtype and
+    multiplied by v with fp32 sums; no division after the product. Returns
+    (out (B, S, D) in qkv's dtype, P (B, H, S, S) bf16, before dropout)."""
     q, k, v = split_heads(qkv, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    p_use = _dropped(p, _keep(p, dropout_rate, seed), dropout_rate)
+    o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(),
+                     v.float())
     return merge_heads(o.to(qkv.dtype)), p.to(torch.bfloat16)
 
 
@@ -244,23 +308,29 @@ def _savep_kernel():
     if _savep_fn is None:
         fn = build.load(
             "encoder_attention_savep_fwd").arsvt_encoder_attention_savep_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _savep_fn = fn
     return _savep_fn
 
 
-def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int):
-    """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64.
+def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int, *,
+                                dropout_rate: float = 0.0, seed: int = 0):
+    """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64; with
+    `dropout_rate` > 0 the probabilities that multiply v are dropped by the
+    mask of call seed `seed`.
 
     Returns (out (B, S, D) in qkv's dtype, P (B, H, S, S) bf16: the
-    normalised attention probabilities, for `encoder_attention_bwd_savep`).
+    normalised attention probabilities before dropout, for
+    `encoder_attention_bwd_savep`).
     """
-    global SAVEP_LAUNCHES
-    head_dim = _check(qkv, num_heads)
+    global SAVEP_LAUNCHES, DROPOUT_SAVEP_LAUNCHES
+    head_dim = _check(qkv, num_heads, dropout_rate)
     if qkv.device.type == "cpu":
-        return encoder_attention_fwd_savep_plain(qkv, num_heads)
+        return encoder_attention_fwd_savep_plain(qkv, num_heads,
+                                                 dropout_rate, seed)
     _check_cuda((qkv,), "save-probs attention")
     b, s, three_d = qkv.shape
     out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
@@ -268,36 +338,44 @@ def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int):
     probs = torch.empty((b, num_heads, s, s), dtype=torch.bfloat16,
                         device=qkv.device)
     fn = _savep_kernel()
+    args = kernel_args(dropout_rate, seed)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), probs.data_ptr(), b, s,
-                 num_heads, head_dim, _DTYPE_CODES[qkv.dtype], stream)
+                 num_heads, head_dim, *args, _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(f"encoder_attention_fwd_savep kernel launch "
                            f"failed: CUDA error {err}")
     SAVEP_LAUNCHES += 1
+    DROPOUT_SAVEP_LAUNCHES += args[3]
     return out, probs
 
 
-def encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads: int):
+def encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads: int,
+                                      dropout_rate: float = 0.0,
+                                      seed: int = 0):
     """Plain PyTorch version of the save-probs backward kernel, at its
-    rounding points: p = P in fp32, dP = dO v^T in fp32, delta =
-    rowsum(dP * p), dS = p (dP - delta); dS is rounded to q/k's dtype before
-    dq and dk, p to dO's dtype before dv; products summed in fp32. No
-    scores, no lse, no O. Returns (dq, dk, dv), each (B, S, D) in qkv's
-    dtype."""
+    rounding points: p = P in fp32, dP = dO v^T in fp32; under dropout dP
+    and p_v = p are zeroed where dropped and scaled by 1/(1 - rate) where
+    kept (p_v = p without); delta = rowsum(dP * p), dS = p (dP - delta);
+    dS is rounded to q/k's dtype before dq and dk, p_v to dO's dtype before
+    dv; products summed in fp32. No scores, no lse, no O. Returns (dq, dk,
+    dv), each (B, S, D) in qkv's dtype."""
     q, k, v = split_heads(qkv, num_heads)
     do = _heads(dout, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = probs.float()
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    keep = _keep(p, dropout_rate, seed)
+    dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
+                  keep, dropout_rate)
     delta = (dp * p).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                       k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
                       q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+    p_v = _dropped(p, keep, dropout_rate)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_v.to(dout.dtype).float(),
                       do.float())
     return tuple(merge_heads(t.to(qkv.dtype)) for t in (dq, dk, dv))
 
@@ -307,21 +385,24 @@ def _savep_bwd_kernel():
     if _savep_bwd_fn is None:
         fn = build.load(
             "encoder_attention_savep_bwd").arsvt_encoder_attention_savep_bwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _savep_bwd_fn = fn
     return _savep_bwd_fn
 
 
-def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int):
+def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int, *,
+                                dropout_rate: float = 0.0, seed: int = 0):
     """Backward of `encoder_attention_fwd_savep`: qkv (B, S, 3D); P
-    (B, H, S, S) bf16 from the forward; dout (B, S, D) in qkv's dtype.
+    (B, H, S, S) bf16 from the forward; dout (B, S, D) in qkv's dtype;
+    `dropout_rate` and `seed` as the forward's.
 
     Returns (dq, dk, dv), each (B, S, D) in qkv's dtype.
     """
-    global SAVEP_BWD_LAUNCHES
-    head_dim = _check(qkv, num_heads)
+    global SAVEP_BWD_LAUNCHES, DROPOUT_SAVEP_BWD_LAUNCHES
+    head_dim = _check(qkv, num_heads, dropout_rate)
     b, s, three_d = qkv.shape
     if dout.shape != (b, s, three_d // 3) or dout.dtype != qkv.dtype:
         raise ValueError(f"dout must be {(b, s, three_d // 3)} {qkv.dtype}, "
@@ -331,46 +412,54 @@ def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int):
                          f"got {tuple(probs.shape)} {probs.dtype}")
     tensors = (qkv, probs, dout)
     if all(t.device.type == "cpu" for t in tensors):
-        return encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads)
+        return encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads,
+                                                 dropout_rate, seed)
     _check_cuda(tensors, "save-probs attention backward")
     dq, dk, dv = (torch.empty_like(dout) for _ in range(3))
     delta = torch.empty((b, num_heads, s), dtype=torch.float32,
                         device=qkv.device)
     fn = _savep_bwd_kernel()
+    args = kernel_args(dropout_rate, seed)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, s, num_heads, head_dim,
+                 dv.data_ptr(), b, s, num_heads, head_dim, *args,
                  _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(f"encoder_attention_bwd_savep kernel launch "
                            f"failed: CUDA error {err}")
     SAVEP_BWD_LAUNCHES += SAVEP_BWD_LAUNCHES_PER_CALL
+    DROPOUT_SAVEP_BWD_LAUNCHES += SAVEP_BWD_LAUNCHES_PER_CALL * args[3]
     return dq, dk, dv
 
 
 class _FusedEncoderAttention(torch.autograd.Function):
-    """Mirror of ``flash_attention.py::_enc_attn_nodrop``'s custom VJP
-    (``_enc_attn_fwd_impl`` / ``_enc_attn_bwd_impl``)."""
+    """Mirror of ``flash_attention.py::_enc_attn_nodrop`` and
+    ``_enc_attn_dropout``'s custom VJPs (``_enc_attn_fwd_impl`` /
+    ``_enc_attn_bwd_impl``): (rate, seed) ride from the forward to the
+    backward."""
 
     @staticmethod
-    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads):
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed):
         qkv = torch.matmul(y, wqkv) + bqkv
-        attn, lse = encoder_attention_fwd(qkv, num_heads)
+        attn, lse = encoder_attention_fwd(qkv, num_heads, dropout_rate=rate,
+                                          seed=seed)
         out = torch.matmul(attn, wproj) + bproj
         ctx.save_for_backward(y, qkv, attn, lse, wqkv, wproj)
-        ctx.num_heads = num_heads
+        ctx.args = (num_heads, rate, seed)
         ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, qkv, attn, lse, wqkv, wproj = ctx.saved_tensors
+        num_heads, rate, seed = ctx.args
         return _encoder_attention_grads(
             ctx, g, y, attn, wqkv, wproj,
             lambda dattn: encoder_attention_bwd(qkv, attn, dattn, lse,
-                                                ctx.num_heads))
+                                                num_heads, dropout_rate=rate,
+                                                seed=seed))
 
 
 def _encoder_attention_grads(ctx, g, y, attn, wqkv, wproj, core_bwd):
@@ -393,52 +482,61 @@ def _encoder_attention_grads(ctx, g, y, attn, wqkv, wproj, core_bwd):
     dbqkv = torch.cat([t.sum(dim=0) for t in slices])
     dt_bqkv, dt_bproj = ctx.bias_dtypes
     return (dy.to(y.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(dt_bqkv),
-            dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None)
+            dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None, None, None)
 
 
 class _FusedEncoderAttentionSaveP(torch.autograd.Function):
-    """Mirror of ``flash_attention.py::_enc_attn_savep_nodrop``'s custom
-    VJP (``_enc_attn_savep_fwd_impl`` / ``_enc_attn_savep_bwd_impl``):
-    saves (y, qkv, attn, P) and the weights, no lse."""
+    """Mirror of ``flash_attention.py::_enc_attn_savep_nodrop`` and
+    ``_enc_attn_savep_dropout``'s custom VJPs (``_enc_attn_savep_fwd_impl``
+    / ``_enc_attn_savep_bwd_impl``): saves (y, qkv, attn, P) and the
+    weights, no lse; (rate, seed) ride from the forward to the backward."""
 
     @staticmethod
-    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads):
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed):
         qkv = torch.matmul(y, wqkv) + bqkv
-        attn, probs = encoder_attention_fwd_savep(qkv, num_heads)
+        attn, probs = encoder_attention_fwd_savep(
+            qkv, num_heads, dropout_rate=rate, seed=seed)
         out = torch.matmul(attn, wproj) + bproj
         ctx.save_for_backward(y, qkv, attn, probs, wqkv, wproj)
-        ctx.num_heads = num_heads
+        ctx.args = (num_heads, rate, seed)
         ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, qkv, attn, probs, wqkv, wproj = ctx.saved_tensors
+        num_heads, rate, seed = ctx.args
         return _encoder_attention_grads(
             ctx, g, y, attn, wqkv, wproj,
-            lambda dattn: encoder_attention_bwd_savep(qkv, probs, dattn,
-                                                      ctx.num_heads))
+            lambda dattn: encoder_attention_bwd_savep(
+                qkv, probs, dattn, num_heads, dropout_rate=rate, seed=seed))
 
 
-def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int):
+def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int, *,
+                            dropout_rate: float = 0.0, dropout_rng=None):
     """out_proj(attention(qkv_proj(y))): y (B, S, D); wqkv (D, 3D), bqkv
     (3D,), wproj (D, D), bproj (D,), all in the compute dtype. Returns
-    (B, S, D).
+    (B, S, D). `dropout_rng` (a ``core/prng.py::Rng``) with `dropout_rate`
+    > 0 drops attention probabilities in the kernels, from its seed.
 
     A `torch.autograd.Function` that saves (y, qkv, attn, lse) and the
     weights and runs the backward kernel; under `torch.inference_mode`
     (serving) it builds no graph and runs the forward alone. One attention
     path thus serves and trains.
     """
+    rate, seed = call_dropout(dropout_rate, dropout_rng)
     return _FusedEncoderAttention.apply(y, wqkv, bqkv, wproj, bproj,
-                                        num_heads)
+                                        num_heads, rate, seed)
 
 
 def fused_encoder_attention_savep(y, wqkv, bqkv, wproj, bproj,
-                                  num_heads: int):
+                                  num_heads: int, *,
+                                  dropout_rate: float = 0.0,
+                                  dropout_rng=None):
     """`fused_encoder_attention` with the save-probs backward: saves P
     (B, H, S, S) bf16 in place of the lse, so the backward kernel skips
     the q k^T recompute, the exp and the O operand. Same arguments and
     result."""
+    rate, seed = call_dropout(dropout_rate, dropout_rng)
     return _FusedEncoderAttentionSaveP.apply(y, wqkv, bqkv, wproj, bproj,
-                                             num_heads)
+                                             num_heads, rate, seed)

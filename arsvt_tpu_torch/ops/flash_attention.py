@@ -35,7 +35,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from arsvt_tpu_torch.ops import build
@@ -45,7 +44,13 @@ from arsvt_tpu_torch.ops.attention import (
     sdpa_reference,
     split_heads,
 )
-from arsvt_tpu_torch.ops.dropout import keep_mask, keep_threshold
+from arsvt_tpu_torch.ops.dropout import (
+    apply_mask,
+    call_dropout,
+    kernel_args,
+    keep_mask,
+    keep_threshold,
+)
 
 MAX_HEAD_DIM = 128
 # -0.7 * float32 max, the TPU kernel's mask value (``flash_attention.py:44``)
@@ -91,16 +96,6 @@ def _check(q, k, v, kv_len, dropout_rate):
     return kv_len
 
 
-def _inv_keep(rate: float) -> float:
-    # JAX multiplies by the Python constant 1/(1 - rate), rounded to fp32
-    return float(np.float32(1.0 / (1.0 - rate)))
-
-
-def _dropped(p, keep, rate):
-    """p where kept, scaled by 1/(1 - rate); 0 where dropped."""
-    return torch.where(keep, p * _inv_keep(rate), torch.zeros_like(p))
-
-
 def _scores(q, k, kv_len):
     """fp32 scores times scale, key columns at or past kv_len at
     MASK_VALUE."""
@@ -128,8 +123,8 @@ def flash_attention_fwd_plain(q, k, v, kv_len: int,
     p_use = p
     if dropout_rate > 0.0:
         b, h, sq, sk = p.shape
-        p_use = _dropped(p, keep_mask(seed, b, h, sq, sk, dropout_rate,
-                                      p.device), dropout_rate)
+        p_use = apply_mask(p, keep_mask(seed, b, h, sq, sk, dropout_rate,
+                                        p.device), dropout_rate)
     o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(), v.float())
     lse = (m + torch.log(l)).transpose(-1, -2)  # (B, H, 1, Sq)
     return (o / l).to(q.dtype), lse.contiguous()
@@ -159,13 +154,6 @@ def _on_card(tensors, what):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} on the card needs contiguous operands")
     return True
-
-
-def _dropout_args(dropout_rate: float, seed: int):
-    if dropout_rate > 0.0:
-        return (int(seed) & 0xFFFFFFFF, keep_threshold(dropout_rate),
-                _inv_keep(dropout_rate), 1)
-    return 0, 0, 1.0, 0
 
 
 def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
@@ -200,7 +188,7 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, h, sq, sk, kv_len, d,
-                 1.0 / math.sqrt(d), *_dropout_args(dropout_rate, seed),
+                 1.0 / math.sqrt(d), *kernel_args(dropout_rate, seed),
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
@@ -226,8 +214,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, kv_len: int,
     if dropout_rate > 0.0:
         b, h, sq, sk = p.shape
         keep = keep_mask(seed, b, h, sq, sk, dropout_rate, p.device)
-        dp = _dropped(dp, keep, dropout_rate)
-        p_v = _dropped(p, keep, dropout_rate)
+        dp = apply_mask(dp, keep, dropout_rate)
+        p_v = apply_mask(p, keep, dropout_rate)
     ds = p * (dp - delta)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
                       k.float()) * scale
@@ -281,7 +269,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk,
                  kv_len, d, 1.0 / math.sqrt(d),
-                 *_dropout_args(dropout_rate, seed), _DTYPE_CODES[q.dtype],
+                 *kernel_args(dropout_rate, seed), _DTYPE_CODES[q.dtype],
                  stream)
     if err != 0:
         raise RuntimeError(
@@ -311,14 +299,6 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _call_dropout(dropout_rate, dropout_rng):
-    """(rate, seed) of one call: dropout only with a rate and an rng, as
-    JAX drops only with a rate and a key."""
-    if dropout_rate > 0.0 and dropout_rng is not None:
-        return float(dropout_rate), dropout_rng.seed32()
-    return 0.0, 0
-
-
 def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
                     dropout_rng=None):
     """Attention of q (B, H, Sq, d) over k/v (B, H, Sk, d) -> (B, H, Sq, d),
@@ -331,7 +311,7 @@ def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
         return sdpa_reference(
             q, k, v, mask=mask, dropout_rate=dropout_rate,
             generator=dropout_generator(dropout_rate, dropout_rng, q.device))
-    rate, seed = _call_dropout(dropout_rate, dropout_rng)
+    rate, seed = call_dropout(dropout_rate, dropout_rng)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), rate, seed)
 
@@ -374,5 +354,5 @@ def flash_self_attention_packed(qkv_flat, num_heads: int, *,
     as ``flash_attention.py::flash_self_attention_packed``: the heads are
     split into contiguous (B, H, S, d) tensors for the kernels and merged
     back; the backward re-splits them from the saved qkv_flat."""
-    rate, seed = _call_dropout(dropout_rate, dropout_rng)
+    rate, seed = call_dropout(dropout_rate, dropout_rng)
     return _FlashPacked.apply(qkv_flat, num_heads, rate, seed)

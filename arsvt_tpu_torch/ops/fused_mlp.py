@@ -13,8 +13,11 @@ taken when ``ARSVT_ENABLE_FUSED_MLP`` is set, see ``ops/dispatch.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 on a CPU tensor it runs its ``*_plain`` version, which repeats the
 kernel's arithmetic in plain PyTorch. There is no fallback from one to the
-other. The kernels take D and M that are multiples of 8 and D <= 768
-(every ViT-B-or-smaller and DeiT-400 width).
+other. The kernels take D and M that are multiples of 8, and D up to
+what the row-tile kernel's staged rows leave of a block's shared memory
+(``mlp_tile.cuh::max_d``: 1,088 in bf16, 1,728 in fp32, so every preset's
+width, ViT-L's 1,024 included); a launch past it raises a ValueError that
+names the bound.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from arsvt_tpu_torch.ops import build
 
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
-MAX_D = 768  # mlp_tile.cuh::kMaxD
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CUDA_ERROR_INVALID_VALUE = 1
 
 # Kernel launches in this process, counted where each wrapper launches. One
 # backward call launches two kernels (dx/du, then dw) and counts both.
@@ -66,17 +69,38 @@ def _check(x2d, w1, w2) -> tuple[int, int, int]:
                         f"bfloat16, got {x2d.dtype}, {w1.dtype}, {w2.dtype}")
     if n < 1 or d % 8 or m % 8 or d < 8 or m < 8:
         raise ValueError(f"fused MLP needs n >= 1 and D, M positive "
-                         f"multiples of 8, got n={n} D={d} M={m}")
+                         f"multiples of 8 (the kernels copy rows of x, u and "
+                         f"the weights in 16-byte vectors), got n={n} D={d} "
+                         f"M={m}")
     return n, d, m
 
 
-def _cuda_args(tensors, d: int, what: str) -> None:
+def max_d(dtype: torch.dtype) -> int:
+    """The largest D the kernels take in `dtype` (the C entry's
+    ``mlp_tile.cuh::max_d``): each block keeps its rows of x (or dO) over
+    the full D in shared memory, as the TPU kernel keeps them in VMEM."""
+    fn = build.load("fused_mlp_fwd").arsvt_fused_mlp_max_d
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(_DTYPE_CODES[dtype])
+
+
+def _launch_error(err: int, what: str, d: int, dtype: torch.dtype):
+    """The error for a launch that returned CUDA error `err`; a D past the
+    kernels' shared-memory bound reads as such."""
+    if err == _CUDA_ERROR_INVALID_VALUE and d > max_d(dtype):
+        return ValueError(
+            f"the {what} kernel stages its rows of the input over the full "
+            f"D in shared memory: it takes D <= {max_d(dtype)} in {dtype}, "
+            f"got D={d}")
+    return RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _cuda_args(tensors, what: str) -> None:
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what} runs on cpu or cuda with every input on "
                          "one device")
-    if d > MAX_D:
-        raise ValueError(f"the {what} kernel takes D <= {MAX_D}, got {d}")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what} needs contiguous, 16-byte aligned "
@@ -118,7 +142,7 @@ def fused_mlp_fwd(x2d, w1, b1, w2, b2):
     if all(t.device.type == "cpu" for t in (x2d, w1, b1, w2, b2)):
         return fused_mlp_fwd_plain(x2d, w1, b1, w2, b2)
     b1, b2 = b1.float().contiguous(), b2.float().contiguous()
-    _cuda_args((x2d, w1, b1, w2, b2), d, "fused MLP forward")
+    _cuda_args((x2d, w1, b1, w2, b2), "fused MLP forward")
     out = torch.empty_like(x2d)
     u = torch.empty((n, m), dtype=torch.bfloat16, device=x2d.device)
     fn = _fwd_kernel()
@@ -128,8 +152,7 @@ def fused_mlp_fwd(x2d, w1, b1, w2, b2):
                  w2.data_ptr(), b2.data_ptr(), out.data_ptr(), u.data_ptr(),
                  n, d, m, _DTYPE_CODES[x2d.dtype], stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_mlp_fwd kernel launch failed: CUDA error {err}")
+        raise _launch_error(err, "fused MLP forward", d, x2d.dtype)
     LAUNCHES += 1
     return out, u
 
@@ -179,7 +202,7 @@ def fused_mlp_bwd(x2d, u, w1, w2, dout):
     tensors = (x2d, u, w1, w2, dout)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_mlp_bwd_plain(x2d, u, w1, w2, dout)
-    _cuda_args(tensors, d, "fused MLP backward")
+    _cuda_args(tensors, "fused MLP backward")
     dev = x2d.device
     dx = torch.empty_like(x2d)
     du = torch.empty_like(u)
@@ -195,8 +218,7 @@ def fused_mlp_bwd(x2d, u, w1, w2, dout):
                  dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), n, d, m,
                  _DTYPE_CODES[x2d.dtype], stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_mlp_bwd kernel launch failed: CUDA error {err}")
+        raise _launch_error(err, "fused MLP backward", d, x2d.dtype)
     BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
     return dx, dw1, db1, dw2
 

@@ -18,9 +18,9 @@ microbatch)``. The JAX package's two no-remat opt-ins route the step
 from the environment, as there (``ops/dispatch.py``):
 ``ARSVT_ATTN_SAVE_PROBS`` takes the save-probs attention kernels in the
 training forward and backward, ``ARSVT_ENABLE_FUSED_MLP`` the fused-MLP
-kernels in training and eval. Not ported yet (ROADMAP Queue A):
-distillation, mixup, RandAugment and remat (the ViT-L recipe), attention
-dropout at head_dim 64 (kernels #1/#2 and #5/#6).
+kernels in training and eval; attention dropout runs in the kernels of
+either route. Not ported yet (ROADMAP Queue A): distillation, mixup,
+RandAugment and remat (the ViT-L recipe).
 """
 
 from __future__ import annotations

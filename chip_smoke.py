@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, detector-serving,
-detector-training and opt-in training paths on one NVIDIA card.
+detector-training and opt-in training paths, and its training entry point,
+on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
@@ -20,7 +21,10 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    their three launches used; the save-probs attention kernels (#5, #6)
    and the fused-MLP kernels (#8, #9) at the ``bench_train`` microbatch
    (B = 32, n = 6,304 rows) and odd sizes (n = 591 and 594, D = 400,
-   M = 1,600);
+   M = 1,600), and at ViT-L's width (D = 1,024, M = 4,096, n = 9,232 and
+   1,731); the dropout branches of #1, #2, #5 and #6 at dropout 0.1 (B =
+   32 and an odd shape, bf16 and fp32), a probe that reads back the mask
+   of each of their six launches, and their times beside dropout 0;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
@@ -58,7 +62,15 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    other phase runs with both unset): (a) two fp32 steps on the card
    against the CPU; (b) 7 bf16 steps against 7(a2)'s 7 bf16 steps of the
    default route; (c) the ``bench_train`` configuration, 2 warm-up and 5
-   timed steps, eval; (d) a torch.profiler window over one step.
+   timed steps, eval; (d) a torch.profiler window over one step;
+11. the training entry point, ``arsvt_tpu_torch.train.cli.main``, in
+   temporary working directories, with attention dropout 0.1: (a) the
+   ``vit_base_bf16_flash`` preset (batch 512 as 16 x 32, bf16, crop/flip,
+   fused AdamW) for 4 steps with checkpoints every 2 and an eval, a resume
+   to step 6 against an uninterrupted 6-step run, and a run without
+   dropout; (b) the same on the opt-in route; (c) fp32 steps with dropout
+   card vs CPU on each route, and route against route; (d) ``Trainer``
+   with task="detect" on ``vit_base_detector`` for 2 steps.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -73,7 +85,12 @@ head-major forward and 18 backward calls and one AdamW launch per step,
 18 forward calls per eval forward); 10(c) (opt-in training: per layer and
 microbatch one #5 launch, one #6 call, one #8 launch and one #9 call (two
 launches each), no #1 or #2; one AdamW launch per step; per eval forward
-one #1 and one #8 launch per layer). Any failure exits non-zero. The last
+one #1 and one #8 launch per layer); each CLI run of 11(a)-(b), with the
+same rule per route and step and 8 eval forwards of 512 images per eval;
+11(d) (per step 12 #1 and #2 calls, 6 #3 and #4 calls, one AdamW
+launch). Beside each total, #1, #2, #5 and #6 count the launches that ran
+their dropout branch: every training launch of phase 11's dropout runs,
+none elsewhere. Any failure exits non-zero. The last
 lines are the kernels' record, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -200,10 +217,11 @@ def phase_kernel_checks(cfg) -> dict:
     s = cfg.seq_len
     cases = [(8, s, d, h, torch.bfloat16), (8, s, d, h, torch.float32),
              (1, s, d, h, torch.bfloat16), (3, 17, 128, 2, torch.bfloat16),
-             (3, 17, 128, 2, torch.float32)]
+             (3, 17, 128, 2, torch.float32), (32, s, d, h, torch.bfloat16)]
     errs = {}
     for i, (b, s_, d_, h_, dtype) in enumerate(cases):
-        qkv = seeded_qkv(b, s_, d_, dtype, seed=100 + i)
+        # the B=32 case on the input its timing below uses
+        qkv = seeded_qkv(b, s_, d_, dtype, seed=7 if b == 32 else 100 + i)
         out, lse = encoder_attention.encoder_attention_fwd(qkv, h_)
         torch.cuda.synchronize()
         ref_out, ref_lse = encoder_attention.encoder_attention_fwd_plain(
@@ -226,10 +244,10 @@ def phase_kernel_checks(cfg) -> dict:
         errs[key] = e_out
 
     timings = {}
-    for b in (1, 8):
+    for b in (1, 8, 32):
         qkv = seeded_qkv(b, s, d, torch.bfloat16, seed=7)
         ms = cuda_ms(lambda: encoder_attention.encoder_attention_fwd(qkv, h),
-                     iters=200)
+                     iters=200 if b < 32 else 50)
         plain_ms = cuda_ms(
             lambda: encoder_attention.encoder_attention_fwd_plain(qkv, h),
             iters=50)
@@ -245,8 +263,8 @@ def phase_kernel_checks(cfg) -> dict:
             "bound_by": bound_by, "bytes": nbytes, "flops": flops,
             "bound_share": bound_ms / ms,
         }))
-    key8 = f"B8_S{s}_D{d}_H{h}_bfloat16"
-    return {"max_abs_err": errs[key8], **timings[8]}
+    return {"max_abs_err": errs[f"B32_S{s}_D{d}_H{h}_bfloat16"],
+            **timings[32]}
 
 
 # (H, Sq, Sk, d) of the head-major kernel's calls on the detector paths:
@@ -767,6 +785,212 @@ def phase_savep_checks(cfg) -> tuple[dict, dict]:
     return recs[0], recs[1]
 
 
+# The dropout branches of #1, #2, #5 and #6 against their plain versions,
+# which draw the same Philox mask: the limits of the kernels without
+# dropout (the kept probabilities are scaled by 1/0.9, the same arithmetic
+# in another summation order, the same bf16 roundings that can flip).
+ENC_DROPOUT_NAMES = ("encoder_attention_fwd", "encoder_attention_bwd",
+                     "encoder_attention_fwd_savep",
+                     "encoder_attention_bwd_savep")
+
+
+def encoder_mask_probe(b, s, h, seed, device="cuda"):
+    """Recover the keep mask each launch of #1, #2, #5 and #6 used.
+
+    q = 0 makes p uniform (1/S); k = v = I in each head's 64 columns (S <=
+    64) read the probabilities back. #1 and #5: O[i, j] = keep(i, j) /
+    (S·keep_prob). The backwards with dO = e_i (row i one-hot): dv[j, i] =
+    p_v[i, j], the dk/dv launch's mask; with dO = 1: dq[i, j] = p (keep(i,
+    j)/keep_prob - delta_i) / 8, the dq launch's, decoded against delta_i =
+    sum_j O[i, j]. Returns mismatches against `keep_mask` per launch."""
+    from arsvt_tpu_torch.ops.dropout import keep_mask
+
+    d = h * 64
+    kp = 1.0 - DROPOUT_RATE
+    eye = torch.zeros(s, 64, device=device)
+    eye[:, :s] = torch.eye(s, device=device)
+    head = eye.repeat(1, h)  # (S, D): I in every head's columns
+    qkv = torch.cat([torch.zeros(s, d, device=device), head, head], dim=1)
+    qkv = qkv.expand(b, s, 3 * d).contiguous()
+    one_hot = head.expand(b, s, d).contiguous()
+    ones = torch.ones(b, s, d, device=device)
+    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed)
+    ea = encoder_attention
+    o, lse = ea.encoder_attention_fwd(qkv, h, **kw)
+    _, _, dv = ea.encoder_attention_bwd(qkv, o, one_hot, lse, h, **kw)
+    dq, _, _ = ea.encoder_attention_bwd(qkv, o, ones, lse, h, **kw)
+    o_p, probs = ea.encoder_attention_fwd_savep(qkv, h, **kw)
+    _, _, dv_p = ea.encoder_attention_bwd_savep(qkv, probs, one_hot, h, **kw)
+    dq_p, _, _ = ea.encoder_attention_bwd_savep(qkv, probs, ones, h, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    want = keep_mask(seed, b, h, s, s, DROPOUT_RATE, device)
+
+    def heads(x):  # (B, S, D) -> (B, H, S, S): each head's first S columns
+        return x.view(b, s, h, 64).permute(0, 2, 1, 3)[..., :s]
+
+    def dq_mask(dq_, o_):
+        delta = heads(o_).sum(dim=-1, keepdim=True)
+        return (heads(dq_) * 8.0 * s + delta) * kp > 0.5
+
+    got = {"fwd": heads(o) > 0,
+           "bwd_dq": dq_mask(dq, o),
+           "bwd_dkdv": heads(dv).transpose(-1, -2) > 0,
+           "savep_fwd": heads(o_p) > 0,
+           "savep_bwd_dq": dq_mask(dq_p, o_p),
+           "savep_bwd_dkdv": heads(dv_p).transpose(-1, -2) > 0}
+    out = {k: int((v != want).sum()) for k, v in got.items()}
+    out["savep_probs_not_uniform"] = int(
+        (probs.float() != torch.tensor(1.0 / s).bfloat16().float()).sum())
+    return out
+
+
+def _dropout_case(cfg_case, i, dtype, rate):
+    """One kernel-vs-plain comparison of #1/#2 and #5/#6 at (B, S, D, H) in
+    `dtype` with dropout `rate`; returns the record."""
+    b, s, d, h = cfg_case
+    ea = encoder_attention
+    kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+    key = f"B{b}_S{s}_D{d}_H{h}_{str(dtype).split('.')[-1]}_rate{rate}"
+    qkv = seeded_qkv(b, s, d, dtype, seed=1200 + i)
+    gen = torch.Generator().manual_seed(1300 + i)
+    dout = torch.randn(b, s, d, generator=gen).to(dtype).cuda()
+    rec = {"check": "encoder attention with dropout", "case": key}
+    tol_o = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+    tol_g = TOL_BWD_FP32 if dtype == torch.float32 else TOL_BWD_BF16
+
+    def hold(name, x, r, tol):
+        check(x.shape == r.shape and x.dtype == r.dtype,
+              f"{name} shape/dtype at {key}")
+        check(bool(torch.isfinite(x.float()).all()),
+              f"non-finite {name} at {key}")
+        rec[f"max_abs_err_{name}"] = max_err(x, r)
+        ok = bool(((x.float() - r.float()).abs()
+                   <= tol + tol * r.float().abs()).all())
+        check(ok, f"{name} disagrees with its plain version at {key}: "
+                  f"{rec[f'max_abs_err_{name}']}")
+
+    out, lse = ea.encoder_attention_fwd(qkv, h, **kw)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = ea.encoder_attention_fwd_plain(qkv, h, rate,
+                                                       DROPOUT_SEED)
+    hold("fwd_out", out, ref_out, tol_o)
+    rec["max_abs_err_fwd_lse"] = max_err(lse, ref_lse)
+    check(rec["max_abs_err_fwd_lse"] <= TOL_LSE, f"lse at {key}: {rec}")
+    got = ea.encoder_attention_bwd(qkv, ref_out, dout, ref_lse, h, **kw)
+    torch.cuda.synchronize()
+    ref = ea.encoder_attention_bwd_plain(qkv, ref_out, dout, ref_lse, h,
+                                         rate, DROPOUT_SEED)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        hold(f"bwd_{name}", x, r, tol_g)
+
+    out_p, probs = ea.encoder_attention_fwd_savep(qkv, h, **kw)
+    torch.cuda.synchronize()
+    ref_out_p, ref_p = ea.encoder_attention_fwd_savep_plain(qkv, h, rate,
+                                                             DROPOUT_SEED)
+    hold("savep_fwd_out", out_p, ref_out_p, tol_o)
+    rec["max_abs_err_savep_probs"] = max_err(probs, ref_p)
+    check(bool(((probs.float() - ref_p.float()).abs()
+                <= 1e-6 + TOL_BF16_ULP * ref_p.float().abs()).all()),
+          f"save-probs P at {key}: {rec}")
+    got = ea.encoder_attention_bwd_savep(qkv, ref_p, dout, h, **kw)
+    torch.cuda.synchronize()
+    ref = ea.encoder_attention_bwd_savep_plain(qkv, ref_p, dout, h, rate,
+                                               DROPOUT_SEED)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        hold(f"savep_bwd_{name}", x, r, tol_g)
+    log(json.dumps(rec))
+    return rec
+
+
+def phase_encoder_dropout_checks(cfg) -> dict:
+    """#1, #2, #5 and #6 with dropout 0.1 against their plain versions at
+    the bench_train microbatch (B=32) and an odd shape, bf16 and fp32; the
+    probe of each launch's mask; then each timed at B=32 in bf16 with
+    dropout 0.1 beside dropout 0. Returns {kernel name: record} at B=32
+    bf16 with dropout."""
+    d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
+    cases = [((32, s, d, h), torch.bfloat16), ((32, s, d, h), torch.float32),
+             ((3, 17, 128, 2), torch.bfloat16),
+             ((3, 17, 128, 2), torch.float32)]
+    recs = [_dropout_case(c, i, dt, DROPOUT_RATE)
+            for i, (c, dt) in enumerate(cases)]
+    b32 = recs[0]
+
+    mismatches = encoder_mask_probe(4, 64, 3, DROPOUT_SEED)
+    log(json.dumps({"check": "encoder attention dropout mask probe",
+                    "shape": [4, 3, 64, 64], "rate": DROPOUT_RATE,
+                    "mismatches": mismatches}))
+    check(all(v == 0 for v in mismatches.values()),
+          f"an encoder-attention kernel's dropout mask differs from "
+          f"keep_mask: {mismatches}")
+
+    b = 32
+    ea = encoder_attention
+    qkv = seeded_qkv(b, s, d, torch.bfloat16, seed=18)
+    gen = torch.Generator().manual_seed(19)
+    dout = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).cuda()
+    out, lse = ea.encoder_attention_fwd(qkv, h)
+    _, probs = ea.encoder_attention_fwd_savep(qkv, h)
+    calls = {
+        "encoder_attention_fwd": (
+            lambda kw: ea.encoder_attention_fwd(qkv, h, **kw),
+            lambda r: ea.encoder_attention_fwd_plain(qkv, h, r, DROPOUT_SEED),
+            lambda r: F.scaled_dot_product_attention(
+                *qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
+                .unbind(0), dropout_p=r),
+            attention_bound(b, s, d, h)),
+        "encoder_attention_bwd": (
+            lambda kw: ea.encoder_attention_bwd(qkv, out, dout, lse, h, **kw),
+            lambda r: ea.encoder_attention_bwd_plain(qkv, out, dout, lse, h,
+                                                     r, DROPOUT_SEED),
+            None, bwd_bound(b, s, d, h)),
+        "encoder_attention_fwd_savep": (
+            lambda kw: ea.encoder_attention_fwd_savep(qkv, h, **kw),
+            lambda r: ea.encoder_attention_fwd_savep_plain(qkv, h, r,
+                                                           DROPOUT_SEED),
+            None, savep_bound(b, s, d, h, False)),
+        "encoder_attention_bwd_savep": (
+            lambda kw: ea.encoder_attention_bwd_savep(qkv, probs, dout, h,
+                                                      **kw),
+            lambda r: ea.encoder_attention_bwd_savep_plain(
+                qkv, probs, dout, h, r, DROPOUT_SEED),
+            None, savep_bound(b, s, d, h, True)),
+    }
+    library_bwd_ms = library_attention_bwd_ms(qkv, dout, h)
+    result = {}
+    for name, (kernel, plain, library, bound) in calls.items():
+        times = {}
+        for rate in (0.0, DROPOUT_RATE):
+            kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+            times[rate] = cuda_ms(lambda: kernel(kw), iters=20)
+        plain_ms = cuda_ms(lambda: plain(DROPOUT_RATE), iters=3, warmup=1)
+        if library is not None:
+            library_ms = cuda_ms(lambda: library(DROPOUT_RATE), iters=20)
+        elif name == "encoder_attention_bwd":
+            library_ms = library_bwd_ms
+        else:
+            library_ms = None  # SDPA computes no P: no like-for-like call
+        bound_ms, bound_by, nbytes, flops = bound
+        err = max(v for k, v in b32.items() if k.startswith(
+            {"encoder_attention_fwd": "max_abs_err_fwd_out",
+             "encoder_attention_bwd": "max_abs_err_bwd_",
+             "encoder_attention_fwd_savep": "max_abs_err_savep_fwd_out",
+             "encoder_attention_bwd_savep": "max_abs_err_savep_bwd_"}[name]))
+        rec = {"ms": times[DROPOUT_RATE], "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err}
+        log(json.dumps({"timing": f"{name} dropout", "B": b, "S": s,
+                        "D": d, "H": h, "dtype": "bfloat16",
+                        "dropout_rate": DROPOUT_RATE, **rec,
+                        "ms_dropout_0": times[0.0],
+                        "slowdown": times[DROPOUT_RATE] / times[0.0],
+                        "bytes": nbytes, "flops": flops,
+                        "bound_share": bound_ms / times[DROPOUT_RATE]}))
+        result[name] = rec
+    return result
+
+
 # Fused-MLP kernels (#8, #9) against their plain versions (cuBLAS fp32
 # products of the same operands, TF32 off), each output within a share of
 # the plain result's largest magnitude. fp32: the same fp32 sums in
@@ -785,13 +1009,21 @@ TOL_MLP_FP32_DU = 1e-3
 TOL_MLP_BF16 = 2.0 ** -7
 TOL_U_ABS = 2.0 ** -10
 # (n, D, M): the bench_train microbatch (32 x 197 rows of ViT-B), three
-# images of it, and three of the DeiT-400 backbone's MLP
+# images of it, and three of the DeiT-400 backbone's MLP; ViT-L's
+# microbatch (16 x 577 rows, D = 1,024 in two slices of 512 columns) and
+# an odd n at that width
 MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (6304, 768, 3072, torch.float32),
              (591, 768, 3072, torch.bfloat16),
              (594, 400, 1600, torch.bfloat16),
              (594, 400, 1600, torch.float32),
-             (37, 128, 256, torch.float32)]
+             (37, 128, 256, torch.float32),
+             (9232, 1024, 4096, torch.bfloat16),
+             (9232, 1024, 4096, torch.float32),
+             (1731, 1024, 4096, torch.bfloat16)]
+# (n, D, M) timed: the bench_train microbatch (its record is the kernels
+# line's) and ViT-L's
+MLP_TIMED = [(6304, 768, 3072), (9232, 1024, 4096)]
 
 
 def mlp_limit(ref, dtype, du: bool = False) -> float:
@@ -853,8 +1085,9 @@ def library_mlp_bwd_ms(x, w1, b1, w2, b2, dout) -> float:
 
 def phase_mlp_checks() -> tuple[dict, dict]:
     """#8 and #9 against their plain versions at MLP_CASES; then both timed
-    at the bench_train shape in bf16 beside their bounds and the cuBLAS
-    MLP's forward and backward. Returns the records of #8 and #9 there."""
+    at MLP_TIMED in bf16 beside their bounds and the cuBLAS MLP's forward
+    and backward. Returns the records of #8 and #9 at the bench_train
+    shape."""
     errs = {}
     for i, (n, d, m, dtype) in enumerate(MLP_CASES):
         key = f"n{n}_D{d}_M{m}_{str(dtype).split('.')[-1]}"
@@ -904,7 +1137,34 @@ def phase_mlp_checks() -> tuple[dict, dict]:
                      max(rec[f"max_abs_err_{n_}"]
                          for n_ in ("dx", "dw1", "db1", "dw2")))
 
-    n, d, m = MLP_CASES[0][:3]
+    # the kernels' bound on D (mlp_tile.cuh::max_d), and the error of a
+    # launch past it
+    for dtype in (torch.bfloat16, torch.float32):
+        bound = fused_mlp.max_d(dtype)
+        x, w1, b1, w2, b2 = seeded_mlp(48, bound + 8, 64, dtype, seed=1099)
+        u = torch.zeros(48, 64, dtype=torch.bfloat16, device="cuda")
+        refused = []
+        for call in (lambda: fused_mlp.fused_mlp_fwd(x, w1, b1, w2, b2),
+                     lambda: fused_mlp.fused_mlp_bwd(x, u, w1, w2, x)):
+            try:
+                call()
+                refused.append(False)
+            except ValueError as e:
+                refused.append("shared memory" in str(e))
+        log(json.dumps({"check": "fused MLP width bound",
+                        "dtype": str(dtype).split('.')[-1], "max_d": bound,
+                        "refused_past_it": refused}))
+        check(bound >= 1024 and all(refused),
+              f"fused MLP bound {bound} in {dtype}, refused {refused}")
+
+    recs = {}
+    for n, d, m in MLP_TIMED:
+        recs[(n, d, m)] = _time_mlp(n, d, m, errs)
+    return recs[MLP_TIMED[0]]
+
+
+def _time_mlp(n, d, m, errs) -> tuple[dict, dict]:
+    """#8 and #9 timed at (n, D, M) in bf16; their records."""
     x, w1, b1, w2, b2 = seeded_mlp(n, d, m, torch.bfloat16, seed=16)
     gen = torch.Generator().manual_seed(17)
     dout = torch.randn(n, d, generator=gen).to(torch.bfloat16).cuda()
@@ -1111,11 +1371,12 @@ def set_head(params, d, num_classes, seed):
             params["classifier"]["head"][k].copy_(t)
 
 
-def phase_train_parity(cfg, route: str = "default") -> dict:
+def phase_train_parity(cfg, route: str = "default", **overrides) -> dict:
     """(a) 2 fp32 steps of batch 8 as 2 microbatches, crop/flip, on the
     card and on the CPU from the same init, batches and draws, on the
-    route the caller's switches select."""
-    tcfg = train_cfg(batch_size=8, grad_accum=2, bf16=False)
+    route the caller's switches select; `overrides` change the config
+    (phase 11(c): attention dropout)."""
+    tcfg = train_cfg(batch_size=8, grad_accum=2, bf16=False, **overrides)
     rng = np.random.default_rng(5)
     batches = [{"image": rng.integers(0, 256, (8, 256, 256, 3),
                                       dtype=np.uint8),
@@ -1149,7 +1410,7 @@ def phase_train_parity(cfg, route: str = "default") -> dict:
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     rel_norm = max(abs(a - b) / abs(b) for a, b in zip(n_gpu, n_cpu))
     rec = {"check": "train step fp32 cuda vs cpu", "route": route,
-           "batch": 8,
+           "overrides": overrides, "batch": 8,
            "grad_accum": 2, "steps": 2, "loss_cuda": l_gpu,
            "loss_cpu": l_cpu, "grad_norm_cuda": n_gpu,
            "grad_norm_cpu": n_cpu, "max_rel_err_loss": rel_loss,
@@ -1317,6 +1578,15 @@ COUNTERS = (
     ("flash_attention_bwd", flash_attention, "LAUNCHES_BWD"),
     ("fused_mlp_fwd", fused_mlp, "LAUNCHES"),
     ("fused_mlp_bwd", fused_mlp, "BWD_LAUNCHES"),
+    # the launches of #1, #2, #5 and #6 that ran their dropout branch,
+    # counted beside the totals above
+    ("encoder_attention_fwd_dropout", encoder_attention, "DROPOUT_LAUNCHES"),
+    ("encoder_attention_bwd_dropout", encoder_attention,
+     "DROPOUT_BWD_LAUNCHES"),
+    ("encoder_attention_fwd_savep_dropout", encoder_attention,
+     "DROPOUT_SAVEP_LAUNCHES"),
+    ("encoder_attention_bwd_savep_dropout", encoder_attention,
+     "DROPOUT_SAVEP_BWD_LAUNCHES"),
 )
 
 
@@ -1330,13 +1600,15 @@ def read_counts() -> dict:
 
 
 def classifier_launches(depth: int, micro: int, steps: int,
-                        eval_forwards: int, opt_in: bool) -> dict:
+                        eval_forwards: int, opt_in: bool,
+                        dropout: bool = False) -> dict:
     """Launches of the classifier's training path: `steps` steps of `micro`
     microbatches, then `eval_forwards` eval forwards. Default route: #1
     and #2 per layer and microbatch. Opt-in route (both switches): #5, #6,
     #8 and #9 per layer and microbatch, and each eval forward #1 and #8 per
     layer. One AdamW launch a step; each backward call launches two
-    kernels."""
+    kernels. With attention `dropout`, every training launch of #1/#2 or
+    #5/#6 runs the dropout branch; eval forwards never do."""
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     layers = depth * micro * steps
     counts["fused_adamw"] = steps
@@ -1351,6 +1623,11 @@ def classifier_launches(depth: int, micro: int, steps: int,
         counts["encoder_attention_fwd"] += layers
         counts["encoder_attention_bwd"] = (
             layers * encoder_attention.BWD_LAUNCHES_PER_CALL)
+    if dropout:
+        for name in ENC_DROPOUT_NAMES:
+            train = counts[name] - (depth * eval_forwards
+                                    if name == "encoder_attention_fwd" else 0)
+            counts[f"{name}_dropout"] = train
     return counts
 
 
@@ -2201,6 +2478,234 @@ def phase_detector_training(smi) -> dict:
     return phase_det_train_bench(smi)
 
 
+# Phase 11: the training entry point, ``python -m
+# arsvt_tpu_torch.train.cli``, driven in-process on the card, each run in a
+# directory of its own (the CLI writes metrics.jsonl and checkpoints/ into
+# its working directory). (a)/(b): the vit_base_bf16_flash preset (batch
+# 512 as 16 x 32, bf16) with attention dropout 0.1, crop/flip, fused
+# AdamW and a warm-up of 10 steps (the preset's 500 would keep the loss
+# at log(6) to 6 digits over these few steps; within the linear warm-up
+# the learning rate does not depend on total_steps, which --steps sets, so
+# a 4-step run resumed to 6 follows the 6-step run), on the default and
+# the opt-in route: 4 steps with checkpoints every 2 and one eval at step
+# 4 (one, since the CLI's synthetic batches of 512 at 256² take seconds
+# each on the host, and an eval reads 8 of them), a resume to step 6 (no
+# eval) held against an uninterrupted 6-step run (the same
+# weights, Adam state, batches and masks: the losses of steps 5-6 should
+# agree to the bit; TOL_RESUME allows a last-bit difference from a
+# non-deterministic reduction, which the log would show), and 3 steps of
+# a run without dropout: both runs start at the same weights with a zero
+# head (loss log(6)) and step 1 has lr 0, so the gradients differ from
+# step 1 and the losses from step 3. The wrappers count the launches that
+# ran the dropout branch: every training launch of the dropout runs, no
+# eval launch and none of the run without dropout. (c) fp32 steps card vs
+# CPU with dropout on each route (phase 7(a)'s limits), and the two
+# routes' card runs against each other: one mask, so the loss within TOL_TRAIN_LOSS and the grad norm
+# within TOL_TRAIN_NORM (the save-probs backward reads P in bf16). (d)
+# `Trainer` with task="detect" on vit_base_detector.
+CLI_ARGS = ["--train-preset", "vit_base_bf16_flash", "--attn-dropout", "0.1",
+            "--augment", "crop_flip", "--fused-adamw", "true",
+            "--warmup-steps", "10", "--log-every", "1"]
+TOL_RESUME = 1e-6
+EVAL_BATCHES = 8  # train/cli.py::make_data's eval stream
+
+
+def cli_metric(directory, key: str = "loss") -> dict:
+    """{step: train/<key>} from a run's metrics.jsonl."""
+    out = {}
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if f"train/{key}" in rec:
+                out[rec["step"]] = float(rec[f"train/{key}"])
+    return out
+
+
+def run_cli(directory, args, *, expect=None) -> tuple[dict, dict, float]:
+    """`train.cli.main(CLI_ARGS + args)` with `directory` as the working
+    directory; launches counted from 0 and, with `expect`, held exact.
+    Returns (last metrics, launch counts, seconds)."""
+    from arsvt_tpu_torch.train import cli
+
+    os.makedirs(directory, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(directory)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()  # this run's path starts here
+        t0 = time.perf_counter()
+        last = cli.main(CLI_ARGS + args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        os.chdir(here)
+    if expect is not None:
+        log(json.dumps({"launches": counts, "expected": expect,
+                        "path": f"train.cli {' '.join(args)}"}))
+        check(counts == expect, f"train.cli {args}: launches {counts} != "
+                                f"{expect}")
+    return last, counts, seconds
+
+
+def add_counts(into: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        into[k] += v
+
+
+def phase_cli(tmp, smi, opt_in: bool) -> dict:
+    """(a) or (b): the CLI on one route. Returns the launches of its runs,
+    the dropout branches' counts included."""
+    route = "opt-in" if opt_in else "default"
+    base = os.path.join(tmp, route)
+    micro, depth = 16, PRESETS["vit_base_16_224"].depth
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+
+    def train_launches(steps, eval_forwards):
+        return classifier_launches(depth, micro, steps, eval_forwards,
+                                   opt_in, dropout=True)
+
+    with switches(opt_in):
+        torch.cuda.reset_peak_memory_stats()
+        run = os.path.join(base, "run")
+        _, counts, secs4 = run_cli(
+            run, ["--steps", "4", "--eval-every", "4", "--checkpoint-every",
+                  "2"], expect=train_launches(4, EVAL_BATCHES))
+        add_counts(total, counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        check(ckpts == ["step_000000002.pt", "step_000000004.pt"],
+              f"{route}: checkpoints {ckpts}")
+        _, counts, secs_resume = run_cli(
+            run, ["--steps", "6", "--eval-every", str(10**9),
+                  "--checkpoint-every", "2", "--resume"],
+            expect=train_launches(2, 0))
+        add_counts(total, counts)
+        whole = os.path.join(base, "uninterrupted")
+        _, counts, secs6 = run_cli(
+            whole, ["--steps", "6", "--eval-every", str(10**9),
+                    "--checkpoint-every", str(10**9)],
+            expect=train_launches(6, 0))
+        add_counts(total, counts)
+        nodrop = os.path.join(base, "no_dropout")
+        _, counts, _ = run_cli(
+            nodrop, ["--steps", "3", "--attn-dropout", "0.0", "--eval-every",
+                     str(10**9), "--checkpoint-every", str(10**9)],
+            expect=classifier_launches(depth, micro, 3, 0, opt_in))
+        add_counts(total, counts)
+    resumed, ref, plain = (cli_metric(d) for d in (run, whole, nodrop))
+    norm, norm_plain = cli_metric(whole, "grad_norm"), cli_metric(
+        nodrop, "grad_norm")
+    rel = max(abs(resumed[s] - ref[s]) / abs(ref[s]) for s in (5, 6))
+    rec = {"check": f"train.cli {route} route, attention dropout 0.1",
+           "losses_resumed_run": resumed, "losses_uninterrupted": ref,
+           "losses_without_dropout": plain, "grad_norms": norm,
+           "grad_norms_without_dropout": norm_plain,
+           "max_rel_diff_loss_steps_5_6_resumed_vs_uninterrupted": rel,
+           "checkpoints": ckpts, "peak_memory_gb": peak,
+           "seconds_4_steps_1_eval": secs4,
+           "seconds_resume_2_steps": secs_resume,
+           "seconds_6_steps": secs6,
+           "ms_per_step_6_step_run_with_data": secs6 / 6 * 1e3,
+           "card": smi}
+    log(json.dumps(rec))
+    check(all(np.isfinite(list(resumed.values()) + list(ref.values()))),
+          f"{route}: non-finite CLI losses {rec}")
+    check(rel <= TOL_RESUME, f"{route}: resumed steps differ from the "
+                             f"uninterrupted run: {rel}")
+    check(resumed[1] == ref[1], f"{route}: two runs started apart {rec}")
+    check(norm[1] != norm_plain[1] and ref[3] != plain[3],
+          f"{route}: dropout moved neither the gradient nor the loss {rec}")
+    return total
+
+
+def phase_route_dropout_parity(cfg) -> dict:
+    """(c) fp32 card vs CPU with dropout on each route, then the routes'
+    card runs against each other."""
+    runs = {}
+    for opt_in in (False, True):
+        with switches(opt_in):
+            runs[opt_in] = phase_train_parity(
+                cfg, route="opt-in" if opt_in else "default",
+                attn_dropout=0.1)
+    a, b = runs[False], runs[True]
+    rel_loss = max(abs(x - y) / abs(y) for x, y in
+                   zip(b["loss_cuda"], a["loss_cuda"]))
+    rel_norm = max(abs(x - y) / abs(y) for x, y in
+                   zip(b["grad_norm_cuda"], a["grad_norm_cuda"]))
+    rec = {"check": "fp32 train steps with dropout, opt-in vs default route "
+                    "on the card", "max_rel_err_loss": rel_loss,
+           "max_rel_err_grad_norm": rel_norm}
+    log(json.dumps(rec))
+    check(rel_loss <= TOL_TRAIN_LOSS and rel_norm <= TOL_TRAIN_NORM,
+          f"the routes disagree under dropout: {rec}")
+    return rec
+
+
+def phase_detect_trainer(tmp, smi) -> dict:
+    """(d) `Trainer` with task="detect" on vit_base_detector, the
+    deit_detector_ref recipe with attention dropout 0.1 and batch 32, on
+    phase 9's fixed batch: 2 steps and the final checkpoint. Per step 12
+    #1 and #2 calls with dropout in the backbone, 6 #3 and #4 calls in the
+    decoder's cross-attention (8 heads of 96), one AdamW launch. Returns
+    the launches."""
+    from arsvt_tpu_torch.train.trainer import Trainer
+
+    det_cfg = DETECTOR_PRESETS["vit_base_detector"]
+    tcfg = det_train_cfg(
+        preset="vit_base_detector", log_every=1,
+        checkpoint_dir=os.path.join(tmp, "detect", "checkpoints"))
+    batch = det_bench_batch(tcfg.batch_size)
+    trainer = Trainer(tcfg)
+    trainer.init_state()
+    steps = 2
+    torch.cuda.synchronize()
+    zero_counts()  # the detector Trainer's path starts here
+    t0 = time.perf_counter()
+    last = trainer.fit(iter([batch] * steps), steps=steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    depth, head_depth = det_cfg.backbone.depth, det_cfg.head.depth
+    bwd = depth * steps * encoder_attention.BWD_LAUNCHES_PER_CALL
+    expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
+                "encoder_attention_fwd": depth * steps,
+                "encoder_attention_bwd": bwd,
+                "encoder_attention_fwd_dropout": depth * steps,
+                "encoder_attention_bwd_dropout": bwd,
+                "flash_attention_fwd": head_depth * steps,
+                "flash_attention_bwd": head_depth * steps}
+    ckpts = os.listdir(tcfg.checkpoint_dir)
+    rec = {"check": "Trainer task=detect vit_base_detector, attention "
+                    "dropout 0.1", "batch": tcfg.batch_size, "steps": steps,
+           "last_metrics": last, "seconds": seconds, "checkpoints": ckpts,
+           "launches": counts, "expected": expected, "card": smi}
+    log(json.dumps(rec))
+    check(np.isfinite(last["loss"]), f"detector Trainer loss {last}")
+    check(counts == expected, f"detector Trainer launches {counts} != "
+                              f"{expected}")
+    check(ckpts == ["step_000000002.pt"], f"detector checkpoints {ckpts}")
+    return counts
+
+
+def phase_entry_point(cfg, smi) -> dict:
+    """Phase 11. Returns the launches of every path, the dropout
+    branches' counts included."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for opt_in in (False, True):
+            log(f"# phase 11({'b' if opt_in else 'a'}): train.cli, "
+                f"{'opt-in' if opt_in else 'default'} route")
+            add_counts(total, phase_cli(tmp, smi, opt_in))
+        log("# phase 11(c): fp32 steps with dropout, card vs CPU and route "
+            "vs route")
+        phase_route_dropout_parity(cfg)
+        log("# phase 11(d): Trainer, task=detect, vit_base_detector")
+        det = phase_detect_trainer(tmp, smi)
+    add_counts(total, det)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2235,6 +2740,7 @@ def main() -> int:
     attn_bwd = phase_bwd_checks(cfg)
     adamw = phase_adamw_checks(cfg)
     savep_fwd, savep_bwd = phase_savep_checks(cfg)
+    dropout = phase_encoder_dropout_checks(cfg)
     mlp_fwd, mlp_bwd = phase_mlp_checks()
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
@@ -2284,6 +2790,9 @@ def main() -> int:
     log("# phase 10: ViT-B/16@224 training on the opt-in route")
     opt_in = phase_opt_in_training(cfg, smi, default_bf16)
 
+    log("# phase 11: the training entry point with attention dropout")
+    entry = phase_entry_point(cfg, smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -2293,39 +2802,49 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
+    def paths(name):  # launches of every path's run, phases 4-11
+        return (train[name] + detect.get(name, 0) + det_train[name]
+                + opt_in[name] + entry[name]
+                + (launches if name == "encoder_attention_fwd" else 0))
+
+    sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",
+                                         "flash_attention.py:533"),
+               "encoder_attention_bwd": ("encoder_attention_bwd.cu",
+                                         "flash_attention.py:629"),
+               "encoder_attention_fwd_savep": (
+                   "encoder_attention_savep_fwd.cu", "flash_attention.py:739"),
+               "encoder_attention_bwd_savep": (
+                   "encoder_attention_savep_bwd.cu", "flash_attention.py:811")}
     print(json.dumps({"kernels": [
-        # forward: the launches of classify serving, training and the
-        # ViT-B detector
-        row("encoder_attention_fwd", "encoder_attention_fwd.cu",
-            "flash_attention.py:533", attn,
-            launches + train["encoder_attention_fwd"]
-            + detect["encoder_attention_fwd"]
-            + opt_in["encoder_attention_fwd"]),
-        row("encoder_attention_bwd", "encoder_attention_bwd.cu",
-            "flash_attention.py:629", attn_bwd,
-            train["encoder_attention_bwd"]),
+        # #1: classify serving, training, the ViT-B detector, eval
+        row("encoder_attention_fwd", *sources["encoder_attention_fwd"], attn,
+            paths("encoder_attention_fwd")),
+        row("encoder_attention_bwd", *sources["encoder_attention_bwd"],
+            attn_bwd, paths("encoder_attention_bwd")),
         row("fused_adamw", "fused_adamw.cu", "fused_adamw.py:40", adamw,
-            train["fused_adamw"] + det_train["fused_adamw"]
-            + opt_in["fused_adamw"]),
-        # forward: detector serving and training
+            paths("fused_adamw")),
+        # detector serving and training
         row("flash_attention_fwd", "flash_attention_fwd.cu",
-            "flash_attention.py:93", flash,
-            detect["flash_attention_fwd"]
-            + det_train["flash_attention_fwd"]),
+            "flash_attention.py:93", flash, paths("flash_attention_fwd")),
         row("flash_attention_bwd", "flash_attention_bwd.cu",
             "flash_attention.py:172", flash_bwd,
-            det_train["flash_attention_bwd"]),
+            paths("flash_attention_bwd")),
         # the opt-in training path
-        row("encoder_attention_fwd_savep", "encoder_attention_savep_fwd.cu",
-            "flash_attention.py:739", savep_fwd,
-            opt_in["encoder_attention_fwd_savep"]),
-        row("encoder_attention_bwd_savep", "encoder_attention_savep_bwd.cu",
-            "flash_attention.py:811", savep_bwd,
-            opt_in["encoder_attention_bwd_savep"]),
+        row("encoder_attention_fwd_savep",
+            *sources["encoder_attention_fwd_savep"], savep_fwd,
+            paths("encoder_attention_fwd_savep")),
+        row("encoder_attention_bwd_savep",
+            *sources["encoder_attention_bwd_savep"], savep_bwd,
+            paths("encoder_attention_bwd_savep")),
         row("fused_mlp_fwd", "fused_mlp_fwd.cu", "fused_mlp.py:63",
-            mlp_fwd, opt_in["fused_mlp_fwd"]),
+            mlp_fwd, paths("fused_mlp_fwd")),
         row("fused_mlp_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:135",
-            mlp_bwd, opt_in["fused_mlp_bwd"]),
+            mlp_bwd, paths("fused_mlp_bwd")),
+    ] + [
+        # the dropout branches (phase 3 at dropout 0.1; launches: those
+        # that ran the branch, counted by the wrappers over every path)
+        row(f"{name} (dropout 0.1)", *sources[name], dropout[name],
+            paths(f"{name}_dropout")) for name in ENC_DROPOUT_NAMES
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

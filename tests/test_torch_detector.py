@@ -19,6 +19,7 @@ from arsvt_tpu.models.registry import DETECTOR_PRESETS as JAX_DETECTOR_PRESETS
 from arsvt_tpu.models.registry import PRESETS as JAX_PRESETS
 from arsvt_tpu.models.vit import BackboneConfig as JaxBackboneConfig
 from arsvt_tpu.objectives import boxes as jax_boxes
+from arsvt_tpu_torch.core.prng import Rng
 from arsvt_tpu_torch.evaluation import detect
 from arsvt_tpu_torch.evaluation.detect import post_process
 from arsvt_tpu_torch.models import vit
@@ -236,18 +237,26 @@ def test_attention_routes_by_head_dim(name, encoder_calls, flash_calls,
 
 
 def test_training_forward_raises():
-    """A training forward runs through kernels #3/#4 with dropout; it
-    raises only for attention dropout at head_dim 64, whose kernels (#1,
-    #2) have none yet."""
+    """A training forward runs through kernels #3/#4 with dropout, and at
+    head_dim 64 through #1/#2 with theirs: it no longer raises for
+    attention dropout there. With an rng the backbone's attention dropout
+    moves the output away from the same forward without one."""
     cfg = get_detector_preset("detector_test")
     out = apply_detector(init_detector(cfg), torch.zeros(1, 32, 32, 3), cfg,
                          train=True)
     assert out["class_logits"].shape == (1, 5, 7)
     wide = dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, embed_dim=128, num_heads=2, attn_dropout=0.1))
-    with pytest.raises(NotImplementedError, match="kernels #1/#2"):
-        apply_detector(init_detector(wide), torch.zeros(1, 32, 32, 3), wide,
-                       train=True)
+        cfg.backbone, embed_dim=128, num_heads=2, dropout=0.0,
+        attn_dropout=0.1), head=dataclasses.replace(
+        cfg.head, dropout=0.0, attn_dropout=0.0))
+    params = init_detector(wide)
+    images = torch.from_numpy(np.random.default_rng(1).random(
+        (2, 32, 32, 3)).astype(np.float32))
+    dropped = apply_detector(params, images, wide, train=True, rng=Rng(5))
+    plain = apply_detector(params, images, wide, train=True)
+    assert dropped["class_logits"].shape == (2, 5, 7)
+    assert bool(torch.isfinite(dropped["class_logits"]).all())
+    assert not torch.equal(dropped["class_logits"], plain["class_logits"])
 
 
 def _boxes_xyxy(seed, shape):

@@ -187,6 +187,61 @@ def test_fused_matches_the_unfused_mlp():
         _close(a, b, name, 2.0 ** -7)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_match_pallas_at_vit_l_width(dtype):
+    """ViT-L's MLP (D = 1,024, M = 4,096) at n = 24: the width the
+    kernels split into two 512-column slices. Forward and backward plain
+    versions against JAX's `_fwd` and `_bwd`, the tolerances above, except
+    the gradients that read du in fp32: with 4,096 du values a row, more of
+    them sit where XLA's and PyTorch's tanh flip a bf16 rounding, and with
+    24 rows one flipped term is a larger share of a dw1 or db1 element
+    (measured 1.2e-3 of the largest |dw1|): 2^-8."""
+    n, d, m = 24, 1024, 4096
+    x, w1, b1, w2, b2 = _inputs(n, d, m, dtype, seed=40)
+    dout = _to_np(jnp.asarray(_rand((n, d), 41)).astype(_JAX[dtype]))
+    jx, jw1, jb1, jw2, jb2, jdo = (jnp.asarray(a).astype(_JAX[dtype])
+                                   for a in (x, w1, b1, w2, b2, dout))
+    ref_out, ju = jax_fused_mlp._fwd(jx, jw1, jb1, jw2, jb2)
+    ref = jax_fused_mlp._bwd(jx, ju, jw1, jw2, jdo)
+    t = [torch.from_numpy(a).to(_TORCH[dtype]) for a in (x, w1, b1, w2, b2)]
+    out, u = fused_mlp_fwd(*t)
+    _close(out, ref_out, "out", _rel(dtype, "out"))
+    np.testing.assert_allclose(_to_np(u), _to_np(ju), rtol=2.0 ** -7,
+                               atol=1e-6)
+    got = fused_mlp_bwd(t[0], torch.from_numpy(_to_np(ju)).bfloat16(), t[1],
+                        t[3], torch.from_numpy(dout).to(_TORCH[dtype]))
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2"), got, ref):
+        rel = max(2.0 ** -8 if name in DU_GRADS else 0.0, _rel(dtype, name))
+        _close(g, np.asarray(r, np.float32).reshape(tuple(g.shape)), name,
+               rel)
+
+
+def test_kernel_width_check_takes_vit_l(monkeypatch):
+    """The wrappers' own shape check takes D = 1,024 (ViT-L, M = 4,096) in
+    both dtypes, where it refused D > 768 before; the bound on D lives in
+    the C entry alone (``mlp_tile.cuh::max_d``, queried through
+    `fused_mlp.max_d`, which needs the built kernel and is checked on the
+    card by ``chip_smoke.py``), and a launch refused past it reads as a
+    shared-memory bound. Here `max_d` answers the header's bounds."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(3, 1024, dtype=dtype)
+        w1 = torch.zeros(1024, 4096, dtype=dtype)
+        assert fused_mlp._check(x, w1, w1.T) == (3, 1024, 4096)
+    bounds = {torch.bfloat16: 1088, torch.float32: 1728}
+    monkeypatch.setattr(fused_mlp, "max_d", bounds.__getitem__)
+    invalid = fused_mlp._CUDA_ERROR_INVALID_VALUE
+    for dtype, d in bounds.items():
+        err = fused_mlp._launch_error(invalid, "fused MLP forward", d + 8,
+                                      dtype)
+        assert isinstance(err, ValueError)
+        assert "shared memory" in str(err) and f"D <= {d}" in str(err)
+        for code, width in ((invalid, d), (700, d + 8)):
+            err = fused_mlp._launch_error(code, "fused MLP backward", width,
+                                          dtype)
+            assert isinstance(err, RuntimeError)
+            assert f"CUDA error {code}" in str(err)
+
+
 def test_wrappers_check_and_count_no_cpu_launch():
     x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(5, 16, 24,
                                                               "float32"))
@@ -239,7 +294,9 @@ def _count_fused(monkeypatch):
 def test_vit_block_routes_the_fused_mlp(env, expected, monkeypatch):
     """With the switch on, a ViT block's MLP runs the fused Function, in a
     training forward and under inference_mode alike (JAX's ``mlp.py:66``
-    has no train gate); without it, the unfused MLP."""
+    has no train gate); without it, the unfused MLP. ``ARSVT_DISABLE_PALLAS``,
+    which tests/conftest.py sets, would turn the switch off."""
+    monkeypatch.delenv("ARSVT_DISABLE_PALLAS", raising=False)
     if env is None:
         monkeypatch.delenv("ARSVT_ENABLE_FUSED_MLP", raising=False)
     else:
@@ -260,6 +317,7 @@ def test_detr_head_ffn_routes_the_fused_mlp(env, expected, monkeypatch):
     """A detector forward (2 backbone blocks, 2 decoder blocks): every MLP,
     the DETR head's FFN included (JAX's ``heads.py:223``), takes the fused
     Function with the switch on, and none without it."""
+    monkeypatch.delenv("ARSVT_DISABLE_PALLAS", raising=False)
     if env is None:
         monkeypatch.delenv("ARSVT_ENABLE_FUSED_MLP", raising=False)
     else:

@@ -197,7 +197,10 @@ def test_savep_sources_name_the_tpu_kernels_and_build_for_sm90a(name,
 def test_encoder_block_routes_save_probs(train, env, savep_calls,
                                          monkeypatch):
     """The save-probs Function only for a training forward with the switch
-    on (JAX's ``vit.py:182``); the default Function otherwise."""
+    on (JAX's ``vit.py:182``); the default Function otherwise.
+    ``ARSVT_DISABLE_PALLAS``, which tests/conftest.py sets, would turn the
+    switch off."""
+    monkeypatch.delenv("ARSVT_DISABLE_PALLAS", raising=False)
     if env is None:
         monkeypatch.delenv("ARSVT_ATTN_SAVE_PROBS", raising=False)
     else:

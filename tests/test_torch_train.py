@@ -332,9 +332,15 @@ def test_step_fns_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("override", [
     dict(distillation="soft"), dict(mixup_alpha=0.2), dict(remat=True),
-    dict(attn_dropout=0.1), dict(augment="randaugment"),
+    dict(augment="randaugment"),
 ])
 def test_unported_training_features_raise(override):
     cfg = TrainConfig(preset=PRESET, bf16=False, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_classifier_step_fns(cfg, device="cpu")
+
+
+def test_attention_dropout_builds_at_head_dim_64():
+    cfg = TrainConfig(preset=PRESET, bf16=False, attn_dropout=0.1)
+    init_fn, train_step, _ = make_classifier_step_fns(cfg, device="cpu")
+    assert callable(init_fn) and callable(train_step)
