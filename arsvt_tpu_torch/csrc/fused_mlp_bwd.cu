@@ -29,7 +29,7 @@
 //      = 0) or of dw2 (blockIdx.z = 1) walks all n rows in steps of 32,
 //      copying the rows of x and du (or h and dO) as they lie through a
 //      4-step cp.async ring and reading them as transposed operands with
-//      ldmatrix.trans (a warp tile of 16 x 32, mlp_tile.cuh::warp_mma).
+//      ldmatrix.trans (a warp tile of 16 x 32, warp_tile.cuh::warp_mma).
 //      The TPU kernel evaluates gelu(u) in its dw step; here launch 1
 //      writes h once, so the 12 D tiles of dw2 do not each evaluate it.
 //      The TPU grid's carry of the accumulator across row blocks becomes a

@@ -1,16 +1,8 @@
-// Tile GEMM pieces shared by the fused-MLP kernels (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu), and the row-tile kernel that both run: #8's forward
-// and the dx/du launch of #9 have the same shape.
-//
-// Products are built from warp tiles (`warp_mma`): a warp's kM x kN grid
-// of 16 x 8 fp32 accumulators += A B^T, with A and B staged in shared
-// memory as they lie in device memory ([row][k] or [k][row]). In bf16 each
-// 16 x 8 x 16 step is one tensor-core `mma.sync.m16n8k16` (fp32
-// accumulate) fed by ldmatrix. In fp32 the same tiles run on the CUDA
-// cores with sequential FMAs over k, so that an fp32 step sums in fp32 as
-// the TPU kernel's fp32 dots do; both keep the accumulator in the mma's
-// layout (lane = 4 * g + t holds rows g and g + 8, columns 2t and 2t + 1),
-// so every epilogue is shared.
+// The fused-MLP kernels' own pieces (fused_mlp_fwd.cu, fused_mlp_bwd.cu):
+// tanh GELU and the row-tile kernel that both run (#8's forward and the
+// dx/du launch of #9 have the same shape). Their products are warp tiles
+// from warp_tile.cuh (tensor-core mma.sync in bf16, CUDA-core FMAs in depth
+// order in fp32, one accumulator layout).
 //
 // Operands are copied from device memory in 16-byte vectors (cp.async)
 // along the contiguous dimension, so D and M must be multiples of 8 (the
@@ -24,7 +16,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_tile.cuh"
+
 namespace mlp {
+
+using namespace wtile;
 
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluA = 0.044715f;
@@ -44,22 +40,6 @@ __device__ __forceinline__ float gelu_and_grad(float u, float* h) {
          0.5f * u * (1.0f - t * t) * kGeluC * (1.0f + 3.0f * kGeluA * u * u);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // Eight bf16 values from a 16-byte aligned address, as fp32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
   const uint4 raw = *reinterpret_cast<const uint4*>(src);
@@ -69,159 +49,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
     const float2 f = __bfloat1622float2(h[i]);
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
-  }
-}
-
-// Two neighbouring values of one row, as the mma accumulator holds them.
-__device__ __forceinline__ void store2(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
-
-// ------------------------------------------------ asynchronous copies
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device to shared memory; zeros, with src not read, when
-// !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// dst[r * dst_ld + c] = src[r * ld + c] for r < rows, c < cols (c
-// contiguous in both), copied by 16-byte cp.async; r >= rvalid or c >=
-// cvalid give zeros. cols and cvalid are multiples of 8.
-template <int kNThreads, typename T>
-__device__ __forceinline__ void copy_tile_async(T* dst, int dst_ld,
-                                                const T* __restrict__ src,
-                                                int64_t ld, int rows,
-                                                int cols, int rvalid,
-                                                int cvalid) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = cols / kVec;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kNThreads) {
-    const int r = idx / per_row, c = (idx % per_row) * kVec;
-    const bool ok = r < rvalid && c < cvalid;
-    cp_async16(dst + r * dst_ld + c, ok ? src + r * ld + c : src, ok);
-  }
-}
-
-// ------------------------------------------------------------ warp tiles
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float acc[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp's acc[m][j] += A_m B_j^T over kDepth (a multiple of 16), for
-// kM 16-row tiles of A and kN (even) 8-column tiles of B. A is at As as
-// [k][m] when kAKM, else as [m][k] (row stride lda); B is at Bs as [k][n]
-// when kBKN, else as [n][k] (row stride ldb). bf16: per 16-deep step, B's
-// fragments are loaded once and each A fragment once (ldmatrix, .trans for
-// the [k][.] layouts) for kM * kN tensor-core mma.sync m16n8k16. Row
-// strides are multiples of 8 elements and rows start 16-byte aligned.
-template <int kM, int kN, int kDepth, bool kAKM, bool kBKN>
-__device__ __forceinline__ void warp_mma(float (&acc)[kM][kN][4],
-                                         const __nv_bfloat16* As, int lda,
-                                         const __nv_bfloat16* Bs, int ldb) {
-  static_assert(kN % 2 == 0 && kDepth % 16 == 0, "warp tile shape");
-  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < kDepth; kk += 16) {
-    uint32_t b[kN][2];
-#pragma unroll
-    for (int j = 0; j < kN; j += 2) {
-      uint32_t f[4];  // matrix mi: k half mi % 2, n half mi / 2
-      if (kBKN)
-        ldsm_x4_trans(f, Bs + (kk + r + (mi & 1) * 8) * ldb +
-                             (j + (mi >> 1)) * 8);
-      else
-        ldsm_x4(f, Bs + ((j + (mi >> 1)) * 8 + r) * ldb + kk + (mi & 1) * 8);
-      b[j][0] = f[0];
-      b[j][1] = f[1];
-      b[j + 1][0] = f[2];
-      b[j + 1][1] = f[3];
-    }
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      uint32_t a[4];  // matrix mi: m half mi % 2, k half mi / 2
-      if (kAKM)
-        ldsm_x4_trans(a, As + (kk + r + (mi >> 1) * 8) * lda + m * 16 +
-                             (mi & 1) * 8);
-      else
-        ldsm_x4(a, As + (m * 16 + r + (mi & 1) * 8) * lda + kk +
-                       (mi >> 1) * 8);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) mma_bf16(acc[m][j], a, b[j]);
-    }
-  }
-}
-
-// fp32: the same warp tile and accumulator layout (lane = 4 * g + t holds
-// rows g and g + 8, columns 2t and 2t + 1 of each 16 x 8 tile) on the CUDA
-// cores, one FMA per element and depth step, in order of depth.
-template <int kM, int kN, int kDepth, bool kAKM, bool kBKN>
-__device__ __forceinline__ void warp_mma(float (&acc)[kM][kN][4],
-                                         const float* As, int lda,
-                                         const float* Bs, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int am = kAKM ? 1 : lda, ak = kAKM ? lda : 1;
-  const int bn = kBKN ? 1 : ldb, bk = kBKN ? ldb : 1;
-#pragma unroll 4
-  for (int k = 0; k < kDepth; ++k) {
-    float b[kN][2];
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      b[j][0] = Bs[(j * 8 + 2 * t) * bn + k * bk];
-      b[j][1] = Bs[(j * 8 + 2 * t + 1) * bn + k * bk];
-    }
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const float a_lo = As[(m * 16 + g) * am + k * ak];
-      const float a_hi = As[(m * 16 + g + 8) * am + k * ak];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        acc[m][j][0] = fmaf(a_lo, b[j][0], acc[m][j][0]);
-        acc[m][j][1] = fmaf(a_lo, b[j][1], acc[m][j][1]);
-        acc[m][j][2] = fmaf(a_hi, b[j][0], acc[m][j][2]);
-        acc[m][j][3] = fmaf(a_hi, b[j][1], acc[m][j][3]);
-      }
-    }
   }
 }
 

@@ -165,8 +165,8 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
 
     Returns (O (B, H, Sq, d) in q's dtype, lse (B, H, 1, Sq) fp32, taken
     before dropout). On the card the operands must be contiguous; the
-    kernel reads element by element, so any tensor's own alignment is
-    enough.
+    kernel stages rows by 16-byte copies where they are 16-byte aligned and
+    element by element elsewhere, so any tensor's own alignment is enough.
     """
     global LAUNCHES
     kv_len = _check(q, k, v, kv_len, dropout_rate)

@@ -12,12 +12,19 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
 1. device check: the card's name and power limit; TF32 off for fp32
    matmuls and convolutions;
 2. build every kernel under ``arsvt_tpu_torch/csrc`` (one nvcc each, all
-   started together) and print the compiler's resource report;
+   started together) and print the compiler's resource report; no spill
+   or stack frame in the bf16 attention forwards (#1, #3), and HMMA in the
+   SASS of every bf16 kernel of the tensor-core libraries (#1, #3, #8, #9);
 3. each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes in bf16 and fp32 plus odd shapes, then timed with
-   CUDA events beside its bound and a library call on the same work; the
+   main paths' shapes in bf16 and fp32 plus odd shapes (#1 also at S = 1
+   and ViT-L's S = 577; #3 over d in {1, 16, 50, 96, 128}, Sq in {1, 5,
+   198}, Sk in {1, 33, 198}, kv_len below Sk on every other shape), then
+   timed with CUDA events beside its bound and a library call on the same
+   work (the factor is ms over library ms; #1 and #3 also give the device
+   time with launches queued behind a spin kernel, free of the host's
+   pace at B=1); the
    head-major kernels (#3 with dropout, #4) also at one detector train
-   step's shapes, and a probe that reads back the dropout mask each of
+   step's shapes, and probes that read back the dropout mask each of
    their three launches used; the save-probs attention kernels (#5, #6)
    and the fused-MLP kernels (#8, #9) at the ``bench_train`` microbatch
    (B = 32, n = 6,304 rows) and odd sizes (n = 591 and 594, D = 400,
@@ -182,6 +189,36 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Cycles of the spin kernel that holds the card per queued call in
+# `device_ms`: 0.25 ms at 2 GHz, above any wrapper's host time.
+HOLD_CYCLES_PER_CALL = 500_000
+
+
+def device_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Per-call device time: the calls are queued behind a spin kernel
+    that holds the card while the host enqueues them, so no launch waits
+    on the host (`cuda_ms` at B=1 reads the host's pace instead). Raises
+    if the host did not finish enqueuing before the spin ended."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * iters)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    check(enqueue_ms < held.elapsed_time(start),
+          f"the host took {enqueue_ms:.2f} ms to enqueue, longer than the "
+          f"{held.elapsed_time(start):.2f} ms hold")
+    return start.elapsed_time(end) / iters
+
+
 def seeded_qkv(b, s, d, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     return torch.randn(b, s, 3 * d, generator=gen).to(dtype).cuda()
@@ -212,12 +249,27 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def shares(ms, bound_ms, library_ms) -> dict:
+    """A timing line's share of the bound and its factor against the
+    library call (None where no one call computes the same function)."""
+    return {"bound_share": bound_ms / ms,
+            "factor": None if library_ms is None else ms / library_ms}
+
+
+# (B, S, D, H) at the edges of #1's tiles beside the ViT-B shapes: one
+# query row and key, and ViT-L/16@384's S = 577 (ten row tiles, ten key
+# chunks) at its width, D = 1,024 in 16 heads.
+ENC_EDGE_CASES = [(2, 1, 128, 2), (2, 577, 1024, 16)]
+
+
 def phase_kernel_checks(cfg) -> dict:
     d, h = cfg.embed_dim, cfg.num_heads
     s = cfg.seq_len
     cases = [(8, s, d, h, torch.bfloat16), (8, s, d, h, torch.float32),
              (1, s, d, h, torch.bfloat16), (3, 17, 128, 2, torch.bfloat16),
              (3, 17, 128, 2, torch.float32), (32, s, d, h, torch.bfloat16)]
+    cases += [(*shape, dtype) for shape in ENC_EDGE_CASES
+              for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
     for i, (b, s_, d_, h_, dtype) in enumerate(cases):
         # the B=32 case on the input its timing below uses
@@ -252,6 +304,11 @@ def phase_kernel_checks(cfg) -> dict:
             lambda: encoder_attention.encoder_attention_fwd_plain(qkv, h),
             iters=50)
         library_ms = cuda_ms(lambda: library_attention(qkv, h), iters=200)
+        held = {"device_ms": device_ms(
+                    lambda: encoder_attention.encoder_attention_fwd(qkv, h),
+                    iters=100),
+                "library_device_ms": device_ms(
+                    lambda: library_attention(qkv, h), iters=100)}
         bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
         timings[b] = {"ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms,
@@ -261,7 +318,8 @@ def phase_kernel_checks(cfg) -> dict:
             "H": h, "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-            "bound_share": bound_ms / ms,
+            **shares(ms, bound_ms, library_ms), **held,
+            "device_factor": held["device_ms"] / held["library_device_ms"],
         }))
     return {"max_abs_err": errs[f"B32_S{s}_D{d}_H{h}_bfloat16"],
             **timings[32]}
@@ -295,18 +353,40 @@ def flash_bound(b, h, sq, sk, d, elem=2):
                                  "operations"), nbytes, flops
 
 
+# Edges of #3's tiles: each padded head dim (d = 1 and 16 pad to 16, 50 to
+# 64, then 96 and 128; 1 and 50 staged element by element in bf16), one
+# query row to four row tiles, one key to four key chunks; kv_len < Sk on
+# every other shape where Sk > 1.
+FLASH_EDGE_D = (1, 16, 50, 96, 128)
+FLASH_EDGE_SQ = (1, 5, 198)
+FLASH_EDGE_SK = (1, 33, 198)
+
+
+def flash_edge_cases() -> list[tuple]:
+    """(name, B, H, Sq, Sk, d, kv_len) over FLASH_EDGE_D x _SQ x _SK."""
+    cases = []
+    for d in FLASH_EDGE_D:
+        for sq in FLASH_EDGE_SQ:
+            for sk in FLASH_EDGE_SK:
+                kv_len = sk - sk // 3 if len(cases) % 2 else sk
+                cases.append((f"edge_d{d}_sq{sq}_sk{sk}_kv{kv_len}", 2, 3,
+                              sq, sk, d, kv_len))
+    return cases
+
+
 def phase_flash_checks() -> dict:
     """The head-major kernel against its plain version at the detector
-    paths' shapes (B=1 and B=8), a masked odd shape and one query row, in
-    bf16 and fp32 (tolerances of the encoder-attention forward: the same
-    arithmetic in another summation order); then timed at the path shapes.
-    Returns the record of the DeiT-400 encoder shape at B=1, the most
-    launched."""
+    paths' shapes (B=1 and B=8), a masked odd shape, one query row and the
+    tiles' edges, in bf16 and fp32 (tolerances of the encoder-attention
+    forward: the same arithmetic in another summation order); then timed
+    at the path shapes at B = 1, 8 and 32 beside SDPA. Returns the record
+    of the DeiT-400 encoder shape at B=1, the most launched."""
     cases = [(f"{name}_B{b}", b, h, sq, sk, d, sk)
              for name, (h, sq, sk, d) in FLASH_PATH_SHAPES.items()
              for b in (1, 8)]
     cases += [("odd_kv_len", 3, 2, 17, 33, 50, 20),
               ("one_query", 2, 4, 1, 77, 128, 77)]
+    cases += flash_edge_cases()
     errs = {}
     for i, (name, b, h, sq, sk, d, kv_len) in enumerate(cases):
         for j, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -338,18 +418,24 @@ def phase_flash_checks() -> dict:
 
     timings = {}
     for name, (h, sq, sk, d) in FLASH_PATH_SHAPES.items():
-        for b in (1, 8):
+        for b in (1, 8, 32):
             q, k, v = seeded_heads(b, h, sq, sk, d, torch.bfloat16, seed=8)
             ms = cuda_ms(lambda: flash_attention.flash_attention_fwd(q, k, v),
-                         iters=200)
+                         iters=200 if b < 32 else 50)
             plain_ms = cuda_ms(
                 lambda: flash_attention.flash_attention_fwd_plain(q, k, v,
                                                                   sk),
-                iters=50)
+                iters=50 if b < 32 else 5)
             # the library yardstick on the same q, k, v: timed, never
             # called by the port
             library_ms = cuda_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v), iters=200)
+            held = {"device_ms": device_ms(
+                        lambda: flash_attention.flash_attention_fwd(q, k, v),
+                        iters=100),
+                    "library_device_ms": device_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v),
+                        iters=100)}
             bound_ms, bound_by, nbytes, flops = flash_bound(b, h, sq, sk, d)
             timings[(name, b)] = {"ms": ms, "plain_ms": plain_ms,
                                   "library_ms": library_ms,
@@ -359,7 +445,9 @@ def phase_flash_checks() -> dict:
                 "H": h, "Sq": sq, "Sk": sk, "d": d, "dtype": "bfloat16",
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                "flops": flops, "bound_share": bound_ms / ms,
+                "flops": flops, **shares(ms, bound_ms, library_ms), **held,
+                "device_factor": held["device_ms"]
+                / held["library_device_ms"],
             }))
     return {"max_abs_err": errs["deit_encoder_B1_bfloat16"],
             **timings[("deit_encoder", 1)]}
@@ -510,11 +598,14 @@ def phase_flash_train_checks() -> dict:
             errs[key] = max(rec[f"max_abs_err_{n}"]
                             for n in ("dq", "dk", "dv"))
 
-    mismatches = mask_probe(4, 5, 70, 96, DROPOUT_SEED)
-    log(json.dumps({"check": "dropout mask probe", "shape": [4, 5, 70, 96],
-                    "rate": DROPOUT_RATE, "mismatches": mismatches}))
-    check(all(v == 0 for v in mismatches.values()),
-          f"a kernel's dropout mask differs from keep_mask: {mismatches}")
+    # d = Sk = 96: #3 stages by cp.async; 33: element by element
+    for shape in ((4, 5, 70, 96), (2, 3, 17, 33)):
+        mismatches = mask_probe(*shape, DROPOUT_SEED)
+        log(json.dumps({"check": "dropout mask probe", "shape": shape,
+                        "rate": DROPOUT_RATE, "mismatches": mismatches}))
+        check(all(v == 0 for v in mismatches.values()),
+              f"a kernel's dropout mask differs from keep_mask at {shape}: "
+              f"{mismatches}")
 
     timings = {}
     for name, (b, h, sq, sk, d) in FLASH_TRAIN_SHAPES.items():
@@ -551,10 +642,11 @@ def phase_flash_train_checks() -> dict:
                 "dtype": "bfloat16", "dropout_rate": rate, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                "flops": flops, "bound_share": bound_ms / ms,
+                "flops": flops, **shares(ms, bound_ms, library_ms),
                 "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
                 "fwd_library_ms": lib_fwd_ms, "fwd_bound_ms": fwd_bound_ms,
-                "fwd_bound_by": fwd_bound_by}))
+                "fwd_bound_by": fwd_bound_by,
+                "fwd_factor": fwd_ms / lib_fwd_ms}))
     return {"max_abs_err": errs["deit_encoder_B32_bfloat16"],
             **timings[("deit_encoder_B32", 0.0)]}
 
@@ -654,7 +746,7 @@ def phase_bwd_checks(cfg) -> dict:
             "H": h, "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-            "bound_share": bound_ms / ms,
+            **shares(ms, bound_ms, library_ms),
         }))
     return {"max_abs_err": errs[f"B32_S{s}_D{d}_H{h}_bfloat16"],
             **timings[32]}
@@ -779,7 +871,7 @@ def phase_savep_checks(cfg) -> tuple[dict, dict]:
                    int(backward)]}
         log(json.dumps({"timing": name, "B": b, "S": s, "D": d, "H": h,
                         "dtype": "bfloat16", **rec, "bytes": nbytes,
-                        "flops": flops, "bound_share": bound_ms / ms,
+                        "flops": flops, **shares(ms, bound_ms, library_ms),
                         "library": "SDPA, O without P"}))
         recs.append(rec)
     return recs[0], recs[1]
@@ -986,7 +1078,8 @@ def phase_encoder_dropout_checks(cfg) -> dict:
                         "ms_dropout_0": times[0.0],
                         "slowdown": times[DROPOUT_RATE] / times[0.0],
                         "bytes": nbytes, "flops": flops,
-                        "bound_share": bound_ms / times[DROPOUT_RATE]}))
+                        **shares(times[DROPOUT_RATE], bound_ms,
+                                 library_ms)}))
         result[name] = rec
     return result
 
@@ -1193,7 +1286,7 @@ def _time_mlp(n, d, m, errs) -> tuple[dict, dict]:
         log(json.dumps({"timing": name, "n": n, "D": d, "M": m,
                         "dtype": "bfloat16", **rec, "bytes": nbytes,
                         "flops": flops, "tflop_per_s": flops / ms / 1e9,
-                        "bound_share": bound_ms / ms,
+                        **shares(ms, bound_ms, library_ms),
                         "library": "cuBLAS MLP (matmul, tanh GELU, matmul)"}))
         recs.append(rec)
     return recs[0], recs[1]
@@ -1256,7 +1349,7 @@ def phase_adamw_checks(cfg) -> dict:
            "bound_ms": bound_ms, "bound_by": "bytes"}
     log(json.dumps({"timing": "fused_adamw", "params": n_vit,
                     "leaves": len(vit), "bytes": nbytes, **rec,
-                    "bound_share": bound_ms / ms}))
+                    **shares(ms, bound_ms, library_ms)}))
     return {"max_abs_err": err, **rec}
 
 
@@ -1711,12 +1804,12 @@ def phase_train_bench(cfg, smi: str, opt_in: bool = False):
 
 # Device kernels by the layer they belong to (first match wins).
 PROFILE_CATEGORIES = (
-    ("attention forward kernel", ("encoder_attention_fwd_kernel",)),
+    # #1 and #3 share one kernel template (attention_fwd.cuh)
+    ("attention forward kernels (#1, #3)", ("attn::attention_fwd_kernel",)),
     ("save-probs attention forward kernel",
      ("encoder_attention_savep_fwd_kernel",)),
     ("save-probs attention backward kernels", ("savep_bwd_",)),
     ("fused MLP kernels", ("row_tile_kernel", "dw_kernel")),
-    ("head-major attention kernel", ("flash_attention_fwd_kernel",)),
     ("attention backward kernels", ("attn_bwd_",)),
     ("head-major attention backward kernels", ("flash_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
@@ -2706,6 +2799,68 @@ def phase_entry_point(cfg, smi) -> dict:
     return total
 
 
+# The libraries whose bf16 instantiations must run on the tensor cores:
+# the fused MLP's and the two attention forwards on warp_tile.cuh.
+TENSOR_CORE_LIBRARIES = ("encoder_attention_fwd", "flash_attention_fwd",
+                         "fused_mlp_fwd", "fused_mlp_bwd")
+
+
+def ptxas_report(built: dict) -> list[dict]:
+    """Registers and spill bytes of every kernel in the libraries built now,
+    from the compiler's ``-Xptxas=-v`` report."""
+    rows = []
+    for name, info in built.items():
+        entry = None
+        for line in info["log"].splitlines():
+            if "Compiling entry function" in line:
+                entry = {"library": name, "entry": line.split("'")[1]}
+            elif entry is not None and "spill stores" in line:
+                words = line.replace(",", "").split()
+                entry["stack_frame"] = int(words[0])
+                entry["spill_stores"] = int(words[words.index("spill") - 2])
+                entry["spill_loads"] = int(words[-4])
+            elif entry is not None and "Used" in line and "registers" in line:
+                words = line.replace(",", "").split()
+                entry["registers"] = int(words[words.index("Used") + 1])
+                rows.append(entry)
+                entry = None
+    return rows
+
+
+def hmma_per_kernel(name: str) -> dict:
+    """{kernel: HMMA instructions} in library `name`'s SASS (cuobjdump,
+    beside nvcc in the toolkit)."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        counts[part.split()[0]] = part.count("HMMA")
+    return counts
+
+
+def phase_build_report(built: dict) -> None:
+    """No spills and no stack frame (local memory) in the bf16 kernels of
+    the attention forwards (the fp32 ones are reported); HMMA in every bf16
+    kernel of the tensor-core libraries."""
+    for row in ptxas_report(built):
+        if row["library"] in ("encoder_attention_fwd", "flash_attention_fwd"):
+            log(json.dumps({"ptxas": row}))
+            check("I13__nv_bfloat16" not in row["entry"] or (
+                row["spill_stores"] == 0 and row["spill_loads"] == 0
+                and row["stack_frame"] == 0),
+                f"{row['entry']} uses local memory: {row}")
+    for name in TENSOR_CORE_LIBRARIES:
+        counts = hmma_per_kernel(name)
+        # bf16 instantiations: T = __nv_bfloat16 opens the mangled
+        # template arguments (fp32 ones may take bf16 pointers, never it)
+        bf16 = {k: v for k, v in counts.items() if "I13__nv_bfloat16" in k}
+        log(json.dumps({"sass": name, "hmma": counts}))
+        check(bf16 and all(v > 0 for v in bf16.values()),
+              f"a bf16 kernel of {name} has no HMMA: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2731,6 +2886,7 @@ def main() -> int:
         log(f"## {name}: {info['seconds']:.2f} s\n{info['log'].strip()}")
     for name in build.kernel_names():
         build.load(name)
+    phase_build_report(built)
 
     cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")

@@ -46,9 +46,12 @@ def _qkv(b=2, s=197, d=128, seed=0):
         (b, s, 3 * d)).astype(np.float32)
 
 
+@pytest.mark.parametrize("s", [1, 17, 197])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_encoder_attention_matches_pallas_kernel_interpret(dtype):
-    """B=2, S=197 (the ragged ViT edge), D=128, H=2 (head_dim 64).
+def test_encoder_attention_matches_pallas_kernel_interpret(dtype, s):
+    """B=2, D=128, H=2 (head_dim 64), S at the edges of the kernel's tiles:
+    one row and key, one partial tile, and 197 (the ragged ViT edge: four
+    64-row tiles, the last holding 5 rows).
 
     fp32: both compute the same fp32 arithmetic in another summation
     order, so atol 2e-5 as tests/test_kernel_interpret.py uses. bf16: both
@@ -57,12 +60,12 @@ def test_encoder_attention_matches_pallas_kernel_interpret(dtype):
     O, one or two bf16 ulps, so atol = rtol = 2^-7. lse is fp32 in both
     and depends only on the scores: 2e-5.
     """
-    x = _qkv()
+    x = _qkv(s=s)
     jo, jl = _fwd_direct(jnp.asarray(x).astype(_JAX[dtype]), 2,
                          interpret=True)
     to, tl = encoder_attention_fwd(torch.from_numpy(x).to(_TORCH[dtype]), 2)
-    assert to.dtype == _TORCH[dtype] and to.shape == (2, 197, 128)
-    assert tl.dtype == torch.float32 and tl.shape == (2, 2, 1, 197)
+    assert to.dtype == _TORCH[dtype] and to.shape == (2, s, 128)
+    assert tl.dtype == torch.float32 and tl.shape == (2, 2, 1, s)
     jo = np.asarray(jo.astype(jnp.float32))
     tol = 2e-5 if dtype == "float32" else 2.0 ** -7
     rtol = 0.0 if dtype == "float32" else 2.0 ** -7
@@ -145,4 +148,9 @@ def test_kernel_source_names_the_tpu_kernel_it_replaces():
     text = build.source_path("encoder_attention_fwd").read_text()
     assert "flash_attention.py::_fwd_kernel_direct" in text
     assert 'extern "C" int arsvt_encoder_attention_fwd' in text
-    assert "cudaGetLastError" in text
+    assert "cudaGetLastError" in text and "Bound on an H100" in text
+    # the body is the tensor-core forward shared with the head-major kernel
+    assert '#include "attention_fwd.cuh"' in text
+    body = (build.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert '#include "warp_tile.cuh"' in body and "warp_mma" in body
+    assert "mma.sync" in (build.CSRC_DIR / "warp_tile.cuh").read_text()

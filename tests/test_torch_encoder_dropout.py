@@ -8,6 +8,8 @@ comparison feeds JAX the port's mask. The CUDA kernels are held against
 these plain versions on the card by ``chip_smoke.py`` (phase 3, with a
 probe of each launch's mask)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,11 +192,15 @@ def test_rate_out_of_range_raises_and_cpu_counts_no_launch():
     "encoder_attention_fwd", "encoder_attention_bwd",
     "encoder_attention_savep_fwd", "encoder_attention_savep_bwd"])
 def test_sources_carry_the_dropout_branch(name):
-    """Each source draws encoder_tile.cuh's shared mask under a template
-    flag and takes the (seed, threshold, inv_keep, dropout) arguments the
-    wrapper passes."""
+    """Each source (with the shared body it includes: the forward's is
+    attention_fwd.cuh) draws encoder_tile.cuh's shared mask under a
+    template flag and takes the (seed, threshold, inv_keep, dropout)
+    arguments the wrapper passes."""
     text = build.source_path(name).read_text()
-    assert "keeps(drop, bh," in text and "kDrop" in text
+    body = text + "".join(
+        (build.CSRC_DIR / header).read_text()
+        for header in re.findall(r'#include "(\w+\.cuh)"', text))
+    assert "keeps(drop, bh," in body and "kDrop" in body
     head = text[text.index(f'extern "C" int arsvt_{name}'):]
     head = head[:head.index("{")]
     assert all(w in head for w in ("uint32_t seed", "uint32_t threshold",

@@ -46,12 +46,18 @@ TOL_LSE = 2e-5
 
 # (B, H, Sq, Sk, d, kv_len): the DeiT-400 encoder (d=16), the DETR
 # cross-attention of deit_detector_ref (d=50) and of vit_base_detector
-# (d=96) over 196 patch tokens, a masked odd case, and one query row
+# (d=96) over 196 patch tokens, a masked odd case, and one query row; then
+# the edges of the kernel's tiles: one head dim (padded to 16) with masked
+# keys, the widest head over one key, and masked keys past three of four
+# key chunks
 SHAPES = {
     "encoder_d16": (1, 3, 198, 198, 16, 198),
     "cross_d50": (2, 8, 5, 196, 50, 196),
     "cross_d96_kvlen": (2, 2, 17, 33, 96, 20),
     "one_query": (2, 3, 1, 40, 64, 31),
+    "edge_d1_kvlen": (2, 2, 33, 33, 1, 20),
+    "edge_d128_one_key": (2, 2, 17, 1, 128, 1),
+    "edge_d16_kvlen": (2, 3, 5, 198, 16, 150),
 }
 
 
@@ -208,6 +214,7 @@ def test_kernel_source_names_the_tpu_kernel_it_replaces():
     assert 'extern "C" int arsvt_flash_attention_fwd' in text
     assert "cudaGetLastError" in text
     assert "Bound on an H100" in text
+    assert '#include "attention_fwd.cuh"' in text  # the tensor-core body
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -272,7 +272,9 @@ def test_sources_name_the_tpu_kernels_and_build_for_sm90a(name, tpu_kernels):
     assert '#include "mlp_tile.cuh"' in text
     assert "cudaGetLastError" in text and "atomic" not in text.replace(
         "No atomics", "")
-    assert "mma.sync" in (build.CSRC_DIR / "mlp_tile.cuh").read_text()
+    tile = (build.CSRC_DIR / "mlp_tile.cuh").read_text()
+    assert '#include "warp_tile.cuh"' in tile
+    assert "mma.sync" in (build.CSRC_DIR / "warp_tile.cuh").read_text()
     cmd = build.nvcc_command(build.source_path(name), build.library_path(name))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert name in build.kernel_names()
