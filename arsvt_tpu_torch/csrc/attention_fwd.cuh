@@ -1,6 +1,7 @@
 // The attention forward shared by the direct-layout encoder kernel (#1,
-// encoder_attention_fwd.cu) and the head-major kernel (#3,
-// flash_attention_fwd.cu), on warp_tile.cuh's tensor-core tiles.
+// encoder_attention_fwd.cu), the head-major kernel (#3,
+// flash_attention_fwd.cu) and the save-probs kernel (#5,
+// encoder_attention_savep_fwd.cu), on warp_tile.cuh's tensor-core tiles.
 //
 // For batch item b and head h it computes, in the TPU kernels' arithmetic
 // order (flash_attention.py::_fwd_kernel_direct, ::_fwd_kernel):
@@ -46,6 +47,22 @@
 // of the products that read them) and one for the partial last chunk; the
 // per-element masks are selects, not branches, so the exponentials of a
 // lane overlap.
+//
+// Save-probs (kSaveP, #5: flash_attention.py::_fwd_kernel_direct_savep)
+// normalises before the product: P = p / l is written as bf16 (B, H, Sq,
+// Sk) before dropout, and O = P_use.to(T) v with no division after it, no
+// lse. Pass 1 therefore gives l as well as m: each lane keeps a running
+// max and a sum rescaled when the max grows over its own keys, and the
+// quad combines them at the end. That costs one exponential a score in
+// pass 1, where a third walk over the keys would restage K and recompute
+// S as well. Pass 2 forms P = exp(s - m) / l (div_rn: the IEEE quotient,
+// from 1 / l taken once a row), stages each warp's 16 x 64 bf16 tile in
+// shared memory, and writes whole rows from there with neighbouring
+// lanes on neighbouring keys: a row of Sk bf16 starts 2 bytes past a
+// 4-byte boundary on every other row when Sk is odd, so a pair is one
+// 4-byte store on an aligned row and two 2-byte stores on the others. Keys
+// >= Sk and rows >= Sq are not stored. The kSaveP = false instantiations
+// (#1, #3) compile none of this.
 
 #pragma once
 
@@ -86,7 +103,8 @@ template <typename T>
 struct FwdArgs {
   Operand<const T> q, k, v;
   Operand<T> out;
-  float* lse;  // (B, H, 1, Sq)
+  float* lse;             // (B, H, 1, Sq); unused by kSaveP
+  __nv_bfloat16* probs;   // (B, H, Sq, Sk) bf16, kSaveP only
   int heads, sq, sk, kv_len, d;
   float scale;
   enc::Dropout drop;
@@ -104,6 +122,10 @@ struct Layout {
   static constexpr size_t kBytes =
       sizeof(T) * (kRows * kLd + kStages * kSlot) +
       (kF32 ? sizeof(float) * kRows * kPLd : 0);
+  // kSaveP: each warp's bf16 P tile on its way to device memory
+  static constexpr int kPbLd = kKeys + 8;
+  static constexpr size_t kSavePBytes =
+      sizeof(__nv_bfloat16) * kRows * kPbLd;
 };
 
 // dst[r * dst_ld + c] = src[r * ld + c] for r < rows, c < cols, element by
@@ -164,7 +186,43 @@ __device__ __forceinline__ void chunk_scores(
   }
 }
 
-template <typename T, int kDp, bool kDrop>
+// `rows` rows of a warp's bf16 tile Pw (row stride ld_s) to device memory,
+// row r at dst + r * ld, its first `cols` keys: lane l writes keys 2l and
+// 2l + 1, so a row is one coalesced run; one 4-byte store where the row is
+// 4-byte aligned, two 2-byte stores where it is not.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, int64_t ld,
+                                           int rows, int cols,
+                                           const __nv_bfloat16* Pw,
+                                           int ld_s) {
+  const int c = 2 * (threadIdx.x & 31);
+  for (int r = 0; r < rows; ++r) {
+    __nv_bfloat16* row = dst + r * ld;
+    const __nv_bfloat162 v =
+        *reinterpret_cast<const __nv_bfloat162*>(Pw + r * ld_s + c);
+    if (c + 1 < cols && reinterpret_cast<uintptr_t>(row) % 4 == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(row + c) = v;
+    } else {
+      if (c < cols) row[c] = v.x;
+      if (c + 1 < cols) row[c + 1] = v.y;
+    }
+  }
+}
+
+// p / l as IEEE fp32 division rounds it, from rl = 1 / l rounded in fp64:
+// the fp64 product is within 2^-52 of p / l (relative), and a quotient of
+// two 24-bit numbers lies at least 2^-49 from every rounding boundary of
+// the normal fp32 range, so rounding the product to fp32 gives the
+// correctly rounded quotient wherever it is a normal number (p <= 1 and
+// l >= 1 here, so nothing overflows). `p / l` itself compiles to a
+// slow-path call, around which ptxas spilled in pass 2 (40 bytes at 168
+// registers in bf16); this keeps 168 with no spill. An fp32 quotient
+// corrected from 1 / l (Markstein) is not exact where the remainder
+// underflows (p below about 2^-100).
+__device__ __forceinline__ float div_rn(float p, double rl) {
+  return static_cast<float>(static_cast<double>(p) * rl);
+}
+
+template <typename T, int kDp, bool kDrop, bool kSaveP>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const FwdArgs<T> a) {
   using L = Layout<T, kDp>;
@@ -173,6 +231,9 @@ __global__ void __launch_bounds__(kThreads)
   T* Qs = reinterpret_cast<T*>(smem_raw);  // kRows x kLd
   T* ring = Qs + kRows * kLd;              // kStages x (K, V)
   float* Ps = reinterpret_cast<float*>(ring + kStages * L::kSlot);  // fp32
+  // kSaveP: bf16 P tiles, after the fp32 ones
+  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<unsigned char*>(smem_raw) + L::kBytes);
 
   const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
@@ -211,8 +272,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* Qw = Qs + 16 * warp * kLd;
   float* Pw = Ps + 16 * warp * L::kPLd;
+  __nv_bfloat16* Pbw = Pb + 16 * warp * L::kPbLd;
   uint32_t qf[kDp / 16][4];  // bf16: Q's A fragments
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  double rl[2] = {0.0, 0.0};  // kSaveP: 1 / l
   float o[1][kDp / 8][4];
 #pragma unroll
   for (int j = 0; j < kDp / 8; ++j)
@@ -242,7 +305,8 @@ __global__ void __launch_bounds__(kThreads)
       body(std::false_type{}, live);
   };
 
-  // pass 1: the row max over the Sk keys, masked ones at MASK_VALUE
+  // pass 1: the row max over the Sk keys, masked ones at MASK_VALUE (and,
+  // kSaveP, this lane's sum of exp(s - m), rescaled as its max grows)
   for (int it = 0; it < nk; ++it) {
     const T* Kc = next(it);
     if (!active) continue;
@@ -256,26 +320,75 @@ __global__ void __launch_bounds__(kThreads)
       const int live = decltype(full)::value ? kKeys / 16 : live_;
       float s[1][kN][4];
       chunk_scores<T, kDp>(s, qf, Qw, Kc, live);
+      if constexpr (kSaveP) {
+        float cm[2] = {-INFINITY, -INFINITY};  // this chunk's max
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        if (j >= 2 * live) break;
+        for (int j = 0; j < kN; ++j) {
+          if (j >= 2 * live) break;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {  // selects, no branch per element
-          const int col = k0 + 8 * j + frag_col(e);
-          const float x =
-              col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
-          m[e >> 1] = fmaxf(m[e >> 1], col < a.sk ? x : -INFINITY);
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + frag_col(e);
+            const float x =
+                col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
+            s[0][j][e] = col < a.sk ? x : -INFINITY;
+            cm[e >> 1] = fmaxf(cm[e >> 1], s[0][j][e]);
+          }
+        }
+        float add[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) cm[i] = fmaxf(m[i], cm[i]);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          if (j >= 2 * live) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // a key past Sk holds -inf: 0
+            const float p = expf(s[0][j][e] - cm[e >> 1]);
+            add[e >> 1] += s[0][j][e] == -INFINITY ? 0.f : p;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // no key of this lane yet: l = 0
+          l[i] = cm[i] == -INFINITY ? 0.f
+                                    : l[i] * expf(m[i] - cm[i]) + add[i];
+          m[i] = cm[i];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          if (j >= 2 * live) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // selects, no branch per element
+            const int col = k0 + 8 * j + frag_col(e);
+            const float x =
+                col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
+            m[e >> 1] = fmaxf(m[e >> 1], col < a.sk ? x : -INFINITY);
+          }
         }
       }
     });
   }
+  if constexpr (kSaveP) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {  // each row's max over its quad
-    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    for (int i = 0; i < 2; ++i) {  // each row's max and sum over its quad,
+      // each lane's sum rescaled to the row's max
+      float mr = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+      l[i] = m[i] == -INFINITY ? 0.f : l[i] * expf(m[i] - mr);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      m[i] = mr;
+      rl[i] = 1.0 / static_cast<double>(l[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // each row's max over its quad
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    }
   }
 
-  // pass 2: p = exp(s - m), l = rowsum(p), O += p.to(T) V
+  // pass 2: p = exp(s - m), l = rowsum(p), O += p.to(T) V (kSaveP: P =
+  // exp(s - m) / l stored as bf16, O += P_use.to(T) V)
   for (int it = nk; it < total; ++it) {
     const T* Kc = next(it);
     if (!active) continue;
@@ -285,28 +398,63 @@ __global__ void __launch_bounds__(kThreads)
       const int live = decltype(full)::value ? kKeys / 16 : live_;
       float s[1][kN][4];
       chunk_scores<T, kDp>(s, qf, Qw, Kc, live);
+      if constexpr (kSaveP) {
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        if (j >= 2 * live) {  // a skipped group: keys past Sk, p = 0
+        for (int j = 0; j < kN; ++j) {
+          if (j >= 2 * live) {  // a skipped group: keys past Sk, P = 0
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[0][j][e] = 0.f;
-          continue;
-        }
+            for (int e = 0; e < 4; ++e) s[0][j][e] = 0.f;
+            continue;
+          }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {  // selects, no branch per element: a
-          // column past Sk in a live group scores 0 (its K row is zeros),
-          // so its exp is finite or +inf, and is replaced by 0
-          const int col = k0 + 8 * j + frag_col(e), i = e >> 1;
-          const float x =
-              col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
-          float p = expf(x - m[i]);
-          p = col < a.sk ? p : 0.f;
-          l[i] += p;
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * j + frag_col(e), i = e >> 1;
+            const float x =
+                col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
+            const float p = div_rn(expf(x - m[i]), rl[i]);
+            s[0][j][e] = col < a.sk ? p : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)  // P before dropout, as bf16
+            store2(Pbw + frag_row(2 * i) * L::kPbLd + 8 * j + frag_col(0),
+                   s[0][j][2 * i], s[0][j][2 * i + 1]);
           if constexpr (kDrop)
-            p = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
-                    ? p * drop.inv_keep
-                    : 0.f;
-          s[0][j][e] = p;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[0][j][e] = enc::keeps(drop, bh, wrow0 + frag_row(e),
+                                      k0 + 8 * j + frag_col(e))
+                               ? s[0][j][e] * drop.inv_keep
+                               : 0.f;
+        }
+        __syncwarp();  // the tile is staged; the next chunk's writes come
+                       // after next()'s barrier
+        store_rows(a.probs + ((int64_t)bh * a.sq + wrow0) * a.sk + k0, a.sk,
+                   min(16, a.sq - wrow0), min(kKeys, a.sk - k0), Pbw,
+                   L::kPbLd);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          if (j >= 2 * live) {  // a skipped group: keys past Sk, p = 0
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[0][j][e] = 0.f;
+            continue;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // selects, no branch per element: a
+            // column past Sk in a live group scores 0 (its K row is zeros),
+            // so its exp is finite or +inf, and is replaced by 0
+            const int col = k0 + 8 * j + frag_col(e), i = e >> 1;
+            const float x =
+                col < a.kv_len ? s[0][j][e] * a.scale : kMaskValue;
+            float p = expf(x - m[i]);
+            p = col < a.sk ? p : 0.f;
+            l[i] += p;
+            if constexpr (kDrop)
+              p = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
+                      ? p * drop.inv_keep
+                      : 0.f;
+            s[0][j][e] = p;
+          }
         }
       }
 
@@ -332,11 +480,12 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();  // the groups still open are empty
   if (!active) return;
 
+  if constexpr (!kSaveP)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
   T* out = a.out.at(b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -346,7 +495,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kDp / 8; ++j) {
       const int c = 8 * j + frag_col(0);
-      const float v0 = o[0][j][2 * i] / l[i], v1 = o[0][j][2 * i + 1] / l[i];
+      float v0 = o[0][j][2 * i], v1 = o[0][j][2 * i + 1];
+      if constexpr (!kSaveP) {  // kSaveP: P was normalised before P V
+        v0 /= l[i];
+        v1 /= l[i];
+      }
       if (a.pair_store && c + 1 < a.d) {
         store2(out_row + c, v0, v1);
       } else {
@@ -354,8 +507,9 @@ __global__ void __launch_bounds__(kThreads)
         if (c + 1 < a.d) out_row[c + 1] = from_float<T>(v1);
       }
     }
-    if ((threadIdx.x & 3) == 0)
-      a.lse[(int64_t)bh * a.sq + row] = m[i] + logf(l[i]);
+    if constexpr (!kSaveP)
+      if ((threadIdx.x & 3) == 0)
+        a.lse[(int64_t)bh * a.sq + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -366,22 +520,25 @@ bool rows_aligned(const Operand<const T>& x, int d) {
          x.sh % kVec == 0 && x.ld % kVec == 0 && d % kVec == 0;
 }
 
-template <typename T, int kDp, bool kDrop>
+template <typename T, int kDp, bool kDrop, bool kSaveP>
 cudaError_t launch_kernel(const FwdArgs<T>& a, int batch,
                           cudaStream_t stream) {
   using L = Layout<T, kDp>;
+  constexpr size_t kBytes = L::kBytes + (kSaveP ? L::kSavePBytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T, kDp, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+      attention_fwd_kernel<T, kDp, kDrop, kSaveP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + kRows - 1) / kRows, a.heads, batch);
-  attention_fwd_kernel<T, kDp, kDrop><<<grid, kThreads, L::kBytes, stream>>>(a);
+  attention_fwd_kernel<T, kDp, kDrop, kSaveP>
+      <<<grid, kThreads, kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Launch on `stream` with the head dim padded to kDp (d <= kDp): grid
-// (ceil(Sq / 64), heads, batch); dropout 0 or 1 picks the instantiation.
-template <typename T, int kDp>
+// (ceil(Sq / 64), heads, batch); dropout 0 or 1 picks the instantiation;
+// kSaveP also writes P (a.probs) and no lse.
+template <typename T, int kDp, bool kSaveP = false>
 cudaError_t launch_fwd(FwdArgs<T> a, int batch, int dropout,
                        cudaStream_t stream) {
   a.vec = rows_aligned(a.q, a.d) && rows_aligned(a.k, a.d) &&
@@ -391,7 +548,8 @@ cudaError_t launch_fwd(FwdArgs<T> a, int batch, int dropout,
       a.out.sb % 2 == 0 && a.out.sh % 2 == 0 && a.out.ld % 2 == 0 &&
       a.d % 2 == 0;
   return enc::with_dropout(dropout, [&](auto flag) {
-    return launch_kernel<T, kDp, decltype(flag)::value>(a, batch, stream);
+    return launch_kernel<T, kDp, decltype(flag)::value, kSaveP>(a, batch,
+                                                                stream);
   });
 }
 

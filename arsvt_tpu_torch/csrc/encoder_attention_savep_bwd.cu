@@ -22,23 +22,42 @@
 // that is 29.0 + 29.8 + 9.7 + 29.0 MB, 29.1 us, against 8*B*H*S^2*d =
 // 7.6 GFLOP (dP, dq, dk, dv), 7.7 us: memory-bound.
 //
-// Design (kernel #2's, on the CUDA cores; encoder_tile.cuh). The sums over
-// query rows (dk, dv) and over keys (dq) stay deterministic with no atomics:
-// two kernels.
-//   1. savep_bwd_dq_kernel, one block of 128 threads per (tile of 32 query
-//      rows, head, batch item): stages dO of its rows, walks the keys in
-//      chunks of 64 once to sum delta = rowsum(dP * P) (also written to a
-//      (B, H, S) fp32 scratch), then again forming dP and dS for its
-//      32 x 64 tile and accumulating dS.to(T) k. The P tile is staged
-//      element by element (a row of 197 bf16 is not 16-byte aligned),
-//      consecutive threads on consecutive keys.
-//   2. savep_bwd_dkdv_kernel, one block per (tile of 32 keys, head, batch
-//      item): stages k and v of its keys, walks the queries in chunks of 64
-//      (q, dO and delta from kernel 1, P transposed into keys x queries),
-//      forms dP^T and dS^T and accumulates P^T dO and dS.to(T)^T q.
-// Both kernels run on the same stream, so kernel 2 reads the delta that
-// kernel 1 wrote. Rows and keys past S are staged as zeros (P included), so
-// they give dS = 0, and are not stored.
+// Design (attention_fwd.cuh's tiles and staging on warp_tile.cuh: mma.sync
+// m16n8k16 with fp32 accumulation in bf16, the same tiles on the CUDA cores
+// in fp32). The sums over query rows (dk, dv) and over keys (dq) stay
+// deterministic with no atomics: two kernels on one stream, the second
+// reading the delta the first wrote to a (B, H, S) fp32 scratch.
+//   1. savep_bwd_dq_kernel, one block of four warps per (64 query rows,
+//      head, batch item), 16 rows a warp with dO's A fragments in
+//      registers (as the forward holds Q's). Chunks of 64 keys come
+//      through a two-slot ring: V (and, in walk 2, K) by 16-byte cp.async,
+//      and the chunk's 64 x 64 tile of P element by element (a row of 197
+//      bf16 is not 4-byte aligned on every row), consecutive threads on
+//      consecutive keys, into 16-byte aligned rows that ldmatrix reads in
+//      the accumulator's layout. Walk 1: dP = dO V^T, the dropout replay,
+//      delta += dP * P per lane, reduced over the quad and written out;
+//      each lane keeps the 32 keep bits it drew for a chunk as one word in
+//      shared memory (512 bytes a chunk for the block). Walk 2: dP again,
+//      masked by those bits (the mask is drawn once, not twice), dS = P
+//      (dP - delta) rounded to T as it is packed into A fragments, dq +=
+//      dS K with K through ldmatrix.trans.
+//   2. savep_bwd_dkdv_kernel, one block of four warps per (64 keys, head,
+//      batch item), 16 keys a warp with V's A fragments in registers (K is
+//      not needed: there is no q k^T). Chunks of 64 queries come through
+//      the ring: q and dO by cp.async, the (queries x keys) tile of P
+//      element by element as [query][key], and delta. dP^T = V dO^T with
+//      the replay; P^T in the accumulator's layout from ldmatrix.trans of
+//      the tile; dS^T = P^T (dP^T - delta[query]) and P_v^T, each rounded
+//      to T as it is packed into A fragments; dk += dS^T q and dv += P_v^T
+//      dO, with q and dO through ldmatrix.trans.
+// 16-key (16-query) groups wholly past S are skipped, and each walk body
+// has a full-chunk and a partial-chunk instantiation, as in the forward.
+// Rows past S are staged as zeros (P included), so they give dS = 0 and
+// P_v = 0, and are not stored. The dq kernel's shared memory grows by 512
+// bytes a chunk of 64 keys with dropout: 64.5 KB + 0.5 KB per chunk in
+// bf16 (122.9 KB + 0.5 KB in fp32) against the 227 KB a block may take,
+// so S up to about 20,000 (13,000 in fp32); past that the launch fails and
+// the wrapper raises.
 //
 // C interface: arsvt_encoder_attention_savep_bwd launches both kernels on
 // the given stream, allocates nothing and returns cudaGetLastError() (or
@@ -49,265 +68,443 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "encoder_tile.cuh"
+#include <type_traits>
+
+#include "attention_fwd.cuh"  // attn:: staging and score tiles; enc::keeps
 
 namespace {
 
-using namespace enc;
+using namespace wtile;
+using attn::kKeys;    // rows of the other side per staged chunk: 64
+using attn::kRows;    // rows a block owns: 64 queries (dq) or keys (dk/dv)
+using attn::kStages;  // chunks in the ring: 2
+using attn::kThreads;
+constexpr int kHeadDim = enc::kHeadDim;  // 64
 
-constexpr int kRows = kTile;   // rows a block owns: queries (dq) or keys (dk/dv)
-constexpr int kCols = kChunk;  // rows of the other side per shared-memory chunk
-constexpr size_t kDqSmemBytes =
-    sizeof(float) * kStride * (kRows + 2 * kCols + 2 * kRows);
-constexpr size_t kDkvSmemBytes =
-    sizeof(float) * (kStride * (2 * kRows + 2 * kCols + 2 * kRows) + kCols);
+template <typename T>
+struct Layout {
+  using A = attn::Layout<T, kHeadDim>;
+  static constexpr bool kF32 = A::kF32;
+  static constexpr int kLd = A::kLd;        // staged rows of q, k, v, dO
+  static constexpr int kFLd = A::kPLd;      // fp32 rows of dS, P_v (fp32)
+  static constexpr int kPLd = kKeys + 8;    // staged bf16 rows of P
+  static constexpr int kTile = kKeys * kLd;  // 64 staged rows
+  static constexpr int kPTile = kRows * kPLd;
+  // the block's own rows, then per slot two tiles and a tile of P (and,
+  // dk/dv, delta); fp32 adds each warp's rows of the product operands
+  static constexpr size_t kBase =
+      sizeof(T) * (kRows * kLd + kStages * 2 * kTile) +
+      sizeof(__nv_bfloat16) * kStages * kPTile;
+  static constexpr size_t kDqBytes =
+      kBase + (kF32 ? sizeof(float) * kRows * kFLd : 0);
+  static constexpr size_t kDkvBytes = kBase + sizeof(float) * kStages * kKeys +
+                                      (kF32 ? 2 * sizeof(float) * kRows * kFLd
+                                            : 0);
+};
 
-// P[row0 + r][col0 + c] for r < kRows, c < kCols as fp32 into
-// dst[r * kStride + c]; entries past S are zeros.
-__device__ __forceinline__ void stage_probs(const __nv_bfloat16* p_head,
-                                            int row0, int col0, int seq,
-                                            float* dst) {
-  for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
-    const int r = idx / kCols, c = idx % kCols;
-    const bool valid = row0 + r < seq && col0 + c < seq;
-    dst[r * kStride + c] = valid ? __bfloat162float(
-        p_head[(int64_t)(row0 + r) * seq + col0 + c]) : 0.f;
+template <typename T>
+struct BwdArgs {
+  const T* qkv;
+  const __nv_bfloat16* probs;
+  const T* dout;
+  float* delta;
+  T *dq, *dk, *dv;
+  int seq, heads;
+  float scale;
+  enc::Dropout drop;
+};
+
+// P for one warp's 16 rows (m) and a chunk's `live` 16-column groups (n),
+// in the accumulator's layout: p[j][e] = P(m = frag_row(e), n = 8 j +
+// frag_col(e)), from the bf16 tile at Pw, stored [m][n] or, kTrans, [n][m]
+// (row stride ld). Groups past `live` read as zeros.
+template <bool kTrans>
+__device__ __forceinline__ void load_p(float (&p)[kKeys / 8][4],
+                                       const __nv_bfloat16* Pw, int ld,
+                                       int live) {
+#pragma unroll
+  for (int q = 0; q < kKeys / 16; ++q) {
+    uint32_t f[4] = {0u, 0u, 0u, 0u};
+    if (q < live) load_a_frag<kTrans>(f, Pw, ld, 16 * q);
+    // the A fragment's registers 0-1 are columns 16q..16q+7, rows g and
+    // g + 8; registers 2-3 the next 8 columns: accumulators 2q and 2q + 1
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float* dst = p[2 * q + (r >> 1)] + 2 * (r & 1);
+      dst[0] = __uint_as_float(f[r] << 16);
+      dst[1] = __uint_as_float(f[r] & 0xffff0000u);
+    }
   }
 }
 
-// P[q0 + c][key0 + r] for r < kRows (keys), c < kCols (queries) as fp32
-// into dst[r * kStride + c]: the transposed tile, read a query row at a
-// time; entries past S are zeros.
-__device__ __forceinline__ void stage_probs_t(const __nv_bfloat16* p_head,
-                                              int q0, int key0, int seq,
-                                              float* dst) {
-  for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
-    const int c = idx / kRows, r = idx % kRows;
-    const bool valid = q0 + c < seq && key0 + r < seq;
-    dst[r * kStride + c] = valid ? __bfloat162float(
-        p_head[(int64_t)(q0 + c) * seq + key0 + r]) : 0.f;
+// acc[0] += A B with A the 16 x 64 tile `x` (accumulator layout, rounded to
+// T as it is packed: A fragments in bf16, this warp's fp32 rows Fw in fp32)
+// and B the staged chunk Bc as [k][n], over its `live` 16-deep steps.
+template <typename T>
+__device__ __forceinline__ void mma_tile(float (&acc)[1][kHeadDim / 8][4],
+                                         const float (&x)[kKeys / 8][4],
+                                         const T* Bc, float* Fw, int live) {
+  using L = Layout<T>;
+  if constexpr (L::kF32) {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        store2(Fw + frag_row(2 * i) * L::kFLd + 8 * j + frag_col(0),
+               x[j][2 * i], x[j][2 * i + 1]);
+    __syncwarp();
+    warp_mma<1, kHeadDim / 8, kKeys, false, true>(acc, Fw, L::kFLd, Bc,
+                                                  L::kLd);
+    __syncwarp();  // read before the next chunk's tile is written
+  } else {
+    uint32_t f[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      pack_a_frag(f[kk], x[2 * kk], x[2 * kk + 1]);
+    warp_mma_afrag<kHeadDim / 8, kKeys, true>(acc[0], f, Bc, L::kLd, live);
   }
+}
+
+// 16 rows of a warp's fp32 accumulator (times `scale`), cast to T, into
+// dst + r * ld for the rows r < rows.
+template <typename T>
+__device__ __forceinline__ void store_acc(T* dst, int64_t ld, int rows,
+                                          const float (&acc)[1][kHeadDim / 8][4],
+                                          float scale) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = frag_row(2 * i);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j)
+      store2(dst + r * ld + 8 * j + frag_col(0), acc[0][j][2 * i] * scale,
+             acc[0][j][2 * i + 1] * scale);
+  }
+}
+
+// Chunk `c` of `n` in a walk: a full one (every 16-row group live) as an
+// instantiation with no per-group branch, the partial last one as another.
+template <class Body>
+__device__ __forceinline__ void run(int rows_left, Body&& body) {
+  const int live = (min(kKeys, rows_left) + 15) / 16;
+  if (live == kKeys / 16)
+    body(std::true_type{}, live);
+  else
+    body(std::false_type{}, live);
 }
 
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    savep_bwd_dq_kernel(const T* __restrict__ qkv,
-                        const __nv_bfloat16* __restrict__ probs,
-                        const T* __restrict__ dout, T* __restrict__ dq,
-                        float* __restrict__ delta_out, int seq, int heads,
-                        float scale, Dropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* dOs = smem;
-  float* Ks = dOs + kRows * kStride;
-  float* Vs = Ks + kCols * kStride;
-  float* Ps = Vs + kCols * kStride;
-  float* DSs = Ps + kRows * kStride;
+    savep_bwd_dq_kernel(const BwdArgs<T> a) {
+  using L = Layout<T>;
+  constexpr int kLd = L::kLd, kN = kKeys / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* dOs = reinterpret_cast<T*>(smem_raw);  // kRows x kLd
+  T* ring = dOs + kRows * kLd;              // kStages x (V, K)
+  __nv_bfloat16* Pring =
+      reinterpret_cast<__nv_bfloat16*>(ring + kStages * 2 * L::kTile);
+  float* Fs = reinterpret_cast<float*>(Pring + kStages * L::kPTile);  // fp32
+  // kDrop: walk 1's keep bits, one word a lane and chunk, for walk 2
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(smem_raw) + L::kDqBytes);
 
-  const int row0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const uint32_t bh = (uint32_t)(b * heads + h);
-  const int d_model = heads * kHeadDim;
-  const int64_t qkv_stride = 3 * (int64_t)d_model;
-  const T* base = qkv + (int64_t)b * seq * qkv_stride;
-  const T* k_base = base + d_model + h * kHeadDim;
-  const T* v_base = base + 2 * d_model + h * kHeadDim;
-  const int64_t o_off = (int64_t)b * seq * d_model + h * kHeadDim;
-  const int64_t stat_off = ((int64_t)b * heads + h) * seq;
-  const __nv_bfloat16* p_head = probs + stat_off * seq;
+  const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int seq = a.seq;
+  const uint32_t bh = (uint32_t)(b * a.heads + h);
+  const enc::Dropout drop = a.drop;
+  const int64_t d_model = (int64_t)a.heads * kHeadDim, ld = 3 * d_model;
+  const T* k = a.qkv + b * seq * ld + d_model + h * kHeadDim;
+  const T* v = k + d_model;
+  const T* dout = a.dout + b * seq * d_model + h * kHeadDim;
+  const __nv_bfloat16* probs = a.probs + (int64_t)bh * seq * seq;
+  const int warp = threadIdx.x >> 5;
+  const int wrow0 = row0 + 16 * warp;  // this warp's first query row
+  const bool active = wrow0 < seq;     // warp-uniform
+  const int nk = (seq + kKeys - 1) / kKeys;
+  const int total = 2 * nk;  // walk 1: V and P; walk 2: V, K and P
 
-  const int rg = threadIdx.x / 16;  // rows rg*4 .. rg*4+3 of the tile
-  const int lg = threadIdx.x % 16;  // keys lg+16j; output dims lg*4+j
-
-  stage(dout + o_off, row0, kRows, seq, d_model, dOs);
-
-  // dP where the mask keeps (scaled), else 0
-  auto masked = [&](float dp, int i, int j, int k0) {
-    if constexpr (kDrop)
-      return keeps(drop, bh, row0 + rg * 4 + i, k0 + lg + 16 * j)
-                 ? dp * drop.inv_keep
-                 : 0.f;
-    return dp;
+  // Item `it` into its ring slot: one commit group for the cp.async tiles,
+  // empty past the end; P's loads are done when it returns.
+  auto enqueue = [&](int it) {
+    if (it < total) {
+      const int k0 = (it < nk ? it : it - nk) * kKeys;
+      T* dst = ring + (it % kStages) * 2 * L::kTile;
+      copy_tile_async<kThreads>(dst, kLd, v + k0 * ld, ld, kKeys, kHeadDim,
+                                seq - k0, kHeadDim);
+      if (it >= nk)
+        copy_tile_async<kThreads>(dst + L::kTile, kLd, k + k0 * ld, ld, kKeys,
+                                  kHeadDim, seq - k0, kHeadDim);
+      cp_async_commit();
+      attn::copy_tile_elems<kThreads>(Pring + (it % kStages) * L::kPTile,
+                                      L::kPLd, probs + (int64_t)row0 * seq + k0,
+                                      seq, kRows, kKeys, seq - row0, seq - k0);
+    } else {
+      cp_async_commit();
+    }
+  };
+  // Wait for item `it`, queue the next; the slot index of `it`.
+  auto next = [&](int it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // item `it` has landed; every warp is done with the
+                      // slot the enqueue refills
+    enqueue(it + kStages - 1);
+    return it % kStages;
   };
 
-  // pass 1: delta = rowsum(dP * P) in fp32
-  float delta[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < seq; k0 += kCols) {
-    __syncthreads();  // the previous chunk has been read
-    stage(v_base, k0, kCols, seq, qkv_stride, Vs);
-    stage_probs(p_head, row0, k0, seq, Ps);
-    __syncthreads();
-    float dp[4][4];
-    dot_tile(dOs, Vs, rg, lg, 1.f, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        delta[i] = fmaf(masked(dp[i][j], i, j, k0),
-                        Ps[(rg * 4 + i) * kStride + lg + 16 * j], delta[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], off);
-    const int row = row0 + rg * 4 + i;
-    if (lg == 0 && row < seq) delta_out[stat_off + row] = delta[i];
-  }
+  copy_tile_async<kThreads>(dOs, kLd, dout + row0 * d_model, d_model, kRows,
+                            kHeadDim, seq - row0, kHeadDim);  // in group 0
+  enqueue(0);
 
-  // pass 2: dS = P (dP - delta), acc = dS.to(T) k
-  float acc[4][4];
+  const T* dOw = dOs + 16 * warp * kLd;
+  float* Fw = Fs + 16 * warp * L::kFLd;
+  uint32_t df[kHeadDim / 16][4];  // bf16: dO's A fragments
+  float delta[2] = {0.f, 0.f};
+  float acc[1][kHeadDim / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kHeadDim / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[0][j][e] = 0.f;
 
-  for (int k0 = 0; k0 < seq; k0 += kCols) {
-    __syncthreads();
-    stage(k_base, k0, kCols, seq, qkv_stride, Ks);
-    stage(v_base, k0, kCols, seq, qkv_stride, Vs);
-    stage_probs(p_head, row0, k0, seq, Ps);
-    __syncthreads();
-    float dp[4][4];
-    dot_tile(dOs, Vs, rg, lg, 1.f, dp);
+  // dP for this warp's rows and the chunk's keys (masked by the replay:
+  // walk 1 draws the mask and keeps its bits, walk 2 reads them), and P at
+  // the same positions
+  uint32_t* Mw = Ms + (warp * nk) * 32 + (threadIdx.x & 31);
+  auto dp_and_p = [&](float (&dp)[1][kN][4], float (&p)[kN][4], int slot,
+                      int c, bool draw, int live) {
+    const T* Vc = ring + slot * 2 * L::kTile;
+    attn::chunk_scores<T, kHeadDim>(dp, df, dOw, Vc, live);
+    load_p<false>(p, Pring + slot * L::kPTile + 16 * warp * L::kPLd, L::kPLd,
+                  live);
+    if constexpr (kDrop) {
+      uint32_t bits = draw ? 0u : Mw[32 * c];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int at = (rg * 4 + i) * kStride + lg + 16 * j;
-        DSs[at] = round_to(Ps[at] * (masked(dp[i][j], i, j, k0) - delta[i]),
-                           T());
+        for (int e = 0; e < 4; ++e) {
+          if (draw)
+            bits |= (uint32_t)enc::keeps(drop, bh, wrow0 + frag_row(e),
+                                         c * kKeys + 8 * j + frag_col(e))
+                    << (4 * j + e);
+          dp[0][j][e] =
+              (bits >> (4 * j + e)) & 1u ? dp[0][j][e] * drop.inv_keep : 0.f;
+        }
+      if (draw) Mw[32 * c] = bits;
+    }
+  };
+
+  // walk 1: delta = rowsum(dP * P) in fp32
+  for (int it = 0; it < nk; ++it) {
+    const int slot = next(it);
+    if (!active) continue;
+    if constexpr (!L::kF32)
+      if (it == 0)
+#pragma unroll
+        for (int kk = 0; kk < kHeadDim / 16; ++kk)
+          load_a_frag<false>(df[kk], dOw, kLd, kk * 16);
+    const int k0 = it * kKeys;
+    run(seq - k0, [&](auto full, int live_) {
+      const int live = decltype(full)::value ? kKeys / 16 : live_;
+      float dp[1][kN][4], p[kN][4];
+      dp_and_p(dp, p, slot, it, true, live);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        if (j >= 2 * live) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // keys past S hold P = 0
+          delta[e >> 1] = fmaf(dp[0][j][e], p[j][e], delta[e >> 1]);
       }
-    __syncthreads();
-    accumulate(DSs, Ks, rg, lg, acc);
+    });
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // each row's delta over its quad
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+    const int row = wrow0 + frag_row(2 * i);
+    if (active && (threadIdx.x & 3) == 0 && row < seq)
+      a.delta[(int64_t)bh * seq + row] = delta[i];
   }
 
+  // walk 2: dS = P (dP - delta), dq += dS.to(T) K
+  for (int it = nk; it < total; ++it) {
+    const int slot = next(it);
+    if (!active) continue;
+    const int k0 = (it - nk) * kKeys;
+    run(seq - k0, [&](auto full, int live_) {
+      const int live = decltype(full)::value ? kKeys / 16 : live_;
+      float dp[1][kN][4], p[kN][4];
+      dp_and_p(dp, p, slot, it - nk, false, live);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + rg * 4 + i;
-    if (row >= seq) continue;
-    float o[4];
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * scale;
-    store4(dq + o_off + (int64_t)row * d_model + lg * 4, o);
+        for (int e = 0; e < 4; ++e)  // zeros past the live groups
+          p[j][e] = j < 2 * live ? p[j][e] * (dp[0][j][e] - delta[e >> 1])
+                                 : 0.f;
+      mma_tile<T>(acc, p, ring + slot * 2 * L::kTile + L::kTile, Fw, live);
+    });
   }
+  cp_async_wait<0>();  // the groups still open are empty
+  if (!active) return;
+  store_acc(a.dq + (b * seq + wrow0) * d_model + h * kHeadDim, d_model,
+            seq - wrow0, acc, a.scale);
 }
 
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    savep_bwd_dkdv_kernel(const T* __restrict__ qkv,
-                          const __nv_bfloat16* __restrict__ probs,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int seq,
-                          int heads, float scale, Dropout drop) {
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kRows * kStride;
-  float* Qs = Vs + kRows * kStride;
-  float* dOs = Qs + kCols * kStride;
-  float* Ps = dOs + kCols * kStride;   // P^T: keys x queries
-  float* DSs = Ps + kRows * kStride;
-  float* Ds = DSs + kRows * kStride;
+    savep_bwd_dkdv_kernel(const BwdArgs<T> a) {
+  using L = Layout<T>;
+  constexpr int kLd = L::kLd, kN = kKeys / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Vs = reinterpret_cast<T*>(smem_raw);  // kRows x kLd
+  T* ring = Vs + kRows * kLd;              // kStages x (q, dO)
+  __nv_bfloat16* Pring =
+      reinterpret_cast<__nv_bfloat16*>(ring + kStages * 2 * L::kTile);
+  float* Dring = reinterpret_cast<float*>(Pring + kStages * L::kPTile);
+  float* Fs = Dring + kStages * kKeys;  // fp32: dS^T, then P_v^T rows
 
-  const int key0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const uint32_t bh = (uint32_t)(b * heads + h);
-  const int d_model = heads * kHeadDim;
-  const int64_t qkv_stride = 3 * (int64_t)d_model;
-  const T* base = qkv + (int64_t)b * seq * qkv_stride;
-  const T* q_base = base + h * kHeadDim;
-  const T* k_base = base + d_model + h * kHeadDim;
-  const T* v_base = base + 2 * d_model + h * kHeadDim;
-  const int64_t o_off = (int64_t)b * seq * d_model + h * kHeadDim;
-  const int64_t stat_off = ((int64_t)b * heads + h) * seq;
-  const __nv_bfloat16* p_head = probs + stat_off * seq;
+  const int key0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int seq = a.seq;
+  const uint32_t bh = (uint32_t)(b * a.heads + h);
+  const enc::Dropout drop = a.drop;
+  const int64_t d_model = (int64_t)a.heads * kHeadDim, ld = 3 * d_model;
+  const T* q = a.qkv + b * seq * ld + h * kHeadDim;
+  const T* v = q + 2 * d_model;
+  const T* dout = a.dout + b * seq * d_model + h * kHeadDim;
+  const __nv_bfloat16* probs = a.probs + (int64_t)bh * seq * seq;
+  const float* delta = a.delta + (int64_t)bh * seq;
+  const int warp = threadIdx.x >> 5;
+  const int wkey0 = key0 + 16 * warp;  // this warp's first key
+  const bool active = wkey0 < seq;     // warp-uniform
+  const int nq = (seq + kKeys - 1) / kKeys;
 
-  const int rg = threadIdx.x / 16;  // keys rg*4 .. rg*4+3 of the tile
-  const int lg = threadIdx.x % 16;  // queries lg+16j; output dims lg*4+j
-
-  stage(k_base, key0, kRows, seq, qkv_stride, Ks);
-  stage(v_base, key0, kRows, seq, qkv_stride, Vs);
-
-  float dk_acc[4][4], dv_acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < seq; q0 += kCols) {
-    __syncthreads();  // the previous chunk has been read
-    stage(q_base, q0, kCols, seq, qkv_stride, Qs);
-    stage(dout + o_off, q0, kCols, seq, d_model, dOs);
-    stage_probs_t(p_head, q0, key0, seq, Ps);
-    for (int t = threadIdx.x; t < kCols; t += kThreads)
-      Ds[t] = q0 + t < seq ? delta[stat_off + q0 + t] : 0.f;
+  auto enqueue = [&](int it) {
+    if (it < nq) {
+      const int q0 = it * kKeys, slot = it % kStages;
+      T* dst = ring + slot * 2 * L::kTile;
+      copy_tile_async<kThreads>(dst, kLd, q + q0 * ld, ld, kKeys, kHeadDim,
+                                seq - q0, kHeadDim);
+      copy_tile_async<kThreads>(dst + L::kTile, kLd, dout + q0 * d_model,
+                                d_model, kKeys, kHeadDim, seq - q0, kHeadDim);
+      cp_async_commit();
+      attn::copy_tile_elems<kThreads>(
+          Pring + slot * L::kPTile, L::kPLd, probs + (int64_t)q0 * seq + key0,
+          seq, kKeys, kRows, seq - q0, seq - key0);
+      for (int t = threadIdx.x; t < kKeys; t += kThreads)
+        Dring[slot * kKeys + t] = q0 + t < seq ? delta[q0 + t] : 0.f;
+    } else {
+      cp_async_commit();
+    }
+  };
+  auto next = [&](int it) {
+    cp_async_wait<kStages - 2>();
     __syncthreads();
-    float dp[4][4];
-    dot_tile(Vs, dOs, rg, lg, 1.f, dp);  // dP^T: keys x queries
+    enqueue(it + kStages - 1);
+    return it % kStages;
+  };
+
+  copy_tile_async<kThreads>(Vs, kLd, v + key0 * ld, ld, kRows, kHeadDim,
+                            seq - key0, kHeadDim);  // in group 0
+  enqueue(0);
+
+  const T* Vw = Vs + 16 * warp * kLd;
+  float* Fw = Fs + 16 * warp * L::kFLd;
+  float* Gw = Fs + (kRows + 16 * warp) * L::kFLd;
+  uint32_t vf[kHeadDim / 16][4];  // bf16: V's A fragments
+  float dk[1][kHeadDim / 8][4], dv[1][kHeadDim / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kHeadDim / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lg + 16 * j;
-        const int at = (rg * 4 + i) * kStride + c;
-        float dpv = dp[i][j];
-        if constexpr (kDrop) {
-          // this thread alone reads and writes entry `at` of P^T: dS takes
-          // the saved P, dv the dropped-out p_v in its place
-          const bool keep = keeps(drop, bh, q0 + c, key0 + rg * 4 + i);
-          dpv = keep ? dpv * drop.inv_keep : 0.f;
-          DSs[at] = round_to(Ps[at] * (dpv - Ds[c]), T());
-          Ps[at] = round_to(keep ? Ps[at] * drop.inv_keep : 0.f, T());
-        } else {
-          DSs[at] = round_to(Ps[at] * (dpv - Ds[c]), T());
+    for (int e = 0; e < 4; ++e) dk[0][j][e] = dv[0][j][e] = 0.f;
+
+  for (int it = 0; it < nq; ++it) {
+    const int slot = next(it);
+    if (!active) continue;
+    if constexpr (!L::kF32)
+      if (it == 0)
+#pragma unroll
+        for (int kk = 0; kk < kHeadDim / 16; ++kk)
+          load_a_frag<false>(vf[kk], Vw, kLd, kk * 16);
+    const int q0 = it * kKeys;
+    const T* Qc = ring + slot * 2 * L::kTile;
+    const T* dOc = Qc + L::kTile;
+    const float* Dc = Dring + slot * kKeys;
+    run(seq - q0, [&](auto full, int live_) {
+      const int live = decltype(full)::value ? kKeys / 16 : live_;
+      float dp[1][kN][4], p[kN][4];
+      // dP^T = V dO^T: this warp's keys by the chunk's queries
+      attn::chunk_scores<T, kHeadDim>(dp, vf, Vw, dOc, live);
+      load_p<true>(p, Pring + slot * L::kPTile + 16 * warp, L::kPLd, live);
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + frag_col(e);  // query q0 + c
+          float g = dp[0][j][e], pv = p[j][e];
+          if constexpr (kDrop) {
+            const bool keep =
+                enc::keeps(drop, bh, q0 + c, wkey0 + frag_row(e));
+            g = keep ? g * drop.inv_keep : 0.f;
+            pv = keep ? pv * drop.inv_keep : 0.f;
+          }
+          // a query past S: P was staged as 0 (or read as 0 past the live
+          // groups), so dS^T = P_v^T = 0
+          dp[0][j][e] = p[j][e] * (g - Dc[c]);
+          p[j][e] = pv;
         }
-      }
-    __syncthreads();
-    accumulate(Ps, dOs, rg, lg, dv_acc);
-    accumulate(DSs, Qs, rg, lg, dk_acc);
+      mma_tile<T>(dk, dp[0], Qc, Fw, live);
+      mma_tile<T>(dv, p, dOc, Gw, live);
+    });
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = key0 + rg * 4 + i;
-    if (key >= seq) continue;
-    float k_out[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) k_out[j] = dk_acc[i][j] * scale;
-    const int64_t at = o_off + (int64_t)key * d_model + lg * 4;
-    store4(dk + at, k_out);
-    store4(dv + at, dv_acc[i]);
-  }
+  cp_async_wait<0>();
+  if (!active) return;
+  const int64_t at = (b * seq + wkey0) * d_model + h * kHeadDim;
+  store_acc(a.dk + at, d_model, seq - wkey0, dk, a.scale);
+  store_acc(a.dv + at, d_model, seq - wkey0, dv, 1.f);
 }
 
 template <typename T, bool kDrop>
-cudaError_t launch(const void* qkv, const void* probs, const void* dout,
-                   void* delta, void* dq, void* dk, void* dv, int batch,
-                   int seq, int heads, Dropout drop, cudaStream_t stream) {
+cudaError_t launch(const BwdArgs<T>& a, int batch, cudaStream_t stream) {
+  using L = Layout<T>;
+  const int nk = (a.seq + kKeys - 1) / kKeys;
+  const size_t dq_bytes =
+      L::kDqBytes + (kDrop ? sizeof(uint32_t) * kRows / 16 * 32 * nk : 0);
   cudaError_t err = cudaFuncSetAttribute(
       savep_bwd_dq_kernel<T, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmemBytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      savep_bwd_dkdv_kernel<T, kDrop>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDkvSmemBytes);
+  err = cudaFuncSetAttribute(savep_bwd_dkdv_kernel<T, kDrop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)L::kDkvBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kRows - 1) / kRows, heads, batch);
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
-  const auto* p = static_cast<const __nv_bfloat16*>(probs);
-  savep_bwd_dq_kernel<T, kDrop><<<grid, kThreads, kDqSmemBytes, stream>>>(
-      static_cast<const T*>(qkv), p, static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<float*>(delta), seq, heads, scale,
-      drop);
+  const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, batch);
+  savep_bwd_dq_kernel<T, kDrop><<<grid, kThreads, dq_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  savep_bwd_dkdv_kernel<T, kDrop><<<grid, kThreads, kDkvSmemBytes, stream>>>(
-      static_cast<const T*>(qkv), p, static_cast<const T*>(dout),
-      static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), seq, heads, scale, drop);
+  savep_bwd_dkdv_kernel<T, kDrop><<<grid, kThreads, L::kDkvBytes, stream>>>(
+      a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_typed(const void* qkv, const void* probs,
+                         const void* dout, void* delta, void* dq, void* dk,
+                         void* dv, int batch, int seq, int heads,
+                         enc::Dropout drop, int dropout,
+                         cudaStream_t stream) {
+  BwdArgs<T> a{};
+  a.qkv = static_cast<const T*>(qkv);
+  a.probs = static_cast<const __nv_bfloat16*>(probs);
+  a.dout = static_cast<const T*>(dout);
+  a.delta = static_cast<float*>(delta);
+  a.dq = static_cast<T*>(dq);
+  a.dk = static_cast<T*>(dk);
+  a.dv = static_cast<T*>(dv);
+  a.seq = seq;
+  a.heads = heads;
+  a.scale = 1.0f / sqrtf((float)kHeadDim);
+  a.drop = drop;
+  return enc::with_dropout(dropout, [&](auto flag) {
+    return launch<T, decltype(flag)::value>(a, batch, stream);
+  });
 }
 
 }  // namespace
@@ -328,18 +525,16 @@ extern "C" int arsvt_encoder_attention_savep_bwd(
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{seed, threshold, inv_keep};
-  return (int)with_dropout(dropout, [&](auto flag) {
-    constexpr bool kDrop = decltype(flag)::value;
-    switch (dtype) {
-      case 0:
-        return launch<float, kDrop>(qkv, probs, dout, delta, dq, dk, dv,
-                                    batch, seq, heads, drop, st);
-      case 1:
-        return launch<__nv_bfloat16, kDrop>(qkv, probs, dout, delta, dq, dk,
-                                            dv, batch, seq, heads, drop, st);
-      default:
-        return cudaErrorInvalidValue;
-    }
-  });
+  const enc::Dropout drop{seed, threshold, inv_keep};
+  switch (dtype) {
+    case 0:
+      return (int)launch_typed<float>(qkv, probs, dout, delta, dq, dk, dv,
+                                      batch, seq, heads, drop, dropout, st);
+    case 1:
+      return (int)launch_typed<__nv_bfloat16>(qkv, probs, dout, delta, dq,
+                                              dk, dv, batch, seq, heads, drop,
+                                              dropout, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

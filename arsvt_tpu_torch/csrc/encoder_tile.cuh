@@ -1,7 +1,7 @@
-// Tile helpers shared by the direct-layout encoder-attention kernels on the
-// CUDA cores (encoder_attention_bwd.cu, encoder_attention_savep_{fwd,bwd}.cu),
-// and the attention-dropout rule (`keeps`) that they and the two attention
-// forwards (attention_fwd.cuh) draw.
+// Tile helpers of the direct-layout encoder-attention backward on the CUDA
+// cores (encoder_attention_bwd.cu), and the attention-dropout rule
+// (`keeps`) that it, the attention forwards (attention_fwd.cuh: #1, #3, #5)
+// and the save-probs backward (encoder_attention_savep_bwd.cu) draw.
 //
 // A block of 128 threads works on one head's 64 columns. Rows of q, k, v,
 // O or dO are staged in shared memory as fp32 with a row stride of 68

@@ -13,8 +13,9 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    matmuls and convolutions;
 2. build every kernel under ``arsvt_tpu_torch/csrc`` (one nvcc each, all
    started together) and print the compiler's resource report; no spill
-   or stack frame in the bf16 attention forwards (#1, #3), and HMMA in the
-   SASS of every bf16 kernel of the tensor-core libraries (#1, #3, #8, #9);
+   or stack frame in the bf16 attention kernels on the tensor-core tiles
+   (#1, #3, #5, #6), and HMMA in the SASS of every bf16 kernel of the
+   tensor-core libraries (#1, #3, #5, #6, #8, #9);
 3. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes in bf16 and fp32 plus odd shapes (#1 also at S = 1
    and ViT-L's S = 577; #3 over d in {1, 16, 50, 96, 128}, Sq in {1, 5,
@@ -26,12 +27,14 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    head-major kernels (#3 with dropout, #4) also at one detector train
    step's shapes, and probes that read back the dropout mask each of
    their three launches used; the save-probs attention kernels (#5, #6)
-   and the fused-MLP kernels (#8, #9) at the ``bench_train`` microbatch
-   (B = 32, n = 6,304 rows) and odd sizes (n = 591 and 594, D = 400,
-   M = 1,600), and at ViT-L's width (D = 1,024, M = 4,096, n = 9,232 and
-   1,731); the dropout branches of #1, #2, #5 and #6 at dropout 0.1 (B =
-   32 and an odd shape, bf16 and fp32), a probe that reads back the mask
-   of each of their six launches, and their times beside dropout 0;
+   (also at the edges of their 64-row tiles, S in {1, 63, 64, 65, 128},
+   at B = 1 and at ViT-L's S = 577) and the fused-MLP kernels (#8, #9) at
+   the ``bench_train`` microbatch (B = 32, n = 6,304 rows) and odd sizes
+   (n = 591 and 594, D = 400, M = 1,600), and at ViT-L's width (D =
+   1,024, M = 4,096, n = 9,232 and 1,731); the dropout branches of #1,
+   #2, #5 and #6 at dropout 0.1 (B = 32, S = 65 and an odd shape, bf16
+   and fp32), a probe that reads back the mask of each of their six
+   launches, and their times beside dropout 0;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
@@ -194,18 +197,20 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 HOLD_CYCLES_PER_CALL = 500_000
 
 
-def device_ms(fn, iters: int, warmup: int = 5) -> float:
+def device_ms(fn, iters: int, warmup: int = 5,
+              hold_cycles: int = HOLD_CYCLES_PER_CALL) -> float:
     """Per-call device time: the calls are queued behind a spin kernel
-    that holds the card while the host enqueues them, so no launch waits
-    on the host (`cuda_ms` at B=1 reads the host's pace instead). Raises
-    if the host did not finish enqueuing before the spin ended."""
+    that holds the card for `hold_cycles` a call while the host enqueues
+    them, so no launch waits on the host (`cuda_ms` at B=1 reads the
+    host's pace instead). Raises if the host did not finish enqueuing
+    before the spin ended."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     held, start, end = (torch.cuda.Event(enable_timing=True)
                         for _ in range(3))
     held.record()
-    torch.cuda._sleep(HOLD_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(hold_cycles * iters)
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -778,16 +783,26 @@ def savep_bound(b, s, d, num_heads, backward: bool):
                                  "operations"), nbytes, flops
 
 
+# (B, S, D, H) at the edges of #5's and #6's tiles of 64 rows and 64
+# keys (one row; one short of, at and one past a tile; two tiles), ViT-B
+# at B = 1 and ViT-L/16@384's S = 577 at its width
+SAVEP_EDGE_CASES = [(2, 1, 128, 2), (2, 63, 128, 2), (2, 64, 128, 2),
+                    (2, 65, 128, 2), (2, 128, 128, 2), (1, 197, 768, 12),
+                    (2, 577, 1024, 16)]
+
+
 def phase_savep_checks(cfg) -> tuple[dict, dict]:
     """#5 and #6 against their plain versions at the bench_train microbatch
-    (B=32), at B=3 and at an odd shape, bf16 and fp32; then both timed at
-    B=32 beside their bounds and the library yardsticks of rows 1 and 2
-    (SDPA's forward and backward, which compute O without P). Returns the
-    records of #5 and #6 at B=32 bf16."""
+    (B=32), at B=3, at an odd shape and at the tiles' edges, bf16 and fp32;
+    then both timed at B=32 beside their bounds and the library yardsticks
+    of rows 1 and 2 (SDPA's forward and backward, which compute O without
+    P). Returns the records of #5 and #6 at B=32 bf16."""
     d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
     cases = [(32, s, d, h, torch.bfloat16), (32, s, d, h, torch.float32),
              (3, s, d, h, torch.bfloat16), (3, 17, 128, 2, torch.bfloat16),
              (3, 17, 128, 2, torch.float32), (2, 33, 128, 2, torch.float32)]
+    cases += [(*shape, dtype) for shape in SAVEP_EDGE_CASES
+              for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
     for i, (b, s_, d_, h_, dtype) in enumerate(cases):
         key = f"B{b}_S{s_}_D{d_}_H{h_}_{str(dtype).split('.')[-1]}"
@@ -997,14 +1012,16 @@ def _dropout_case(cfg_case, i, dtype, rate):
 
 def phase_encoder_dropout_checks(cfg) -> dict:
     """#1, #2, #5 and #6 with dropout 0.1 against their plain versions at
-    the bench_train microbatch (B=32) and an odd shape, bf16 and fp32; the
-    probe of each launch's mask; then each timed at B=32 in bf16 with
-    dropout 0.1 beside dropout 0. Returns {kernel name: record} at B=32
-    bf16 with dropout."""
+    the bench_train microbatch (B=32), one row past a 64-row tile (S = 65)
+    and an odd shape, bf16 and fp32; the probe of each launch's mask; then
+    each timed at B=32 in bf16 with dropout 0.1 beside dropout 0. Returns
+    {kernel name: record} at B=32 bf16 with dropout."""
     d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
     cases = [((32, s, d, h), torch.bfloat16), ((32, s, d, h), torch.float32),
              ((3, 17, 128, 2), torch.bfloat16),
-             ((3, 17, 128, 2), torch.float32)]
+             ((3, 17, 128, 2), torch.float32),
+             ((2, 65, 128, 2), torch.bfloat16),
+             ((2, 65, 128, 2), torch.float32)]
     recs = [_dropout_case(c, i, dt, DROPOUT_RATE)
             for i, (c, dt) in enumerate(cases)]
     b32 = recs[0]
@@ -1804,10 +1821,10 @@ def phase_train_bench(cfg, smi: str, opt_in: bool = False):
 
 # Device kernels by the layer they belong to (first match wins).
 PROFILE_CATEGORIES = (
-    # #1 and #3 share one kernel template (attention_fwd.cuh)
+    # #1, #3 and #5 share one kernel template (attention_fwd.cuh); its last
+    # template argument, kSaveP, is true for #5
+    ("save-probs attention forward kernel", ("true>(attn::FwdArgs",)),
     ("attention forward kernels (#1, #3)", ("attn::attention_fwd_kernel",)),
-    ("save-probs attention forward kernel",
-     ("encoder_attention_savep_fwd_kernel",)),
     ("save-probs attention backward kernels", ("savep_bwd_",)),
     ("fused MLP kernels", ("row_tile_kernel", "dw_kernel")),
     ("attention backward kernels", ("attn_bwd_",)),
@@ -2800,9 +2817,13 @@ def phase_entry_point(cfg, smi) -> dict:
 
 
 # The libraries whose bf16 instantiations must run on the tensor cores:
-# the fused MLP's and the two attention forwards on warp_tile.cuh.
-TENSOR_CORE_LIBRARIES = ("encoder_attention_fwd", "flash_attention_fwd",
-                         "fused_mlp_fwd", "fused_mlp_bwd")
+# the attention kernels on warp_tile.cuh (no spill or stack frame allowed
+# in bf16) and the fused MLP's.
+ATTENTION_TILE_LIBRARIES = ("encoder_attention_fwd", "flash_attention_fwd",
+                            "encoder_attention_savep_fwd",
+                            "encoder_attention_savep_bwd")
+TENSOR_CORE_LIBRARIES = ATTENTION_TILE_LIBRARIES + ("fused_mlp_fwd",
+                                                    "fused_mlp_bwd")
 
 
 def ptxas_report(built: dict) -> list[dict]:
@@ -2842,10 +2863,10 @@ def hmma_per_kernel(name: str) -> dict:
 
 def phase_build_report(built: dict) -> None:
     """No spills and no stack frame (local memory) in the bf16 kernels of
-    the attention forwards (the fp32 ones are reported); HMMA in every bf16
-    kernel of the tensor-core libraries."""
+    the attention libraries on the tensor-core tiles (the fp32 ones are
+    reported); HMMA in every bf16 kernel of the tensor-core libraries."""
     for row in ptxas_report(built):
-        if row["library"] in ("encoder_attention_fwd", "flash_attention_fwd"):
+        if row["library"] in ATTENTION_TILE_LIBRARIES:
             log(json.dumps({"ptxas": row}))
             check("I13__nv_bfloat16" not in row["entry"] or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the attention forwards of several kernel source trees in one
+"""Time the attention kernels of several kernel source trees in one
 process on one card, in turns, at the main paths' shapes.
 
     python3 kernel_ab.py TREE [TREE ...]
@@ -7,17 +7,23 @@ process on one card, in turns, at the main paths' shapes.
 Each TREE is a ``csrc`` directory: this checkout's is
 ``arsvt_tpu_torch/csrc``; another commit's comes from ``git archive <rev>
 arsvt_tpu_torch/csrc`` unpacked under a git-ignored directory (``build/``).
-From each tree, kernel #1 (``encoder_attention_fwd.cu``) and kernel #3
-(``flash_attention_fwd.cu``) are built with this checkout's nvcc flags into
-``build/kernel_ab/<n>/`` (one nvcc each, all started together) and bound in
-turn to this checkout's wrappers, whose C interfaces every tree shares.
-Each tree's output is held once against the plain version, at the limits of
-``chip_smoke.py`` phase 3. Then, per shape, the trees are timed in turns
-(1..n, then n..1), each turn giving ``ms`` over launches issued back to back
-(at B=1 the host's pace) and ``device_ms`` over launches queued behind a
-spin kernel (the card's own time). Prints the card's name and power limit,
-one JSON line per tree, shape and turn, and one summary line per shape: each
-tree's mean over its turns and SDPA's time on the same inputs.
+From each tree, kernel #1 (``encoder_attention_fwd.cu``), #3
+(``flash_attention_fwd.cu``), #5 (``encoder_attention_savep_fwd.cu``) and
+#6 (``encoder_attention_savep_bwd.cu``) are built with this checkout's nvcc
+flags into ``build/kernel_ab/<n>/`` (one nvcc each, all started together)
+and bound in turn to this checkout's wrappers, whose C interfaces every
+tree shares. Each tree's outputs are held once against the plain version,
+at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #5: O and P;
+#6: dq, dk and dv). Then, per shape, the trees are timed in turns (1..n,
+then n..1), each turn giving ``ms`` over launches issued back to back (at
+B=1 the host's pace) and ``device_ms`` over launches queued behind a spin
+kernel (the card's own time). Shapes: #1 at ViT-B/16's B = 1, 8 and 32
+(and dropout 0.1 at B = 32); #3 at the detector paths' shapes; #5 and #6
+at B = 8 and 32 with dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2,
+D = 1,024, H = 16). Prints the card's name and power limit, each tree's
+``-Xptxas=-v`` rows, one JSON line per tree, shape and turn, and one
+summary line per shape: each tree's mean over its turns and SDPA's time on
+the same inputs (for #6, SDPA's forward and backward less its forward).
 
 Run from the root of a checkout on a machine with the card and the CUDA
 toolkit; it imports nothing of JAX.
@@ -39,7 +45,10 @@ from chip_smoke import (
     DROPOUT_RATE,
     DROPOUT_SEED,
     FLASH_PATH_SHAPES,
+    HOLD_CYCLES_PER_CALL,
     TOL_BF16,
+    TOL_BF16_ULP,
+    TOL_BWD_BF16,
     TOL_LSE,
     attention_bound,
     check,
@@ -49,12 +58,27 @@ from chip_smoke import (
     library_attention,
     max_err,
     ptxas_report,
+    savep_bound,
     seeded_heads,
     seeded_qkv,
 )
 
-KERNELS = {"encoder_attention_fwd": encoder_attention,
-           "flash_attention_fwd": flash_attention}
+# source name: (wrapper module, its cached C function, the loader that
+# sets the C function's signature)
+KERNELS = {
+    "encoder_attention_fwd": (encoder_attention, "_fn", "_kernel"),
+    "flash_attention_fwd": (flash_attention, "_fn", "_kernel"),
+    "encoder_attention_savep_fwd": (encoder_attention, "_savep_fn",
+                                    "_savep_kernel"),
+    "encoder_attention_savep_bwd": (encoder_attention, "_savep_bwd_fn",
+                                    "_savep_bwd_kernel"),
+}
+# (atol, rtol) per output, |kernel - plain| <= atol + rtol * |plain|
+LIMITS = {"encoder_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
+          "flash_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
+          "encoder_attention_savep_fwd": ((TOL_BF16, TOL_BF16),
+                                          (1e-6, TOL_BF16_ULP)),
+          "encoder_attention_savep_bwd": ((TOL_BWD_BF16, TOL_BWD_BF16),) * 3}
 AB_DIR = build.BUILD_DIR.parent / "kernel_ab"
 
 
@@ -88,9 +112,9 @@ def bind(lib_paths: dict) -> None:
     real = build.load
     build.load = lambda name: ctypes.CDLL(str(lib_paths[name]))
     try:
-        for module in KERNELS.values():
-            module._fn = None
-            module._kernel()
+        for module, fn, loader in KERNELS.values():
+            setattr(module, fn, None)
+            getattr(module, loader)()
     finally:
         build.load = real
 
@@ -104,9 +128,69 @@ def library_dropout(qkv, rate: float):
     return F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
 
 
+def library_savep_bwd(qkv, dout, rate: float):
+    """SDPA's forward and backward on #6's inputs, and its forward alone:
+    the backward's yardstick is their difference."""
+    b, s, three_d = qkv.shape
+    q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(
+        b, s, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0))
+    g = dout.view(b, s, 12, 64).transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+
+    return (lambda: torch.autograd.grad(fwd(), (q, k, v), g)), fwd
+
+
+def savep_shapes() -> list[dict]:
+    """#5 and #6 at the opt-in route's microbatches (B = 8 and 32 of
+    ViT-B/16) with dropout 0 and 0.1, and #5 at ViT-L/16@384's S = 577."""
+    ea, out = encoder_attention, []
+    for b in (8, 32):
+        qkv = seeded_qkv(b, 197, 768, torch.bfloat16, seed=14)
+        gen = torch.Generator().manual_seed(15)
+        dout = torch.randn(b, 197, 768, generator=gen).to(
+            torch.bfloat16).cuda()
+        for rate in (0.0, DROPOUT_RATE):
+            kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+            _, probs = ea.encoder_attention_fwd_savep_plain(
+                qkv, 12, rate, DROPOUT_SEED)
+            shape = {"B": b, "S": 197, "D": 768, "H": 12,
+                     "dropout_rate": rate}
+            out.append({
+                "kernel": "encoder_attention_savep_fwd", "shape": shape,
+                "call": lambda qkv=qkv, kw=kw:
+                    ea.encoder_attention_fwd_savep(qkv, 12, **kw),
+                "plain": lambda qkv=qkv, rate=rate:
+                    ea.encoder_attention_fwd_savep_plain(
+                        qkv, 12, rate, DROPOUT_SEED),
+                "library": lambda qkv=qkv, rate=rate:
+                    library_dropout(qkv, rate),
+                "bound": savep_bound(b, 197, 768, 12, False)})
+            lib, lib_fwd = library_savep_bwd(qkv, dout, rate)
+            out.append({
+                "kernel": "encoder_attention_savep_bwd", "shape": shape,
+                "call": lambda qkv=qkv, p=probs, do=dout, kw=kw:
+                    ea.encoder_attention_bwd_savep(qkv, p, do, 12, **kw),
+                "plain": lambda qkv=qkv, p=probs, do=dout, rate=rate:
+                    ea.encoder_attention_bwd_savep_plain(
+                        qkv, p, do, 12, rate, DROPOUT_SEED),
+                "library": lib, "library_fwd": lib_fwd,
+                "bound": savep_bound(b, 197, 768, 12, True)})
+    qkv = seeded_qkv(2, 577, 1024, torch.bfloat16, seed=16)
+    out.append({
+        "kernel": "encoder_attention_savep_fwd",
+        "shape": {"B": 2, "S": 577, "D": 1024, "H": 16, "dropout_rate": 0.0},
+        "call": lambda: ea.encoder_attention_fwd_savep(qkv, 16),
+        "plain": lambda: ea.encoder_attention_fwd_savep_plain(qkv, 16),
+        "library": lambda: library_attention(qkv, 16),
+        "bound": savep_bound(2, 577, 1024, 16, False)})
+    return out
+
+
 def shapes() -> list[dict]:
     """The timed calls: #1 at the ViT-B/16 microbatch shapes (and with
-    dropout at B=32), #3 at the detector paths' shapes."""
+    dropout at B=32), #3 at the detector paths' shapes, then #5 and #6."""
     out = []
     for b in (1, 8, 32):
         for rate in ((0.0, DROPOUT_RATE) if b == 32 else (0.0,)):
@@ -138,18 +222,44 @@ def shapes() -> list[dict]:
                 "library": lambda q=q, k=k, v=v:
                     F.scaled_dot_product_attention(q, k, v),
                 "bound": flash_bound(b, h, sq, sk, d)})
-    return out
+    return out + savep_shapes()
 
 
 def hold(case: dict) -> None:
-    """The bound tree's output against the plain version."""
-    (out, lse), (ref, ref_lse) = case["call"](), case["plain"]()
+    """The bound tree's outputs against the plain version's, each at its
+    limit."""
+    got, ref = case["call"](), case["plain"]()
     torch.cuda.synchronize()
-    ok = bool(((out.float() - ref.float()).abs()
-               <= TOL_BF16 + TOL_BF16 * ref.float().abs()).all())
-    check(ok and max_err(lse, ref_lse) <= TOL_LSE,
-          f"{case['kernel']} {case['shape']} disagrees with its plain "
-          f"version: {max_err(out, ref)}")
+    for i, (x, r, (atol, rtol)) in enumerate(
+            zip(got, ref, LIMITS[case["kernel"]])):
+        ok = x.shape == r.shape and bool(
+            ((x.float() - r.float()).abs()
+             <= atol + rtol * r.float().abs()).all())
+        check(ok, f"{case['kernel']} {case['shape']} output {i} disagrees "
+                  f"with its plain version: {max_err(x, r)}")
+
+
+# SDPA's backward goes through autograd, whose host time a call exceeds
+# the kernels' hold: its calls are held four times as long
+LIBRARY_HOLD_CYCLES = 4 * HOLD_CYCLES_PER_CALL
+
+
+def library_times(case: dict) -> dict:
+    """SDPA's host-paced and held-device time on the case's inputs (less
+    its forward's, where the case names one). The held-device time is None
+    where the host cannot enqueue SDPA's calls within the hold."""
+    def held(fn):
+        try:
+            return device_ms(fn, iters=100, hold_cycles=LIBRARY_HOLD_CYCLES)
+        except RuntimeError:
+            return None
+
+    ms, dev = cuda_ms(case["library"], iters=100), held(case["library"])
+    if "library_fwd" in case:
+        ms -= cuda_ms(case["library_fwd"], iters=100)
+        fwd = held(case["library_fwd"])
+        dev = None if dev is None or fwd is None else dev - fwd
+    return {"library_ms": ms, "library_device_ms": dev}
 
 
 def main() -> int:
@@ -181,9 +291,7 @@ def main() -> int:
                               "tree": i, "turn": turn, **rec}), flush=True)
         bound_ms, bound_by, _, _ = case["bound"]
         summary = {"ab_summary": case["kernel"], **case["shape"],
-                   "library_ms": cuda_ms(case["library"], iters=100),
-                   "library_device_ms": device_ms(case["library"],
-                                                  iters=100),
+                   **library_times(case),
                    "bound_ms": bound_ms, "bound_by": bound_by}
         for i, recs in times.items():
             for key in ("ms", "device_ms"):

@@ -81,7 +81,7 @@ def _port_fwd_bwd(route, qkv, dout):
 # 2^-6 of the largest magnitude (measured 4.5e-3).
 @pytest.mark.parametrize("route", ["default", "savep"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [17, 33])
+@pytest.mark.parametrize("s", [17, 33, 65])
 def test_plain_versions_match_jax_masked_formula(s, dtype, route):
     qkv_np = _rand((B, s, 3 * D), s)
     w_np = _rand((B, s, D), s + 1)

@@ -57,7 +57,8 @@ def _torch(x, dtype):
     return torch.from_numpy(_to_np(x)).to(_TORCH[dtype])
 
 
-@pytest.mark.parametrize("s", [17, 33])
+# S = 65 and 128: one key past the kernels' 64-row tile and two whole tiles
+@pytest.mark.parametrize("s", [17, 33, 65, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_plain_matches_pallas_fwd_direct_savep(dtype, s):
     """#5's plain version against the Pallas kernel on the same qkv. O:
@@ -86,7 +87,19 @@ def test_backward_plain_matches_pallas_bwd_direct_savep(dtype):
     order only (P is bf16 on both sides), atol 1e-5. bf16: both round dS
     and P to bf16 before their products; an order difference can flip
     single roundings and the final bf16 one: atol = rtol = 2^-6."""
-    s = 17
+    _check_backward(dtype, 17)
+
+
+@pytest.mark.parametrize("s", [65, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_plain_matches_pallas_at_the_tile_edges(dtype, s):
+    """#6's plain version against the Pallas kernel where the kernel's
+    64-row tiles of queries and keys end: one row past a tile (S = 65) and
+    two whole tiles (S = 128); the limits of the S = 17 test."""
+    _check_backward(dtype, s)
+
+
+def _check_backward(dtype, s):
     qkv = jnp.asarray(_rand((B, s, 3 * D), 2)).astype(_JAX[dtype])
     dout = jnp.asarray(_rand((B, s, D), 3)).astype(_JAX[dtype])
     _, probs = _fwd_direct_savep(qkv, H, interpret=True)
@@ -190,6 +203,27 @@ def test_savep_sources_name_the_tpu_kernels_and_build_for_sm90a(name,
     cmd = build.nvcc_command(build.source_path(name), build.library_path(name))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert name in build.kernel_names()
+
+
+@pytest.mark.parametrize("name", ["encoder_attention_savep_fwd",
+                                  "encoder_attention_savep_bwd"])
+def test_savep_sources_run_on_the_tensor_core_tiles(name):
+    """#5 is the save-probs branch of the forward body of #1 and #3
+    (attention_fwd.cuh); #6 builds its two kernels from that body's
+    staging and score tiles. Both reach warp_tile.cuh's mma.sync tiles and
+    no longer include the CUDA-core tiles of encoder_tile.cuh directly."""
+    text = build.source_path(name).read_text()
+    assert '#include "attention_fwd.cuh"' in text
+    assert '#include "encoder_tile.cuh"' not in text
+    body = (build.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert '#include "warp_tile.cuh"' in body and "warp_mma" in body
+    assert "mma.sync" in (build.CSRC_DIR / "warp_tile.cuh").read_text()
+    if name.endswith("fwd"):
+        assert "launch_fwd<T, kHeadDim, true>" in text  # kSaveP
+        assert "kSaveP" in body and "store_rows" in body
+    else:
+        assert "warp_mma_afrag" in text and "chunk_scores" in text
+        assert "load_a_frag<" in text and "asm" not in text  # no own PTX
 
 
 @pytest.mark.parametrize("train,env,savep_calls", [
