@@ -17,29 +17,38 @@
 // and dw2 written. At ViT-B (D=768, M=3072) and n = 6,304 rows: 119 GFLOP,
 // 120.4 us, against 96 MB, 28.7 us: bound by operations.
 //
-// Design:
+// Design, bf16: mlp_gemm.cuh's wgmma/TMA GEMM, two launches:
+//   1. dh = dO w2^T over (n / 128) x (M / 128) tiles, K = D, w2 read
+//      K-major as it lies; the epilogue reads u (prefetched into L2) and
+//      writes du and h.
+//   2. one set of tiles over three products that read only launch 1's du
+//      and h and the inputs: dw1 = x^T du (D x M), dw2 = h^T dO (M x D),
+//      both over K = n with x, du, h and dO read MN-major as they lie, and
+//      dx = du w1^T (n x D, K = M); 128 x 128 tiles, the dw tiles first.
+//      The tiles of dw1's first row also sum db1 from the du tiles they
+//      stage. The TPU grid's carry of the dw accumulators across row
+//      blocks becomes the K loop of one tile; at ViT-B 144 + 144 dw tiles
+//      and 300 dx tiles keep the 132 SMs busy without splitting K.
+//   The TPU kernel evaluates gelu(u) in its dw step; here launch 1 writes
+//   h once, so the dw2 tiles do not each evaluate it.
+// fp32 (the parity path):
 //   1. mlp_tile.cuh's row-tile kernel with A = dO, W_a = w2^T, W_b = w1^T:
-//      one block of 8 warps per 48 rows (16 in fp32) keeps its rows of dO
-//      in shared memory, walks M in chunks of 128, forms du for its chunk
-//      (stored as bf16, and kept in shared memory as the left operand) and
+//      one block of 8 warps per 16 rows keeps its rows of dO in shared
+//      memory, walks M in chunks of 128, forms du for its chunk (stored as
+//      bf16, and kept in shared memory as the left operand) and
 //      accumulates du w1^T for all D columns in registers (D > 768: for its
 //      slice of ceil(D / 768) equal slices); w2 and w1 stream through a
 //      ring of 128 x 64 tiles.
 //   2. dw_kernel: one block of 8 warps per 64 x 64 tile of dw1 (blockIdx.z
 //      = 0) or of dw2 (blockIdx.z = 1) walks all n rows in steps of 32,
 //      copying the rows of x and du (or h and dO) as they lie through a
-//      4-step cp.async ring and reading them as transposed operands with
-//      ldmatrix.trans (a warp tile of 16 x 32, warp_tile.cuh::warp_mma).
-//      The TPU kernel evaluates gelu(u) in its dw step; here launch 1
-//      writes h once, so the 12 D tiles of dw2 do not each evaluate it.
-//      The TPU grid's carry of the accumulator across row blocks becomes a
-//      loop in the block. The dw1 blocks of the first D tile also sum db1
-//      for their 64 columns, row by row. No atomics, no split over rows:
-//      every sum has one owner and a fixed order, so the result is
-//      deterministic.
-// bf16 products run as tensor-core mma.sync m16n8k16 tiles, fp32 ones as
-// the same tiles on the CUDA cores. The dw launch reads the du and h that
-// the first wrote, on the same stream.
+//      4-step cp.async ring and reading them as transposed operands (a
+//      warp tile of 16 x 32 on the CUDA cores, warp_tile.cuh::warp_mma).
+//      The dw1 blocks of the first D tile also sum db1 for their 64
+//      columns, row by row.
+// No atomics, no split over rows: every sum has one owner and a fixed
+// order, so the result is deterministic. The second launch reads the du
+// and h that the first wrote, on the same stream.
 //
 // C interface: arsvt_fused_mlp_bwd launches both kernels on the given
 // stream, allocates nothing and returns cudaGetLastError() (or
@@ -49,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mlp_gemm.cuh"
 #include "mlp_tile.cuh"
 
 namespace {
@@ -74,11 +84,10 @@ __global__ void __launch_bounds__(kDwThreads)
               const T* __restrict__ dout, float* __restrict__ dw1,
               float* __restrict__ db1, float* __restrict__ dw2, int n, int D,
               int M) {
-  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // Per step, 32 rows of each operand as they lie in device memory
-  // ([row][column]): A, x (dw1) or h (dw2); B, du (dw1) or dO (dw2). In
-  // fp32, du arrives as bf16 and is widened in its slot.
+  // ([row][column]): A, x (dw1) or h (dw2); B, du (dw1) or dO (dw2). du
+  // arrives as bf16 and is widened in its slot.
   T* As_ring = reinterpret_cast<T*>(smem_raw);
   T* Bs_ring = As_ring + kDwStages * kDwSlot;
 
@@ -129,7 +138,7 @@ __global__ void __launch_bounds__(kDwThreads)
     enqueue(s + kDwStages - 1);
     const T* As = As_ring + (s % kDwStages) * kDwSlot;
     T* Bs = Bs_ring + (s % kDwStages) * kDwSlot;
-    if (!kBf16 && !second) {  // widen du in place: 8 values a thread
+    if (!second) {  // widen du in place: 8 values a thread
       static_assert(kDwK * kDwTile == 8 * kDwThreads, "one vector a thread");
       const int k = threadIdx.x / (kDwTile / 8);
       const int c = threadIdx.x % (kDwTile / 8) * 8;
@@ -169,30 +178,55 @@ __global__ void __launch_bounds__(kDwThreads)
     db1[c0 + threadIdx.x] = bias_sum;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* u, const void* w1,
-                   const void* w2, const void* dout, void* dx, void* du,
-                   void* h, void* dw1, void* db1, void* dw2, int n, int D,
-                   int M, cudaStream_t stream) {
-  cudaError_t err = launch_row_tile<T, true>(
-      static_cast<const T*>(dout), static_cast<const T*>(w2),
-      static_cast<const T*>(w1), nullptr, nullptr,
-      static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(du),
-      static_cast<T*>(h), static_cast<T*>(dx), n, D, M, stream);
+cudaError_t launch_fp32(const float* x, const __nv_bfloat16* u,
+                        const float* w1, const float* w2, const float* dout,
+                        float* dx, __nv_bfloat16* du, float* h, float* dw1,
+                        float* db1, float* dw2, int n, int D, int M,
+                        cudaStream_t stream) {
+  cudaError_t err = launch_row_tile<float, true>(
+      dout, w2, w1, nullptr, nullptr, u, du, h, dx, n, D, M, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = dw_smem_bytes<T>();
+  const size_t smem = dw_smem_bytes<float>();
   err = cudaFuncSetAttribute(
-      dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dw_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kDwTile - 1) / kDwTile, (D + kDwTile - 1) / kDwTile,
                   2);
-  dw_kernel<T><<<grid, kDwThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(h),
-      static_cast<const __nv_bfloat16*>(du), static_cast<const T*>(dout),
-      static_cast<float*>(dw1), static_cast<float*>(db1),
-      static_cast<float*>(dw2), n, D, M);
+  dw_kernel<float><<<grid, kDwThreads, smem, stream>>>(
+      x, h, du, dout, dw1, db1, dw2, n, D, M);
   return cudaGetLastError();
 }
+
+// bf16: du and h, then dw1 with db1, dw2 and dx. du and h are scratch
+// (n, M) the caller allocates.
+cudaError_t backward_bf16(const void* x, const void* u, const void* w1,
+                          const void* w2, const void* dout, void* dx,
+                          void* du, void* h, float* dw1, float* db1,
+                          float* dw2, int n, int D, int M,
+                          cudaStream_t stream) {
+  using mlpg::kBwdDu;
+  using mlpg::kBwdGrads;
+  using mlpg::launch;
+  using mlpg::Params;
+  using mlpg::set_maps;
+  Params p = {};
+  p.n = n, p.D = D, p.M = M;
+  cudaError_t err = set_maps(&p, {{dout, n, D}, {w2, M, D}, {du, n, M},
+                                   {h, n, M}});
+  if (err != cudaSuccess) return err;
+  p.u_in = static_cast<const __nv_bfloat16*>(u);
+  err = launch<kBwdDu>(p, stream);
+  if (err != cudaSuccess) return err;
+  Params q = {};
+  q.n = n, q.D = D, q.M = M;
+  err = set_maps(&q, {{du, n, M}, {w1, D, M}, {x, n, D}, {h, n, M},
+                      {dout, n, D}, {dx, n, D}});
+  if (err != cudaSuccess) return err;
+  q.dw1 = dw1, q.db1 = db1, q.dw2 = dw2;
+  return launch<kBwdGrads>(q, stream);
+}
+
 
 }  // namespace
 
@@ -208,16 +242,22 @@ extern "C" int arsvt_fused_mlp_bwd(const void* x, const void* u,
                                    int n, int D, int M, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dw1f = static_cast<float*>(dw1);
+  float* db1f = static_cast<float*>(db1);
+  float* dw2f = static_cast<float*>(dw2);
   switch (dtype) {
     case 0:
       if (!mlp::shapes_ok<float>(n, D, M)) return (int)cudaErrorInvalidValue;
-      return (int)launch<float>(x, u, w1, w2, dout, dx, du, h, dw1, db1, dw2,
-                                n, D, M, st);
+      return (int)launch_fp32(
+          static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(u),
+          static_cast<const float*>(w1), static_cast<const float*>(w2),
+          static_cast<const float*>(dout), static_cast<float*>(dx),
+          static_cast<__nv_bfloat16*>(du), static_cast<float*>(h), dw1f,
+          db1f, dw2f, n, D, M, st);
     case 1:
-      if (!mlp::shapes_ok<__nv_bfloat16>(n, D, M))
-        return (int)cudaErrorInvalidValue;
-      return (int)launch<__nv_bfloat16>(x, u, w1, w2, dout, dx, du, h, dw1,
-                                        db1, dw2, n, D, M, st);
+      if (!mlp::dims_ok(n, D, M)) return (int)cudaErrorInvalidValue;
+      return (int)backward_bf16(x, u, w1, w2, dout, dx, du, h, dw1f, db1f,
+                                dw2f, n, D, M, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // The fused-MLP kernels' own pieces (fused_mlp_fwd.cu, fused_mlp_bwd.cu):
-// tanh GELU and the row-tile kernel that both run (#8's forward and the
-// dx/du launch of #9 have the same shape). Their products are warp tiles
-// from warp_tile.cuh (tensor-core mma.sync in bf16, CUDA-core FMAs in depth
-// order in fp32, one accumulator layout).
+// tanh GELU (which the bf16 wgmma kernels of mlp_gemm.cuh share) and the
+// row-tile kernel that both run in fp32, the parity path (#8's forward and
+// the dx/du launch of #9 have the same shape). Its products are
+// warp_tile.cuh's warp tiles, in fp32 sequential FMAs over the depth on
+// the CUDA cores.
 //
 // Operands are copied from device memory in 16-byte vectors (cp.async)
 // along the contiguous dimension, so D and M must be multiples of 8 (the
@@ -54,18 +55,18 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
 
 // ------------------------------------------------------ the row-tile kernel
 //
-// One block of 256 threads (8 warps) owns R rows (48 in bf16, 16 in fp32)
-// and one slice of the output's columns: all D of them when D <= 768,
+// One block of 256 threads (8 warps) owns R = 16 rows and one slice of the
+// output's columns: all D of them when D <= 768,
 // else blockIdx.y's share of ceil(D / 768) equal slices of 128-column
 // groups (at most kMaxNg groups, so the accumulator keeps its register
 // budget). Its R rows of A (R x D, the full depth) are staged once and stay
 // in shared memory; it walks M in chunks of 128:
 //   G1: C = A[rows] (R x D) . W_a chunk (D x 128), in depth steps of 64;
 //   epilogue on C (R x 128): forward u = C + b1, stored as bf16, h =
-//     gelu(u) rounded to T into shared memory (Hs), never to device
-//     memory; backward du = C * gelu'(u) from the saved bf16 u, stored as
-//     bf16 and, as bf16, into Hs, and h = gelu(u) rounded to T stored for
-//     the dw launch (one tanh gives both);
+//     gelu(u) into shared memory (Hs), never to device memory; backward
+//     du = C * gelu'(u) from the saved bf16 u, stored as bf16 and, as
+//     bf16, into Hs, and h = gelu(u) stored for the dw launch (one tanh
+//     gives both);
 //   G2: Out (R x slice) += Hs (R x 128) . W_b chunk (128 x slice), one
 //     128-column output group at a time in two depth halves of 64, the
 //     accumulator in registers across all of M.
@@ -74,16 +75,14 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
 // register budget) and leaves u, du and h to the blocks of slice 0.
 // Every step of G1 and G2 reads one 64 (depth) x 128 tile of a weight,
 // copied from device memory as it lies there (cp.async, 16-byte vectors)
-// into a ring of S slots (6 in bf16, 3 in fp32), S - 1 tiles ahead of the
-// one in use; the MMA reads [k][n] tiles through ldmatrix.trans, so no tile
-// is transposed on the way in. Warp w computes columns 16w .. 16w + 15 of
-// each 128-column group of C and of Out. The staged rows of A bound D:
-// row_tile_smem_bytes must fit the 227 KB a block can have (D <= 1,088 in
-// bf16, 1,728 in fp32). Forward (#8, fused_mlp.py::_fwd_kernel): A = x, W_a
-// = w1 (D, M), W_b = w2 (M, D), out = acc + b2. Backward dx/du (#9's first
-// launch, _bwd_dx_kernel): A = dO, W_a = w2^T, W_b = w1^T, dx = acc. At
-// ViT-B's n = 6,304, 48-row blocks make 132 blocks: one wave on the H100's
-// 132 SMs.
+// into a ring of 3 slots, 2 tiles ahead of the one in use; the [k][n]
+// tiles are read transposed, so no tile is transposed on the way in. Warp
+// w computes columns 16w .. 16w + 15 of each 128-column group of C and of
+// Out. The staged rows of A bound D: row_tile_smem_bytes must fit the 227
+// KB a block can have (D <= 1,728). Forward (#8, fused_mlp.py::_fwd_kernel):
+// A = x, W_a = w1 (D, M), W_b = w2 (M, D), out = acc + b2. Backward dx/du
+// (#9's first launch, _bwd_dx_kernel): A = dO, W_a = w2^T, W_b = w1^T, dx
+// = acc.
 
 constexpr int kRowThreads = 256;
 constexpr int kDepth = 64;   // depth of a weight tile
@@ -97,22 +96,14 @@ constexpr int kLdNK = kDepth + 8;  // an [n][k] tile: 128 x 64
 constexpr int kSlot = (kDepth * kLdKN > kChunk * kLdNK) ? kDepth * kLdKN
                                                         : kChunk * kLdNK;
 
-// Rows per block (16 per m-tile) and weight tiles in flight: the fp32
-// CUDA-core tiles take more registers and twice the bytes per tile.
-template <typename T>
-struct RowTile {
-  static constexpr int kMTiles = 3, kStages = 6;
-};
-template <>
-struct RowTile<float> {
-  static constexpr int kMTiles = 1, kStages = 3;
-};
+// 16-row m-tiles per block and weight tiles in flight (fp32).
+constexpr int kRowMTiles = 1, kRowStages = 3;
 
 template <typename T>
 size_t row_tile_smem_bytes(int nk) {
-  constexpr int kRows = 16 * RowTile<T>::kMTiles;
+  constexpr int kRows = 16 * kRowMTiles;
   return ((size_t)kRows * (nk * kDepth + 8) + (size_t)kRows * kLdKN +
-          (size_t)RowTile<T>::kStages * kSlot) *
+          (size_t)kRowStages * kSlot) *
          sizeof(T);
 }
 
@@ -125,7 +116,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
                     __nv_bfloat16* __restrict__ u_out,
                     T* __restrict__ h_out, T* __restrict__ out, int n,
                     int D, int M) {
-  constexpr int kM = RowTile<T>::kMTiles, kStages = RowTile<T>::kStages;
+  constexpr int kM = kRowMTiles, kStages = kRowStages;
   constexpr int kRows = 16 * kM;
   constexpr int kLdW = kBwd ? kLdNK : kLdKN;  // weight tiles: [n][k] or [k][n]
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -292,8 +283,8 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   }
 }
 
-// Launch the row-tile kernel on `stream`: one block per 48 (bf16) or 16
-// (fp32) rows and slice of at most kMaxNg output groups.
+// Launch the row-tile kernel on `stream`: one block per 16 rows and slice
+// of at most kMaxNg output groups.
 template <typename T, bool kBwd>
 cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
                             const float* b1, const float* b2,
@@ -305,7 +296,7 @@ cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
       row_tile_kernel<T, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  constexpr int kRows = 16 * RowTile<T>::kMTiles;
+  constexpr int kRows = 16 * kRowMTiles;
   const int groups = (D + kChunk - 1) / kChunk;
   const dim3 grid((n + kRows - 1) / kRows, (groups + kMaxNg - 1) / kMaxNg);
   row_tile_kernel<T, kBwd><<<grid, kRowThreads, smem, stream>>>(
@@ -314,7 +305,7 @@ cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
 }
 
 // The largest D whose staged rows fit the row-tile kernel's shared memory:
-// 1,088 in bf16, 1,728 in fp32.
+// 1,728 in fp32.
 template <typename T>
 int max_d() {
   int nk = 1;
@@ -323,11 +314,15 @@ int max_d() {
 }
 
 // Shapes every fused-MLP entry point takes: n >= 1 rows, D and M positive
-// multiples of 8 (16-byte cp.async rows), and D up to max_d.
+// multiples of 8 (16-byte rows: cp.async vectors, TMA strides).
+inline bool dims_ok(int n, int D, int M) {
+  return n >= 1 && D >= 8 && M >= 8 && D % 8 == 0 && M % 8 == 0;
+}
+
+// ... and, for the row-tile kernel, D up to max_d.
 template <typename T>
 bool shapes_ok(int n, int D, int M) {
-  return n >= 1 && D >= 8 && M >= 8 && D % 8 == 0 && M % 8 == 0 &&
-         D <= max_d<T>();
+  return dims_ok(n, D, M) && D <= max_d<T>();
 }
 
 }  // namespace mlp

@@ -10,14 +10,17 @@ taken when ``ARSVT_ENABLE_FUSED_MLP`` is set, see ``ops/dispatch.py``).
 - `fused_gelu_mlp`, a `torch.autograd.Function` over the two that saves
   (x, u, w1, w2).
 
-On a CUDA tensor each wrapper launches its hand-written kernel or raises;
+On a CUDA tensor each wrapper launches its hand-written kernels or raises;
 on a CPU tensor it runs its ``*_plain`` version, which repeats the
-kernel's arithmetic in plain PyTorch. There is no fallback from one to the
-other. The kernels take D and M that are multiples of 8, and D up to
-what the row-tile kernel's staged rows leave of a block's shared memory
-(``mlp_tile.cuh::max_d``: 1,088 in bf16, 1,728 in fp32, so every preset's
-width, ViT-L's 1,024 included); a launch past it raises a ValueError that
-names the bound.
+kernels' arithmetic in plain PyTorch. There is no fallback from one to the
+other. bf16 runs on Hopper's wgmma fed by TMA (``csrc/mlp_gemm.cuh``), two
+launches a call in each direction; the forward's hidden h makes one round
+trip through a scratch the wrapper allocates. fp32, the parity path, runs
+on the row-tile kernel (``csrc/mlp_tile.cuh``). The kernels take D and M
+that are multiples of 8; fp32 takes D up to what the row-tile kernel's
+staged rows leave of a block's shared memory (``mlp_tile.cuh::max_d``,
+1,728), and a launch past it raises a ValueError that names the bound;
+bf16 has no such bound.
 """
 
 from __future__ import annotations
@@ -33,10 +36,13 @@ _A = 0.044715
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1
 
-# Kernel launches in this process, counted where each wrapper launches. One
-# backward call launches two kernels (dx/du, then dw) and counts both.
+# Kernel launches in this process, counted where each wrapper launches. A
+# forward call launches two kernels in bf16 (u and h, then out) and one in
+# fp32 (the row-tile kernel); a backward call two in either (dx/du, then
+# the weight gradients). Each counts all of its launches.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_LAUNCHES_PER_CALL = {torch.bfloat16: 2, torch.float32: 1}
 BWD_LAUNCHES_PER_CALL = 2
 
 _fwd_fn = None
@@ -75,24 +81,27 @@ def _check(x2d, w1, w2) -> tuple[int, int, int]:
     return n, d, m
 
 
-def max_d(dtype: torch.dtype) -> int:
+def max_d(dtype: torch.dtype) -> int | None:
     """The largest D the kernels take in `dtype` (the C entry's
-    ``mlp_tile.cuh::max_d``): each block keeps its rows of x (or dO) over
-    the full D in shared memory, as the TPU kernel keeps them in VMEM."""
+    ``arsvt_fused_mlp_max_d``), or None where D has no such bound (bf16):
+    the fp32 row-tile kernel keeps each block's rows of x (or dO) over the
+    full D in shared memory, as the TPU kernel keeps them in VMEM."""
     fn = build.load("fused_mlp_fwd").arsvt_fused_mlp_max_d
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn(_DTYPE_CODES[dtype])
+    bound = fn(_DTYPE_CODES[dtype])
+    return bound if bound > 0 else None
 
 
 def _launch_error(err: int, what: str, d: int, dtype: torch.dtype):
     """The error for a launch that returned CUDA error `err`; a D past the
-    kernels' shared-memory bound reads as such."""
-    if err == _CUDA_ERROR_INVALID_VALUE and d > max_d(dtype):
+    fp32 kernels' shared-memory bound reads as such."""
+    bound = max_d(dtype) if err == _CUDA_ERROR_INVALID_VALUE else None
+    if bound is not None and d > bound:
         return ValueError(
             f"the {what} kernel stages its rows of the input over the full "
-            f"D in shared memory: it takes D <= {max_d(dtype)} in {dtype}, "
-            f"got D={d}")
+            f"D in shared memory: it takes D <= {bound} in {dtype}, got "
+            f"D={d}")
     return RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
@@ -121,7 +130,7 @@ def _fwd_kernel():
     global _fwd_fn
     if _fwd_fn is None:
         fn = build.load("fused_mlp_fwd").arsvt_fused_mlp_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fwd_fn = fn
@@ -145,15 +154,18 @@ def fused_mlp_fwd(x2d, w1, b1, w2, b2):
     _cuda_args((x2d, w1, b1, w2, b2), "fused MLP forward")
     out = torch.empty_like(x2d)
     u = torch.empty((n, m), dtype=torch.bfloat16, device=x2d.device)
+    # bf16: the hidden h (n, M) between the two launches, for this call only
+    h = torch.empty_like(u) if x2d.dtype == torch.bfloat16 else None
     fn = _fwd_kernel()
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = fn(x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                  w2.data_ptr(), b2.data_ptr(), out.data_ptr(), u.data_ptr(),
-                 n, d, m, _DTYPE_CODES[x2d.dtype], stream)
+                 None if h is None else h.data_ptr(), n, d, m,
+                 _DTYPE_CODES[x2d.dtype], stream)
     if err != 0:
         raise _launch_error(err, "fused MLP forward", d, x2d.dtype)
-    LAUNCHES += 1
+    LAUNCHES += FWD_LAUNCHES_PER_CALL[x2d.dtype]
     return out, u
 
 

@@ -13,9 +13,9 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    matmuls and convolutions;
 2. build every kernel under ``arsvt_tpu_torch/csrc`` (one nvcc each, all
    started together) and print the compiler's resource report; no spill
-   or stack frame in the bf16 attention kernels on the tensor-core tiles
-   (#1, #3, #5, #6), and HMMA in the SASS of every bf16 kernel of the
-   tensor-core libraries (#1, #3, #5, #6, #8, #9);
+   or stack frame in the bf16 kernels on the tensor cores (#1, #3, #5,
+   #6, #8, #9), HMMA (mma.sync) in the SASS of every bf16 kernel of #1,
+   #3, #5 and #6 and HGMMA (wgmma) in every bf16 kernel of #8 and #9;
 3. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes in bf16 and fp32 plus odd shapes (#1 also at S = 1
    and ViT-L's S = 577; #3 over d in {1, 16, 50, 96, 128}, Sq in {1, 5,
@@ -30,8 +30,9 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    (also at the edges of their 64-row tiles, S in {1, 63, 64, 65, 128},
    at B = 1 and at ViT-L's S = 577) and the fused-MLP kernels (#8, #9) at
    the ``bench_train`` microbatch (B = 32, n = 6,304 rows) and odd sizes
-   (n = 591 and 594, D = 400, M = 1,600), and at ViT-L's width (D =
-   1,024, M = 4,096, n = 9,232 and 1,731); the dropout branches of #1,
+   (n = 591 and 594, D = 400, M = 1,600), at ViT-L's width (D = 1,024, M
+   = 4,096, n = 9,232 and 1,731) and, in bf16, at ViT-H's (D = 1,280, M
+   = 5,120, n = 257); the dropout branches of #1,
    #2, #5 and #6 at dropout 0.1 (B = 32, S = 65 and an odd shape, bf16
    and fp32), a probe that reads back the mask of each of their six
    launches, and their times beside dropout 0;
@@ -93,10 +94,11 @@ kernel); 8(g) (``vit_base_detector``: 12 encoder-attention and 6
 head-major launches per forward); 9(c)-(e) (detector training: 18
 head-major forward and 18 backward calls and one AdamW launch per step,
 18 forward calls per eval forward); 10(c) (opt-in training: per layer and
-microbatch one #5 launch, one #6 call, one #8 launch and one #9 call (two
-launches each), no #1 or #2; one AdamW launch per step; per eval forward
-one #1 and one #8 launch per layer); each CLI run of 11(a)-(b), with the
-same rule per route and step and 8 eval forwards of 512 images per eval;
+microbatch one #5 launch, one #6 call, one #8 call and one #9 call (two
+launches each in bf16), no #1 or #2; one AdamW launch per step; per eval
+forward one #1 launch and one #8 call per layer); each CLI run of
+11(a)-(b), with the same rule per route and step and 8 eval forwards of
+512 images per eval;
 11(d) (per step 12 #1 and #2 calls, 6 #3 and #4 calls, one AdamW
 launch). Beside each total, #1, #2, #5 and #6 count the launches that ran
 their dropout branch: every training launch of phase 11's dropout runs,
@@ -1120,8 +1122,10 @@ TOL_MLP_BF16 = 2.0 ** -7
 TOL_U_ABS = 2.0 ** -10
 # (n, D, M): the bench_train microbatch (32 x 197 rows of ViT-B), three
 # images of it, and three of the DeiT-400 backbone's MLP; ViT-L's
-# microbatch (16 x 577 rows, D = 1,024 in two slices of 512 columns) and
-# an odd n at that width
+# microbatch (16 x 577 rows, D = 1,024; fp32 in two slices of 512
+# columns) and an odd n at that width; one image of ViT-H/14's MLP (D =
+# 1,280, M = 5,120), past the fp32 row-tile kernel's bound on D, which
+# bf16 does not have
 MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (6304, 768, 3072, torch.float32),
              (591, 768, 3072, torch.bfloat16),
@@ -1130,7 +1134,8 @@ MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (37, 128, 256, torch.float32),
              (9232, 1024, 4096, torch.bfloat16),
              (9232, 1024, 4096, torch.float32),
-             (1731, 1024, 4096, torch.bfloat16)]
+             (1731, 1024, 4096, torch.bfloat16),
+             (257, 1280, 5120, torch.bfloat16)]
 # (n, D, M) timed: the bench_train microbatch (its record is the kernels
 # line's) and ViT-L's
 MLP_TIMED = [(6304, 768, 3072), (9232, 1024, 4096)]
@@ -1247,25 +1252,29 @@ def phase_mlp_checks() -> tuple[dict, dict]:
                      max(rec[f"max_abs_err_{n_}"]
                          for n_ in ("dx", "dw1", "db1", "dw2")))
 
-    # the kernels' bound on D (mlp_tile.cuh::max_d), and the error of a
-    # launch past it
-    for dtype in (torch.bfloat16, torch.float32):
-        bound = fused_mlp.max_d(dtype)
-        x, w1, b1, w2, b2 = seeded_mlp(48, bound + 8, 64, dtype, seed=1099)
-        u = torch.zeros(48, 64, dtype=torch.bfloat16, device="cuda")
-        refused = []
-        for call in (lambda: fused_mlp.fused_mlp_fwd(x, w1, b1, w2, b2),
-                     lambda: fused_mlp.fused_mlp_bwd(x, u, w1, w2, x)):
-            try:
-                call()
-                refused.append(False)
-            except ValueError as e:
-                refused.append("shared memory" in str(e))
-        log(json.dumps({"check": "fused MLP width bound",
-                        "dtype": str(dtype).split('.')[-1], "max_d": bound,
-                        "refused_past_it": refused}))
-        check(bound >= 1024 and all(refused),
-              f"fused MLP bound {bound} in {dtype}, refused {refused}")
+    # fp32: the row-tile kernel's bound on D (mlp_tile.cuh::max_d), and the
+    # error of a launch past it; bf16 has no bound on D (ViT-H's width
+    # above ran and held)
+    widest = max(d for _, d, _, dt in MLP_CASES if dt == torch.bfloat16)
+    bound = fused_mlp.max_d(torch.float32)
+    x, w1, b1, w2, b2 = seeded_mlp(48, bound + 8, 64, torch.float32,
+                                   seed=1099)
+    u = torch.zeros(48, 64, dtype=torch.bfloat16, device="cuda")
+    refused = []
+    for call in (lambda: fused_mlp.fused_mlp_fwd(x, w1, b1, w2, b2),
+                 lambda: fused_mlp.fused_mlp_bwd(x, u, w1, w2, x)):
+        try:
+            call()
+            refused.append(False)
+        except ValueError as e:
+            refused.append("shared memory" in str(e))
+    rec = {"check": "fused MLP width bound", "max_d_float32": bound,
+           "refused_past_it": refused,
+           "max_d_bfloat16": fused_mlp.max_d(torch.bfloat16),
+           "widest_bfloat16_held": widest}
+    log(json.dumps(rec))
+    check(bound >= 1024 and all(refused) and rec["max_d_bfloat16"] is None
+          and widest > 1088, f"fused MLP width bounds: {rec}")
 
     recs = {}
     for n, d, m in MLP_TIMED:
@@ -1717,8 +1726,9 @@ def classifier_launches(depth: int, micro: int, steps: int,
     and #2 per layer and microbatch. Opt-in route (both switches): #5, #6,
     #8 and #9 per layer and microbatch, and each eval forward #1 and #8 per
     layer. One AdamW launch a step; each backward call launches two
-    kernels. With attention `dropout`, every training launch of #1/#2 or
-    #5/#6 runs the dropout branch; eval forwards never do."""
+    kernels, and so does each bf16 call of #8. With attention `dropout`,
+    every training launch of #1/#2 or #5/#6 runs the dropout branch; eval
+    forwards never do."""
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     layers = depth * micro * steps
     counts["fused_adamw"] = steps
@@ -1727,7 +1737,8 @@ def classifier_launches(depth: int, micro: int, steps: int,
         counts["encoder_attention_fwd_savep"] = layers
         counts["encoder_attention_bwd_savep"] = (
             layers * encoder_attention.SAVEP_BWD_LAUNCHES_PER_CALL)
-        counts["fused_mlp_fwd"] = layers + depth * eval_forwards
+        counts["fused_mlp_fwd"] = (layers + depth * eval_forwards) * (
+            fused_mlp.FWD_LAUNCHES_PER_CALL[torch.bfloat16])
         counts["fused_mlp_bwd"] = layers * fused_mlp.BWD_LAUNCHES_PER_CALL
     else:
         counts["encoder_attention_fwd"] += layers
@@ -1826,7 +1837,8 @@ PROFILE_CATEGORIES = (
     ("save-probs attention forward kernel", ("true>(attn::FwdArgs",)),
     ("attention forward kernels (#1, #3)", ("attn::attention_fwd_kernel",)),
     ("save-probs attention backward kernels", ("savep_bwd_",)),
-    ("fused MLP kernels", ("row_tile_kernel", "dw_kernel")),
+    ("fused MLP kernels", ("mlpg::gemm_bf16_kernel", "row_tile_kernel",
+                           "dw_kernel")),
     ("attention backward kernels", ("attn_bwd_",)),
     ("head-major attention backward kernels", ("flash_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
@@ -2816,14 +2828,22 @@ def phase_entry_point(cfg, smi) -> dict:
     return total
 
 
-# The libraries whose bf16 instantiations must run on the tensor cores:
-# the attention kernels on warp_tile.cuh (no spill or stack frame allowed
-# in bf16) and the fused MLP's.
+# The libraries whose bf16 kernels must run on the tensor cores, with no
+# spill or stack frame: the attention kernels on warp_tile.cuh (mma.sync,
+# HMMA in the SASS) and the fused MLP's on mlp_gemm.cuh (wgmma, HGMMA).
 ATTENTION_TILE_LIBRARIES = ("encoder_attention_fwd", "flash_attention_fwd",
                             "encoder_attention_savep_fwd",
                             "encoder_attention_savep_bwd")
-TENSOR_CORE_LIBRARIES = ATTENTION_TILE_LIBRARIES + ("fused_mlp_fwd",
-                                                    "fused_mlp_bwd")
+MLP_LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd")
+TENSOR_CORE_LIBRARIES = ATTENTION_TILE_LIBRARIES + MLP_LIBRARIES
+
+
+def is_bf16_kernel(entry: str) -> bool:
+    """A bf16 kernel by its mangled name: T = __nv_bfloat16 opens the
+    template arguments (fp32 instantiations may take bf16 pointers, never
+    it), or the kernel is bf16 by its own name (the fused MLP's wgmma
+    kernels, ``mlpg::gemm_bf16_kernel<launch>``, take no type argument)."""
+    return "I13__nv_bfloat16" in entry or "bf16_kernel" in entry
 
 
 def ptxas_report(built: dict) -> list[dict]:
@@ -2848,38 +2868,40 @@ def ptxas_report(built: dict) -> list[dict]:
     return rows
 
 
-def hmma_per_kernel(name: str) -> dict:
-    """{kernel: HMMA instructions} in library `name`'s SASS (cuobjdump,
-    beside nvcc in the toolkit)."""
+def mma_per_kernel(name: str) -> dict:
+    """{kernel: {"hmma": n, "hgmma": n}} in library `name`'s SASS
+    (cuobjdump, beside nvcc in the toolkit): warp-level mma.sync
+    instructions and warpgroup wgmma ones."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        counts[part.split()[0]] = part.count("HMMA")
+        counts[part.split()[0]] = {"hmma": part.count("HMMA"),
+                                   "hgmma": part.count("HGMMA")}
     return counts
 
 
 def phase_build_report(built: dict) -> None:
     """No spills and no stack frame (local memory) in the bf16 kernels of
-    the attention libraries on the tensor-core tiles (the fp32 ones are
-    reported); HMMA in every bf16 kernel of the tensor-core libraries."""
+    the tensor-core libraries (the fp32 ones are reported); HMMA in every
+    bf16 kernel of the attention libraries, HGMMA in every bf16 kernel of
+    the fused MLP's."""
     for row in ptxas_report(built):
-        if row["library"] in ATTENTION_TILE_LIBRARIES:
+        if row["library"] in TENSOR_CORE_LIBRARIES:
             log(json.dumps({"ptxas": row}))
-            check("I13__nv_bfloat16" not in row["entry"] or (
+            check(not is_bf16_kernel(row["entry"]) or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0
                 and row["stack_frame"] == 0),
                 f"{row['entry']} uses local memory: {row}")
     for name in TENSOR_CORE_LIBRARIES:
-        counts = hmma_per_kernel(name)
-        # bf16 instantiations: T = __nv_bfloat16 opens the mangled
-        # template arguments (fp32 ones may take bf16 pointers, never it)
-        bf16 = {k: v for k, v in counts.items() if "I13__nv_bfloat16" in k}
-        log(json.dumps({"sass": name, "hmma": counts}))
+        counts = mma_per_kernel(name)
+        unit = "hgmma" if name in MLP_LIBRARIES else "hmma"
+        bf16 = {k: v[unit] for k, v in counts.items() if is_bf16_kernel(k)}
+        log(json.dumps({"sass": name, "mma": counts}))
         check(bf16 and all(v > 0 for v in bf16.values()),
-              f"a bf16 kernel of {name} has no HMMA: {counts}")
+              f"a bf16 kernel of {name} has no {unit.upper()}: {counts}")
 
 
 def main() -> int:

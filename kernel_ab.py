@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of several kernel source trees in one
-process on one card, in turns, at the main paths' shapes.
+"""Time the attention and fused-MLP kernels of several kernel source trees
+in one process on one card, in turns, at the main paths' shapes.
 
     python3 kernel_ab.py TREE [TREE ...]
 
@@ -8,22 +8,31 @@ Each TREE is a ``csrc`` directory: this checkout's is
 ``arsvt_tpu_torch/csrc``; another commit's comes from ``git archive <rev>
 arsvt_tpu_torch/csrc`` unpacked under a git-ignored directory (``build/``).
 From each tree, kernel #1 (``encoder_attention_fwd.cu``), #3
-(``flash_attention_fwd.cu``), #5 (``encoder_attention_savep_fwd.cu``) and
-#6 (``encoder_attention_savep_bwd.cu``) are built with this checkout's nvcc
-flags into ``build/kernel_ab/<n>/`` (one nvcc each, all started together)
-and bound in turn to this checkout's wrappers, whose C interfaces every
-tree shares. Each tree's outputs are held once against the plain version,
-at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #5: O and P;
-#6: dq, dk and dv). Then, per shape, the trees are timed in turns (1..n,
-then n..1), each turn giving ``ms`` over launches issued back to back (at
-B=1 the host's pace) and ``device_ms`` over launches queued behind a spin
-kernel (the card's own time). Shapes: #1 at ViT-B/16's B = 1, 8 and 32
-(and dropout 0.1 at B = 32); #3 at the detector paths' shapes; #5 and #6
-at B = 8 and 32 with dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2,
-D = 1,024, H = 16). Prints the card's name and power limit, each tree's
-``-Xptxas=-v`` rows, one JSON line per tree, shape and turn, and one
-summary line per shape: each tree's mean over its turns and SDPA's time on
-the same inputs (for #6, SDPA's forward and backward less its forward).
+(``flash_attention_fwd.cu``), #5 (``encoder_attention_savep_fwd.cu``), #6
+(``encoder_attention_savep_bwd.cu``), #8 (``fused_mlp_fwd.cu``) and #9
+(``fused_mlp_bwd.cu``) are built with this checkout's nvcc flags into
+``build/kernel_ab/<n>/`` (one nvcc each, all started together) and bound
+in turn to this checkout's wrappers, each tree through the C interface it
+exports (#8's forward takes an h scratch since interface 2, which
+``arsvt_fused_mlp_version`` names; a tree without that symbol is called
+without it). Each tree's outputs are held once against the plain version,
+at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #5: O and
+P; #6: dq, dk and dv; #8: out and u; #9: dx, dw1, db1 and dw2). Then, per
+shape, the trees are timed in turns (1..n, then n..1), each turn giving
+``ms`` over launches issued back to back (at B=1 the host's pace) and
+``device_ms`` over launches queued behind a spin kernel (the card's own
+time). Shapes: #1 at ViT-B/16's B = 1, 8 and 32 (and dropout 0.1 at B =
+32); #3 at the detector paths' shapes; #5 and #6 at B = 8 and 32 with
+dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2, D = 1,024, H = 16);
+#8 and #9 in bf16 at ViT-B's bench_train microbatch (n = 6,304, D = 768,
+M = 3,072), ViT-L's (9,232, 1,024, 4,096), DeiT-400's three images (594,
+400, 1,600) and one ViT-B image (197, 768, 3,072: the host's cost a call,
+from ``ms`` against ``device_ms``). Prints the card's name and power
+limit, each tree's ``-Xptxas=-v`` rows, one JSON line per tree, shape and
+turn, and one summary line per shape: each tree's mean over its turns
+and the library's time on the same inputs (SDPA; for #6, SDPA's forward
+and backward less its forward; for #8 the cuBLAS MLP, for #9 its
+backward, i.e. forward and backward less forward).
 
 Run from the root of a checkout on a machine with the card and the CUDA
 toolkit; it imports nothing of JAX.
@@ -40,7 +49,12 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from arsvt_tpu_torch.ops import build, encoder_attention, flash_attention
+from arsvt_tpu_torch.ops import (
+    build,
+    encoder_attention,
+    flash_attention,
+    fused_mlp,
+)
 from chip_smoke import (
     DROPOUT_RATE,
     DROPOUT_SEED,
@@ -50,16 +64,21 @@ from chip_smoke import (
     TOL_BF16_ULP,
     TOL_BWD_BF16,
     TOL_LSE,
+    TOL_U_ABS,
     attention_bound,
     check,
     cuda_ms,
     device_ms,
     flash_bound,
     library_attention,
+    library_mlp,
     max_err,
+    mlp_bound,
+    mlp_limit,
     ptxas_report,
     savep_bound,
     seeded_heads,
+    seeded_mlp,
     seeded_qkv,
 )
 
@@ -72,6 +91,8 @@ KERNELS = {
                                     "_savep_kernel"),
     "encoder_attention_savep_bwd": (encoder_attention, "_savep_bwd_fn",
                                     "_savep_bwd_kernel"),
+    "fused_mlp_fwd": (fused_mlp, "_fwd_fn", "_fwd_kernel"),
+    "fused_mlp_bwd": (fused_mlp, "_bwd_fn", "_bwd_kernel"),
 }
 # (atol, rtol) per output, |kernel - plain| <= atol + rtol * |plain|
 LIMITS = {"encoder_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
@@ -106,15 +127,33 @@ def build_trees(trees: list[Path]) -> list[dict]:
     return libs
 
 
+def fwd_without_scratch(lib: ctypes.CDLL):
+    """#8's C entry of a tree from before interface 2 (no h scratch),
+    behind the wrapper's current argument list."""
+    fn = lib.arsvt_fused_mlp_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w1, b1, w2, b2, out, u, h, *rest):
+        return fn(x, w1, b1, w2, b2, out, u, *rest)
+
+    return call
+
+
 def bind(lib_paths: dict) -> None:
     """Point each wrapper at this tree's library: the wrapper's own loader
-    sets the C signature."""
+    sets the C signature, or, for #8 of a tree that predates interface 2,
+    the adapter above."""
     real = build.load
     build.load = lambda name: ctypes.CDLL(str(lib_paths[name]))
     try:
         for module, fn, loader in KERNELS.values():
             setattr(module, fn, None)
             getattr(module, loader)()
+        lib = build.load("fused_mlp_fwd")
+        if not hasattr(lib, "arsvt_fused_mlp_version"):
+            fused_mlp._fwd_fn = fwd_without_scratch(lib)
     finally:
         build.load = real
 
@@ -190,7 +229,8 @@ def savep_shapes() -> list[dict]:
 
 def shapes() -> list[dict]:
     """The timed calls: #1 at the ViT-B/16 microbatch shapes (and with
-    dropout at B=32), #3 at the detector paths' shapes, then #5 and #6."""
+    dropout at B=32), #3 at the detector paths' shapes, then #5 and #6,
+    then #8 and #9."""
     out = []
     for b in (1, 8, 32):
         for rate in ((0.0, DROPOUT_RATE) if b == 32 else (0.0,)):
@@ -222,7 +262,65 @@ def shapes() -> list[dict]:
                 "library": lambda q=q, k=k, v=v:
                     F.scaled_dot_product_attention(q, k, v),
                 "bound": flash_bound(b, h, sq, sk, d)})
-    return out + savep_shapes()
+    return out + savep_shapes() + mlp_shapes()
+
+
+def library_mlp_bwd(x, w1, b1, w2, b2, dout):
+    """The cuBLAS MLP's forward and backward on #9's inputs, and its
+    forward alone: the backward's yardstick is their difference."""
+    args = [t.detach().clone().requires_grad_(True)
+            for t in (x, w1, b1, w2, b2)]
+
+    def fwd():
+        return library_mlp(*args)
+
+    return (lambda: torch.autograd.grad(fwd(), args, dout)), fwd
+
+
+def mlp_shapes() -> list[dict]:
+    """#8 and #9 in bf16 at ViT-B's bench_train microbatch, ViT-L's,
+    DeiT-400's three images and one ViT-B image."""
+    out = []
+    for n, d, m in ((6304, 768, 3072), (9232, 1024, 4096), (594, 400, 1600),
+                    (197, 768, 3072)):
+        x, w1, b1, w2, b2 = seeded_mlp(n, d, m, torch.bfloat16, seed=16)
+        gen = torch.Generator().manual_seed(17)
+        dout = torch.randn(n, d, generator=gen).to(torch.bfloat16).cuda()
+        _, u = fused_mlp.fused_mlp_fwd_plain(x, w1, b1, w2, b2)
+        shape = {"n": n, "D": d, "M": m, "dtype": "bfloat16"}
+        out.append({
+            "kernel": "fused_mlp_fwd", "shape": shape,
+            "call": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2:
+                fused_mlp.fused_mlp_fwd(x, w1, b1, w2, b2),
+            "plain": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2:
+                fused_mlp.fused_mlp_fwd_plain(x, w1, b1, w2, b2),
+            "library": lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2:
+                library_mlp(x, w1, b1, w2, b2),
+            "bound": mlp_bound(n, d, m, False)})
+        lib, lib_fwd = library_mlp_bwd(x, w1, b1, w2, b2, dout)
+        out.append({
+            "kernel": "fused_mlp_bwd", "shape": shape,
+            "call": lambda x=x, u=u, w1=w1, w2=w2, do=dout:
+                fused_mlp.fused_mlp_bwd(x, u, w1, w2, do),
+            "plain": lambda x=x, u=u, w1=w1, w2=w2, do=dout:
+                fused_mlp.fused_mlp_bwd_plain(x, u, w1, w2, do),
+            "library": lib, "library_fwd": lib_fwd,
+            "bound": mlp_bound(n, d, m, True)})
+    return out
+
+
+def hold_mlp(case: dict, got, ref) -> None:
+    """#8 and #9 at phase 3's limits: each output within a share of the
+    plain result's largest magnitude; u per element to one bf16 ulp plus
+    TOL_U_ABS."""
+    for i, (x, r) in enumerate(zip(got, ref)):
+        ok = x.shape == r.shape and max_err(x, r) <= mlp_limit(
+            r, torch.bfloat16)
+        if case["kernel"] == "fused_mlp_fwd" and i == 1:
+            ok = ok and float(((x.float() - r.float()).abs() - TOL_BF16_ULP
+                               * r.float().abs()).max()) <= TOL_U_ABS
+        check(ok, f"{case['kernel']} {case['shape']} output {i} disagrees "
+                  f"with its plain version: {max_err(x, r)}")
 
 
 def hold(case: dict) -> None:
@@ -230,6 +328,9 @@ def hold(case: dict) -> None:
     limit."""
     got, ref = case["call"](), case["plain"]()
     torch.cuda.synchronize()
+    if case["kernel"] in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        hold_mlp(case, got, ref)
+        return
     for i, (x, r, (atol, rtol)) in enumerate(
             zip(got, ref, LIMITS[case["kernel"]])):
         ok = x.shape == r.shape and bool(

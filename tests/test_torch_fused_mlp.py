@@ -216,39 +216,70 @@ def test_plain_versions_match_pallas_at_vit_l_width(dtype):
                rel)
 
 
+class _FakeCFunction:
+    """A C entry point as ctypes gives it: settable signature, recorded
+    calls, a fixed answer per first argument."""
+
+    def __init__(self, answers=None):
+        self.answers, self.calls = answers or {}, []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.answers.get(args[0], 0)
+
+
 def test_kernel_width_check_takes_vit_l(monkeypatch):
-    """The wrappers' own shape check takes D = 1,024 (ViT-L, M = 4,096) in
-    both dtypes, where it refused D > 768 before; the bound on D lives in
-    the C entry alone (``mlp_tile.cuh::max_d``, queried through
-    `fused_mlp.max_d`, which needs the built kernel and is checked on the
-    card by ``chip_smoke.py``), and a launch refused past it reads as a
-    shared-memory bound. Here `max_d` answers the header's bounds."""
+    """The wrappers' own shape check takes D = 1,024 (ViT-L, M = 4,096)
+    and D = 1,280 (ViT-H, M = 5,120) in both dtypes; the bound on D lives
+    in the C entry alone (``arsvt_fused_mlp_max_d``, read through
+    `fused_mlp.max_d`): fp32's row-tile kernel stages its rows over the
+    full D (1,728), bf16's wgmma kernels have no bound, which the entry
+    answers with 0 and `max_d` with None. A launch refused past fp32's
+    bound reads as a shared-memory bound; a refused bf16 launch at any D
+    reads as a launch failure. Here a fake library answers for the built
+    one, which ``chip_smoke.py`` queries on the card."""
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.zeros(3, 1024, dtype=dtype)
-        w1 = torch.zeros(1024, 4096, dtype=dtype)
-        assert fused_mlp._check(x, w1, w1.T) == (3, 1024, 4096)
-    bounds = {torch.bfloat16: 1088, torch.float32: 1728}
-    monkeypatch.setattr(fused_mlp, "max_d", bounds.__getitem__)
+        for d, m in ((1024, 4096), (1280, 5120)):
+            x = torch.zeros(3, d, dtype=dtype)
+            w1 = torch.zeros(d, m, dtype=dtype)
+            assert fused_mlp._check(x, w1, w1.T) == (3, d, m)
+    lib = type("Lib", (), {})()
+    lib.arsvt_fused_mlp_max_d = _FakeCFunction({0: 1728, 1: 0})
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    assert fused_mlp.max_d(torch.float32) == 1728
+    assert fused_mlp.max_d(torch.bfloat16) is None
     invalid = fused_mlp._CUDA_ERROR_INVALID_VALUE
-    for dtype, d in bounds.items():
-        err = fused_mlp._launch_error(invalid, "fused MLP forward", d + 8,
+    err = fused_mlp._launch_error(invalid, "fused MLP forward", 1736,
+                                  torch.float32)
+    assert isinstance(err, ValueError)
+    assert "shared memory" in str(err) and "D <= 1728" in str(err)
+    for code, width, dtype in ((invalid, 1728, torch.float32),
+                               (700, 1736, torch.float32),
+                               (invalid, 1280, torch.bfloat16),
+                               (invalid, 4096, torch.bfloat16)):
+        err = fused_mlp._launch_error(code, "fused MLP backward", width,
                                       dtype)
-        assert isinstance(err, ValueError)
-        assert "shared memory" in str(err) and f"D <= {d}" in str(err)
-        for code, width in ((invalid, d), (700, d + 8)):
-            err = fused_mlp._launch_error(code, "fused MLP backward", width,
-                                          dtype)
-            assert isinstance(err, RuntimeError)
-            assert f"CUDA error {code}" in str(err)
+        assert isinstance(err, RuntimeError)
+        assert f"CUDA error {code}" in str(err)
 
 
 def test_wrappers_check_and_count_no_cpu_launch():
+    """CPU tensors take the plain versions and count no launch, in either
+    dtype; the counts a CUDA call adds are the kernels it launches: two
+    for a bf16 forward (u and h, then out), one for an fp32 forward (the
+    row-tile kernel), two for a backward (dx/du, then the weight
+    gradients)."""
+    assert fused_mlp.FWD_LAUNCHES_PER_CALL == {torch.bfloat16: 2,
+                                               torch.float32: 1}
+    assert fused_mlp.BWD_LAUNCHES_PER_CALL == 2
     x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(5, 16, 24,
                                                               "float32"))
     before = (fused_mlp.LAUNCHES, fused_mlp.BWD_LAUNCHES)
-    out, u = fused_mlp_fwd(x, w1, b1, w2, b2)
-    fused_mlp_bwd(x, u, w1, w2, out)
+    for dt in (torch.float32, torch.bfloat16):
+        out, u = fused_mlp_fwd(x.to(dt), w1.to(dt), b1, w2.to(dt), b2)
+        fused_mlp_bwd(x.to(dt), u, w1.to(dt), w2.to(dt), out)
     assert (fused_mlp.LAUNCHES, fused_mlp.BWD_LAUNCHES) == before
+    out, u = fused_mlp_fwd(x, w1, b1, w2, b2)
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_mlp_fwd(x[:, :12], w1[:12], b1, w2[:, :12], b2[:12])
     with pytest.raises(TypeError, match="float32 or all"):
@@ -270,14 +301,79 @@ def test_sources_name_the_tpu_kernels_and_build_for_sm90a(name, tpu_kernels):
     assert all(k in text for k in tpu_kernels)
     assert f'extern "C" int arsvt_{name}' in text
     assert '#include "mlp_tile.cuh"' in text
-    assert "cudaGetLastError" in text and "atomic" not in text.replace(
-        "No atomics", "")
+    assert '#include "mlp_gemm.cuh"' in text
+    assert "cudaGetLastError" in text
+    for source in (text, *((build.CSRC_DIR / h).read_text()
+                           for h in ("mlp_gemm.cuh", "hopper.cuh",
+                                     "mlp_tile.cuh"))):
+        assert "atomic" not in source.replace("No atomics", "").replace(
+            "no atomics", "")
     tile = (build.CSRC_DIR / "mlp_tile.cuh").read_text()
     assert '#include "warp_tile.cuh"' in tile
     assert "mma.sync" in (build.CSRC_DIR / "warp_tile.cuh").read_text()
     cmd = build.nvcc_command(build.source_path(name), build.library_path(name))
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert name in build.kernel_names()
+
+
+@pytest.mark.parametrize("name,entry,launches", [
+    ("fused_mlp_fwd", "forward_bf16(", ("launch<kFwdU>", "launch<kFwdOut>")),
+    ("fused_mlp_bwd", "backward_bf16(",
+     ("launch<kBwdDu>", "launch<kBwdGrads>")),
+])
+def test_bf16_runs_on_wgmma_fed_by_tma_and_fp32_on_the_row_tile(
+        name, entry, launches):
+    """The C entry sends dtype 1 (bf16) to mlp_gemm.cuh's warp-specialised
+    kernel, whose products are wgmma.mma_async on tiles that TMA
+    (cp.async.bulk.tensor) lands in an mbarrier ring, with setmaxnreg
+    handing registers from the producer warp to the consumers; dtype 0
+    (fp32) stays on mlp_tile.cuh's row-tile kernel."""
+    text = build.source_path(name).read_text()
+    bf16 = text[text.index("case 1:"):text.index("default:", text.index(
+        "case 1:"))]
+    fp32 = text[text.index("case 0:"):text.index("case 1:")]
+    assert entry in bf16 and "row_tile" not in bf16
+    assert all(launch in text for launch in launches)
+    assert entry not in fp32
+    assert ("launch_row_tile<float" in fp32 or "launch_fp32(" in fp32)
+    gemm = (build.CSRC_DIR / "mlp_gemm.cuh").read_text()
+    hopper = (build.CSRC_DIR / "hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in gemm
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.init",
+                "mbarrier.try_wait", "setmaxnreg.inc", "setmaxnreg.dec",
+                "CU_TENSOR_MAP_SWIZZLE_128B"):
+        assert ptx in hopper, ptx
+    for call in ("wgmma_m64n128k16<", "tma_load(", "mbar_wait(",
+                 "setmaxnreg_inc<", "setmaxnreg_dec<"):
+        assert call in gemm, call
+    assert "mma.sync" not in gemm and "ldmatrix" not in gemm
+
+
+def test_kernel_ab_calls_each_tree_through_its_own_interface():
+    """``kernel_ab.py`` calls #8 of a tree from before the h scratch
+    (no ``arsvt_fused_mlp_version``) through an adapter that drops h from
+    the current wrapper's argument list, and ``chip_smoke.py``'s bf16
+    selection takes the wgmma kernels, which have no type argument, and
+    the bf16 template instantiations, but no fp32 one."""
+    import chip_smoke
+    import kernel_ab
+
+    lib = type("Lib", (), {})()
+    lib.arsvt_fused_mlp_fwd = _FakeCFunction()
+    call = kernel_ab.fwd_without_scratch(lib)
+    assert len(lib.arsvt_fused_mlp_fwd.argtypes) == 12
+    call(1, 2, 3, 4, 5, 6, 7, 8, 37, 128, 256, 1, 9)
+    assert lib.arsvt_fused_mlp_fwd.calls == [
+        (1, 2, 3, 4, 5, 6, 7, 37, 128, 256, 1, 9)]
+    assert chip_smoke.is_bf16_kernel(
+        "_ZN4mlpg16gemm_bf16_kernelILi3EEEvNS_6ParamsE")
+    assert chip_smoke.is_bf16_kernel(
+        "_ZN4attn20attention_fwd_kernelI13__nv_bfloat16Li64ELb0EEEvNS_7Fwd"
+        "ArgsE")
+    assert not chip_smoke.is_bf16_kernel(
+        "_ZN3mlp15row_tile_kernelIfLb0EEEvPKT_S3_S3_PKfS5_PK13__nv_bfloat16"
+        "PS6_PS1_S9_iii")
+    assert chip_smoke.MLP_LIBRARIES == ("fused_mlp_fwd", "fused_mlp_bwd")
 
 
 def _count_fused(monkeypatch):
