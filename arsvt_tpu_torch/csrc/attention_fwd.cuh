@@ -85,6 +85,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // query rows per block
 constexpr int kKeys = 64;           // keys per staged chunk
 constexpr int kStages = 2;          // chunks in the ring
+constexpr int kEncoderHeadDim = 64;  // the direct layout's (#1, #2, #5, #6)
 // -0.7 * float32 max, rounded once to fp32 as JAX rounds its MASK_VALUE
 constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
 

@@ -47,7 +47,7 @@
 
 namespace {
 
-constexpr int kHeadDim = enc::kHeadDim;  // 64
+constexpr int kHeadDim = attn::kEncoderHeadDim;  // 64
 
 template <typename T>
 cudaError_t launch(const void* qkv, void* out, void* lse, int batch, int seq,

@@ -70,16 +70,21 @@
 
 #include <type_traits>
 
+#include "attention_bwd.cuh"  // attn::load_p, mma_tile, store_acc, run
 #include "attention_fwd.cuh"  // attn:: staging and score tiles; enc::keeps
 
 namespace {
 
 using namespace wtile;
 using attn::kKeys;    // rows of the other side per staged chunk: 64
+using attn::load_p;
+using attn::mma_tile;
+using attn::run;
+using attn::store_acc;
 using attn::kRows;    // rows a block owns: 64 queries (dq) or keys (dk/dv)
 using attn::kStages;  // chunks in the ring: 2
 using attn::kThreads;
-constexpr int kHeadDim = enc::kHeadDim;  // 64
+constexpr int kHeadDim = attn::kEncoderHeadDim;  // 64
 
 template <typename T>
 struct Layout {
@@ -113,85 +118,6 @@ struct BwdArgs {
   float scale;
   enc::Dropout drop;
 };
-
-// P for one warp's 16 rows (m) and a chunk's `live` 16-column groups (n),
-// in the accumulator's layout: p[j][e] = P(m = frag_row(e), n = 8 j +
-// frag_col(e)), from the bf16 tile at Pw, stored [m][n] or, kTrans, [n][m]
-// (row stride ld). Groups past `live` read as zeros.
-template <bool kTrans>
-__device__ __forceinline__ void load_p(float (&p)[kKeys / 8][4],
-                                       const __nv_bfloat16* Pw, int ld,
-                                       int live) {
-#pragma unroll
-  for (int q = 0; q < kKeys / 16; ++q) {
-    uint32_t f[4] = {0u, 0u, 0u, 0u};
-    if (q < live) load_a_frag<kTrans>(f, Pw, ld, 16 * q);
-    // the A fragment's registers 0-1 are columns 16q..16q+7, rows g and
-    // g + 8; registers 2-3 the next 8 columns: accumulators 2q and 2q + 1
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float* dst = p[2 * q + (r >> 1)] + 2 * (r & 1);
-      dst[0] = __uint_as_float(f[r] << 16);
-      dst[1] = __uint_as_float(f[r] & 0xffff0000u);
-    }
-  }
-}
-
-// acc[0] += A B with A the 16 x 64 tile `x` (accumulator layout, rounded to
-// T as it is packed: A fragments in bf16, this warp's fp32 rows Fw in fp32)
-// and B the staged chunk Bc as [k][n], over its `live` 16-deep steps.
-template <typename T>
-__device__ __forceinline__ void mma_tile(float (&acc)[1][kHeadDim / 8][4],
-                                         const float (&x)[kKeys / 8][4],
-                                         const T* Bc, float* Fw, int live) {
-  using L = Layout<T>;
-  if constexpr (L::kF32) {
-#pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        store2(Fw + frag_row(2 * i) * L::kFLd + 8 * j + frag_col(0),
-               x[j][2 * i], x[j][2 * i + 1]);
-    __syncwarp();
-    warp_mma<1, kHeadDim / 8, kKeys, false, true>(acc, Fw, L::kFLd, Bc,
-                                                  L::kLd);
-    __syncwarp();  // read before the next chunk's tile is written
-  } else {
-    uint32_t f[kKeys / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-      pack_a_frag(f[kk], x[2 * kk], x[2 * kk + 1]);
-    warp_mma_afrag<kHeadDim / 8, kKeys, true>(acc[0], f, Bc, L::kLd, live);
-  }
-}
-
-// 16 rows of a warp's fp32 accumulator (times `scale`), cast to T, into
-// dst + r * ld for the rows r < rows.
-template <typename T>
-__device__ __forceinline__ void store_acc(T* dst, int64_t ld, int rows,
-                                          const float (&acc)[1][kHeadDim / 8][4],
-                                          float scale) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = frag_row(2 * i);
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j)
-      store2(dst + r * ld + 8 * j + frag_col(0), acc[0][j][2 * i] * scale,
-             acc[0][j][2 * i + 1] * scale);
-  }
-}
-
-// Chunk `c` of `n` in a walk: a full one (every 16-row group live) as an
-// instantiation with no per-group branch, the partial last one as another.
-template <class Body>
-__device__ __forceinline__ void run(int rows_left, Body&& body) {
-  const int live = (min(kKeys, rows_left) + 15) / 16;
-  if (live == kKeys / 16)
-    body(std::true_type{}, live);
-  else
-    body(std::false_type{}, live);
-}
 
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
@@ -339,13 +265,14 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 4; ++e)  // zeros past the live groups
           p[j][e] = j < 2 * live ? p[j][e] * (dp[0][j][e] - delta[e >> 1])
                                  : 0.f;
-      mma_tile<T>(acc, p, ring + slot * 2 * L::kTile + L::kTile, Fw, live);
+      mma_tile<T, kHeadDim>(acc, p, ring + slot * 2 * L::kTile + L::kTile,
+                            Fw, live);
     });
   }
   cp_async_wait<0>();  // the groups still open are empty
   if (!active) return;
-  store_acc(a.dq + (b * seq + wrow0) * d_model + h * kHeadDim, d_model,
-            seq - wrow0, acc, a.scale);
+  store_acc<T, kHeadDim>(a.dq + (b * seq + wrow0) * d_model + h * kHeadDim,
+                         d_model, seq - wrow0, acc, a.scale);
 }
 
 template <typename T, bool kDrop>
@@ -450,15 +377,15 @@ __global__ void __launch_bounds__(kThreads)
           dp[0][j][e] = p[j][e] * (g - Dc[c]);
           p[j][e] = pv;
         }
-      mma_tile<T>(dk, dp[0], Qc, Fw, live);
-      mma_tile<T>(dv, p, dOc, Gw, live);
+      mma_tile<T, kHeadDim>(dk, dp[0], Qc, Fw, live);
+      mma_tile<T, kHeadDim>(dv, p, dOc, Gw, live);
     });
   }
   cp_async_wait<0>();
   if (!active) return;
   const int64_t at = (b * seq + wkey0) * d_model + h * kHeadDim;
-  store_acc(a.dk + at, d_model, seq - wkey0, dk, a.scale);
-  store_acc(a.dv + at, d_model, seq - wkey0, dv, 1.f);
+  store_acc<T, kHeadDim>(a.dk + at, d_model, seq - wkey0, dk, a.scale);
+  store_acc<T, kHeadDim>(a.dv + at, d_model, seq - wkey0, dv, 1.f);
 }
 
 template <typename T, bool kDrop>

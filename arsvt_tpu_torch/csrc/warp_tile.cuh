@@ -1,5 +1,6 @@
 // Warp-tile pieces shared by the tensor-core kernels (the fused MLP,
-// mlp_tile.cuh, and the attention forwards, attention_fwd.cuh).
+// mlp_tile.cuh, the attention forwards, attention_fwd.cuh, and backwards,
+// attention_bwd.cuh).
 //
 // Products are built from warp tiles: a warp's grid of 16 x 8 fp32
 // accumulators += A B^T, with A and B staged in shared memory as they lie
@@ -67,6 +68,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes (one fp32 value) from device to shared memory; zero, with src
+// not read, when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -546,16 +546,26 @@ def library_flash_fwd_bwd_ms(q, k, v, do, rate) -> float:
     return cuda_ms(fwd_bwd, iters=20)
 
 
+# (name, B, H, Sq, Sk, d, kv_len, rate) at the edges of #4's tiles of 64
+# queries and 64 keys: d = 1, 32, 64 and 128 (one instantiation each),
+# Sq and Sk one short of, at and one past a tile, kv_len < Sk on two
+FLASH_BWD_EDGE_CASES = [("edge_d1", 2, 3, 65, 64, 1, 64, 0.0),
+                        ("edge_d32", 2, 4, 64, 129, 32, 100, 0.0),
+                        ("edge_d64", 3, 2, 128, 65, 64, 65, 0.0),
+                        ("edge_d128", 2, 2, 63, 128, 128, 127, 0.0)]
+
+
 def phase_flash_train_checks() -> dict:
     """#4 against its plain version at one detector train step's shapes,
-    at d = 96 and at kv_len < Sk, bf16 and fp32; #3 and #4 with dropout
-    0.1 against their plain versions at the train shapes; the probe of
-    each launch's mask; then #4 (and #3 with dropout) timed at the train
-    shapes. Returns #4's record at the encoder shape."""
+    at d = 96, at kv_len < Sk and at its tiles' edges, bf16 and fp32; #3
+    and #4 with dropout 0.1 against their plain versions at the train
+    shapes; the probe of each launch's mask; then #4 (and #3 with dropout)
+    timed at the train shapes. Returns #4's record at the encoder shape."""
     cases = [(name, *shape, shape[3], 0.0)
              for name, shape in FLASH_TRAIN_SHAPES.items()]
     cases += [("d96", 4, 8, 100, 196, 96, 196, 0.0),
               ("odd_kv_len", 3, 2, 17, 33, 50, 20, 0.0)]
+    cases += FLASH_BWD_EDGE_CASES
     cases += [(f"{name}_dropout", *shape, shape[3], DROPOUT_RATE)
               for name, shape in FLASH_TRAIN_SHAPES.items()]
     errs = {}
@@ -629,6 +639,8 @@ def phase_flash_train_checks() -> dict:
                     q, k, v, sk, rate, DROPOUT_SEED), iters=5, warmup=1)
             ms = cuda_ms(lambda: flash_attention.flash_attention_bwd(
                 q, k, v, out, do, lse, **kw), iters=50)
+            dev_ms = device_ms(lambda: flash_attention.flash_attention_bwd(
+                q, k, v, out, do, lse, **kw), iters=50)
             plain_ms = cuda_ms(
                 lambda: flash_attention.flash_attention_bwd_plain(
                     q, k, v, out, do, lse, sk, rate, DROPOUT_SEED),
@@ -641,13 +653,15 @@ def phase_flash_train_checks() -> dict:
                                                                 d)
             fwd_bound_ms, fwd_bound_by, _, _ = flash_bound(b, h, sq, sk, d)
             timings[(name, rate)] = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
             log(json.dumps({
                 "timing": "flash_attention_bwd", "shape_of": name,
                 "B": b, "H": h, "Sq": sq, "Sk": sk, "d": d,
                 "dtype": "bfloat16", "dropout_rate": rate, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                 "flops": flops, **shares(ms, bound_ms, library_ms),
                 "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
@@ -701,11 +715,20 @@ def library_attention_bwd_ms(qkv, dout, num_heads) -> float:
     return cuda_ms(fwd_bwd, iters=20) - cuda_ms(fwd, iters=20)
 
 
+# (B, S, D, H) at the edges of #2's tiles of 64 queries and 64 keys (one
+# row; one short of, at and one past a tile; two tiles) and ViT-L/16@384's
+# S = 577 at its width
+BWD_EDGE_CASES = [(2, 1, 128, 2), (2, 63, 128, 2), (2, 64, 128, 2),
+                  (2, 65, 128, 2), (2, 128, 128, 2), (2, 577, 1024, 16)]
+
+
 def phase_bwd_checks(cfg) -> dict:
     d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
     cases = [(32, s, d, h, torch.bfloat16), (32, s, d, h, torch.float32),
              (1, s, d, h, torch.bfloat16), (1, s, d, h, torch.float32),
              (3, 17, 128, 2, torch.bfloat16), (3, 17, 128, 2, torch.float32)]
+    cases += [(*shape, dtype) for shape in BWD_EDGE_CASES
+              for dtype in (torch.bfloat16, torch.float32)]
     errs = {}
     for i, (b, s_, d_, h_, dtype) in enumerate(cases):
         qkv = seeded_qkv(b, s_, d_, dtype, seed=200 + i)
@@ -741,16 +764,19 @@ def phase_bwd_checks(cfg) -> dict:
         dout = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).cuda()
         ms = cuda_ms(lambda: encoder_attention.encoder_attention_bwd(
             qkv, out, dout, lse, h), iters=50 if b == 1 else 20)
+        dev_ms = device_ms(lambda: encoder_attention.encoder_attention_bwd(
+            qkv, out, dout, lse, h), iters=50 if b == 1 else 20)
         plain_ms = cuda_ms(lambda: encoder_attention.encoder_attention_bwd_plain(
             qkv, out, dout, lse, h), iters=5)
         library_ms = library_attention_bwd_ms(qkv, dout, h)
         bound_ms, bound_by, nbytes, flops = bwd_bound(b, s, d, h)
-        timings[b] = {"ms": ms, "plain_ms": plain_ms,
+        timings[b] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by}
         log(json.dumps({
             "timing": "encoder_attention_bwd", "B": b, "S": s, "D": d,
-            "H": h, "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+            "H": h, "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "flops": flops,
             **shares(ms, bound_ms, library_ms),
@@ -1839,8 +1865,9 @@ PROFILE_CATEGORIES = (
     ("save-probs attention backward kernels", ("savep_bwd_",)),
     ("fused MLP kernels", ("mlpg::gemm_bf16_kernel", "row_tile_kernel",
                            "dw_kernel")),
-    ("attention backward kernels", ("attn_bwd_",)),
-    ("head-major attention backward kernels", ("flash_bwd_",)),
+    # #2 and #4 share one pair of kernel templates (attention_bwd.cuh):
+    # the ViT steps run #2 alone, the detector steps #4 alone
+    ("attention backward kernels (#2, #4)", ("attn::attention_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copies and casts", ("copy",)),
@@ -2832,6 +2859,7 @@ def phase_entry_point(cfg, smi) -> dict:
 # spill or stack frame: the attention kernels on warp_tile.cuh (mma.sync,
 # HMMA in the SASS) and the fused MLP's on mlp_gemm.cuh (wgmma, HGMMA).
 ATTENTION_TILE_LIBRARIES = ("encoder_attention_fwd", "flash_attention_fwd",
+                            "encoder_attention_bwd", "flash_attention_bwd",
                             "encoder_attention_savep_fwd",
                             "encoder_attention_savep_bwd")
 MLP_LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd")

@@ -7,22 +7,27 @@ in one process on one card, in turns, at the main paths' shapes.
 Each TREE is a ``csrc`` directory: this checkout's is
 ``arsvt_tpu_torch/csrc``; another commit's comes from ``git archive <rev>
 arsvt_tpu_torch/csrc`` unpacked under a git-ignored directory (``build/``).
-From each tree, kernel #1 (``encoder_attention_fwd.cu``), #3
-(``flash_attention_fwd.cu``), #5 (``encoder_attention_savep_fwd.cu``), #6
+From each tree, kernel #1 (``encoder_attention_fwd.cu``), #2
+(``encoder_attention_bwd.cu``), #3 (``flash_attention_fwd.cu``), #4
+(``flash_attention_bwd.cu``), #5 (``encoder_attention_savep_fwd.cu``), #6
 (``encoder_attention_savep_bwd.cu``), #8 (``fused_mlp_fwd.cu``) and #9
 (``fused_mlp_bwd.cu``) are built with this checkout's nvcc flags into
-``build/kernel_ab/<n>/`` (one nvcc each, all started together) and bound
+``build/kernel_ab/<n>/`` (one nvcc each, all started together, without
+GNU-unique symbols: see ``AB_FLAGS``) and bound
 in turn to this checkout's wrappers, each tree through the C interface it
 exports (#8's forward takes an h scratch since interface 2, which
 ``arsvt_fused_mlp_version`` names; a tree without that symbol is called
 without it). Each tree's outputs are held once against the plain version,
-at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #5: O and
-P; #6: dq, dk and dv; #8: out and u; #9: dx, dw1, db1 and dw2). Then, per
+at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #2/#4/#6:
+dq, dk and dv; #5: O and P; #8: out and u; #9: dx, dw1, db1 and dw2). Then, per
 shape, the trees are timed in turns (1..n, then n..1), each turn giving
 ``ms`` over launches issued back to back (at B=1 the host's pace) and
 ``device_ms`` over launches queued behind a spin kernel (the card's own
 time). Shapes: #1 at ViT-B/16's B = 1, 8 and 32 (and dropout 0.1 at B =
-32); #3 at the detector paths' shapes; #5 and #6 at B = 8 and 32 with
+32); #2 at the same and at ViT-L/16@384's S = 577 (B = 2, D = 1,024, H =
+16); #3 at the detector paths' shapes; #4 at the DeiT-400 encoder's
+training shape (B = 32) with dropout 0 and 0.1, the DETR
+cross-attention's and d = 96; #5 and #6 at B = 8 and 32 with
 dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2, D = 1,024, H = 16);
 #8 and #9 in bf16 at ViT-B's bench_train microbatch (n = 6,304, D = 768,
 M = 3,072), ViT-L's (9,232, 1,024, 4,096), DeiT-400's three images (594,
@@ -30,8 +35,8 @@ M = 3,072), ViT-L's (9,232, 1,024, 4,096), DeiT-400's three images (594,
 from ``ms`` against ``device_ms``). Prints the card's name and power
 limit, each tree's ``-Xptxas=-v`` rows, one JSON line per tree, shape and
 turn, and one summary line per shape: each tree's mean over its turns
-and the library's time on the same inputs (SDPA; for #6, SDPA's forward
-and backward less its forward; for #8 the cuBLAS MLP, for #9 its
+and the library's time on the same inputs (SDPA; for #2, #4 and #6,
+SDPA's forward and backward less its forward; for #8 the cuBLAS MLP, for #9 its
 backward, i.e. forward and backward less forward).
 
 Run from the root of a checkout on a machine with the card and the CUDA
@@ -59,6 +64,7 @@ from chip_smoke import (
     DROPOUT_RATE,
     DROPOUT_SEED,
     FLASH_PATH_SHAPES,
+    FLASH_TRAIN_SHAPES,
     HOLD_CYCLES_PER_CALL,
     TOL_BF16,
     TOL_BF16_ULP,
@@ -66,10 +72,13 @@ from chip_smoke import (
     TOL_LSE,
     TOL_U_ABS,
     attention_bound,
+    bwd_bound,
     check,
     cuda_ms,
     device_ms,
     flash_bound,
+    flash_bwd_bound,
+    flash_limit,
     library_attention,
     library_mlp,
     max_err,
@@ -86,7 +95,9 @@ from chip_smoke import (
 # sets the C function's signature)
 KERNELS = {
     "encoder_attention_fwd": (encoder_attention, "_fn", "_kernel"),
+    "encoder_attention_bwd": (encoder_attention, "_bwd_fn", "_bwd_kernel"),
     "flash_attention_fwd": (flash_attention, "_fn", "_kernel"),
+    "flash_attention_bwd": (flash_attention, "_bwd_fn", "_bwd_kernel"),
     "encoder_attention_savep_fwd": (encoder_attention, "_savep_fn",
                                     "_savep_kernel"),
     "encoder_attention_savep_bwd": (encoder_attention, "_savep_bwd_fn",
@@ -99,8 +110,19 @@ LIMITS = {"encoder_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
           "flash_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
           "encoder_attention_savep_fwd": ((TOL_BF16, TOL_BF16),
                                           (1e-6, TOL_BF16_ULP)),
+          "encoder_attention_bwd": ((TOL_BWD_BF16, TOL_BWD_BF16),) * 3,
           "encoder_attention_savep_bwd": ((TOL_BWD_BF16, TOL_BWD_BF16),) * 3}
 AB_DIR = build.BUILD_DIR.parent / "kernel_ab"
+
+
+# Each tree's libraries are loaded into one process beside the others'.
+# GCC gives a function-local static of an inline or template function
+# (the fused MLP's launcher keeps whether it set its kernel's shared
+# memory in one) a GNU-unique symbol, which the dynamic loader binds to
+# the first library that defines it, whatever the load mode: a second
+# tree's launcher would then skip its own set-up. The A/B builds make
+# them ordinary local copies.
+AB_FLAGS = ("-Xcompiler=-fno-gnu-unique",)
 
 
 def build_trees(trees: list[Path]) -> list[dict]:
@@ -114,8 +136,9 @@ def build_trees(trees: list[Path]) -> list[dict]:
         for name in KERNELS:
             out = out_dir / f"lib{name}.so"
             libs[-1][name] = out
+            cmd = build.nvcc_command(tree / f"{name}.cu", out, nvcc)
             procs.append((tree / f"{name}.cu", subprocess.Popen(
-                build.nvcc_command(tree / f"{name}.cu", out, nvcc),
+                [cmd[0], *AB_FLAGS, *cmd[1:]],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     for i, (src, proc) in enumerate(procs):
@@ -167,13 +190,20 @@ def library_dropout(qkv, rate: float):
     return F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
 
 
-def library_savep_bwd(qkv, dout, rate: float):
-    """SDPA's forward and backward on #6's inputs, and its forward alone:
-    the backward's yardstick is their difference."""
+def library_packed_bwd(qkv, dout, rate: float, num_heads: int = 12):
+    """SDPA's forward and backward on #2's or #6's inputs, and its forward
+    alone: the backward's yardstick is their difference."""
     b, s, three_d = qkv.shape
     q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(
-        b, s, 3, 12, 64).permute(2, 0, 3, 1, 4).unbind(0))
-    g = dout.view(b, s, 12, 64).transpose(1, 2)
+        b, s, 3, num_heads, 64).permute(2, 0, 3, 1, 4).unbind(0))
+    g = dout.view(b, s, num_heads, 64).transpose(1, 2)
+    return library_heads_bwd(q, k, v, g, rate)
+
+
+def library_heads_bwd(q, k, v, g, rate: float):
+    """SDPA's forward and backward on head-major (B, H, S, d) operands, and
+    its forward alone."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
 
     def fwd():
         return F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
@@ -206,7 +236,7 @@ def savep_shapes() -> list[dict]:
                 "library": lambda qkv=qkv, rate=rate:
                     library_dropout(qkv, rate),
                 "bound": savep_bound(b, 197, 768, 12, False)})
-            lib, lib_fwd = library_savep_bwd(qkv, dout, rate)
+            lib, lib_fwd = library_packed_bwd(qkv, dout, rate)
             out.append({
                 "kernel": "encoder_attention_savep_bwd", "shape": shape,
                 "call": lambda qkv=qkv, p=probs, do=dout, kw=kw:
@@ -227,10 +257,63 @@ def savep_shapes() -> list[dict]:
     return out
 
 
+def bwd_shapes() -> list[dict]:
+    """#2 at the ViT-B/16 microbatch shapes (dropout 0.1 as well at B =
+    32) and at ViT-L/16@384's S = 577; #4 at the DeiT-400 encoder's
+    training shape with dropout 0 and 0.1, the DETR cross-attention's and
+    d = 96. O and lse come from the plain forwards."""
+    ea, fa, out = encoder_attention, flash_attention, []
+    for b, s, d, h, rate in ((1, 197, 768, 12, 0.0), (8, 197, 768, 12, 0.0),
+                             (32, 197, 768, 12, 0.0),
+                             (32, 197, 768, 12, DROPOUT_RATE),
+                             (2, 577, 1024, 16, 0.0)):
+        qkv = seeded_qkv(b, s, d, torch.bfloat16, seed=18)
+        gen = torch.Generator().manual_seed(19)
+        dout = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).cuda()
+        o, lse = ea.encoder_attention_fwd_plain(qkv, h, rate, DROPOUT_SEED)
+        kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+        lib, lib_fwd = library_packed_bwd(qkv, dout, rate, h)
+        out.append({
+            "kernel": "encoder_attention_bwd",
+            "shape": {"B": b, "S": s, "D": d, "H": h, "dropout_rate": rate},
+            "call": lambda qkv=qkv, o=o, do=dout, lse=lse, h=h, kw=kw:
+                ea.encoder_attention_bwd(qkv, o, do, lse, h, **kw),
+            "plain": lambda qkv=qkv, o=o, do=dout, lse=lse, h=h, rate=rate:
+                ea.encoder_attention_bwd_plain(qkv, o, do, lse, h, rate,
+                                               DROPOUT_SEED),
+            "library": lib, "library_fwd": lib_fwd,
+            "bound": bwd_bound(b, s, d, h)})
+    enc, cross = FLASH_TRAIN_SHAPES["deit_encoder_B32"], \
+        FLASH_TRAIN_SHAPES["deit_cross_B32"]
+    for name, (b, h, sq, sk, d), rate in (
+            ("deit_encoder_B32", enc, 0.0),
+            ("deit_encoder_B32", enc, DROPOUT_RATE),
+            ("deit_cross_B32", cross, 0.0),
+            ("d96_B8", (8, 8, 198, 198, 96), 0.0)):
+        q, k, v = seeded_heads(b, h, sq, sk, d, torch.bfloat16, seed=20)
+        gen = torch.Generator().manual_seed(21)
+        do = torch.randn(b, h, sq, d, generator=gen).to(torch.bfloat16).cuda()
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, sk, rate, DROPOUT_SEED)
+        kw = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+        lib, lib_fwd = library_heads_bwd(q, k, v, do, rate)
+        out.append({
+            "kernel": "flash_attention_bwd",
+            "shape": {"of": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "d": d,
+                      "dropout_rate": rate},
+            "call": lambda q=q, k=k, v=v, o=o, do=do, lse=lse, kw=kw:
+                fa.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+            "plain": lambda q=q, k=k, v=v, o=o, do=do, lse=lse, sk=sk,
+                rate=rate: fa.flash_attention_bwd_plain(
+                    q, k, v, o, do, lse, sk, rate, DROPOUT_SEED),
+            "library": lib, "library_fwd": lib_fwd,
+            "bound": flash_bwd_bound(b, h, sq, sk, d)})
+    return out
+
+
 def shapes() -> list[dict]:
     """The timed calls: #1 at the ViT-B/16 microbatch shapes (and with
-    dropout at B=32), #3 at the detector paths' shapes, then #5 and #6,
-    then #8 and #9."""
+    dropout at B=32), #3 at the detector paths' shapes, then #2 and #4,
+    #5 and #6, then #8 and #9."""
     out = []
     for b in (1, 8, 32):
         for rate in ((0.0, DROPOUT_RATE) if b == 32 else (0.0,)):
@@ -262,7 +345,7 @@ def shapes() -> list[dict]:
                 "library": lambda q=q, k=k, v=v:
                     F.scaled_dot_product_attention(q, k, v),
                 "bound": flash_bound(b, h, sq, sk, d)})
-    return out + savep_shapes() + mlp_shapes()
+    return out + bwd_shapes() + savep_shapes() + mlp_shapes()
 
 
 def library_mlp_bwd(x, w1, b1, w2, b2, dout):
@@ -330,6 +413,13 @@ def hold(case: dict) -> None:
     torch.cuda.synchronize()
     if case["kernel"] in ("fused_mlp_fwd", "fused_mlp_bwd"):
         hold_mlp(case, got, ref)
+        return
+    if case["kernel"] == "flash_attention_bwd":  # phase 3's flash_limit
+        for i, (x, r) in enumerate(zip(got, ref)):
+            check(x.shape == r.shape and max_err(x, r) <= flash_limit(
+                r, torch.bfloat16), f"{case['kernel']} {case['shape']} "
+                f"output {i} disagrees with its plain version: "
+                f"{max_err(x, r)}")
         return
     for i, (x, r, (atol, rtol)) in enumerate(
             zip(got, ref, LIMITS[case["kernel"]])):

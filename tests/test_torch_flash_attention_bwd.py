@@ -44,12 +44,17 @@ TOL = {"float32": dict(atol=1e-5, rtol=0.0),
 
 # (B, H, Sq, Sk, d, kv_len): the DeiT-400 encoder's head_dim 16 at a short
 # sequence, the DETR cross-attention (d=50, Sq=5 < Sk), a masked odd case
-# (kv_len < Sk) and 100-byte bf16 rows with Sq > Sk
+# (kv_len < Sk) and 100-byte bf16 rows with Sq > Sk; at the edges of the
+# kernel's tiles of 64 queries and 64 keys and of its padded head dims: d
+# = 1, the widest d = 128 (masked), and Sq = 65 against Sk = 64
 SHAPES = {
     "encoder_d16": (2, 3, 37, 37, 16, 37),
     "cross_d50": (2, 2, 5, 70, 50, 70),
     "masked_d16": (1, 2, 9, 33, 16, 20),
     "masked_d50": (2, 1, 40, 21, 50, 13),
+    "edge_d1": (1, 2, 20, 33, 1, 33),
+    "edge_d128": (1, 1, 17, 66, 128, 40),
+    "edge_sq65_sk64": (1, 2, 65, 64, 16, 64),
 }
 
 
@@ -200,7 +205,15 @@ def test_nvcc_command_builds_the_bwd_source_under_build():
     assert "flash_attention.py::_bwd_kernel" in text
     assert 'extern "C" int arsvt_flash_attention_bwd' in text
     assert "Bound on an H100" in text and "cudaGetLastError" in text
-    assert '#include "philox.cuh"' in text
+    # the mask reaches the body through attention_bwd.cuh -> attention_fwd
+    # .cuh -> encoder_tile.cuh -> philox.cuh
+    assert '#include "attention_bwd.cuh"' in text
+    chain = [("attention_bwd.cuh", "attention_fwd.cuh"),
+             ("attention_fwd.cuh", "encoder_tile.cuh"),
+             ("encoder_tile.cuh", "philox.cuh")]
+    for header, included in chain:
+        assert f'#include "{included}"' in (
+            build.CSRC_DIR / header).read_text()
 
 
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):

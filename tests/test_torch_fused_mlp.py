@@ -376,6 +376,28 @@ def test_kernel_ab_calls_each_tree_through_its_own_interface():
     assert chip_smoke.MLP_LIBRARIES == ("fused_mlp_fwd", "fused_mlp_bwd")
 
 
+def test_kernel_ab_times_every_hand_written_attention_and_mlp_kernel():
+    """``kernel_ab.py`` builds and times #1-#6, #8 and #9 from each tree,
+    the backwards #2 and #4 through their wrappers' own loaders, held at
+    phase 3's limits, beside SDPA's backward (forward and backward less
+    forward), at the training paths' shapes."""
+    import kernel_ab
+
+    assert set(kernel_ab.KERNELS) == {
+        "encoder_attention_fwd", "encoder_attention_bwd",
+        "flash_attention_fwd", "flash_attention_bwd",
+        "encoder_attention_savep_fwd", "encoder_attention_savep_bwd",
+        "fused_mlp_fwd", "fused_mlp_bwd"}
+    for name in kernel_ab.KERNELS:
+        assert name in build.kernel_names()
+    module, fn, loader = kernel_ab.KERNELS["encoder_attention_bwd"]
+    assert (fn, loader) == ("_bwd_fn", "_bwd_kernel") and hasattr(module, fn)
+    module, fn, loader = kernel_ab.KERNELS["flash_attention_bwd"]
+    assert (fn, loader) == ("_bwd_fn", "_bwd_kernel") and hasattr(module, fn)
+    assert kernel_ab.LIMITS["encoder_attention_bwd"] == (
+        (kernel_ab.TOL_BWD_BF16, kernel_ab.TOL_BWD_BF16),) * 3
+
+
 def _count_fused(monkeypatch):
     calls = [0]
     real = mlp.fused_gelu_mlp

@@ -210,8 +210,10 @@ def test_savep_sources_name_the_tpu_kernels_and_build_for_sm90a(name,
 def test_savep_sources_run_on_the_tensor_core_tiles(name):
     """#5 is the save-probs branch of the forward body of #1 and #3
     (attention_fwd.cuh); #6 builds its two kernels from that body's
-    staging and score tiles. Both reach warp_tile.cuh's mma.sync tiles and
-    no longer include the CUDA-core tiles of encoder_tile.cuh directly."""
+    staging and score tiles and the product and store helpers of the
+    backward body of #2 and #4 (attention_bwd.cuh). Both reach
+    warp_tile.cuh's mma.sync tiles and do not include encoder_tile.cuh
+    directly."""
     text = build.source_path(name).read_text()
     assert '#include "attention_fwd.cuh"' in text
     assert '#include "encoder_tile.cuh"' not in text
@@ -222,8 +224,39 @@ def test_savep_sources_run_on_the_tensor_core_tiles(name):
         assert "launch_fwd<T, kHeadDim, true>" in text  # kSaveP
         assert "kSaveP" in body and "store_rows" in body
     else:
-        assert "warp_mma_afrag" in text and "chunk_scores" in text
+        helpers = (build.CSRC_DIR / "attention_bwd.cuh").read_text()
+        assert '#include "attention_bwd.cuh"' in text
+        assert "mma_tile<T, kHeadDim>(" in text and "chunk_scores" in text
+        assert "warp_mma_afrag" in helpers
         assert "load_a_frag<" in text and "asm" not in text  # no own PTX
+
+
+@pytest.mark.parametrize("name,tpu_kernel", [
+    ("encoder_attention_bwd", "_bwd_kernel_direct"),
+    ("flash_attention_bwd", "_bwd_kernel"),
+])
+def test_attention_bwd_sources_run_on_the_tensor_core_tiles(name,
+                                                             tpu_kernel):
+    """#2 and #4 are thin launchers of one backward body
+    (attention_bwd.cuh) on warp_tile.cuh's mma.sync tiles: neither source
+    includes the dropout rule (encoder_tile.cuh) or the generator
+    (philox.cuh) directly, nor carries PTX or an atomic of its own; the
+    body reaches the tiles and the shared mask and sums with no atomics."""
+    text = build.source_path(name).read_text()
+    assert f"flash_attention.py::{tpu_kernel}" in text
+    assert '#include "attention_bwd.cuh"' in text
+    assert '#include "encoder_tile.cuh"' not in text
+    assert '#include "philox.cuh"' not in text
+    assert "attn::launch_bwd<T, " in text
+    body = (build.CSRC_DIR / "attention_bwd.cuh").read_text()
+    assert '#include "attention_fwd.cuh"' in body
+    fwd = (build.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert '#include "warp_tile.cuh"' in fwd
+    assert "warp_mma_afrag" in body and "chunk_scores" in body
+    assert "enc::keeps(drop, bh," in body and "kDrop" in body
+    for source in (text, body):
+        assert "asm" not in source  # no PTX of its own
+        assert "atomic" not in source.replace("no atomics", "")
 
 
 @pytest.mark.parametrize("train,env,savep_calls", [

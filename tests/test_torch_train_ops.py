@@ -80,15 +80,18 @@ def test_fused_encoder_attention_matches_pallas_interpret(s):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("s", [1, 17, 63, 64, 65])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_plain_matches_pallas_bwd_direct_interpret(dtype):
+def test_backward_plain_matches_pallas_bwd_direct_interpret(dtype, s):
     """The backward kernel's plain version against the Pallas backward
-    kernel itself on the same (qkv, O, dO, lse), B=2 S=17 D=128 H=2.
-    fp32: summation order only, atol 1e-5. bf16: both round dS and p to
-    bf16 before their products; an order difference can flip single
-    roundings and the final bf16 one, a bf16 ulp or two of each output:
-    atol = rtol = 2^-6."""
-    b, s, d, h = 2, 17, 128, 2
+    kernel itself on the same (qkv, O, dO, lse), B=2 D=128 H=2, at S = 17
+    and at the edges of the kernel's tiles of 64 queries and 64 keys (one
+    row; one short of, at and one past a tile), which the card holds the
+    kernel to this plain version at. fp32: summation order only, atol
+    1e-5. bf16: both round dS and p to bf16 before their products; an
+    order difference can flip single roundings and the final bf16 one, a
+    bf16 ulp or two of each output: atol = rtol = 2^-6."""
+    b, d, h = 2, 128, 2
     qkv, dout = _rand((b, s, 3 * d), 5), _rand((b, s, d), 6)
     jqkv = jnp.asarray(qkv).astype(_JAX[dtype])
     jout, jlse = _fwd_direct(jqkv, h, interpret=True)
