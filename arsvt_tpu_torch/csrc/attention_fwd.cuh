@@ -129,36 +129,6 @@ struct Layout {
       sizeof(__nv_bfloat16) * kRows * kPbLd;
 };
 
-// dst[r * dst_ld + c] = src[r * ld + c] for r < rows, c < cols, element by
-// element (rows of any alignment); r >= rvalid or c >= cvalid give zeros.
-// Each thread starts kLoads loads before it stores any, so that many are in
-// flight at once.
-template <int kNThreads, typename T>
-__device__ __forceinline__ void copy_tile_elems(T* dst, int dst_ld,
-                                                const T* __restrict__ src,
-                                                int64_t ld, int rows,
-                                                int cols, int rvalid,
-                                                int cvalid) {
-  constexpr int kLoads = 16;
-  const int n = rows * cols;
-  for (int base = threadIdx.x; base < n; base += kNThreads * kLoads) {
-    T vals[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int idx = base + u * kNThreads;
-      const int r = idx / cols, c = idx - r * cols;
-      vals[u] = (idx < n && r < rvalid && c < cvalid) ? src[r * ld + c]
-                                                      : from_float<T>(0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int idx = base + u * kNThreads;
-      const int r = idx / cols;
-      if (idx < n) dst[r * dst_ld + idx - r * cols] = vals[u];
-    }
-  }
-}
-
 // s = Q K^T for one warp's 16 query rows and the `live` 16-key groups of
 // the chunk at Kc: bf16 from Q's A fragments qf on the tensor cores, fp32
 // from Q's staged rows Qw on the CUDA cores.

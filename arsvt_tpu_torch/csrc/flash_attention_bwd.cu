@@ -33,7 +33,11 @@
 // 128 in bf16) are staged by cp.async; others (d = 50: 100 bytes a row)
 // element by element, many loads in flight. For the DETR cross-attention
 // (Sq = 5) the dq kernel has one live warp a (b, h) walking the 196 keys,
-// and the dk/dv kernel one live 16-query group in its single chunk.
+// and the dk/dv kernel one live 16-query group in its single chunk. Past
+// d = 128 (attention_wide.cuh) both kernels give each block one 64-column
+// slice of its outputs: it accumulates S and dP (S^T, dP^T) over all of d
+// a 64-deep slice at a time and delta over all of d, then writes its
+// slice of dq (or of dk and dv); the slice-0 dq blocks write delta.
 //
 // C interface: arsvt_flash_attention_bwd launches both kernels on the
 // given stream, allocates nothing and returns cudaGetLastError() (or
@@ -45,10 +49,9 @@
 #include <stdint.h>
 
 #include "attention_bwd.cuh"
+#include "attention_wide.cuh"
 
 namespace {
-
-constexpr int kMaxHeadDim = 128;
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -79,7 +82,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (d <= 32) return attn::launch_bwd<T, 32>(a, batch, dropout, stream);
   if (d <= 64) return attn::launch_bwd<T, 64>(a, batch, dropout, stream);
   if (d <= 96) return attn::launch_bwd<T, 96>(a, batch, dropout, stream);
-  return attn::launch_bwd<T, kMaxHeadDim>(a, batch, dropout, stream);
+  if (d <= 128) return attn::launch_bwd<T, 128>(a, batch, dropout, stream);
+  return attn::launch_bwd_wide<T>(a, batch, dropout, stream);
 }
 
 }  // namespace
@@ -101,7 +105,7 @@ extern "C" int arsvt_flash_attention_bwd(const void* q, const void* k,
                                          int dtype, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 ||
       sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1 ||
-      head_dim > kMaxHeadDim || (dropout != 0 && dropout != 1))
+      (dropout != 0 && dropout != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const enc::Dropout drop{seed, threshold, inv_keep};

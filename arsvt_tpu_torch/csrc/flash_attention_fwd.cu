@@ -40,7 +40,11 @@
 // from the contiguous slab, one chunk of 64 keys in flight while the other
 // is computed; others (d = 50 in bf16 is 100 bytes, odd d) element by
 // element, 16 loads in flight a thread. Columns past Sk (tile padding) are
-// staged as zeros, left out of the max and given p = 0.
+// staged as zeros, left out of the max and given p = 0. Past d = 128
+// (attention_wide.cuh) each block owns 64 rows and one 64-column slice of
+// O: it accumulates the scores over all of d a 64-deep slice at a time,
+// then multiplies by its slice of V, so any d runs with the same
+// arithmetic; the slice-0 block writes lse.
 //
 // C interface: arsvt_flash_attention_fwd launches on the given stream,
 // allocates nothing and returns cudaGetLastError() (or
@@ -52,10 +56,9 @@
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
+#include "attention_wide.cuh"
 
 namespace {
-
-constexpr int kMaxHeadDim = 128;
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
@@ -80,7 +83,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (d <= 32) return attn::launch_fwd<T, 32>(a, batch, dropout, stream);
   if (d <= 64) return attn::launch_fwd<T, 64>(a, batch, dropout, stream);
   if (d <= 96) return attn::launch_fwd<T, 96>(a, batch, dropout, stream);
-  return attn::launch_fwd<T, kMaxHeadDim>(a, batch, dropout, stream);
+  if (d <= 128) return attn::launch_fwd<T, 128>(a, batch, dropout, stream);
+  return attn::launch_fwd_wide<T>(a, batch, dropout, stream);
 }
 
 }  // namespace
@@ -99,8 +103,7 @@ extern "C" int arsvt_flash_attention_fwd(const void* q, const void* k,
                                          int dropout, int dtype,
                                          void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 ||
-      sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1 ||
-      head_dim > kMaxHeadDim)
+      sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const enc::Dropout drop{seed, threshold, inv_keep};

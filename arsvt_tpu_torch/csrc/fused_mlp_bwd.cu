@@ -77,7 +77,7 @@ size_t dw_smem_bytes() {
   return 2 * kDwStages * kDwSlot * sizeof(T);
 }
 
-template <typename T>
+template <typename T, bool kRagged>
 __global__ void __launch_bounds__(kDwThreads)
     dw_kernel(const T* __restrict__ x, const T* __restrict__ h,
               const __nv_bfloat16* __restrict__ du,
@@ -101,23 +101,29 @@ __global__ void __launch_bounds__(kDwThreads)
   const int wm = warp & 3;   // rows wm*16 .. wm*16+15 of the tile
   const int wn = warp >> 2;  // columns wn*32 .. wn*32+31
 
-  // one commit group per step, empty past the end
+  auto copy = [](auto* dst, auto* src, int64_t ld, int rvalid, int cvalid) {
+    if constexpr (kRagged)
+      copy_tile_ragged<kDwThreads>(dst, kDwLd, src, ld, kDwK, kDwTile, rvalid,
+                                   cvalid);
+    else
+      copy_tile_async<kDwThreads>(dst, kDwLd, src, ld, kDwK, kDwTile, rvalid,
+                                  cvalid);
+  };
+  // one commit group per step, empty past the end (ragged du is copied
+  // element by element and is there when the copy returns; its slot was
+  // freed by the barrier before the enqueue)
   auto enqueue = [&](int s) {
     if (s < steps) {
       const int r0 = s * kDwK;
       T* as = As_ring + (s % kDwStages) * kDwSlot;
       T* bs = Bs_ring + (s % kDwStages) * kDwSlot;
       if (second) {
-        copy_tile_async<kDwThreads>(as, kDwLd, h + (int64_t)r0 * M + c0, M,
-                                    kDwK, kDwTile, n - r0, M - c0);
-        copy_tile_async<kDwThreads>(bs, kDwLd, dout + (int64_t)r0 * D + d0,
-                                    D, kDwK, kDwTile, n - r0, D - d0);
+        copy(as, h + (int64_t)r0 * M + c0, M, n - r0, M - c0);
+        copy(bs, dout + (int64_t)r0 * D + d0, D, n - r0, D - d0);
       } else {
-        copy_tile_async<kDwThreads>(as, kDwLd, x + (int64_t)r0 * D + d0, D,
-                                    kDwK, kDwTile, n - r0, D - d0);
-        copy_tile_async<kDwThreads>(reinterpret_cast<__nv_bfloat16*>(bs),
-                                    kDwLd, du + (int64_t)r0 * M + c0, M,
-                                    kDwK, kDwTile, n - r0, M - c0);
+        copy(as, x + (int64_t)r0 * D + d0, D, n - r0, D - d0);
+        copy(reinterpret_cast<__nv_bfloat16*>(bs),
+             du + (int64_t)r0 * M + c0, M, n - r0, M - c0);
       }
     }
     cp_async_commit();
@@ -170,32 +176,48 @@ __global__ void __launch_bounds__(kDwThreads)
     for (int p = 0; p < 2; ++p) {
       const int i = wm * 16 + g + 8 * p;
       const int jc = wn * 32 + j * 8 + 2 * t;
-      if (i < i_lim && jc < j_lim)  // the limits are even
-        store2(dst + (int64_t)i * ld + jc, acc[0][j][2 * p],
-               acc[0][j][2 * p + 1]);
+      if (i >= i_lim || jc >= j_lim) continue;
+      float* at = dst + (int64_t)i * ld + jc;
+      if (!kRagged) {  // the limits are even
+        store2(at, acc[0][j][2 * p], acc[0][j][2 * p + 1]);
+      } else {
+        at[0] = acc[0][j][2 * p];
+        if (jc + 1 < j_lim) at[1] = acc[0][j][2 * p + 1];
+      }
     }
   if (with_db1 && threadIdx.x < kDwTile && c0 + (int)threadIdx.x < M)
     db1[c0 + threadIdx.x] = bias_sum;
+}
+
+template <bool kRagged>
+cudaError_t launch_dw(const float* x, const float* h,
+                      const __nv_bfloat16* du, const float* dout, float* dw1,
+                      float* db1, float* dw2, int n, int D, int M,
+                      cudaStream_t stream) {
+  const size_t smem = dw_smem_bytes<float>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      dw_kernel<float, kRagged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kDwTile - 1) / kDwTile, (D + kDwTile - 1) / kDwTile,
+                  2);
+  dw_kernel<float, kRagged><<<grid, kDwThreads, smem, stream>>>(
+      x, h, du, dout, dw1, db1, dw2, n, D, M);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_fp32(const float* x, const __nv_bfloat16* u,
                         const float* w1, const float* w2, const float* dout,
                         float* dx, __nv_bfloat16* du, float* h, float* dw1,
                         float* db1, float* dw2, int n, int D, int M,
-                        cudaStream_t stream) {
+                        bool ragged, cudaStream_t stream) {
   cudaError_t err = launch_row_tile<float, true>(
-      dout, w2, w1, nullptr, nullptr, u, du, h, dx, n, D, M, stream);
+      dout, w2, w1, nullptr, nullptr, u, du, h, dx, n, D, M, ragged, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = dw_smem_bytes<float>();
-  err = cudaFuncSetAttribute(
-      dw_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + kDwTile - 1) / kDwTile, (D + kDwTile - 1) / kDwTile,
-                  2);
-  dw_kernel<float><<<grid, kDwThreads, smem, stream>>>(
-      x, h, du, dout, dw1, db1, dw2, n, D, M);
-  return cudaGetLastError();
+  return ragged ? launch_dw<true>(x, h, du, dout, dw1, db1, dw2, n, D, M,
+                                  stream)
+                : launch_dw<false>(x, h, du, dout, dw1, db1, dw2, n, D, M,
+                                   stream);
 }
 
 // bf16: du and h, then dw1 with db1, dw2 and dx. du and h are scratch
@@ -203,7 +225,7 @@ cudaError_t launch_fp32(const float* x, const __nv_bfloat16* u,
 cudaError_t backward_bf16(const void* x, const void* u, const void* w1,
                           const void* w2, const void* dout, void* dx,
                           void* du, void* h, float* dw1, float* db1,
-                          float* dw2, int n, int D, int M,
+                          float* dw2, int n, int D, int M, bool ragged,
                           cudaStream_t stream) {
   using mlpg::kBwdDu;
   using mlpg::kBwdGrads;
@@ -213,25 +235,27 @@ cudaError_t backward_bf16(const void* x, const void* u, const void* w1,
   Params p = {};
   p.n = n, p.D = D, p.M = M;
   cudaError_t err = set_maps(&p, {{dout, n, D}, {w2, M, D}, {du, n, M},
-                                   {h, n, M}});
+                                   {h, n, M}}, ragged);
   if (err != cudaSuccess) return err;
   p.u_in = static_cast<const __nv_bfloat16*>(u);
-  err = launch<kBwdDu>(p, stream);
+  err = launch<kBwdDu>(p, ragged, stream);
   if (err != cudaSuccess) return err;
   Params q = {};
   q.n = n, q.D = D, q.M = M;
   err = set_maps(&q, {{du, n, M}, {w1, D, M}, {x, n, D}, {h, n, M},
-                      {dout, n, D}, {dx, n, D}});
+                      {dout, n, D}, {dx, n, D}}, ragged);
   if (err != cudaSuccess) return err;
   q.dw1 = dw1, q.db1 = db1, q.dw2 = dw2;
-  return launch<kBwdGrads>(q, stream);
+  return launch<kBwdGrads>(q, ragged, stream);
 }
 
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, dout, dx and h). Pointers
-// are device pointers, 16-byte aligned, to contiguous row-major tensors:
+// are device pointers, aligned to their element, to contiguous row-major
+// tensors (D and M multiples of 8 with every pointer 16-byte aligned take
+// the 16-byte route, other calls the ragged one):
 // x, dout and dx (n, D), u and du (n, M) bfloat16, h (n, M) (du and h are
 // scratch written by the first launch and read by the second), w1 (D, M),
 // w2 (M, D), dw1 (D, M), db1 (M,) and dw2 (M, D) float32.
@@ -245,6 +269,8 @@ extern "C" int arsvt_fused_mlp_bwd(const void* x, const void* u,
   float* dw1f = static_cast<float*>(dw1);
   float* db1f = static_cast<float*>(db1);
   float* dw2f = static_cast<float*>(dw2);
+  const bool ragged = !mlp::aligned(D, M, {x, u, w1, w2, dout, dx, du, h,
+                                           dw1, dw2});
   switch (dtype) {
     case 0:
       if (!mlp::shapes_ok<float>(n, D, M)) return (int)cudaErrorInvalidValue;
@@ -253,11 +279,11 @@ extern "C" int arsvt_fused_mlp_bwd(const void* x, const void* u,
           static_cast<const float*>(w1), static_cast<const float*>(w2),
           static_cast<const float*>(dout), static_cast<float*>(dx),
           static_cast<__nv_bfloat16*>(du), static_cast<float*>(h), dw1f,
-          db1f, dw2f, n, D, M, st);
+          db1f, dw2f, n, D, M, ragged, st);
     case 1:
       if (!mlp::dims_ok(n, D, M)) return (int)cudaErrorInvalidValue;
       return (int)backward_bf16(x, u, w1, w2, dout, dx, du, h, dw1f, db1f,
-                                dw2f, n, D, M, st);
+                                dw2f, n, D, M, ragged, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

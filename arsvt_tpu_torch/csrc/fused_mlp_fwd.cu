@@ -55,27 +55,30 @@ using mlpg::set_maps;
 // bf16: u and h, then out. h is scratch (n, M) the caller allocates.
 cudaError_t forward_bf16(const void* x, const void* w1, const float* b1,
                          const void* w2, const float* b2, void* out, void* u,
-                         void* h, int n, int D, int M, cudaStream_t stream) {
+                         void* h, int n, int D, int M, bool ragged,
+                         cudaStream_t stream) {
   Params p = {};
   p.n = n, p.D = D, p.M = M;
   cudaError_t err = set_maps(&p, {{x, n, D}, {w1, D, M}, {u, n, M},
-                                   {h, n, M}});
+                                   {h, n, M}}, ragged);
   if (err != cudaSuccess) return err;
   p.b1 = b1;
-  err = launch<kFwdU>(p, stream);
+  err = launch<kFwdU>(p, ragged, stream);
   if (err != cudaSuccess) return err;
   Params q = {};
   q.n = n, q.D = D, q.M = M;
-  err = set_maps(&q, {{h, n, M}, {w2, M, D}, {out, n, D}});
+  err = set_maps(&q, {{h, n, M}, {w2, M, D}, {out, n, D}}, ragged);
   if (err != cudaSuccess) return err;
   q.b2 = b2;
-  return launch<kFwdOut>(q, stream);
+  return launch<kFwdOut>(q, ragged, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w1, w2, out and h). Pointers are
-// device pointers, 16-byte aligned, to contiguous row-major tensors: x
+// device pointers, aligned to their element, to contiguous row-major
+// tensors (D and M multiples of 8 with every pointer 16-byte aligned take
+// the 16-byte route, other calls the ragged one): x
 // (n, D), w1 (D, M), w2 (M, D), out (n, D), u (n, M) bfloat16, h (n, M)
 // scratch (bfloat16 only; may be null in float32), b1 (M,) and b2 (D,)
 // float32.
@@ -87,6 +90,7 @@ extern "C" int arsvt_fused_mlp_fwd(const void* x, const void* w1,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* b1f = static_cast<const float*>(b1);
   const float* b2f = static_cast<const float*>(b2);
+  const bool ragged = !mlp::aligned(D, M, {x, w1, w2, out, u, h});
   switch (dtype) {
     case 0:
       if (!mlp::shapes_ok<float>(n, D, M)) return (int)cudaErrorInvalidValue;
@@ -94,11 +98,12 @@ extern "C" int arsvt_fused_mlp_fwd(const void* x, const void* w1,
           static_cast<const float*>(x), static_cast<const float*>(w1),
           static_cast<const float*>(w2), b1f, b2f, nullptr,
           static_cast<__nv_bfloat16*>(u), nullptr, static_cast<float*>(out),
-          n, D, M, st);
+          n, D, M, ragged, st);
     case 1:
       if (!mlp::dims_ok(n, D, M) || h == nullptr)
         return (int)cudaErrorInvalidValue;
-      return (int)forward_bf16(x, w1, b1f, w2, b2f, out, u, h, n, D, M, st);
+      return (int)forward_bf16(x, w1, b1f, w2, b2f, out, u, h, n, D, M,
+                               ragged, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -98,6 +98,19 @@ __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
 __device__ __forceinline__ void st_shared(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ void ld_shared_v4(uint32_t addr,
+                                             uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
 __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");

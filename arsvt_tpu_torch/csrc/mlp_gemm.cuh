@@ -33,7 +33,24 @@
 // cannot give its registers up (setmaxnreg acts on whole warpgroups).
 // Ragged edges: TMA fills the parts of a box past the tensor with zeros,
 // which add nothing to the sums, and a TMA store writes only inside the
-// output. No operand is transposed in memory: each is read as it lies,
+// output.
+// The ragged route (kRagged: D or M not a multiple of 8, or a pointer not
+// 16-byte aligned, where TMA's 16-byte row strides do not hold): the
+// producer warpgroup loads the boxes itself, two warps a consumer (one
+// for A's boxes, one for B's), each lane 2 chunks' loads before it stores
+// them: 4-byte loads where a row allows and bounds-checked 2-byte loads
+// elsewhere, assembled into 16-byte chunks, into the same 128-byte
+// swizzled layout that TMA fills, zeros past the edges. Each lane makes
+// its stores visible to the async proxy (wgmma reads shared memory
+// through it) and arrives on the slot's full barrier, whose count is 64
+// there. The consumers and their wgmma descriptors are the same. The
+// epilogues stage each 64 x 64 box as before and store it with all 128
+// threads, inside the output, by 4-byte or 2-byte stores; the fp32 weight
+// gradients and the saved u go element by element. That route does not
+// use setmaxnreg: the whole kernel is compiled at the launch bound's 168
+// registers, so the consumers gain nothing from it, and the producer's
+// loads keep what registers they need.
+// No operand is transposed in memory: each is read as it lies,
 // K-major or MN-major, and the descriptor tells wgmma which (hopper.cuh).
 // What bounds it: the products are bound by operations (bf16 peak), but a
 // 128 x 128 tile reads 64 FLOP a byte from L2, so the long-K launches (out,
@@ -94,11 +111,19 @@ constexpr uint32_t kProducerRegs = 40, kConsumerRegs = 232;
 enum Launch { kFwdU, kFwdOut, kBwdDu, kBwdGrads };
 enum Job { kU, kOut, kDu, kDx, kDw1, kDw2 };
 
+// A tensor as it lies in device memory: (outer, inner), inner contiguous.
+struct Operand {
+  const void* ptr;
+  int outer, inner;
+};
+
 struct Params {
   // Operands, then bf16 outputs (stored by TMA): kFwdU: x, w1, u, h;
   // kFwdOut: h, w2, out; kBwdDu: dO, w2, du, h; kBwdGrads: du, w1, x, h,
-  // dO, dx. Each map is of the tensor as it lies (outer, inner).
+  // dO, dx. Each map is of the tensor as it lies (outer, inner); ops holds
+  // the same tensors for the ragged route, which has no maps.
   CUtensorMap map[6];
+  Operand ops[6];
   const float* b1;
   const float* b2;
   const __nv_bfloat16* u_in;  // kBwdDu: the saved u
@@ -202,39 +227,108 @@ __device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + h * kBoxBytes, map, bar, k0, mn0 + h * kBox);
 }
 
-// The loads of tile t's steps into a ring (full and empty: slot 0's
-// barriers); `it` counts the steps of this ring so far.
-template <bool kAMn, bool kBMn>
-__device__ __forceinline__ void produce(const CUtensorMap* ma,
-                                        const CUtensorMap* mb, const Tile& t,
-                                        uint32_t ring, uint32_t full,
-                                        uint32_t empty, int& it) {
-  for (int s = 0; s < t.steps; ++s, ++it) {
-    const int slot = it % kStages;
-    mbar_wait_or_trap(empty + 8 * slot, ((it / kStages) & 1) ^ 1);
-    const uint32_t bar = full + 8 * slot;
-    mbar_expect_tx(bar, kStageBytes);
-    const uint32_t a = ring + slot * kStageBytes, b = a + kTileBytes;
+// The ragged route's load_box: the box of `op` at (inner c0, outer c1),
+// as TMA would lay it out, by one warp. Lane l fills the 16-byte chunks l,
+// l + 32, ... of the box (line q / 8, chunk q % 8), kBatch chunks' loads
+// at a time before it stores them (a shared store would otherwise wait
+// for each chunk's loads; more than 2 chunks made ptxas spill in the
+// weight-gradient launch, whose consumers hold 168 registers): four
+// 4-byte loads a chunk where it lies whole inside a 4-byte aligned row,
+// else eight bounds-checked 2-byte loads; zeros past the tensor's edges.
+__device__ __forceinline__ void load_box_ragged(uint32_t dst,
+                                                const Operand& op, int c0,
+                                                int c1) {
+  constexpr int kBatch = 2;
+  const uint16_t* src = static_cast<const uint16_t*>(op.ptr);
+  const int lane = threadIdx.x & 31;
+  for (int q0 = lane; q0 < kBox * 8; q0 += 32 * kBatch) {
+    uint32_t w[kBatch][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      load_box<kAMn>(a, ma, bar, t.row0, s * kDepth, h);
-      load_box<kBMn>(b, mb, bar, t.col0, s * kDepth, h);
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + 32 * u, line = q >> 3;
+      const int row = c1 + line, col = c0 + 8 * (q & 7);
+      const uint16_t* at = src + (int64_t)row * op.inner + col;
+      const bool in_row = row < op.outer;
+      if (in_row && col + 8 <= op.inner &&
+          (reinterpret_cast<uintptr_t>(at) & 3) == 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[u][e] = __ldg(reinterpret_cast<const uint32_t*>(at) + e);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t lo =
+              in_row && col + 2 * e < op.inner ? __ldg(at + 2 * e) : 0u;
+          const uint32_t hi = in_row && col + 2 * e + 1 < op.inner
+                                  ? __ldg(at + 2 * e + 1)
+                                  : 0u;
+          w[u][e] = lo | hi << 16;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + 32 * u, line = q >> 3;
+      st_shared_v4(dst + line * 128 + (((q & 7) ^ (line & 7)) << 4), w[u]);
     }
   }
 }
 
-template <int kLaunch>
+// The loads of tile t's steps into a ring (full and empty: slot 0's
+// barriers), from operands ia (A) and ib (B); `it` counts the steps of
+// this ring so far. TMA: issued by one thread, the full barrier expecting
+// the bytes. Ragged: a warp loads A's two boxes (part 0) or B's (part 1),
+// then each of its lanes arrives.
+template <bool kAMn, bool kBMn, bool kRagged>
+__device__ __forceinline__ void produce(const Params& p, int ia, int ib,
+                                        const Tile& t, uint32_t ring,
+                                        uint32_t full, uint32_t empty,
+                                        int& it, int part) {
+  for (int s = 0; s < t.steps; ++s, ++it) {
+    const int slot = it % kStages;
+    mbar_wait_or_trap(empty + 8 * slot, ((it / kStages) & 1) ^ 1);
+    const uint32_t bar = full + 8 * slot;
+    const uint32_t a = ring + slot * kStageBytes, b = a + kTileBytes;
+    if constexpr (kRagged) {
+      const int k0 = s * kDepth;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // the coordinates load_box gives TMA
+        if (part == 0) {
+          const int mn = t.row0 + h * kBox;
+          load_box_ragged(a + h * kBoxBytes, p.ops[ia], kAMn ? mn : k0,
+                          kAMn ? k0 : mn);
+        } else {
+          const int mn = t.col0 + h * kBox;
+          load_box_ragged(b + h * kBoxBytes, p.ops[ib], kBMn ? mn : k0,
+                          kBMn ? k0 : mn);
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(bar);
+    } else {
+      mbar_expect_tx(bar, kStageBytes);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        load_box<kAMn>(a, &p.map[ia], bar, t.row0, s * kDepth, h);
+        load_box<kBMn>(b, &p.map[ib], bar, t.col0, s * kDepth, h);
+      }
+    }
+  }
+}
+
+template <int kLaunch, bool kRagged>
 __device__ __forceinline__ void produce_tile(const Params& p, const Tile& t,
                                              uint32_t ring, uint32_t full,
-                                             uint32_t empty, int& it) {
+                                             uint32_t empty, int& it,
+                                             int part) {
   if ((runs<kLaunch>(kU) || runs<kLaunch>(kOut)))
-    produce<false, true>(&p.map[0], &p.map[1], t, ring, full, empty, it);
+    produce<false, true, kRagged>(p, 0, 1, t, ring, full, empty, it, part);
   else if (runs<kLaunch>(kDu) || (runs<kLaunch>(kDx) && t.job == kDx))
-    produce<false, false>(&p.map[0], &p.map[1], t, ring, full, empty, it);
+    produce<false, false, kRagged>(p, 0, 1, t, ring, full, empty, it, part);
   else if (t.job == kDw1)
-    produce<true, true>(&p.map[2], &p.map[0], t, ring, full, empty, it);
+    produce<true, true, kRagged>(p, 2, 0, t, ring, full, empty, it, part);
   else  // kDw2
-    produce<true, true>(&p.map[3], &p.map[4], t, ring, full, empty, it);
+    produce<true, true, kRagged>(p, 3, 4, t, ring, full, empty, it, part);
 }
 
 // --------------------------------------------------------------- consumer
@@ -313,21 +407,47 @@ struct Frag {
   }
 };
 
+// The ragged route's TMA store: the staged box at src to `op` at (inner
+// c0, outer c1), by the consumer warpgroup's 128 threads, 16-byte chunk
+// by chunk: four 4-byte stores where the chunk lies whole inside a 4-byte
+// aligned row, else element by element inside the tensor.
+__device__ __forceinline__ void store_box_ragged(const Operand& op,
+                                                 uint32_t src, int c0,
+                                                 int c1) {
+  uint16_t* dst = static_cast<uint16_t*>(const_cast<void*>(op.ptr));
+  for (int q = threadIdx.x & 127; q < kBox * 8; q += 128) {
+    const int line = q >> 3, chunk = q & 7;
+    const int row = c1 + line, col = c0 + 8 * chunk;
+    if (row >= op.outer || col >= op.inner) continue;
+    uint32_t w[4];
+    ld_shared_v4(src + line * 128 + ((chunk ^ (line & 7)) << 4), w);
+    uint16_t* at = dst + (int64_t)row * op.inner + col;
+    if (col + 8 <= op.inner && (reinterpret_cast<uintptr_t>(at) & 3) == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) reinterpret_cast<uint32_t*>(at)[e] = w[e];
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (col + e < op.inner) at[e] = (uint16_t)(w[e >> 1] >> (16 * (e & 1)));
+  }
+}
+
 // Block (h, b) of the tile, rows 64h .. 64h + 63 and columns 64b ..
 // 64b + 63, of kOuts bf16 outputs at once: value(v0, v1, r, j, o) gives
 // the outputs' values o[k] for the pair of columns (Frag::col(j)) of row
 // Frag::row(h, r) that the accumulator a = acc[h] holds there; output k
-// is written into the staging buffer as TMA box k and stored through
-// maps[k]. The buffer is reused once the previous stores have read it.
-// The accumulator's registers of the block die here, so a block at a time
-// keeps the epilogue within the kernel's registers.
-template <int kOuts, typename Value>
+// is written into the staging buffer as TMA box k and stored through map
+// (or, ragged, operand) outs[k]. The buffer is reused once the previous
+// stores have read it. The accumulator's registers of the block die here,
+// so a block at a time keeps the epilogue within the kernel's registers.
+template <bool kRagged, int kOuts, typename Value>
 __device__ __forceinline__ void store_block(
-    int c, const CUtensorMap* const (&maps)[kOuts], uint32_t stage,
+    const Params& p, int c, const int (&outs)[kOuts], uint32_t stage,
     const Tile& t, int h, int b, const float (&a)[64], Value value) {
   const Frag f;
   const bool leader = (threadIdx.x & 127) == 0;
-  if (leader) bulk_wait_read();
+  if (!kRagged && leader) bulk_wait_read();
   consumer_sync(c);
 #pragma unroll
   for (int jj = 0; jj < 8; ++jj)
@@ -342,19 +462,29 @@ __device__ __forceinline__ void store_block(
                       4 * f.q,
                   *reinterpret_cast<const uint32_t*>(&o[k]));
     }
+  if constexpr (kRagged) {
+    consumer_sync(c);
+#pragma unroll
+    for (int k = 0; k < kOuts; ++k)
+      store_box_ragged(p.ops[outs[k]], stage + k * kBoxBytes,
+                       t.col0 + kBox * b, t.row0 + 64 * h);
+    return;
+  }
   fence_proxy_async();
   consumer_sync(c);
   if (leader) {
 #pragma unroll
     for (int k = 0; k < kOuts; ++k)
-      tma_store(maps[k], stage + k * kBoxBytes, t.col0 + kBox * b,
+      tma_store(&p.map[outs[k]], stage + k * kBoxBytes, t.col0 + kBox * b,
                 t.row0 + 64 * h);
     bulk_commit();
   }
 }
 
 // The fp32 weight gradients: pairs of columns straight from the
-// accumulator (8 rows x 32 bytes a warp store, whole sectors).
+// accumulator (8 rows x 32 bytes a warp store, whole sectors); ragged,
+// element by element.
+template <bool kRagged>
 __device__ __forceinline__ void store_dw(const Params& p, const Tile& t,
                                         float (&acc)[2][64]) {
   const Frag f;
@@ -369,29 +499,34 @@ __device__ __forceinline__ void store_dw(const Params& p, const Tile& t,
       float* line = dst + (int64_t)row * cols;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = f.col(t, j);  // even; cols % 8 == 0
-        if (col < cols)
+        const int col = f.col(t, j);  // even
+        if (col >= cols) continue;
+        if (!kRagged) {  // cols % 8 == 0
           store2(line + col, acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1]);
+        } else {
+          line[col] = acc[h][4 * j + 2 * r];
+          if (col + 1 < cols) line[col + 1] = acc[h][4 * j + 2 * r + 1];
+        }
       }
     }
 }
 
 // The tile's epilogue; `bias` is this thread's column's bias (kU, kOut),
 // shared through the bias row at bias_s.
-template <int kLaunch>
+template <int kLaunch, bool kRagged>
 __device__ __forceinline__ void epilogue(const Params& p, const Tile& t,
                                          int c, float (&acc)[2][64],
                                          uint32_t stage, uint32_t bias_s,
                                          float bias) {
   if (runs<kLaunch>(kDw1) && t.job != kDx) {
-    store_dw(p, t, acc);
+    store_dw<kRagged>(p, t, acc);
     return;
   }
   // read behind store_block's first barrier
   st_shared(bias_s + 4 * (threadIdx.x & 127), bias);
   const Frag f;
-  const CUtensorMap* const first[1] = {&p.map[t.job == kDx ? 5 : 2]};
-  const CUtensorMap* const both[2] = {&p.map[2], &p.map[3]};
+  const int first[1] = {t.job == kDx ? 5 : 2};
+  const int both[2] = {2, 3};
   // the bias of column pair j, from shared memory
   const auto bias2 = [&](int j) {
     const uint32_t at = bias_s + 4 * (8 * j + 2 * f.q);
@@ -404,15 +539,20 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& t,
     const __nv_bfloat16* u_row =
         p.u_in + (int64_t)row0 * p.M + f.col(t, 0);
     const auto saved_u = [&](int r, int j) {
-      return row0 + 8 * r < p.n && f.col(t, j) < p.M
-                 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                       u_row + 8 * r * p.M + 8 * j))
-                 : make_float2(0.f, 0.f);
+      if (row0 + 8 * r >= p.n || f.col(t, j) >= p.M)
+        return make_float2(0.f, 0.f);
+      const __nv_bfloat16* at = u_row + 8 * r * p.M + 8 * j;
+      if (!kRagged)
+        return __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(at));
+      return make_float2(
+          __bfloat162float(at[0]),
+          f.col(t, j) + 1 < p.M ? __bfloat162float(at[1]) : 0.f);
     };
 #pragma unroll
     for (int b = 0; b < 2; ++b) switch (kLaunch) {
         case kFwdU:  // u = C + b1 and h = gelu(u) from the fp32 u
-          store_block(c, both, stage, t, h, b, acc[h],
+          store_block<kRagged>(p, c, both, stage, t, h, b, acc[h],
                       [&](float v0, float v1, int, int j, __nv_bfloat162* o) {
                         const float2 bj = bias2(j);
                         const float u0 = v0 + bj.x, u1 = v1 + bj.y;
@@ -422,14 +562,14 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& t,
                       });
           break;
         case kFwdOut:
-          store_block(c, first, stage, t, h, b, acc[h],
+          store_block<kRagged>(p, c, first, stage, t, h, b, acc[h],
                       [&](float v0, float v1, int, int j, __nv_bfloat162* o) {
                         const float2 bj = bias2(j);
                         o[0] = __floats2bfloat162_rn(v0 + bj.x, v1 + bj.y);
                       });
           break;
         case kBwdDu:  // du = dh * gelu'(u) and h = gelu(u), one tanh for both
-          store_block(c, both, stage, t, h, b, acc[h],
+          store_block<kRagged>(p, c, both, stage, t, h, b, acc[h],
                       [&](float v0, float v1, int r, int j,
                           __nv_bfloat162* o) {
                         const float2 u = saved_u(r, j);
@@ -441,7 +581,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const Tile& t,
                       });
           break;
         default:  // kBwdGrads: dx
-          store_block(c, first, stage, t, h, b, acc[h],
+          store_block<kRagged>(p, c, first, stage, t, h, b, acc[h],
                       [](float v0, float v1, int, int, __nv_bfloat162* o) {
                         o[0] = __floats2bfloat162_rn(v0, v1);
                       });
@@ -465,7 +605,7 @@ __device__ __forceinline__ void prefetch_u(const Params& p, const Tile& t) {
 
 // ----------------------------------------------------------------- kernel
 
-template <int kLaunch>
+template <int kLaunch, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_bf16_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char gemm_smem[];
@@ -474,7 +614,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int c = 0; c < kConsumers; ++c) {
       for (int s = 0; s < kStages; ++s) {
-        mbar_init(sm.full(c) + 8 * s, 1);   // the producer's expect_tx
+        // the producer's expect_tx, or (ragged) the 64 arrivals of its
+        // two warps
+        mbar_init(sm.full(c) + 8 * s, kRagged ? 64 : 1);
         mbar_init(sm.empty(c) + 8 * s, 4);  // one arrival per consumer warp
       }
       mbar_init(sm.order(c), 1);
@@ -491,13 +633,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int stride = kConsumers * gridDim.x;
   int it = 0;  // steps through this consumer's ring
   if (wg == kConsumers) {  // the producer warpgroup
-    setmaxnreg_dec<kProducerRegs>();
-    if (c < kConsumers && (threadIdx.x & 31) == 0)
-      for (int b = first; b < total; b += stride)
-        produce_tile<kLaunch>(p, plan<kLaunch>(p, b), sm.ring(c),
-                              sm.full(c), sm.empty(c), it);
+    if (kRagged) {  // warps 0 and 1 load consumer 0's and 1's A, 2 and 3 B
+      const int cc = c & 1;
+      for (int b = blockIdx.x + cc * gridDim.x; b < total; b += stride)
+        produce_tile<kLaunch, true>(p, plan<kLaunch>(p, b), sm.ring(cc),
+                                    sm.full(cc), sm.empty(cc), it, c >> 1);
+    } else {
+      setmaxnreg_dec<kProducerRegs>();
+      if (c < kConsumers && (threadIdx.x & 31) == 0)
+        for (int b = first; b < total; b += stride)
+          produce_tile<kLaunch, false>(p, plan<kLaunch>(p, b), sm.ring(c),
+                                       sm.full(c), sm.empty(c), it, 0);
+    }
   } else {  // consumer c
-    setmaxnreg_inc<kConsumerRegs>();
+    if (!kRagged) setmaxnreg_inc<kConsumerRegs>();
     int turn = 0;
     for (int b = first; b < total; b += stride, ++turn) {
       const Tile t = plan<kLaunch>(p, b);
@@ -521,26 +670,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         consume<true, true>(acc, t, sm.ring(c), sm.full(c), sm.empty(c), it,
                             sum_b, &db1);
       if ((threadIdx.x & 127) == 0) mbar_arrive(sm.order(c ^ 1));
-      epilogue<kLaunch>(p, t, c, acc, sm.stage(c), sm.bias(c), bias);
+      epilogue<kLaunch, kRagged>(p, t, c, acc, sm.stage(c), sm.bias(c),
+                                 bias);
       if (sum_b && col < p.M) p.db1[col] = db1;
     }
-    if ((threadIdx.x & 127) == 0) bulk_wait();  // the last TMA stores
+    if (!kRagged && (threadIdx.x & 127) == 0) bulk_wait();  // the last TMA
+                                                             // stores
   }
 }
 
 // ------------------------------------------------------------------- host
 
-// Launches kLaunch over its tiles. The first call sets the kernel's
-// shared memory, and checks that it was built with the registers that
-// setmaxnreg hands out (otherwise the consumers' increase could never be
-// granted and the block would hang).
 // Launches kLaunch: one block per SM, or one per tile where there are
 // fewer. The first call sets the kernel's shared memory, and checks that
 // it was built with the registers that setmaxnreg hands out (otherwise
 // the consumers' increase could never be granted and the block would
-// hang).
-template <int kLaunch>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+// hang; the ragged route does not use setmaxnreg).
+template <int kLaunch, bool kRagged>
+cudaError_t launch_kernel(const Params& p, cudaStream_t stream) {
   static int sms = 0;
   static const cudaError_t ready = [] {
     int device;
@@ -550,34 +697,42 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
                                    device);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, gemm_bf16_kernel<kLaunch>);
+    err = cudaFuncGetAttributes(&attr, gemm_bf16_kernel<kLaunch, kRagged>);
     if (err != cudaSuccess) return err;
-    if (attr.numRegs * kThreads <
-        (int)(128 * (kConsumers * kConsumerRegs + kProducerRegs)))
+    if (!kRagged && attr.numRegs * kThreads <
+                        (int)(128 * (kConsumers * kConsumerRegs +
+                                     kProducerRegs)))
       return cudaErrorInvalidConfiguration;
-    return cudaFuncSetAttribute(gemm_bf16_kernel<kLaunch>,
+    return cudaFuncSetAttribute(gemm_bf16_kernel<kLaunch, kRagged>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kSmemBytes);
   }();
   if (ready != cudaSuccess) return ready;
   const int total = tiles(kLaunch, p.n, p.D, p.M);
-  gemm_bf16_kernel<kLaunch>
+  gemm_bf16_kernel<kLaunch, kRagged>
       <<<total < sms ? total : sms, kThreads, kSmemBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-// A tensor as it lies in device memory: (outer, inner), inner contiguous.
-struct Operand {
-  const void* ptr;
-  int outer, inner;
-};
+template <int kLaunch>
+cudaError_t launch(const Params& p, bool ragged, cudaStream_t stream) {
+  return ragged ? launch_kernel<kLaunch, true>(p, stream)
+                : launch_kernel<kLaunch, false>(p, stream);
+}
 
-inline cudaError_t set_maps(Params* p, std::initializer_list<Operand> ops) {
+// The operands of a launch, in Params::map's order; the maps are made
+// where the launch takes the TMA route.
+inline cudaError_t set_maps(Params* p, std::initializer_list<Operand> ops,
+                            bool ragged) {
   int i = 0;
   for (const Operand& op : ops) {
-    const cudaError_t err = make_map(&p->map[i++], op.ptr, op.outer,
-                                     op.inner);
-    if (err != cudaSuccess) return err;
+    p->ops[i] = op;
+    if (!ragged) {
+      const cudaError_t err = make_map(&p->map[i], op.ptr, op.outer,
+                                       op.inner);
+      if (err != cudaSuccess) return err;
+    }
+    ++i;
   }
   return cudaSuccess;
 }

@@ -6,9 +6,11 @@
 // the CUDA cores.
 //
 // Operands are copied from device memory in 16-byte vectors (cp.async)
-// along the contiguous dimension, so D and M must be multiples of 8 (the
-// wrapper checks); rows (n) may be anything. Ragged edges are staged as
-// zeros and not stored.
+// along the contiguous dimension where D and M are multiples of 8 and
+// every pointer is 16-byte aligned; otherwise (kRagged, any D and M >= 1)
+// by one 4-byte cp.async an fp32 element (copy_tile_ragged), with the
+// outputs stored one element at a time. Rows (n) may be anything. Ragged
+// edges are staged as zeros and not stored.
 
 #pragma once
 
@@ -16,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "warp_tile.cuh"
 
@@ -107,7 +111,7 @@ size_t row_tile_smem_bytes(int nk) {
          sizeof(T);
 }
 
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kRagged>
 __global__ void __launch_bounds__(kRowThreads, 1)
     row_tile_kernel(const T* __restrict__ a, const T* __restrict__ wa,
                     const T* __restrict__ wb, const float* __restrict__ b1,
@@ -137,6 +141,15 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   const int g = lane >> 2, t = lane & 3;
   const int per_chunk = nk + 2 * ng;
   const int total = (M + kChunk - 1) / kChunk * per_chunk;
+  auto copy = [](T* dst, int dst_ld, const T* src, int64_t ld, int rows,
+                 int cols, int rvalid, int cvalid) {
+    if constexpr (kRagged)
+      copy_tile_ragged<kRowThreads>(dst, dst_ld, src, ld, rows, cols, rvalid,
+                                    cvalid);
+    else
+      copy_tile_async<kRowThreads>(dst, dst_ld, src, ld, rows, cols, rvalid,
+                                   cvalid);
+  };
 
   // Weight tile q (in walking order) into its ring slot; one commit group
   // per tile, empty past the end.
@@ -147,29 +160,27 @@ __global__ void __launch_bounds__(kRowThreads, 1)
       if (s < nk) {  // G1 at depth k0, output columns c0 ..
         const int k0 = s * kDepth;
         if (kBwd)  // (n = c, k = d) = w2[c][d]
-          copy_tile_async<kRowThreads>(dst, kLdW, wa + (int64_t)c0 * D + k0,
-                                       D, kChunk, kDepth, M - c0, D - k0);
+          copy(dst, kLdW, wa + (int64_t)c0 * D + k0, D, kChunk, kDepth,
+               M - c0, D - k0);
         else  // (k = d, n = c) = w1[d][c]
-          copy_tile_async<kRowThreads>(dst, kLdW, wa + (int64_t)k0 * M + c0,
-                                       M, kDepth, kChunk, D - k0, M - c0);
+          copy(dst, kLdW, wa + (int64_t)k0 * M + c0, M, kDepth, kChunk,
+               D - k0, M - c0);
       } else {  // G2 into output columns d0 .., at depth c0 + h0
         const int d0 = (grp0 + (s - nk) / 2) * kChunk;
         const int h0 = (s - nk) % 2 * kDepth;
         if (kBwd)  // (n = d, k = c) = w1[d][c]
-          copy_tile_async<kRowThreads>(dst, kLdW,
-                                       wb + (int64_t)d0 * M + c0 + h0, M,
-                                       kChunk, kDepth, D - d0, M - c0 - h0);
+          copy(dst, kLdW, wb + (int64_t)d0 * M + c0 + h0, M, kChunk, kDepth,
+               D - d0, M - c0 - h0);
         else  // (k = c, n = d) = w2[c][d]
-          copy_tile_async<kRowThreads>(dst, kLdW,
-                                       wb + (int64_t)(c0 + h0) * D + d0, D,
-                                       kDepth, kChunk, M - c0 - h0, D - d0);
+          copy(dst, kLdW, wb + (int64_t)(c0 + h0) * D + d0, D, kDepth,
+               kChunk, M - c0 - h0, D - d0);
       }
     }
     cp_async_commit();
   };
 
-  copy_tile_async<kRowThreads>(Xs, ldx, a + (int64_t)row0 * D, D, kRows,
-                               nk * kDepth, n - row0, D);  // in group 0
+  copy(Xs, ldx, a + (int64_t)row0 * D, D, kRows, nk * kDepth, n - row0,
+       D);  // in group 0
 #pragma unroll
   for (int q = 0; q < kStages - 1; ++q) enqueue(q);
 
@@ -219,7 +230,40 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           const int c = warp * 16 + i * 8 + 2 * t;
           const int row = row0 + r, col = c0 + c;
           float h0 = 0.f, h1 = 0.f;
-          if (col < M) {  // M is even, so col + 1 < M too
+          if (kRagged && col < M) {  // element by element; col + 1 may be M
+            const int64_t at = (int64_t)row * M + col;
+            const bool two = col + 1 < M;
+            if (!kBwd) {
+              const float u0 = acc[m][i][2 * p] + b1[col];
+              const float u1 = two ? acc[m][i][2 * p + 1] + b1[col + 1] : 0.f;
+              if (writer && row < n) {
+                u_out[at] = __float2bfloat16(u0);
+                if (two) u_out[at + 1] = __float2bfloat16(u1);
+              }
+              h0 = gelu(u0);
+              h1 = two ? gelu(u1) : 0.f;
+            } else if (row < n) {
+              const float u0 = __bfloat162float(u_in[at]);
+              const float u1 = two ? __bfloat162float(u_in[at + 1]) : 0.f;
+              float g0, g1;
+              const float dg0 = gelu_and_grad(u0, &g0);
+              const float dg1 = gelu_and_grad(u1, &g1);
+              const __nv_bfloat16 du0 =
+                  __float2bfloat16(acc[m][i][2 * p] * dg0);
+              const __nv_bfloat16 du1 =
+                  __float2bfloat16(acc[m][i][2 * p + 1] * dg1);
+              if (writer) {
+                u_out[at] = du0;
+                h_out[at] = from_float<T>(g0);
+                if (two) {
+                  u_out[at + 1] = du1;
+                  h_out[at + 1] = from_float<T>(g1);
+                }
+              }
+              h0 = __bfloat162float(du0);
+              h1 = two ? __bfloat162float(du1) : 0.f;
+            }
+          } else if (col < M) {  // M is even, so col + 1 < M too
             const int64_t at = (int64_t)row * M + col;
             if (!kBwd) {
               const float u0 = acc[m][i][2 * p] + b1[col];
@@ -272,36 +316,58 @@ __global__ void __launch_bounds__(kRowThreads, 1)
         for (int p = 0; p < 2; ++p) {
           const int row = row0 + m * 16 + g + 8 * p;
           const int col = (grp0 + j) * kChunk + warp * 16 + i * 8 + 2 * t;
-          if (row >= n || col >= D) continue;  // D is even
+          if (row >= n || col >= D) continue;  // aligned: D is even
+          const bool two = !kRagged || col + 1 < D;
           float v0 = acc_o[j][m][i][2 * p], v1 = acc_o[j][m][i][2 * p + 1];
           if (!kBwd) {
             v0 += b2[col];
-            v1 += b2[col + 1];
+            if (two) v1 += b2[col + 1];
           }
-          store2(out + (int64_t)row * D + col, v0, v1);
+          T* dst = out + (int64_t)row * D + col;
+          if (!kRagged) {
+            store2(dst, v0, v1);
+          } else {
+            dst[0] = from_float<T>(v0);
+            if (two) dst[1] = from_float<T>(v1);
+          }
         }
   }
 }
 
+template <typename T, bool kBwd, bool kRagged>
+cudaError_t launch_row_tile_kernel(const T* a, const T* wa, const T* wb,
+                                   const float* b1, const float* b2,
+                                   const __nv_bfloat16* u_in,
+                                   __nv_bfloat16* u_out, T* h_out, T* out,
+                                   int n, int D, int M, cudaStream_t stream) {
+  const size_t smem = row_tile_smem_bytes<T>((D + kDepth - 1) / kDepth);
+  cudaError_t err = cudaFuncSetAttribute(
+      row_tile_kernel<T, kBwd, kRagged>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  constexpr int kRows = 16 * kRowMTiles;
+  const int groups = (D + kChunk - 1) / kChunk;
+  const dim3 grid((n + kRows - 1) / kRows, (groups + kMaxNg - 1) / kMaxNg);
+  row_tile_kernel<T, kBwd, kRagged><<<grid, kRowThreads, smem, stream>>>(
+      a, wa, wb, b1, b2, u_in, u_out, h_out, out, n, D, M);
+  return cudaGetLastError();
+}
+
 // Launch the row-tile kernel on `stream`: one block per 16 rows and slice
-// of at most kMaxNg output groups.
+// of at most kMaxNg output groups; `ragged` (see aligned()) picks the
+// element-wise instantiation.
 template <typename T, bool kBwd>
 cudaError_t launch_row_tile(const T* a, const T* wa, const T* wb,
                             const float* b1, const float* b2,
                             const __nv_bfloat16* u_in,
                             __nv_bfloat16* u_out, T* h_out, T* out, int n,
-                            int D, int M, cudaStream_t stream) {
-  const size_t smem = row_tile_smem_bytes<T>((D + kDepth - 1) / kDepth);
-  cudaError_t err = cudaFuncSetAttribute(
-      row_tile_kernel<T, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  constexpr int kRows = 16 * kRowMTiles;
-  const int groups = (D + kChunk - 1) / kChunk;
-  const dim3 grid((n + kRows - 1) / kRows, (groups + kMaxNg - 1) / kMaxNg);
-  row_tile_kernel<T, kBwd><<<grid, kRowThreads, smem, stream>>>(
-      a, wa, wb, b1, b2, u_in, u_out, h_out, out, n, D, M);
-  return cudaGetLastError();
+                            int D, int M, bool ragged, cudaStream_t stream) {
+  return ragged ? launch_row_tile_kernel<T, kBwd, true>(
+                      a, wa, wb, b1, b2, u_in, u_out, h_out, out, n, D, M,
+                      stream)
+                : launch_row_tile_kernel<T, kBwd, false>(
+                      a, wa, wb, b1, b2, u_in, u_out, h_out, out, n, D, M,
+                      stream);
 }
 
 // The largest D whose staged rows fit the row-tile kernel's shared memory:
@@ -313,10 +379,19 @@ int max_d() {
   return nk * kDepth;
 }
 
-// Shapes every fused-MLP entry point takes: n >= 1 rows, D and M positive
-// multiples of 8 (16-byte rows: cp.async vectors, TMA strides).
+// Shapes every fused-MLP entry point takes: n, D and M >= 1.
 inline bool dims_ok(int n, int D, int M) {
-  return n >= 1 && D >= 8 && M >= 8 && D % 8 == 0 && M % 8 == 0;
+  return n >= 1 && D >= 1 && M >= 1;
+}
+
+// Whether a call takes the 16-byte route (cp.async vectors in fp32, TMA in
+// bf16): D and M multiples of 8 and every pointer 16-byte aligned. Other
+// calls take the ragged route, element by element at the edges of rows.
+inline bool aligned(int D, int M, std::initializer_list<const void*> ptrs) {
+  if (D % 8 || M % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // ... and, for the row-tile kernel, D up to max_d.

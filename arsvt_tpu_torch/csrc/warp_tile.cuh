@@ -13,7 +13,8 @@
 // 16 x 8 tile; `frag_row`, `frag_col`), so every epilogue is shared.
 //
 // Operands are copied from device memory in 16-byte vectors (cp.async)
-// along the contiguous dimension; ragged edges are staged as zeros.
+// along the contiguous dimension where every row is 16-byte aligned, else
+// element by element; ragged edges are staged as zeros.
 
 #pragma once
 
@@ -103,6 +104,57 @@ __device__ __forceinline__ void copy_tile_async(T* dst, int dst_ld,
     const int r = idx / per_row, c = (idx % per_row) * kVec;
     const bool ok = r < rvalid && c < cvalid;
     cp_async16(dst + r * dst_ld + c, ok ? src + r * ld + c : src, ok);
+  }
+}
+
+// dst[r * dst_ld + c] = src[r * ld + c] for r < rows, c < cols, element by
+// element (rows of any alignment); r >= rvalid or c >= cvalid give zeros.
+// Each thread starts kLoads loads before it stores any, so that many are in
+// flight at once (their registers count where the caller holds many).
+template <int kNThreads, typename T, int kLoads = 16>
+__device__ __forceinline__ void copy_tile_elems(T* dst, int dst_ld,
+                                                const T* __restrict__ src,
+                                                int64_t ld, int rows,
+                                                int cols, int rvalid,
+                                                int cvalid) {
+  const int n = rows * cols;
+  for (int base = threadIdx.x; base < n; base += kNThreads * kLoads) {
+    T vals[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * kNThreads;
+      const int r = idx / cols, c = idx - r * cols;
+      vals[u] = (idx < n && r < rvalid && c < cvalid) ? src[r * ld + c]
+                                                      : from_float<T>(0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * kNThreads;
+      const int r = idx / cols;
+      if (idx < n) dst[r * dst_ld + idx - r * cols] = vals[u];
+    }
+  }
+}
+
+// The same copy for rows of any alignment and width (the fused MLP's
+// ragged route): one 4-byte cp.async per element for 4-byte T, zeros
+// where !valid, completing with the caller's commit group; element by
+// element, synchronously, for 2-byte T (cp.async takes no 2-byte size).
+template <int kNThreads, typename T>
+__device__ __forceinline__ void copy_tile_ragged(T* dst, int dst_ld,
+                                                 const T* __restrict__ src,
+                                                 int64_t ld, int rows,
+                                                 int cols, int rvalid,
+                                                 int cvalid) {
+  if constexpr (sizeof(T) == 4) {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += kNThreads) {
+      const int r = idx / cols, c = idx - r * cols;
+      const bool ok = r < rvalid && c < cvalid;
+      cp_async4(dst + r * dst_ld + c, ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    copy_tile_elems<kNThreads>(dst, dst_ld, src, ld, rows, cols, rvalid,
+                               cvalid);
   }
 }
 

@@ -52,7 +52,6 @@ from arsvt_tpu_torch.ops.dropout import (
     keep_threshold,
 )
 
-MAX_HEAD_DIM = 128
 # -0.7 * float32 max, the TPU kernel's mask value (``flash_attention.py:44``)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,9 +81,6 @@ def _check(q, k, v, kv_len, dropout_rate):
     if min(b, h, sq, sk, d) < 1:
         raise ValueError(f"empty attention operands {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} is above the kernel's "
-                         f"{MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"attention takes float32 or bfloat16 operands of "
@@ -159,7 +155,8 @@ def _on_card(tensors, what):
 def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
                         dropout_rate: float = 0.0, seed: int = 0):
     """q (B, H, Sq, d), k and v (B, H, Sk, d), float32 or bfloat16, head_dim
-    1..128; keys at or past `kv_len` (default Sk) are masked; with
+    d >= 1 (past 128 the kernels split the output columns, any d runs);
+    keys at or past `kv_len` (default Sk) are masked; with
     `dropout_rate` > 0 the probabilities are dropped by the mask of call
     seed `seed`.
 

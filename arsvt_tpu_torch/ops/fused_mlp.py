@@ -16,11 +16,14 @@ kernels' arithmetic in plain PyTorch. There is no fallback from one to the
 other. bf16 runs on Hopper's wgmma fed by TMA (``csrc/mlp_gemm.cuh``), two
 launches a call in each direction; the forward's hidden h makes one round
 trip through a scratch the wrapper allocates. fp32, the parity path, runs
-on the row-tile kernel (``csrc/mlp_tile.cuh``). The kernels take D and M
-that are multiples of 8; fp32 takes D up to what the row-tile kernel's
-staged rows leave of a block's shared memory (``mlp_tile.cuh::max_d``,
-1,728), and a launch past it raises a ValueError that names the bound;
-bf16 has no such bound.
+on the row-tile kernel (``csrc/mlp_tile.cuh``). The kernels take any D and
+M >= 1, as JAX's kernels do: where both are multiples of 8 and every
+pointer is 16-byte aligned they copy rows by TMA (bf16) or 16-byte
+cp.async (fp32); elsewhere they take their ragged route, which loads and
+stores the edges of rows element by element, with the same arithmetic.
+fp32 takes D up to what the row-tile kernel's staged rows leave of a
+block's shared memory (``mlp_tile.cuh::max_d``, 1,728), and a launch past
+it raises a ValueError that names the bound; bf16 has no such bound.
 """
 
 from __future__ import annotations
@@ -73,10 +76,8 @@ def _check(x2d, w1, w2) -> tuple[int, int, int]:
             w2.dtype != x2d.dtype:
         raise TypeError(f"fused MLP takes x, w1 and w2 all float32 or all "
                         f"bfloat16, got {x2d.dtype}, {w1.dtype}, {w2.dtype}")
-    if n < 1 or d % 8 or m % 8 or d < 8 or m < 8:
-        raise ValueError(f"fused MLP needs n >= 1 and D, M positive "
-                         f"multiples of 8 (the kernels copy rows of x, u and "
-                         f"the weights in 16-byte vectors), got n={n} D={d} "
+    if min(n, d, m) < 1:
+        raise ValueError(f"fused MLP needs n, D and M >= 1, got n={n} D={d} "
                          f"M={m}")
     return n, d, m
 
@@ -110,10 +111,8 @@ def _cuda_args(tensors, what: str) -> None:
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what} runs on cpu or cuda with every input on "
                          "one device")
-    for t in tensors:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{what} needs contiguous, 16-byte aligned "
-                             "inputs")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous inputs")
 
 
 def fused_mlp_fwd_plain(x2d, w1, b1, w2, b2):

@@ -19,20 +19,28 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
 3. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes in bf16 and fp32 plus odd shapes (#1 also at S = 1
    and ViT-L's S = 577; #3 over d in {1, 16, 50, 96, 128}, Sq in {1, 5,
-   198}, Sk in {1, 33, 198}, kv_len below Sk on every other shape), then
+   198}, Sk in {1, 33, 198}, kv_len below Sk on every other shape, and
+   #3/#4 past d = 128 at d = 129, 192, 256 and 320 with kv_len < Sk, #4
+   also with dropout at d = 192, and both timed at d = 256 beside d =
+   128), then
    timed with CUDA events beside its bound and a library call on the same
    work (the factor is ms over library ms; #1 and #3 also give the device
    time with launches queued behind a spin kernel, free of the host's
    pace at B=1); the
    head-major kernels (#3 with dropout, #4) also at one detector train
    step's shapes, and probes that read back the dropout mask each of
-   their three launches used; the save-probs attention kernels (#5, #6)
+   their three launches used (d = 33, 96 and 192); #7 on ViT-B's leaf
+   set, odd sizes and two leaves that are views one float into their
+   storage, timed host-paced and held (device ms, host us a call) beside
+   the fused torch.optim.AdamW step; the save-probs attention kernels (#5, #6)
    (also at the edges of their 64-row tiles, S in {1, 63, 64, 65, 128},
    at B = 1 and at ViT-L's S = 577) and the fused-MLP kernels (#8, #9) at
    the ``bench_train`` microbatch (B = 32, n = 6,304 rows) and odd sizes
    (n = 591 and 594, D = 400, M = 1,600), at ViT-L's width (D = 1,024, M
-   = 4,096, n = 9,232 and 1,731) and, in bf16, at ViT-H's (D = 1,280, M
-   = 5,120, n = 257); the dropout branches of #1,
+   = 4,096, n = 9,232 and 1,731), in bf16 at ViT-H's (D = 1,280, M
+   = 5,120, n = 257), and on their ragged route at (D, M) = (12, 20),
+   (37, 75) and (100, 300) in both dtypes (timed at D = 770, M = 3,070
+   beside D = 776, M = 3,072); the dropout branches of #1,
    #2, #5 and #6 at dropout 0.1 (B = 32, S = 65 and an odd shape, bf16
    and fp32), a probe that reads back the mask of each of their six
    launches, and their times beside dropout 0;
@@ -226,6 +234,22 @@ def device_ms(fn, iters: int, warmup: int = 5,
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int, warmup: int = 5) -> float:
+    """The host's us a call returns in (the wrapper's own work: checks,
+    tables, launch), each call made on an idle card, as a training step
+    makes it, and timed without the synchronize that follows."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e6
+
+
 def seeded_qkv(b, s, d, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
     return torch.randn(b, s, 3 * d, generator=gen).to(dtype).cuda()
@@ -369,6 +393,16 @@ FLASH_EDGE_SQ = (1, 5, 198)
 FLASH_EDGE_SK = (1, 33, 198)
 
 
+# Head dims past 128 (attention_wide.cuh: 64-column output slices; d = 129
+# leaves one column in its last slice; 129 is staged element by element in
+# bf16), each with kv_len < Sk, over one to three row tiles and key chunks:
+# (name, B, H, Sq, Sk, d, kv_len)
+FLASH_WIDE_CASES = [("wide_d129", 2, 3, 70, 150, 129, 100),
+                    ("wide_d192", 2, 2, 65, 198, 192, 150),
+                    ("wide_d256", 1, 4, 130, 66, 256, 40),
+                    ("wide_d320", 2, 2, 5, 196, 320, 120)]
+
+
 def flash_edge_cases() -> list[tuple]:
     """(name, B, H, Sq, Sk, d, kv_len) over FLASH_EDGE_D x _SQ x _SK."""
     cases = []
@@ -393,7 +427,7 @@ def phase_flash_checks() -> dict:
              for b in (1, 8)]
     cases += [("odd_kv_len", 3, 2, 17, 33, 50, 20),
               ("one_query", 2, 4, 1, 77, 128, 77)]
-    cases += flash_edge_cases()
+    cases += flash_edge_cases() + FLASH_WIDE_CASES
     errs = {}
     for i, (name, b, h, sq, sk, d, kv_len) in enumerate(cases):
         for j, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -568,6 +602,8 @@ def phase_flash_train_checks() -> dict:
     cases += FLASH_BWD_EDGE_CASES
     cases += [(f"{name}_dropout", *shape, shape[3], DROPOUT_RATE)
               for name, shape in FLASH_TRAIN_SHAPES.items()]
+    cases += [(*case, 0.0) for case in FLASH_WIDE_CASES]
+    cases += [("wide_d192_dropout", 2, 2, 65, 198, 192, 150, DROPOUT_RATE)]
     errs = {}
     for i, (name, b, h, sq, sk, d, kv_len, rate) in enumerate(cases):
         for j, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -615,8 +651,9 @@ def phase_flash_train_checks() -> dict:
             errs[key] = max(rec[f"max_abs_err_{n}"]
                             for n in ("dq", "dk", "dv"))
 
-    # d = Sk = 96: #3 stages by cp.async; 33: element by element
-    for shape in ((4, 5, 70, 96), (2, 3, 17, 33)):
+    # d = Sk = 96: #3 stages by cp.async; 33: element by element; 192: the
+    # wide kernels, three output slices drawing one mask
+    for shape in ((4, 5, 70, 96), (2, 3, 17, 33), (2, 3, 70, 192)):
         mismatches = mask_probe(*shape, DROPOUT_SEED)
         log(json.dumps({"check": "dropout mask probe", "shape": shape,
                         "rate": DROPOUT_RATE, "mismatches": mismatches}))
@@ -668,8 +705,48 @@ def phase_flash_train_checks() -> dict:
                 "fwd_library_ms": lib_fwd_ms, "fwd_bound_ms": fwd_bound_ms,
                 "fwd_bound_by": fwd_bound_by,
                 "fwd_factor": fwd_ms / lib_fwd_ms}))
+    for shape in FLASH_WIDE_TIMED:
+        time_flash_wide(*shape)
     return {"max_abs_err": errs["deit_encoder_B32_bfloat16"],
             **timings[("deit_encoder_B32", 0.0)]}
+
+
+# (B, H, Sq, Sk, d) timed in bf16 past d = 128 beside the widest d of the
+# kernels that hold a row's whole d in registers: a block of the wide
+# kernels redoes the scores for each of its row tile's 64-column output
+# slices
+FLASH_WIDE_TIMED = [(8, 8, 198, 198, 128), (8, 8, 198, 198, 256)]
+
+
+def time_flash_wide(b, h, sq, sk, d) -> None:
+    """#3 and #4 at (B, H, Sq, Sk, d) in bf16: host-paced and held device
+    ms beside their bounds and SDPA's forward and backward (forward and
+    backward less forward) on the same inputs."""
+    q, k, v = seeded_heads(b, h, sq, sk, d, torch.bfloat16, seed=22)
+    gen = torch.Generator().manual_seed(23)
+    do = torch.randn(b, h, sq, d, generator=gen).to(torch.bfloat16).cuda()
+    out, lse = flash_attention.flash_attention_fwd(q, k, v)
+
+    def fwd():
+        flash_attention.flash_attention_fwd(q, k, v)
+
+    def bwd():
+        flash_attention.flash_attention_bwd(q, k, v, out, do, lse)
+
+    lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                         iters=50)
+    log(json.dumps({
+        "timing": "flash_attention wide", "B": b, "H": h, "Sq": sq,
+        "Sk": sk, "d": d, "dtype": "bfloat16",
+        "fwd_ms": cuda_ms(fwd, iters=50),
+        "fwd_device_ms": device_ms(fwd, iters=50),
+        "fwd_bound_ms": flash_bound(b, h, sq, sk, d)[0],
+        "fwd_library_ms": lib_fwd_ms,
+        "bwd_ms": cuda_ms(bwd, iters=50),
+        "bwd_device_ms": device_ms(bwd, iters=50),
+        "bwd_bound_ms": flash_bwd_bound(b, h, sq, sk, d)[0],
+        "bwd_library_ms": library_flash_fwd_bwd_ms(q, k, v, do, 0.0)
+        - lib_fwd_ms}))
 
 
 # Backward kernel against its plain version. fp32: the same fp32 arithmetic
@@ -1151,7 +1228,8 @@ TOL_U_ABS = 2.0 ** -10
 # microbatch (16 x 577 rows, D = 1,024; fp32 in two slices of 512
 # columns) and an odd n at that width; one image of ViT-H/14's MLP (D =
 # 1,280, M = 5,120), past the fp32 row-tile kernel's bound on D, which
-# bf16 does not have
+# bf16 does not have; widths that are not multiples of 8 (the kernels'
+# ragged route), in both dtypes
 MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (6304, 768, 3072, torch.float32),
              (591, 768, 3072, torch.bfloat16),
@@ -1161,7 +1239,16 @@ MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (9232, 1024, 4096, torch.bfloat16),
              (9232, 1024, 4096, torch.float32),
              (1731, 1024, 4096, torch.bfloat16),
-             (257, 1280, 5120, torch.bfloat16)]
+             (257, 1280, 5120, torch.bfloat16),
+             (197, 12, 20, torch.bfloat16),
+             (197, 12, 20, torch.float32),
+             (591, 37, 75, torch.bfloat16),
+             (591, 37, 75, torch.float32),
+             (1234, 100, 300, torch.bfloat16),
+             (1234, 100, 300, torch.float32)]
+# (n, D, M) timed on the ragged route in bf16, beside the aligned
+# neighbour it rounds up to
+MLP_RAGGED_TIMED = [(6304, 770, 3070), (6304, 776, 3072)]
 # (n, D, M) timed: the bench_train microbatch (its record is the kernels
 # line's) and ViT-L's
 MLP_TIMED = [(6304, 768, 3072), (9232, 1024, 4096)]
@@ -1305,6 +1392,17 @@ def phase_mlp_checks() -> tuple[dict, dict]:
     recs = {}
     for n, d, m in MLP_TIMED:
         recs[(n, d, m)] = _time_mlp(n, d, m, errs)
+    for n, d, m in MLP_RAGGED_TIMED:
+        x, w1, b1, w2, b2 = seeded_mlp(n, d, m, torch.bfloat16, seed=18)
+        _, u = fused_mlp.fused_mlp_fwd(x, w1, b1, w2, b2)
+        log(json.dumps({
+            "timing": "fused_mlp ragged route" if d % 8 or m % 8 else
+                      "fused_mlp aligned neighbour",
+            "n": n, "D": d, "M": m, "dtype": "bfloat16",
+            "fwd_ms": cuda_ms(lambda: fused_mlp.fused_mlp_fwd(
+                x, w1, b1, w2, b2), iters=10, warmup=2),
+            "bwd_ms": cuda_ms(lambda: fused_mlp.fused_mlp_bwd(
+                x, u, w1, w2, x), iters=10, warmup=2)}))
     return recs[MLP_TIMED[0]]
 
 
@@ -1356,13 +1454,48 @@ def adamw_leaves(tree, gen):
     return out
 
 
+def offset_leaf(n, gen, which: str):
+    """Random (g, m, v, p) of n floats on the card; the operands named in
+    `which` are views one float into their storage, 4 bytes past a 16-byte
+    boundary."""
+    vals = {"g": torch.randn(n, generator=gen) * 1e-3,
+            "m": torch.randn(n, generator=gen) * 1e-4,
+            "v": torch.rand(n, generator=gen) * 1e-6,
+            "p": torch.randn(n, generator=gen) * 0.02}
+    out = []
+    for name, x in vals.items():
+        if name in which:
+            storage = torch.zeros(n + 1, device="cuda")
+            storage[1:] = x.cuda()
+            out.append(storage[1:])
+        else:
+            out.append(x.cuda())
+    return tuple(out)
+
+
+# Cycles the card is held a call while the host enqueues #7 or the fused
+# torch.optim.AdamW step: 4 ms at 2 GHz, above either one's host time
+# (the argument checks and pointers over 152 leaves; the optimizer's
+# Python and its per-leaf lists).
+ADAMW_HOLD_CYCLES = 8_000_000
+
+
 def phase_adamw_checks(cfg) -> dict:
+    """#7 against its plain version on the ViT-B leaf set, odd sizes and
+    two leaves that are views one float into their storage (all four
+    operands: a scalar head, then float4s; p alone: mixed 16-byte phases,
+    scalar throughout); then timed on the ViT-B leaf set, host-paced, held
+    (device ms) and on the host alone (us a call), beside the fused
+    torch.optim.AdamW step on the same leaves."""
     tree = init_image_classifier(cfg, 6, seed=0)
-    tree["odd"] = {"a": torch.zeros(7), "b": torch.zeros(1000, 3),
-                   "c": torch.zeros(13, 129), "d": torch.zeros(2049)}
-    decayed = tree_leaves(_wd_mask(tree))
+    odd = {"a": torch.zeros(7), "b": torch.zeros(1000, 3),
+           "c": torch.zeros(13, 129), "d": torch.zeros(2049)}
     gen = torch.Generator().manual_seed(11)
-    leaves = adamw_leaves(tree, gen)
+    vit = adamw_leaves(tree, gen)
+    vflags = tree_leaves(_wd_mask(tree))
+    leaves = vit + adamw_leaves(odd, gen) + [
+        offset_leaf(100_003, gen, "gmvp"), offset_leaf(70_001, gen, "p")]
+    decayed = vflags + tree_leaves(_wd_mask(odd)) + [True, False]
     n = sum(p.numel() for *_, p in leaves)
     scalars = torch.tensor([0.5, 0.1, 0.001, 1e-3], device="cuda")
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
@@ -1381,12 +1514,14 @@ def phase_adamw_checks(cfg) -> dict:
                             f"{err}")
 
     # timing on the ViT-B leaf set alone
-    vit = leaves[:-4]
-    vflags = decayed[:-4]
     n_vit = sum(p.numel() for *_, p in vit)
     grads, ms_, vs, ps = (list(t) for t in zip(*vit))
-    ms = cuda_ms(lambda: fused_adamw.fused_adamw(
-        scalars, grads, ms_, vs, ps, vflags, **hyper), iters=20)
+
+    def call():
+        fused_adamw.fused_adamw(scalars, grads, ms_, vs, ps, vflags, **hyper)
+
+    ms = cuda_ms(call, iters=20)
+    dev_ms = device_ms(call, iters=20, hold_cycles=ADAMW_HOLD_CYCLES)
 
     plain_ms = cuda_ms(lambda: fused_adamw.adamw_plain_update(
         scalars, grads, ms_, vs, ps, vflags, **hyper), iters=3, warmup=1)
@@ -1395,13 +1530,20 @@ def phase_adamw_checks(cfg) -> dict:
         p.grad = g.clone()
     opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=0.05, fused=True)
     library_ms = cuda_ms(opt.step, iters=20)
+    lib_dev_ms = device_ms(opt.step, iters=20, hold_cycles=ADAMW_HOLD_CYCLES)
     nbytes = 28 * n_vit
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": "bytes"}
     log(json.dumps({"timing": "fused_adamw", "params": n_vit,
                     "leaves": len(vit), "bytes": nbytes, **rec,
-                    **shares(ms, bound_ms, library_ms)}))
+                    **shares(ms, bound_ms, library_ms),
+                    "device_ms": dev_ms, "host_us": host_us(call, 20),
+                    "library_device_ms": lib_dev_ms,
+                    "library_host_us": host_us(opt.step, 20),
+                    "device_bound_share": bound_ms / dev_ms,
+                    "device_factor": dev_ms / lib_dev_ms,
+                    "library": "torch.optim.AdamW(fused=True).step"}))
     return {"max_abs_err": err, **rec}
 
 
@@ -2917,7 +3059,7 @@ def phase_build_report(built: dict) -> None:
     bf16 kernel of the attention libraries, HGMMA in every bf16 kernel of
     the fused MLP's."""
     for row in ptxas_report(built):
-        if row["library"] in TENSOR_CORE_LIBRARIES:
+        if row["library"] in TENSOR_CORE_LIBRARIES + ("fused_adamw",):
             log(json.dumps({"ptxas": row}))
             check(not is_bf16_kernel(row["entry"]) or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0

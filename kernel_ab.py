@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention and fused-MLP kernels of several kernel source trees
-in one process on one card, in turns, at the main paths' shapes.
+"""Time the attention, fused-MLP and AdamW kernels of several kernel source
+trees in one process on one card, in turns, at the main paths' shapes.
 
     python3 kernel_ab.py TREE [TREE ...]
 
@@ -10,34 +10,40 @@ arsvt_tpu_torch/csrc`` unpacked under a git-ignored directory (``build/``).
 From each tree, kernel #1 (``encoder_attention_fwd.cu``), #2
 (``encoder_attention_bwd.cu``), #3 (``flash_attention_fwd.cu``), #4
 (``flash_attention_bwd.cu``), #5 (``encoder_attention_savep_fwd.cu``), #6
-(``encoder_attention_savep_bwd.cu``), #8 (``fused_mlp_fwd.cu``) and #9
-(``fused_mlp_bwd.cu``) are built with this checkout's nvcc flags into
-``build/kernel_ab/<n>/`` (one nvcc each, all started together, without
-GNU-unique symbols: see ``AB_FLAGS``) and bound
+(``encoder_attention_savep_bwd.cu``), #7 (``fused_adamw.cu``), #8
+(``fused_mlp_fwd.cu``) and #9 (``fused_mlp_bwd.cu``) are built with this
+checkout's nvcc flags into ``build/kernel_ab/<n>/`` (one nvcc each, all
+started together, without GNU-unique symbols: see ``AB_FLAGS``) and bound
 in turn to this checkout's wrappers, each tree through the C interface it
 exports (#8's forward takes an h scratch since interface 2, which
 ``arsvt_fused_mlp_version`` names; a tree without that symbol is called
-without it). Each tree's outputs are held once against the plain version,
-at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse; #2/#4/#6:
-dq, dk and dv; #5: O and P; #8: out and u; #9: dx, dw1, db1 and dw2). Then, per
-shape, the trees are timed in turns (1..n, then n..1), each turn giving
-``ms`` over launches issued back to back (at B=1 the host's pace) and
-``device_ms`` over launches queued behind a spin kernel (the card's own
-time). Shapes: #1 at ViT-B/16's B = 1, 8 and 32 (and dropout 0.1 at B =
-32); #2 at the same and at ViT-L/16@384's S = 577 (B = 2, D = 1,024, H =
-16); #3 at the detector paths' shapes; #4 at the DeiT-400 encoder's
-training shape (B = 32) with dropout 0 and 0.1, the DETR
-cross-attention's and d = 96; #5 and #6 at B = 8 and 32 with
-dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2, D = 1,024, H = 16);
-#8 and #9 in bf16 at ViT-B's bench_train microbatch (n = 6,304, D = 768,
-M = 3,072), ViT-L's (9,232, 1,024, 4,096), DeiT-400's three images (594,
-400, 1,600) and one ViT-B image (197, 768, 3,072: the host's cost a call,
-from ``ms`` against ``device_ms``). Prints the card's name and power
-limit, each tree's ``-Xptxas=-v`` rows, one JSON line per tree, shape and
-turn, and one summary line per shape: each tree's mean over its turns
-and the library's time on the same inputs (SDPA; for #2, #4 and #6,
-SDPA's forward and backward less its forward; for #8 the cuBLAS MLP, for #9 its
-backward, i.e. forward and backward less forward).
+without it; #7 takes a chunk table and the leaves' pointers since its
+interface 2, ``arsvt_fused_adamw_version``, and a tree without it gets the
+table of one row per leaf that its own wrapper built, see
+`legacy_adamw`). Each tree's outputs are held once against the plain
+version, at the limits of ``chip_smoke.py`` phase 3 (#1/#3: O and lse;
+#2/#4/#6: dq, dk and dv; #5: O and P; #7: p, m and v on every leaf; #8:
+out and u; #9: dx, dw1, db1 and dw2). Then, per shape, the trees are timed
+in turns (1..n, then n..1), each turn giving ``ms`` over launches issued
+back to back (at B=1 the host's pace), ``device_ms`` over launches queued
+behind a spin kernel (the card's own time) and ``host_us``, the host's
+time a call on an idle card (`chip_smoke.host_us`). Shapes: #1 at
+ViT-B/16's B = 1, 8 and 32 (and dropout 0.1 at B = 32); #2 at the same and
+at ViT-L/16@384's S = 577 (B = 2, D = 1,024, H = 16); #3 at the detector
+paths' shapes; #4 at the DeiT-400 encoder's training shape (B = 32) with
+dropout 0 and 0.1, the DETR cross-attention's and d = 96; #5 and #6 at B =
+8 and 32 with dropout 0 and 0.1, and #5 at ViT-L's S = 577 (B = 2, D =
+1,024, H = 16); #8 and #9 in bf16 at ViT-B's bench_train microbatch (n =
+6,304, D = 768, M = 3,072), ViT-L's (9,232, 1,024, 4,096), DeiT-400's
+three images (594, 400, 1,600) and one ViT-B image (197, 768, 3,072: the
+host's cost a call, from ``ms`` against ``device_ms``); #7 over ViT-B/16's
+leaf set (85.8 M fp32 parameters), held 4 ms a call. Prints the card's
+name and power limit, each tree's ``-Xptxas=-v`` rows, one JSON line per
+tree, shape and turn, and one summary line per shape: each tree's mean
+over its turns and the library's time on the same inputs (SDPA; for #2,
+#4 and #6, SDPA's forward and backward less its forward; for #8 the
+cuBLAS MLP, for #9 its backward, i.e. forward and backward less forward;
+for #7 ``torch.optim.AdamW(fused=True).step`` on the same leaves).
 
 Run from the root of a checkout on a machine with the card and the CUDA
 toolkit; it imports nothing of JAX.
@@ -54,23 +60,32 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from arsvt_tpu_torch.core.dtypes import tree_leaves
+from arsvt_tpu_torch.models.classifier import init_image_classifier
+from arsvt_tpu_torch.models.registry import PRESETS
 from arsvt_tpu_torch.ops import (
     build,
     encoder_attention,
     flash_attention,
+    fused_adamw,
     fused_mlp,
 )
+from arsvt_tpu_torch.train.optim import _wd_mask
 from chip_smoke import (
+    ADAMW_HOLD_CYCLES,
     DROPOUT_RATE,
     DROPOUT_SEED,
     FLASH_PATH_SHAPES,
     FLASH_TRAIN_SHAPES,
+    HBM_BYTES_PER_S,
     HOLD_CYCLES_PER_CALL,
+    TOL_ADAMW,
     TOL_BF16,
     TOL_BF16_ULP,
     TOL_BWD_BF16,
     TOL_LSE,
     TOL_U_ABS,
+    adamw_leaves,
     attention_bound,
     bwd_bound,
     check,
@@ -79,6 +94,7 @@ from chip_smoke import (
     flash_bound,
     flash_bwd_bound,
     flash_limit,
+    host_us,
     library_attention,
     library_mlp,
     max_err,
@@ -104,6 +120,7 @@ KERNELS = {
                                     "_savep_bwd_kernel"),
     "fused_mlp_fwd": (fused_mlp, "_fwd_fn", "_fwd_kernel"),
     "fused_mlp_bwd": (fused_mlp, "_bwd_fn", "_bwd_kernel"),
+    "fused_adamw": (fused_adamw, "_fn", "_kernel"),
 }
 # (atol, rtol) per output, |kernel - plain| <= atol + rtol * |plain|
 LIMITS = {"encoder_attention_fwd": ((TOL_BF16, TOL_BF16), (TOL_LSE, 0.0)),
@@ -164,19 +181,73 @@ def fwd_without_scratch(lib: ctypes.CDLL):
     return call
 
 
+def legacy_adamw(lib: ctypes.CDLL):
+    """#7 of a tree from before interface 2 (no chunk table), called as its
+    own wrapper called it, checks included (so that ``host_us`` compares
+    wrappers): a table of one 64-byte row per leaf (g, m, v, p, numel,
+    first block, decayed, 0), built from a Python list and copied through a
+    fresh pinned tensor every call, and one block per
+    ``arsvt_fused_adamw_elems_per_block`` elements of every leaf."""
+    fn = lib.arsvt_fused_adamw
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p] + [ctypes.c_float] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.arsvt_fused_adamw_elems_per_block.restype = ctypes.c_int
+    per_block = lib.arsvt_fused_adamw_elems_per_block()
+
+    def call(scalars, grads, ms, vs, ps, decayed, *, b1, b2, eps, wd):
+        leaves = list(zip(grads, ms, vs, ps))
+        device = ps[0].device
+        for leaf in leaves:
+            shape = leaf[3].shape
+            for t in leaf:
+                check(t.dtype == torch.float32 and t.shape == shape
+                      and t.device == device, "fused_adamw leaf")
+        check(scalars.shape == (4,) and scalars.dtype == torch.float32
+              and scalars.device == device, "fused_adamw scalars")
+        for leaf in leaves:
+            for t in leaf:
+                check(t.is_contiguous(), "fused_adamw contiguity")
+        rows, first = [], 0
+        for g, m, v, p, d in zip(grads, ms, vs, ps, decayed):
+            rows.append([g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                         p.data_ptr(), p.numel(), first, int(d), 0])
+            first += -(-p.numel() // per_block)
+        table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            ps[0].device, non_blocking=True)
+        err = fn(table.data_ptr(), len(rows), first, scalars.data_ptr(), b1,
+                 b2, eps, wd, 1.0 - b1, 1.0 - b2,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"fused_adamw launch failed: CUDA error {err}")
+
+    return call
+
+
+# The #7 entry of the bound tree: the wrapper, or `legacy_adamw`'s caller.
+ADAMW = {"call": fused_adamw.fused_adamw}
+
+
 def bind(lib_paths: dict) -> None:
     """Point each wrapper at this tree's library: the wrapper's own loader
-    sets the C signature, or, for #8 of a tree that predates interface 2,
-    the adapter above."""
+    sets the C signature, or, for #8 and #7 of a tree that predates their
+    interface 2, the adapters above."""
     real = build.load
     build.load = lambda name: ctypes.CDLL(str(lib_paths[name]))
     try:
-        for module, fn, loader in KERNELS.values():
+        for name, (module, fn, loader) in KERNELS.items():
             setattr(module, fn, None)
+            lib = build.load(name)
+            if name == "fused_adamw" and not hasattr(
+                    lib, "arsvt_fused_adamw_version"):
+                ADAMW["call"] = legacy_adamw(lib)
+                continue
+            if name == "fused_adamw":
+                ADAMW["call"] = fused_adamw.fused_adamw
             getattr(module, loader)()
-        lib = build.load("fused_mlp_fwd")
-        if not hasattr(lib, "arsvt_fused_mlp_version"):
-            fused_mlp._fwd_fn = fwd_without_scratch(lib)
+            if name == "fused_mlp_fwd" and not hasattr(
+                    lib, "arsvt_fused_mlp_version"):
+                fused_mlp._fwd_fn = fwd_without_scratch(lib)
     finally:
         build.load = real
 
@@ -310,10 +381,9 @@ def bwd_shapes() -> list[dict]:
     return out
 
 
-def shapes() -> list[dict]:
-    """The timed calls: #1 at the ViT-B/16 microbatch shapes (and with
-    dropout at B=32), #3 at the detector paths' shapes, then #2 and #4,
-    #5 and #6, then #8 and #9."""
+def fwd_shapes() -> list[dict]:
+    """#1 at the ViT-B/16 microbatch shapes (and with dropout at B=32), #3
+    at the detector paths' shapes."""
     out = []
     for b in (1, 8, 32):
         for rate in ((0.0, DROPOUT_RATE) if b == 32 else (0.0,)):
@@ -345,7 +415,56 @@ def shapes() -> list[dict]:
                 "library": lambda q=q, k=k, v=v:
                     F.scaled_dot_product_attention(q, k, v),
                 "bound": flash_bound(b, h, sq, sk, d)})
-    return out + bwd_shapes() + savep_shapes() + mlp_shapes()
+    return out
+
+
+def shapes() -> list[dict]:
+    """The timed calls: #1 and #3, then #2 and #4, #5 and #6, #8 and #9,
+    then #7."""
+    return fwd_shapes() + bwd_shapes() + savep_shapes() + mlp_shapes() + \
+        adamw_shapes()
+
+
+def adamw_shapes() -> list[dict]:
+    """#7 over ViT-B/16's leaf set (seeded g, m, v, p, the weight-decay
+    mask of the tree), chip_smoke.py phase 3's scalars and hyperparameters;
+    the library is the fused torch.optim.AdamW step on copies of the same
+    leaves."""
+    tree = init_image_classifier(PRESETS["vit_base_16_224"], 6, seed=0)
+    leaves = adamw_leaves(tree, torch.Generator().manual_seed(11))
+    decayed = tree_leaves(_wd_mask(tree))
+    scalars = torch.tensor([0.5, 0.1, 0.001, 1e-3], device="cuda")
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
+    grads, ms, vs, ps = (list(t) for t in zip(*leaves))
+    params = [p.clone().requires_grad_(True) for p in ps]
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=0.05, fused=True)
+    n = sum(p.numel() for p in ps)
+    nbytes = 28 * n
+    return [{
+        "kernel": "fused_adamw",
+        "shape": {"params": n, "leaves": len(ps)},
+        "call": lambda: ADAMW["call"](scalars, grads, ms, vs, ps, decayed,
+                                      **hyper),
+        "adamw": (scalars, leaves, decayed, hyper),
+        "library": opt.step, "hold_cycles": ADAMW_HOLD_CYCLES,
+        "bound": (nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes, 0)}]
+
+
+def hold_adamw(case: dict) -> None:
+    """One call on copies of the leaves against `adamw_plain` on every
+    leaf: p, m and v within TOL_ADAMW."""
+    scalars, leaves, decayed, hyper = case["adamw"]
+    work = [tuple(t.clone() for t in leaf) for leaf in leaves]
+    ADAMW["call"](scalars, *(list(t) for t in zip(*work)), decayed, **hyper)
+    torch.cuda.synchronize()
+    for (g, m, v, p), (_, m2, v2, p2), d in zip(leaves, work, decayed):
+        ref = fused_adamw.adamw_plain(
+            scalars, g, m, v, p, **{**hyper, "wd": hyper["wd"] if d else 0.0})
+        err = max(max_err(x, r) for x, r in zip((p2, m2, v2), ref))
+        check(err <= TOL_ADAMW, f"fused_adamw disagrees with its plain "
+                                f"version: {err}")
 
 
 def library_mlp_bwd(x, w1, b1, w2, b2, dout):
@@ -409,6 +528,9 @@ def hold_mlp(case: dict, got, ref) -> None:
 def hold(case: dict) -> None:
     """The bound tree's outputs against the plain version's, each at its
     limit."""
+    if case["kernel"] == "fused_adamw":
+        hold_adamw(case)
+        return
     got, ref = case["call"](), case["plain"]()
     torch.cuda.synchronize()
     if case["kernel"] in ("fused_mlp_fwd", "fused_mlp_bwd"):
@@ -436,12 +558,15 @@ LIBRARY_HOLD_CYCLES = 4 * HOLD_CYCLES_PER_CALL
 
 
 def library_times(case: dict) -> dict:
-    """SDPA's host-paced and held-device time on the case's inputs (less
-    its forward's, where the case names one). The held-device time is None
-    where the host cannot enqueue SDPA's calls within the hold."""
+    """The library's host-paced and held-device time on the case's inputs
+    (less its forward's, where the case names one). The held-device time is
+    None where the host cannot enqueue the library's calls within the
+    hold."""
+    hold = case.get("hold_cycles", LIBRARY_HOLD_CYCLES)
+
     def held(fn):
         try:
-            return device_ms(fn, iters=100, hold_cycles=LIBRARY_HOLD_CYCLES)
+            return device_ms(fn, iters=100, hold_cycles=hold)
         except RuntimeError:
             return None
 
@@ -476,7 +601,11 @@ def main() -> int:
         for turn, i in enumerate(order):
             bind(libs[i])
             rec = {"ms": cuda_ms(case["call"], iters=100),
-                   "device_ms": device_ms(case["call"], iters=100)}
+                   "device_ms": device_ms(case["call"], iters=100,
+                                          hold_cycles=case.get(
+                                              "hold_cycles",
+                                              HOLD_CYCLES_PER_CALL)),
+                   "host_us": host_us(case["call"], iters=20)}
             times[i].append(rec)
             print(json.dumps({"ab": case["kernel"], **case["shape"],
                               "tree": i, "turn": turn, **rec}), flush=True)
@@ -485,7 +614,7 @@ def main() -> int:
                    **library_times(case),
                    "bound_ms": bound_ms, "bound_by": bound_by}
         for i, recs in times.items():
-            for key in ("ms", "device_ms"):
+            for key in ("ms", "device_ms", "host_us"):
                 summary[f"tree{i}_{key}"] = sum(r[key] for r in recs) / len(
                     recs)
         print(json.dumps(summary), flush=True)

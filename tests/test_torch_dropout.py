@@ -114,8 +114,10 @@ def _jax_masked(mask, rate):
     return f
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 21, 21, 16), (2, 2, 5, 40, 50)],
-                         ids=["self_d16", "cross_d50"])
+@pytest.mark.parametrize("shape", [(2, 3, 21, 21, 16), (2, 2, 5, 40, 50),
+                                   (1, 2, 17, 17, 192), (1, 2, 5, 33, 320)],
+                         ids=["self_d16", "cross_d50", "self_d192",
+                              "cross_d320"])
 def test_attention_dropout_matches_jax_masked_formula(shape):
     """Forward and gradients of the port's flash_attention with dropout
     against JAX's masked softmax fed the port's mask; fp32, 1e-5."""

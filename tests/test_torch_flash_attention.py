@@ -49,7 +49,9 @@ TOL_LSE = 2e-5
 # (d=96) over 196 patch tokens, a masked odd case, and one query row; then
 # the edges of the kernel's tiles: one head dim (padded to 16) with masked
 # keys, the widest head over one key, and masked keys past three of four
-# key chunks
+# key chunks; then head dims past 128, which the kernels split into
+# 64-column output slices (d = 129: one column in the last slice), with
+# masked keys on three of them
 SHAPES = {
     "encoder_d16": (1, 3, 198, 198, 16, 198),
     "cross_d50": (2, 8, 5, 196, 50, 196),
@@ -58,6 +60,10 @@ SHAPES = {
     "edge_d1_kvlen": (2, 2, 33, 33, 1, 20),
     "edge_d128_one_key": (2, 2, 17, 1, 128, 1),
     "edge_d16_kvlen": (2, 3, 5, 198, 16, 150),
+    "wide_d129_kvlen": (1, 2, 17, 33, 129, 20),
+    "wide_d192": (1, 2, 9, 70, 192, 70),
+    "wide_d256_kvlen": (1, 1, 65, 40, 256, 31),
+    "wide_d320_kvlen": (2, 1, 5, 66, 320, 50),
 }
 
 
@@ -172,8 +178,7 @@ _K = torch.zeros(1, 2, 9, 16)
     (_Q, _K, _K[..., :8], {}, ValueError, "k and v must be"),
     (_Q, _K[..., :8], _K[..., :8], {}, ValueError, "k and v must be"),
     (_Q[:, :, :0], _K, _K, {}, ValueError, "empty"),
-    (torch.zeros(1, 1, 2, 129), torch.zeros(1, 1, 3, 129),
-     torch.zeros(1, 1, 3, 129), {}, ValueError, "head_dim 129"),
+    (_Q, _K, _K, {"dropout_rate": 1.0}, ValueError, "dropout rate"),
     (_Q, _K, _K, {"kv_len": 0}, ValueError, "kv_len"),
     (_Q, _K, _K, {"kv_len": 10}, ValueError, "kv_len"),
     (_Q.half(), _K.half(), _K.half(), {}, TypeError, "float32 or bfloat16"),

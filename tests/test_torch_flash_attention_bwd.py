@@ -46,7 +46,9 @@ TOL = {"float32": dict(atol=1e-5, rtol=0.0),
 # sequence, the DETR cross-attention (d=50, Sq=5 < Sk), a masked odd case
 # (kv_len < Sk) and 100-byte bf16 rows with Sq > Sk; at the edges of the
 # kernel's tiles of 64 queries and 64 keys and of its padded head dims: d
-# = 1, the widest d = 128 (masked), and Sq = 65 against Sk = 64
+# = 1, the widest d = 128 (masked), and Sq = 65 against Sk = 64; head
+# dims past 128, which the kernels split into 64-column output slices,
+# with masked keys on three of them
 SHAPES = {
     "encoder_d16": (2, 3, 37, 37, 16, 37),
     "cross_d50": (2, 2, 5, 70, 50, 70),
@@ -55,6 +57,10 @@ SHAPES = {
     "edge_d1": (1, 2, 20, 33, 1, 33),
     "edge_d128": (1, 1, 17, 66, 128, 40),
     "edge_sq65_sk64": (1, 2, 65, 64, 16, 64),
+    "wide_d129_kvlen": (1, 2, 17, 33, 129, 20),
+    "wide_d192": (1, 1, 9, 70, 192, 70),
+    "wide_d256_kvlen": (1, 1, 65, 40, 256, 31),
+    "wide_d320_kvlen": (1, 1, 5, 66, 320, 50),
 }
 
 

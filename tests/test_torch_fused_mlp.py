@@ -34,8 +34,11 @@ torch.set_num_threads(1)  # tier-1 runs several xdist workers
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-# (n, D, M): n a multiple of no tile; M = 256 and M = 1600 / 4
-SHAPES = [(37, 128, 256), (21, 64, 400)]
+# (n, D, M): n a multiple of no tile; M = 256 and M = 1600 / 4; then
+# widths that are not multiples of 8, which the kernels take on their
+# ragged route: (12, 20), (37, 75) and (100, 300)
+SHAPES = [(37, 128, 256), (21, 64, 400), (19, 12, 20), (23, 37, 75),
+          (13, 100, 300)]
 
 
 class _InterpretPallas:
@@ -280,8 +283,8 @@ def test_wrappers_check_and_count_no_cpu_launch():
         fused_mlp_bwd(x.to(dt), u, w1.to(dt), w2.to(dt), out)
     assert (fused_mlp.LAUNCHES, fused_mlp.BWD_LAUNCHES) == before
     out, u = fused_mlp_fwd(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fused_mlp_fwd(x[:, :12], w1[:12], b1, w2[:, :12], b2[:12])
+    with pytest.raises(ValueError, match="n, D and M >= 1"):
+        fused_mlp_fwd(x[:0], w1, b1, w2, b2)
     with pytest.raises(TypeError, match="float32 or all"):
         fused_mlp_fwd(x, w1.bfloat16(), b1, w2, b2)
     with pytest.raises(ValueError, match="biases"):
@@ -377,17 +380,19 @@ def test_kernel_ab_calls_each_tree_through_its_own_interface():
 
 
 def test_kernel_ab_times_every_hand_written_attention_and_mlp_kernel():
-    """``kernel_ab.py`` builds and times #1-#6, #8 and #9 from each tree,
-    the backwards #2 and #4 through their wrappers' own loaders, held at
-    phase 3's limits, beside SDPA's backward (forward and backward less
-    forward), at the training paths' shapes."""
+    """``kernel_ab.py`` builds and times #1-#9 from each tree, the
+    backwards #2 and #4 and the AdamW #7 through their wrappers' own
+    loaders, held at phase 3's limits, beside SDPA's backward (forward and
+    backward less forward), at the training paths' shapes."""
     import kernel_ab
 
     assert set(kernel_ab.KERNELS) == {
         "encoder_attention_fwd", "encoder_attention_bwd",
         "flash_attention_fwd", "flash_attention_bwd",
         "encoder_attention_savep_fwd", "encoder_attention_savep_bwd",
-        "fused_mlp_fwd", "fused_mlp_bwd"}
+        "fused_mlp_fwd", "fused_mlp_bwd", "fused_adamw"}
+    module, fn, loader = kernel_ab.KERNELS["fused_adamw"]
+    assert (fn, loader) == ("_fn", "_kernel") and hasattr(module, fn)
     for name in kernel_ab.KERNELS:
         assert name in build.kernel_names()
     module, fn, loader = kernel_ab.KERNELS["encoder_attention_bwd"]

@@ -105,6 +105,109 @@ def test_fused_adamw_cpu_updates_in_place_without_launch():
     assert "__fmul_rn" in text and "__fsqrt_rn" in text
 
 
+def _leaf_addresses(tensors):
+    """Per leaf the byte addresses of its (g, m, v, p)."""
+    return [[t.data_ptr() for t in leaf] for leaf in tensors]
+
+
+# ViT-B-like sizes (a LayerNorm scale, a bias, an MLP weight past many
+# chunks), a single element, and sizes around the chunk and float4 edges
+_CHUNK = 4096
+_NUMELS = [768, 2304, 768 * 3072, 1, 3, 4, 5, _CHUNK - 1, _CHUNK,
+           _CHUNK + 1, 2 * _CHUNK + 7]
+
+
+def _offset_leaves(numels, offset):
+    """(g, m, v, p) per leaf, each a view `offset` floats into its
+    storage, so the four share a 16-byte phase."""
+    return [tuple(torch.zeros(n + offset)[offset:] for _ in range(4))
+            for n in numels]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_chunk_plan_covers_every_element_once_within_its_leaf(offset):
+    """Every element of every leaf lies in exactly one chunk; no chunk
+    crosses its leaf; a leaf's first chunk takes head + CHUNK elements at
+    most, the others CHUNK, so the count of chunks is the least that
+    covers it."""
+    rows = port_adamw.plan_chunks(
+        _NUMELS, _leaf_addresses(_offset_leaves(_NUMELS, offset)), _CHUNK)
+    spans = [[] for _ in _NUMELS]
+    heads = {}
+    for leaf, start, n, head, _ in rows:
+        spans[leaf].append((start, start + n))
+        if start == 0:
+            heads[leaf] = head
+    for leaf, (leaf_spans, n) in enumerate(zip(spans, _NUMELS)):
+        assert leaf_spans[0][0] == 0 and leaf_spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(leaf_spans, leaf_spans[1:]))
+        assert all(0 < stop - start <= _CHUNK + 3
+                   for start, stop in leaf_spans)
+        rest = max(0, n - heads[leaf] - _CHUNK)
+        assert len(leaf_spans) == 1 + -(-rest // _CHUNK)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_chunk_plan_puts_the_float4_interior_on_16_bytes(offset):
+    """For aligned leaves and offset views (``torch.zeros(1001)[1:]``),
+    every chunk's float4 interior starts on a 16-byte boundary of all four
+    operands: the first chunk after `head` scalars, every later chunk at
+    its start; a leaf whose operands lie at different phases is scalar."""
+    mixed = (torch.zeros(1000), torch.zeros(1001)[1:], torch.zeros(1000),
+             torch.zeros(1000))
+    numels = _NUMELS + [1000]
+    addresses = _leaf_addresses(_offset_leaves(_NUMELS, offset) + [mixed])
+    rows = port_adamw.plan_chunks(numels, addresses, _CHUNK)
+    for leaf, start, n, head, vec in rows:
+        if leaf == len(numels) - 1:
+            assert vec == 0 and head == 0
+            continue
+        assert vec == 1 and 0 <= head <= min(3, n)
+        assert head == 0 or start == 0
+        for addr in addresses[leaf]:
+            assert (addr + 4 * (start + head)) % 16 == 0 or head == n
+
+
+def test_chunk_table_packs_the_kernel_rows():
+    """The table as ``csrc/fused_adamw.cu``'s Chunk reads it: word 0 the
+    chunk's first element, then (leaf, n) and (head, flags) as int32
+    little-endian, flags 1 for a float4 interior and 2 for weight decay;
+    a leaf with mixed phases has no float4 interior."""
+    numels = [5, _CHUNK + 9, 7]
+    mixed = (torch.zeros(7), torch.zeros(8)[1:], torch.zeros(7),
+             torch.zeros(7))
+    leaves = _offset_leaves(numels[:2], 1) + [mixed]
+    rows = port_adamw.plan_chunks(numels, _leaf_addresses(leaves), _CHUNK)
+    table = port_adamw.pack_rows(rows, [False, True, True])
+    assert table.shape == (len(rows), port_adamw.ROW_WORDS)
+    assert table.dtype == np.int64
+    assert table[:, 0].tolist() == [start for _, start, _, _, _ in rows]
+    assert table[:, 1:3].view(np.int32).tolist() == [
+        [leaf, n, head, vec + 2 * int(leaf > 0)]
+        for leaf, _, n, head, vec in rows]
+    # a 4-byte view: 3 scalars first; the mixed leaf is scalar throughout
+    assert [r[3] for r in rows] == [3, 3, 0, 0]
+    assert [r[4] for r in rows] == [1, 1, 1, 0]
+
+
+@pytest.mark.parametrize("n_elems,sms,per_sm,grid,chunk", [
+    (85_803_270, 132, 2, 264, 8192), (85_803_270, 132, 4, 528, 4096),
+    (85_803_270, 132, 1, 132, 20480), (10_000, 132, 2, 3, 4096),
+    (1, 132, 2, 1, 4096), (4096 * 300, 114, 2, 228, 4096)])
+def test_grid_and_chunk_follow_the_occupancy_rule(n_elems, sms, per_sm,
+                                                  grid, chunk):
+    """A persistent grid of the blocks the SMs hold at once (SMs times
+    `arsvt_fused_adamw_blocks_per_sm`), never so many that a block gets
+    fewer than MIN_BLOCK_ELEMS elements; chunks of whole rounds of the
+    kernel's 256 threads x 4 float4 (4,096 elements), the number nearest
+    to CHUNKS_PER_BLOCK a block, at least one."""
+    assert port_adamw.MIN_BLOCK_ELEMS == 4096
+    assert port_adamw.CHUNKS_PER_BLOCK == 32
+    assert port_adamw.grid_size(n_elems, sms, per_sm) == grid
+    assert port_adamw.chunk_size(n_elems, grid, 4096) == chunk
+    assert chunk % 4096 == 0
+
+
 def test_fused_adamw_update_matches_jax_and_the_optax_chain():
     """The setup of tests/test_config_optim.py::
     test_fused_adamw_matches_optax: 6 steps with a plateau lr_scale change
