@@ -53,6 +53,14 @@ def normalize(image: torch.Tensor, mean=IMAGENET_MEAN,
     return (image - mean) / std
 
 
+def denormalize(image: torch.Tensor, mean=IMAGENET_MEAN,
+                std=IMAGENET_STD) -> torch.Tensor:
+    """The inverse of `normalize`: image * std + mean."""
+    mean = torch.tensor(mean, dtype=image.dtype, device=image.device)
+    std = torch.tensor(std, dtype=image.dtype, device=image.device)
+    return image * std + mean
+
+
 def _weight_mat(in_size: int, out_size: int, inv_scale: torch.Tensor,
                 shift: torch.Tensor) -> torch.Tensor:
     """JAX's ``compute_weight_mat`` for the triangle kernel, antialiased,

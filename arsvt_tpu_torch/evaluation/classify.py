@@ -154,7 +154,8 @@ class StreamingClassifier(LatencyWindow):
         return self._infer_batched(images)
 
     def classify_path(self, path: str) -> tuple[int, str, np.ndarray]:
-        """Full sorter-loop step: decode (PIL, EXIF-upright) -> letterbox
+        """Full sorter-loop step: decode (EXIF-upright; the C++ core where
+        it is built, PIL otherwise, ``data/native_loader.py``) -> letterbox
         -> rescale/normalize -> classify. The latency sample includes the
         decode."""
         t0 = time.perf_counter()

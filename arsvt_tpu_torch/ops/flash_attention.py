@@ -59,9 +59,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Kernel launches in this process: each wrapper adds one where it launches
 # and nowhere else, so a run can show that its path went through the
 # kernels. One backward call (its dq and dk/dv kernels, launched together)
-# counts one.
+# counts one. The DROPOUT_ counters count, beside them, the launches that
+# ran the dropout branch.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+DROPOUT_LAUNCHES = 0
+DROPOUT_LAUNCHES_BWD = 0
 
 _fn = None
 _bwd_fn = None
@@ -165,7 +168,7 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
     kernel stages rows by 16-byte copies where they are 16-byte aligned and
     element by element elsewhere, so any tensor's own alignment is enough.
     """
-    global LAUNCHES
+    global LAUNCHES, DROPOUT_LAUNCHES
     kv_len = _check(q, k, v, kv_len, dropout_rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -191,6 +194,7 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
         raise RuntimeError(
             f"flash_attention_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    DROPOUT_LAUNCHES += dropout_rate > 0.0
     return out, lse
 
 
@@ -243,7 +247,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
 
     Returns (dq, dk, dv) shaped and typed like q, k and v.
     """
-    global LAUNCHES_BWD
+    global LAUNCHES_BWD, DROPOUT_LAUNCHES_BWD
     kv_len = _check(q, k, v, kv_len, dropout_rate)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -272,6 +276,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed: CUDA error {err}")
     LAUNCHES_BWD += 1
+    DROPOUT_LAUNCHES_BWD += dropout_rate > 0.0
     return dq, dk, dv
 
 

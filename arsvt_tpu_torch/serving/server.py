@@ -9,11 +9,16 @@
                      "endpoints": [...]}
     GET  /stats      -> rolling latency percentiles (+ batching counters)
 
-Built from an in-memory `StreamingClassifier` and/or `StreamingDetector`:
+Built from a training checkpoint of the port, or from in-memory
+`StreamingClassifier` and/or `StreamingDetector` engines:
 
-    server = InferenceServer(classifier=StreamingClassifier(params, cfg, 6),
-                             detector=StreamingDetector(det_params, det_cfg))
-    host, port = server.start_background(port=0)
+    server = InferenceServer.from_checkpoint("checkpoints")
+    server.serve(port=8000)                      # blocking
+    host, port = server.start_background(port=0)  # or threaded
+
+or from the command line, on the card unless ``ARSVT_PLATFORM=cpu``:
+
+    python -m arsvt_tpu_torch.serving.server --checkpoint-dir checkpoints
 """
 
 from __future__ import annotations
@@ -66,6 +71,46 @@ class InferenceServer:
             classifier.infer_batch(
                 np.zeros((max_batch, s, s, 3), np.float32)
             )
+
+    # ------------------------------------------------------------ factory
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, *, step: int | None = None,
+                        quantize: str | None = None, max_batch: int = 1,
+                        batch_window_ms: float = 3.0, device=None):
+        """Build the right streaming engine from a training checkpoint of
+        the port (``train/checkpoint.py``), on `device` (None: the card).
+        `quantize="int8"` is not ported yet (ROADMAP Queue A item 7)."""
+        from arsvt_tpu_torch.evaluation.classify import (
+            StreamingClassifier,
+            StreamingDetector,
+        )
+        from arsvt_tpu_torch.serving.loading import load_inference_bundle
+        from arsvt_tpu_torch.train.config import (
+            resolve_backbone,
+            resolve_detector,
+        )
+
+        if quantize is not None:
+            raise NotImplementedError(
+                f"quantize={quantize!r}: int8 serving is not ported yet "
+                "(ROADMAP Queue A item 7)")
+        params, cfg = load_inference_bundle(checkpoint_dir, step=step)
+        # the preprocessing contract rides with the checkpoint: training
+        # with augment="none" feeds raw [0,1] images, every other mode
+        # ImageNet-normalizes inside the step, and serving must match
+        normalize_inputs = cfg.augment != "none"
+        if cfg.task == "detect":
+            if max_batch > 1:
+                raise ValueError("micro-batching applies to /classify; "
+                                 "detect checkpoints serve single-image")
+            return cls(detector=StreamingDetector(
+                params, resolve_detector(cfg),
+                normalize_inputs=normalize_inputs, device=device,
+            ))
+        return cls(classifier=StreamingClassifier(
+            params, resolve_backbone(cfg), cfg.num_classes,
+            normalize_inputs=normalize_inputs, device=device,
+        ), max_batch=max_batch, batch_window_ms=batch_window_ms)
 
     # ----------------------------------------------------------- handlers
     def _decode(self, body: bytes):
@@ -183,6 +228,10 @@ class InferenceServer:
 
         return Handler
 
+    def serve(self, *, host: str = "127.0.0.1", port: int = 8000):
+        self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
+        self._httpd.serve_forever()
+
     def start_background(self, *, host: str = "127.0.0.1", port: int = 8000):
         self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
         t = threading.Thread(target=self._httpd.serve_forever, daemon=True)
@@ -197,3 +246,50 @@ class InferenceServer:
         if self._batcher is not None:
             self._batcher.shutdown()
             self._batcher = None
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="arsvt_tpu_torch inference "
+                                            "server")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint-dir",
+                     help="serve from a training checkpoint of the port")
+    src.add_argument("--artifact",
+                     help="serve an export artifact (not ported yet)")
+    p.add_argument("--step", type=int, default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max-batch", type=int, default=1,
+                   help="dynamic micro-batching for /classify: coalesce "
+                        "up to N concurrent requests into one forward")
+    p.add_argument("--batch-window-ms", type=float, default=3.0,
+                   help="how long a lone request waits for batch company")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the W8A8 quantized backbone (not ported yet)")
+    args = p.parse_args(argv)
+    if args.artifact:
+        if args.int8 or args.step is not None:
+            p.error("--int8/--step apply to --checkpoint-dir; with "
+                    "--artifact they are baked in at export time")
+        raise NotImplementedError(
+            "--artifact: export artifacts are not ported yet (ROADMAP "
+            "Queue A item 6)")
+    if args.int8:
+        raise NotImplementedError(
+            "--int8: int8 serving is not ported yet (ROADMAP Queue A "
+            "item 7)")
+    from arsvt_tpu_torch.train.cli import platform_device
+
+    server = InferenceServer.from_checkpoint(
+        args.checkpoint_dir, step=args.step, max_batch=args.max_batch,
+        batch_window_ms=args.batch_window_ms, device=platform_device(),
+    )
+    print(f"serving on http://{args.host}:{args.port}  "
+          f"(POST /classify|/detect, GET /healthz|/stats)", flush=True)
+    server.serve(host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

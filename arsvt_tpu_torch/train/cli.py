@@ -6,9 +6,11 @@ Every `TrainConfig` field is a flag; `--train-preset` starts from a named
 preset, `--steps` sets total_steps and `--resume` restores the latest
 checkpoint in `--checkpoint-dir` (default ``checkpoints``, relative to the
 working directory, as is the ``metrics.jsonl`` it appends to). Runs on the
-card; ``ARSVT_PLATFORM=cpu`` selects the CPU. Data is the synthetic
-classification set; a `--data-dir`, detection (which needs one) and
-``ARSVT_MULTIHOST`` raise (ROADMAP Queue A items 4 and 11).
+card; ``ARSVT_PLATFORM=cpu`` selects the CPU. Data comes from
+`--data-dir` (a COCO root with train/ and valid/ splits, or a TrashNet
+folder-per-class tree, split or unsplit) through ``data/pipeline.py``, or
+without one from the synthetic classification set; detection needs a
+`--data-dir`. ``ARSVT_MULTIHOST`` raises (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -74,41 +76,96 @@ def config_from_args(args) -> TrainConfig:
 
 
 def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
-    """Returns (train_batches, eval_batches_fn) from the synthetic set.
+    """Returns (train_batches, eval_batches_fn) on one process.
 
     `skip_batches`: fast-forward the train stream past the batches an
     interrupted run already consumed (one a step), so a resumed run sees
-    the data an uninterrupted one would."""
-    from arsvt_tpu_torch.data.synthetic import (
-        synthetic_classification_batches,
-    )
+    the data an uninterrupted one would (skipping is index-level: nothing
+    is decoded)."""
     from arsvt_tpu_torch.train.config import input_canvas
 
-    if cfg.data_dir:
-        raise NotImplementedError(
-            f"--data-dir {cfg.data_dir!r}: the port has no COCO or folder "
-            "loader yet (ROADMAP Queue A item 4, host data)")
-    if cfg.task == "detect":
-        raise SystemExit("--data-dir required for detection training, and "
-                         "the port has no COCO loader yet (ROADMAP Queue A "
-                         "item 4, host data)")
-    size = input_canvas(cfg)
-    train = synthetic_classification_batches(
-        batch_size=cfg.batch_size, image_size=size, seed=cfg.seed)
-    if skip_batches:
-        train = itertools.islice(train, skip_batches, None)
-
-    def eval_batches():
-        return itertools.islice(
-            synthetic_classification_batches(
-                batch_size=cfg.batch_size, image_size=size, seed=9999),
-            8,
+    if not cfg.data_dir:
+        if cfg.task == "detect":
+            raise SystemExit("--data-dir required for detection training")
+        from arsvt_tpu_torch.data.synthetic import (
+            synthetic_classification_batches,
         )
+
+        size = input_canvas(cfg)
+        train = synthetic_classification_batches(
+            batch_size=cfg.batch_size, image_size=size, seed=cfg.seed)
+        if skip_batches:
+            # synthetic draws are cheap; replaying the stream keeps the
+            # resumed data order identical to the uninterrupted run
+            train = itertools.islice(train, skip_batches, None)
+
+        def eval_batches():
+            return itertools.islice(
+                synthetic_classification_batches(
+                    batch_size=cfg.batch_size, image_size=size, seed=9999),
+                8,
+            )
+
+        return train, eval_batches
+
+    from arsvt_tpu_torch.data.pipeline import (
+        classification_batches,
+        detection_batches,
+    )
+
+    if cfg.task == "detect":
+        from arsvt_tpu_torch.data.coco import CocoDataset
+
+        train_ds = CocoDataset(f"{cfg.data_dir}/train")
+        val_ds = CocoDataset(f"{cfg.data_dir}/valid")
+    else:
+        # COCO splits or the TrashNet folder-per-class layout (unsplit
+        # trees split by a stable per-file hash)
+        from arsvt_tpu_torch.data.folder import open_classification_split
+
+        train_ds = open_classification_split(cfg.data_dir, "train")
+        val_ds = open_classification_split(cfg.data_dir, "valid")
+    if train_ds.num_classes > cfg.num_classes:
+        raise SystemExit(
+            f"dataset has {train_ds.num_classes} classes "
+            f"({train_ds.class_names}) but num_classes={cfg.num_classes}; "
+            f"pass --num-classes {train_ds.num_classes} (labels beyond "
+            f"num_classes would silently contribute zero CE gradient)"
+        )
+    canvas = input_canvas(cfg)
+    if cfg.task == "detect":
+        train = detection_batches(
+            train_ds, batch_size=cfg.batch_size, canvas=canvas,
+            max_objects=cfg.max_objects, seed=cfg.seed,
+            skip_batches=skip_batches,
+        )
+
+        def eval_batches():
+            # padded to whole batches: the eval shape is fixed and the pad
+            # rows carry valid=0, so they drop out of every metric
+            return detection_batches(
+                val_ds, batch_size=cfg.batch_size, canvas=canvas,
+                max_objects=cfg.max_objects, seed=1, repeat=False,
+                shuffle=False, drop_remainder=False,
+                pad_to_equal_batches=True,
+            )
+    else:
+        train = classification_batches(
+            train_ds, batch_size=cfg.batch_size, canvas=canvas,
+            seed=cfg.seed, skip_batches=skip_batches,
+        )
+
+        def eval_batches():
+            return classification_batches(
+                val_ds, batch_size=cfg.batch_size, canvas=canvas,
+                seed=1, repeat=False, shuffle=False, drop_remainder=False,
+                pad_to_equal_batches=True,
+            )
 
     return train, eval_batches
 
 
-def _device() -> str:
+def platform_device() -> str:
     """``ARSVT_PLATFORM``: unset (the card) or "cpu"."""
     platform = os.environ.get("ARSVT_PLATFORM", "")
     if platform in ("", "cuda", "gpu"):
@@ -132,7 +189,7 @@ def main(argv=None):
 
     logger = MetricLogger(out_dir=".")
     try:
-        trainer = Trainer(cfg, logger=logger, device=_device())
+        trainer = Trainer(cfg, logger=logger, device=platform_device())
         start = 0
         if args.resume:
             start = trainer.maybe_resume()

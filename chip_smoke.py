@@ -5,6 +5,7 @@ on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
+    python3 chip_smoke.py --disk     # phases 1, 2 and 12 (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -89,7 +90,20 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    to step 6 against an uninterrupted 6-step run, and a run without
    dropout; (b) the same on the opt-in route; (c) fp32 steps with dropout
    card vs CPU on each route, and route against route; (d) ``Trainer``
-   with task="detect" on ``vit_base_detector`` for 2 steps.
+   with task="detect" on ``vit_base_detector`` for 2 steps;
+12. from images on disk to a served checkpoint (see the comment above
+   `phase_disk`): (a) an unsplit TrashNet tree of JPEGs and a COCO root
+   written by the port's writers, the host decoder's route and ms per
+   image; (b) ``train.cli.main`` with ``--data-dir`` on the tree
+   (``vit_base_finetune``, batch 32, 3 steps, eval and checkpoint); (c)
+   ``evaluation.cli.main`` on its checkpoint against
+   ``evaluate_classifier`` in fp32 on the CPU, and on a params-only copy
+   with phase 4's seeded head; (d) ``InferenceServer.from_checkpoint``
+   answering /classify as ``classify_path`` does, then ``python -m
+   arsvt_tpu_torch.serving.server --checkpoint-dir`` as a subprocess; (e)
+   ``deit_detector_ref`` trained from the COCO root, the eval CLI against
+   ``evaluate_detector``, /detect from its checkpoint against
+   ``detect_path``.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -108,9 +122,14 @@ forward one #1 launch and one #8 call per layer); each CLI run of
 11(a)-(b), with the same rule per route and step and 8 eval forwards of
 512 images per eval;
 11(d) (per step 12 #1 and #2 calls, 6 #3 and #4 calls, one AdamW
-launch). Beside each total, #1, #2, #5 and #6 count the launches that ran
-their dropout branch: every training launch of phase 11's dropout runs,
-none elsewhere. Any failure exits non-zero. The last
+launch); each entry point of 12 ((b): #1 and #2 per layer and step, #1
+per layer and eval batch, one AdamW launch a step; (c) and (d): #1 per
+layer and forward alone; (e): 18 #3 and #4 calls and one AdamW launch a
+step, 18 #3 calls per eval or served forward). Beside each total, #1,
+#2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
+every training launch of phase 11's dropout runs and of the detector's
+training (9(c), 11(d), 12(e)), none elsewhere. Any failure exits
+non-zero. The last
 lines are the kernels' record, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1874,6 +1893,9 @@ COUNTERS = (
      "DROPOUT_SAVEP_LAUNCHES"),
     ("encoder_attention_bwd_savep_dropout", encoder_attention,
      "DROPOUT_SAVEP_BWD_LAUNCHES"),
+    # and those of #3 and #4
+    ("flash_attention_fwd_dropout", flash_attention, "DROPOUT_LAUNCHES"),
+    ("flash_attention_bwd_dropout", flash_attention, "DROPOUT_LAUNCHES_BWD"),
 )
 
 
@@ -2743,9 +2765,12 @@ def phase_det_train_bench(smi: str):
     counts = read_counts()
     steps = steps_warm + steps_timed + 2 + 1
     forwards = steps + 1 + len(evs)
+    # every training launch runs the dropout branch, no eval launch does
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
                 "flash_attention_fwd": per_step * forwards,
-                "flash_attention_bwd": per_step * steps}
+                "flash_attention_bwd": per_step * steps,
+                "flash_attention_fwd_dropout": per_step * steps,
+                "flash_attention_bwd_dropout": per_step * steps}
     log(json.dumps({"launches": counts, "expected": expected,
                     "steps": steps, "eval_forwards": forwards - steps,
                     "path": "deit_detector_ref training",
@@ -2812,11 +2837,13 @@ def cli_metric(directory, key: str = "loss") -> dict:
     return out
 
 
-def run_cli(directory, args, *, expect=None) -> tuple[dict, dict, float]:
-    """`train.cli.main(CLI_ARGS + args)` with `directory` as the working
-    directory; launches counted from 0 and, with `expect`, held exact.
-    Returns (last metrics, launch counts, seconds)."""
-    from arsvt_tpu_torch.train import cli
+def run_cli(directory, args, *, expect=None, base=CLI_ARGS,
+            main=None) -> tuple[dict, dict, float]:
+    """`main(base + args)` (default: `train.cli.main`) with `directory` as
+    the working directory; launches counted from 0 and, with `expect`,
+    held exact. Returns (what `main` returns, launch counts, seconds)."""
+    if main is None:
+        from arsvt_tpu_torch.train.cli import main
 
     os.makedirs(directory, exist_ok=True)
     here = os.getcwd()
@@ -2825,17 +2852,17 @@ def run_cli(directory, args, *, expect=None) -> tuple[dict, dict, float]:
         torch.cuda.synchronize()
         zero_counts()  # this run's path starts here
         t0 = time.perf_counter()
-        last = cli.main(CLI_ARGS + args)
+        last = main(base + args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = read_counts()
     finally:
         os.chdir(here)
     if expect is not None:
+        what = f"{main.__module__} {' '.join(base + args)}"
         log(json.dumps({"launches": counts, "expected": expect,
-                        "path": f"train.cli {' '.join(args)}"}))
-        check(counts == expect, f"train.cli {args}: launches {counts} != "
-                                f"{expect}")
+                        "path": what}))
+        check(counts == expect, f"{what}: launches {counts} != {expect}")
     return last, counts, seconds
 
 
@@ -2965,7 +2992,9 @@ def phase_detect_trainer(tmp, smi) -> dict:
                 "encoder_attention_fwd_dropout": depth * steps,
                 "encoder_attention_bwd_dropout": bwd,
                 "flash_attention_fwd": head_depth * steps,
-                "flash_attention_bwd": head_depth * steps}
+                "flash_attention_bwd": head_depth * steps,
+                "flash_attention_fwd_dropout": head_depth * steps,
+                "flash_attention_bwd_dropout": head_depth * steps}
     ckpts = os.listdir(tcfg.checkpoint_dir)
     rec = {"check": "Trainer task=detect vit_base_detector, attention "
                     "dropout 0.1", "batch": tcfg.batch_size, "steps": steps,
@@ -2994,6 +3023,515 @@ def phase_entry_point(cfg, smi) -> dict:
         log("# phase 11(d): Trainer, task=detect, vit_base_detector")
         det = phase_detect_trainer(tmp, smi)
     add_counts(total, det)
+    return total
+
+
+# Phase 12: from images on disk to a served checkpoint, through the entry
+# points a plant would call. (a) The port's writers put an unsplit TrashNet
+# tree (6 class folders of DISK_PER_CLASS JPEGs from synthetic_shape_image
+# at DISK_SIZES, so the letterbox resizes and pads) and a synthetic COCO
+# root on disk; the decoder route is printed with the host's decode +
+# letterbox ms per image on each route available. (b) train.cli.main
+# fine-tunes ViT-B/16 on the tree (vit_base_finetune's recipe, batch 32,
+# bf16, 3 steps, eval and checkpoint at step 3): #1, #2 and #7 held
+# exact. (c) evaluation.cli.main on that checkpoint, split valid: its
+# confusion matrix against evaluate_classifier on the CPU in fp32 over the
+# same batches, images whose fp32 top-2 margin is within phase 4's bf16
+# limit exempt. Three steps inside the recipe's 500-step warm-up leave the
+# zero-initialised head near zero, so every answer of that checkpoint is a
+# near-tie; (c) therefore also evaluates, and (d) serves, a params-only
+# checkpoint of the same trained weights with phase 4's seeded head
+# (`seeded_head`), written by the port's CheckpointManager under the same
+# config. (d) InferenceServer.from_checkpoint on the card: four of the
+# tree's JPEGs through /classify against classify_path on the same files
+# (the PIL route, the decoder the server uses for request bodies), #1 at
+# depth x forwards and no other kernel; then `python -m
+# arsvt_tpu_torch.serving.server --checkpoint-dir` as a subprocess:
+# /healthz with backend cuda and one /classify against the in-process
+# answer. (e) train.cli.main on the COCO root with deit_detector_ref's
+# recipe (batch 8, 2 steps, checkpoint at 2): #3 and #4 with their
+# dropout branches and #7 once a step; the eval CLI's mAP/AP50/AP75
+# against evaluate_detector in-process on the card over the same batches;
+# from_checkpoint's /detect against detect_path on the same files, served
+# from a params-only copy with a seeded class head (the trained one's
+# scores stay under the 0.5 threshold).
+DISK_SIZES = ((224, 224), (180, 240), (300, 200))  # (height, width)
+DISK_PER_CLASS = 16
+DISK_CANVAS = 256  # vit_base_finetune's canvas
+DISK_CLF_ARGS = ["--train-preset", "vit_base_finetune", "--batch-size", "32",
+                 "--grad-accum", "1", "--bf16", "true", "--steps", "3",
+                 "--eval-every", "3", "--checkpoint-every", "3"]
+DISK_DET_ARGS = ["--train-preset", "deit_detector_ref", "--batch-size", "8",
+                 "--steps", "2", "--checkpoint-every", "2"]
+EVAL_CLI_BATCH = 8  # evaluation/cli.py's default --batch-size
+SERVER_START_S = 300.0
+# /classify and classify_path see the same pixels up to one fp32 ulp (x /
+# 255 against x * (1 / 255)); the response rounds probs to 4 decimals
+TOL_SERVED_PROBS = 2e-4
+
+
+@contextlib.contextmanager
+def pil_route():
+    """Decode with PIL for the duration, as the CPU tests pin it."""
+    from arsvt_tpu_torch.data import native_loader
+
+    saved = native_loader.available
+    native_loader.available = lambda: False
+    try:
+        yield
+    finally:
+        native_loader.available = saved
+
+
+def write_trashnet(root: str, seed: int = 12) -> list[str]:
+    """An unsplit TrashNet tree: a folder per class of DISK_PER_CLASS JPEGs
+    from `synthetic_shape_image`, at the sizes of DISK_SIZES in turn."""
+    from arsvt_tpu_torch.data.synthetic import synthetic_shape_image
+    from arsvt_tpu_torch.data.taxonomy import RECYCLING_CLASSES
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for label, name in enumerate(RECYCLING_CLASSES):
+        os.makedirs(os.path.join(root, name))
+        for i in range(DISK_PER_CLASS):
+            h, w = DISK_SIZES[i % len(DISK_SIZES)]
+            img = synthetic_shape_image(label, max(h, w), rng)
+            img = Image.fromarray((img * 255).astype(np.uint8))
+            path = os.path.join(root, name, f"{name}_{i:02d}.jpg")
+            img.resize((w, h), Image.BILINEAR).save(path, quality=90)
+            paths.append(path)
+    return paths
+
+
+def phase_disk_data(tmp, smi) -> tuple[str, str, list[str]]:
+    """(a) Returns (the TrashNet tree, the COCO root, the tree's files)."""
+    from arsvt_tpu_torch.data import native_loader
+    from arsvt_tpu_torch.data.pipeline import load_letterboxed
+    from arsvt_tpu_torch.data.synthetic import make_synthetic_coco
+
+    tree = os.path.join(tmp, "trashnet")
+    paths = write_trashnet(tree)
+    coco = make_synthetic_coco(os.path.join(tmp, "coco"), image_size=256,
+                               images_per_split=16, max_boxes=3)
+    route = native_loader.route()
+    log(f"# phase 12(a): host decoder route: {route}")
+    rec = {"check": "host decode + letterbox", "decoder_route": route,
+           "build_error": native_loader.build_error(),
+           "images": len(paths), "sizes": DISK_SIZES,
+           "canvas": DISK_CANVAS, "cpu_cores": os.cpu_count(), "card": smi}
+    routes = {"pil": pil_route}
+    if route == "native":
+        routes["native"] = contextlib.nullcontext
+    batches = {}
+    for name, ctx in routes.items():
+        with ctx():
+            load_letterboxed(paths[:4], DISK_CANVAS)  # first-use costs
+            t0 = time.perf_counter()
+            batches[name], _ = load_letterboxed(paths, DISK_CANVAS)
+            rec[f"{name}_ms_per_image"] = (
+                (time.perf_counter() - t0) * 1e3 / len(paths))
+    if "native" in batches:
+        # the two routes resize differently (the C++ core box-reduces and
+        # interpolates bilinearly, PIL's bilinear filter widens its support
+        # on a downscale): reported, held only in the CPU tests at JAX's
+        # own test shapes
+        diff = np.abs(batches["native"].astype(np.int16)
+                      - batches["pil"].astype(np.int16))
+        rec["max_abs_diff_native_vs_pil_u8"] = int(diff.max())
+        rec["mean_abs_diff_native_vs_pil_u8"] = float(diff.mean())
+    log(json.dumps(rec))
+    check(all(b.shape == (len(paths), DISK_CANVAS, DISK_CANVAS, 3)
+              for b in batches.values()), "letterboxed batch shape")
+    return tree, coco, paths
+
+
+def cpu_fp32_probs(params, batches, backbone_cfg, num_classes):
+    """evaluate_classifier's arithmetic on the CPU in fp32, per image:
+    (probs (N, C), labels (N,))."""
+    from arsvt_tpu_torch.core.dtypes import to_unit_float
+    from arsvt_tpu_torch.data.augment import eval_preprocess
+    from arsvt_tpu_torch.models.classifier import apply_image_classifier
+
+    probs, labels = [], []
+    with torch.inference_mode():
+        for b in batches:
+            x = to_unit_float(torch.from_numpy(b["image"]), torch.float32)
+            x = eval_preprocess(x, size=backbone_cfg.image_size)
+            logits = apply_image_classifier(params, x, backbone_cfg,
+                                            num_classes)
+            probs.append(torch.softmax(logits, -1).numpy())
+            labels.append(b["label"])
+    return np.concatenate(probs), np.concatenate(labels)
+
+
+def confusion(pred, labels, n) -> np.ndarray:
+    out = np.zeros((n, n), np.int64)
+    np.add.at(out, (labels, pred), 1)
+    return out
+
+
+def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi) -> dict:
+    """(c) on one checkpoint: the eval CLI on the card (launches exact)
+    against evaluate_classifier in fp32 on the CPU. Returns the launches."""
+    from arsvt_tpu_torch.data.pipeline import classification_batches
+    from arsvt_tpu_torch.evaluation import cli as eval_cli
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+    from arsvt_tpu_torch.train.config import input_canvas, resolve_backbone
+
+    params, tcfg = load_inference_bundle(ckpt_dir)
+    bb, n = resolve_backbone(tcfg), tcfg.num_classes
+    n_batches = math.ceil(len(val) / EVAL_CLI_BATCH)
+    zeros = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    out = os.path.join(run, f"eval_{title}.json")
+    res, counts, secs = run_cli(
+        run, ["--checkpoint-dir", ckpt_dir, "--data-dir", tree, "--split",
+              "valid", "--out", out], base=[], main=eval_cli.main,
+        expect={**zeros, "encoder_attention_fwd": bb.depth * n_batches})
+    with open(out) as f:
+        saved = json.load(f)
+    check(saved["step"] == 3 and saved["split"] == "valid",
+          f"eval CLI --out {saved}")
+
+    def batches():
+        return classification_batches(
+            val, batch_size=EVAL_CLI_BATCH, canvas=input_canvas(tcfg),
+            repeat=False, shuffle=False, drop_remainder=False)
+
+    ref = evaluate_classifier(params, batches(), bb, n,
+                              compute_dtype=torch.float32,
+                              normalize_inputs=True, device="cpu")
+    probs, labels = cpu_fp32_probs(params, batches(), bb, n)
+    pred = probs.argmax(-1)
+    conf_cpu = np.asarray(ref["confusion_matrix"])
+    check((confusion(pred, labels, n) == conf_cpu).all(),
+          "evaluate_classifier disagrees with its own per-image argmax")
+    # a near-tie at bf16 precision may go either way: exempt images whose
+    # fp32 top-2 margin is within phase 4's bf16 limit; every other image
+    # keeps its cell
+    exempt = top2_margin(probs) <= 2 * TOL_PROBS_BF16
+    card = np.asarray(res["confusion"])
+    rest = card - confusion(pred[~exempt], labels[~exempt], n)
+    rec = {"check": f"eval CLI on the card vs evaluate_classifier fp32 on "
+                    f"the CPU, {title} checkpoint",
+           "images": int(len(labels)), "exempt": int(exempt.sum()),
+           "top2_margins_fp32": np.round(top2_margin(probs), 4).tolist(),
+           "confusion_card": card.tolist(), "confusion_cpu": conf_cpu.tolist(),
+           "accuracy_card": res["accuracy"], "top1_cpu": ref["top1"],
+           "seconds_eval_cli": secs, "launches": counts, "card": smi}
+    log(json.dumps(rec))
+    check(int(card.sum()) == len(labels) == ref["n"],
+          f"eval CLI counted {card.sum()} images of {len(labels)}")
+    check(bool((rest >= 0).all()) and (rest.sum(1) == np.bincount(
+        labels[exempt], minlength=n)).all(),
+        f"eval CLI confusion differs beyond the exempt images: {rec}")
+    return counts
+
+
+def params_only_checkpoint(src_dir, dst_dir, head: str, seed: int) -> str:
+    """The params of `src_dir`'s checkpoint with a seeded random `head`
+    ("classifier/head" or "detr/class_head", filled as `seeded_head`
+    fills the classifier's: logits of a few units), saved by the port's
+    CheckpointManager under the same config and step, without optimizer
+    moments (evaluation and serving never read them)."""
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+    from arsvt_tpu_torch.train.checkpoint import CheckpointManager, latest_step
+
+    params, tcfg = load_inference_bundle(src_dir)
+    outer, inner = head.split("/")
+    d, n = params[outer][inner]["kernel"].shape
+    gen = torch.Generator().manual_seed(seed)
+    params[outer][inner] = {
+        "kernel": torch.randn(d, n, generator=gen) * 3 * d ** -0.5,
+        "bias": torch.randn(n, generator=gen) * 0.1,
+    }
+    step = latest_step(src_dir)
+    CheckpointManager(dst_dir, tcfg).save(
+        step, {"params": params, "opt_state": {}, "step": step})
+    return dst_dir
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def served_subprocess(ckpt_dir, body, answer, tmp, smi) -> None:
+    """(d) `python -m arsvt_tpu_torch.serving.server` on `ckpt_dir`:
+    /healthz, then one /classify against the in-process `answer`."""
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if k != "ARSVT_PLATFORM"}
+    logpath = os.path.join(tmp, "server.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(logpath, "w") as logfile:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "arsvt_tpu_torch.serving.server",
+             "--checkpoint-dir", ckpt_dir, "--port", str(port)],
+            cwd=root, env=env, stdout=logfile, stderr=subprocess.STDOUT)
+    try:
+        health = None
+        while time.perf_counter() - t0 < SERVER_START_S:
+            if proc.poll() is not None:
+                break
+            try:
+                health = get(url + "/healthz")
+                break
+            except OSError:
+                time.sleep(0.5)
+        ready = time.perf_counter() - t0
+        if health is None:
+            with open(logpath) as f:
+                tail = f.read()[-3000:]
+            check(False, f"the server subprocess did not answer /healthz "
+                         f"(exit {proc.poll()}):\n{tail}")
+        status, data = post(url + "/classify", body)
+        diff = float(np.abs(np.asarray(data["probs"])
+                            - np.asarray(answer["probs"])).max())
+        rec = {"check": "python -m arsvt_tpu_torch.serving.server "
+                        "--checkpoint-dir", "healthz": health,
+               "seconds_to_healthz": ready, "classify": data,
+               "in_process": answer, "max_abs_diff_probs": diff,
+               "card": smi}
+        log(json.dumps(rec))
+        check(health["status"] == "ok" and health["backend"] == "cuda"
+              and health["endpoints"] == ["/classify"],
+              f"subprocess /healthz {health}")
+        check(status == 200 and data["class"] == answer["class"]
+              and diff <= TOL_SERVED_PROBS,
+              f"subprocess /classify disagrees: {rec}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def serve_classifier(ckpt_dir, picks, tmp, smi) -> dict:
+    """(d) in process, then as a subprocess. Returns the in-process
+    launches."""
+    depth = PRESETS["vit_base_16_224"].depth
+    bodies = []
+    for path in picks:
+        with open(path, "rb") as f:
+            bodies.append(f.read())
+    torch.cuda.synchronize()
+    zero_counts()  # the served checkpoint's path starts here
+    srv = InferenceServer.from_checkpoint(ckpt_dir)
+    forwards = 1  # the engine's warm-up
+    host, port = srv.start_background(port=0)
+    url = f"http://{host}:{port}"
+    try:
+        answers, client_ms = [], []
+        for body in bodies:
+            t0 = time.perf_counter()
+            status, data = post(url + "/classify", body)
+            client_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"/classify status {status}")
+            answers.append(data)
+        for i in range(16):  # more samples for the latency percentiles
+            t0 = time.perf_counter()
+            post(url + "/classify", bodies[i % len(bodies)])
+            client_ms.append((time.perf_counter() - t0) * 1e3)
+        forwards += len(bodies) + 16
+        with pil_route():
+            direct = [srv._clf.classify_path(p) for p in picks]
+        forwards += len(picks)
+        health = get(url + "/healthz")
+        stats = get(url + "/stats")
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = {**dict.fromkeys(counts, 0),
+                "encoder_attention_fwd": depth * forwards}
+    diffs = [float(np.abs(np.asarray(a["probs"]) - d[2]).max())
+             for a, d in zip(answers, direct)]
+    rec = {"check": "InferenceServer.from_checkpoint /classify vs "
+                    "classify_path", "files": [os.path.basename(p)
+                                               for p in picks],
+           "classes": [a["class"] for a in answers],
+           "classes_classify_path": [d[0] for d in direct],
+           "top2_margins": [float(top2_margin(d[2])) for d in direct],
+           "max_abs_diff_probs": diffs, "healthz": health, "stats": stats,
+           "client_p50_ms": float(np.median(client_ms)),
+           "client_p99_ms": float(np.percentile(client_ms, 99)),
+           "launches": counts, "expected": expected, "card": smi}
+    log(json.dumps(rec))
+    check(health["backend"] == "cuda", f"/healthz {health}")
+    check([a["class"] for a in answers] == [d[0] for d in direct]
+          and max(diffs) <= TOL_SERVED_PROBS,
+          f"/classify from the checkpoint disagrees with classify_path: "
+          f"{rec}")
+    check(counts == expected, f"served checkpoint launches {counts} != "
+                              f"{expected}")
+    log("# phase 12(d): the server's main() as a subprocess")
+    served_subprocess(ckpt_dir, bodies[0], answers[0], tmp, smi)
+    return counts
+
+
+def phase_disk_detector(tmp, coco, smi) -> dict:
+    """(e) Returns the launches of the training, eval CLI and serving
+    runs."""
+    from arsvt_tpu_torch.data.coco import CocoDataset
+    from arsvt_tpu_torch.data.pipeline import detection_batches
+    from arsvt_tpu_torch.evaluation import cli as eval_cli
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+    from arsvt_tpu_torch.train.config import input_canvas
+
+    det_cfg = DETECTOR_PRESETS[DET_TRAIN_PRESET]
+    per_step = det_cfg.backbone.depth + det_cfg.head.depth
+    zeros = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    total = dict(zeros)
+    run = os.path.join(tmp, "detect")
+    steps = 2
+    last, counts, secs = run_cli(
+        run, ["--data-dir", coco], base=DISK_DET_ARGS,
+        expect={**zeros, "fused_adamw": steps,
+                "flash_attention_fwd": per_step * steps,
+                "flash_attention_bwd": per_step * steps,
+                "flash_attention_fwd_dropout": per_step * steps,
+                "flash_attention_bwd_dropout": per_step * steps})
+    add_counts(total, counts)
+    ckpt_dir = os.path.join(run, "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    log(json.dumps({"check": "train.cli deit_detector_ref from a COCO root",
+                    "last_metrics": last, "seconds": secs,
+                    "steps_per_s": steps / secs, "checkpoints": ckpts,
+                    "card": smi}))
+    check(np.isfinite(last["loss"]), f"detector CLI loss {last}")
+    check(ckpts == ["step_000000002.pt"], f"detector checkpoints {ckpts}")
+
+    val = CocoDataset(os.path.join(coco, "valid"))
+    n_batches = math.ceil(len(val) / EVAL_CLI_BATCH)
+    out = os.path.join(run, "eval_valid.json")
+    res, counts, secs_eval = run_cli(
+        run, ["--checkpoint-dir", ckpt_dir, "--data-dir", coco, "--split",
+              "valid", "--out", out], base=[], main=eval_cli.main,
+        expect={**zeros, "flash_attention_fwd": per_step * n_batches})
+    add_counts(total, counts)
+    params, tcfg = load_inference_bundle(ckpt_dir)
+    _, _, eval_step = make_detector_step_fns(tcfg)
+    params = tree_map(lambda t: t.to("cuda"), params)
+    ref = evaluate_detector(
+        eval_step, params, detection_batches(
+            val, batch_size=EVAL_CLI_BATCH, canvas=input_canvas(tcfg),
+            max_objects=tcfg.max_objects, repeat=False, shuffle=False,
+            drop_remainder=False),
+        num_classes=tcfg.num_classes)
+    keys = ("mAP", "AP50", "AP75", "loss", "total_predictions")
+    rec = {"check": "eval CLI deit_detector_ref vs evaluate_detector "
+                    "in-process on the card",
+           "cli": {k: res[k] for k in keys}, "in_process":
+           {k: ref[k] for k in keys}, "seconds_eval_cli": secs_eval,
+           "card": smi}
+    log(json.dumps(rec))
+    check(all(res[k] == ref[k] for k in keys),
+          f"the eval CLI's detection metrics differ: {rec}")
+
+    # a near-init class head scores every query under the 0.5 threshold,
+    # which would leave /detect and detect_path two empty lists
+    seeded = params_only_checkpoint(
+        ckpt_dir, os.path.join(tmp, "detect_seeded", "checkpoints"),
+        "detr/class_head", seed=2)
+    picks = [r.path for r in val.records[:2]]
+    torch.cuda.synchronize()
+    zero_counts()  # the served detector checkpoint's path starts here
+    srv = InferenceServer.from_checkpoint(seeded)
+    forwards = 1  # the engine's warm-up
+    host, port = srv.start_background(port=0)
+    url = f"http://{host}:{port}"
+    try:
+        served = []
+        for path in picks:
+            with open(path, "rb") as f:
+                status, data = post(url + "/detect", f.read())
+            check(status == 200, f"/detect status {status}")
+            served.append(data)
+        direct = [srv._det.detect_path(p) for p in picks]
+        forwards += 2 * len(picks)
+        health = get(url + "/healthz")
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(total, counts)
+    rec = {"check": "InferenceServer.from_checkpoint /detect vs "
+                    "detect_path", "detections": [len(d["labels"])
+                                                  for d in served],
+           "served": served,
+           "healthz": health, "launches": counts, "card": smi}
+    log(json.dumps(rec))
+    check(health["backend"] == "cuda" and health["endpoints"] == ["/detect"],
+          f"/healthz {health}")
+    for data, ref_det in zip(served, direct):
+        check(data["labels"] == ref_det["labels"].tolist() and np.allclose(
+            np.asarray(data["boxes"], np.float32).reshape(-1, 4),
+            ref_det["boxes"], atol=1e-4, rtol=0),
+            f"/detect differs from detect_path: {data} vs {ref_det}")
+    check(counts == {**zeros, "flash_attention_fwd": per_step * forwards},
+          f"served detector launches {counts}")
+    return total
+
+
+def phase_disk(smi) -> dict:
+    """Phase 12. Returns the launches of every path."""
+    from arsvt_tpu_torch.data.folder import open_classification_split
+
+    t_phase = time.perf_counter()
+    depth = PRESETS["vit_base_16_224"].depth
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, coco, paths = phase_disk_data(tmp, smi)
+        log("# phase 12(b): train.cli, vit_base_finetune from the tree")
+        val = open_classification_split(tree, "valid")
+        run = os.path.join(tmp, "classify")
+        steps = 3
+        last, counts, secs = run_cli(
+            run, ["--data-dir", tree], base=DISK_CLF_ARGS,
+            expect=classifier_launches(depth, 1, steps,
+                                       math.ceil(len(val) / 32), False))
+        add_counts(total, counts)
+        ckpt_dir = os.path.join(run, "checkpoints")
+        ckpts = sorted(os.listdir(ckpt_dir))
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            val_rows = [json.loads(line) for line in f if '"val/' in line]
+        log(json.dumps({"check": "train.cli vit_base_finetune from a "
+                                 "TrashNet tree", "train_images":
+                        len(open_classification_split(tree, "train")),
+                        "valid_images": len(val), "last_metrics": last,
+                        "val": val_rows, "seconds": secs,
+                        "steps_per_s": steps / secs, "checkpoints": ckpts,
+                        "card": smi}))
+        check(np.isfinite(last["loss"]), f"classifier CLI loss {last}")
+        check(ckpts == ["step_000000003.pt"], f"checkpoints {ckpts}")
+        check(len(val_rows) == 1 and "val/confusion" in val_rows[0],
+              f"the CLI's eval at step 3: {val_rows}")
+
+        log("# phase 12(c): evaluation.cli on the checkpoint, split valid")
+        add_counts(total, eval_cli_vs_cpu(run, ckpt_dir, tree, val,
+                                          "trained", smi))
+        seeded = params_only_checkpoint(
+            ckpt_dir, os.path.join(tmp, "seeded", "checkpoints"),
+            "classifier/head", seed=1)
+        add_counts(total, eval_cli_vs_cpu(run, seeded, tree, val,
+                                          "seeded_head", smi))
+
+        log("# phase 12(d): InferenceServer.from_checkpoint, /classify")
+        # one file of each of four classes, at the three sizes
+        picks = [paths[c * DISK_PER_CLASS + c] for c in range(4)]
+        add_counts(total, serve_classifier(seeded, picks, tmp, smi))
+
+        log("# phase 12(e): deit_detector_ref from the COCO root")
+        add_counts(total, phase_disk_detector(tmp, coco, smi))
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"phase": 12, "seconds": seconds, "launches": total,
+                    "card": smi}))
     return total
 
 
@@ -3100,6 +3638,10 @@ def main() -> int:
     for name in build.kernel_names():
         build.load(name)
     phase_build_report(built)
+    if "--disk" in sys.argv[1:]:
+        log("# --disk: phase 12 alone")
+        phase_disk(smi)
+        return 0
 
     cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")
@@ -3162,6 +3704,9 @@ def main() -> int:
     log("# phase 11: the training entry point with attention dropout")
     entry = phase_entry_point(cfg, smi)
 
+    log("# phase 12: from images on disk to a served checkpoint")
+    disk = phase_disk(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -3171,9 +3716,9 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-11
+    def paths(name):  # launches of every path's run, phases 4-12
         return (train[name] + detect.get(name, 0) + det_train[name]
-                + opt_in[name] + entry[name]
+                + opt_in[name] + entry[name] + disk[name]
                 + (launches if name == "encoder_attention_fwd" else 0))
 
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",

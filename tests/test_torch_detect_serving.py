@@ -20,6 +20,7 @@ from arsvt_tpu.evaluation.classify import (
 from arsvt_tpu.models.detector import init_detector as jax_init_detector
 from arsvt_tpu.models.registry import DETECTOR_PRESETS as JAX_DETECTOR_PRESETS
 from arsvt_tpu.serving.server import InferenceServer as JaxInferenceServer
+from arsvt_tpu_torch.data import native_loader as port_native_loader
 from arsvt_tpu_torch.evaluation.classify import StreamingDetector
 from arsvt_tpu_torch.models.bridge import detector_from_jax_params
 from arsvt_tpu_torch.models.registry import get_detector_preset
@@ -41,11 +42,17 @@ def _fp32_matmuls():
         yield
 
 
-@pytest.fixture(autouse=True)
-def _pil_decode(monkeypatch):
-    # the port decodes with PIL; the JAX engine would take its native C++
-    # decoder where that library is built, whose resize differs
-    monkeypatch.setattr(native_loader, "available", lambda: False)
+@pytest.fixture(params=["pil", "native"])
+def decoder(request, monkeypatch):
+    """Both packages on one decoder: PIL (both forced to it) or each
+    package's build of the C++ core (skipped where either is not built);
+    the two routes' resizes differ."""
+    if request.param == "pil":
+        monkeypatch.setattr(native_loader, "available", lambda: False)
+        monkeypatch.setattr(port_native_loader, "available", lambda: False)
+    elif not (native_loader.available() and port_native_loader.available()):
+        pytest.skip("a native decoder is not built")
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +96,7 @@ def _assert_same_detections(got, ref, atol):
 
 
 @pytest.mark.parametrize("shape", [(32, 32, 3), (40, 27, 3)])
-def test_detect_path_matches_jax(engines, tmp_path, shape):
+def test_detect_path_matches_jax(engines, tmp_path, shape, decoder):
     path = tmp_path / "frame.png"
     Image.fromarray(_image(sum(shape), shape)).save(path)
     ref = engines["jax"].detect_path(str(path))
@@ -104,7 +111,7 @@ def test_detect_path_matches_jax(engines, tmp_path, shape):
     assert engines["port"].image_size == 32
 
 
-def test_default_thresholds_match_jax(engines, tmp_path):
+def test_default_thresholds_match_jax(engines, tmp_path, decoder):
     jax_det = JaxStreamingDetector(engines["params"], engines["jcfg"],
                                    compute_dtype=jnp.float32)
     port_det = StreamingDetector(engines["port_params"], engines["cfg"],
@@ -166,7 +173,7 @@ def servers(engines):
     psrv.shutdown()
 
 
-def test_server_detect_matches_jax_server(servers):
+def test_server_detect_matches_jax_server(servers, decoder):
     jurl, purl = servers
     for seed, shape in ((60, (32, 32, 3)), (61, (20, 45, 3))):
         body = _png(_image(seed, shape))

@@ -42,6 +42,12 @@ MODULES = [
     "arsvt_tpu_torch.models.detector",
     "arsvt_tpu_torch.objectives.boxes",
     "arsvt_tpu_torch.evaluation.detect",
+    "arsvt_tpu_torch.data.folder",
+    "arsvt_tpu_torch.data.coco",
+    "arsvt_tpu_torch.data.native_loader",
+    "arsvt_tpu_torch.serving.loading",
+    "arsvt_tpu_torch.evaluation.visualize",
+    "arsvt_tpu_torch.evaluation.cli",
 ]
 
 _PROBE = """

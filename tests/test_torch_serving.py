@@ -94,12 +94,19 @@ def test_infer_batch_matches_jax(engines):
     np.testing.assert_array_equal(idx, j_idx)
 
 
-def test_classify_path_matches_jax(engines, tmp_path, monkeypatch):
-    # the port decodes with PIL; the JAX engine would take its native C++
-    # decoder where that library is built, whose resize differs
-    from arsvt_tpu.data import native_loader
+@pytest.mark.parametrize("decoder", ["pil", "native"])
+def test_classify_path_matches_jax(engines, tmp_path, monkeypatch, decoder):
+    """Both engines on one decoder: PIL (both forced to it) or each
+    package's build of the C++ core (skipped where either is not built);
+    the two routes' resizes differ."""
+    from arsvt_tpu.data import native_loader as jax_native
+    from arsvt_tpu_torch.data import native_loader
 
-    monkeypatch.setattr(native_loader, "available", lambda: False)
+    if decoder == "pil":
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        monkeypatch.setattr(native_loader, "available", lambda: False)
+    elif not (jax_native.available() and native_loader.available()):
+        pytest.skip("a native decoder is not built")
     path = tmp_path / "frame.png"
     Image.fromarray(_image(20, (40, 27, 3))).save(path)  # letterboxed
     j_idx, _, j_probs = engines["jax"].classify_path(str(path))

@@ -114,10 +114,17 @@ def test_unknown_preset_raises():
         cli.main(["--train-preset", "nope"])
 
 
-def test_data_dir_and_detection_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        cli.main(ARGS + ["--steps", "1", "--data-dir", "/nonexistent"])
-    with pytest.raises(SystemExit, match="Queue A item 4"):
+def test_data_dir_and_detection_raise(tmp_path):
+    """A missing --data-dir raises as JAX's CLI does (no dataset to open);
+    detection without one raises JAX's message."""
+    missing = str(tmp_path / "nonexistent")
+    with pytest.raises(FileNotFoundError):
+        cli.main(ARGS + ["--steps", "1", "--data-dir", missing])
+    with pytest.raises(FileNotFoundError):
+        jax_cli.make_data(jax_cli.config_from_args(
+            jax_cli.build_parser().parse_args(["--data-dir", missing])))
+    with pytest.raises(SystemExit,
+                       match="--data-dir required for detection training"):
         cli.main(["--train-preset", "deit_detector_ref", "--steps", "1"])
 
 
