@@ -8,8 +8,9 @@ confusion matrix. `StreamingClassifier`: JPEG/PNG decode -> letterbox ->
 rescale/normalize on the device -> classify. `StreamingDetector`: the same
 front end -> DETR forward -> post-processing (confidence threshold and
 class-aware NMS). Both engines keep a rolling latency window. All run on
-the card unless the caller asks for the CPU. The int8 option
-(``quantize``) is not ported yet.
+the card unless the caller asks for the CPU. ``quantize="int8"`` runs the
+W8A8 backbone of ``models/quantized.py`` (int8 products with per-token
+activation scales, int8 weights on the device) in all three.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from arsvt_tpu_torch.core.devices import resolve_device
 from arsvt_tpu_torch.core.dtypes import (
     check_unit_range_images,
     to_unit_float,
@@ -30,34 +32,73 @@ from arsvt_tpu_torch.data.taxonomy import RECYCLING_CLASSES, class_name
 from arsvt_tpu_torch.evaluation.detect import post_process
 from arsvt_tpu_torch.models.classifier import apply_image_classifier
 from arsvt_tpu_torch.models.detector import apply_detector
+from arsvt_tpu_torch.models.quantized import (
+    apply_detector_int8,
+    apply_image_classifier_int8,
+    quantize_detector,
+    quantize_image_classifier,
+)
 from arsvt_tpu_torch.objectives.classification import confusion_matrix
 from arsvt_tpu_torch.utils.latency import LatencyWindow
 
 
-def resolve_device(device=None) -> torch.device:
-    """`None` means the card; without one, that raises instead of running
-    on the CPU unasked."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU")
-    return dev
+def check_quantize(quantize) -> None:
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+
+
+def classifier_params(params, backbone_cfg, quantize, device) -> dict:
+    """The tree an engine serves: `params` on `device`, quantized there
+    when `quantize` is "int8"."""
+    check_quantize(quantize)
+    params = tree_map(lambda t: t.to(device), params)
+    if quantize == "int8":
+        params = quantize_image_classifier(params, backbone_cfg)
+    return params
+
+
+def detector_params(params, detector_cfg, quantize, device) -> dict:
+    """`classifier_params` for a detector tree."""
+    check_quantize(quantize)
+    params = tree_map(lambda t: t.to(device), params)
+    if quantize == "int8":
+        params = quantize_detector(params, detector_cfg)
+    return params
+
+
+def classifier_logits(params, x, backbone_cfg, num_classes: int,
+                      quantize) -> torch.Tensor:
+    """x (B, H, W, C) in the compute dtype -> fp32 logits, through the
+    int8 backbone when `quantize` is "int8"."""
+    if quantize == "int8":
+        return apply_image_classifier_int8(params, x, backbone_cfg,
+                                           num_classes, compute_dtype=x.dtype)
+    return apply_image_classifier(params, x, backbone_cfg, num_classes)
+
+
+def detector_outputs(params, x, detector_cfg, quantize) -> dict:
+    """x (B, H, W, C) in the compute dtype -> the raw head outputs, through
+    the int8 backbone when `quantize` is "int8"."""
+    if quantize == "int8":
+        return apply_detector_int8(params, x, detector_cfg,
+                                   compute_dtype=x.dtype)
+    return apply_detector(params, x, detector_cfg)
 
 
 def evaluate_classifier(params, batches, backbone_cfg, num_classes: int, *,
                         compute_dtype=torch.bfloat16,
-                        normalize_inputs: bool = False, device=None) -> dict:
+                        normalize_inputs: bool = False,
+                        quantize: str | None = None, device=None) -> dict:
     """Full eval sweep -> {top1, per_class_accuracy, confusion_matrix, n}.
 
     `batches` yields {"image": (B, H, W, C) uint8 or [0,1] float, "label":
     (B,) int}, as numpy arrays or tensors. `normalize_inputs` must match
     the training contract (``cfg.augment != "none"``): then each image is
     resized to the model's size and ImageNet-normalized, as the train
-    step's eval does.
+    step's eval does. `quantize="int8"` runs the W8A8 backbone.
     """
     dev = resolve_device(device)
-    params = tree_map(lambda t: t.to(dev), params)
+    params = classifier_params(params, backbone_cfg, quantize, dev)
     correct, total = 0, 0
     conf = np.zeros((num_classes, num_classes), np.int64)
     with torch.inference_mode():
@@ -67,8 +108,8 @@ def evaluate_classifier(params, batches, backbone_cfg, num_classes: int, *,
             x = to_unit_float(images, torch.float32)
             if normalize_inputs:
                 x = eval_preprocess(x, size=backbone_cfg.image_size)
-            logits = apply_image_classifier(
-                params, x.to(compute_dtype), backbone_cfg, num_classes)
+            logits = classifier_logits(params, x.to(compute_dtype),
+                                       backbone_cfg, num_classes, quantize)
             preds = logits.argmax(dim=-1)
             correct += int((preds == labels).sum())
             total += int(labels.shape[0])
@@ -95,19 +136,25 @@ class StreamingClassifier(LatencyWindow):
     augment != "none") ImageNet-normalized inside the forward, in fp32,
     before the cast to `compute_dtype`. `params` is the port's parameter
     tree (``models/bridge.py`` or ``init_image_classifier``); it is moved
-    to `device` once.
+    to `device` once, and quantized there once with `quantize="int8"`.
+    `preprocess`, where given, maps each image `__call__` receives before
+    the range check and the forward (not `infer_batch`'s).
     """
 
     def __init__(self, params, backbone_cfg, num_classes: int, *,
-                 compute_dtype=torch.bfloat16,
-                 normalize_inputs: bool = True, device=None):
+                 compute_dtype=torch.bfloat16, preprocess=None,
+                 normalize_inputs: bool = True,
+                 quantize: str | None = None, device=None):
         self._device = resolve_device(device)
         self._cfg = backbone_cfg
         self._n = num_classes
         self._compute_dtype = compute_dtype
+        self._preprocess = preprocess
         self._normalize_inputs = normalize_inputs
+        self._quantize = quantize
         self._latencies = self.new_window()
-        self._params = tree_map(lambda t: t.to(self._device), params)
+        self._params = classifier_params(params, backbone_cfg, quantize,
+                                         self._device)
         # warm-up: the first CUDA forward builds the kernels and creates
         # the library handles, so the first real frame is not an outlier
         s = backbone_cfg.image_size
@@ -128,8 +175,9 @@ class StreamingClassifier(LatencyWindow):
             x = to_unit_float(x, torch.float32)
             if self._normalize_inputs:
                 x = normalize(x)
-            logits = apply_image_classifier(
-                self._params, x.to(self._compute_dtype), self._cfg, self._n)
+            logits = classifier_logits(
+                self._params, x.to(self._compute_dtype), self._cfg, self._n,
+                self._quantize)
             # the one device-to-host copy of the call; argmax on the host
             # picks the first maximum, as jnp.argmax does
             probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
@@ -137,6 +185,8 @@ class StreamingClassifier(LatencyWindow):
 
     def __call__(self, image) -> tuple[int, str, np.ndarray]:
         t0 = time.perf_counter()
+        if self._preprocess is not None:
+            image = self._preprocess(image)
         if self._normalize_inputs:
             check_unit_range_images(
                 image, "StreamingClassifier(normalize_inputs=True)")
@@ -174,26 +224,25 @@ class StreamingDetector(LatencyWindow):
     checkpoints trained with augment="detection" (the pipeline
     normalizes), False for augment="none". `params` is the port's detector
     tree (``models/bridge.py`` or ``init_detector``); it is moved to
-    `device` once.
+    `device` once. `quantize="int8"`: the W8A8 backbone, the DETR head in
+    floating point (``models/quantized.py``).
     """
 
     def __init__(self, params, detector_cfg, *, compute_dtype=torch.bfloat16,
                  conf_threshold: float = 0.5, nms_threshold: float = 0.5,
                  normalize_inputs: bool = True, quantize: str | None = None,
                  device=None):
-        if quantize not in (None, "int8"):
-            raise ValueError(f"unknown quantize mode {quantize!r}")
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 detector serving is not ported yet (ROADMAP Queue A)")
+        check_quantize(quantize)
         self._device = resolve_device(device)
         self._cfg = detector_cfg
         self._compute_dtype = compute_dtype
         self._conf = conf_threshold
         self._nms = nms_threshold
         self._normalize_inputs = normalize_inputs
+        self._quantize = quantize
         self._latencies = self.new_window()
-        self._params = tree_map(lambda t: t.to(self._device), params)
+        self._params = detector_params(params, detector_cfg, quantize,
+                                       self._device)
         # warm-up: the first CUDA forward builds the kernels and creates
         # the library handles, so the first real frame is not an outlier
         s = self.image_size
@@ -216,8 +265,9 @@ class StreamingDetector(LatencyWindow):
             x = to_unit_float(x.to(self._device), torch.float32)
             if self._normalize_inputs:
                 x = normalize(x)
-            out = apply_detector(self._params,
-                                 x[None].to(self._compute_dtype), self._cfg)
+            out = detector_outputs(self._params,
+                                   x[None].to(self._compute_dtype), self._cfg,
+                                   self._quantize)
             # the one device-to-host copy of the call
             raw = torch.cat([out["class_logits"][0],
                              out["boxes_cxcywh"][0]], dim=-1).cpu()

@@ -14,6 +14,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch import compiler
 
 from arsvt_tpu_torch.objectives.boxes import cxcywh_to_xyxy
 
@@ -56,7 +57,9 @@ def _nms_mask(boxes, scores, labels, valid, iou_thr: float,
 
     JAX iterates Q times; the suppression order is acyclic, so the
     iteration reaches its fixed point within Q steps and stays there. This
-    loop stops as soon as `keep` repeats, which gives the same mask.
+    loop stops as soon as `keep` repeats, which gives the same mask; while
+    ``torch.export`` traces it (``serving/export.py``), where a stop that
+    depends on the data cannot be traced, it runs JAX's Q iterations.
     """
     q = boxes.shape[-2]
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -76,10 +79,11 @@ def _nms_mask(boxes, scores, labels, valid, iou_thr: float,
     suppressor = (iou > iou_thr) & higher & valid[..., None, :]
     if class_aware:
         suppressor &= labels[..., :, None] == labels[..., None, :]
+    exporting = compiler.is_exporting()
     keep = valid
     for _ in range(q):
         new = valid & ~(suppressor & keep[..., None, :]).any(dim=-1)
-        if torch.equal(new, keep):
+        if not exporting and torch.equal(new, keep):
             break
         keep = new
     return keep

@@ -9,6 +9,15 @@ encoder and decoder blocks on a leading depth axis. The port holds the
 same keys with the blocks as a list of per-layer dicts; the patch kernel
 stays (p·p·C, D) in (p, p, C) row-major order. Leaves cross as numpy
 arrays, so neither side imports the other.
+
+The int8 trees of ``arsvt_tpu/models/quantized.py``
+(``quantize_image_classifier``, ``quantize_detector``) cross the same way:
+each of the backbone's five quantized kernels is {"q": int8 (..., in,
+out), "scale": fp32 (..., out)} on both sides, so both packages can run
+the same int8 weights. `quantized_classifier_from_jax` and
+`quantized_detector_from_jax` bring them in; `to_jax_params` and
+`detector_to_jax_params` take any tree of the port's layout back, int8
+ones included.
 """
 
 from __future__ import annotations
@@ -87,6 +96,23 @@ def jax_detector_layout_shapes(cfg: DetectorConfig) -> dict:
             "triplet_proj": _linear(d, cfg.triplet_dim)}
 
 
+# the backbone's kernels that quantize_backbone turns into {"q", "scale"}
+_QUANTIZED_KERNELS = (("patch_embed",), ("blocks", "attn", "qkv"),
+                      ("blocks", "attn", "proj"), ("blocks", "mlp", "fc1"),
+                      ("blocks", "mlp", "fc2"))
+
+
+def _quantized_backbone_shapes(cfg: BackboneConfig) -> dict:
+    spec = _backbone_shapes(cfg)
+    for path in _QUANTIZED_KERNELS:
+        node = spec
+        for key in path:
+            node = node[key]
+        shape = node["kernel"]
+        node["kernel"] = {"q": shape, "scale": (*shape[:-2], shape[-1])}
+    return spec
+
+
 def _check_tree(tree, spec, path: str = "") -> None:
     if isinstance(spec, dict):
         if not isinstance(tree, dict):
@@ -112,12 +138,15 @@ def from_jax_params(tree: dict, cfg: BackboneConfig, *,
     Refuses a tree whose keys or shapes do not match `cfg`; the number of
     classes is read from the head kernel.
     """
+    _check_tree(tree, jax_layout_shapes(cfg, _num_classes(tree)))
+    return _unstack_blocks(tree, cfg, device)
+
+
+def _num_classes(tree: dict) -> int:
     try:
-        num_classes = np.shape(tree["classifier"]["head"]["kernel"])[1]
+        return np.shape(tree["classifier"]["head"]["kernel"])[1]
     except (KeyError, TypeError, IndexError) as e:
         raise ValueError("params lack classifier/head/kernel") from e
-    _check_tree(tree, jax_layout_shapes(cfg, num_classes))
-    return _unstack_blocks(tree, cfg, device)
 
 
 def _unstack(stacked: dict, depth: int) -> list[dict]:
@@ -157,6 +186,31 @@ def detector_to_jax_params(params: dict) -> dict:
     out = to_jax_params(params)
     out["detr"]["blocks"] = _stack(out["detr"]["blocks"])
     return out
+
+
+def quantized_classifier_from_jax(tree: dict, cfg: BackboneConfig, *,
+                                  device="cpu") -> dict:
+    """JAX's ``quantize_image_classifier`` pytree (numpy leaves: int8 q,
+    fp32 scale) -> the port's quantized tree
+    (``models/quantized.py::quantize_image_classifier``'s layout). Refuses
+    a tree whose keys or shapes do not match `cfg`."""
+    spec = jax_layout_shapes(cfg, _num_classes(tree))
+    spec["backbone"] = _quantized_backbone_shapes(cfg)
+    _check_tree(tree, spec)
+    return _unstack_blocks(tree, cfg, device)
+
+
+def quantized_detector_from_jax(tree: dict, cfg: DetectorConfig, *,
+                                device="cpu") -> dict:
+    """JAX's ``quantize_detector`` pytree (numpy leaves) -> the port's
+    quantized detector tree. Refuses a tree whose keys or shapes do not
+    match `cfg`."""
+    spec = jax_detector_layout_shapes(cfg)
+    spec["backbone"] = _quantized_backbone_shapes(cfg.backbone)
+    _check_tree(tree, spec)
+    port = _unstack_blocks(tree, cfg.backbone, device)
+    port["detr"]["blocks"] = _unstack(port["detr"]["blocks"], cfg.head.depth)
+    return port
 
 
 def _stack(layers: list[dict]) -> dict:

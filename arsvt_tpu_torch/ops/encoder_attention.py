@@ -44,6 +44,7 @@ import torch
 
 from arsvt_tpu_torch.ops import build
 from arsvt_tpu_torch.ops.attention import merge_heads, split_heads
+from arsvt_tpu_torch.ops.library import kernel_op
 from arsvt_tpu_torch.ops.dropout import (
     apply_mask,
     call_dropout,
@@ -191,6 +192,22 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
     LAUNCHES += 1
     DROPOUT_LAUNCHES += args[3]
     return out, lse
+
+
+@kernel_op("encoder_attention_fwd", "(Tensor qkv, int num_heads, "
+           "float dropout_rate, int seed) -> (Tensor, Tensor)")
+def encoder_attention_fwd_op(qkv, num_heads, dropout_rate, seed):
+    """`encoder_attention_fwd` as the custom op ``arsvt::encoder_attention_
+    fwd`` (``ops/library.py``): what the model code calls."""
+    return encoder_attention_fwd(qkv, num_heads, dropout_rate=dropout_rate,
+                                 seed=seed)
+
+
+@encoder_attention_fwd_op.register_fake
+def _(qkv, num_heads, dropout_rate, seed):
+    b, s, three_d = qkv.shape
+    return (qkv.new_empty((b, s, three_d // 3)),
+            qkv.new_empty((b, num_heads, 1, s), dtype=torch.float32))
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -443,8 +460,7 @@ class _FusedEncoderAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed):
         qkv = torch.matmul(y, wqkv) + bqkv
-        attn, lse = encoder_attention_fwd(qkv, num_heads, dropout_rate=rate,
-                                          seed=seed)
+        attn, lse = encoder_attention_fwd_op(qkv, num_heads, rate, seed)
         out = torch.matmul(attn, wproj) + bproj
         ctx.save_for_backward(y, qkv, attn, lse, wqkv, wproj)
         ctx.args = (num_heads, rate, seed)

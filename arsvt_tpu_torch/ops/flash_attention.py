@@ -51,6 +51,7 @@ from arsvt_tpu_torch.ops.dropout import (
     keep_mask,
     keep_threshold,
 )
+from arsvt_tpu_torch.ops.library import kernel_op
 
 # -0.7 * float32 max, the TPU kernel's mask value (``flash_attention.py:44``)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -198,6 +199,22 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
     return out, lse
 
 
+@kernel_op("flash_attention_fwd", "(Tensor q, Tensor k, Tensor v, "
+           "int kv_len, float dropout_rate, int seed) -> (Tensor, Tensor)")
+def flash_attention_fwd_op(q, k, v, kv_len, dropout_rate, seed):
+    """`flash_attention_fwd` as the custom op ``arsvt::flash_attention_fwd``
+    (``ops/library.py``): what the model code calls."""
+    return flash_attention_fwd(q, k, v, kv_len=kv_len,
+                               dropout_rate=dropout_rate, seed=seed)
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, kv_len, dropout_rate, seed):
+    b, h, sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, 1, sq), dtype=torch.float32))
+
+
 def flash_attention_bwd_plain(q, k, v, o, do, lse, kv_len: int,
                               dropout_rate: float = 0.0, seed: int = 0):
     """Plain PyTorch version of the backward kernel, at its rounding
@@ -286,7 +303,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rate, seed):
-        out, lse = flash_attention_fwd(q, k, v, dropout_rate=rate, seed=seed)
+        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.dropout = (rate, seed)
         return out
@@ -329,7 +346,7 @@ class _FlashPacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv_flat, num_heads, rate, seed):
         q, k, v = _split_contiguous(qkv_flat, num_heads)
-        out, lse = flash_attention_fwd(q, k, v, dropout_rate=rate, seed=seed)
+        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed)
         ctx.save_for_backward(qkv_flat, out, lse)
         ctx.args = (num_heads, rate, seed)
         return merge_heads(out)

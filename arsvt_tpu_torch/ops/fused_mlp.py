@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from arsvt_tpu_torch.ops import build
+from arsvt_tpu_torch.ops.library import kernel_op
 
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -168,6 +169,20 @@ def fused_mlp_fwd(x2d, w1, b1, w2, b2):
     return out, u
 
 
+@kernel_op("fused_mlp_fwd", "(Tensor x2d, Tensor w1, Tensor b1, Tensor w2, "
+           "Tensor b2) -> (Tensor, Tensor)")
+def fused_mlp_fwd_op(x2d, w1, b1, w2, b2):
+    """`fused_mlp_fwd` as the custom op ``arsvt::fused_mlp_fwd``
+    (``ops/library.py``): what the model code calls."""
+    return fused_mlp_fwd(x2d, w1, b1, w2, b2)
+
+
+@fused_mlp_fwd_op.register_fake
+def _(x2d, w1, b1, w2, b2):
+    return (torch.empty_like(x2d),
+            x2d.new_empty((x2d.shape[0], w1.shape[1]), dtype=torch.bfloat16))
+
+
 def fused_mlp_bwd_plain(x2d, u, w1, w2, dout):
     """Plain PyTorch version of the backward kernels, at their rounding
     points: dh = dO w2^T in fp32, du = dh gelu'(u) from the bf16 u, rounded
@@ -241,7 +256,7 @@ class _FusedGeluMlp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, w1, b1, w2, b2):
-        out, u = fused_mlp_fwd(x2d, w1, b1, w2, b2)
+        out, u = fused_mlp_fwd_op(x2d, w1, b1, w2, b2)
         ctx.save_for_backward(x2d, u, w1, w2)
         ctx.bias_dtypes = (b1.dtype, b2.dtype)
         return out

@@ -9,16 +9,21 @@
                      "endpoints": [...]}
     GET  /stats      -> rolling latency percentiles (+ batching counters)
 
-Built from a training checkpoint of the port, or from in-memory
+Built from a training checkpoint of the port (bf16, or the int8 W8A8
+backbone with ``quantize="int8"``), from an export artifact
+(``serving/export.py``; no model code is imported), or from in-memory
 `StreamingClassifier` and/or `StreamingDetector` engines:
 
     server = InferenceServer.from_checkpoint("checkpoints")
+    server = InferenceServer.from_artifact("model.pt2")
     server.serve(port=8000)                      # blocking
     host, port = server.start_background(port=0)  # or threaded
 
 or from the command line, on the card unless ``ARSVT_PLATFORM=cpu``:
 
-    python -m arsvt_tpu_torch.serving.server --checkpoint-dir checkpoints
+    python -m arsvt_tpu_torch.serving.server --checkpoint-dir checkpoints \
+        [--int8]
+    python -m arsvt_tpu_torch.serving.server --artifact model.pt2
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from arsvt_tpu_torch.core.devices import platform_device
 from arsvt_tpu_torch.data.pipeline import letterbox
 from arsvt_tpu_torch.data.taxonomy import class_name
 from arsvt_tpu_torch.serving.batching import MicroBatcher
@@ -79,7 +85,9 @@ class InferenceServer:
                         batch_window_ms: float = 3.0, device=None):
         """Build the right streaming engine from a training checkpoint of
         the port (``train/checkpoint.py``), on `device` (None: the card).
-        `quantize="int8"` is not ported yet (ROADMAP Queue A item 7)."""
+        `quantize="int8"` serves the W8A8 backbone (``models/quantized.
+        py``): int8 weights on the device; a detector's DETR head stays
+        floating point."""
         from arsvt_tpu_torch.evaluation.classify import (
             StreamingClassifier,
             StreamingDetector,
@@ -90,10 +98,6 @@ class InferenceServer:
             resolve_detector,
         )
 
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not ported yet "
-                "(ROADMAP Queue A item 7)")
         params, cfg = load_inference_bundle(checkpoint_dir, step=step)
         # the preprocessing contract rides with the checkpoint: training
         # with augment="none" feeds raw [0,1] images, every other mode
@@ -105,12 +109,34 @@ class InferenceServer:
                                  "detect checkpoints serve single-image")
             return cls(detector=StreamingDetector(
                 params, resolve_detector(cfg),
-                normalize_inputs=normalize_inputs, device=device,
+                normalize_inputs=normalize_inputs, quantize=quantize,
+                device=device,
             ))
         return cls(classifier=StreamingClassifier(
             params, resolve_backbone(cfg), cfg.num_classes,
-            normalize_inputs=normalize_inputs, device=device,
+            normalize_inputs=normalize_inputs, quantize=quantize,
+            device=device,
         ), max_batch=max_batch, batch_window_ms=batch_window_ms)
+
+    @classmethod
+    def from_artifact(cls, artifact_path: str, *, max_batch: int = 1,
+                      batch_window_ms: float = 3.0, device=None):
+        """Serve an export artifact (``serving/export.py``) on `device`
+        (None: the card): the task and the preprocessing contract live in
+        the artifact, and no model code is imported."""
+        from arsvt_tpu_torch.serving.artifact import (
+            ArtifactDetector,
+            load_artifact_engine,
+        )
+
+        engine = load_artifact_engine(artifact_path, device)
+        if isinstance(engine, ArtifactDetector):
+            if max_batch > 1:
+                raise ValueError("micro-batching applies to /classify; "
+                                 "detect artifacts serve single-image")
+            return cls(detector=engine)
+        return cls(classifier=engine, max_batch=max_batch,
+                   batch_window_ms=batch_window_ms)
 
     # ----------------------------------------------------------- handlers
     def _decode(self, body: bytes):
@@ -257,7 +283,8 @@ def main(argv=None):
     src.add_argument("--checkpoint-dir",
                      help="serve from a training checkpoint of the port")
     src.add_argument("--artifact",
-                     help="serve an export artifact (not ported yet)")
+                     help="serve an export artifact "
+                          "(python -m arsvt_tpu_torch.serving.export)")
     p.add_argument("--step", type=int, default=None)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -267,25 +294,26 @@ def main(argv=None):
     p.add_argument("--batch-window-ms", type=float, default=3.0,
                    help="how long a lone request waits for batch company")
     p.add_argument("--int8", action="store_true",
-                   help="serve the W8A8 quantized backbone (not ported yet)")
+                   help="serve the W8A8 quantized backbone (classify and "
+                        "detect; int8 weights on the device); with "
+                        "--artifact, quantization is baked in at export "
+                        "time instead")
     args = p.parse_args(argv)
     if args.artifact:
         if args.int8 or args.step is not None:
             p.error("--int8/--step apply to --checkpoint-dir; with "
                     "--artifact they are baked in at export time")
-        raise NotImplementedError(
-            "--artifact: export artifacts are not ported yet (ROADMAP "
-            "Queue A item 6)")
-    if args.int8:
-        raise NotImplementedError(
-            "--int8: int8 serving is not ported yet (ROADMAP Queue A "
-            "item 7)")
-    from arsvt_tpu_torch.train.cli import platform_device
-
-    server = InferenceServer.from_checkpoint(
-        args.checkpoint_dir, step=args.step, max_batch=args.max_batch,
-        batch_window_ms=args.batch_window_ms, device=platform_device(),
-    )
+        server = InferenceServer.from_artifact(
+            args.artifact, max_batch=args.max_batch,
+            batch_window_ms=args.batch_window_ms, device=platform_device(),
+        )
+    else:
+        server = InferenceServer.from_checkpoint(
+            args.checkpoint_dir, step=args.step,
+            quantize="int8" if args.int8 else None,
+            max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+            device=platform_device(),
+        )
     print(f"serving on http://{args.host}:{args.port}  "
           f"(POST /classify|/detect, GET /healthz|/stats)", flush=True)
     server.serve(host=args.host, port=args.port)

@@ -21,6 +21,7 @@ import itertools
 import os
 import sys
 
+from arsvt_tpu_torch.core.devices import platform_device
 from arsvt_tpu_torch.train.config import TRAIN_PRESETS, TrainConfig
 
 
@@ -163,17 +164,6 @@ def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
             )
 
     return train, eval_batches
-
-
-def platform_device() -> str:
-    """``ARSVT_PLATFORM``: unset (the card) or "cpu"."""
-    platform = os.environ.get("ARSVT_PLATFORM", "")
-    if platform in ("", "cuda", "gpu"):
-        return "cuda"
-    if platform == "cpu":
-        return "cpu"
-    raise ValueError(f"ARSVT_PLATFORM={platform!r}: the port runs on 'cpu' "
-                     "or the card")
 
 
 def main(argv=None):

@@ -6,6 +6,7 @@ on one NVIDIA card.
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
     python3 chip_smoke.py --disk     # phases 1, 2 and 12 (no kernel line)
+    python3 chip_smoke.py --int8     # phases 1, 2, 12 and 13 (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -103,7 +104,17 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    arsvt_tpu_torch.serving.server --checkpoint-dir`` as a subprocess; (e)
    ``deit_detector_ref`` trained from the COCO root, the eval CLI against
    ``evaluate_detector``, /detect from its checkpoint against
-   ``detect_path``.
+   ``detect_path``;
+13. int8 serving and export artifacts (see the comment above
+   `phase_int8_export`): (a) ViT-B/16@224 int8 against bf16 on the card
+   within JAX's limits, the int8 products of ``torch._int_mm`` against
+   exact sums, weight bytes, /classify p50/p99 with ``--int8`` and
+   without; (b) ``deit_detector_ref`` int8 against bf16; (c) both models
+   exported with ``torch.export`` in bf16 and int8, loaded by
+   ``load_artifact_engine`` and held against the in-process engines at B =
+   1 and 8, and the bf16 classify artifact moved to the CPU; (d) ``python
+   -m arsvt_tpu_torch.serving.export`` on phase 12's seeded checkpoint and
+   ``python -m arsvt_tpu_torch.serving.server --artifact``.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -125,7 +136,11 @@ forward one #1 launch and one #8 call per layer); each CLI run of
 launch); each entry point of 12 ((b): #1 and #2 per layer and step, #1
 per layer and eval batch, one AdamW launch a step; (c) and (d): #1 per
 layer and forward alone; (e): 18 #3 and #4 calls and one AdamW launch a
-step, 18 #3 calls per eval or served forward). Beside each total, #1,
+step, 18 #3 calls per eval or served forward); each path of 13 ((a): #1
+per layer and forward, int8 or bf16, in process and served; (b): 18 #3 a
+forward; (c): #1 per layer or 18 #3 per forward of each loaded artifact,
+its warm-up included; (d): #1 per layer and forward of the artifact served
+in process; the subprocesses' launches are not counted). Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
 every training launch of phase 11's dropout runs and of the detector's
 training (9(c), 11(d), 12(e)), none elsewhere. Any failure exits
@@ -154,11 +169,21 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
-from arsvt_tpu_torch.core.dtypes import named_leaves, tree_leaves, tree_map
+from arsvt_tpu_torch.core.dtypes import (
+    named_leaves,
+    to_unit_float,
+    tree_leaves,
+    tree_map,
+)
+from arsvt_tpu_torch.data.augment import normalize
 from arsvt_tpu_torch.data.pipeline import letterbox
 from arsvt_tpu_torch.evaluation.classify import (
     StreamingClassifier,
     StreamingDetector,
+    classifier_logits,
+    classifier_params,
+    detector_outputs,
+    detector_params,
     evaluate_classifier,
 )
 from arsvt_tpu_torch.evaluation.detect import evaluate_detector, post_process
@@ -171,6 +196,13 @@ from arsvt_tpu_torch.ops import (
     flash_attention,
     fused_adamw,
     fused_mlp,
+)
+from arsvt_tpu_torch.ops.quant import int8_matmul
+from arsvt_tpu_torch.serving.artifact import load_artifact_engine
+from arsvt_tpu_torch.serving.export import (
+    export_classifier,
+    export_detector,
+    save_exported,
 )
 from arsvt_tpu_torch.serving.server import InferenceServer
 from arsvt_tpu_torch.train import detect_step
@@ -3148,7 +3180,6 @@ def phase_disk_data(tmp, smi) -> tuple[str, str, list[str]]:
 def cpu_fp32_probs(params, batches, backbone_cfg, num_classes):
     """evaluate_classifier's arithmetic on the CPU in fp32, per image:
     (probs (N, C), labels (N,))."""
-    from arsvt_tpu_torch.core.dtypes import to_unit_float
     from arsvt_tpu_torch.data.augment import eval_preprocess
     from arsvt_tpu_torch.models.classifier import apply_image_classifier
 
@@ -3258,8 +3289,9 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def served_subprocess(ckpt_dir, body, answer, tmp, smi) -> None:
-    """(d) `python -m arsvt_tpu_torch.serving.server` on `ckpt_dir`:
+def served_subprocess(source, body, answer, tmp, smi) -> None:
+    """`python -m arsvt_tpu_torch.serving.server` on `source`
+    (["--checkpoint-dir", dir] in 12(d), ["--artifact", file] in 13(d)):
     /healthz, then one /classify against the in-process `answer`."""
     port = free_port()
     url = f"http://127.0.0.1:{port}"
@@ -3270,7 +3302,7 @@ def served_subprocess(ckpt_dir, body, answer, tmp, smi) -> None:
     with open(logpath, "w") as logfile:
         proc = subprocess.Popen(
             [sys.executable, "-m", "arsvt_tpu_torch.serving.server",
-             "--checkpoint-dir", ckpt_dir, "--port", str(port)],
+             *source, "--port", str(port)],
             cwd=root, env=env, stdout=logfile, stderr=subprocess.STDOUT)
     try:
         health = None
@@ -3292,7 +3324,7 @@ def served_subprocess(ckpt_dir, body, answer, tmp, smi) -> None:
         diff = float(np.abs(np.asarray(data["probs"])
                             - np.asarray(answer["probs"])).max())
         rec = {"check": "python -m arsvt_tpu_torch.serving.server "
-                        "--checkpoint-dir", "healthz": health,
+                        + source[0], "healthz": health,
                "seconds_to_healthz": ready, "classify": data,
                "in_process": answer, "max_abs_diff_probs": diff,
                "card": smi}
@@ -3371,7 +3403,8 @@ def serve_classifier(ckpt_dir, picks, tmp, smi) -> dict:
     check(counts == expected, f"served checkpoint launches {counts} != "
                               f"{expected}")
     log("# phase 12(d): the server's main() as a subprocess")
-    served_subprocess(ckpt_dir, bodies[0], answers[0], tmp, smi)
+    served_subprocess(["--checkpoint-dir", ckpt_dir], bodies[0], answers[0],
+                      tmp, smi)
     return counts
 
 
@@ -3479,59 +3512,461 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
     return total
 
 
-def phase_disk(smi) -> dict:
-    """Phase 12. Returns the launches of every path."""
+def phase_disk(smi, tmp) -> tuple[dict, str]:
+    """Phase 12, in the directory `tmp`. Returns the launches of every path
+    and the params-only checkpoint whose head is seeded as phase 4's,
+    which phase 13 serves and exports."""
     from arsvt_tpu_torch.data.folder import open_classification_split
 
     t_phase = time.perf_counter()
     depth = PRESETS["vit_base_16_224"].depth
     total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
-    with tempfile.TemporaryDirectory() as tmp:
-        tree, coco, paths = phase_disk_data(tmp, smi)
-        log("# phase 12(b): train.cli, vit_base_finetune from the tree")
-        val = open_classification_split(tree, "valid")
-        run = os.path.join(tmp, "classify")
-        steps = 3
-        last, counts, secs = run_cli(
-            run, ["--data-dir", tree], base=DISK_CLF_ARGS,
-            expect=classifier_launches(depth, 1, steps,
-                                       math.ceil(len(val) / 32), False))
-        add_counts(total, counts)
-        ckpt_dir = os.path.join(run, "checkpoints")
-        ckpts = sorted(os.listdir(ckpt_dir))
-        with open(os.path.join(run, "metrics.jsonl")) as f:
-            val_rows = [json.loads(line) for line in f if '"val/' in line]
-        log(json.dumps({"check": "train.cli vit_base_finetune from a "
-                                 "TrashNet tree", "train_images":
-                        len(open_classification_split(tree, "train")),
-                        "valid_images": len(val), "last_metrics": last,
-                        "val": val_rows, "seconds": secs,
-                        "steps_per_s": steps / secs, "checkpoints": ckpts,
-                        "card": smi}))
-        check(np.isfinite(last["loss"]), f"classifier CLI loss {last}")
-        check(ckpts == ["step_000000003.pt"], f"checkpoints {ckpts}")
-        check(len(val_rows) == 1 and "val/confusion" in val_rows[0],
-              f"the CLI's eval at step 3: {val_rows}")
+    tree, coco, paths = phase_disk_data(tmp, smi)
+    log("# phase 12(b): train.cli, vit_base_finetune from the tree")
+    val = open_classification_split(tree, "valid")
+    run = os.path.join(tmp, "classify")
+    steps = 3
+    last, counts, secs = run_cli(
+        run, ["--data-dir", tree], base=DISK_CLF_ARGS,
+        expect=classifier_launches(depth, 1, steps,
+                                   math.ceil(len(val) / 32), False))
+    add_counts(total, counts)
+    ckpt_dir = os.path.join(run, "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        val_rows = [json.loads(line) for line in f if '"val/' in line]
+    log(json.dumps({"check": "train.cli vit_base_finetune from a "
+                             "TrashNet tree", "train_images":
+                    len(open_classification_split(tree, "train")),
+                    "valid_images": len(val), "last_metrics": last,
+                    "val": val_rows, "seconds": secs,
+                    "steps_per_s": steps / secs, "checkpoints": ckpts,
+                    "card": smi}))
+    check(np.isfinite(last["loss"]), f"classifier CLI loss {last}")
+    check(ckpts == ["step_000000003.pt"], f"checkpoints {ckpts}")
+    check(len(val_rows) == 1 and "val/confusion" in val_rows[0],
+          f"the CLI's eval at step 3: {val_rows}")
 
-        log("# phase 12(c): evaluation.cli on the checkpoint, split valid")
-        add_counts(total, eval_cli_vs_cpu(run, ckpt_dir, tree, val,
-                                          "trained", smi))
-        seeded = params_only_checkpoint(
-            ckpt_dir, os.path.join(tmp, "seeded", "checkpoints"),
-            "classifier/head", seed=1)
-        add_counts(total, eval_cli_vs_cpu(run, seeded, tree, val,
-                                          "seeded_head", smi))
+    log("# phase 12(c): evaluation.cli on the checkpoint, split valid")
+    add_counts(total, eval_cli_vs_cpu(run, ckpt_dir, tree, val,
+                                      "trained", smi))
+    seeded = params_only_checkpoint(
+        ckpt_dir, os.path.join(tmp, "seeded", "checkpoints"),
+        "classifier/head", seed=1)
+    add_counts(total, eval_cli_vs_cpu(run, seeded, tree, val,
+                                      "seeded_head", smi))
 
-        log("# phase 12(d): InferenceServer.from_checkpoint, /classify")
-        # one file of each of four classes, at the three sizes
-        picks = [paths[c * DISK_PER_CLASS + c] for c in range(4)]
-        add_counts(total, serve_classifier(seeded, picks, tmp, smi))
+    log("# phase 12(d): InferenceServer.from_checkpoint, /classify")
+    # one file of each of four classes, at the three sizes
+    picks = [paths[c * DISK_PER_CLASS + c] for c in range(4)]
+    add_counts(total, serve_classifier(seeded, picks, tmp, smi))
 
-        log("# phase 12(e): deit_detector_ref from the COCO root")
-        add_counts(total, phase_disk_detector(tmp, coco, smi))
+    log("# phase 12(e): deit_detector_ref from the COCO root")
+    add_counts(total, phase_disk_detector(tmp, coco, smi))
     seconds = time.perf_counter() - t_phase
     log(json.dumps({"phase": 12, "seconds": seconds, "launches": total,
                     "card": smi}))
+    return total, seeded
+
+
+# Phase 13: int8 W8A8 serving and export artifacts, at full width. (a)
+# vit_base_16_224 with phase 4's params (seeded head) on a batch of 32
+# seeded images: the int8 logits against the bf16 forward on the card
+# within JAX's own limits (tests/test_quant.py: relative L2 < 0.08, argmax
+# agreement >= 0.9); quant_dense's int32 products through torch._int_mm at
+# the backbone's five shapes (B = 32) equal to the exact integer products
+# on the CPU (float64 sums of int8 products: exact below 2^53); #1 once
+# per layer and forward; the weight bytes each tree holds on the card;
+# /classify p50/p99 over 20 requests from phase 12's seeded checkpoint,
+# served with quantize="int8" (--int8) and without. (b)
+# deit_detector_ref with a seeded class head (the init's logits near 0
+# would make the class argmax a coin toss): int8 against bf16 on 8 images,
+# relative L2 < 0.1 on logits and boxes, class agreement >= 0.9 (JAX's
+# limits, tests/test_quant.py); #3 18 times a forward. (c) both models
+# exported on the card in bf16 and int8 (the bf16 classify artifact is the
+# export CLI's of (d), of phase 12's seeded checkpoint; the others phase
+# 4's and (b)'s params, through export_classifier / export_detector),
+# saved, loaded by load_artifact_engine: against the in-process engines of
+# the same params at B = 1 and 8 (the same ops on the same device and
+# shapes: probs within TOL_ARTIFACT_PROBS and classes equal; boxes within
+# TOL_ARTIFACT_BOXES, labels and valid equal); the loaded artifacts'
+# launches of #1 and #3; the bf16 classify artifact moved to the CPU
+# against the CPU engine. (d) python -m arsvt_tpu_torch.serving.export on
+# phase 12's seeded checkpoint, then the artifact through from_artifact in
+# process and python -m arsvt_tpu_torch.serving.server --artifact:
+# /healthz and one /classify against the in-process answer.
+TOL_INT8_REL_CLF = 0.08
+TOL_INT8_REL_DET = 0.1
+TOL_INT8_AGREE = 0.9
+TOL_ARTIFACT_PROBS = 1e-5
+TOL_ARTIFACT_BOXES = 1e-6
+INT8_BATCH = 32
+INT8_REQUESTS = 20
+# (M, K, N) of quant_dense's products in one ViT-B/16@224 forward at B = 32
+INT8_SHAPES = {"patch_embed": (32 * 196, 768, 768),
+               "qkv": (32 * 197, 768, 2304), "proj": (32 * 197, 768, 768),
+               "fc1": (32 * 197, 768, 3072), "fc2": (32 * 197, 3072, 768)}
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def normalized_bf16(images: np.ndarray) -> torch.Tensor:
+    """uint8 images -> the engines' forward input on the card."""
+    x = to_unit_float(torch.from_numpy(images).cuda(), torch.float32)
+    return normalize(x).to(torch.bfloat16)
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-9))
+
+
+def phase_int8_products(smi) -> None:
+    """(a) quant_dense's int8 products on the card against exact integer
+    sums on the CPU, each timed beside the bf16 product of its shape."""
+    gen = torch.Generator().manual_seed(14)
+    for name, (m, k, n) in INT8_SHAPES.items():
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+        ac, bc = a.cuda(), b.cuda()
+        got = int8_matmul(ac, bc).cpu()
+        exact = (a.double() @ b.double()).long()
+        af, bf = ac.to(torch.bfloat16), bc.to(torch.bfloat16)
+        rec = {"check": "quant_dense int8 product on the card vs exact CPU",
+               "product": name, "mkn": [m, k, n],
+               "equal": bool(torch.equal(got.long(), exact)),
+               "int8_ms": cuda_ms(lambda: int8_matmul(ac, bc), 20),
+               "bf16_matmul_ms": cuda_ms(lambda: af @ bf, 20), "card": smi}
+        log(json.dumps(rec))
+        check(got.dtype == torch.int32 and rec["equal"],
+              f"int8 product {name} differs from the exact sums")
+
+
+def serve_latency(server, body, n) -> dict:
+    """n /classify requests one at a time: the server's /stats and the
+    client's p50/p99."""
+    host, port = server.start_background(port=0)
+    url = f"http://{host}:{port}"
+    try:
+        client_ms, classes = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            status, data = post(url + "/classify", body)
+            client_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"/classify status {status}")
+            classes.append(data["class"])
+        stats = get(url + "/stats")["classify"]
+    finally:
+        server.shutdown()
+    return {"server_p50_ms": stats["p50_ms"], "server_p99_ms":
+            stats["p99_ms"], "client_p50_ms": float(np.median(client_ms)),
+            "client_p99_ms": float(np.percentile(client_ms, 99)),
+            "class": classes[0]}
+
+
+def phase_int8_classify(cfg, params, seeded_ckpt, smi) -> dict:
+    """(a) Returns the launches."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    zeros = dict(total)
+    rng = np.random.default_rng(13)
+    x = normalized_bf16(rng.integers(0, 256, (INT8_BATCH, 224, 224, 3),
+                                     dtype=np.uint8))
+    trees = {q: classifier_params(params, cfg, q, torch.device("cuda"))
+             for q in (None, "int8")}
+    torch.cuda.synchronize()
+    zero_counts()  # the bf16 and the int8 forwards, then their timing
+    with torch.inference_mode():
+        logits = {q: classifier_logits(trees[q], x, cfg, 6, q).cpu().numpy()
+                  for q in trees}
+        ms = {q or "bf16": cuda_ms(lambda q=q: classifier_logits(
+            trees[q], x, cfg, 6, q), 10, warmup=2) for q in trees}
+    counts = read_counts()
+    add_counts(total, counts)
+    ref, got = logits[None], logits["int8"]
+    rec = {"check": "vit_base_16_224 int8 vs bf16 on the card",
+           "batch": INT8_BATCH, "rel_l2_logits": rel_l2(got, ref),
+           "max_abs_logits": float(np.abs(got - ref).max()),
+           "argmax_agreement": float((got.argmax(-1) == ref.argmax(-1)).mean()),
+           "forward_ms": ms, "weight_bytes": {
+               "bf16_engine_fp32_tree": tree_bytes(trees[None]),
+               "int8_tree": tree_bytes(trees["int8"])},
+           "launches": counts, "card": smi}
+    log(json.dumps(rec))
+    check(np.isfinite(got).all() and got.shape == (INT8_BATCH, 6),
+          "int8 logits")
+    check(rec["rel_l2_logits"] < TOL_INT8_REL_CLF
+          and rec["argmax_agreement"] >= TOL_INT8_AGREE,
+          f"int8 classify outside JAX's limits: {rec}")
+    check(counts == {**zeros, "encoder_attention_fwd": 2 * 13 * cfg.depth},
+          f"int8 classify launches {counts}")
+    del trees
+    phase_int8_products(smi)
+
+    log("# phase 13(a): /classify from the checkpoint, --int8 and not")
+    body = png_bytes(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8))
+    served = {}
+    for quantize in (None, "int8"):
+        torch.cuda.synchronize()
+        zero_counts()
+        srv = InferenceServer.from_checkpoint(seeded_ckpt, quantize=quantize)
+        served[quantize or "bf16"] = serve_latency(srv, body, INT8_REQUESTS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(total, counts)
+        check(counts == {**zeros, "encoder_attention_fwd":
+                         cfg.depth * (1 + INT8_REQUESTS)},
+              f"served {quantize} launches {counts}")
+    log(json.dumps({"check": "/classify latency from the checkpoint",
+                    "requests": INT8_REQUESTS, "served": served,
+                    "card": smi}))
+    return total
+
+
+def seeded_class_head(params, seed):
+    d, n = params["detr"]["class_head"]["kernel"].shape
+    gen = torch.Generator().manual_seed(seed)
+    params["detr"]["class_head"] = {
+        "kernel": torch.randn(d, n, generator=gen) * 3 * d ** -0.5,
+        "bias": torch.randn(n, generator=gen) * 0.1}
+    return params
+
+
+def phase_int8_detect(smi) -> tuple[dict, dict]:
+    """(b) Returns (the launches, the detector's params)."""
+    cfg = DETECTOR_PRESETS["deit_detector_ref"]
+    params = seeded_class_head(init_detector(cfg, seed=0), seed=2)
+    rng = np.random.default_rng(16)
+    x = normalized_bf16(rng.integers(0, 256, (8, 224, 224, 3),
+                                     dtype=np.uint8))
+    trees = {q: detector_params(params, cfg, q, torch.device("cuda"))
+             for q in (None, "int8")}
+    torch.cuda.synchronize()
+    zero_counts()
+    with torch.inference_mode():
+        outs = {q: {k: v.cpu().numpy() for k, v in detector_outputs(
+            trees[q], x, cfg, q).items()} for q in trees}
+    counts = read_counts()
+    ref, got = outs[None], outs["int8"]
+    rec = {"check": "deit_detector_ref int8 vs bf16 on the card",
+           "images": 8, "rel_l2": {k: rel_l2(got[k], ref[k]) for k in ref},
+           "class_agreement": float((got["class_logits"].argmax(-1)
+                                     == ref["class_logits"].argmax(-1))
+                                    .mean()),
+           "weight_bytes": {"bf16_engine_fp32_tree": tree_bytes(trees[None]),
+                            "int8_tree": tree_bytes(trees["int8"])},
+           "launches": counts, "card": smi}
+    log(json.dumps(rec))
+    check(all(np.isfinite(v).all() for v in got.values()), "int8 detect")
+    check(max(rec["rel_l2"].values()) < TOL_INT8_REL_DET
+          and rec["class_agreement"] >= TOL_INT8_AGREE,
+          f"int8 detect outside JAX's limits: {rec}")
+    per_forward = cfg.backbone.depth + cfg.head.depth
+    check(counts == {**dict.fromkeys(counts, 0),
+                     "flash_attention_fwd": 2 * per_forward},
+          f"int8 detect launches {counts}")
+    return counts, params
+
+
+def engine_detections(engine, images) -> dict:
+    """What StreamingDetector.forward and detect_path compute, for a batch:
+    the forward on the card, one copy, post_process on the host."""
+    with torch.inference_mode():
+        x = to_unit_float(torch.from_numpy(images).cuda(), torch.float32)
+        out = detector_outputs(engine._params, normalize(x).to(
+            engine._compute_dtype), engine._cfg, engine._quantize)
+        raw = {k: v.cpu() for k, v in out.items()}
+    return post_process(raw["class_logits"], raw["boxes_cxcywh"],
+                        conf_threshold=engine._conf,
+                        nms_threshold=engine._nms)
+
+
+def export_timed(fn, path) -> dict:
+    t0 = time.perf_counter()
+    exported = fn()
+    t1 = time.perf_counter()
+    save_exported(exported, path)
+    return {"export_s": t1 - t0, "save_s": time.perf_counter() - t1,
+            "bytes": os.path.getsize(path)}
+
+
+def load_counted(path, forwards_per_call, launch_name, depth):
+    """load_artifact_engine on the card, with the launches of its warm-up
+    and of `forwards_per_call` calls checked: `depth` of `launch_name` a
+    forward and no other kernel."""
+    torch.cuda.synchronize()
+    zero_counts()  # the loaded artifact's path starts here
+    t0 = time.perf_counter()
+    engine = load_artifact_engine(path)
+    load_s = time.perf_counter() - t0
+    results = forwards_per_call(engine)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = 1 + len(results)  # the warm-up
+    check(counts == {**dict.fromkeys(counts, 0),
+                     launch_name: depth * forwards},
+          f"artifact {path} launches {counts}")
+    return engine, results, counts, load_s
+
+
+def export_cli(seeded_ckpt, smi, tmp) -> str:
+    """(d) `python -m arsvt_tpu_torch.serving.export` on phase 12's seeded
+    checkpoint (bf16). Returns the artifact's path."""
+    out = os.path.join(tmp, "cli.pt2")
+    env = {k: v for k, v in os.environ.items() if k != "ARSVT_PLATFORM"}
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "arsvt_tpu_torch.serving.export",
+         "--checkpoint-dir", seeded_ckpt, "--out", out], cwd=root, env=env,
+        capture_output=True, text=True, timeout=SERVER_START_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the export CLI failed:\n{proc.stderr[-3000:]}")
+    manifest = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(json.dumps({"check": "python -m arsvt_tpu_torch.serving.export",
+                    "manifest": manifest, "seconds": seconds,
+                    "bytes": os.path.getsize(out), "card": smi}))
+    check(manifest["task"] == "classify" and manifest["normalize_inputs"]
+          and manifest["quantize"] is None and manifest["image_size"] == 224,
+          f"manifest {manifest}")
+    return out
+
+
+def phase_export(cfg, params, det_params, seeded_ckpt, cli_path, smi,
+                 tmp) -> dict:
+    """(c) The bf16 classify artifact is the export CLI's, of phase 12's
+    seeded checkpoint; the other three are exported here. Returns the
+    launches of the loaded artifacts."""
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+    from arsvt_tpu_torch.train.config import resolve_backbone
+
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    det_cfg = DETECTOR_PRESETS["deit_detector_ref"]
+    rng = np.random.default_rng(15)
+    batch = rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    sizes = (1, 8)
+    ckpt_params, tcfg = load_inference_bundle(seeded_ckpt)
+    ckpt_cfg = resolve_backbone(tcfg)
+    for quantize in (None, "int8"):
+        name = quantize or "bf16"
+        if quantize is None:  # the CLI's artifact, of the checkpoint
+            path, clf_params, clf_cfg = cli_path, ckpt_params, ckpt_cfg
+            rec = {"export": "python -m arsvt_tpu_torch.serving.export"}
+        else:
+            path, clf_params, clf_cfg = (
+                os.path.join(tmp, f"classify_{name}.pt2"), params, cfg)
+            rec = export_timed(lambda: export_classifier(
+                params, cfg, 6, quantize=quantize), path)
+        art, outs, counts, rec["load_s"] = load_counted(
+            path, lambda e: [e.infer_batch(batch[:b]) for b in sizes],
+            "encoder_attention_fwd", cfg.depth)
+        add_counts(total, counts)
+        del art
+        engine = StreamingClassifier(clf_params, clf_cfg, 6,
+                                     quantize=quantize, device="cuda")
+        diffs = []
+        for b, (idx, probs) in zip(sizes, outs):
+            e_idx, e_probs = engine.infer_batch(batch[:b])
+            diffs.append(float(np.abs(probs - e_probs).max()))
+            check(idx.tolist() == e_idx.tolist(),
+                  f"classify artifact {name} B={b}: classes {idx} vs "
+                  f"{e_idx}")
+        rec.update(check=f"classify artifact {name} vs StreamingClassifier",
+                   max_abs_diff_probs=diffs, launches=counts, card=smi)
+        log(json.dumps(rec))
+        check(max(diffs) <= TOL_ARTIFACT_PROBS,
+              f"classify artifact {name} probs differ: {rec}")
+        del engine
+        if quantize is None:
+            moved = load_artifact_engine(path, device="cpu")
+            cpu = StreamingClassifier(clf_params, clf_cfg, 6, device="cpu")
+            (idx, probs), (c_idx, c_probs) = (
+                e.infer_batch(batch[:1]) for e in (moved, cpu))
+            rec = {"check": "classify artifact bf16 moved to the CPU vs "
+                            "the CPU engine",
+                   "max_abs_diff_probs": float(np.abs(probs - c_probs).max()),
+                   "class": int(idx[0]), "card": smi}
+            log(json.dumps(rec))
+            check(idx.tolist() == c_idx.tolist()
+                  and rec["max_abs_diff_probs"] <= TOL_ARTIFACT_PROBS,
+                  f"the artifact on the CPU differs: {rec}")
+            del moved, cpu
+
+        path = os.path.join(tmp, f"detect_{name}.pt2")
+        rec = export_timed(lambda: export_detector(
+            det_params, det_cfg, quantize=quantize), path)
+        art, outs, counts, rec["load_s"] = load_counted(
+            path, lambda e: [e._run(batch[:b]) for b in sizes],
+            "flash_attention_fwd", det_cfg.backbone.depth + det_cfg.head.depth)
+        add_counts(total, counts)
+        del art
+        engine = StreamingDetector(det_params, det_cfg, quantize=quantize,
+                                   device="cuda")
+        kept, diffs = [], []
+        for b, out in zip(sizes, outs):
+            ref = engine_detections(engine, batch[:b])
+            out = {k: v.cpu() for k, v in out.items()}
+            for key in ("labels", "valid"):
+                check(torch.equal(out[key], ref[key]),
+                      f"detect artifact {name} B={b}: {key} differ")
+            diffs.append(float((out["boxes"] - ref["boxes"]).abs().max()))
+            kept.append(int(out["valid"].sum()))
+        rec.update(check=f"detect artifact {name} vs StreamingDetector",
+                   max_abs_diff_boxes=diffs, detections=kept,
+                   launches=counts, card=smi)
+        log(json.dumps(rec))
+        check(max(diffs) <= TOL_ARTIFACT_BOXES,
+              f"detect artifact {name} boxes differ: {rec}")
+        del engine
+    return total
+
+
+def serve_artifact(cli_path, smi, tmp) -> dict:
+    """(d) the CLI's artifact through from_artifact in process, then
+    `python -m arsvt_tpu_torch.serving.server --artifact`. Returns the
+    in-process launches."""
+    depth = PRESETS["vit_base_16_224"].depth
+    body = png_bytes(np.random.default_rng(17).integers(
+        0, 256, (200, 260, 3), dtype=np.uint8))
+    torch.cuda.synchronize()
+    zero_counts()
+    srv = InferenceServer.from_artifact(cli_path)
+    host, port = srv.start_background(port=0)
+    try:
+        status, answer = post(f"http://{host}:{port}/classify", body)
+        health = get(f"http://{host}:{port}/healthz")
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(status == 200 and health["backend"] == "cuda", f"{health}")
+    check(counts == {**dict.fromkeys(counts, 0),
+                     "encoder_attention_fwd": 2 * depth},
+          f"from_artifact launches {counts}")
+    log("# phase 13(d): the server's main() --artifact as a subprocess")
+    served_subprocess(["--artifact", cli_path], body, answer, tmp, smi)
+    return counts
+
+
+def phase_int8_export(cfg, params, seeded_ckpt, smi, tmp) -> dict:
+    """Phase 13. Returns the launches of every path."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    log("# phase 13(a): vit_base_16_224 int8 against bf16")
+    add_counts(total, phase_int8_classify(cfg, params, seeded_ckpt, smi))
+    log("# phase 13(b): deit_detector_ref int8 against bf16")
+    counts, det_params = phase_int8_detect(smi)
+    add_counts(total, counts)
+    log("# phase 13(d): the export CLI")
+    cli_path = export_cli(seeded_ckpt, smi, tmp)
+    log("# phase 13(c): artifacts exported and loaded on the card")
+    add_counts(total, phase_export(cfg, params, det_params, seeded_ckpt,
+                                   cli_path, smi, tmp))
+    log("# phase 13(d): from_artifact and server --artifact")
+    add_counts(total, serve_artifact(cli_path, smi, tmp))
+    log(json.dumps({"phase": 13, "seconds": time.perf_counter() - t_phase,
+                    "launches": total, "card": smi}))
     return total
 
 
@@ -3638,12 +4073,17 @@ def main() -> int:
     for name in build.kernel_names():
         build.load(name)
     phase_build_report(built)
-    if "--disk" in sys.argv[1:]:
-        log("# --disk: phase 12 alone")
-        phase_disk(smi)
+    cfg = PRESETS["vit_base_16_224"]
+    params = seeded_head(init_image_classifier(cfg, 6, seed=0),
+                         cfg.embed_dim, 6, seed=1)
+    if {"--disk", "--int8"} & set(sys.argv[1:]):
+        log("# --disk / --int8: phase 12 (and 13) alone")
+        with tempfile.TemporaryDirectory() as tmp:
+            _, seeded = phase_disk(smi, tmp)
+            if "--int8" in sys.argv[1:]:
+                phase_int8_export(cfg, params, seeded, smi, tmp)
         return 0
 
-    cfg = PRESETS["vit_base_16_224"]
     log("# phase 3: kernels against their plain versions")
     flash = phase_flash_checks()
     flash_bwd = phase_flash_train_checks()
@@ -3657,8 +4097,6 @@ def main() -> int:
         log("# --kernels: stopping after phase 3")
         return 0
 
-    params = seeded_head(init_image_classifier(cfg, 6, seed=0),
-                         cfg.embed_dim, 6, seed=1)
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
               for _ in range(4)]
@@ -3704,8 +4142,11 @@ def main() -> int:
     log("# phase 11: the training entry point with attention dropout")
     entry = phase_entry_point(cfg, smi)
 
-    log("# phase 12: from images on disk to a served checkpoint")
-    disk = phase_disk(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        log("# phase 12: from images on disk to a served checkpoint")
+        disk, seeded = phase_disk(smi, tmp)
+        log("# phase 13: int8 serving and export artifacts")
+        int8 = phase_int8_export(cfg, params, seeded, smi, tmp)
 
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
@@ -3716,9 +4157,9 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-12
+    def paths(name):  # launches of every path's run, phases 4-13
         return (train[name] + detect.get(name, 0) + det_train[name]
-                + opt_in[name] + entry[name] + disk[name]
+                + opt_in[name] + entry[name] + disk[name] + int8[name]
                 + (launches if name == "encoder_attention_fwd" else 0))
 
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",

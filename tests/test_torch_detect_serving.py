@@ -142,10 +142,29 @@ def test_default_device_is_cuda_and_raises_without_it(engines, monkeypatch):
                               device=device)
 
 
-def test_quantize_option(engines):
-    with pytest.raises(NotImplementedError, match="int8"):
-        StreamingDetector(engines["port_params"], engines["cfg"],
-                          quantize="int8", device="cpu")
+def test_quantize_option(engines, tmp_path):
+    """quantize="int8" serves the W8A8 backbone: int8 kernels on the
+    engine, the DETR head in fp32, detections as JAX's int8 engine's (fp32
+    compute on both sides, within one int8 flip, tests/test_torch_quant.py);
+    an unknown mode raises."""
+    jax_det = JaxStreamingDetector(engines["params"], engines["jcfg"],
+                                   compute_dtype=jnp.float32,
+                                   conf_threshold=CONF, quantize="int8")
+    port_det = StreamingDetector(engines["port_params"], engines["cfg"],
+                                 compute_dtype=torch.float32,
+                                 conf_threshold=CONF, quantize="int8",
+                                 device="cpu")
+    blocks = port_det._params["backbone"]["blocks"]
+    assert blocks[0]["mlp"]["fc2"]["kernel"]["q"].dtype == torch.int8
+    assert port_det._params["detr"]["class_head"]["kernel"].dtype == \
+        torch.float32
+    path = tmp_path / "frame.png"
+    Image.fromarray(_image(3)).save(path)
+    with jax.default_matmul_precision("highest"):
+        ref = jax_det.detect_path(str(path))
+    got = port_det.detect_path(str(path))
+    assert len(got["labels"]) > 0  # the comparison has detections
+    _assert_same_detections(got, ref, 1e-3)
     with pytest.raises(ValueError, match="quantize"):
         StreamingDetector(engines["port_params"], engines["cfg"],
                           quantize="int4", device="cpu")

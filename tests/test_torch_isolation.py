@@ -48,6 +48,12 @@ MODULES = [
     "arsvt_tpu_torch.serving.loading",
     "arsvt_tpu_torch.evaluation.visualize",
     "arsvt_tpu_torch.evaluation.cli",
+    "arsvt_tpu_torch.core.devices",
+    "arsvt_tpu_torch.ops.quant",
+    "arsvt_tpu_torch.ops.library",
+    "arsvt_tpu_torch.models.quantized",
+    "arsvt_tpu_torch.serving.export",
+    "arsvt_tpu_torch.serving.artifact",
 ]
 
 _PROBE = """

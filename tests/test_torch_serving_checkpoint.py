@@ -243,12 +243,23 @@ def test_from_checkpoint_detect_matches_jax(detect_ckpts, pil_on_both):
 
 
 def test_from_checkpoint_options(classify_ckpts, detect_ckpts):
+    """max_batch on a detect checkpoint refuses; quantize="int8" serves
+    /classify as JAX's from_checkpoint(quantize="int8") does (bf16 on both
+    sides, the int8 limits of tests/test_torch_quant.py); max_batch=2
+    micro-batches."""
     with pytest.raises(ValueError, match="single-image"):
         InferenceServer.from_checkpoint(detect_ckpts["port"], max_batch=4,
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(ValueError, match="quantize"):
         InferenceServer.from_checkpoint(classify_ckpts["port"],
-                                        quantize="int8", device="cpu")
+                                        quantize="int4", device="cpu")
+    bodies = [_png(seed, (40, 40, 3)) for seed in (4, 5)]
+    got = _served(classify_ckpts, "/classify", bodies, quantize="int8")
+    for (status, data), (jstatus, jdata) in zip(got["port"], got["jax"]):
+        assert status == jstatus == 200
+        assert data["class"] == jdata["class"]
+        np.testing.assert_allclose(data["probs"], jdata["probs"],
+                                   atol=ATOL_BF16)
     srv = InferenceServer.from_checkpoint(classify_ckpts["port"],
                                           max_batch=2, device="cpu")
     try:
@@ -270,8 +281,8 @@ def test_from_checkpoint_takes_the_card_by_default(classify_ckpts,
 
 
 def test_server_cli_flag_validation():
-    """JAX's test_server_cli_flag_validation, and the two sources the port
-    does not serve yet."""
+    """JAX's test_server_cli_flag_validation; --artifact and --int8 are
+    taken, and a missing artifact or checkpoint surfaces as such."""
     main = server_module.main
     with pytest.raises(SystemExit):
         main(["--artifact", "x.hlo", "--int8"])
@@ -281,9 +292,9 @@ def test_server_cli_flag_validation():
         main(["--artifact", "x.hlo", "--checkpoint-dir", "d"])
     with pytest.raises(SystemExit):  # one source required
         main([])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        main(["--artifact", "x.hlo"])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(FileNotFoundError, match="no artifact"):
+        main(["--artifact", "x.pt2"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         main(["--checkpoint-dir", "d", "--int8"])
 
 
