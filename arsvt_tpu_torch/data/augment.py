@@ -1,7 +1,8 @@
 """On-device image augmentation (``arsvt_tpu/data/augment.py``): the
-classification crop/flip, the detection pipeline (shadow → flip with boxes
-→ affine with boxes → color jitter → coarse dropout → resize →
-normalize), eval preprocessing and ImageNet normalization.
+classification crop/flip, color jitter and RandAugment, the detection
+pipeline (shadow → flip with boxes → affine with boxes → color jitter →
+coarse dropout → resize → normalize), eval preprocessing and ImageNet
+normalization.
 
 Images are batched NHWC fp32 in [0, 1]. Each random op is split in two: a
 draw function that takes a `torch.Generator` and returns the per-image
@@ -13,21 +14,25 @@ widened by 1/scale when downscaling, normalized per output, zero where
 the sample falls outside [-0.5, n - 0.5]; applied with two batched
 products. ``F.interpolate(antialias=True)`` is a different filter.
 
-The detection affine resamples with ``_shear_matmul_warp``, JAX's
-default: three 1-D linear passes, each a product with a band matrix of
-two-tap weights (``torch.einsum``; XLA's dots in JAX), chunked over
-columns and rows as JAX chunks them. Boxes move through the affine matrix
-itself (the ellipse or corner rule) and lose validity as JAX's.
+The affine and RandAugment's rotate resample through JAX's warps, chosen
+by name: ``shear_matmul`` (the default: three 1-D linear passes, each a
+product with a band matrix of two-tap weights, chunked over images,
+columns and rows), the bilinear gathers ``taps``, ``flat`` and ``patch``
+(tap for tap the same result in JAX, so one body here) and, behind
+``interpolation="lanczos4"``, the 8 x 8-tap Lanczos-4 resample. Boxes
+move through the affine matrix itself (the ellipse or corner rule) and
+lose validity as JAX's. RandAugment is JAX's fused two-round form
+``P2 ∘ W(θ1 + θ2) ∘ P1``: the pointwise op of each round, one warp at the
+summed angle between them.
 
-JAX's warp switches are read from the environment at each call:
+JAX's switches are read from the environment at each call:
 ``ARSVT_SHEAR_MAXSKEW`` sizes the shear warp's pad (JAX reads it once, at
-import) and ``ARSVT_WARP_VARIANT`` names the warp where the config leaves
-``warp_variant`` empty; a variant other than ``shear_matmul`` raises.
-
-Not ported yet: RandAugment, color jitter in the classification pipeline,
-the gather warps and Lanczos-4, and the bf16 augmentation opt-in
-(``ARSVT_AUGMENT_BF16``, which raises) — the ViT-L recipe (ROADMAP Queue
-A item 8).
+import), ``ARSVT_WARP_VARIANT`` names the bilinear warp where the config
+leaves ``warp_variant`` empty, and ``ARSVT_AUGMENT_BF16`` runs the
+augmentation in bf16 from the steps' input cast and the bilinear warp on
+(`augment_input_cast`). Under it JAX's RandAugment fails to trace (its
+posterize returns fp32 where the other branches keep bf16), and the port
+raises there too.
 """
 
 from __future__ import annotations
@@ -59,6 +64,14 @@ def denormalize(image: torch.Tensor, mean=IMAGENET_MEAN,
     mean = torch.tensor(mean, dtype=image.dtype, device=image.device)
     std = torch.tensor(std, dtype=image.dtype, device=image.device)
     return image * std + mean
+
+
+def augment_input_cast(images: torch.Tensor) -> torch.Tensor:
+    """JAX's ``augment_input_cast``: the images in bf16 when
+    ``ARSVT_AUGMENT_BF16`` is set (read at each call), else unchanged."""
+    if os.environ.get("ARSVT_AUGMENT_BF16"):
+        return images.to(torch.bfloat16)
+    return images
 
 
 def _weight_mat(in_size: int, out_size: int, inv_scale: torch.Tensor,
@@ -171,43 +184,98 @@ class ClassifyAugmentConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class JitterDraws:
+    """The per-image values of one color jitter: apply (B,) bool; the
+    brightness, contrast and saturation factors and the hue angle in
+    radians (B,); order (B, 4), the permutation of the four adjustments."""
+
+    apply: torch.Tensor
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+    order: torch.Tensor
+
+    def to(self, device) -> "JitterDraws":
+        return JitterDraws(*(getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)))
+
+
+def draw_color_jitter(gen: torch.Generator, n: int, *, p: float,
+                      brightness: float, contrast: float, saturation: float,
+                      hue: float) -> JitterDraws:
+    """The draws of JAX's ``color_jitter`` (``augment.py:98-130``) for n
+    images: the factors uniform in 1 ± their range, the hue shift uniform
+    in ± `hue` turns, a random order, applied with probability p."""
+    def uniform(lo, hi):
+        return torch.rand(n, generator=gen) * (hi - lo) + lo
+
+    return JitterDraws(
+        apply=torch.rand(n, generator=gen) < p,
+        brightness=uniform(1 - brightness, 1 + brightness),
+        contrast=uniform(1 - contrast, 1 + contrast),
+        saturation=uniform(1 - saturation, 1 + saturation),
+        hue=uniform(-hue, hue) * 2.0 * math.pi,
+        order=torch.argsort(torch.rand((n, 4), generator=gen), dim=1))
+
+
+@dataclasses.dataclass(frozen=True)
 class CropFlipDraws:
-    """The per-image values of one crop/flip augmentation, (B,) each."""
+    """The per-image values of one classification augmentation, (B,) each:
+    the crop and the flip, and, where the config asks for them, the color
+    jitter's and RandAugment's draws."""
 
     area: torch.Tensor
     log_ratio: torch.Tensor
     y_frac: torch.Tensor
     x_frac: torch.Tensor
     flip: torch.Tensor
+    jitter: JitterDraws | None = None
+    rand_augment: "RandAugmentDraws | None" = None
 
     def to(self, device) -> "CropFlipDraws":
-        return CropFlipDraws(*(getattr(self, f.name).to(device)
-                               for f in dataclasses.fields(self)))
+        return CropFlipDraws(*(
+            None if t is None else t.to(device)
+            for t in (getattr(self, f.name)
+                      for f in dataclasses.fields(self))))
 
 
-def _check_supported(cfg: ClassifyAugmentConfig) -> None:
-    if cfg.rand_augment or cfg.jitter_p > 0:
-        raise NotImplementedError(
-            "RandAugment and color jitter are not ported yet (ROADMAP Queue "
-            "A, the ViT-L recipe)")
+# JAX's ``color_jitter`` defaults, which the classification pipeline keeps
+_CLASSIFY_JITTER = dict(brightness=0.2, contrast=0.2, saturation=0.2,
+                        hue=0.2)
 
 
 def draw_classification_augment(gen: torch.Generator, n: int,
                                 cfg: ClassifyAugmentConfig) -> CropFlipDraws:
-    """The host draws for `classification_train_augment` on n images."""
-    _check_supported(cfg)
+    """The host draws for `classification_train_augment` on n images:
+    crop, flip, then the jitter (``jitter_p > 0``) and RandAugment
+    (``rand_augment``) draws."""
     crop = draw_random_resized_crop(gen, n, scale=cfg.crop_scale)
-    return CropFlipDraws(*crop, draw_horizontal_flip(gen, n, p=cfg.flip_p))
+    flip = draw_horizontal_flip(gen, n, p=cfg.flip_p)
+    jitter = (draw_color_jitter(gen, n, p=cfg.jitter_p, **_CLASSIFY_JITTER)
+              if cfg.jitter_p > 0 else None)
+    ra = draw_rand_augment(gen, n) if cfg.rand_augment else None
+    return CropFlipDraws(*crop, flip, jitter, ra)
 
 
 def classification_train_augment(images: torch.Tensor, draws: CropFlipDraws,
                                  cfg: ClassifyAugmentConfig) -> torch.Tensor:
-    """Crop/flip fine-tune augmentation, then normalize: (B, H, W, C) ->
-    (B, size, size, C), with `draws` on the images' device."""
-    _check_supported(cfg)
+    """JAX's ``classification_train_augment``: crop → flip → color jitter
+    (``jitter_p > 0``) → RandAugment (``rand_augment``) → normalize,
+    (B, H, W, C) -> (B, size, size, C), with `draws` on the images'
+    device (RandAugment's op indices stay on the host)."""
     images = random_resized_crop(images, cfg.image_size, draws.area,
                                  draws.log_ratio, draws.y_frac, draws.x_frac)
-    return normalize(horizontal_flip(images, draws.flip))
+    images = horizontal_flip(images, draws.flip)
+    if cfg.jitter_p > 0:
+        j = draws.jitter
+        images = color_jitter(images, j.apply, j.brightness, j.contrast,
+                              j.saturation, j.hue, j.order)
+    if cfg.rand_augment:
+        images = rand_augment(images, draws.rand_augment,
+                              magnitude=cfg.rand_augment_magnitude,
+                              warp_variant=cfg.warp_variant or None)
+    return normalize(images)
 
 
 def eval_preprocess(images: torch.Tensor, size: int = 224) -> torch.Tensor:
@@ -390,11 +458,13 @@ def _band_weights(pos, n: int):
     return wgt.abs_().neg_().add_(1.0).clamp_(min=0.0)
 
 
-def shear_matmul_warp(images, inv):
-    """JAX's ``_shear_matmul_warp`` on (N, H, W, C) images with the
-    out->src maps inv (N, 3, 3): x scale + translate, then y scale +
-    shear per column, then x shear per row, each a band-matrix product;
-    zeros outside the source."""
+# the bytes of one band-weight tensor (pass 2's (N, 128, H, H) or pass 3's
+# (N, 32, W, Wp), fp32) the shear warp lets a chunk of images build at once
+_BAND_BYTES = 1 << 30
+
+
+def _shear_chunk(images, inv):
+    """`shear_matmul_warp` on one chunk of images."""
     n, h, w, c = images.shape
     dt = images.dtype
     m = inv.float()
@@ -440,6 +510,120 @@ def shear_matmul_warp(images, inv):
             "nsxj,nsjc->nsxc", cm, t2[:, y0:y0 + rows]).to(dt)
         del cm
     return out
+
+
+def shear_matmul_warp(images, inv):
+    """JAX's ``_shear_matmul_warp`` on (N, H, W, C) images with the
+    out->src maps inv (N, 3, 3): x scale + translate, then y scale +
+    shear per column, then x shear per row, each a band-matrix product;
+    zeros outside the source. Chunked over images so that no band tensor
+    exceeds `_BAND_BYTES` (an image's result does not depend on the
+    others)."""
+    n, h, w, _ = images.shape
+    wp = w + 2 * int(np.ceil(shear_max_skew() * max(h, w)))
+    per_image = 4 * max(_PASS2_COLS * h * h, _PASS3_ROWS * w * wp)
+    chunk = max(1, _BAND_BYTES // per_image)
+    if n <= chunk:
+        return _shear_chunk(images, inv)
+    return torch.cat([_shear_chunk(images[i:i + chunk], inv[i:i + chunk])
+                      for i in range(0, n, chunk)])
+
+
+def _src_coords(h: int, w: int, inv):
+    """The source position (sx, sy), each (N, H*W) fp32, of every output
+    pixel (row-major) under the out->src maps inv (N, 3, 3)."""
+    dev = inv.device
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    coords = torch.stack([xx.reshape(-1), yy.reshape(-1),
+                          torch.ones(h * w, device=dev)])  # (3, HW)
+    src = inv.float() @ coords
+    return src[:, 0], src[:, 1]
+
+
+def _gather_px(images, yi, xi):
+    """Pixels (N, HW, C) at the integer-valued float positions (yi, xi)
+    (N, HW); 0 outside the image (JAX's ``_gather_px``)."""
+    n, h, w, c = images.shape
+    valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+    idx = (yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long())
+    vals = torch.gather(images.reshape(n, h * w, c), 1,
+                        idx[..., None].expand(n, h * w, c))
+    return torch.where(valid[..., None], vals, 0.0)
+
+
+def bilinear_gather_warp(images, inv):
+    """JAX's gather warps ``_bilinear_warp_taps``, ``_flat`` and
+    ``_patch`` (``augment.py:267-363``), which compute tap for tap the same
+    result: each output pixel blends the four source pixels around its
+    source position, zeros outside, the weights in the images' dtype."""
+    n, h, w, c = images.shape
+    sx, sy = _src_coords(h, w, inv)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx = (sx - x0).to(images.dtype)[..., None]
+    wy = (sy - y0).to(images.dtype)[..., None]
+    out = (_gather_px(images, y0, x0) * (1 - wy) * (1 - wx)
+           + _gather_px(images, y0, x0 + 1) * (1 - wy) * wx
+           + _gather_px(images, y0 + 1, x0) * wy * (1 - wx)
+           + _gather_px(images, y0 + 1, x0 + 1) * wy * wx)
+    return out.reshape(n, h, w, c)
+
+
+def _lanczos4_weights(frac):
+    """The 8 Lanczos-4 tap weights at offsets -3..4 from floor(src),
+    normalised to sum 1 (JAX's ``_lanczos4_weights``)."""
+    ws = []
+    for i in range(8):
+        t = (frac - (i - 3.0)).abs()
+        pt = math.pi * torch.clamp(t, min=1e-8)
+        val = 4.0 * torch.sin(pt) * torch.sin(pt / 4.0) / (pt * pt)
+        ws.append(torch.where(t < 1e-6, 1.0,
+                              torch.where(t < 4.0, val, 0.0)))
+    total = sum(ws)
+    return [wi / total for wi in ws]
+
+
+def lanczos4_warp(images, inv, variant: str | None = None):
+    """JAX's ``_lanczos4_warp``: an 8 x 8-tap Lanczos-4 resample at the
+    source positions, out-of-image taps reading 0 with no renormalisation
+    at the border, accumulated in fp32 and clamped to [0, 1]. `variant`
+    is not read (Lanczos-4 has one form): it gives the call
+    `bilinear_warp`'s signature."""
+    n, h, w, c = images.shape
+    sx, sy = _src_coords(h, w, inv)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wxs = _lanczos4_weights(sx - x0)
+    wys = _lanczos4_weights(sy - y0)
+    out = torch.zeros((n, h * w, c), dtype=torch.float32, device=images.device)
+    for j in range(8):
+        row = torch.zeros_like(out)
+        for i in range(8):
+            row += _gather_px(images, y0 + (j - 3), x0 + (i - 3)) \
+                * wxs[i][..., None]
+        out += row * wys[j][..., None]
+    return torch.clamp(out, 0.0, 1.0).reshape(n, h, w, c)
+
+
+WARP_VARIANTS = {"taps": bilinear_gather_warp, "flat": bilinear_gather_warp,
+                 "patch": bilinear_gather_warp,
+                 "shear_matmul": shear_matmul_warp}
+
+def bilinear_warp(images, inv, variant: str | None = None):
+    """JAX's ``_bilinear_warp``: the images (N, H, W, C) sampled at inv
+    (N, 3, 3) @ output coordinates through the named variant (None reads
+    ``ARSVT_WARP_VARIANT``, else ``shear_matmul``), in bf16 under
+    ``ARSVT_AUGMENT_BF16``."""
+    name = variant or os.environ.get("ARSVT_WARP_VARIANT", "shear_matmul")
+    if name not in WARP_VARIANTS:
+        raise KeyError(f"unknown warp variant {name!r}; one of "
+                       f"{sorted(WARP_VARIANTS)}")
+    return WARP_VARIANTS[name](augment_input_cast(images), inv)
+
+
+# JAX's ``_WARPS``: the resampler of each interpolation, fn(images, inv,
+# variant)
+_WARPS = {"bilinear": bilinear_warp, "lanczos4": lanczos4_warp}
 
 
 def transform_boxes(boxes, mask, fwd, h: int, w: int, *,
@@ -490,23 +674,31 @@ def transform_boxes(boxes, mask, fwd, h: int, w: int, *,
 
 def random_affine(images, boxes, mask, apply, theta_deg, scale, translate,
                   shear_deg, *, min_visibility: float = 0.1,
-                  min_area_px: float = 1.0, box_method: str = "ellipse"):
-    """JAX's ``random_affine`` (bilinear through the shear warp) with
-    explicit draws: apply (B,) bool, theta_deg and scale (B,), translate
-    and shear_deg (B, 2). Only the images that apply are warped; the
-    others, their boxes and masks pass through."""
+                  min_area_px: float = 1.0, box_method: str = "ellipse",
+                  interpolation: str = "bilinear",
+                  warp_variant: str | None = None):
+    """JAX's ``random_affine`` with explicit draws: apply (B,) bool,
+    theta_deg and scale (B,), translate and shear_deg (B, 2); the images
+    resampled by `bilinear_warp` (`warp_variant`) or, with interpolation
+    "lanczos4", `lanczos4_warp`. Only the images that apply are warped;
+    the others (in the warp's output dtype, as JAX casts them), their
+    boxes and masks pass through."""
     b, h, w, _ = images.shape
     fwd = affine_matrix(h, w, theta_deg, scale, translate, shear_deg)
     new_boxes, new_mask = transform_boxes(
         boxes, mask, fwd, h, w, min_visibility=min_visibility,
         min_area_px=min_area_px, method=box_method)
-    out = images.clone()
+    warp = _WARPS[interpolation]
+    # in the warp's output dtype: the bilinear warps' input cast,
+    # Lanczos-4's fp32 sums
+    out = (augment_input_cast(images) if warp is bilinear_warp
+           else images.float()).clone()
     # `apply` stays on the host in the train step's draws, so picking the
     # images to warp waits on nothing
     idx = apply.cpu().nonzero().flatten().to(images.device)
     if idx.numel():
-        inv = torch.linalg.inv(fwd[idx])
-        out[idx] = shear_matmul_warp(images[idx], inv)
+        out[idx] = warp(images[idx], torch.linalg.inv(fwd[idx]),
+                        warp_variant)
     sel = apply.to(images.device)[:, None]
     return (out, torch.where(sel[..., None], new_boxes, boxes),
             torch.where(sel, new_mask, mask))
@@ -584,25 +776,20 @@ class DetectionDraws:
                          for f in dataclasses.fields(self))))
 
 
-def warp_variant(cfg: DetectionAugmentConfig) -> str:
-    """The bilinear warp JAX's `_bilinear_warp` takes: the config's, else
-    ``ARSVT_WARP_VARIANT``, else ``shear_matmul``."""
+def warp_variant(cfg) -> str:
+    """The bilinear warp JAX's `_bilinear_warp` takes for a classify or
+    detection config: the config's, else ``ARSVT_WARP_VARIANT``, else
+    ``shear_matmul``."""
     return cfg.warp_variant or os.environ.get("ARSVT_WARP_VARIANT",
                                               "shear_matmul")
 
 
 def check_detection_supported(cfg: DetectionAugmentConfig) -> None:
-    variant = warp_variant(cfg)
-    if cfg.interpolation != "bilinear" or variant != "shear_matmul":
-        raise NotImplementedError(
-            f"detection augmentation with interpolation="
-            f"{cfg.interpolation!r}, warp variant {variant!r} is not ported "
-            "yet: the port resamples with the shear warp only (ROADMAP "
-            "Queue A item 8, the ViT-L recipe's warps)")
-    if os.environ.get("ARSVT_AUGMENT_BF16"):
-        raise NotImplementedError(
-            "ARSVT_AUGMENT_BF16 (the warp and the ops after it in bf16) is "
-            "not ported yet (ROADMAP Queue A item 8, the ViT-L recipe)")
+    """Raise KeyError for an unknown resampler name where JAX's lookups
+    would (``_WARPS[interpolation]``, then ``_BILINEAR_VARIANTS[variant]``),
+    before any draw."""
+    if _WARPS[cfg.interpolation] is bilinear_warp:
+        WARP_VARIANTS[warp_variant(cfg)]  # the lookup raises KeyError
 
 
 def draw_detection_augment(gen: torch.Generator, n: int,
@@ -624,7 +811,7 @@ def draw_detection_augment(gen: torch.Generator, n: int,
     rx1, ry1, rx2, ry2 = cfg.shadow_roi
     kh = cfg.dropout_holes[1]
     lo, hi = cfg.dropout_size
-    return DetectionDraws(
+    before = dict(
         shadow_apply=bernoulli(cfg.shadow_p),
         shadow_n=count(*cfg.shadow_num),
         shadow_angle=uniform(0.0, math.pi, ks),
@@ -636,15 +823,16 @@ def draw_detection_augment(gen: torch.Generator, n: int,
         theta_deg=uniform(-cfg.degrees, cfg.degrees),
         scale=uniform(*cfg.scale),
         translate=uniform(-cfg.translate, cfg.translate, 2),
-        shear_deg=uniform(-cfg.shear, cfg.shear, 2),
-        jitter_apply=bernoulli(cfg.jitter_p),
-        brightness=uniform(1 - cfg.jitter_brightness,
-                           1 + cfg.jitter_brightness),
-        contrast=uniform(1 - cfg.jitter_contrast, 1 + cfg.jitter_contrast),
-        saturation=uniform(1 - cfg.jitter_saturation,
-                           1 + cfg.jitter_saturation),
-        hue=uniform(-cfg.jitter_hue, cfg.jitter_hue) * 2.0 * math.pi,
-        order=torch.argsort(torch.rand((n, 4), generator=gen), dim=1),
+        shear_deg=uniform(-cfg.shear, cfg.shear, 2))
+    j = draw_color_jitter(gen, n, p=cfg.jitter_p,
+                          brightness=cfg.jitter_brightness,
+                          contrast=cfg.jitter_contrast,
+                          saturation=cfg.jitter_saturation,
+                          hue=cfg.jitter_hue)
+    return DetectionDraws(
+        **before, jitter_apply=j.apply, brightness=j.brightness,
+        contrast=j.contrast, saturation=j.saturation, hue=j.hue,
+        order=j.order,
         hole_apply=bernoulli(cfg.dropout_p),
         hole_n=count(*cfg.dropout_holes),
         hole_h=uniform(lo, hi, kh),
@@ -656,11 +844,12 @@ def draw_detection_augment(gen: torch.Generator, n: int,
 
 def detection_train_augment(images, boxes, mask, draws: DetectionDraws,
                             cfg: DetectionAugmentConfig):
-    """The reference's train pipeline on canvas-sized fp32 images (B, H,
-    W, C) in [0, 1] with normalised xyxy boxes (B, M, 4) and validity
-    (B, M), `draws` on the images' device: shadow → flip → affine →
-    color jitter → coarse dropout → resize to cfg.image_size → normalize.
-    Returns (images, boxes, mask)."""
+    """The reference's train pipeline on canvas-sized images (B, H, W, C)
+    in [0, 1] (fp32, or bf16 from `augment_input_cast`) with normalised
+    xyxy boxes (B, M, 4) and validity (B, M), `draws` on the images'
+    device: shadow → flip → affine → color jitter → coarse dropout →
+    resize to cfg.image_size → normalize, each op in the dtype JAX's
+    promotion gives it. Returns (images, boxes, mask)."""
     check_detection_supported(cfg)
     d = draws
     images = random_shadow(images, d.shadow_apply, d.shadow_n,
@@ -671,7 +860,8 @@ def detection_train_augment(images, boxes, mask, draws: DetectionDraws,
     images, boxes, mask = random_affine(
         images, boxes, mask, d.affine_apply, d.theta_deg, d.scale,
         d.translate, d.shear_deg, min_visibility=cfg.min_visibility,
-        min_area_px=cfg.min_area_px, box_method=cfg.box_rotate_method)
+        min_area_px=cfg.min_area_px, box_method=cfg.box_rotate_method,
+        interpolation=cfg.interpolation, warp_variant=warp_variant(cfg))
     images = color_jitter(images, d.jitter_apply, d.brightness, d.contrast,
                           d.saturation, d.hue, d.order)
     images = coarse_dropout(images, d.hole_apply, d.hole_n, d.hole_h,
@@ -680,3 +870,140 @@ def detection_train_augment(images, boxes, mask, draws: DetectionDraws,
     if images.shape[1] != cfg.image_size:
         images = resize(images, cfg.image_size)
     return normalize(images), boxes, mask
+
+
+# ------------------------------------------------------------ randaugment
+
+# JAX's ``_RA_OPS`` order (``augment.py:837-838``): a drawn index names one
+RA_OPS = ("rotate", "posterize", "solarize", "brightness", "contrast",
+          "color", "identity")
+RA_ROTATE = RA_OPS.index("rotate")
+
+
+@dataclasses.dataclass(frozen=True)
+class RandAugmentDraws:
+    """The per-image values of RandAugment's two rounds: op (B, 2) int64,
+    the index into `RA_OPS` of each round's op, kept on the host; u (B, 2)
+    fp32 in [0, 1), the one uniform each round's parameter key gives (an
+    op that draws uniform(-1, 1) takes 2u - 1, JAX's map of the same
+    bits; the identity ignores it)."""
+
+    op: torch.Tensor
+    u: torch.Tensor
+
+    def to(self, device) -> "RandAugmentDraws":
+        return RandAugmentDraws(self.op, self.u.to(device))
+
+
+def draw_rand_augment(gen: torch.Generator, n: int) -> RandAugmentDraws:
+    """The draws of JAX's ``rand_augment`` (``augment.py:860-906``, two
+    rounds) for n images: a uniform op index and one uniform a round."""
+    return RandAugmentDraws(op=torch.randint(0, len(RA_OPS), (n, 2),
+                                             generator=gen),
+                            u=torch.rand((n, 2), generator=gen))
+
+
+def _signed(u):
+    """``jax.random.uniform(key, minval=-1, maxval=1)`` from the bits that
+    give uniform(key) = u: u · 2 - 1."""
+    return u * 2.0 - 1.0
+
+
+def _ra_posterize(images, u, m):
+    bits = torch.round(8.0 - 4.0 * m * u)
+    levels = torch.pow(2.0, bits)[:, None, None, None]
+    return torch.floor(images * levels) / levels
+
+
+def _ra_solarize(images, u, m):
+    thresh = (1.0 - m * u)[:, None, None, None]
+    return torch.where(images >= thresh, 1.0 - images, images)
+
+
+def _ra_factor(u, m):
+    return 1.0 + _signed(u) * 0.8 * m
+
+
+def _ra_brightness(images, u, m):
+    return torch.clamp(adjust_brightness(images, _ra_factor(u, m)), 0.0, 1.0)
+
+
+def _ra_contrast(images, u, m):
+    return torch.clamp(adjust_contrast(images, _ra_factor(u, m)), 0.0, 1.0)
+
+
+def _ra_color(images, u, m):
+    return torch.clamp(adjust_saturation(images, _ra_factor(u, m)), 0.0, 1.0)
+
+
+_RA_POINTWISE = {RA_OPS.index("posterize"): _ra_posterize,
+                 RA_OPS.index("solarize"): _ra_solarize,
+                 RA_OPS.index("brightness"): _ra_brightness,
+                 RA_OPS.index("contrast"): _ra_contrast,
+                 RA_OPS.index("color"): _ra_color}
+
+
+def ra_pointwise(images, op, u, magnitude: float):
+    """One round's pointwise op on each image (rotate and identity pass
+    the image through): op (B,) int on the host, u (B,) on the images'
+    device. Each op runs on the images that drew it."""
+    out = images
+    for k, fn in _RA_POINTWISE.items():
+        idx = (op == k).nonzero().flatten()
+        if idx.numel():
+            if out is images:
+                out = images.clone()
+            idx = idx.to(images.device)
+            out[idx] = fn(images[idx], u[idx], magnitude)
+    return out
+
+
+def rotation_matrix(h: int, w: int, deg):
+    """Forward maps (B, 3, 3) fp32 rotating by `deg` (B,) degrees about the
+    image centre: centre · rotate · uncentre (``_ra_rotate_by_deg``)."""
+    zeros = torch.zeros_like(deg)
+    return affine_matrix(h, w, deg, torch.ones_like(deg),
+                         torch.stack([zeros, zeros], -1),
+                         torch.stack([zeros, zeros], -1))
+
+
+def ra_rotate_by_deg(images, deg, variant: str | None = None):
+    """JAX's ``_ra_rotate_by_deg`` on each image (B, H, W, C) by deg (B,):
+    `bilinear_warp` at the inverse of the rotation about the centre."""
+    h, w = images.shape[1:3]
+    return bilinear_warp(images,
+                         torch.linalg.inv(rotation_matrix(h, w, deg)),
+                         variant)
+
+
+def rand_augment(images, draws: RandAugmentDraws, *, magnitude: float = 0.5,
+                 warp_variant: str | None = None):
+    """JAX's ``rand_augment`` with ``num_ops=2`` in its fused form
+    ``P2 ∘ W(θ1 + θ2) ∘ P1`` (``augment.py:881-906``): round r applies its
+    pointwise op, or contributes its angle θr = (2u - 1) · 30 · magnitude
+    when it drew rotate; the one warp at the summed angle sits between the
+    rounds. Where both rounds rotate, that is one resample at θ1 + θ2 (as
+    JAX's code does, not two warps as its docstring says). Only the
+    images with a non-zero summed angle are warped: W(0) is the identity
+    to the bit for every variant, so the result is JAX's.
+
+    Raises TypeError under ``ARSVT_AUGMENT_BF16``, where JAX's trace fails
+    (posterize promotes bf16 to fp32 and ``lax.switch`` refuses branches
+    of two dtypes)."""
+    if os.environ.get("ARSVT_AUGMENT_BF16") or images.dtype != torch.float32:
+        raise TypeError(
+            "RandAugment runs in fp32 only: JAX's rand_augment fails in bf16 "
+            "(ARSVT_AUGMENT_BF16), its posterize branch returning fp32 where "
+            "lax.switch needs every branch in the image's dtype")
+    op, u = draws.op.cpu(), draws.u.to(images.device)
+    m = magnitude
+    rotating = op == RA_ROTATE
+    # θ1 + θ2, each 0 where its round does not rotate
+    deg = torch.where(rotating.to(u.device), _signed(u) * 30.0 * m,
+                      0.0).sum(dim=1)
+    images = ra_pointwise(images, op[:, 0], u[:, 0], m)
+    idx = rotating.any(dim=1).nonzero().flatten().to(images.device)
+    if idx.numel():
+        images = images.index_copy(0, idx, ra_rotate_by_deg(
+            images[idx], deg[idx], warp_variant))
+    return ra_pointwise(images, op[:, 1], u[:, 1], m)

@@ -31,11 +31,13 @@ def init_image_classifier(backbone_cfg: BackboneConfig, num_classes: int,
 def apply_image_classifier(params: dict, images: torch.Tensor,
                            backbone_cfg: BackboneConfig,
                            num_classes: int, *, train: bool = False,
-                           rng=None) -> torch.Tensor:
+                           rng=None, remat: bool = False,
+                           remat_policy: str = "full") -> torch.Tensor:
     """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32;
-    `train` and `rng` as `apply_backbone`'s."""
+    `train`, `rng`, `remat` and `remat_policy` as `apply_backbone`'s."""
     tokens = apply_backbone(params["backbone"], images, backbone_cfg,
-                            train=train, rng=rng)
+                            train=train, rng=rng, remat=remat,
+                            remat_policy=remat_policy)
     head_cfg = ClassifierConfig(num_classes=num_classes,
                                 distilled=backbone_cfg.distilled)
     return apply_classifier(params["classifier"], tokens, head_cfg)

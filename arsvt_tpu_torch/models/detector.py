@@ -53,16 +53,20 @@ def init_detector(cfg: DetectorConfig, seed: int = 0, *,
 
 def apply_detector(params: dict, images: torch.Tensor, cfg: DetectorConfig,
                    *, train: bool = False, rng=None,
-                   return_features: bool = False, return_aux: bool = False):
+                   return_features: bool = False, return_aux: bool = False,
+                   remat: bool = False, remat_policy: str = "full"):
     """images (B, H, W, C) in the compute dtype -> {'class_logits':
     (B, Q, C+1) fp32, 'boxes_cxcywh': (B, Q, 4) fp32}, plus 'aux' with
     `return_aux` (when the decoder has two layers or more); with
     `return_features`, (outputs, L2-normalised triplet features (B, T)
     fp32). `train` with an `rng` (``core/prng.py::Rng``) applies the
-    configs' dropout."""
+    configs' dropout; `remat` and `remat_policy` rematerialise the
+    backbone's blocks, as `apply_backbone`'s (the DETR head is not
+    rematerialised, as in JAX)."""
     tokens = apply_backbone(params["backbone"], images, cfg.backbone,
                             train=train,
-                            rng=None if rng is None else rng.fold_in(0))
+                            rng=None if rng is None else rng.fold_in(0),
+                            remat=remat, remat_policy=remat_policy)
     memory = tokens[:, cfg.backbone.num_special_tokens:]
     head_out = apply_detr_head(params["detr"], memory, cfg.head,
                                cfg.backbone.embed_dim, train=train,

@@ -23,12 +23,20 @@ from ``rng.fold_in(1, i)`` with its attention-residual, MLP-residual and
 attention-probability sites at ``fold_in(0)``, ``(1)`` and ``(2)``.
 Without an rng nothing is dropped, as in JAX. Attention dropout runs in
 the kernels on every route, seeded from the probability site's
-``seed32()``. Not ported (raising): remat.
+``seed32()``.
+
+``remat=True`` rematerialises the blocks under JAX's five policies
+(``ops/remat.py``): ``full``, ``dots`` and ``names`` checkpoint each
+block, ``all_but_mlp`` each MLP and ``mlp_tail`` each GELU → fc2. Every
+dropout site draws from its own ``Rng`` (residual sites a generator, the
+attention kernels a seed), so the backward's replay redraws the same
+masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -45,6 +53,7 @@ from arsvt_tpu_torch.ops.encoder_attention import (
 from arsvt_tpu_torch.ops.layernorm import layer_norm
 from arsvt_tpu_torch.ops.mlp import gelu_mlp
 from arsvt_tpu_torch.ops.patch_embed import patch_embed
+from arsvt_tpu_torch.ops.remat import BLOCK_POLICIES, check_policy, remat_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +150,13 @@ def site_dropout(x: torch.Tensor, rate: float, rng: Rng | None, *,
 
 
 def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
-                   train: bool = False,
-                   rng: Rng | None = None) -> torch.Tensor:
+                   train: bool = False, rng: Rng | None = None,
+                   remat_mlp: bool = False,
+                   remat_mlp_tail: bool = False) -> torch.Tensor:
     """One pre-LN block; bp holds one layer's parameters. Each projection
-    emits x's dtype and adds its bias in that dtype, as the JAX block."""
+    emits x's dtype and adds its bias in that dtype, as the JAX block.
+    `remat_mlp` checkpoints the MLP (``all_but_mlp``), `remat_mlp_tail`
+    its GELU → fc2 (``mlp_tail``)."""
     k1 = k2 = kp = None
     if train and rng is not None:
         k1, k2, kp = (rng.fold_in(site) for site in range(3))
@@ -170,29 +182,28 @@ def _encoder_block(x: torch.Tensor, bp: dict, cfg: BackboneConfig, *,
 
     y = layer_norm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], eps=cfg.ln_eps)
     mlp = bp["mlp"]
-    y = gelu_mlp(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
-                 mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    mlp_args = (y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
+                mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    if remat_mlp:
+        y = remat_call(gelu_mlp, *mlp_args)
+    else:
+        y = gelu_mlp(*mlp_args, remat_tail=remat_mlp_tail)
     return x + site_dropout(y, cfg.dropout, k2, train=train)
-
-
-def check_train_supported(cfg: BackboneConfig, *, remat: bool = False):
-    """Raise for the training features this port does not have yet."""
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP Queue A, the ViT-L recipe)")
 
 
 def apply_backbone(params: dict, images: torch.Tensor,
                    cfg: BackboneConfig, *, train: bool = False,
-                   rng: Rng | None = None) -> torch.Tensor:
+                   rng: Rng | None = None, remat: bool = False,
+                   remat_policy: str = "full") -> torch.Tensor:
     """images: (B, H, W, C) in the compute dtype -> all tokens (B, S, D)
     after the final LN (special tokens first; heads pick what they use).
 
     `train` with an `rng` applies the config's positional, residual and
-    attention dropout (see the module docstring).
+    attention dropout (see the module docstring). `remat` rematerialises
+    the blocks under `remat_policy` (one of ``ops/remat.py``'s
+    ``REMAT_POLICIES``; an unknown one raises ValueError, as in JAX).
     """
-    if train:
-        check_train_supported(cfg)
+    check_policy(remat, remat_policy)
     b = images.shape[0]
     x = patch_embed(images, params["patch_embed"]["kernel"],
                     params["patch_embed"]["bias"],
@@ -204,8 +215,14 @@ def apply_backbone(params: dict, images: torch.Tensor,
     x = x + params["pos_embed"].to(x.dtype)
     x = site_dropout(x, cfg.dropout, None if rng is None else rng.fold_in(0),
                      train=train)
+    block_remat = remat and remat_policy in BLOCK_POLICIES
     for i, bp in enumerate(params["blocks"]):
-        x = _encoder_block(x, bp, cfg, train=train,
-                           rng=None if rng is None else rng.fold_in(1, i))
+        block = functools.partial(
+            _encoder_block, cfg=cfg, train=train,
+            rng=None if rng is None else rng.fold_in(1, i),
+            remat_mlp=remat and remat_policy == "all_but_mlp",
+            remat_mlp_tail=remat and remat_policy == "mlp_tail")
+        x = (remat_call(block, x, bp, policy=remat_policy) if block_remat
+             else block(x, bp))
     return layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"],
                       eps=cfg.ln_eps)

@@ -1,10 +1,15 @@
-"""Classification objectives: CE with label smoothing, top-1, confusion
-matrix (counterpart of ``arsvt_tpu/objectives/classification.py``; mixup
-belongs to the ViT-L recipe and is not ported yet). All reductions in fp32.
+"""Classification objectives: CE with label smoothing, mixup, top-1,
+confusion matrix (counterpart of ``arsvt_tpu/objectives/classification.py``).
+All reductions in fp32. Mixup is split as the augmentation is: `draw_mixup`
+takes the microbatch's generator, `mixup` takes the draws (so a test can
+feed it ``jax.random``'s λ and permutation).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 
@@ -28,6 +33,41 @@ def softmax_cross_entropy(logits, labels, *, num_classes: int,
         return ce.mean()
     w = valid.float()
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixupDraws:
+    """One microbatch's mixup: lam, λ ~ Beta(α, α) as a Python float
+    (rounded to fp32 where it is used), and perm (B,) int64, the partner of
+    each row."""
+
+    lam: float
+    perm: torch.Tensor
+
+
+def draw_mixup(gen: torch.Generator, n: int, alpha: float) -> MixupDraws:
+    """λ ~ Beta(alpha, alpha) and a permutation of n rows, from the
+    microbatch's CPU generator: ``torch.distributions.Beta`` takes no
+    generator, so λ comes from a numpy Generator seeded by a draw of
+    `gen`, then the permutation from ``torch.randperm(generator=gen)``."""
+    seed = int(torch.randint(0, 2**62, (), generator=gen))
+    lam = float(np.random.default_rng(seed).beta(alpha, alpha))
+    return MixupDraws(lam, torch.randperm(n, generator=gen))
+
+
+def mixup(images, labels, draws: MixupDraws, *, num_classes: int):
+    """JAX's ``mixup`` with explicit draws: images (B, H, W, C), integer
+    labels (B,) -> (λ x + (1 - λ) x[perm] in x's dtype, soft labels (B, C)
+    fp32). The mix is computed in fp32 and rounded once, as JAX's fp32 λ
+    promotes bf16 images before its cast back."""
+    dev = images.device
+    lam = torch.tensor(draws.lam, dtype=torch.float32, device=dev)
+    perm = draws.perm.to(dev)
+    x = images.float()
+    mixed = lam * x + (1.0 - lam) * x[perm]
+    onehot = torch.nn.functional.one_hot(labels.long(), num_classes).float()
+    soft = lam * onehot + (1.0 - lam) * onehot[perm]
+    return mixed.to(images.dtype), soft
 
 
 def accuracy_top1(logits, labels):

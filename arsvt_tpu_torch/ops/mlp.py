@@ -6,7 +6,9 @@ only u and applies the closed-form derivative in fp32. With
 ``ARSVT_ENABLE_FUSED_MLP`` set (``ops/dispatch.py``), `gelu_mlp` runs fc1 →
 GELU → fc2 as the fused kernels of ``ops/fused_mlp.py`` instead, in
 training and eval, wherever it is called: the ViT blocks and the DETR
-head's FFN.
+head's FFN. The remat policies reach in here: fc1's product carries the
+``mlp_u`` tag of ``remat_policy="names"``, and ``remat_tail`` (the
+``mlp_tail`` policy) checkpoints GELU → fc2 and keeps the unfused route.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from arsvt_tpu_torch.ops.dispatch import use_fused_mlp
 from arsvt_tpu_torch.ops.fused_mlp import fused_gelu_mlp
+from arsvt_tpu_torch.ops.remat import checkpoint_name, remat_call
 
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
@@ -42,15 +45,28 @@ def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
     return _GeluTanh.apply(u)
 
 
-def gelu_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+def _tail(u, w2, b2):
+    h = gelu_tanh(u)
+    with checkpoint_name("mlp_fc2"):
+        out = torch.matmul(h, w2.to(u.dtype))
+    return out + b2.to(u.dtype)
+
+
+def gelu_mlp(x, w1, b1, w2, b2, *, remat_tail: bool = False) -> torch.Tensor:
     """x: (..., D); w1: (D, M); w2: (M, D). Returns (..., D) in x.dtype.
 
     Unfused, each product emits x's dtype and its bias is added in that
     dtype; fused, the kernel's fp32 sums and bias adds round once at the
-    end (`fused_gelu_mlp`).
+    end (`fused_gelu_mlp`). `remat_tail` checkpoints GELU → fc2 (u is
+    saved, gelu(u) replays in the backward) and, as in JAX, wins over
+    ``ARSVT_ENABLE_FUSED_MLP``: the fused kernel keeps a residual plan of
+    its own.
     """
-    if use_fused_mlp():
+    if not remat_tail and use_fused_mlp():
         return fused_gelu_mlp(x, w1, b1, w2, b2)
-    u = torch.matmul(x, w1.to(x.dtype)) + b1.to(x.dtype)
-    h = gelu_tanh(u)
-    return torch.matmul(h, w2.to(u.dtype)) + b2.to(u.dtype)
+    with checkpoint_name("mlp_u"):
+        u = torch.matmul(x, w1.to(x.dtype))
+    u = u + b1.to(x.dtype)
+    if remat_tail:
+        return remat_call(_tail, u, w2, b2)
+    return _tail(u, w2, b2)

@@ -1,11 +1,13 @@
 """Train and eval steps for the DETR detector (counterpart of
 ``arsvt_tpu/train/detect_step.py::make_detector_step_fns``).
 
-A train step: images -> `to_unit_float` -> the detection augmentation
-(when the config augments; boxes and their validity move with the
-images) -> cast of the parameters to the compute dtype -> forward
-(backbone + DETR decoder with aux outputs + triplet features, dropout
-drawn from ``Rng(seed, step, microbatch)``) -> Hungarian matching of the
+A train step: images -> `to_unit_float` -> `augment_input_cast` and the
+detection augmentation (when the config augments; boxes and their
+validity move with the images; the config's warp and interpolation) ->
+cast of the parameters to the compute dtype -> forward (backbone + DETR
+decoder with aux outputs + triplet features, dropout drawn from
+``Rng(seed, step, microbatch)``, the backbone's blocks rematerialised
+under ``remat_policy`` when ``remat``) -> Hungarian matching of the
 final and every aux layer (one copy of the stacked costs to the host,
 scipy, one copy of the indices back) -> `detection_loss` plus the summed
 aux-layer losses -> backward, accumulated over ``grad_accum``
@@ -24,6 +26,7 @@ from arsvt_tpu_torch.core.dtypes import Policy, to_unit_float, tree_leaves
 from arsvt_tpu_torch.core.prng import Rng, generator
 from arsvt_tpu_torch.data.augment import (
     DetectionAugmentConfig,
+    augment_input_cast,
     check_detection_supported,
     detection_train_augment,
     draw_detection_augment,
@@ -31,12 +34,12 @@ from arsvt_tpu_torch.data.augment import (
 )
 from arsvt_tpu_torch.evaluation.classify import resolve_device
 from arsvt_tpu_torch.models.detector import apply_detector, init_detector
-from arsvt_tpu_torch.models.vit import check_train_supported
 from arsvt_tpu_torch.objectives.detection_loss import (
     DetectionLossConfig,
     detection_loss,
 )
 from arsvt_tpu_torch.objectives.matcher import match_layers
+from arsvt_tpu_torch.ops.remat import check_policy
 from arsvt_tpu_torch.train.accum import accumulated_value_and_grad
 from arsvt_tpu_torch.train.config import TrainConfig, resolve_detector
 from arsvt_tpu_torch.train.optim import fused_adamw_update, init_opt_state
@@ -68,7 +71,7 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
         raise ValueError(f"make_detector_step_fns needs task='detect', got "
                          f"{cfg.task!r}")
     det_cfg = resolve_detector(cfg)
-    check_train_supported(det_cfg.backbone, remat=cfg.remat)
+    check_policy(cfg.remat, cfg.remat_policy)
     compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     policy = Policy(compute_dtype=compute_dtype)
     loss_cfg = DetectionLossConfig(
@@ -131,11 +134,13 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
                      draw_detection_augment(generator(seed, step, a),
                                             images.shape[0], aug_cfg))
                 images, boxes, mask = detection_train_augment(
-                    images, boxes, mask, d.to(dev), aug_cfg)
+                    augment_input_cast(images), boxes, mask, d.to(dev),
+                    aug_cfg)
             outputs, feats = apply_detector(
                 compute_params, images.to(compute_dtype), det_cfg,
                 train=True, rng=Rng(seed, step, a), return_features=True,
-                return_aux=cfg.aux_loss)
+                return_aux=cfg.aux_loss, remat=cfg.remat,
+                remat_policy=cfg.remat_policy)
             targets = {"boxes": boxes, "labels": mb["labels"], "mask": mask}
             return layer_losses(outputs, feats, targets)
 

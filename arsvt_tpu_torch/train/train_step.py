@@ -1,26 +1,31 @@
 """Train and eval steps for the classifier (counterpart of
 ``arsvt_tpu/train/train_step.py::make_classifier_step_fns``).
 
-A train step: uint8 images -> `to_unit_float` -> crop/flip + normalize
-(when the config augments) -> cast of every floating parameter to the
-compute dtype (its backward rounds the weight gradients to that dtype and
-feeds fp32 master gradients, as JAX's cast VJP does) -> forward -> CE ->
-backward, accumulated over ``grad_accum`` microbatches -> one AdamW update
--> step + 1. Metrics stay on the device.
+A train step: uint8 images -> `to_unit_float` -> `augment_input_cast`
+(bf16 under ``ARSVT_AUGMENT_BF16``) -> crop/flip, RandAugment with
+``augment="randaugment"``, normalize (when the config augments) -> the
+compute dtype -> mixup (``mixup_alpha > 0``: soft labels) -> cast of every
+floating parameter to the compute dtype (its backward rounds the weight
+gradients to that dtype and feeds fp32 master gradients, as JAX's cast VJP
+does) -> forward, its blocks rematerialised under ``remat_policy`` when
+``remat`` -> CE with label smoothing -> backward, accumulated over
+``grad_accum`` microbatches -> one AdamW update -> step + 1. Metrics stay
+on the device; accuracy takes the argmax of mixed labels, as JAX's.
 
 PyTorch runs eagerly, so the step is a Python function, not a compiled
 one. The state is a dict {"params", "opt_state", "step"} updated in place
 (parameters and Adam moments; the returned dict is new), which keeps one
 copy of the fp32 master weights and moments on the card.
 
-Residual and positional dropout draw from ``Rng(seed, step,
-microbatch)``. The JAX package's two no-remat opt-ins route the step
-from the environment, as there (``ops/dispatch.py``):
+The augmentation and mixup of microbatch a draw from a CPU generator
+seeded with (seed, step, a); residual and positional dropout from
+``Rng(seed, step, a)``. The JAX package's two no-remat opt-ins route the
+step from the environment, as there (``ops/dispatch.py``):
 ``ARSVT_ATTN_SAVE_PROBS`` takes the save-probs attention kernels in the
 training forward and backward, ``ARSVT_ENABLE_FUSED_MLP`` the fused-MLP
 kernels in training and eval; attention dropout runs in the kernels of
-either route. Not ported yet (ROADMAP Queue A): distillation, mixup,
-RandAugment and remat (the ViT-L recipe).
+either route. Distillation is not ported yet and raises (ROADMAP Queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from arsvt_tpu_torch.core.dtypes import Policy, to_unit_float, tree_leaves
 from arsvt_tpu_torch.core.prng import Rng, generator
 from arsvt_tpu_torch.data.augment import (
     ClassifyAugmentConfig,
+    augment_input_cast,
     classification_train_augment,
     draw_classification_augment,
     eval_preprocess,
@@ -41,12 +47,14 @@ from arsvt_tpu_torch.models.classifier import (
     apply_image_classifier,
     init_image_classifier,
 )
-from arsvt_tpu_torch.models.vit import check_train_supported
 from arsvt_tpu_torch.objectives.classification import (
     accuracy_top1,
     confusion_matrix,
+    draw_mixup,
+    mixup,
     softmax_cross_entropy,
 )
+from arsvt_tpu_torch.ops.remat import check_policy
 from arsvt_tpu_torch.train.accum import accumulated_value_and_grad
 from arsvt_tpu_torch.train.config import TrainConfig, resolve_backbone
 from arsvt_tpu_torch.train.optim import fused_adamw_update, init_opt_state
@@ -65,12 +73,13 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
     """Build (init_fn, train_step, eval_step) for classification.
 
     init_fn(seed=None) -> state, seeded from `cfg.seed` by default.
-    train_step(state, batch, step_seed=None, *, draws=None) ->
-        (state, {"loss", "accuracy", "grad_norm"}); the augmentation of
-        microbatch a is drawn from a CPU generator seeded with (step_seed
-        or cfg.seed, state["step"], a), unless `draws` gives one
-        `CropFlipDraws` per microbatch; its dropout from ``Rng`` of the
-        same three.
+    train_step(state, batch, step_seed=None, *, draws=None,
+        mixup_draws=None) -> (state, {"loss", "accuracy", "grad_norm"});
+        the augmentation, then the mixup, of microbatch a are drawn from a
+        CPU generator seeded with (step_seed or cfg.seed, state["step"],
+        a), unless `draws` gives one `CropFlipDraws` and `mixup_draws` one
+        `MixupDraws` per microbatch; its dropout from ``Rng`` of the same
+        three.
     eval_step(params, batch) -> {"loss", "correct", "count", "confusion"}.
     batch = {"image": (B, H, W, C) uint8 or float, "label": (B,) int[,
     "valid": (B,) 0/1 for eval]}, numpy arrays or tensors.
@@ -84,13 +93,9 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                          f"got {cfg.task!r}")
     if cfg.distillation != "none":
         raise NotImplementedError(
-            "distillation is not ported yet (ROADMAP Queue A)")
-    if cfg.mixup_alpha > 0.0:
-        raise NotImplementedError(
-            "mixup is not ported yet (ROADMAP Queue A, the ViT-L "
-            "recipe)")
+            "distillation is not ported yet (ROADMAP Queue A item 9)")
     backbone_cfg = resolve_backbone(cfg)
-    check_train_supported(backbone_cfg, remat=cfg.remat)
+    check_policy(cfg.remat, cfg.remat_policy)
     compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     policy = Policy(compute_dtype=compute_dtype)
     num_classes = cfg.num_classes
@@ -102,10 +107,6 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
             rand_augment=cfg.augment == "randaugment",
             warp_variant=cfg.warp_variant,
         )
-        if aug_cfg.rand_augment:
-            raise NotImplementedError(
-                "RandAugment is not ported yet (ROADMAP Queue A, the "
-                "ViT-L recipe)")
     elif cfg.augment != "none":
         raise ValueError(f"unknown augment mode {cfg.augment!r} for classify")
 
@@ -117,7 +118,7 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                 "step": 0}
 
     def train_step(state: TrainState, batch, step_seed: int | None = None,
-                   *, draws=None):
+                   *, draws=None, mixup_draws=None):
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
@@ -129,17 +130,24 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
         def loss_fn(mb, a):
             compute_params = policy.cast_to_compute(params)
             images = to_unit_float(mb["image"])
+            n = images.shape[0]
+            gen = generator(seed, state["step"], a)
             if aug_cfg is not None:
                 d = (draws[a] if draws is not None else
-                     draw_classification_augment(
-                         generator(seed, state["step"], a),
-                         images.shape[0], aug_cfg))
-                images = classification_train_augment(images, d.to(dev),
-                                                      aug_cfg)
-            logits = apply_image_classifier(
-                compute_params, images.to(compute_dtype), backbone_cfg,
-                num_classes, train=True, rng=Rng(seed, state["step"], a))
+                     draw_classification_augment(gen, n, aug_cfg))
+                images = classification_train_augment(
+                    augment_input_cast(images), d.to(dev), aug_cfg)
+            images = images.to(compute_dtype)
             labels = mb["label"]
+            if cfg.mixup_alpha > 0.0:
+                m = (mixup_draws[a] if mixup_draws is not None else
+                     draw_mixup(gen, n, cfg.mixup_alpha))
+                images, labels = mixup(images, labels, m,
+                                       num_classes=num_classes)
+            logits = apply_image_classifier(
+                compute_params, images, backbone_cfg, num_classes,
+                train=True, rng=Rng(seed, state["step"], a),
+                remat=cfg.remat, remat_policy=cfg.remat_policy)
             loss = softmax_cross_entropy(
                 logits, labels, num_classes=num_classes,
                 label_smoothing=cfg.label_smoothing)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, detector-serving,
-detector-training and opt-in training paths, and its training entry point,
-on one NVIDIA card.
+detector-training and opt-in training paths, its training entry point and
+the ViT-L/16@384 recipe, on one NVIDIA card.
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --kernels  # phases 1-3 only (build and check)
-    python3 chip_smoke.py --disk     # phases 1, 2 and 12 (no kernel line)
-    python3 chip_smoke.py --int8     # phases 1, 2, 12 and 13 (no kernel line)
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1-3 only (build and check)
+    python3 chip_smoke.py --disk      # phases 1, 2 and 12 (no kernel line)
+    python3 chip_smoke.py --int8      # phases 1, 2, 12 and 13 (no kernel line)
+    python3 chip_smoke.py --vit-large # phases 1, 2 and 14 (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -114,7 +115,25 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    ``load_artifact_engine`` and held against the in-process engines at B =
    1 and 8, and the bf16 classify artifact moved to the CPU; (d) ``python
    -m arsvt_tpu_torch.serving.export`` on phase 12's seeded checkpoint and
-   ``python -m arsvt_tpu_torch.serving.server --artifact``.
+   ``python -m arsvt_tpu_torch.serving.server --artifact``;
+14. the ViT-L/16@384 recipe, ``TRAIN_PRESETS["vit_large_384"]`` (see the
+   comment above `VITL`): (a) RandAugment (both-rotate lane forced), the
+   classify pipeline with jitter, the taps, flat, patch, shear and
+   Lanczos-4 warps and the bilinear ones under ``ARSVT_AUGMENT_BF16``, card
+   against CPU on 8 images at 384 px, each timed at B = 256; (b) the five
+   remat policies against no remat at ViT-L width and depth 2 (fp32, B =
+   4, dropout 0.1) on both routes, and a remat step card vs CPU (mixup,
+   label smoothing, no dropout); (c) their
+   launches held to the policy table; (d) peak memory and ms/step per
+   policy at full depth, 16 images; (e) the preset as it stands (batch
+   256, full remat, RandAugment, mixup, bf16): ms/step, img/s, peak
+   memory, busy share, model TFLOP/s; #7 on one more step's own update
+   (the 304 M-parameter tree and its gradients) and #1/#2 at the
+   preset's shapes (B = 256, S = 577, D = 1,024, 16 heads, bf16) against
+   their plain versions; and bench.py's ViT-L configuration;
+   (f) ``train.cli.main --train-preset vit_large_384`` with a checkpoint
+   and an eval at 384; (g) a ``deit_detector_ref`` step with remat and the
+   taps warp.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -140,11 +159,17 @@ step, 18 #3 calls per eval or served forward); each path of 13 ((a): #1
 per layer and forward, int8 or bf16, in process and served; (b): 18 #3 a
 forward; (c): #1 per layer or 18 #3 per forward of each loaded artifact,
 its warm-up included; (d): #1 per layer and forward of the artifact served
-in process; the subprocesses' launches are not counted). Beside each total, #1,
+in process; the subprocesses' launches are not counted); each path of 14
+((b)-(c): per layer and microbatch the forwards of `REMAT_TABLE` and one
+backward call; (e)-(f): under full remat #1 twice and #2 once a layer and
+microbatch, #1 once a layer and eval forward, one AdamW launch a step,
+and without remat #1 once; (g): 24 #3 encoder launches (forward and
+replay) and 6 cross-attention launches, 18 #4 calls, one AdamW launch).
+Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
-every training launch of phase 11's dropout runs and of the detector's
-training (9(c), 11(d), 12(e)), none elsewhere. Any failure exits
-non-zero. The last
+every training launch of phase 11's dropout runs, of the detector's
+training (9(c), 11(d), 12(e)) and of 14(b)-(c), none elsewhere. Any
+failure exits non-zero. The last
 lines are the kernels' record, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +200,8 @@ from arsvt_tpu_torch.core.dtypes import (
     tree_leaves,
     tree_map,
 )
+from arsvt_tpu_torch.core.prng import Rng
+from arsvt_tpu_torch.data import augment
 from arsvt_tpu_torch.data.augment import normalize
 from arsvt_tpu_torch.data.pipeline import letterbox
 from arsvt_tpu_torch.evaluation.classify import (
@@ -190,6 +217,7 @@ from arsvt_tpu_torch.evaluation.detect import evaluate_detector, post_process
 from arsvt_tpu_torch.models.classifier import init_image_classifier
 from arsvt_tpu_torch.models.detector import init_detector
 from arsvt_tpu_torch.models.registry import DETECTOR_PRESETS, PRESETS
+from arsvt_tpu_torch.models.vit import apply_backbone, init_backbone
 from arsvt_tpu_torch.ops import (
     build,
     encoder_attention,
@@ -198,6 +226,7 @@ from arsvt_tpu_torch.ops import (
     fused_mlp,
 )
 from arsvt_tpu_torch.ops.quant import int8_matmul
+from arsvt_tpu_torch.ops.remat import REMAT_POLICIES
 from arsvt_tpu_torch.serving.artifact import load_artifact_engine
 from arsvt_tpu_torch.serving.export import (
     export_classifier,
@@ -205,7 +234,7 @@ from arsvt_tpu_torch.serving.export import (
     save_exported,
 )
 from arsvt_tpu_torch.serving.server import InferenceServer
-from arsvt_tpu_torch.train import detect_step
+from arsvt_tpu_torch.train import detect_step, optim
 from arsvt_tpu_torch.train.config import TRAIN_PRESETS, TrainConfig
 from arsvt_tpu_torch.train.detect_step import make_detector_step_fns
 from arsvt_tpu_torch.train.optim import _wd_mask
@@ -1694,10 +1723,11 @@ TOL_TRAIN_UPDATE = 1e-2
 
 def train_cfg(**kw) -> TrainConfig:
     """`bench.py::bench_train`'s configuration: ViT-B/16@224, crop/flip on
-    the 256 canvas, fused AdamW, no remat; warmup 1."""
-    return TrainConfig(preset="vit_base_16_224", augment="crop_flip",
-                       canvas=256, fused_adamw=True, warmup_steps=1,
-                       total_steps=10**6, **kw)
+    the 256 canvas, fused AdamW, no remat; warmup 1; `kw` overrides any
+    field (phase 14: the ViT-L recipe)."""
+    return TrainConfig(**{**dict(preset="vit_base_16_224", augment="crop_flip",
+                                 canvas=256, fused_adamw=True, warmup_steps=1,
+                                 total_steps=10**6), **kw})
 
 
 def set_head(params, d, num_classes, seed):
@@ -3981,6 +4011,594 @@ MLP_LIBRARIES = ("fused_mlp_fwd", "fused_mlp_bwd")
 TENSOR_CORE_LIBRARIES = ATTENTION_TILE_LIBRARIES + MLP_LIBRARIES
 
 
+# Phase 14: the ViT-L/16@384 recipe, TRAIN_PRESETS["vit_large_384"]
+# (RandAugment, mixup 0.2, label smoothing 0.1, full remat, a 416 canvas,
+# bf16). (a) the augmentation on the card against the CPU with the same
+# draws on 8 images at 384 px (RandAugment with the first image's two
+# rounds forced to rotate, the classify pipeline with jitter, each warp,
+# Lanczos-4, the bilinear warps in bf16 under ARSVT_AUGMENT_BF16), then
+# each timed at B = 256 from the preset's canvas; (b) ViT-L at full width
+# cut to 2 layers, B = 4, residual and attention dropout 0.1, fp32: each
+# remat policy against no remat on the card (loss and gradients), on both
+# routes, and one remat step on the card against the CPU; (c) the launches
+# of (b), held to the table `REMAT_TABLE`; (d) ViT-L at full depth, bf16,
+# one microbatch of 16: peak memory and ms/step for no remat and each
+# policy; (e) the preset as it stands (batch 256 as one microbatch), one
+# warm and 3 timed steps, profiled once, and bench.py's ViT-L
+# configuration (batch 32 as 2 x 16, no remat); (f) train.cli.main with
+# the preset, batch 32 as 2 x 16, 2 steps, a checkpoint and an eval at
+# 384; (g) one deit_detector_ref step with remat and the taps warp.
+VITL = "vit_large_16_384"
+VITL_D2 = "vit_large_16_384_depth2"  # registered in PRESETS by phase 14
+# augmentation card against CPU in fp32: the same formulas, the band
+# products and reductions summed in other orders: 1e-4 on [0, 1] pixels
+TOL_AUG = 1e-4
+# the bilinear warps in bf16: each side rounds its products to bf16 (2^-8
+# near 1) in its own order: four steps
+TOL_AUG_BF16 = 2.0 ** -6
+# RandAugment's posterize and solarize are steps: a pixel within an ulp of
+# a level or of the threshold lands on either side on the two devices.
+# Held: at most this share of the pixels beyond TOL_AUG
+TOL_AUG_FLIP_SHARE = 1e-4
+# (b) remat against no remat: the same kernels on the same inputs, the
+# masks redrawn from the same seeds: expected equal to the bit; held to
+# this share of each leaf's largest gradient should a library product
+# take another algorithm in the replay
+TOL_REMAT = 1e-6
+# forward launches per layer and microbatch under each policy: #1 (default
+# route), #5, #8 calls and #9 calls (opt-in route); #2 and #6 run one call
+# a layer on every policy
+REMAT_TABLE = {
+    "none": (1, 1, 1, 1),
+    "full": (2, 2, 2, 1),
+    "dots": (2, 2, 2, 1),
+    "names": (1, 2, 2, 1),
+    "all_but_mlp": (1, 1, 2, 1),
+    "mlp_tail": (1, 1, 0, 0),
+}
+RECIPE_CLI_ARGS = ["--train-preset", "vit_large_384", "--batch-size", "32",
+                   "--grad-accum", "2", "--steps", "2", "--eval-every", "2",
+                   "--checkpoint-every", "2", "--log-every", "1"]
+
+
+def vit_forward_gflop(cfg) -> float:
+    """Matmul GFLOP of one image's forward: patch embedding, then per layer
+    qkv, q k^T and P V, proj and the MLP (2 FLOP a multiply-add)."""
+    s, d, m = cfg.seq_len, cfg.embed_dim, cfg.mlp_dim
+    patch = 2 * cfg.num_patches * cfg.patch_size ** 2 * cfg.in_channels * d
+    layer = 2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d + \
+        2 * 2 * s * d * m
+    return (patch + cfg.depth * layer) / 1e9
+
+
+def augment_compare(name, fn, tol, flips: bool = False) -> dict:
+    """fn(device) on the card against the CPU: the largest difference and
+    the share of pixels beyond `tol` (which `flips` allows up to
+    TOL_AUG_FLIP_SHARE; otherwise none)."""
+    cpu = fn("cpu")
+    gpu = fn("cuda")
+    torch.cuda.synchronize()
+    check(gpu.dtype == cpu.dtype and gpu.shape == cpu.shape,
+          f"augment {name}: {gpu.dtype} {tuple(gpu.shape)} vs {cpu.dtype} "
+          f"{tuple(cpu.shape)}")
+    err = (gpu.cpu().float() - cpu.float()).abs()
+    share = float((err > tol).float().mean())
+    rec = {"check": f"augment {name} cuda vs cpu", "shape": list(gpu.shape),
+           "dtype": str(gpu.dtype), "max_abs_err": float(err.max()),
+           "share_beyond_tol": share, "tol": tol}
+    log(json.dumps(rec))
+    check(bool(torch.isfinite(gpu).all()), f"augment {name}: non-finite")
+    check(share <= (TOL_AUG_FLIP_SHARE if flips else 0.0),
+          f"augment {name} cuda vs cpu: {rec}")
+    return rec
+
+
+@contextlib.contextmanager
+def augment_bf16():
+    """ARSVT_AUGMENT_BF16 set for the block, unset after."""
+    os.environ["ARSVT_AUGMENT_BF16"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("ARSVT_AUGMENT_BF16", None)
+
+
+def phase_recipe_augment(smi) -> None:
+    """14(a)."""
+    gen = torch.Generator().manual_seed(14)
+    images = torch.rand((8, 384, 384, 3), generator=gen)
+    canvas = torch.rand((8, 416, 416, 3), generator=gen)
+    ccfg = augment.ClassifyAugmentConfig(image_size=384, jitter_p=0.6,
+                                         rand_augment=True)
+    draws = augment.draw_classification_augment(gen, 8, ccfg)
+    draws.rand_augment.op[0] = augment.RA_ROTATE  # both rounds rotate
+    ra = draws.rand_augment
+    check(bool((ra.op[0] == augment.RA_ROTATE).all()), "no both-rotate lane")
+    deg = (torch.rand(8, generator=gen) * 2 - 1) * 45.0
+    inv = torch.linalg.inv(augment.affine_matrix(
+        384, 384, deg, 0.95 + 0.1 * torch.rand(8, generator=gen),
+        (torch.rand((8, 2), generator=gen) * 2 - 1) * 0.05,
+        (torch.rand((8, 2), generator=gen) * 2 - 1) * 15.0))
+    augment_compare("rand_augment (shear_matmul)", lambda dev:
+                    augment.rand_augment(images.to(dev), ra.to(dev)),
+                    TOL_AUG, flips=True)
+    augment_compare("classify crop/flip/jitter/RandAugment 416->384",
+                    lambda dev: augment.classification_train_augment(
+                        canvas.to(dev), draws.to(dev), ccfg),
+                    TOL_AUG / 0.224, flips=True)
+    j = draws.jitter
+    augment_compare("classify color jitter", lambda dev: augment.color_jitter(
+        images.to(dev), *(t.to(dev) for t in (
+            j.apply, j.brightness, j.contrast, j.saturation, j.hue,
+            j.order))), TOL_AUG)
+    for variant in ("taps", "flat", "patch", "shear_matmul"):
+        augment_compare(f"warp {variant}", lambda dev: augment.bilinear_warp(
+            images.to(dev), inv.to(dev), variant), TOL_AUG)
+    augment_compare("warp lanczos4", lambda dev: augment.lanczos4_warp(
+        images.to(dev), inv.to(dev)), TOL_AUG)
+    with augment_bf16():
+        for variant in ("taps", "flat", "patch", "shear_matmul"):
+            augment_compare(f"warp {variant} ARSVT_AUGMENT_BF16",
+                            lambda dev: augment.bilinear_warp(
+                                images.to(dev), inv.to(dev), variant),
+                            TOL_AUG_BF16)
+
+    # times at B = 256 from the preset's canvas, on the card
+    n = 256
+    cgen = torch.Generator(device="cuda").manual_seed(15)
+    big_canvas = torch.rand((n, 416, 416, 3), generator=cgen, device="cuda")
+    big = torch.rand((n, 384, 384, 3), generator=cgen, device="cuda")
+    pcfg = augment.ClassifyAugmentConfig(image_size=384, rand_augment=True)
+    pdraws = augment.draw_classification_augment(gen, n, pcfg).to("cuda")
+    rdeg = (torch.rand(n, generator=gen) * 2 - 1) * 15.0
+    rinv = torch.linalg.inv(augment.rotation_matrix(384, 384, rdeg)).cuda()
+    timed = {
+        "classify pipeline, the preset (crop 416->384, flip, RandAugment)":
+            lambda: augment.classification_train_augment(big_canvas, pdraws,
+                                                         pcfg),
+    }
+    for variant in ("taps", "flat", "patch", "shear_matmul"):
+        timed[f"warp {variant}, every image"] = (
+            lambda v=variant: augment.bilinear_warp(big, rinv, v))
+    timed["warp lanczos4, every image"] = (
+        lambda: augment.lanczos4_warp(big, rinv))
+    rec = {"timing": "augmentation at B = 256, 384 px", "card": smi,
+           "rotating_images_in_the_preset_draws": int(
+               (pdraws.rand_augment.op == augment.RA_ROTATE).any(1).sum()),
+           "ms": {}}
+    for name, fn in timed.items():
+        rec["ms"][name] = cuda_ms(fn, iters=2, warmup=1)
+    with augment_bf16():
+        for variant in ("taps", "shear_matmul"):
+            rec["ms"][f"warp {variant}, every image, ARSVT_AUGMENT_BF16"] = (
+                cuda_ms(lambda v=variant: augment.bilinear_warp(big, rinv, v),
+                        iters=2, warmup=1))
+    log(json.dumps(rec))
+    del big, big_canvas
+
+
+def remat_expected(route: str, policy: str, depth: int, micro: int,
+                   dtype, dropout: bool = False) -> dict:
+    """Launches of `micro` forward + backward passes of `depth` layers under
+    `policy` on `route`, from REMAT_TABLE; with `dropout` every launch of
+    #1, #2, #5 and #6 runs its dropout branch, the replays too."""
+    fwd1, fwd5, fwd8, bwd9 = (depth * micro * n
+                              for n in REMAT_TABLE[policy])
+    counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    layers = depth * micro
+    if route == "default":
+        counts["encoder_attention_fwd"] = fwd1
+        counts["encoder_attention_bwd"] = (
+            layers * encoder_attention.BWD_LAUNCHES_PER_CALL)
+    else:
+        counts["encoder_attention_fwd_savep"] = fwd5
+        counts["encoder_attention_bwd_savep"] = (
+            layers * encoder_attention.SAVEP_BWD_LAUNCHES_PER_CALL)
+        counts["fused_mlp_fwd"] = fwd8 * fused_mlp.FWD_LAUNCHES_PER_CALL[
+            dtype]
+        counts["fused_mlp_bwd"] = bwd9 * fused_mlp.BWD_LAUNCHES_PER_CALL
+    if dropout:
+        for name in ("encoder_attention_fwd", "encoder_attention_bwd",
+                     "encoder_attention_fwd_savep",
+                     "encoder_attention_bwd_savep"):
+            counts[f"{name}_dropout"] = counts[name]
+    return counts
+
+
+def remat_grads(params, images, cfg, policy, probe):
+    """Loss <out, probe> (a fixed random direction: the final LayerNorm
+    keeps the tokens' norms, so a loss of the norms would send no
+    gradient) and its gradients under `policy`."""
+    out = apply_backbone(params, images, cfg, train=True, rng=Rng(14, 0, 1),
+                         remat=policy != "none",
+                         remat_policy=policy.replace("none", "full"))
+    loss = (out.float() * probe).mean()
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    return loss.detach(), grads
+
+
+def phase_remat_checks() -> dict:
+    """14(b) and (c). Returns the launches of the remat runs."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    cfg = dataclasses.replace(PRESETS[VITL], depth=2, dropout=0.1,
+                              attn_dropout=0.1)
+    params = tree_map(lambda t: t.cuda(), init_backbone(cfg, 14))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    images = torch.rand((4, 384, 384, 3), generator=gen, device="cuda")
+    probe = torch.randn((4, cfg.seq_len, cfg.embed_dim), generator=gen,
+                        device="cuda")
+    for route in ("default", "opt_in"):
+        with switches(route == "opt_in"):
+            refs = {}
+            for policy in ("none",) + REMAT_POLICIES:
+                zero_counts()
+                loss, grads = remat_grads(params, images, cfg, policy, probe)
+                got = read_counts()
+                want = remat_expected(route, policy, 2, 1, torch.float32,
+                                      dropout=True)
+                add_counts(total, got)
+                check(got == want, f"remat {route} {policy}: launches "
+                      f"{got} != {want}")
+                ref_key = ("unfused" if route == "opt_in"
+                           and policy == "mlp_tail" else "none")
+                if policy == "none":
+                    check(all(float(g.abs().max()) > 0 for g in grads),
+                          "a leaf of the remat check has no gradient")
+                    refs["none"] = (loss, grads)
+                    continue
+                if ref_key not in refs:  # mlp_tail's reference: no fused MLP
+                    os.environ.pop("ARSVT_ENABLE_FUSED_MLP")
+                    refs[ref_key] = remat_grads(params, images, cfg, "none",
+                                                probe)
+                    os.environ["ARSVT_ENABLE_FUSED_MLP"] = "1"
+                ref_loss, ref_grads = refs[ref_key]
+                worst = max(float((a - b).abs().max()) /
+                            max(float(b.abs().max()), 1e-30)
+                            for a, b in zip(grads, ref_grads))
+                equal = bool(torch.equal(loss, ref_loss)) and all(
+                    torch.equal(a, b) for a, b in zip(grads, ref_grads))
+                rec = {"check": f"remat {policy} vs none, {route} route",
+                       "model": "ViT-L/16@384 depth 2, fp32, B = 4, dropout "
+                                "0.1, attention dropout 0.1",
+                       "loss": float(loss), "loss_none": float(ref_loss),
+                       "equal_to_the_bit": equal,
+                       "max_rel_err_grads": worst, "tol": TOL_REMAT,
+                       "launches": {k: v for k, v in got.items() if v}}
+                log(json.dumps(rec))
+                check(abs(float(loss) - float(ref_loss)) <=
+                      TOL_REMAT * abs(float(ref_loss)) and worst <= TOL_REMAT,
+                      f"remat {policy} {route}: {rec}")
+    del params
+    # without attention dropout: the plain mask's int64 Philox over (B, H,
+    # S, S) takes minutes on the host at S = 577; the masks' replay is held
+    # above, and the masks card against CPU by phases 3 and 11(c)
+    log("# phase 14(b): a remat step of the recipe, card vs CPU")
+    PRESETS[VITL_D2] = dataclasses.replace(PRESETS[VITL], depth=2)
+    phase_train_parity(PRESETS[VITL_D2], preset=VITL_D2, canvas=416,
+                       mixup_alpha=0.2, label_smoothing=0.1, remat=True)
+    return total
+
+
+def fresh_vitl_state(init_fn):
+    """The preset's init on the card."""
+    t0 = time.perf_counter()
+    state = init_fn()
+    torch.cuda.synchronize()
+    log(json.dumps({"init": VITL, "seconds": time.perf_counter() - t0,
+                    "parameters": sum(p.numel() for p in tree_leaves(
+                        state["params"]))}))
+    return state
+
+
+def time_steps(step, state, batch, warm: int, timed: int):
+    """warm + timed steps; returns (state, ms a timed step, losses, peak
+    GB over all of them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(warm):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    return (state, ms, [float(v) for v in losses],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_remat_cost(smi) -> None:
+    """14(d)."""
+    cfg = PRESETS[VITL]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    batch = {"image": torch.rand((16, 384, 384, 3), generator=gen,
+                                 device="cuda"),
+             "label": torch.randint(0, 6, (16,), generator=gen,
+                                    device="cuda")}
+    base = TrainConfig(preset=VITL, batch_size=16, grad_accum=1, bf16=True,
+                       augment="none", warmup_steps=1, total_steps=10**6)
+    init_fn, _, _ = make_classifier_step_fns(base)
+    state = fresh_vitl_state(init_fn)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    rows = {}
+    for policy in ("none",) + REMAT_POLICIES:
+        _, step, _ = make_classifier_step_fns(base.with_overrides(
+            remat=policy != "none",
+            remat_policy=policy.replace("none", "full")))
+        state, ms, losses, peak = time_steps(step, state, batch, 1, 2)
+        check(all(np.isfinite(losses)), f"remat cost {policy}: {losses}")
+        rows[policy] = {"ms_per_step": ms, "peak_memory_gb": peak,
+                        "peak_over_state_gb": peak - state_gb}
+    log(json.dumps({"timing": "remat policies, ViT-L/16@384 24 layers, bf16, "
+                    "one microbatch of 16, default route",
+                    "state_gb": state_gb, "policies": rows, "card": smi}))
+    order = sorted(rows, key=lambda k: rows[k]["peak_memory_gb"])
+    log(json.dumps({"peak_memory_order": order}))
+    check(rows["full"]["peak_memory_gb"] < rows["none"]["peak_memory_gb"],
+          f"full remat does not lower the peak: {rows}")
+
+
+def remat_launches(depth, micro, steps, eval_forwards, replay=2) -> dict:
+    """The default route's launches under full remat: #1 `replay` times a
+    layer and microbatch (forward and replay) plus once a layer and eval
+    forward, #2 one call a layer and microbatch, #7 once a step."""
+    counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    counts["encoder_attention_fwd"] = depth * (micro * steps * replay
+                                               + eval_forwards)
+    counts["encoder_attention_bwd"] = (
+        depth * micro * steps * encoder_attention.BWD_LAUNCHES_PER_CALL)
+    counts["fused_adamw"] = steps
+    return counts
+
+
+def phase_recipe_train(smi) -> dict:
+    """14(e). Returns the launches of its steps."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    tcfg = TRAIN_PRESETS["vit_large_384"]
+    cfg = PRESETS[VITL]
+    init_fn, step, _ = make_classifier_step_fns(tcfg)
+    state = fresh_vitl_state(init_fn)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batch = batch_of(tcfg, gen, tcfg.batch_size)
+    zero_counts()  # the preset's training path starts here
+    state, ms, losses, peak = time_steps(step, state, batch, 1, 3)
+    counts = read_counts()
+    add_counts(total, counts)
+    want = remat_launches(cfg.depth, tcfg.grad_accum, 4, 0)
+    check(counts == want, f"vit_large_384 launches {counts} != {want}")
+    gflop = vit_forward_gflop(cfg)
+    rec = {"timing": "train step vit_large_384 as it stands",
+           "batch": tcfg.batch_size, "grad_accum": tcfg.grad_accum,
+           "remat": tcfg.remat, "remat_policy": tcfg.remat_policy,
+           "augment": tcfg.augment, "mixup_alpha": tcfg.mixup_alpha,
+           "label_smoothing": tcfg.label_smoothing, "canvas": tcfg.canvas,
+           "dtype": "bfloat16", "steps_timed": 3, "ms_per_step": ms,
+           "train_images_per_s": tcfg.batch_size / ms * 1e3,
+           "peak_memory_gb": peak, "forward_gflop_per_image": gflop,
+           "model_tflop_per_s_3x": 3 * gflop * tcfg.batch_size / ms,
+           "model_tflop_per_s_4x_with_replay":
+               4 * gflop * tcfg.batch_size / ms,
+           "losses": losses, "launches": {k: v for k, v in counts.items()
+                                          if v}, "card": smi}
+    log(json.dumps(rec))
+    check(all(np.isfinite(losses)), f"vit_large_384 losses {losses}")
+    zero_counts()
+    phase_train_profile(state, step, batch, ms,
+                        title="train step vit_large_384 as it stands")
+    add_counts(total, read_counts())
+    check_recipe_adamw(step, state, batch,
+                       remat_launches(cfg.depth, tcfg.grad_accum, 1, 0))
+    del state, step, batch
+    check_recipe_attention(cfg, tcfg.batch_size // tcfg.grad_accum)
+
+    log("# phase 14(e): bench.py's ViT-L configuration, 32 as 2 x 16, no "
+        "remat")
+    bcfg = tcfg.with_overrides(batch_size=32, grad_accum=2, remat=False)
+    init_fn, step, _ = make_classifier_step_fns(bcfg)
+    state = fresh_vitl_state(init_fn)
+    batch = batch_of(tcfg, gen, 32)
+    zero_counts()
+    state, ms, losses, peak = time_steps(step, state, batch, 1, 3)
+    counts = read_counts()
+    add_counts(total, counts)
+    want = remat_launches(cfg.depth, 2, 4, 0, replay=1)
+    check(counts == want, f"bench ViT-L launches {counts} != {want}")
+    log(json.dumps({"timing": "train step vit_large_384, bench.py:350-355 "
+                    "(batch 32 as 2 x 16, no remat)", "ms_per_step": ms,
+                    "train_images_per_s": 32 / ms * 1e3,
+                    "peak_memory_gb": peak,
+                    "model_tflop_per_s_3x": 3 * gflop * 32 / ms,
+                    "losses": losses, "card": smi}))
+    check(all(np.isfinite(losses)), f"bench ViT-L losses {losses}")
+    return total
+
+
+def check_recipe_adamw(step, state, batch, want) -> None:
+    """#7 at the preset's own call: one more step of the preset, whose
+    update (the ViT-L tree, its moments and the gradients of its 256
+    images) is copied as the kernel is called and held against the plain
+    version leaf by leaf at phase 3's limit."""
+    seen = {}
+    kernel = optim.fused_adamw
+
+    def copy_then_launch(scalars, grads, ms, vs, ps, decayed, **hyper):
+        seen.update(before=[tuple(t.detach().clone() for t in leaf)
+                            for leaf in zip(grads, ms, vs, ps)],
+                    scalars=scalars.clone(), decayed=list(decayed),
+                    hyper=hyper, after=list(zip(ms, vs, ps)))
+        kernel(scalars, grads, ms, vs, ps, decayed, **hyper)
+
+    optim.fused_adamw = copy_then_launch
+    try:
+        zero_counts()
+        step(state, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        optim.fused_adamw = kernel
+    check(counts == want, f"vit_large_384 checked step launches {counts} "
+                          f"!= {want}")
+    hyper, err = seen["hyper"], 0.0
+    for (g, m, v, p), (m2, v2, p2), dflag in zip(
+            seen["before"], seen["after"], seen["decayed"]):
+        rp, rm, rv = fused_adamw.adamw_plain(
+            seen["scalars"], g, m, v, p,
+            **{**hyper, "wd": hyper["wd"] if dflag else 0.0})
+        err = max(err, max_err(p2, rp), max_err(m2, rm), max_err(v2, rv))
+    log(json.dumps({
+        "check": "fused_adamw on the vit_large_384 step's own update",
+        "leaves": len(seen["before"]),
+        "params": sum(p.numel() for *_, p in seen["before"]),
+        "max_abs_param": max(float(p.abs().max())
+                             for *_, p in seen["before"]),
+        "max_abs_err": err, "tol": TOL_ADAMW}))
+    check(err <= TOL_ADAMW, f"fused_adamw disagrees with its plain version "
+                            f"on the vit_large_384 update: {err}")
+
+
+# the plain side of the preset-shape attention check runs this many
+# images at a time: its fp32 (B, H, S, S) scores take 0.68 GB at 32
+RECIPE_PLAIN_CHUNK = 32
+
+
+def check_recipe_attention(cfg, b) -> None:
+    """#1 and #2 at the preset's shapes, one microbatch of `b` images of
+    ViT-L/16@384 (S = 577, D = 1,024 in 16 heads) in bf16 without dropout
+    as the preset runs them, against their plain versions on the same
+    inputs at phase 3's limits."""
+    s, d, h = cfg.seq_len, cfg.embed_dim, cfg.num_heads
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    qkv = torch.randn((b, s, 3 * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    dout = torch.randn((b, s, d), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    out, lse = encoder_attention.encoder_attention_fwd(qkv, h)
+    grads = encoder_attention.encoder_attention_bwd(qkv, out, dout, lse, h)
+    torch.cuda.synchronize()
+    rec = {"check": "encoder_attention_fwd and _bwd at vit_large_384's "
+                    "shapes", "B": b, "S": s, "D": d, "H": h,
+           "dtype": "bfloat16", "tol_out": TOL_BF16, "tol_lse": TOL_LSE,
+           "tol_grads": TOL_BWD_BF16}
+    errs = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0.0)
+    ok = True
+    for i in range(0, b, RECIPE_PLAIN_CHUNK):
+        sl = slice(i, i + RECIPE_PLAIN_CHUNK)
+        ref_out, ref_lse = encoder_attention.encoder_attention_fwd_plain(
+            qkv[sl], h)
+        ref = encoder_attention.encoder_attention_bwd_plain(
+            qkv[sl], out[sl], dout[sl], lse[sl], h)
+        pairs = [("out", out[sl], ref_out, TOL_BF16),
+                 ("lse", lse[sl], ref_lse, None)]
+        pairs += [(name, x[sl], r, TOL_BWD_BF16)
+                  for name, x, r in zip(("dq", "dk", "dv"), grads, ref)]
+        for name, x, r, tol in pairs:
+            check(bool(torch.isfinite(x.float()).all()),
+                  f"non-finite {name} at vit_large_384's shapes")
+            errs[name] = max(errs[name], max_err(x, r))
+            if tol is not None:
+                ok &= bool(((x.float() - r.float()).abs()
+                            <= tol + tol * r.float().abs()).all())
+    rec.update({f"max_abs_err_{k}": v for k, v in errs.items()})
+    log(json.dumps(rec))
+    check(ok and errs["lse"] <= TOL_LSE,
+          f"encoder attention disagrees with its plain version at "
+          f"vit_large_384's shapes: {rec}")
+
+
+def batch_of(tcfg, gen, n):
+    """n uint8 images on the preset's canvas and labels, on the card."""
+    return {"image": torch.randint(0, 256, (n, tcfg.canvas, tcfg.canvas, 3),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.uint8),
+            "label": torch.randint(0, 6, (n,), generator=gen, device="cuda")}
+
+
+def phase_recipe_cli(tmp, smi) -> dict:
+    """14(f)."""
+    directory = os.path.join(tmp, "vit_large_384")
+    cfg = PRESETS[VITL]
+    want = remat_launches(cfg.depth, 2, 2, EVAL_BATCHES)
+    last, counts, seconds = run_cli(directory, RECIPE_CLI_ARGS, expect=want,
+                                    base=[])
+    ckpts = sorted(os.listdir(os.path.join(directory, "checkpoints")))
+    rows = []
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    evals = [r for r in rows if "val/loss" in r]
+    log(json.dumps({"check": "train.cli vit_large_384",
+                    "args": RECIPE_CLI_ARGS, "seconds": seconds,
+                    "checkpoints": ckpts, "checkpoint_bytes": [
+                        os.path.getsize(os.path.join(
+                            directory, "checkpoints", c)) for c in ckpts],
+                    "last": {
+                        k: float(v) for k, v in last.items()},
+                    "eval": evals, "launches": {
+                        k: v for k, v in counts.items() if v},
+                    "card": smi}))
+    check(ckpts == ["step_000000002.pt"], f"checkpoints {ckpts}")
+    check(len(evals) == 1 and np.isfinite(evals[0]["val/loss"]),
+          f"eval rows {evals}")
+    check(np.isfinite(float(last["loss"])), f"last {last}")
+    return counts
+
+
+def phase_recipe_detector(smi) -> dict:
+    """14(g): one deit_detector_ref step (batch 8) with full remat and the
+    taps warp."""
+    tcfg = det_train_cfg(batch_size=8, grad_accum=1, remat=True,
+                         warp_variant="taps")
+    init_fn, step, _ = make_detector_step_fns(tcfg)
+    state = init_fn()
+    batch = det_random_batch(np.random.default_rng(19), 8)
+    det_cfg = DETECTOR_PRESETS[DET_TRAIN_PRESET]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    enc, dec = det_cfg.backbone.depth, det_cfg.head.depth
+    want = {"flash_attention_fwd": 2 * enc + dec,  # the encoder replays
+            "flash_attention_bwd": enc + dec, "fused_adamw": 1}
+    got = {k: counts[k] for k in want}
+    log(json.dumps({"check": "deit_detector_ref step, remat full, taps warp",
+                    "seconds": seconds, "loss": float(m["loss"]),
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "expected": want, "card": smi}))
+    check(got == want, f"detector remat launches {got} != {want}")
+    check(np.isfinite(float(m["loss"])), f"detector loss {m}")
+    return counts
+
+
+def phase_vit_large(smi) -> dict:
+    """Phase 14. Returns the launches of (b)-(g)."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    t0 = time.perf_counter()
+    log("# phase 14(a): the recipe's augmentation, card vs CPU, and times")
+    phase_recipe_augment(smi)
+    log("# phase 14(b)-(c): remat policies at ViT-L width, depth 2")
+    add_counts(total, phase_remat_checks())
+    log("# phase 14(d): remat cost per policy, ViT-L 24 layers, 16 images")
+    phase_remat_cost(smi)
+    log("# phase 14(e): TRAIN_PRESETS['vit_large_384'] as it stands")
+    add_counts(total, phase_recipe_train(smi))
+    with tempfile.TemporaryDirectory() as tmp:
+        log("# phase 14(f): train.cli --train-preset vit_large_384")
+        add_counts(total, phase_recipe_cli(tmp, smi))
+    log("# phase 14(g): deit_detector_ref with remat and the taps warp")
+    add_counts(total, phase_recipe_detector(smi))
+    log(json.dumps({"phase": 14, "seconds": time.perf_counter() - t0,
+                    "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
 def is_bf16_kernel(entry: str) -> bool:
     """A bf16 kernel by its mangled name: T = __nv_bfloat16 opens the
     template arguments (fp32 instantiations may take bf16 pointers, never
@@ -4076,6 +4694,10 @@ def main() -> int:
     cfg = PRESETS["vit_base_16_224"]
     params = seeded_head(init_image_classifier(cfg, 6, seed=0),
                          cfg.embed_dim, 6, seed=1)
+    if "--vit-large" in sys.argv[1:]:
+        log("# --vit-large: phase 14 alone")
+        phase_vit_large(smi)
+        return 0
     if {"--disk", "--int8"} & set(sys.argv[1:]):
         log("# --disk / --int8: phase 12 (and 13) alone")
         with tempfile.TemporaryDirectory() as tmp:
@@ -4148,6 +4770,9 @@ def main() -> int:
         log("# phase 13: int8 serving and export artifacts")
         int8 = phase_int8_export(cfg, params, seeded, smi, tmp)
 
+    log("# phase 14: the ViT-L/16@384 recipe")
+    recipe = phase_vit_large(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -4157,9 +4782,10 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-13
+    def paths(name):  # launches of every path's run, phases 4-14
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
+                + recipe[name]
                 + (launches if name == "encoder_attention_fwd" else 0))
 
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",

@@ -130,11 +130,101 @@ def test_port_draws_statistics():
     assert not torch.equal(d.area, other.area)
 
 
-def test_unported_augmentations_raise():
-    for cfg in (augment.ClassifyAugmentConfig(rand_augment=True),
-                augment.ClassifyAugmentConfig(jitter_p=0.6)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            augment.draw_classification_augment(generator(0), 2, cfg)
+def jax_classify_draws(keys, *, jitter_p=0.0, rand_augment=False):
+    """JAX's draws for ``classification_train_augment(key, ...)`` of each
+    key, replayed from its splits: crop (k1), flip (k2), color jitter at
+    its defaults (k3), RandAugment's two rounds (k4)."""
+    from test_torch_randaugment import _draws_of
+
+    crops, flips, jit = [], [], []
+    for k in keys:
+        k1, k2, k3, _ = jax.random.split(k, 4)
+        crops.append(_jax_crop_draws(k1))
+        flips.append(jax.random.bernoulli(k2, 0.5))
+        kp, ko, kb, kc, ks, kh = jax.random.split(k3, 6)
+        jit.append((jax.random.bernoulli(kp, jitter_p),
+                    jax.random.uniform(kb, (), minval=0.8, maxval=1.2),
+                    jax.random.uniform(kc, (), minval=0.8, maxval=1.2),
+                    jax.random.uniform(ks, (), minval=0.8, maxval=1.2),
+                    jax.random.uniform(kh, (), minval=-0.2, maxval=0.2)
+                    * 2.0 * jnp.pi,
+                    jax.random.permutation(ko, 4)))
+    jitter = (augment.JitterDraws(*(_stack(c) for c in zip(*jit)))
+              if jitter_p > 0 else None)
+    ra = (_draws_of([jax.random.split(k, 4)[3] for k in keys])
+          if rand_augment else None)
+    return augment.CropFlipDraws(*(_stack(d) for d in zip(*crops)),
+                                 _stack(flips), jitter, ra)
+
+
+def test_classification_jitter_and_randaugment_with_jax_draws():
+    """Crop -> flip -> jitter (p 0.6) -> RandAugment -> normalize on 8
+    images against ``classification_train_augment`` with JAX's draws (the
+    pixel tolerance of a warp, scaled by 1/std)."""
+    imgs = _images(8, 40, 8)
+    keys = jax.random.split(jax.random.PRNGKey(9), 8)
+    jcfg = jax_augment.ClassifyAugmentConfig(image_size=32, jitter_p=0.6,
+                                             rand_augment=True)
+    ref = np.stack([np.asarray(jax_augment.classification_train_augment(
+        k, jnp.asarray(im), jcfg)) for k, im in zip(keys, imgs)])
+    draws = jax_classify_draws(keys, jitter_p=0.6, rand_augment=True)
+    assert 0 < int(draws.jitter.apply.sum()) < 8
+    assert int((draws.rand_augment.op == 0).sum()) > 0  # some rotate
+    cfg = augment.ClassifyAugmentConfig(image_size=32, jitter_p=0.6,
+                                        rand_augment=True)
+    got = augment.classification_train_augment(torch.from_numpy(imgs),
+                                               draws, cfg)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL_PIX / 0.224)
+    own = augment.draw_classification_augment(generator(0), 8, cfg)
+    assert own.jitter.order.shape == (8, 4)
+    assert own.rand_augment.op.shape == (8, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixup_matches_jax(dtype):
+    """JAX's λ and permutation fed to the port: the mixed images (computed
+    in fp32 and rounded once to the images' dtype on both sides: equal to
+    1e-6 in fp32, to one bf16 rounding step of a value below 4 in bf16)
+    and the soft labels (1e-7)."""
+    imgs = np.random.default_rng(10).standard_normal(
+        (8, 6, 6, 3)).astype(np.float32)
+    labels = np.random.default_rng(11).integers(0, 6, 8).astype(np.int32)
+    key = jax.random.PRNGKey(12)
+    jimgs = jnp.asarray(imgs).astype(dtype)
+    ref_x, ref_y = jax_obj.mixup(key, jimgs, jnp.asarray(labels),
+                                 num_classes=6, alpha=0.2)
+    k_lam, k_perm = jax.random.split(key)
+    draws = obj.MixupDraws(
+        float(jax.random.beta(k_lam, 0.2, 0.2, ())),
+        torch.from_numpy(np.array(jax.random.permutation(k_perm, 8))))
+    got_x, got_y = obj.mixup(
+        torch.from_numpy(np.array(jimgs.astype(jnp.float32))).to(
+            getattr(torch, dtype)), torch.from_numpy(labels), draws,
+        num_classes=6)
+    assert str(got_x.dtype) == f"torch.{dtype}"
+    np.testing.assert_allclose(
+        got_x.float().numpy(), np.asarray(ref_x.astype(jnp.float32)),
+        atol=1e-6 if dtype == "float32" else 2.0 ** -6, rtol=0)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(ref_y), atol=1e-7)
+    hard = got_y.argmax(dim=-1)  # the step's accuracy label
+    np.testing.assert_array_equal(hard.numpy(),
+                                  np.asarray(jnp.argmax(ref_y, axis=-1)))
+
+
+def test_draw_mixup_statistics():
+    """λ ~ Beta(0.2, 0.2) (mean 1/2, variance 1/(4 (2α + 1)) = 0.179) over
+    2,000 microbatches, each a permutation; the same seed repeats."""
+    lams = []
+    for i in range(2000):
+        d = obj.draw_mixup(generator(0, i, 0), 8, 0.2)
+        lams.append(d.lam)
+        assert sorted(d.perm.tolist()) == list(range(8))
+    lams = np.array(lams)
+    assert abs(lams.mean() - 0.5) < 0.03
+    assert abs(lams.var() - 1 / (4 * 1.4)) < 0.02
+    again = obj.draw_mixup(generator(0, 7, 0), 8, 0.2)
+    first = obj.draw_mixup(generator(0, 7, 0), 8, 0.2)
+    assert again.lam == first.lam and torch.equal(again.perm, first.perm)
 
 
 @pytest.mark.parametrize("case", ["int", "smoothed", "soft", "valid",

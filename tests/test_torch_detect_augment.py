@@ -268,8 +268,29 @@ def test_port_draws_ranges_and_host_apply():
 
 
 @pytest.mark.parametrize("kw", [dict(interpolation="lanczos4"),
-                                dict(warp_variant="taps")])
-def test_unported_resamplers_raise(kw):
+                                dict(warp_variant="taps")],
+                         ids=["lanczos4", "taps"])
+def test_detection_resamplers_match_jax(kw):
+    """The whole pipeline, as `test_detection_train_augment_with_jax_draws`,
+    through the reference's Lanczos-4 and through the ``taps`` gather
+    warp; an unknown name raises KeyError where JAX's lookup does."""
+    images, boxes, mask = _batch(8, 40, 5, seed=14)
+    keys = _keys(8, 15)
+    jcfg = dataclasses.replace(JCFG, **kw)
+    refs = [jax_augment.detection_train_augment(
+        k, jnp.asarray(im), jnp.asarray(bx), jnp.asarray(ms), jcfg)
+        for k, im, bx, ms in zip(keys, images, boxes, mask)]
+    d = _stack_draws([_jax_draws(k) for k in keys])
+    assert int(d.affine_apply.sum()) > 0
     cfg = dataclasses.replace(PCFG, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        augment.draw_detection_augment(generator(0), 2, cfg)
+    got = augment.detection_train_augment(
+        *(torch.from_numpy(a) for a in (images, boxes, mask)), d, cfg)
+    np.testing.assert_allclose(
+        _pixels(got[0].numpy()),
+        _pixels(np.stack([np.asarray(r[0]) for r in refs])), atol=ATOL)
+    np.testing.assert_array_equal(got[2].numpy(),
+                                  np.stack([np.asarray(r[2]) for r in refs]))
+    name = "interpolation" if "interpolation" in kw else "warp_variant"
+    with pytest.raises(KeyError):
+        augment.draw_detection_augment(
+            generator(0), 2, dataclasses.replace(cfg, **{name: "cubic"}))

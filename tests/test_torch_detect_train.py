@@ -25,6 +25,7 @@ from arsvt_tpu.train.detect_step import (
     make_detector_step_fns as jax_make_step_fns,
 )
 from arsvt_tpu.train.optim import _find_state
+from arsvt_tpu_torch.core.dtypes import tree_leaves
 from arsvt_tpu_torch.evaluation.detect import evaluate_detector
 from arsvt_tpu_torch.models import bridge
 from arsvt_tpu_torch.models.registry import get_detector_preset
@@ -81,9 +82,10 @@ def _batch(rng, n=8, m=6, size=32):
     }
 
 
-def _start():
-    jinit, jstep, jeval = jax_make_step_fns(JaxTrainConfig(**KW))
-    _, step, eval_step = make_detector_step_fns(TrainConfig(**KW),
+def _start(**over):
+    kw = dict(KW, **over)
+    jinit, jstep, jeval = jax_make_step_fns(JaxTrainConfig(**kw))
+    _, step, eval_step = make_detector_step_fns(TrainConfig(**kw),
                                                 device="cpu")
     jstate = jinit(jax.random.PRNGKey(0))
     cfg = get_detector_preset("detector_test")
@@ -215,15 +217,52 @@ def _clone(state):
 
 
 @pytest.mark.parametrize("override,err", [
-    (dict(remat=True), NotImplementedError),
     (dict(augment="crop_flip"), ValueError),
     (dict(task="classify"), ValueError),
-    (dict(augment="detection", warp_variant="taps"), NotImplementedError),
+    (dict(augment="detection", warp_variant="cubic"), KeyError),
+    (dict(remat=True, remat_policy="some"), ValueError),
 ])
-def test_unported_or_wrong_configs_raise(override, err):
+def test_wrong_configs_raise(override, err):
     with pytest.raises(err):
         make_detector_step_fns(TrainConfig(**dict(KW, **override)),
                                device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["shear_matmul", "taps"])
+def test_augmented_steps_match_jax(variant):
+    """2 steps with the detection augmentation on a 40 canvas through
+    `variant`'s warp (``taps``: JAX's exact gather resampler) and full
+    remat, JAX's per-image draws fed in: loss and parts, grad_norm and
+    the parameters within this file's limits."""
+    from arsvt_tpu.data.augment import DetectionAugmentConfig as JaxAug
+    from test_torch_detect_augment import _jax_draws, _stack_draws
+
+    kw = dict(augment="detection", canvas=40, warp_variant=variant,
+              remat=True)
+    (jstep, _, jstate), (step, _, state) = _start(**kw)
+    jcfg = JaxAug(image_size=32, warp_variant=variant)
+    rng = np.random.default_rng(7)
+    base_rng = jax.random.PRNGKey(3)
+    for t in range(2):
+        batch = _batch(rng, size=40)
+        jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                           base_rng)
+        step_rng = jax.random.fold_in(base_rng, t)
+        draws = []
+        for a in range(2):
+            _, aug_rng = jax.random.split(jax.random.fold_in(step_rng, a))
+            draws.append(_stack_draws([_jax_draws(k, jcfg) for k in
+                                       jax.random.split(aug_rng, 4)]))
+        state, m = step(state, batch, draws=draws)
+        for k in ("loss", "loss_ce", "loss_bbox", "loss_giou"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       rtol=RTOL_LOSS, atol=1e-7,
+                                       err_msg=f"{k} step {t}")
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=RTOL_NORM)
+        a, b = (_flat(bridge.detector_to_jax_params(state["params"])),
+                _flat(jstate["params"]))
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) <= RL2_PARAMS
 
 
 def test_default_device_is_the_card():
@@ -249,3 +288,39 @@ def test_detector_opt_state_bridge_round_trip():
     bad = dict(d, mu={"backbone": d["mu"]["backbone"]})
     with pytest.raises(ValueError, match="keys"):
         bridge.detector_opt_state_from_jax(bad, cfg)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "names", "all_but_mlp",
+                                    "mlp_tail"])
+def test_step_under_each_remat_policy_matches_jax(policy):
+    """Two steps with ``remat=True`` under `policy` on both sides (the DeiT
+    backbone's blocks rematerialised; head_dim 16 on the head-major
+    attention): loss and parts, grad_norm and the parameters within this
+    file's limits of JAX's; the port's step without remat from the same
+    state gives the same loss and update to the bit."""
+    (jstep, _, jstate), (step, _, state) = _start(remat=True,
+                                                  remat_policy=policy)
+    _, plain_step, _ = make_detector_step_fns(TrainConfig(**KW),
+                                              device="cpu")
+    plain = _clone(state)
+    rng = np.random.default_rng(3)
+    base_rng = jax.random.PRNGKey(2)
+    for t in range(2):
+        batch = _batch(rng)
+        jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                           base_rng)
+        state, m = step(state, batch)
+        plain, pm = plain_step(plain, batch)
+        assert float(m["loss"]) == float(pm["loss"])
+        for a, b in zip(tree_leaves(state["params"]),
+                        tree_leaves(plain["params"])):
+            assert torch.equal(a, b)
+        for k in ("loss", "loss_ce", "loss_bbox", "loss_giou"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       rtol=RTOL_LOSS, atol=1e-7,
+                                       err_msg=f"{k} step {t}")
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=RTOL_NORM)
+    a, b = (_flat(bridge.detector_to_jax_params(state["params"])),
+            _flat(jstate["params"]))
+    assert np.linalg.norm(a - b) / np.linalg.norm(b) <= RL2_PARAMS

@@ -2,8 +2,8 @@
 JAX's own reading under the same setting, on the CPU:
 ``ARSVT_DISABLE_PALLAS`` (the two training opt-ins), ``ARSVT_SHEAR_MAXSKEW``
 (the shear warp's pad), ``ARSVT_WARP_VARIANT`` (the detection warp when
-the config leaves it empty) and ``ARSVT_AUGMENT_BF16`` (the warp in bf16,
-which the port refuses)."""
+the config leaves it empty) and ``ARSVT_AUGMENT_BF16`` (the warp and what
+follows it in bf16)."""
 
 import jax
 import jax.numpy as jnp
@@ -79,13 +79,31 @@ def test_shear_maxskew_sizes_the_pad_as_jax(skew, monkeypatch):
         np.testing.assert_allclose(got.numpy(), default.numpy(), atol=1e-5)
 
 
+def _port_affine(img, key, cfg):
+    """The port's random_affine with the draws of JAX's
+    ``random_affine(key, img, p=1.0)``, through cfg's warp."""
+    _, km = jax.random.split(key)
+    ka, ks, kt, ksh = jax.random.split(km, 4)
+
+    def u(k, shape, lo, hi):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            k, shape, minval=lo, maxval=hi)))[None]
+
+    out, _, _ = augment.random_affine(
+        torch.from_numpy(img)[None], torch.zeros(1, 1, 4),
+        torch.zeros(1, 1, dtype=torch.bool), torch.ones(1, dtype=torch.bool),
+        u(ka, (), -45.0, 45.0), u(ks, (), 0.95, 1.05),
+        u(kt, (2,), -0.05, 0.05), u(ksh, (2,), -15.0, 15.0),
+        warp_variant=augment.warp_variant(cfg))
+    return out[0]
+
+
 @pytest.mark.parametrize("variant", ["shear_matmul", "taps"])
 def test_warp_variant_is_read_where_the_config_leaves_it(variant,
                                                          monkeypatch):
-    """With warp_variant "" both sides read ARSVT_WARP_VARIANT: at
-    shear_matmul the port's random_affine equals JAX's (atol 1e-5); JAX
-    also runs its gather warp for "taps", which the port has not ported
-    and refuses, naming the ROADMAP item."""
+    """With warp_variant "" both sides read ARSVT_WARP_VARIANT: the port's
+    random_affine equals JAX's on each variant (atol 1e-5); the config's
+    own variant wins over the environment."""
     monkeypatch.setenv("ARSVT_WARP_VARIANT", variant)
     monkeypatch.delenv("ARSVT_AUGMENT_BF16", raising=False)
     cfg = augment.DetectionAugmentConfig(image_size=16)
@@ -94,45 +112,32 @@ def test_warp_variant_is_read_where_the_config_leaves_it(variant,
     key = jax.random.PRNGKey(3)
     ref = jax_augment.random_affine(key, jnp.asarray(img), p=1.0)
     assert np.isfinite(np.asarray(ref)).all()
-    if variant == "taps":
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            augment.draw_detection_augment(generator(0), 2, cfg)
-        return
     draws = augment.draw_detection_augment(generator(0), 1, cfg)
     assert draws.flip.shape == (1,)
-    kp, km = jax.random.split(key)
-    fwd = jax_augment._affine_matrix(km, 16, 16, degrees=45.0,
-                                     scale=(0.95, 1.05), translate=0.05,
-                                     shear=15.0)
-    got = augment.shear_matmul_warp(
-        torch.from_numpy(img)[None],
-        torch.from_numpy(np.array(jnp.linalg.inv(fwd)))[None])[0]
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
-    # the config's own variant wins over the environment
+    np.testing.assert_allclose(_port_affine(img, key, cfg).numpy(),
+                               np.asarray(ref), atol=1e-5)
     explicit = augment.DetectionAugmentConfig(warp_variant="shear_matmul")
     monkeypatch.setenv("ARSVT_WARP_VARIANT", "taps")
     assert augment.warp_variant(explicit) == "shear_matmul"
 
 
-def test_augment_bf16_warps_in_bf16_in_jax_and_raises_in_the_port(
-        monkeypatch):
-    """JAX warps (and continues) in bf16 under ARSVT_AUGMENT_BF16; the port
-    has no bf16 augmentation and refuses the switch, in the draws and in
-    the apply."""
+def test_augment_bf16_warps_in_bf16_as_jax(monkeypatch):
+    """Under ARSVT_AUGMENT_BF16 both sides warp (and continue) in bf16:
+    the port's random_affine returns bf16 within two bf16 steps (2^-7) of
+    JAX's; unset, both return fp32."""
     monkeypatch.setenv("ARSVT_AUGMENT_BF16", "1")
     monkeypatch.delenv("ARSVT_WARP_VARIANT", raising=False)
     img, _ = _shear_case()
-    out = jax_augment.random_affine(jax.random.PRNGKey(0), jnp.asarray(img),
-                                    p=1.0)
+    key = jax.random.PRNGKey(0)
+    out = jax_augment.random_affine(key, jnp.asarray(img), p=1.0)
     assert out.dtype == jnp.bfloat16
     cfg = augment.DetectionAugmentConfig(image_size=16)
-    with pytest.raises(NotImplementedError, match="ARSVT_AUGMENT_BF16"):
-        augment.draw_detection_augment(generator(0), 2, cfg)
+    got = _port_affine(img, key, cfg)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(out.astype(jnp.float32)),
+                               atol=2.0 ** -7)
+    assert augment.augment_input_cast(torch.zeros(1)).dtype == torch.bfloat16
     monkeypatch.delenv("ARSVT_AUGMENT_BF16")
-    draws = augment.draw_detection_augment(generator(0), 2, cfg)
-    monkeypatch.setenv("ARSVT_AUGMENT_BF16", "1")
-    images = torch.rand(2, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        augment.detection_train_augment(
-            images, torch.zeros(2, 1, 4), torch.zeros(2, 1, dtype=torch.bool),
-            draws, cfg)
+    assert _port_affine(img, key, cfg).dtype == torch.float32
+    assert augment.augment_input_cast(torch.zeros(1)).dtype == torch.float32

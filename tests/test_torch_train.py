@@ -117,12 +117,13 @@ def _replay_jax_draws(base_rng, step, accum, per_micro):
     return out
 
 
-def _start(augment, bf16=False):
+def _start(augment="none", bf16=False, **over):
     """Both step functions and both states from the same JAX init, with a
     seeded random head (the zero head sends no gradient into the
-    backbone)."""
+    backbone); `over` sets more config fields on both sides."""
     kw = dict(preset=PRESET, batch_size=8, grad_accum=2, augment=augment,
-              bf16=bf16, warmup_steps=1, fused_adamw=True)
+              bf16=bf16, warmup_steps=1, fused_adamw=True, canvas=40,
+              **over)
     jinit, jstep, jeval = jax_make_step_fns(JaxTrainConfig(**kw))
     _, step, eval_step = make_classifier_step_fns(TrainConfig(**kw),
                                                   device="cpu")
@@ -330,14 +331,98 @@ def test_step_fns_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     make_classifier_step_fns(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("override", [
-    dict(distillation="soft"), dict(mixup_alpha=0.2), dict(remat=True),
-    dict(augment="randaugment"),
-])
-def test_unported_training_features_raise(override):
-    cfg = TrainConfig(preset=PRESET, bf16=False, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_distillation_raises():
+    """Distillation is the next module (ROADMAP Queue A item 9)."""
+    cfg = TrainConfig(preset=PRESET, bf16=False, distillation="soft")
+    with pytest.raises(NotImplementedError, match="item 9"):
         make_classifier_step_fns(cfg, device="cpu")
+
+
+def replay_recipe_draws(base_rng, step, accum, per_micro, *,
+                        rand_augment, mixup_alpha):
+    """JAX's draws inside its train step with RandAugment and mixup: per
+    microbatch rng (as `_replay_jax_draws`), one split for the
+    augmentation (crop, flip and RandAugment of one key per image), one
+    for mixup (λ ~ Beta and a permutation). Returns (CropFlipDraws or
+    None per microbatch, MixupDraws or None per microbatch)."""
+    from arsvt_tpu_torch.objectives.classification import MixupDraws
+    from test_torch_augment import jax_classify_draws
+
+    augs, mixes = [], []
+    step_rng = jax.random.fold_in(base_rng, step)
+    for a in range(accum):
+        rng = jax.random.fold_in(step_rng, a) if accum > 1 else step_rng
+        rng, aug_rng = jax.random.split(rng)
+        augs.append(jax_classify_draws(
+            jax.random.split(aug_rng, per_micro), rand_augment=rand_augment))
+        if mixup_alpha > 0:
+            _, mix_rng = jax.random.split(rng)
+            k_lam, k_perm = jax.random.split(mix_rng)
+            mixes.append(MixupDraws(
+                float(jax.random.beta(k_lam, mixup_alpha, mixup_alpha, ())),
+                torch.from_numpy(np.array(jax.random.permutation(
+                    k_perm, per_micro)))))
+    return augs, (mixes or None)
+
+
+# With RandAugment the pixels entering posterize and solarize differ by a
+# few fp32 ulps (each side's crop weights and rotation inverse, within
+# 1e-5: test_torch_randaugment.py), and those two ops are steps: now and
+# then a pixel lands on the other side of a level or the threshold and
+# moves by up to 1/16. Measured over 3 steps: loss 2.4e-4 relative,
+# grad_norm 1.4e-5, moments 1.0e-3 of each leaf's largest value,
+# parameters 0.34 lr. Held for the RandAugment recipes: loss 1e-3,
+# grad_norm 1e-4, moments 3e-3; the parameters at the fp32 limit. The
+# other recipes keep the fp32 limits above.
+RTOL_LOSS_RA = 1e-3
+RTOL_NORM_RA = 1e-4
+RTOL_MOMENT_RA = 3e-3
+RECIPES = {
+    "mixup": dict(augment="crop_flip", mixup_alpha=0.2),
+    "remat": dict(augment="crop_flip", remat=True),
+    "randaugment": dict(augment="randaugment"),
+    "vit_large_384": dict(augment="randaugment", mixup_alpha=0.2,
+                          label_smoothing=0.1, remat=True),
+}
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_recipe_steps_match_jax(recipe):
+    """3 steps (batch 8 as 2 microbatches, fp32, a 40 canvas) of the ViT-L
+    recipe's features, one at a time and all together as in
+    ``TRAIN_PRESETS["vit_large_384"]`` (RandAugment, mixup 0.2, label
+    smoothing 0.1, full remat), against JAX's step with its own draws fed
+    in: loss, accuracy (the argmax of the mixed labels), grad_norm, the
+    parameters and both moments."""
+    kw = RECIPES[recipe]
+    ra = kw["augment"] == "randaugment"
+    rtol_loss, rtol_norm, rtol_moment = (
+        (RTOL_LOSS_RA, RTOL_NORM_RA, RTOL_MOMENT_RA) if ra
+        else (RTOL_LOSS, RTOL_NORM, RTOL_MOMENT))
+    (jstep, _, jstate), (step, _, state), rng = _start(**kw)
+    base_rng = jax.random.PRNGKey(5)
+    for t in range(3):
+        batch = {"image": rng.integers(0, 256, (8, 40, 40, 3),
+                                       dtype=np.uint8),
+                 "label": rng.integers(0, 6, 8).astype(np.int32)}
+        jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                           base_rng)
+        augs, mixes = replay_recipe_draws(
+            base_rng, t, 2, 4, rand_augment=ra,
+            mixup_alpha=kw.get("mixup_alpha", 0.0))
+        state, m = step(state, batch, draws=augs, mixup_draws=mixes)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=rtol_loss)
+        assert float(m["accuracy"]) == float(jm["accuracy"])
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=rtol_norm)
+        _assert_trees_close(to_jax_params(state["params"]), jstate["params"],
+                            f"params step {t}", atol=ATOL_PARAMS)
+        ref = _jax_opt_dict(jstate["opt_state"])
+        got = opt_state_to_jax(state["opt_state"])
+        for key in ("mu", "nu"):
+            _assert_trees_close(got[key], ref[key], f"{key} step {t}",
+                                rtol_of_max=rtol_moment)
 
 
 def test_attention_dropout_builds_at_head_dim_64():

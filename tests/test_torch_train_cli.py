@@ -6,6 +6,8 @@ metrics.jsonl and checkpoints/ there), and what it refuses."""
 
 import dataclasses
 import json
+import math
+from pathlib import Path
 
 import pytest
 import torch
@@ -144,3 +146,29 @@ def test_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setenv("ARSVT_PLATFORM", "tpu")
     with pytest.raises(ValueError, match="ARSVT_PLATFORM"):
         cli.main(ARGS + ["--steps", "1"])
+
+
+def test_vit_large_recipe_trains_through_the_cli(monkeypatch):
+    """``--train-preset vit_large_384`` as it stands (RandAugment, mixup
+    0.2, label smoothing 0.1, full remat, bf16), cut to the tiny ViT at a
+    batch of 4 on a 40 canvas: the config equals JAX's parse of the same
+    flags; 2 steps, an eval at the model's 32 px and a checkpoint."""
+    monkeypatch.setitem(registry.PRESETS, "vit_large_16_384",
+                        BackboneConfig(**SMALL))
+    argv = ["--train-preset", "vit_large_384", "--batch-size", "4",
+            "--canvas", "40", "--steps", "2", "--eval-every", "2",
+            "--checkpoint-every", "2", "--log-every", "1"]
+    ours = cli.config_from_args(cli.build_parser().parse_args(argv))
+    theirs = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert (ours.augment, ours.mixup_alpha, ours.label_smoothing,
+            ours.remat, ours.remat_policy, ours.bf16) == (
+        "randaugment", 0.2, 0.1, True, "full", True)
+    last = cli.main(argv)
+    rows = _metrics("metrics.jsonl")
+    assert set(_losses("metrics.jsonl")) == {1, 2}
+    assert all(math.isfinite(v) for v in _losses("metrics.jsonl").values())
+    assert [r["step"] for r in rows if "val/loss" in r] == [2]
+    assert last["loss"] == _losses("metrics.jsonl")[2]
+    assert [p.name for p in Path("checkpoints").iterdir()] == [
+        "step_000000002.pt"]
