@@ -32,12 +32,16 @@ def apply_image_classifier(params: dict, images: torch.Tensor,
                            backbone_cfg: BackboneConfig,
                            num_classes: int, *, train: bool = False,
                            rng=None, remat: bool = False,
-                           remat_policy: str = "full") -> torch.Tensor:
+                           remat_policy: str = "full",
+                           return_heads: bool = False):
     """images (B, H, W, C) in the compute dtype -> logits (B, C) fp32;
-    `train`, `rng`, `remat` and `remat_policy` as `apply_backbone`'s."""
+    `train`, `rng`, `remat` and `remat_policy` as `apply_backbone`'s.
+    `return_heads=True` (distilled backbones only) returns the CLS and
+    DIST head logits apart instead of their average."""
     tokens = apply_backbone(params["backbone"], images, backbone_cfg,
                             train=train, rng=rng, remat=remat,
                             remat_policy=remat_policy)
     head_cfg = ClassifierConfig(num_classes=num_classes,
                                 distilled=backbone_cfg.distilled)
-    return apply_classifier(params["classifier"], tokens, head_cfg)
+    return apply_classifier(params["classifier"], tokens, head_cfg,
+                            return_heads=return_heads)

@@ -68,8 +68,12 @@ def _logits(token: torch.Tensor, head: dict) -> torch.Tensor:
 
 
 def apply_classifier(params: dict, tokens: torch.Tensor,
-                     cfg: ClassifierConfig) -> torch.Tensor:
-    """tokens: (B, S, D) with CLS [, DIST] first -> logits (B, C) fp32."""
+                     cfg: ClassifierConfig, *, return_heads: bool = False):
+    """tokens: (B, S, D) with CLS [, DIST] first -> logits (B, C) fp32.
+
+    Distilled backbones average the CLS and DIST head logits;
+    `return_heads=True` returns them apart, (logits_cls, logits_dist), the
+    distillation training surface."""
     logits = _logits(tokens[:, 0], params["head"])
     if cfg.distilled and "head_dist" not in params:
         raise ValueError(
@@ -80,7 +84,13 @@ def apply_classifier(params: dict, tokens: torch.Tensor,
         )
     if cfg.distilled:
         logits_d = _logits(tokens[:, 1], params["head_dist"])
+        if return_heads:
+            return logits, logits_d
         return (logits + logits_d) / 2.0
+    if return_heads:
+        raise ValueError(
+            "return_heads requires a distilled backbone (DIST token + head)"
+        )
     return logits
 
 

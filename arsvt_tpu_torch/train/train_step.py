@@ -24,8 +24,17 @@ step from the environment, as there (``ops/dispatch.py``):
 ``ARSVT_ATTN_SAVE_PROBS`` takes the save-probs attention kernels in the
 training forward and backward, ``ARSVT_ENABLE_FUSED_MLP`` the fused-MLP
 kernels in training and eval; attention dropout runs in the kernels of
-either route. Distillation is not ported yet and raises (ROADMAP Queue A
-item 9).
+either route.
+
+DeiT distillation (``distillation="hard"`` or ``"soft"``, a distilled
+student): a frozen teacher, loaded from its own checkpoint by
+`_load_teacher` and cast to the compute dtype once, sees the student's
+input (after the augmentation, the cast and mixup) without dropout and
+under ``torch.no_grad()``, so it saves nothing for a backward. The CLS
+head takes CE with the labels, the DIST head CE against the teacher's
+argmax (hard) or the temperature-scaled KL term (soft), mixed as
+``(1 - alpha) * base + alpha * dloss``; accuracy is taken on the mean of
+the two heads and ``loss_distill`` joins the metrics.
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
 
     init_fn(seed=None) -> state, seeded from `cfg.seed` by default.
     train_step(state, batch, step_seed=None, *, draws=None,
-        mixup_draws=None) -> (state, {"loss", "accuracy", "grad_norm"});
+        mixup_draws=None) -> (state, {"loss", "accuracy", "grad_norm"}
+        [+ "loss_distill" when distilling]);
         the augmentation, then the mixup, of microbatch a are drawn from a
         CPU generator seeded with (step_seed or cfg.seed, state["step"],
         a), unless `draws` gives one `CropFlipDraws` and `mixup_draws` one
@@ -91,14 +101,36 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
     if cfg.task != "classify":
         raise ValueError(f"make_classifier_step_fns needs task='classify', "
                          f"got {cfg.task!r}")
-    if cfg.distillation != "none":
-        raise NotImplementedError(
-            "distillation is not ported yet (ROADMAP Queue A item 9)")
     backbone_cfg = resolve_backbone(cfg)
     check_policy(cfg.remat, cfg.remat_policy)
     compute_dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     policy = Policy(compute_dtype=compute_dtype)
     num_classes = cfg.num_classes
+
+    # DeiT distillation: the DIST head learns from a frozen teacher, the
+    # CLS head from the labels
+    distilling = cfg.distillation != "none"
+    teacher = teacher_bb = None
+    if distilling:
+        if cfg.distillation not in ("hard", "soft"):
+            raise ValueError(
+                f"distillation must be 'none'|'hard'|'soft', "
+                f"got {cfg.distillation!r}"
+            )
+        if not backbone_cfg.distilled:
+            raise ValueError(
+                "distillation needs a distilled (DeiT) preset — the DIST "
+                "token/head is the distillation surface"
+            )
+        if not cfg.distill_teacher:
+            raise ValueError(
+                "distillation='hard'|'soft' requires distill_teacher "
+                "(checkpoint dir of a trained classifier)"
+            )
+        teacher, teacher_bb = _load_teacher(cfg, backbone_cfg, dev)
+        # cast once here, where JAX casts every microbatch: the weights
+        # never change, so each cast gives the same bits
+        teacher = policy.cast_to_compute(teacher)
 
     aug_cfg = None
     if cfg.augment in ("crop_flip", "randaugment"):
@@ -144,15 +176,33 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                      draw_mixup(gen, n, cfg.mixup_alpha))
                 images, labels = mixup(images, labels, m,
                                        num_classes=num_classes)
+            hard = labels if labels.dim() == 1 else labels.argmax(dim=-1)
             logits = apply_image_classifier(
                 compute_params, images, backbone_cfg, num_classes,
                 train=True, rng=Rng(seed, state["step"], a),
-                remat=cfg.remat, remat_policy=cfg.remat_policy)
-            loss = softmax_cross_entropy(
-                logits, labels, num_classes=num_classes,
+                remat=cfg.remat, remat_policy=cfg.remat_policy,
+                return_heads=distilling)
+            if not distilling:
+                loss = softmax_cross_entropy(
+                    logits, labels, num_classes=num_classes,
+                    label_smoothing=cfg.label_smoothing)
+                return loss, {"accuracy": accuracy_top1(logits, hard)}
+            logits_cls, logits_dist = logits
+            base = softmax_cross_entropy(
+                logits_cls, labels, num_classes=num_classes,
                 label_smoothing=cfg.label_smoothing)
-            hard = labels if labels.dim() == 1 else labels.argmax(dim=-1)
-            return loss, {"accuracy": accuracy_top1(logits, hard)}
+            with torch.no_grad():
+                t_logits = apply_image_classifier(
+                    teacher, images, teacher_bb, num_classes)
+            dloss = distill_loss(logits_dist, t_logits, cfg.distillation,
+                                 cfg.distill_temperature, num_classes)
+            alpha = cfg.distill_alpha
+            loss = (1.0 - alpha) * base + alpha * dloss
+            return loss, {
+                "accuracy": accuracy_top1((logits_cls + logits_dist) / 2.0,
+                                          hard),
+                "loss_distill": dloss,
+            }
 
         (loss, aux), grads = accumulated_value_and_grad(
             loss_fn, leaves, data, cfg.grad_accum)
@@ -193,3 +243,47 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
             }
 
     return init_fn, train_step, eval_step
+
+
+def distill_loss(logits_dist, t_logits, mode: str, temperature: float,
+                 num_classes: int) -> torch.Tensor:
+    """The DIST head's loss against the teacher's fp32 logits: CE against
+    their argmax, unsmoothed ("hard"), or -(t^2) mean(sum(p_t log
+    softmax(logits_dist / t))) with p_t = softmax(t_logits / t) ("soft":
+    KL(p_t || p_s) up to p_t's constant entropy; t^2 keeps the gradient's
+    scale independent of t)."""
+    if mode == "hard":
+        return softmax_cross_entropy(logits_dist, t_logits.argmax(dim=-1),
+                                     num_classes=num_classes)
+    t = temperature
+    logp = torch.log_softmax(logits_dist / t, dim=-1)
+    p_t = torch.softmax(t_logits / t, dim=-1)
+    return -(t * t) * (p_t * logp).sum(dim=-1).mean()
+
+
+def _load_teacher(cfg: TrainConfig, student_bb, device):
+    """The frozen distillation teacher from its own checkpoint, on
+    `device`: its architecture from the config stored there (an imported
+    teacher keeps its ln_eps), its params only (its Adam moments are never
+    read). Returns (params, backbone_cfg)."""
+    from arsvt_tpu_torch.train.checkpoint import (
+        load_params_for_eval,
+        peek_config,
+    )
+
+    tcfg = peek_config(cfg.distill_teacher)
+    teacher_bb = resolve_backbone(tcfg)
+    if tcfg.num_classes != cfg.num_classes:
+        raise ValueError(
+            f"teacher has {tcfg.num_classes} classes, student expects "
+            f"{cfg.num_classes}"
+        )
+    if teacher_bb.image_size != student_bb.image_size:
+        raise ValueError(
+            f"teacher image_size {teacher_bb.image_size} != student "
+            f"{student_bb.image_size}"
+        )
+    params_like = init_image_classifier(teacher_bb, tcfg.num_classes,
+                                        device=device)
+    params, _ = load_params_for_eval(cfg.distill_teacher, tcfg, params_like)
+    return params, teacher_bb

@@ -10,9 +10,12 @@ Differences from the JAX `Trainer`, by design:
   and a checkpoint copies it to the host synchronously;
 - the step draws its dropout and augmentation from ``cfg.seed`` and the
   step number, as JAX's step folds its base key by step: a resumed run
-  replays the uninterrupted one;
-- metrics rows carry images/s but no TFLOP/s (``utils/flops.py`` is not
-  ported, ROADMAP Queue A item 12).
+  replays the uninterrupted one.
+
+Every train row carries images/s and the effective TFLOP/s beside it
+(``utils/flops.py::train_gflops_per_image``: the student's step alone,
+no distillation teacher; 0.0 for a preset the registry does not hold,
+where JAX falls back to 0.0 on any error of the count).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 from arsvt_tpu_torch.train.checkpoint import CheckpointManager
 from arsvt_tpu_torch.train.config import TrainConfig
 from arsvt_tpu_torch.train.optim import PlateauState, set_lr_scale
+from arsvt_tpu_torch.utils.flops import train_gflops_per_image
 from arsvt_tpu_torch.utils.logging import MetricLogger, Throughput
 
 
@@ -59,6 +63,10 @@ class Trainer:
         self.plateau = PlateauState()
         self._ckpt = None
         self._last_metrics: dict = {}
+        try:
+            self._gflops_per_image = train_gflops_per_image(cfg)
+        except KeyError:  # a preset the registry does not hold
+            self._gflops_per_image = 0.0
 
     # ------------------------------------------------------------- state
     def init_state(self):
@@ -131,6 +139,8 @@ class Trainer:
             if (step + 1) % cfg.log_every == 0 or step + 1 == steps:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["images_per_sec"] = meter.rate()
+                host["tflops"] = (
+                    host["images_per_sec"] * self._gflops_per_image / 1e3)
                 self.logger.log(step + 1, host, prefix="train/")
                 self._last_metrics = host
                 meter.reset()

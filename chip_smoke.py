@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, detector-serving,
-detector-training and opt-in training paths, its training entry point and
-the ViT-L/16@384 recipe, on one NVIDIA card.
+detector-training and opt-in training paths, its training entry point,
+the ViT-L/16@384 recipe and DeiT distillation from an imported teacher,
+on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only (build and check)
     python3 chip_smoke.py --disk      # phases 1, 2 and 12 (no kernel line)
     python3 chip_smoke.py --int8      # phases 1, 2, 12 and 13 (no kernel line)
     python3 chip_smoke.py --vit-large # phases 1, 2 and 14 (no kernel line)
+    python3 chip_smoke.py --distill   # phases 1, 2 and 15 (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -133,7 +135,20 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    their plain versions; and bench.py's ViT-L configuration;
    (f) ``train.cli.main --train-preset vit_large_384`` with a checkpoint
    and an eval at 384; (g) a ``deit_detector_ref`` step with remat and the
-   taps warp.
+   taps warp;
+15. DeiT distillation from an imported teacher (see the comment above
+   `DISTILL_STUDENT`): (a) seeded timm- and HF-layout ViT-B/16 state dicts
+   through ``python -m arsvt_tpu_torch.models.convert`` (subprocesses),
+   each checkpoint held to its state dict under the layout rules to the
+   bit, and a reference-layout ``deit_detector_ref`` ``.pth`` imported and
+   served once on /detect; (b) the timm import with a seeded head as the
+   teacher; (c) the ``deit_ref_400_16_224`` student, hard and soft, fp32
+   steps card vs CPU with attention dropout (no residual dropout, as
+   phase 9(a)); (d) bf16 steps (batch 64 as 2 x 32): ms/step, img/s,
+   peak memory beside the same steps without a teacher, busy share,
+   TFLOP/s; (e) ``train.cli.main --distillation soft`` with a checkpoint
+   and an eval; (f) ``utils.profiling``'s trace, StepTimer and
+   assert_all_finite on (d)'s steps.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -164,11 +179,17 @@ in process; the subprocesses' launches are not counted); each path of 14
 backward call; (e)-(f): under full remat #1 twice and #2 once a layer and
 microbatch, #1 once a layer and eval forward, one AdamW launch a step,
 and without remat #1 once; (g): 24 #3 encoder launches (forward and
-replay) and 6 cross-attention launches, 18 #4 calls, one AdamW launch).
+replay) and 6 cross-attention launches, 18 #4 calls, one AdamW launch);
+each path of 15 ((a): 18 #3 a forward of the served import, its warm-up
+included; (b): #1 per layer and forward of the teacher; (c)-(f): per
+microbatch the student's 12 #3 forward and 12 #4 calls and the teacher's
+12 #1 launches (none in (d)'s steps without a teacher), no #2, one AdamW
+launch a step, 12 #3 calls per eval forward).
 Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
 every training launch of phase 11's dropout runs, of the detector's
-training (9(c), 11(d), 12(e)) and of 14(b)-(c), none elsewhere. Any
+training (9(c), 11(d), 12(e)), of 14(b)-(c) and of the distillation
+student's (15(c)-(f)), none elsewhere. Any
 failure exits non-zero. The last
 lines are the kernels' record, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -239,6 +260,10 @@ from arsvt_tpu_torch.train.config import TRAIN_PRESETS, TrainConfig
 from arsvt_tpu_torch.train.detect_step import make_detector_step_fns
 from arsvt_tpu_torch.train.optim import _wd_mask
 from arsvt_tpu_torch.train.train_step import make_classifier_step_fns
+from arsvt_tpu_torch.utils.flops import (
+    backbone_fwd_gflops,
+    train_gflops_per_image,
+)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # dense tensor-core bf16, H100 SXM data sheet
@@ -1731,25 +1756,34 @@ def train_cfg(**kw) -> TrainConfig:
 
 
 def set_head(params, d, num_classes, seed):
-    """Write a seeded random head into the state's (zero) head in place."""
-    head = seeded_head({"classifier": {}}, d, num_classes, seed)[
-        "classifier"]["head"]
+    """Write seeded random heads into the state's (zero) heads in place: the
+    CLS head from `seed`, a DeiT's DIST head from `seed + 1`."""
     with torch.no_grad():
-        for k, t in head.items():
-            params["classifier"]["head"][k].copy_(t)
+        for i, name in enumerate(sorted(params["classifier"])):
+            head = seeded_head({"classifier": {}}, d, num_classes, seed + i)[
+                "classifier"]["head"]
+            for k, t in head.items():
+                params["classifier"][name][k].copy_(t)
 
 
-def phase_train_parity(cfg, route: str = "default", **overrides) -> dict:
-    """(a) 2 fp32 steps of batch 8 as 2 microbatches, crop/flip, on the
+def parity_batches(batch: int) -> list[dict]:
+    """The two uint8 batches on the 256 canvas of `phase_train_parity`."""
+    rng = np.random.default_rng(5)
+    return [{"image": rng.integers(0, 256, (batch, 256, 256, 3),
+                                   dtype=np.uint8),
+             "label": rng.integers(0, 6, batch).astype(np.int32)}
+            for _ in range(2)]
+
+
+def phase_train_parity(cfg, route: str = "default", batch: int = 8,
+                       **overrides) -> dict:
+    """(a) 2 fp32 steps of `batch` as 2 microbatches, crop/flip, on the
     card and on the CPU from the same init, batches and draws, on the
     route the caller's switches select; `overrides` change the config
-    (phase 11(c): attention dropout)."""
-    tcfg = train_cfg(batch_size=8, grad_accum=2, bf16=False, **overrides)
-    rng = np.random.default_rng(5)
-    batches = [{"image": rng.integers(0, 256, (8, 256, 256, 3),
-                                      dtype=np.uint8),
-                "label": rng.integers(0, 6, 8).astype(np.int32)}
-               for _ in range(2)]
+    (phase 11(c): attention dropout; phase 15(c): a distilled student,
+    whose loss_distill is held as the loss)."""
+    tcfg = train_cfg(batch_size=batch, grad_accum=2, bf16=False, **overrides)
+    batches = parity_batches(batch)
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -1758,16 +1792,18 @@ def phase_train_parity(cfg, route: str = "default", **overrides) -> dict:
         set_head(state["params"], cfg.embed_dim, 6, seed=1)
         start = [p.detach().cpu().clone()
                  for p in tree_leaves(state["params"])]
-        losses, norms = [], []
-        for batch in batches:
-            state, m = step(state, batch, step_seed=3)
+        losses, norms, distill = [], [], []
+        for b in batches:
+            state, m = step(state, b, step_seed=3)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+            if "loss_distill" in m:
+                distill.append(float(m["loss_distill"]))
         final = [p.detach().cpu() for p in tree_leaves(state["params"])]
         runs[dev] = (losses, norms, start, final,
-                     time.perf_counter() - t0)
-    (l_gpu, n_gpu, s_gpu, f_gpu, t_gpu), (l_cpu, n_cpu, s_cpu, f_cpu,
-                                          t_cpu) = runs["cuda"], runs["cpu"]
+                     time.perf_counter() - t0, distill)
+    (l_gpu, n_gpu, s_gpu, f_gpu, t_gpu, d_gpu), (
+        l_cpu, n_cpu, s_cpu, f_cpu, t_cpu, d_cpu) = runs["cuda"], runs["cpu"]
     lr = tcfg.learning_rate
     for a, b in zip(s_gpu, s_cpu):
         check(torch.equal(a, b), "card and CPU start from different weights")
@@ -1777,18 +1813,24 @@ def phase_train_parity(cfg, route: str = "default", **overrides) -> dict:
     max_param = max(max_err(a, b) for a, b in zip(f_gpu, f_cpu))
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     rel_norm = max(abs(a - b) / abs(b) for a, b in zip(n_gpu, n_cpu))
+    rel_distill = max((abs(a - b) / abs(b) for a, b in zip(d_gpu, d_cpu)),
+                      default=0.0)
     rec = {"check": "train step fp32 cuda vs cpu", "route": route,
-           "overrides": overrides, "batch": 8,
+           "overrides": overrides, "batch": batch,
            "grad_accum": 2, "steps": 2, "loss_cuda": l_gpu,
            "loss_cpu": l_cpu, "grad_norm_cuda": n_gpu,
            "grad_norm_cpu": n_cpu, "max_rel_err_loss": rel_loss,
            "max_rel_err_grad_norm": rel_norm,
+           "loss_distill_cuda": d_gpu, "loss_distill_cpu": d_cpu,
+           "max_rel_err_loss_distill": rel_distill,
            "rel_l2_err_update": rel_update,
            "max_abs_err_params": max_param, "lr": lr,
            "seconds_cuda": t_gpu, "seconds_cpu": t_cpu}
     log(json.dumps(rec))
     check(all(np.isfinite(l_gpu + n_gpu)), "non-finite card train metrics")
     check(rel_loss <= TOL_TRAIN_LOSS, f"train loss cuda vs cpu {rel_loss}")
+    check(rel_distill <= TOL_TRAIN_LOSS,
+          f"loss_distill cuda vs cpu {rel_distill}")
     check(rel_norm <= TOL_TRAIN_NORM, f"grad_norm cuda vs cpu {rel_norm}")
     check(rel_update <= TOL_TRAIN_UPDATE,
           f"parameter update cuda vs cpu {rel_update}")
@@ -4061,16 +4103,6 @@ RECIPE_CLI_ARGS = ["--train-preset", "vit_large_384", "--batch-size", "32",
                    "--checkpoint-every", "2", "--log-every", "1"]
 
 
-def vit_forward_gflop(cfg) -> float:
-    """Matmul GFLOP of one image's forward: patch embedding, then per layer
-    qkv, q k^T and P V, proj and the MLP (2 FLOP a multiply-add)."""
-    s, d, m = cfg.seq_len, cfg.embed_dim, cfg.mlp_dim
-    patch = 2 * cfg.num_patches * cfg.patch_size ** 2 * cfg.in_channels * d
-    layer = 2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d + \
-        2 * 2 * s * d * m
-    return (patch + cfg.depth * layer) / 1e9
-
-
 def augment_compare(name, fn, tol, flips: bool = False) -> dict:
     """fn(device) on the card against the CPU: the largest difference and
     the share of pixels beyond `tol` (which `flips` allows up to
@@ -4372,7 +4404,7 @@ def phase_recipe_train(smi) -> dict:
     add_counts(total, counts)
     want = remat_launches(cfg.depth, tcfg.grad_accum, 4, 0)
     check(counts == want, f"vit_large_384 launches {counts} != {want}")
-    gflop = vit_forward_gflop(cfg)
+    gflop = backbone_fwd_gflops(cfg)
     rec = {"timing": "train step vit_large_384 as it stands",
            "batch": tcfg.batch_size, "grad_accum": tcfg.grad_accum,
            "remat": tcfg.remat, "remat_policy": tcfg.remat_policy,
@@ -4599,6 +4631,560 @@ def phase_vit_large(smi) -> dict:
     return total
 
 
+# Phase 15: DeiT distillation from an imported teacher. (a) seeded timm-
+# and HF-layout ViT-B/16 state dicts imported by `python -m
+# arsvt_tpu_torch.models.convert --train-preset vit_base_finetune`, each a
+# subprocess, all started together; each checkpoint held to its state dict
+# under the layout rules (`layout_rules`) to the bit, with its source's
+# ln_eps (timm 1e-6, HF 1e-12) and a zero head; a reference-layout
+# deit_detector_ref .pth (the reference's envelope) imported with
+# --source reference and served once on /detect from its checkpoint. (b)
+# the timm import with phase 4's seeded head, its bias centred on (c)'s
+# images, as the teacher, and how its argmax spreads over them. (c) the
+# DeiT-400 student (deit_ref_400_16_224: 25 heads of 16, CLS and DIST
+# heads seeded) with attention dropout 0.1 and no residual dropout, in
+# fp32, batch 4 as 2 x 2, 2 steps of each mode on the card against the
+# CPU at phase 11(c)'s limits. (d) bf16 with the preset's dropout and
+# attention dropout 0.1, batch 64 as 2 x 32, crop/flip on the 256 canvas,
+# fused AdamW: the same steps without a teacher (peak memory's
+# reference), then 2 warm-up and 5 timed steps a mode: ms/step, img/s,
+# peak memory, the busy share, the student's TFLOP/s (the Trainer's
+# count) and the teacher's forward GFLOP. (e) train.cli.main with
+# --distillation soft for 2 steps, a checkpoint and an eval. (f) one step
+# of (d) under utils.profiling.trace, whose trace names #1's, #3's and
+# #4's kernels; StepTimer beside CUDA events over (d)'s timed steps;
+# assert_all_finite over the state.
+DISTILL_STUDENT = "deit_ref_400_16_224"
+# (c)'s student: residual dropout 0 (its masks come from a generator on the
+# tensor's device, whose streams differ between the card and the CPU, so
+# phase 9(a) runs this backbone without it), attention dropout 0.1 kept
+# (the kernels' Philox mask, the same bits on both, as in phase 11(c));
+# registered in PRESETS by phase 15
+DISTILL_STUDENT_NODROP = "deit_ref_400_16_224_nodrop"
+DISTILL_TEACHER = "vit_base_16_224"
+DISTILL_MODES = ("hard", "soft")
+DISTILL_CLI_ARGS = ["--train-preset", "vit_base_finetune", "--preset",
+                    DISTILL_STUDENT, "--distillation", "soft",
+                    "--batch-size", "64", "--grad-accum", "2", "--steps",
+                    "2", "--eval-every", "2", "--checkpoint-every", "2",
+                    "--log-every", "1"]
+IMPORT_S = 600.0  # the three import subprocesses together
+# the kernels of the traced step by the names the profiler gives them
+# (template arguments: dtype, head_dim tile, dropout, save-P): #1 (the
+# teacher, head_dim 64, no dropout), #3 and #4 (the student, head_dim 16,
+# dropout)
+DISTILL_TRACE_KERNELS = {
+    "encoder_attention_fwd":
+        "attention_fwd_kernel<__nv_bfloat16, 64, false, false>",
+    "flash_attention_fwd":
+        "attention_fwd_kernel<__nv_bfloat16, 16, true, false>",
+    "flash_attention_bwd": "attention_bwd_dq_kernel<__nv_bfloat16, 16, true>",
+}
+# a teacher whose #1 Function kept its activations for a backward would
+# add ~2 GB at B = 32 (12 layers of saved inputs); its bf16 weights and
+# one layer's transient activations are ~0.3 GB
+TOL_TEACHER_PEAK_GB = 1.0
+# StepTimer (a synchronize after each step) against CUDA events around the
+# same timed steps
+TOL_STEP_TIMER = 0.25
+
+
+def vit_state_dict(cfg, layout: str, seed: int) -> dict:
+    """A seeded torch-layout ViT state dict for `cfg` ("timm", or "hf" with
+    q, k and v apart) as numpy fp32: every tensor drawn with std 0.02,
+    around 1 for the LayerNorm scales (around 0 they would shrink each
+    block's output fifty-fold and leave the teacher one answer)."""
+    rng = np.random.default_rng(seed)
+    d, m, p, c = cfg.embed_dim, cfg.mlp_dim, cfg.patch_size, cfg.in_channels
+
+    def w(*shape, mean=0.0):
+        return (mean + 0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def ln(name):
+        return {name + ".weight": w(d, mean=1.0), name + ".bias": w(d)}
+
+    def linear(name, fan_in, fan_out):
+        return {name + ".weight": w(fan_out, fan_in), name + ".bias": w(fan_out)}
+
+    hf = layout == "hf"
+    if hf:
+        s = {"embeddings.patch_embeddings.projection.weight": w(d, c, p, p),
+             "embeddings.patch_embeddings.projection.bias": w(d),
+             "embeddings.cls_token": w(1, 1, d),
+             "embeddings.position_embeddings": w(1, cfg.seq_len, d),
+             **ln("layernorm")}
+    else:
+        s = {"patch_embed.proj.weight": w(d, c, p, p),
+             "patch_embed.proj.bias": w(d), "cls_token": w(1, 1, d),
+             "pos_embed": w(1, cfg.seq_len, d), **ln("norm")}
+    for i in range(cfg.depth):
+        if hf:
+            b = f"encoder.layer.{i}."
+            for n in ("query", "key", "value"):
+                s.update(linear(b + f"attention.attention.{n}", d, d))
+            s.update({**ln(b + "layernorm_before"),
+                      **ln(b + "layernorm_after"),
+                      **linear(b + "attention.output.dense", d, d),
+                      **linear(b + "intermediate.dense", d, m),
+                      **linear(b + "output.dense", m, d)})
+        else:
+            b = f"blocks.{i}."
+            s.update({**ln(b + "norm1"), **ln(b + "norm2"),
+                      **linear(b + "attn.qkv", d, 3 * d),
+                      **linear(b + "attn.proj", d, d),
+                      **linear(b + "mlp.fc1", d, m),
+                      **linear(b + "mlp.fc2", m, d)})
+    return s
+
+
+# the port's name of each per-layer piece and its torch names, by layout
+LAYOUT_NAMES = {
+    "timm": {"ln1": "norm1", "ln2": "norm2", "attn/proj": "attn.proj",
+             "mlp/fc1": "mlp.fc1", "mlp/fc2": "mlp.fc2"},
+    "hf": {"ln1": "layernorm_before", "ln2": "layernorm_after",
+           "attn/proj": "attention.output.dense",
+           "mlp/fc1": "intermediate.dense", "mlp/fc2": "output.dense"},
+}
+
+
+def layout_rules(state: dict, layout: str, depth: int) -> dict:
+    """The backbone the layout rules make of `state`, leaf by path: Linear
+    weights (out, in) transposed, a LayerNorm's weight as its scale, HF's
+    q, k and v concatenated in that order, the patch conv (D, C, p, p) as
+    the (p·p·C, D) matrix in (kh, kw, c) order."""
+    hf = layout == "hf"
+    conv = ("embeddings.patch_embeddings.projection" if hf
+            else "patch_embed.proj")
+    w = state[conv + ".weight"]
+    final = "layernorm" if hf else "norm"
+    out = {"patch_embed/kernel": w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0]),
+           "patch_embed/bias": state[conv + ".bias"],
+           "cls_token": state["embeddings.cls_token" if hf else "cls_token"],
+           "pos_embed": state["embeddings.position_embeddings" if hf
+                              else "pos_embed"],
+           "ln_f/scale": state[final + ".weight"],
+           "ln_f/bias": state[final + ".bias"]}
+    for i in range(depth):
+        b = f"encoder.layer.{i}." if hf else f"blocks.{i}."
+        for ours, theirs in LAYOUT_NAMES[layout].items():
+            weight = state[b + theirs + ".weight"]
+            norm = ours.startswith("ln")
+            out[f"blocks/{i}/{ours}/{'scale' if norm else 'kernel'}"] = (
+                weight if norm else weight.T)
+            out[f"blocks/{i}/{ours}/bias"] = state[b + theirs + ".bias"]
+        if hf:
+            qkv = [b + f"attention.attention.{n}" for n in
+                   ("query", "key", "value")]
+            kernel = np.concatenate([state[n + ".weight"].T for n in qkv], 1)
+            bias = np.concatenate([state[n + ".bias"] for n in qkv])
+        else:
+            kernel = state[b + "attn.qkv.weight"].T
+            bias = state[b + "attn.qkv.bias"]
+        out[f"blocks/{i}/attn/qkv/kernel"] = kernel
+        out[f"blocks/{i}/attn/qkv/bias"] = bias
+    return out
+
+
+def reference_detector_state(det, seed: int) -> dict:
+    """A seeded state dict with the reference's DeiTObjectDetector names
+    and shapes for `det` (std 0.02, LayerNorm scales around 1)."""
+    rng = np.random.default_rng(seed)
+    bb, h = det.backbone, det.head
+    d, m, p = bb.embed_dim, bb.mlp_dim, bb.patch_size
+
+    def w(*shape, mean=0.0):
+        return (mean + 0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    def pair(name, *shape, mean=0.0):
+        return {name + ".weight": w(*shape, mean=mean),
+                name + ".bias": w(shape[0])}
+
+    s = {**pair("backbone.patch_embedding.projection", d, 3, p, p),
+         "backbone.cls_token": w(1, 1, d), "backbone.dist_token": w(1, 1, d),
+         "backbone.position_embedding": w(1, bb.seq_len, d),
+         **pair("backbone.layer_norm", d, mean=1.0),
+         **pair("triplet_projection", det.triplet_dim, d),
+         "detection_head.object_queries": w(h.num_queries, d),
+         **pair("detection_head.class_head", h.num_classes + 1, d),
+         **pair("detection_head.bbox_head", 4, d)}
+    for i in range(bb.depth):
+        b = f"backbone.transformer_blocks.{i}."
+        s.update({**pair(b + "attention.qkv", 3 * d, d),
+                  **pair(b + "attention.projection", d, d),
+                  **pair(b + "mlp.linear1", m, d),
+                  **pair(b + "mlp.linear2", d, m),
+                  **pair(b + "layer_norm1", d, mean=1.0),
+                  **pair(b + "layer_norm2", d, mean=1.0)})
+    for i in range(h.depth):
+        b = f"detection_head.decoder.layers.{i}."
+        for a in ("self_attn", "multihead_attn"):
+            s.update({b + f"{a}.in_proj_weight": w(3 * d, d),
+                      b + f"{a}.in_proj_bias": w(3 * d),
+                      **pair(b + f"{a}.out_proj", d, d)})
+        s.update({**pair(b + "linear1", h.ffn_dim, d),
+                  **pair(b + "linear2", d, h.ffn_dim),
+                  **pair(b + "norm1", d, mean=1.0),
+                  **pair(b + "norm2", d, mean=1.0),
+                  **pair(b + "norm3", d, mean=1.0)})
+    return s
+
+
+def convert_subprocesses(jobs: dict, tmp) -> dict:
+    """`python -m arsvt_tpu_torch.models.convert` once for each {name:
+    args}, all started together on the card; returns {name: (manifest,
+    seconds)}. Every process is stopped before this returns."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "ARSVT_PLATFORM"}
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, args in jobs.items():
+            logs[name] = os.path.join(tmp, f"convert_{name}.log")
+            with open(logs[name], "w") as logfile:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "arsvt_tpu_torch.models.convert",
+                     *args], cwd=root, env=env, stdout=logfile,
+                    stderr=subprocess.STDOUT)
+        out = {}
+        for name, proc in procs.items():
+            code = proc.wait(timeout=max(1.0, IMPORT_S - (
+                time.perf_counter() - t0)))
+            with open(logs[name]) as f:
+                text = f.read()
+            check(code == 0, f"convert {name} exited {code}:\n{text[-3000:]}")
+            out[name] = (json.loads(text.strip().splitlines()[-1]),
+                         time.perf_counter() - t0)
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def phase_distill_import(tmp, smi) -> tuple[str, dict]:
+    """15(a). Returns (the timm import's checkpoint directory, the launches
+    of the served /detect)."""
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+
+    bb = PRESETS[DISTILL_TEACHER]
+    det = DETECTOR_PRESETS[DET_TRAIN_PRESET]
+    t0 = time.perf_counter()
+    states = {"timm": vit_state_dict(bb, "timm", seed=21),
+              "hf": vit_state_dict(bb, "hf", seed=22)}
+    ref_state = reference_detector_state(det, seed=23)
+    files, jobs = {}, {}
+    for layout, state in states.items():
+        files[layout] = os.path.join(tmp, f"{layout}.bin")
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()},
+                   files[layout])
+        jobs[layout] = ["--torch-state", files[layout], "--checkpoint-dir",
+                        os.path.join(tmp, f"{layout}_import"),
+                        "--train-preset", "vit_base_finetune"]
+    # the reference's own envelope: weights beside scalars
+    files["reference"] = os.path.join(tmp, "best_vit_detector.pth")
+    torch.save({"model_state_dict": {k: torch.from_numpy(v)
+                                     for k, v in ref_state.items()},
+                "epoch": 3, "val_loss": 0.5}, files["reference"])
+    jobs["reference"] = ["--torch-state", files["reference"],
+                         "--checkpoint-dir",
+                         os.path.join(tmp, "reference_import"), "--source",
+                         "reference", "--train-preset", DET_TRAIN_PRESET]
+    written = time.perf_counter() - t0
+    results = convert_subprocesses(jobs, tmp)
+
+    for layout, state in states.items():
+        params, cfg = load_inference_bundle(jobs[layout][3])
+        want = layout_rules(state, layout, bb.depth)
+        got = dict(named_leaves(params["backbone"]))
+        check(set(got) == set(want),
+              f"{layout} import: leaves {sorted(set(got) ^ set(want))}")
+        differ = [k for k in want if not torch.equal(
+            got[k], torch.from_numpy(np.ascontiguousarray(want[k])))]
+        heads = [t for _, t in named_leaves(params["classifier"])]
+        log(json.dumps({"check": f"convert {layout} ViT-B/16 import",
+                        "manifest": results[layout][0],
+                        "seconds": results[layout][1],
+                        "leaves": len(want), "leaves_differing": differ,
+                        "ln_eps": cfg.ln_eps, "card": smi}))
+        check(not differ, f"{layout} import differs at {differ[:5]}")
+        check(cfg.ln_eps == {"timm": 1e-6, "hf": 1e-12}[layout],
+              f"{layout} import ln_eps {cfg.ln_eps}")
+        check(all(not t.any() for t in heads), f"{layout} head not zero")
+    del states
+
+    params, cfg = load_inference_bundle(jobs["reference"][3])
+    qkv = ref_state["backbone.transformer_blocks.0.attention.qkv.weight"]
+    check(cfg.task == "detect" and torch.equal(
+        params["backbone"]["blocks"][0]["attn"]["qkv"]["kernel"],
+        torch.from_numpy(np.ascontiguousarray(qkv.T))) and torch.equal(
+        params["detr"]["blocks"][0]["ln_cross_kv"]["scale"],
+        torch.ones(det.backbone.embed_dim)),
+        f"reference import {results['reference'][0]}")
+    zero_counts()  # the served imported detector's path starts here
+    srv = InferenceServer.from_checkpoint(jobs["reference"][3])
+    host, port = srv.start_background(port=0)
+    try:
+        image = np.random.default_rng(24).integers(0, 256, (240, 320, 3),
+                                                   dtype=np.uint8)
+        status, data = post(f"http://{host}:{port}/detect",
+                            jpeg_bytes(image))
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    per_forward = det.backbone.depth + det.head.depth
+    log(json.dumps({"check": "reference deit_detector_ref import, /detect "
+                    "from its checkpoint", "manifest":
+                    results["reference"][0], "seconds":
+                    results["reference"][1], "seconds_writing_sources":
+                    written, "status": status, "detections":
+                    len(data.get("labels", [])), "launches": {
+                        k: v for k, v in counts.items() if v}, "card": smi}))
+    check(status == 200 and "labels" in data, f"/detect {status} {data}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention_fwd"] = 2 * per_forward  # warm-up and request
+    check(counts == want, f"imported detector launches {counts} != {want}")
+    return jobs["timm"][3], counts
+
+
+def distill_launches(micro: int, steps: int, eval_forwards: int,
+                     teacher: bool = True) -> dict:
+    """The distillation path's launches over `micro` microbatches in
+    `steps` steps and `eval_forwards` eval forwards: per microbatch the
+    student's 12 #3 forward and 12 #4 calls, both on their dropout
+    branch, and the teacher's 12 #1 launches without dropout (no #2); per
+    step one #7 launch; per eval forward 12 #3 calls without dropout."""
+    depth = PRESETS[DISTILL_STUDENT].depth
+    counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    counts["flash_attention_fwd"] = depth * (micro + eval_forwards)
+    for name in ("flash_attention_fwd_dropout", "flash_attention_bwd",
+                 "flash_attention_bwd_dropout"):
+        counts[name] = depth * micro
+    if teacher:
+        counts["encoder_attention_fwd"] = PRESETS[DISTILL_TEACHER].depth * micro
+    counts["fused_adamw"] = steps
+    return counts
+
+
+def phase_distill_teacher(timm_dir, tmp, smi) -> tuple[str, dict]:
+    """15(b): the timm import with phase 4's seeded head, its bias then
+    shifted by the mean of the head's logits over (c)'s 8 images, so the
+    teacher's answers follow the images and not the bias (random weights
+    see noise images alike: the raw seeded head answers one class for all
+    8); saved params only under the import's
+    config. Returns (its checkpoint directory, the launches of its two
+    forwards)."""
+    from arsvt_tpu_torch.serving.loading import load_inference_bundle
+    from arsvt_tpu_torch.train.checkpoint import CheckpointManager
+    from arsvt_tpu_torch.train.config import resolve_backbone
+
+    params, tcfg = load_inference_bundle(timm_dir)
+    bb = resolve_backbone(tcfg)
+    params = tree_map(lambda t: t.to("cuda"),
+                      seeded_head(params, bb.embed_dim, 6, seed=1))
+    images = torch.from_numpy(np.concatenate(
+        [b["image"] for b in parity_batches(4)])).cuda()
+    zero_counts()
+    with torch.no_grad():
+        x = augment.eval_preprocess(to_unit_float(images), size=bb.image_size)
+        raw = classifier_logits(params, x, bb, 6, None)
+        params["classifier"]["head"]["bias"] -= raw.mean(0)
+        answers = classifier_logits(params, x, bb, 6, None).argmax(-1).cpu()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    teacher = os.path.join(tmp, "teacher")
+    CheckpointManager(teacher, tcfg).save(0, {"params": params,
+                                              "opt_state": {}, "step": 0})
+    spread = np.bincount(answers.numpy(), minlength=6).tolist()
+    log(json.dumps({"check": "distillation teacher: the timm import with "
+                    "phase 4's seeded head, bias centred", "ln_eps":
+                    tcfg.ln_eps, "argmax_per_class_raw_head": np.bincount(
+                        raw.argmax(-1).cpu().numpy(), minlength=6).tolist(),
+                    "argmax_per_class": spread, "images": len(answers),
+                    "card": smi}))
+    check(sum(1 for n in spread if n) >= 2,
+          f"the teacher answers one class on (c)'s images: {spread}")
+    want = dict.fromkeys(counts, 0)
+    want["encoder_attention_fwd"] = 2 * bb.depth
+    check(counts == want, f"teacher forward launches {counts} != {want}")
+    return teacher, counts
+
+
+def phase_distill_bench(teacher, tmp, smi) -> dict:
+    """15(d) and (f). Returns the launches of its steps."""
+    from arsvt_tpu_torch.utils.profiling import (
+        StepTimer,
+        assert_all_finite,
+        trace,
+    )
+
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    cfg = PRESETS[DISTILL_STUDENT]
+    micro, warm, timed = 2, 2, 5
+    base = train_cfg(preset=DISTILL_STUDENT, batch_size=64, grad_accum=micro,
+                     bf16=True)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    batch = batch_of(base, gen, 64)
+    init_fn, step, _ = make_classifier_step_fns(base)
+    zero_counts()
+    _, plain_ms, _, plain_peak = time_steps(step, init_fn(), batch, 1, 2)
+    counts = read_counts()
+    add_counts(total, counts)
+    want = distill_launches(micro * 3, 3, 0, teacher=False)
+    check(counts == want, f"no-teacher launches {counts} != {want}")
+    teacher_gflop = backbone_fwd_gflops(PRESETS[DISTILL_TEACHER])
+    for mode in DISTILL_MODES:
+        tcfg = base.with_overrides(distillation=mode,
+                                   distill_teacher=teacher)
+        init_fn, step, _ = make_classifier_step_fns(tcfg)
+        state = init_fn()
+        set_head(state["params"], cfg.embed_dim, 6, seed=1)
+        timer = StepTimer(warmup=warm)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()  # this mode's timed path starts here
+        metrics = []
+        for i in range(warm + timed):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+            with timer:
+                state, m = step(state, batch)
+            metrics.append(m)
+        end.record()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / timed * 1e3
+        events_ms = start.elapsed_time(end) / timed
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = read_counts()
+        add_counts(total, counts)
+        want = distill_launches(micro * (warm + timed), warm + timed, 0)
+        check(counts == want, f"{mode} distillation launches {counts} != "
+                              f"{want}")
+        losses = [float(m["loss"]) for m in metrics]
+        distill = [float(m["loss_distill"]) for m in metrics]
+        images_per_s = 64 / ms * 1e3
+        student_gflop = train_gflops_per_image(tcfg)
+        timer_ms = timer.summary()
+        rec = {"timing": f"distillation step {mode}, {DISTILL_STUDENT} "
+                         f"from a {DISTILL_TEACHER} teacher",
+               "batch": 64, "grad_accum": micro, "dtype": "bfloat16",
+               "augment": "crop_flip", "canvas": 256, "steps_timed": timed,
+               "ms_per_step": ms, "ms_per_step_cuda_events": events_ms,
+               "step_timer": timer_ms, "train_images_per_s": images_per_s,
+               "peak_memory_gb": peak, "peak_memory_gb_without_teacher":
+                   plain_peak, "ms_per_step_without_teacher": plain_ms,
+               "student_train_gflop_per_image": student_gflop,
+               "tflops_student": images_per_s * student_gflop / 1e3,
+               "teacher_fwd_gflop_per_image": teacher_gflop,
+               "teacher_share_of_flops": teacher_gflop / (
+                   teacher_gflop + student_gflop),
+               "tflops_with_teacher": images_per_s * (
+                   student_gflop + teacher_gflop) / 1e3,
+               "losses": losses, "loss_distill": distill, "card": smi}
+        log(json.dumps(rec))
+        check(all(np.isfinite(losses + distill)),
+              f"{mode}: non-finite losses {losses} {distill}")
+        check(peak - plain_peak < TOL_TEACHER_PEAK_GB,
+              f"{mode}: the teacher adds {peak - plain_peak:.2f} GB")
+        check(abs(timer_ms["mean_ms"] - events_ms) <= TOL_STEP_TIMER
+              * events_ms, f"StepTimer {timer_ms} against CUDA events "
+                           f"{events_ms} ms")
+        zero_counts()
+        phase_train_profile(state, step, batch, ms,
+                            title=f"distillation step {mode}")
+        counts = read_counts()
+        add_counts(total, counts)
+        check(counts == distill_launches(micro, 1, 0),
+              f"profiled {mode} step launches {counts}")
+    # (f) the last mode's state: one more step under utils.profiling.trace
+    zero_counts()
+    with trace(os.path.join(tmp, "trace")) as path:
+        state, _ = step(state, batch)
+    counts = read_counts()
+    add_counts(total, counts)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sum(1 for n in names if v in n)
+             for k, v in DISTILL_TRACE_KERNELS.items()}
+    log(json.dumps({"check": "utils.profiling.trace over one distillation "
+                    "step", "bytes": os.path.getsize(path),
+                    "events_named": len(names), "kernels_found": found,
+                    "launches": {k: v for k, v in counts.items() if v}}))
+    check(all(found.values()), f"the trace misses a kernel: {found}")
+    check(counts == distill_launches(micro, 1, 0),
+          f"traced step launches {counts}")
+    assert_all_finite(state, "the distillation state after (d)")
+    return total
+
+
+def phase_distill_cli(teacher, tmp, smi) -> dict:
+    """15(e)."""
+    from arsvt_tpu_torch.train.checkpoint import peek_config
+
+    directory = os.path.join(tmp, "distill_cli")
+    want = distill_launches(2 * 2, 2, EVAL_BATCHES)
+    last, counts, seconds = run_cli(
+        directory, ["--distill-teacher", teacher], expect=want,
+        base=DISTILL_CLI_ARGS)
+    ckpt_dir = os.path.join(directory, "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    rows = []
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    train_rows = [r for r in rows if "train/loss" in r]
+    evals = [r for r in rows if "val/loss" in r]
+    bound = peek_config(ckpt_dir).distill_teacher
+    log(json.dumps({"check": "train.cli --distillation soft",
+                    "args": DISTILL_CLI_ARGS, "seconds": seconds,
+                    "checkpoints": ckpts, "last": train_rows[-1],
+                    "eval": evals, "checkpoint_teacher": bound,
+                    "card": smi}))
+    row = train_rows[-1]
+    check(ckpts == ["step_000000002.pt"], f"checkpoints {ckpts}")
+    check(bound == teacher, f"the checkpoint binds teacher {bound!r}")
+    check(np.isfinite(row["train/loss_distill"]) and row["train/tflops"] > 0,
+          f"the last train row {row}")
+    check(len(evals) == 1 and np.isfinite(evals[0]["val/loss"]),
+          f"eval rows {evals}")
+    return counts
+
+
+def phase_distill(smi) -> dict:
+    """Phase 15. Returns the launches of every path it drives."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log("# phase 15(a): timm, HF and reference checkpoints imported")
+        timm_dir, counts = phase_distill_import(tmp, smi)
+        add_counts(total, counts)
+        log("# phase 15(b): the teacher")
+        teacher, counts = phase_distill_teacher(timm_dir, tmp, smi)
+        add_counts(total, counts)
+        PRESETS[DISTILL_STUDENT_NODROP] = dataclasses.replace(
+            PRESETS[DISTILL_STUDENT], dropout=0.0)
+        for mode in DISTILL_MODES:
+            log(f"# phase 15(c): {mode} distillation, card vs CPU")
+            zero_counts()
+            phase_train_parity(PRESETS[DISTILL_STUDENT], batch=4,
+                               preset=DISTILL_STUDENT_NODROP,
+                               distillation=mode, distill_teacher=teacher)
+            counts = read_counts()
+            add_counts(total, counts)
+            want = distill_launches(2 * 2, 2, 0)
+            check(counts == want, f"15(c) {mode} launches {counts} != {want}")
+        log("# phase 15(d), (f): timed bf16 distillation steps, profiling")
+        add_counts(total, phase_distill_bench(teacher, tmp, smi))
+        log("# phase 15(e): train.cli --distillation soft")
+        add_counts(total, phase_distill_cli(teacher, tmp, smi))
+    log(json.dumps({"phase": 15, "seconds": time.perf_counter() - t0,
+                    "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
 def is_bf16_kernel(entry: str) -> bool:
     """A bf16 kernel by its mangled name: T = __nv_bfloat16 opens the
     template arguments (fp32 instantiations may take bf16 pointers, never
@@ -4698,6 +5284,10 @@ def main() -> int:
         log("# --vit-large: phase 14 alone")
         phase_vit_large(smi)
         return 0
+    if "--distill" in sys.argv[1:]:
+        log("# --distill: phase 15 alone")
+        phase_distill(smi)
+        return 0
     if {"--disk", "--int8"} & set(sys.argv[1:]):
         log("# --disk / --int8: phase 12 (and 13) alone")
         with tempfile.TemporaryDirectory() as tmp:
@@ -4773,6 +5363,9 @@ def main() -> int:
     log("# phase 14: the ViT-L/16@384 recipe")
     recipe = phase_vit_large(smi)
 
+    log("# phase 15: DeiT distillation from an imported teacher")
+    distill = phase_distill(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -4782,10 +5375,10 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-14
+    def paths(name):  # launches of every path's run, phases 4-15
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
-                + recipe[name]
+                + recipe[name] + distill[name]
                 + (launches if name == "encoder_attention_fwd" else 0))
 
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",

@@ -54,6 +54,9 @@ MODULES = [
     "arsvt_tpu_torch.models.quantized",
     "arsvt_tpu_torch.serving.export",
     "arsvt_tpu_torch.serving.artifact",
+    "arsvt_tpu_torch.models.convert",
+    "arsvt_tpu_torch.utils.flops",
+    "arsvt_tpu_torch.utils.profiling",
 ]
 
 _PROBE = """

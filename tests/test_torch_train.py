@@ -331,13 +331,6 @@ def test_step_fns_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     make_classifier_step_fns(cfg, device="cpu")
 
 
-def test_distillation_raises():
-    """Distillation is the next module (ROADMAP Queue A item 9)."""
-    cfg = TrainConfig(preset=PRESET, bf16=False, distillation="soft")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_classifier_step_fns(cfg, device="cpu")
-
-
 def replay_recipe_draws(base_rng, step, accum, per_micro, *,
                         rand_augment, mixup_alpha):
     """JAX's draws inside its train step with RandAugment and mixup: per
