@@ -31,6 +31,10 @@ class Policy:
         return _cast_floating(tree, self.output_dtype)
 
 
+DEFAULT_POLICY = Policy()
+FP32_POLICY = Policy(compute_dtype=torch.float32)
+
+
 def tree_map(fn, tree):
     """Apply `fn` to every leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):

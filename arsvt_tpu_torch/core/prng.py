@@ -10,8 +10,11 @@ them in explicitly.
 
 `Rng` is the counterpart of a JAX key threaded through a forward: a tuple
 of ints that `fold_in` extends, from which a dropout site takes a 32-bit
-kernel seed (`seed32`) or a generator on its compute device
-(`generator`). Both are derived on the host, so no site waits on the card.
+seed (`seed32`), derived on the host, so no site waits on the card. Every
+dropout mask is a function of that seed and of global indices
+(``ops/dropout.py``); `row0`, the first row of the caller's slice in the
+global microbatch (a data-parallel rank's), rides beside the keys and
+never changes the seed, so every rank holds the same `Rng`.
 """
 
 from __future__ import annotations
@@ -35,24 +38,26 @@ class Rng:
     """An immutable tuple of non-negative ints naming one random stream:
     ``Rng(seed, step, microbatch).fold_in(layer).fold_in(site)``."""
 
-    __slots__ = ("keys",)
+    __slots__ = ("keys", "row0")
 
-    def __init__(self, *keys: int):
-        if any(int(k) < 0 for k in keys):
-            raise ValueError(f"Rng keys must be non-negative, got {keys}")
+    def __init__(self, *keys: int, row0: int = 0):
+        if any(int(k) < 0 for k in keys) or row0 < 0:
+            raise ValueError(f"Rng keys and row0 must be non-negative, got "
+                             f"{keys}, {row0}")
         self.keys = tuple(int(k) for k in keys)
+        self.row0 = int(row0)
 
     def fold_in(self, *more: int) -> "Rng":
-        return Rng(*self.keys, *more)
+        return Rng(*self.keys, *more, row0=self.row0)
+
+    def at_row(self, row0: int) -> "Rng":
+        """The same stream for a slice starting at global row `row0`."""
+        return Rng(*self.keys, row0=row0)
 
     def seed32(self) -> int:
-        """The stream's 32-bit seed, as a kernel's dropout takes it."""
+        """The stream's 32-bit seed, as every dropout mask takes it."""
         return int(_mix(self.keys, 2)[0])
 
-    def generator(self, device="cpu") -> torch.Generator:
-        """A generator on `device` seeded from the stream."""
-        return torch.Generator(device=device).manual_seed(
-            int(_mix(self.keys)[0]))
-
     def __repr__(self) -> str:
-        return f"Rng{self.keys}"
+        return (f"Rng{self.keys}" if not self.row0
+                else f"Rng{self.keys}@{self.row0}")

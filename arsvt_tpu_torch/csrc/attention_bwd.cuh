@@ -279,6 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const T* k = a.k.at(b, h);
   const T* v = a.v.at(b, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -387,7 +388,7 @@ __global__ void __launch_bounds__(kThreads)
           p = col < a.sk ? p : 0.f;
           float g = dp[0][j][e];
           if constexpr (kDrop)
-            g = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
+            g = enc::keeps(drop, mbh, wrow0 + frag_row(e), col)
                     ? g * drop.inv_keep
                     : 0.f;
           s[0][j][e] = p * (g - delta[i]);
@@ -419,6 +420,7 @@ __global__ void __launch_bounds__(kThreads)
   const int key0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const T* q = a.q.at(b, h);
   const T* dout = a.dout.at(b, h);
   const float* lse = a.lse + (int64_t)bh * a.sq;
@@ -490,7 +492,7 @@ __global__ void __launch_bounds__(kThreads)
       p = q0 + c < a.sq ? p : 0.f;  // a select, no branch per element
       float g = gv, pv = p;
       if constexpr (kDrop) {
-        const bool keep = enc::keeps(drop, bh, q0 + c, key);
+        const bool keep = enc::keeps(drop, mbh, q0 + c, key);
         g = keep ? g * drop.inv_keep : 0.f;
         pv = keep ? p * drop.inv_keep : 0.f;
       }

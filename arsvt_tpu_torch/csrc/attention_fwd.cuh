@@ -206,12 +206,22 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(
       reinterpret_cast<unsigned char*>(smem_raw) + L::kBytes);
 
-  const int row0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const uint32_t bh = (uint32_t)(b * a.heads + h);
+  const int row0 = blockIdx.x * kRows;
+  // the mask's global key word: with dropout the one index that stays live
+  // through the key walk (the stores recover the launch's b and h from it,
+  // so the offsets of a parallel rank cost no register in the loop);
+  // without, the stores read blockIdx again
   const enc::Dropout drop = a.drop;
-  const T* q = a.q.at(b, h);
-  const T* k = a.k.at(b, h);
-  const T* v = a.v.at(b, h);
+  const uint32_t mbh = drop.bh(blockIdx.z, blockIdx.y);
+  auto local_b = [&] {
+    return kDrop ? drop.batch_of(mbh) : (int)blockIdx.z;
+  };
+  auto local_h = [&] {
+    return kDrop ? drop.head_of(mbh) : (int)blockIdx.y;
+  };
+  const T* q = a.q.at(blockIdx.z, blockIdx.y);
+  const T* k = a.k.at(blockIdx.z, blockIdx.y);
+  const T* v = a.v.at(blockIdx.z, blockIdx.y);
   const int warp = threadIdx.x >> 5;
   const int wrow0 = row0 + 16 * warp;  // this warp's first query row
   const bool active = wrow0 < a.sq;    // warp-uniform
@@ -392,15 +402,16 @@ __global__ void __launch_bounds__(kThreads)
           if constexpr (kDrop)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              s[0][j][e] = enc::keeps(drop, bh, wrow0 + frag_row(e),
+              s[0][j][e] = enc::keeps(drop, mbh, wrow0 + frag_row(e),
                                       k0 + 8 * j + frag_col(e))
                                ? s[0][j][e] * drop.inv_keep
                                : 0.f;
         }
         __syncwarp();  // the tile is staged; the next chunk's writes come
                        // after next()'s barrier
-        store_rows(a.probs + ((int64_t)bh * a.sq + wrow0) * a.sk + k0, a.sk,
-                   min(16, a.sq - wrow0), min(kKeys, a.sk - k0), Pbw,
+        store_rows(a.probs + ((int64_t)(local_b() * a.heads + local_h()) *
+                                  a.sq + wrow0) * a.sk + k0,
+                   a.sk, min(16, a.sq - wrow0), min(kKeys, a.sk - k0), Pbw,
                    L::kPbLd);
       } else {
 #pragma unroll
@@ -421,7 +432,7 @@ __global__ void __launch_bounds__(kThreads)
             p = col < a.sk ? p : 0.f;
             l[i] += p;
             if constexpr (kDrop)
-              p = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
+              p = enc::keeps(drop, mbh, wrow0 + frag_row(e), col)
                       ? p * drop.inv_keep
                       : 0.f;
             s[0][j][e] = p;
@@ -457,6 +468,7 @@ __global__ void __launch_bounds__(kThreads)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     }
+  const int b = local_b(), h = local_h();
   T* out = a.out.at(b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -480,7 +492,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if constexpr (!kSaveP)
       if ((threadIdx.x & 3) == 0)
-        a.lse[(int64_t)bh * a.sq + row] = m[i] + logf(l[i]);
+        a.lse[(int64_t)(b * a.heads + h) * a.sq + row] = m[i] + logf(l[i]);
   }
 }
 

@@ -170,6 +170,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x / ns * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const int warp = threadIdx.x >> 5;
   const int wrow0 = row0 + 16 * warp;  // this warp's first query row
   const bool active = wrow0 < a.sq;    // warp-uniform
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
         p = col < a.sk ? p : 0.f;
         l[i] += p;
         if constexpr (kDrop)
-          p = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
+          p = enc::keeps(drop, mbh, wrow0 + frag_row(e), col)
                   ? p * drop.inv_keep
                   : 0.f;
         s[0][j][e] = p;
@@ -339,6 +340,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x / ns * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const T* q = a.q.at(b, h);
   const T* k = a.k.at(b, h);
   const T* v = a.v.at(b, h);
@@ -446,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
         p = col < a.sk ? p : 0.f;
         float g = dp[0][j][e];
         if constexpr (kDrop)
-          g = enc::keeps(drop, bh, wrow0 + frag_row(e), col)
+          g = enc::keeps(drop, mbh, wrow0 + frag_row(e), col)
                   ? g * drop.inv_keep
                   : 0.f;
         s[0][j][e] = p * (g - delta[i]);
@@ -476,6 +478,7 @@ __global__ void __launch_bounds__(kThreads)
   const int key0 = blockIdx.x / ns * kRows, h = blockIdx.y, b = blockIdx.z;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const T* q = a.q.at(b, h);
   const T* k = a.k.at(b, h);
   const T* v = a.v.at(b, h);
@@ -556,7 +559,7 @@ __global__ void __launch_bounds__(kThreads)
         p = in ? p : 0.f;
         float g = dp[0][j][e], pv = p;
         if constexpr (kDrop) {
-          const bool keep = enc::keeps(drop, bh, qi, key);
+          const bool keep = enc::keeps(drop, mbh, qi, key);
           g = keep ? g * drop.inv_keep : 0.f;
           pv = keep ? p * drop.inv_keep : 0.f;
         }

@@ -89,12 +89,15 @@ extern "C" int arsvt_encoder_attention_bwd(const void* qkv, const void* out,
                                            int heads, int head_dim,
                                            uint32_t seed, uint32_t threshold,
                                            float inv_keep, int dropout,
+                                           int b0, int mask_heads, int h0,
                                            int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const enc::Dropout drop{seed, threshold, inv_keep};
+  if (b0 < 0 || mask_heads < heads || h0 < 0 || h0 + heads > mask_heads)
+    return (int)cudaErrorInvalidValue;
+  const enc::Dropout drop{seed, threshold, inv_keep, b0, mask_heads, h0};
   switch (dtype) {
     case 0:
       return (int)launch<float>(qkv, out, dout, lse, delta, dq, dk, dv,
@@ -107,3 +110,7 @@ extern "C" int arsvt_encoder_attention_bwd(const void* qkv, const void* out,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Interface 2 takes the mask's global offsets (b0, mask_heads, h0) after
+// the dropout flag; interface 1 had none.
+extern "C" int arsvt_attention_version() { return 2; }

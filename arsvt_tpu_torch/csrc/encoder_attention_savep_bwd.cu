@@ -138,6 +138,7 @@ __global__ void __launch_bounds__(kThreads)
   const int seq = a.seq;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const int64_t d_model = (int64_t)a.heads * kHeadDim, ld = 3 * d_model;
   const T* k = a.qkv + b * seq * ld + d_model + h * kHeadDim;
   const T* v = k + d_model;
@@ -208,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (draw)
-            bits |= (uint32_t)enc::keeps(drop, bh, wrow0 + frag_row(e),
+            bits |= (uint32_t)enc::keeps(drop, mbh, wrow0 + frag_row(e),
                                          c * kKeys + 8 * j + frag_col(e))
                     << (4 * j + e);
           dp[0][j][e] =
@@ -292,6 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   const int seq = a.seq;
   const uint32_t bh = (uint32_t)(b * a.heads + h);
   const enc::Dropout drop = a.drop;
+  const uint32_t mbh = drop.bh(b, h);  // the mask's global index
   const int64_t d_model = (int64_t)a.heads * kHeadDim, ld = 3 * d_model;
   const T* q = a.qkv + b * seq * ld + h * kHeadDim;
   const T* v = q + 2 * d_model;
@@ -368,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
           float g = dp[0][j][e], pv = p[j][e];
           if constexpr (kDrop) {
             const bool keep =
-                enc::keeps(drop, bh, q0 + c, wkey0 + frag_row(e));
+                enc::keeps(drop, mbh, q0 + c, wkey0 + frag_row(e));
             g = keep ? g * drop.inv_keep : 0.f;
             pv = keep ? pv * drop.inv_keep : 0.f;
           }
@@ -447,12 +449,14 @@ extern "C" int arsvt_encoder_attention_savep_bwd(
     const void* qkv, const void* probs, const void* dout, void* delta,
     void* dq, void* dk, void* dv, int batch, int seq, int heads,
     int head_dim, uint32_t seed, uint32_t threshold, float inv_keep,
-    int dropout, int dtype, void* stream) {
+    int dropout, int b0, int mask_heads, int h0, int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const enc::Dropout drop{seed, threshold, inv_keep};
+  if (b0 < 0 || mask_heads < heads || h0 < 0 || h0 + heads > mask_heads)
+    return (int)cudaErrorInvalidValue;
+  const enc::Dropout drop{seed, threshold, inv_keep, b0, mask_heads, h0};
   switch (dtype) {
     case 0:
       return (int)launch_typed<float>(qkv, probs, dout, delta, dq, dk, dv,
@@ -465,3 +469,7 @@ extern "C" int arsvt_encoder_attention_savep_bwd(
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Interface 2 takes the mask's global offsets (b0, mask_heads, h0) after
+// the dropout flag; interface 1 had none.
+extern "C" int arsvt_attention_version() { return 2; }

@@ -80,17 +80,20 @@ cudaError_t launch(const void* qkv, void* out, void* probs, int batch,
 // aligned; qkv is a contiguous (batch, seq, 3 * heads * 64) tensor, out a
 // contiguous (batch, seq, heads * 64) tensor of the same type, probs a
 // contiguous (batch, heads, seq, seq) bfloat16 tensor. dropout 0 or 1;
-// with 1, keep iff philox_bits(seed, b * heads + h, row, col) < threshold
+// with 1, keep iff philox_bits(seed, (b0 + b) * mask_heads + h0 + h, row,
+// col) < threshold
 // and scale kept probabilities by inv_keep.
 extern "C" int arsvt_encoder_attention_savep_fwd(
     const void* qkv, void* out, void* probs, int batch, int seq, int heads,
     int head_dim, uint32_t seed, uint32_t threshold, float inv_keep,
-    int dropout, int dtype, void* stream) {
+    int dropout, int b0, int mask_heads, int h0, int dtype, void* stream) {
   if (head_dim != kHeadDim || batch < 1 || batch > 65535 || seq < 1 ||
       heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const enc::Dropout drop{seed, threshold, inv_keep};
+  if (b0 < 0 || mask_heads < heads || h0 < 0 || h0 + heads > mask_heads)
+    return (int)cudaErrorInvalidValue;
+  const enc::Dropout drop{seed, threshold, inv_keep, b0, mask_heads, h0};
   switch (dtype) {
     case 0:
       return (int)launch<float>(qkv, out, probs, batch, seq, heads, drop,
@@ -102,3 +105,7 @@ extern "C" int arsvt_encoder_attention_savep_fwd(
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Interface 2 takes the mask's global offsets (b0, mask_heads, h0) after
+// the dropout flag; interface 1 had none.
+extern "C" int arsvt_attention_version() { return 2; }

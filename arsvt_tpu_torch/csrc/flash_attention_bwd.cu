@@ -102,13 +102,16 @@ extern "C" int arsvt_flash_attention_bwd(const void* q, const void* k,
                                          int head_dim, float scale,
                                          uint32_t seed, uint32_t threshold,
                                          float inv_keep, int dropout,
+                                         int b0, int mask_heads, int h0,
                                          int dtype, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 ||
       sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1 ||
       (dropout != 0 && dropout != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const enc::Dropout drop{seed, threshold, inv_keep};
+  if (b0 < 0 || mask_heads < heads || h0 < 0 || h0 + heads > mask_heads)
+    return (int)cudaErrorInvalidValue;
+  const enc::Dropout drop{seed, threshold, inv_keep, b0, mask_heads, h0};
   switch (dtype) {
     case 0:
       return (int)launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv,
@@ -122,3 +125,7 @@ extern "C" int arsvt_flash_attention_bwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Interface 2 takes the mask's global offsets (b0, mask_heads, h0) after
+// the dropout flag; interface 1 had none.
+extern "C" int arsvt_attention_version() { return 2; }

@@ -16,7 +16,7 @@
 // Dropout (rate > 0, _fwd_kernel's dropout branch): p stays unnormalised;
 // a dropped p becomes 0 and a kept one is multiplied by 1/keep before the
 // rounding to T and the p v product; l and lse are the values before
-// dropout. Keep iff philox_bits(seed, b*H + h, row, col) < threshold
+// dropout. Keep iff philox_bits(seed, (b0 + b)*H + h0 + h, row, col) < threshold
 // (philox.cuh, through encoder_tile.cuh::keeps), so the backward kernels
 // and the plain version rebuild the same mask. The rate-0 kernel is a
 // separate instantiation without it.
@@ -100,13 +100,16 @@ extern "C" int arsvt_flash_attention_fwd(const void* q, const void* k,
                                          int kv_len, int head_dim,
                                          float scale, uint32_t seed,
                                          uint32_t threshold, float inv_keep,
-                                         int dropout, int dtype,
+                                         int dropout, int b0, int mask_heads,
+                                         int h0, int dtype,
                                          void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 ||
       sk < 1 || kv_len < 1 || kv_len > sk || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const enc::Dropout drop{seed, threshold, inv_keep};
+  if (b0 < 0 || mask_heads < heads || h0 < 0 || h0 + heads > mask_heads)
+    return (int)cudaErrorInvalidValue;
+  const enc::Dropout drop{seed, threshold, inv_keep, b0, mask_heads, h0};
   switch (dtype) {
     case 0:
       return (int)launch<float>(q, k, v, out, lse, batch, heads, sq, sk,
@@ -119,3 +122,7 @@ extern "C" int arsvt_flash_attention_fwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// Interface 2 takes the mask's global offsets (b0, mask_heads, h0) after
+// the dropout flag; interface 1 had none.
+extern "C" int arsvt_attention_version() { return 2; }

@@ -10,6 +10,9 @@ RECYCLING_CLASSES: tuple[str, ...] = (
     "metal",
     "trash",
 )
+NUM_CLASSES = len(RECYCLING_CLASSES)
+
+_INDEX = {name: i for i, name in enumerate(RECYCLING_CLASSES)}
 
 
 def class_name(index: int) -> str:
@@ -21,3 +24,7 @@ def class_name(index: int) -> str:
         if 0 <= index < len(RECYCLING_CLASSES)
         else str(index)
     )
+
+
+def class_index(name: str) -> int:
+    return _INDEX[name.lower()]

@@ -16,7 +16,9 @@ forward takes an `rng` (``core/prng.py::Rng``): layer i draws from
 ``rng.fold_in(i)``, its three residual sites (self-attention,
 cross-attention, FFN) at ``fold_in(0..2)`` and its self- and
 cross-attention probabilities at ``fold_in(3)`` and ``(4)``, as JAX splits
-the layer key five ways.
+the layer key five ways. Under tensor parallelism a layer holds its rank's
+heads of self_attn/qkv, cross_attn/q and kv and their proj rows, and its
+share of the FFN, as the encoder blocks do (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -30,14 +32,17 @@ from arsvt_tpu_torch.core.prng import Rng
 from arsvt_tpu_torch.models.vit import (
     _linear_init,
     _trunc_normal,
-    site_dropout,
+    row_product,
+    tp_heads,
 )
 from arsvt_tpu_torch.ops.attention import (
     multi_head_attention,
     self_attention_from_qkv,
 )
 from arsvt_tpu_torch.ops.layernorm import layer_norm
+from arsvt_tpu_torch.ops.dropout import dropout
 from arsvt_tpu_torch.ops.mlp import gelu_mlp
+from arsvt_tpu_torch.parallel.tensor_parallel import active, enter, leave
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,54 +155,68 @@ def _linear(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def _mha_from_proj(x_q, x_kv, num_heads: int, head_dim: int, *,
-                   dropout_rate: float = 0.0, dropout_rng: Rng | None = None):
+                   dropout_rate: float = 0.0, dropout_rng: Rng | None = None,
+                   head_range=None):
     """Cross-attention of projected queries (B, Sq, D) over projected
-    keys/values (B, Sk, 2D) -> (B, Sq, D), through the kernels."""
+    keys/values (B, Sk, 2D) -> (B, Sq, D), through the kernels (D the
+    width of `num_heads` heads: a tensor-parallel rank's, at
+    `head_range`)."""
     b, sq, d = x_q.shape
     sk = x_kv.shape[1]
     q = x_q.reshape(b, sq, num_heads, head_dim).permute(0, 2, 1, 3)
     kv = x_kv.reshape(b, sk, 2, num_heads, head_dim).permute(2, 0, 3, 1, 4)
     out = multi_head_attention(q, kv[0], kv[1], dropout_rate=dropout_rate,
-                               dropout_rng=dropout_rng)
+                               dropout_rng=dropout_rng,
+                               head_range=head_range)
     return out.permute(0, 2, 1, 3).reshape(b, sq, d)
 
 
+def _proj(x, p: dict, tp) -> torch.Tensor:
+    """An output projection (row-sharded under `tp`)."""
+    return row_product(x, p["kernel"], p["bias"], tp)
+
+
 def _decoder_block(x, memory, bp: dict, cfg: DetrHeadConfig, head_dim: int,
-                   *, train: bool = False, rng: Rng | None = None):
+                   *, train: bool = False, rng: Rng | None = None, tp=None):
     k1 = k2 = k3 = kp1 = kp2 = None
     if train and rng is not None:
         k1, k2, k3, kp1, kp2 = (rng.fold_in(site) for site in range(5))
     attn_rate = cfg.attn_dropout if train else 0.0
+    heads, head_range = tp_heads(cfg.num_heads, tp)
 
     # self-attention over the queries: the packed reference on every
     # device, as JAX forces it (a kernel launch costs more than Q <= 100)
-    y = layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"],
-                   eps=cfg.ln_eps)
+    y = enter(layer_norm(x, bp["ln_self"]["scale"], bp["ln_self"]["bias"],
+                         eps=cfg.ln_eps), tp)
     sa = self_attention_from_qkv(_linear(y, bp["self_attn"]["qkv"]),
-                                 cfg.num_heads, force_reference=True,
-                                 dropout_rate=attn_rate, dropout_rng=kp1)
-    x = x + site_dropout(_linear(sa, bp["self_attn"]["proj"]), cfg.dropout,
-                         k1, train=train)
+                                 heads, force_reference=True,
+                                 dropout_rate=attn_rate, dropout_rng=kp1,
+                                 head_range=head_range)
+    x = x + dropout(_proj(sa, bp["self_attn"]["proj"], tp), cfg.dropout,
+                    k1, train=train)
 
     # cross-attention to the patch tokens
-    yq = layer_norm(x, bp["ln_cross_q"]["scale"], bp["ln_cross_q"]["bias"],
-                    eps=cfg.ln_eps)
-    ykv = layer_norm(memory, bp["ln_cross_kv"]["scale"],
-                     bp["ln_cross_kv"]["bias"], eps=cfg.ln_eps)
+    yq = enter(layer_norm(x, bp["ln_cross_q"]["scale"],
+                          bp["ln_cross_q"]["bias"], eps=cfg.ln_eps), tp)
+    ykv = enter(layer_norm(memory, bp["ln_cross_kv"]["scale"],
+                           bp["ln_cross_kv"]["bias"], eps=cfg.ln_eps), tp)
     ca = _mha_from_proj(_linear(yq, bp["cross_attn"]["q"]),
                         _linear(ykv, bp["cross_attn"]["kv"]),
-                        cfg.num_heads, head_dim, dropout_rate=attn_rate,
-                        dropout_rng=kp2)
-    x = x + site_dropout(_linear(ca, bp["cross_attn"]["proj"]), cfg.dropout,
-                         k2, train=train)
+                        heads, head_dim, dropout_rate=attn_rate,
+                        dropout_rng=kp2, head_range=head_range)
+    x = x + dropout(_proj(ca, bp["cross_attn"]["proj"], tp), cfg.dropout,
+                    k2, train=train)
 
     # FFN
-    y = layer_norm(x, bp["ln_mlp"]["scale"], bp["ln_mlp"]["bias"],
-                   eps=cfg.ln_eps)
+    y = enter(layer_norm(x, bp["ln_mlp"]["scale"], bp["ln_mlp"]["bias"],
+                         eps=cfg.ln_eps), tp)
     mlp = bp["mlp"]
+    b2 = mlp["fc2"]["bias"]
     y = gelu_mlp(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
-                 mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
-    return x + site_dropout(y, cfg.dropout, k3, train=train)
+                 mlp["fc2"]["kernel"], None if tp else b2)
+    if tp is not None:
+        y = leave(y, tp) + b2.to(y.dtype)
+    return x + dropout(y, cfg.dropout, k3, train=train)
 
 
 def _detr_outputs(params: dict, h: torch.Tensor, cfg: DetrHeadConfig):
@@ -227,9 +246,11 @@ def apply_detr_head(params: dict, memory: torch.Tensor, cfg: DetrHeadConfig,
     x = params["queries"][None].expand(b, cfg.num_queries,
                                        embed_dim).to(memory.dtype)
     states = []
+    tp = active()
     for i, bp in enumerate(params["blocks"]):
         x = _decoder_block(x, memory, bp, cfg, head_dim, train=train,
-                           rng=None if rng is None else rng.fold_in(i))
+                           rng=None if rng is None else rng.fold_in(i),
+                           tp=tp)
         states.append(x)
     outputs = _detr_outputs(params, x, cfg)
     if not return_aux:

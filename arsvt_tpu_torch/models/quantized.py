@@ -87,7 +87,8 @@ def quantize_detector(params: dict, cfg) -> dict:
 
 def _attention(qkv: torch.Tensor, cfg: BackboneConfig) -> torch.Tensor:
     if cfg.head_dim == SUPPORTED_HEAD_DIM:
-        return encoder_attention_fwd_op(qkv, cfg.num_heads, 0.0, 0)[0]
+        return encoder_attention_fwd_op(qkv, cfg.num_heads, 0.0, 0, 0,
+                                        cfg.num_heads, 0)[0]
     return self_attention_from_qkv(qkv, cfg.num_heads)
 
 

@@ -13,6 +13,16 @@
 The assignment comes from ``objectives/matcher.py`` (scipy on the host);
 a caller that matched several decoder layers at once passes each layer's
 `assignment` in.
+
+Under a data mesh (`group`, the data axis's process group) the batch is a
+rank's rows of the global microbatch, and every value JAX reduces over
+the global microbatch is reduced over the group: the CE weight sum and
+the matched-box count (JAX ``detection_loss.py:99, 116``), the
+cardinality's image count, and the triplet loss's batch (the features,
+labels and validity are gathered, the rank's own rows live). Each term is
+then the rank's numerator over the global denominator, so the terms
+summed over the ranks are the one-process values, and so are their
+gradients.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed
 
 from arsvt_tpu_torch.objectives.boxes import (
     cxcywh_to_xyxy,
@@ -28,6 +39,7 @@ from arsvt_tpu_torch.objectives.boxes import (
 )
 from arsvt_tpu_torch.objectives.matcher import MatcherConfig, match
 from arsvt_tpu_torch.objectives.triplet import batch_hard_triplet_loss
+from arsvt_tpu_torch.parallel.data_parallel import gather_rows, total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +56,7 @@ class DetectionLossConfig:
 
 def detection_loss(outputs, targets, cfg: DetectionLossConfig,
                    triplet_features=None, image_weight=None, *,
-                   assignment=None):
+                   assignment=None, group=None):
     """outputs: {'class_logits': (B, Q, C+1), 'boxes_cxcywh': (B, Q, 4)};
     targets: {'boxes': (B, M, 4) xyxy normalised, 'labels': (B, M) int,
     'mask': (B, M) bool}. Returns (total, dict of unweighted parts, with
@@ -52,7 +64,11 @@ def detection_loss(outputs, targets, cfg: DetectionLossConfig,
 
     `image_weight` (B,) 0/1: rows with weight 0 drop out of every term.
     `assignment` (target_for_query, query_matched) from
-    `objectives.matcher.match_layers`; None matches here.
+    `objectives.matcher.match_layers`; None matches here. `group`: the
+    data axis (module docstring). There the parts are the rank's shares,
+    which sum over the ranks to the global values; the triplet term of the
+    returned total is the whole global loss on every rank (its gradient
+    reaches the rank's own features alone), and the parts carry its share.
     """
     iw = None if image_weight is None else image_weight.float()
     logits = outputs["class_logits"].float()
@@ -82,7 +98,8 @@ def detection_loss(outputs, targets, cfg: DetectionLossConfig,
     weights = torch.where(matched, 1.0, cfg.background_weight)
     if iw is not None:
         weights = weights * iw[:, None]
-    loss_ce = (ce * weights).sum() / torch.clamp(weights.sum(), min=1e-9)
+    loss_ce = (ce * weights).sum() / torch.clamp(total(weights.sum(), group),
+                                                 min=1e-9)
 
     # boxes: L1 (cxcywh) + GIoU (xyxy)
     gather_boxes = torch.gather(
@@ -91,7 +108,7 @@ def detection_loss(outputs, targets, cfg: DetectionLossConfig,
     matchedf = matched.float()
     if iw is not None:
         matchedf = matchedf * iw[:, None]
-    num_boxes = torch.clamp(matchedf.sum(), min=1.0)
+    num_boxes = torch.clamp(total(matchedf.sum(), group), min=1.0)
     l1 = (pred_boxes - xyxy_to_cxcywh(gather_boxes)).abs().sum(dim=-1)
     loss_bbox = (l1 * matchedf).sum() / num_boxes
     giou = elementwise_giou(pred_xyxy, gather_boxes)
@@ -102,30 +119,37 @@ def detection_loss(outputs, targets, cfg: DetectionLossConfig,
         pred_fg = (logits.argmax(dim=-1) != c).float().sum(dim=1)
         n_tgt = tgt_mask.float().sum(dim=1)
         card_err = (pred_fg - n_tgt).abs()
-        if iw is None:
+        if iw is None and group is None:
             cardinality = card_err.mean()
+        elif iw is None:
+            images = torch.full((), card_err.shape[0], dtype=card_err.dtype,
+                                device=card_err.device)
+            cardinality = card_err.sum() / total(images, group)
         else:
-            cardinality = (card_err * iw).sum() / torch.clamp(iw.sum(),
-                                                              min=1.0)
+            cardinality = (card_err * iw).sum() / torch.clamp(
+                total(iw.sum(), group), min=1.0)
 
     parts = {"loss_ce": loss_ce, "loss_bbox": loss_bbox,
              "loss_giou": loss_giou, "cardinality_error": cardinality}
-    total = cfg.w_ce * loss_ce + cfg.w_bbox * loss_bbox + \
+    loss = cfg.w_ce * loss_ce + cfg.w_bbox * loss_bbox + \
         cfg.w_giou * loss_giou
+    parts["total"] = loss
 
-    # triplet on image-level features
+    # triplet on image-level features, mined over the global microbatch
     if triplet_features is not None:
         image_labels, image_valid = dominant_labels(tgt_labels, tgt_mask, c)
         if iw is not None:
             image_valid = image_valid & (iw > 0)
         loss_triplet = batch_hard_triplet_loss(
-            triplet_features, image_labels, image_valid,
-            margin=cfg.triplet_margin)
-        parts["loss_triplet"] = loss_triplet
-        total = total + cfg.w_triplet * loss_triplet
-
-    parts["total"] = total
-    return total, parts
+            gather_rows(triplet_features, group),
+            gather_rows(image_labels, group),
+            gather_rows(image_valid, group), margin=cfg.triplet_margin)
+        ranks = 1 if group is None else torch.distributed.get_world_size(
+            group)
+        parts["loss_triplet"] = loss_triplet / ranks
+        parts["total"] = loss + cfg.w_triplet * parts["loss_triplet"]
+        loss = loss + cfg.w_triplet * loss_triplet
+    return loss, parts
 
 
 def dominant_labels(tgt_labels, tgt_mask, num_classes: int):

@@ -1,5 +1,4 @@
-"""Dropout: the counter-based mask of the attention kernels and the plain
-dropout of the residual and positional sites.
+"""Dropout: one counter-based mask rule for every dropout site of the port.
 
 The TPU kernels draw their attention-dropout mask from the TPU's own
 generator, seeded per (call seed, absolute batch item, head)
@@ -10,18 +9,35 @@ alone, never on a tiling, so the forward kernel, both launches of the
 backward, the packed and unpacked entries and the plain versions all
 rebuild the identical mask. An element is kept where its bits are below
 ``min(int((1 - rate)·2^32), 2^32 - 1)``, JAX's rule. `keep_bits` is the
-plain PyTorch Philox in int64 arithmetic (32x32-bit products split into
-16-bit halves so that nothing overflows); the CUDA kernels carry the same
+plain PyTorch Philox in int64 arithmetic (32x32-bit products whose
+wrapped int64 bits give both words); the CUDA kernels carry the same
 rounds.
 
-`dropout` is ``arsvt_tpu/models/vit.py:140-145``: inverted dropout from a
-generator on the tensor's device (XLA ops in JAX, so no kernel here).
+b and h are global: a launch that holds rows b0.. of the microbatch and
+heads h0.. of H (a rank of a data- or tensor-parallel step) keys element
+(b, h) on (b0 + b)·H + h0 + h, and a one-process call passes the offsets
+(0, its heads, 0). So a parallel step draws the one-process step's mask.
+
+The residual and positional sites (JAX: ``jax.random.bernoulli`` at
+``arsvt_tpu/models/vit.py:140-145``) and the reference attention draw by
+the same rule, through `dropout_mask`: a (B, S, D) activation is viewed as
+(B, 1, S, D), so its key word is the global batch row, its counter (token,
+feature); reference attention probabilities as (B, H, Sq, Sk), the layout
+of #3/#4, so the reference and the kernels drop the same probabilities.
+On a CUDA tensor `dropout_mask` launches ``csrc/dropout_mask.cu`` (a
+port-only kernel: eager int64 Philox costs about 220 elementwise passes a
+site), on a CPU tensor it runs `keep_mask`. The mask is a function of
+(site seed, global index) alone, on every device and every world size.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from arsvt_tpu_torch.ops import build
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -29,6 +45,12 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
+
+# Launches of the mask kernel in this process (one a `dropout_mask` call on
+# the card), counted as the other wrappers count theirs.
+LAUNCHES = 0
+
+_fn = None
 
 
 def keep_threshold(rate: float) -> int:
@@ -58,74 +80,140 @@ def kernel_args(rate: float, seed: int) -> tuple:
     return 0, 0, 1.0, 0
 
 
-def call_dropout(rate: float, rng) -> tuple[float, int]:
-    """(rate, seed) of one attention call: dropout only with a rate and an
-    rng (a ``core/prng.py::Rng``), as JAX drops only with a rate and a key;
-    the seed is the rng's `seed32`, taken on the host."""
+def mask_offsets(offsets, heads: int) -> tuple[int, int, int]:
+    """(b0, H, h0) of a launch over `heads` local heads: `offsets` as
+    given, or (0, heads, 0), the one-process call."""
+    if offsets is None:
+        return 0, int(heads), 0
+    b0, total, h0 = (int(v) for v in offsets)
+    if b0 < 0 or h0 < 0 or h0 + heads > total:
+        raise ValueError(f"mask offsets (b0, H, h0) = {offsets} do not hold "
+                         f"{heads} heads")
+    return b0, total, h0
+
+
+def call_dropout(rate: float, rng, heads: int = 1,
+                 head_range=None) -> tuple[float, int, tuple]:
+    """(rate, seed, offsets) of one attention call: dropout only with a
+    rate and an rng (a ``core/prng.py::Rng``), as JAX drops only with a
+    rate and a key; the seed is the rng's `seed32`, taken on the host.
+    offsets = (b0, H, h0): the rng's `row0` and `head_range` = (h0, H) of
+    a tensor-parallel rank's `heads`, by default (0, heads)."""
+    h0, total = (0, heads) if head_range is None else head_range
     if rate > 0.0 and rng is not None:
-        return float(rate), rng.seed32()
-    return 0.0, 0
+        return float(rate), rng.seed32(), (rng.row0, total, h0)
+    return 0.0, 0, (0, total, h0)
 
 
 def _mulhilo(m: int, x: torch.Tensor):
     """(hi, lo) 32-bit words of m * x for a 32-bit constant m and a tensor
-    of 32-bit values held in int64."""
-    p_lo = m * (x & 0xFFFF)   # < 2^48
-    p_hi = m * (x >> 16)      # < 2^48
-    lo = (p_lo + ((p_hi & 0xFFFF) << 16)) & _MASK32
-    hi = (p_hi + (p_lo >> 16)) >> 16
-    return hi, lo
+    of 32-bit values held in int64. The 64-bit product wraps past 2^63 in
+    int64; its two's-complement bits are the true product's, so both words
+    are exact (the arithmetic shift's sign bits fall outside the mask)."""
+    p = m * x
+    return (p >> 32) & _MASK32, p & _MASK32
 
 
 def keep_bits(seed: int, bh, row, col) -> torch.Tensor:
     """Philox4x32-10 with key (seed, bh) and counter (row, col, 0, 0); the
     first output word, as int64 values in [0, 2^32). `bh`, `row` and `col`
-    are int64 tensors that broadcast together."""
+    are int64 tensors that broadcast together. The keys stay as small as
+    they come (k0 a Python int, k1 `bh`'s own shape), and the counter
+    words take the full shape only as the rounds make them so."""
     bh, row, col = (torch.as_tensor(t, dtype=torch.int64) for t in
                     (bh, row, col))
     shape = torch.broadcast_shapes(bh.shape, row.shape, col.shape)
-    device = bh.device
-    c0 = row.expand(shape) & _MASK32
-    c1 = col.expand(shape) & _MASK32
-    c2 = torch.zeros(shape, dtype=torch.int64, device=device)
-    c3 = torch.zeros(shape, dtype=torch.int64, device=device)
-    k0 = torch.full(shape, int(seed) & _MASK32, dtype=torch.int64,
-                    device=device)
-    k1 = bh.expand(shape) & _MASK32
+    c0, c1 = row & _MASK32, col & _MASK32
+    c2 = c3 = 0
+    k0, k1 = int(seed) & _MASK32, bh & _MASK32
     for _ in range(PHILOX_ROUNDS):
         hi0, lo0 = _mulhilo(PHILOX_M0, c0)
-        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        hi1, lo1 = (_mulhilo(PHILOX_M1, c2) if isinstance(c2, torch.Tensor)
+                    else (0, 0))
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
         k0 = (k0 + PHILOX_W0) & _MASK32
         k1 = (k1 + PHILOX_W1) & _MASK32
-    return c0
+    return c0.expand(shape)
 
 
 def keep_mask(seed: int, batch: int, heads: int, sq: int, sk: int,
-              rate: float, device="cpu") -> torch.Tensor:
+              rate: float, device="cpu", *, offsets=None) -> torch.Tensor:
     """(B, H, Sq, Sk) bool: True where the attention kernels keep the
     probability of query row i for key column j, for the call seed
-    `seed`. Built one batch item at a time, so its int64 temporaries stay
-    at a few times one item's H·Sq·Sk."""
+    `seed`, with the launch at `offsets` = (b0, H, h0) (`mask_offsets`).
+    Built one batch item at a time, so its int64 temporaries stay at a few
+    times one item's H·Sq·Sk."""
     threshold = keep_threshold(rate)
+    b0, total, h0 = mask_offsets(offsets, heads)
     row = torch.arange(sq, dtype=torch.int64, device=device)[None, :, None]
     col = torch.arange(sk, dtype=torch.int64, device=device)[None, None, :]
     out = torch.empty((batch, heads, sq, sk), dtype=torch.bool,
                       device=device)
     for b in range(batch):
-        bh = (b * heads + torch.arange(heads, dtype=torch.int64,
-                                       device=device))[:, None, None]
+        bh = ((b0 + b) * total + h0 + torch.arange(
+            heads, dtype=torch.int64, device=device))[:, None, None]
         out[b] = keep_bits(seed, bh, row, col) < threshold
     return out
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            *, train: bool) -> torch.Tensor:
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("dropout_mask").arsvt_dropout_mask
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def dropout_mask(seed: int, rate: float, shape, device="cpu", *,
+                 offsets=None) -> torch.Tensor:
+    """The keep mask of a (B, H, R, C) view at `offsets` = (b0, H', h0),
+    as `keep_mask` gives it: on the card from ``csrc/dropout_mask.cu``
+    (one launch, counted), on the CPU from `keep_mask` itself."""
+    b, h, r, c = (int(n) for n in shape)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return keep_mask(seed, b, h, r, c, rate, device, offsets=offsets)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_mask runs on cpu or cuda, got {device}")
+    global LAUNCHES
+    threshold = keep_threshold(rate)
+    b0, total, h0 = mask_offsets(offsets, h)
+    out = torch.empty((b, h, r, c), dtype=torch.bool, device=device)
+    fn = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(out.data_ptr(), b, h, r, c, int(seed) & _MASK32, threshold,
+                 b0, total, h0, stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_mask kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return out
+
+
+def site_mask(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
+    """The keep mask of a residual or positional site: x (B, ..., D) viewed
+    as (B, 1, R, D), R the product of the middle dims, keyed on the global
+    batch row ``rng.row0 + b`` with counter (token, feature)."""
+    b, d = x.shape[0], x.shape[-1]
+    rows = x[0].numel() // d if x.dim() > 1 else 1
+    mask = dropout_mask(rng.seed32(), rate, (b, 1, rows, d), x.device,
+                        offsets=(rng.row0, 1, 0))
+    return mask.reshape(x.shape)
+
+
+def dropout(x: torch.Tensor, rate: float, rng, *,
+            train: bool) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), in x's dtype; the identity unless training
-    with a rate and a generator (JAX: unless training with a key)."""
-    if not train or rate == 0.0 or generator is None:
+    with a rate and an rng (JAX: unless training with a key). The mask is
+    the site mask of the rng (`site_mask`)."""
+    if not train or rate == 0.0 or rng is None:
         return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+    keep = site_mask(x, rate, rng)
+    k = 1.0 - rate
+    return torch.where(keep, x / k, torch.zeros_like(x)).to(x.dtype)

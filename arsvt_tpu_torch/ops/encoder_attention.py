@@ -27,12 +27,14 @@ in columns h*d .. h*d+d, the log-sum-exp as (B, H, 1, S) fp32, P as
 (B, H, S, S) bf16.
 
 Attention dropout (``dropout_rate`` > 0, the TPU kernels' dropout
-branches): every kernel and plain version takes ``dropout_rate`` and
-``seed`` and draws ``ops/dropout.py``'s Philox mask keyed on (seed, b·H +
-h) with counter (query row, key column), the mask of the head-major
-kernels; the Functions carry (rate, seed) from the forward to the
-backward, and the seed is the ``kp`` site's ``Rng.seed32()``, taken on the
-host. l, lse and P are the values before dropout.
+branches): every kernel and plain version takes ``dropout_rate``, ``seed``
+and ``offsets`` = (b0, H, h0) and draws ``ops/dropout.py``'s Philox mask
+keyed on (seed, (b0 + b)·H + h0 + h) with counter (query row, key
+column), the mask of the head-major kernels; the Functions carry (rate,
+seed, offsets) from the forward to the backward, the seed is the ``kp``
+site's ``Rng.seed32()``, taken on the host, and the offsets place a
+data- or tensor-parallel rank's rows and heads ((0, heads, 0) for one
+process). l, lse and P are the values before dropout.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from arsvt_tpu_torch.ops.dropout import (
     kernel_args,
     keep_mask,
     keep_threshold,
+    mask_offsets,
 )
 
 SUPPORTED_HEAD_DIM = 64
@@ -101,13 +104,14 @@ def _check(qkv: torch.Tensor, num_heads: int,
     return head_dim
 
 
-def _keep(p: torch.Tensor, dropout_rate: float, seed: int):
-    """The call's keep mask for probabilities shaped like p (B, H, S, S),
-    or None at rate 0."""
+def _keep(p: torch.Tensor, dropout_rate: float, seed: int, offsets=None):
+    """The call's keep mask for probabilities shaped like p (B, H, S, S)
+    at `offsets` = (b0, H, h0), or None at rate 0."""
     if dropout_rate == 0.0:
         return None
     b, h, sq, sk = p.shape
-    return keep_mask(seed, b, h, sq, sk, dropout_rate, p.device)
+    return keep_mask(seed, b, h, sq, sk, dropout_rate, p.device,
+                     offsets=offsets)
 
 
 def _dropped(x: torch.Tensor, keep, dropout_rate: float) -> torch.Tensor:
@@ -115,7 +119,8 @@ def _dropped(x: torch.Tensor, keep, dropout_rate: float) -> torch.Tensor:
 
 
 def encoder_attention_fwd_plain(qkv: torch.Tensor, num_heads: int,
-                                dropout_rate: float = 0.0, seed: int = 0):
+                                dropout_rate: float = 0.0, seed: int = 0,
+                                offsets=None):
     """Plain PyTorch version of the kernel, in its arithmetic order:
     fp32 scores, p = exp(s - rowmax) left unnormalised; under dropout p is
     zeroed where dropped and scaled by 1/(1 - rate) where kept; p is rounded
@@ -128,7 +133,7 @@ def encoder_attention_fwd_plain(qkv: torch.Tensor, num_heads: int,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    p_use = _dropped(p, _keep(p, dropout_rate, seed), dropout_rate)
+    p_use = _dropped(p, _keep(p, dropout_rate, seed, offsets), dropout_rate)
     o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(),
                      v.float())
     out = merge_heads((o / l).to(qkv.dtype))
@@ -141,8 +146,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("encoder_attention_fwd").arsvt_encoder_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -161,7 +166,8 @@ def _check_cuda(tensors, what: str) -> None:
 
 
 def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
-                          dropout_rate: float = 0.0, seed: int = 0):
+                          dropout_rate: float = 0.0, seed: int = 0,
+        offsets=None):
     """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64; with
     `dropout_rate` > 0 the probabilities are dropped by the mask of call
     seed `seed`.
@@ -173,7 +179,7 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
     head_dim = _check(qkv, num_heads, dropout_rate)
     if qkv.device.type == "cpu":
         return encoder_attention_fwd_plain(qkv, num_heads, dropout_rate,
-                                           seed)
+                                           seed, offsets)
     _check_cuda((qkv,), "encoder attention")
     b, s, three_d = qkv.shape
     out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
@@ -185,7 +191,7 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s,
-                 num_heads, head_dim, *args, _DTYPE_CODES[qkv.dtype], stream)
+                 num_heads, head_dim, *args, *mask_offsets(offsets, num_heads), _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"encoder_attention_fwd kernel launch failed: CUDA error {err}")
@@ -195,16 +201,18 @@ def encoder_attention_fwd(qkv: torch.Tensor, num_heads: int, *,
 
 
 @kernel_op("encoder_attention_fwd", "(Tensor qkv, int num_heads, "
-           "float dropout_rate, int seed) -> (Tensor, Tensor)")
-def encoder_attention_fwd_op(qkv, num_heads, dropout_rate, seed):
+           "float dropout_rate, int seed, int b0, int mask_heads, int h0) "
+           "-> (Tensor, Tensor)")
+def encoder_attention_fwd_op(qkv, num_heads, dropout_rate, seed, b0,
+                             mask_heads, h0):
     """`encoder_attention_fwd` as the custom op ``arsvt::encoder_attention_
     fwd`` (``ops/library.py``): what the model code calls."""
     return encoder_attention_fwd(qkv, num_heads, dropout_rate=dropout_rate,
-                                 seed=seed)
+                                 seed=seed, offsets=(b0, mask_heads, h0))
 
 
 @encoder_attention_fwd_op.register_fake
-def _(qkv, num_heads, dropout_rate, seed):
+def _(qkv, num_heads, dropout_rate, seed, b0, mask_heads, h0):
     b, s, three_d = qkv.shape
     return (qkv.new_empty((b, s, three_d // 3)),
             qkv.new_empty((b, num_heads, 1, s), dtype=torch.float32))
@@ -217,7 +225,8 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads: int,
-                                dropout_rate: float = 0.0, seed: int = 0):
+                                dropout_rate: float = 0.0, seed: int = 0,
+                                offsets=None):
     """Plain PyTorch version of the backward kernel, at its rounding
     points: p = exp(s - lse) from fp32 scores, delta = rowsum(O * dO) and
     dP = dO v^T in fp32; under dropout dP and p_v = p are zeroed where
@@ -231,7 +240,7 @@ def encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads: int,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - lse.transpose(-1, -2))
     delta = (o.float() * do.float()).sum(dim=-1, keepdim=True)
-    keep = _keep(p, dropout_rate, seed)
+    keep = _keep(p, dropout_rate, seed, offsets)
     dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
                   keep, dropout_rate)
     ds = p * (dp - delta)
@@ -250,15 +259,16 @@ def _bwd_kernel():
     if _bwd_fn is None:
         fn = build.load("encoder_attention_bwd").arsvt_encoder_attention_bwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
 
 def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int, *,
-                          dropout_rate: float = 0.0, seed: int = 0):
+                          dropout_rate: float = 0.0, seed: int = 0,
+        offsets=None):
     """Backward of `encoder_attention_fwd`: qkv (B, S, 3D); out and dout
     (B, S, D) in qkv's dtype; lse (B, H, 1, S) fp32 from the forward;
     `dropout_rate` and `seed` as the forward's.
@@ -279,7 +289,7 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int, *,
     tensors = (qkv, out, dout, lse)
     if all(t.device.type == "cpu" for t in tensors):
         return encoder_attention_bwd_plain(qkv, out, dout, lse, num_heads,
-                                           dropout_rate, seed)
+                                           dropout_rate, seed, offsets)
     _check_cuda(tensors, "encoder attention backward")
     dq, dk, dv = (torch.empty_like(out) for _ in range(3))
     delta = torch.empty((b, num_heads, s), dtype=torch.float32,
@@ -291,7 +301,7 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int, *,
         err = fn(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), b, s, num_heads, head_dim,
-                 *args, _DTYPE_CODES[qkv.dtype], stream)
+                 *args, *mask_offsets(offsets, num_heads), _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"encoder_attention_bwd kernel launch failed: CUDA error {err}")
@@ -302,7 +312,7 @@ def encoder_attention_bwd(qkv, out, dout, lse, num_heads: int, *,
 
 def encoder_attention_fwd_savep_plain(qkv: torch.Tensor, num_heads: int,
                                       dropout_rate: float = 0.0,
-                                      seed: int = 0):
+                                      seed: int = 0, offsets=None):
     """Plain PyTorch version of the save-probs forward kernel, at its
     rounding points: fp32 scores, p = exp(s - rowmax), l = rowsum(p), the
     normalised p / l stored as bf16 P; then, under dropout, zeroed where
@@ -314,7 +324,7 @@ def encoder_attention_fwd_savep_plain(qkv: torch.Tensor, num_heads: int,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
-    p_use = _dropped(p, _keep(p, dropout_rate, seed), dropout_rate)
+    p_use = _dropped(p, _keep(p, dropout_rate, seed, offsets), dropout_rate)
     o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(),
                      v.float())
     return merge_heads(o.to(qkv.dtype)), p.to(torch.bfloat16)
@@ -326,15 +336,16 @@ def _savep_kernel():
         fn = build.load(
             "encoder_attention_savep_fwd").arsvt_encoder_attention_savep_fwd
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _savep_fn = fn
     return _savep_fn
 
 
 def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int, *,
-                                dropout_rate: float = 0.0, seed: int = 0):
+                                dropout_rate: float = 0.0, seed: int = 0,
+        offsets=None):
     """qkv: (B, S, 3D) float32 or bfloat16 with head_dim 64; with
     `dropout_rate` > 0 the probabilities that multiply v are dropped by the
     mask of call seed `seed`.
@@ -347,7 +358,7 @@ def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int, *,
     head_dim = _check(qkv, num_heads, dropout_rate)
     if qkv.device.type == "cpu":
         return encoder_attention_fwd_savep_plain(qkv, num_heads,
-                                                 dropout_rate, seed)
+                                                 dropout_rate, seed, offsets)
     _check_cuda((qkv,), "save-probs attention")
     b, s, three_d = qkv.shape
     out = torch.empty((b, s, three_d // 3), dtype=qkv.dtype,
@@ -359,7 +370,7 @@ def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int, *,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), probs.data_ptr(), b, s,
-                 num_heads, head_dim, *args, _DTYPE_CODES[qkv.dtype], stream)
+                 num_heads, head_dim, *args, *mask_offsets(offsets, num_heads), _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(f"encoder_attention_fwd_savep kernel launch "
                            f"failed: CUDA error {err}")
@@ -370,7 +381,7 @@ def encoder_attention_fwd_savep(qkv: torch.Tensor, num_heads: int, *,
 
 def encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads: int,
                                       dropout_rate: float = 0.0,
-                                      seed: int = 0):
+                                      seed: int = 0, offsets=None):
     """Plain PyTorch version of the save-probs backward kernel, at its
     rounding points: p = P in fp32, dP = dO v^T in fp32; under dropout dP
     and p_v = p are zeroed where dropped and scaled by 1/(1 - rate) where
@@ -382,7 +393,7 @@ def encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads: int,
     do = _heads(dout, num_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = probs.float()
-    keep = _keep(p, dropout_rate, seed)
+    keep = _keep(p, dropout_rate, seed, offsets)
     dp = _dropped(torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float()),
                   keep, dropout_rate)
     delta = (dp * p).sum(dim=-1, keepdim=True)
@@ -403,15 +414,16 @@ def _savep_bwd_kernel():
         fn = build.load(
             "encoder_attention_savep_bwd").arsvt_encoder_attention_savep_bwd
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float] + [
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _savep_bwd_fn = fn
     return _savep_bwd_fn
 
 
 def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int, *,
-                                dropout_rate: float = 0.0, seed: int = 0):
+                                dropout_rate: float = 0.0, seed: int = 0,
+        offsets=None):
     """Backward of `encoder_attention_fwd_savep`: qkv (B, S, 3D); P
     (B, H, S, S) bf16 from the forward; dout (B, S, D) in qkv's dtype;
     `dropout_rate` and `seed` as the forward's.
@@ -430,7 +442,7 @@ def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int, *,
     tensors = (qkv, probs, dout)
     if all(t.device.type == "cpu" for t in tensors):
         return encoder_attention_bwd_savep_plain(qkv, probs, dout, num_heads,
-                                                 dropout_rate, seed)
+                                                 dropout_rate, seed, offsets)
     _check_cuda(tensors, "save-probs attention backward")
     dq, dk, dv = (torch.empty_like(dout) for _ in range(3))
     delta = torch.empty((b, num_heads, s), dtype=torch.float32,
@@ -442,7 +454,7 @@ def encoder_attention_bwd_savep(qkv, probs, dout, num_heads: int, *,
         err = fn(qkv.data_ptr(), probs.data_ptr(), dout.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), b, s, num_heads, head_dim, *args,
-                 _DTYPE_CODES[qkv.dtype], stream)
+                 *mask_offsets(offsets, num_heads), _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(f"encoder_attention_bwd_savep kernel launch "
                            f"failed: CUDA error {err}")
@@ -458,24 +470,35 @@ class _FusedEncoderAttention(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed):
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed,
+                offsets):
         qkv = torch.matmul(y, wqkv) + bqkv
-        attn, lse = encoder_attention_fwd_op(qkv, num_heads, rate, seed)
-        out = torch.matmul(attn, wproj) + bproj
+        attn, lse = encoder_attention_fwd_op(qkv, num_heads, rate, seed,
+                                             *offsets)
+        out = _project(attn, wproj, bproj)
         ctx.save_for_backward(y, qkv, attn, lse, wqkv, wproj)
-        ctx.args = (num_heads, rate, seed)
-        ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
+        ctx.args = (num_heads, rate, seed, offsets)
+        ctx.bias_dtypes = (bqkv.dtype,
+                           None if bproj is None else bproj.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, qkv, attn, lse, wqkv, wproj = ctx.saved_tensors
-        num_heads, rate, seed = ctx.args
+        num_heads, rate, seed, offsets = ctx.args
         return _encoder_attention_grads(
             ctx, g, y, attn, wqkv, wproj,
             lambda dattn: encoder_attention_bwd(qkv, attn, dattn, lse,
                                                 num_heads, dropout_rate=rate,
-                                                seed=seed))
+                                                seed=seed, offsets=offsets))
+
+
+def _project(attn, wproj, bproj):
+    """The output projection; a tensor-parallel rank passes no bias
+    (bproj None) and adds it once after the all-reduce of its partial
+    sums."""
+    out = torch.matmul(attn, wproj)
+    return out if bproj is None else out + bproj
 
 
 def _encoder_attention_grads(ctx, g, y, attn, wqkv, wproj, core_bwd):
@@ -483,22 +506,26 @@ def _encoder_attention_grads(ctx, g, y, attn, wqkv, wproj, core_bwd):
     attention core (`core_bwd`, dattn -> dq, dk, dv), then the qkv
     projection."""
     b, s, d = y.shape
-    g2, a2 = g.reshape(b * s, d), attn.reshape(b * s, d)
+    # a tensor-parallel rank holds a = H_r·64 of the attention's columns
+    a = attn.shape[-1]
+    g2, a2 = g.reshape(b * s, d), attn.reshape(b * s, a)
     dwproj = a2.T @ g2
     dbproj = g2.sum(dim=0)
-    dattn = (g2 @ wproj.T).reshape(b, s, d)
+    dattn = (g2 @ wproj.T).reshape(b, s, a)
     # the qkv projection per column slice of the packed weight: no
     # (B, S, 3D) cotangent is ever formed
-    slices = [t.reshape(b * s, d) for t in core_bwd(
+    slices = [t.reshape(b * s, a) for t in core_bwd(
         dattn.to(attn.dtype).contiguous())]
-    weights = (wqkv[:, :d], wqkv[:, d:2 * d], wqkv[:, 2 * d:])
+    weights = (wqkv[:, :a], wqkv[:, a:2 * a], wqkv[:, 2 * a:])
     dy = sum(t @ w.T for t, w in zip(slices, weights)).reshape(b, s, d)
     y2 = y.reshape(b * s, d)
     dwqkv = torch.cat([y2.T @ t for t in slices], dim=1)
     dbqkv = torch.cat([t.sum(dim=0) for t in slices])
     dt_bqkv, dt_bproj = ctx.bias_dtypes
     return (dy.to(y.dtype), dwqkv.to(wqkv.dtype), dbqkv.to(dt_bqkv),
-            dwproj.to(wproj.dtype), dbproj.to(dt_bproj), None, None, None)
+            dwproj.to(wproj.dtype),
+            None if dt_bproj is None else dbproj.to(dt_bproj), None, None,
+            None, None)
 
 
 class _FusedEncoderAttentionSaveP(torch.autograd.Function):
@@ -508,30 +535,36 @@ class _FusedEncoderAttentionSaveP(torch.autograd.Function):
     weights, no lse; (rate, seed) ride from the forward to the backward."""
 
     @staticmethod
-    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed):
+    def forward(ctx, y, wqkv, bqkv, wproj, bproj, num_heads, rate, seed,
+                offsets):
         qkv = torch.matmul(y, wqkv) + bqkv
         attn, probs = encoder_attention_fwd_savep(
-            qkv, num_heads, dropout_rate=rate, seed=seed)
-        out = torch.matmul(attn, wproj) + bproj
+            qkv, num_heads, dropout_rate=rate, seed=seed, offsets=offsets)
+        out = _project(attn, wproj, bproj)
         ctx.save_for_backward(y, qkv, attn, probs, wqkv, wproj)
-        ctx.args = (num_heads, rate, seed)
-        ctx.bias_dtypes = (bqkv.dtype, bproj.dtype)
+        ctx.args = (num_heads, rate, seed, offsets)
+        ctx.bias_dtypes = (bqkv.dtype,
+                           None if bproj is None else bproj.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, qkv, attn, probs, wqkv, wproj = ctx.saved_tensors
-        num_heads, rate, seed = ctx.args
+        num_heads, rate, seed, offsets = ctx.args
         return _encoder_attention_grads(
             ctx, g, y, attn, wqkv, wproj,
             lambda dattn: encoder_attention_bwd_savep(
-                qkv, probs, dattn, num_heads, dropout_rate=rate, seed=seed))
+                qkv, probs, dattn, num_heads, dropout_rate=rate, seed=seed,
+                offsets=offsets))
 
 
 def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int, *,
-                            dropout_rate: float = 0.0, dropout_rng=None):
+                            dropout_rate: float = 0.0, dropout_rng=None,
+                            head_range=None):
     """out_proj(attention(qkv_proj(y))): y (B, S, D); wqkv (D, 3D), bqkv
-    (3D,), wproj (D, D), bproj (D,), all in the compute dtype. Returns
+    (3D,), wproj (D, D), bproj (D,) or None (a tensor-parallel rank's
+    partial sums, biased after the all-reduce), all in the compute dtype;
+    `head_range` = (h0, H) places a rank's heads in the mask. Returns
     (B, S, D). `dropout_rng` (a ``core/prng.py::Rng``) with `dropout_rate`
     > 0 drops attention probabilities in the kernels, from its seed.
 
@@ -540,19 +573,21 @@ def fused_encoder_attention(y, wqkv, bqkv, wproj, bproj, num_heads: int, *,
     (serving) it builds no graph and runs the forward alone. One attention
     path thus serves and trains.
     """
-    rate, seed = call_dropout(dropout_rate, dropout_rng)
+    rate, seed, offsets = call_dropout(dropout_rate, dropout_rng, num_heads,
+                                       head_range)
     return _FusedEncoderAttention.apply(y, wqkv, bqkv, wproj, bproj,
-                                        num_heads, rate, seed)
+                                        num_heads, rate, seed, offsets)
 
 
 def fused_encoder_attention_savep(y, wqkv, bqkv, wproj, bproj,
                                   num_heads: int, *,
                                   dropout_rate: float = 0.0,
-                                  dropout_rng=None):
+                                  dropout_rng=None, head_range=None):
     """`fused_encoder_attention` with the save-probs backward: saves P
     (B, H, S, S) bf16 in place of the lse, so the backward kernel skips
     the q k^T recompute, the exp and the O operand. Same arguments and
     result."""
-    rate, seed = call_dropout(dropout_rate, dropout_rng)
+    rate, seed, offsets = call_dropout(dropout_rate, dropout_rng, num_heads,
+                                       head_range)
     return _FusedEncoderAttentionSaveP.apply(y, wqkv, bqkv, wproj, bproj,
-                                             num_heads, rate, seed)
+                                             num_heads, rate, seed, offsets)

@@ -19,10 +19,12 @@ and ``_bwd_call`` → ``_bwd_kernel`` with their custom VJPs).
   `_packed_bwd_impl`).
 
 Dropout (rate > 0 with an `Rng`): the mask is ``ops/dropout.py``'s Philox
-keyed on (call seed, b·H + h) with counter (row, col), so the forward, the
-backward and the plain versions draw the same one; the call seed is the
-rng's `seed32`, taken on the host. l and lse are the values before
-dropout.
+keyed on (call seed, (b0 + b)·H + h0 + h) with counter (row, col), so the
+forward, the backward and the plain versions draw the same one; the call
+seed is the rng's `seed32`, taken on the host, and `offsets` = (b0, H, h0)
+place the call's rows and heads in the global batch and head set (the
+rng's `row0`, a tensor-parallel rank's `head_range`; (0, heads, 0) by
+default). l and lse are the values before dropout.
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 on a CPU tensor it runs its ``*_plain`` version, which repeats the
@@ -39,7 +41,6 @@ import torch
 
 from arsvt_tpu_torch.ops import build
 from arsvt_tpu_torch.ops.attention import (
-    dropout_generator,
     merge_heads,
     sdpa_reference,
     split_heads,
@@ -50,6 +51,7 @@ from arsvt_tpu_torch.ops.dropout import (
     kernel_args,
     keep_mask,
     keep_threshold,
+    mask_offsets,
 )
 from arsvt_tpu_torch.ops.library import kernel_op
 
@@ -108,7 +110,8 @@ def _scores(q, k, kv_len):
 
 
 def flash_attention_fwd_plain(q, k, v, kv_len: int,
-                              dropout_rate: float = 0.0, seed: int = 0):
+                              dropout_rate: float = 0.0, seed: int = 0,
+                              offsets=None):
     """Plain PyTorch version of the kernel, in its arithmetic order: fp32
     scores times scale, key columns at or past `kv_len` set to MASK_VALUE,
     p = exp(s - rowmax) left unnormalised; under dropout p is zeroed where
@@ -124,7 +127,8 @@ def flash_attention_fwd_plain(q, k, v, kv_len: int,
     if dropout_rate > 0.0:
         b, h, sq, sk = p.shape
         p_use = apply_mask(p, keep_mask(seed, b, h, sq, sk, dropout_rate,
-                                        p.device), dropout_rate)
+                                        p.device, offsets=offsets),
+                           dropout_rate)
     o = torch.einsum("bhqk,bhkd->bhqd", p_use.to(v.dtype).float(), v.float())
     lse = (m + torch.log(l)).transpose(-1, -2)  # (B, H, 1, Sq)
     return (o / l).to(q.dtype), lse.contiguous()
@@ -136,7 +140,7 @@ def _kernel():
         fn = build.load("flash_attention_fwd").arsvt_flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -157,7 +161,8 @@ def _on_card(tensors, what):
 
 
 def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
-                        dropout_rate: float = 0.0, seed: int = 0):
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        offsets=None):
     """q (B, H, Sq, d), k and v (B, H, Sk, d), float32 or bfloat16, head_dim
     d >= 1 (past 128 the kernels split the output columns, any d runs);
     keys at or past `kv_len` (default Sk) are masked; with
@@ -165,7 +170,8 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
     seed `seed`.
 
     Returns (O (B, H, Sq, d) in q's dtype, lse (B, H, 1, Sq) fp32, taken
-    before dropout). On the card the operands must be contiguous; the
+    before dropout); `offsets` = (b0, H, h0) place the mask (module
+    docstring). On the card the operands must be contiguous; the
     kernel stages rows by 16-byte copies where they are 16-byte aligned and
     element by element elsewhere, so any tensor's own alignment is enough.
     """
@@ -179,7 +185,8 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
             "flash_self_attention_packed, whose backward runs "
             "flash_attention_bwd")
     if not _on_card((q, k, v), "attention"):
-        return flash_attention_fwd_plain(q, k, v, kv_len, dropout_rate, seed)
+        return flash_attention_fwd_plain(q, k, v, kv_len, dropout_rate, seed,
+                                         offsets)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     out = torch.empty_like(q)
@@ -190,7 +197,7 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, h, sq, sk, kv_len, d,
                  1.0 / math.sqrt(d), *kernel_args(dropout_rate, seed),
-                 _DTYPE_CODES[q.dtype], stream)
+                 *mask_offsets(offsets, h), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention_fwd kernel launch failed: CUDA error {err}")
@@ -200,23 +207,27 @@ def flash_attention_fwd(q, k, v, *, kv_len: int | None = None,
 
 
 @kernel_op("flash_attention_fwd", "(Tensor q, Tensor k, Tensor v, "
-           "int kv_len, float dropout_rate, int seed) -> (Tensor, Tensor)")
-def flash_attention_fwd_op(q, k, v, kv_len, dropout_rate, seed):
+           "int kv_len, float dropout_rate, int seed, int b0, "
+           "int mask_heads, int h0) -> (Tensor, Tensor)")
+def flash_attention_fwd_op(q, k, v, kv_len, dropout_rate, seed, b0,
+                           mask_heads, h0):
     """`flash_attention_fwd` as the custom op ``arsvt::flash_attention_fwd``
     (``ops/library.py``): what the model code calls."""
     return flash_attention_fwd(q, k, v, kv_len=kv_len,
-                               dropout_rate=dropout_rate, seed=seed)
+                               dropout_rate=dropout_rate, seed=seed,
+                               offsets=(b0, mask_heads, h0))
 
 
 @flash_attention_fwd_op.register_fake
-def _(q, k, v, kv_len, dropout_rate, seed):
+def _(q, k, v, kv_len, dropout_rate, seed, b0, mask_heads, h0):
     b, h, sq, _ = q.shape
     return (torch.empty_like(q),
             q.new_empty((b, h, 1, sq), dtype=torch.float32))
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, kv_len: int,
-                              dropout_rate: float = 0.0, seed: int = 0):
+                              dropout_rate: float = 0.0, seed: int = 0,
+                              offsets=None):
     """Plain PyTorch version of the backward kernel, at its rounding
     points: p = exp(s - lse) from fp32 scores (keys at or past `kv_len` at
     MASK_VALUE), delta = rowsum(O * dO) and dP = dO v^T in fp32; under
@@ -231,7 +242,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, kv_len: int,
     p_v = p
     if dropout_rate > 0.0:
         b, h, sq, sk = p.shape
-        keep = keep_mask(seed, b, h, sq, sk, dropout_rate, p.device)
+        keep = keep_mask(seed, b, h, sq, sk, dropout_rate, p.device,
+                         offsets=offsets)
         dp = apply_mask(dp, keep, dropout_rate)
         p_v = apply_mask(p, keep, dropout_rate)
     ds = p * (dp - delta)
@@ -250,17 +262,19 @@ def _bwd_kernel():
         fn = build.load("flash_attention_bwd").arsvt_flash_attention_bwd
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
-                        dropout_rate: float = 0.0, seed: int = 0):
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        offsets=None):
     """Backward of `flash_attention_fwd`: q, O and dO (B, H, Sq, d), k and
     v (B, H, Sk, d), all of one dtype; lse (B, H, 1, Sq) fp32 from the
-    forward; `kv_len`, `dropout_rate` and `seed` as the forward's.
+    forward; `kv_len`, `dropout_rate`, `seed` and `offsets` as the
+    forward's.
 
     Returns (dq, dk, dv) shaped and typed like q, k and v.
     """
@@ -277,7 +291,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not _on_card((q, k, v, o, do, lse), "attention backward"):
         return flash_attention_bwd_plain(q, k, v, o, do, lse, kv_len,
-                                         dropout_rate, seed)
+                                         dropout_rate, seed, offsets)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
@@ -287,8 +301,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, kv_len: int | None = None,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk,
                  kv_len, d, 1.0 / math.sqrt(d),
-                 *kernel_args(dropout_rate, seed), _DTYPE_CODES[q.dtype],
-                 stream)
+                 *kernel_args(dropout_rate, seed), *mask_offsets(offsets, h),
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed: CUDA error {err}")
@@ -302,37 +316,39 @@ class _FlashAttention(torch.autograd.Function):
     the backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rate, seed):
-        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed)
+    def forward(ctx, q, k, v, rate, seed, offsets):
+        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed,
+                                          *offsets)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.dropout = (rate, seed)
+        ctx.dropout = (rate, seed, offsets)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        rate, seed = ctx.dropout
+        rate, seed, offsets = ctx.dropout
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, g.to(out.dtype).contiguous(), lse,
-            dropout_rate=rate, seed=seed)
-        return dq, dk, dv, None, None
+            dropout_rate=rate, seed=seed, offsets=offsets)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, mask=None, dropout_rate: float = 0.0,
-                    dropout_rng=None):
+                    dropout_rng=None, head_range=None):
     """Attention of q (B, H, Sq, d) over k/v (B, H, Sk, d) -> (B, H, Sq, d),
     as ``flash_attention.py::flash_attention``: through the kernels over
     every key, or through `sdpa_reference` where a `mask` (True = attend)
     is given. `dropout_rng` (a ``core/prng.py::Rng``) with `dropout_rate` >
-    0 drops probabilities, in-kernel from its seed, or in the reference
-    from its generator."""
+    0 drops probabilities by the mask of its seed, in-kernel or in the
+    reference; `head_range` = (h0, H) places a tensor-parallel rank's
+    heads."""
     if mask is not None:
-        return sdpa_reference(
-            q, k, v, mask=mask, dropout_rate=dropout_rate,
-            generator=dropout_generator(dropout_rate, dropout_rng, q.device))
-    rate, seed = call_dropout(dropout_rate, dropout_rng)
+        return sdpa_reference(q, k, v, mask=mask, dropout_rate=dropout_rate,
+                              dropout_rng=dropout_rng, head_range=head_range)
+    rate, seed, offsets = call_dropout(dropout_rate, dropout_rng, q.shape[1],
+                                       head_range)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), rate, seed)
+                                 v.contiguous(), rate, seed, offsets)
 
 
 def _split_contiguous(qkv_flat, num_heads):
@@ -344,34 +360,38 @@ class _FlashPacked(torch.autograd.Function):
     O, lse); the backward re-derives the (B, H, S, d) q, k and v."""
 
     @staticmethod
-    def forward(ctx, qkv_flat, num_heads, rate, seed):
+    def forward(ctx, qkv_flat, num_heads, rate, seed, offsets):
         q, k, v = _split_contiguous(qkv_flat, num_heads)
-        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed)
+        out, lse = flash_attention_fwd_op(q, k, v, k.shape[2], rate, seed,
+                                          *offsets)
         ctx.save_for_backward(qkv_flat, out, lse)
-        ctx.args = (num_heads, rate, seed)
+        ctx.args = (num_heads, rate, seed, offsets)
         return merge_heads(out)
 
     @staticmethod
     def backward(ctx, g):
         qkv_flat, out, lse = ctx.saved_tensors
-        num_heads, rate, seed = ctx.args
+        num_heads, rate, seed, offsets = ctx.args
         b, s, three_d = qkv_flat.shape
         hd = three_d // 3 // num_heads
         q, k, v = _split_contiguous(qkv_flat, num_heads)
         do = g.reshape(b, s, num_heads, hd).permute(0, 2, 1, 3)
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, do.to(out.dtype).contiguous(), lse,
-            dropout_rate=rate, seed=seed)
+            dropout_rate=rate, seed=seed, offsets=offsets)
         dqkv = torch.stack([dq, dk, dv])  # (3, B, H, S, hd)
         dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_d)
-        return dqkv.to(qkv_flat.dtype), None, None, None
+        return dqkv.to(qkv_flat.dtype), None, None, None, None
 
 
 def flash_self_attention_packed(qkv_flat, num_heads: int, *,
-                                dropout_rate: float = 0.0, dropout_rng=None):
+                                dropout_rate: float = 0.0, dropout_rng=None,
+                                head_range=None):
     """(B, S, 3D) fused-QKV projection output -> (B, S, D) attention out,
     as ``flash_attention.py::flash_self_attention_packed``: the heads are
     split into contiguous (B, H, S, d) tensors for the kernels and merged
-    back; the backward re-splits them from the saved qkv_flat."""
-    rate, seed = call_dropout(dropout_rate, dropout_rng)
-    return _FlashPacked.apply(qkv_flat, num_heads, rate, seed)
+    back; the backward re-splits them from the saved qkv_flat;
+    `head_range` as `flash_attention`'s."""
+    rate, seed, offsets = call_dropout(dropout_rate, dropout_rng, num_heads,
+                                       head_range)
+    return _FlashPacked.apply(qkv_flat, num_heads, rate, seed, offsets)

@@ -3,11 +3,15 @@
 
 The backward saves x in its own dtype plus fp32 (mean, rstd) and uses the
 closed form dx = rstd * (g*γ - mean(g*γ) - x̂ * mean(g*γ*x̂)).
+``ARSVT_DISABLE_LN_VJP`` (``ops/dispatch.py``) runs plain autograd over the
+same forward math instead, as JAX's switch runs XLA's autodiff.
 """
 
 from __future__ import annotations
 
 import torch
+
+from arsvt_tpu_torch.ops.dispatch import use_ln_vjp
 
 
 def _ln_fwd_math(x, scale, bias, eps):
@@ -45,4 +49,6 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                *, eps: float = 1e-5) -> torch.Tensor:
     """Biased variance and ``rsqrt(var + eps)`` in fp32, output cast back
     to x's dtype. Callers pass the config's ``ln_eps``."""
-    return _LayerNorm.apply(x, scale, bias, eps)
+    if use_ln_vjp():
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _ln_fwd_math(x, scale, bias, eps)[0]

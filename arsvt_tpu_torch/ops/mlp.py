@@ -49,7 +49,7 @@ def _tail(u, w2, b2):
     h = gelu_tanh(u)
     with checkpoint_name("mlp_fc2"):
         out = torch.matmul(h, w2.to(u.dtype))
-    return out + b2.to(u.dtype)
+    return out if b2 is None else out + b2.to(u.dtype)
 
 
 def gelu_mlp(x, w1, b1, w2, b2, *, remat_tail: bool = False) -> torch.Tensor:
@@ -60,9 +60,12 @@ def gelu_mlp(x, w1, b1, w2, b2, *, remat_tail: bool = False) -> torch.Tensor:
     end (`fused_gelu_mlp`). `remat_tail` checkpoints GELU → fc2 (u is
     saved, gelu(u) replays in the backward) and, as in JAX, wins over
     ``ARSVT_ENABLE_FUSED_MLP``: the fused kernel keeps a residual plan of
-    its own.
+    its own. `b2` None leaves fc2 unbiased: a tensor-parallel rank's
+    partial sums, biased after their all-reduce.
     """
     if not remat_tail and use_fused_mlp():
+        if b2 is None:  # the kernel adds a bias: a zero one adds nothing
+            b2 = w2.new_zeros(w2.shape[1])
         return fused_gelu_mlp(x, w1, b1, w2, b2)
     with checkpoint_name("mlp_u"):
         u = torch.matmul(x, w1.to(x.dtype))

@@ -5,6 +5,13 @@ Microbatch `a` is rows ``a::k`` of the batch (JAX reshapes (B, ...) to
 (B/k, k, ...) and takes column a). The per-microbatch losses, aux values
 and gradients are summed and divided by k, which equals the full-batch
 mean for equal-size microbatches.
+
+Under a data mesh the batch is the rank's contiguous slice of the global
+batch, and its microbatch `a` is that slice's rows ``a::k``: JAX's layout
+under a data mesh (``arsvt_tpu/train/accum.py:11-15``), where the reshape
+is local to each device. Global microbatch `a` (global rows ``a::k``) is
+then the ranks' microbatches `a` in rank order, rank r holding its rows
+[r·m, (r+1)·m), m = B/(n·k) for n data ranks.
 """
 
 from __future__ import annotations

@@ -16,6 +16,14 @@ As in JAX, `restore` refuses a checkpoint whose model config differs
 keeps the latest `keep` steps plus the single best one by `best_metric`
 (a step saved without metrics is kept only as one of the latest). Saves
 are synchronous: `wait` has nothing to wait for.
+
+Under a mesh (a `layout`, ``parallel/sharding.py::TreeLayout``) every rank
+gathers the parameters and Adam moments into the full JAX-layout tree and
+the first rank alone writes it, in the same format; a restore loads the
+full tree on every rank and cuts its shards from it. So a checkpoint
+restores on any world size and grid, as JAX's (``parallel/sharding.py:
+137-150``, ``train/checkpoint.py:129, 201``), and a resumed run on
+another grid continues the same run.
 """
 
 from __future__ import annotations
@@ -91,10 +99,12 @@ def _onto(like, saved, path: str = ""):
 
 class CheckpointManager:
     def __init__(self, directory: str, cfg: TrainConfig, *, keep: int = 3,
-                 best_metric: str | None = None, best_mode: str = "min"):
+                 best_metric: str | None = None, best_mode: str = "min",
+                 layout=None):
         """`best_metric`: metric key (from the metrics dict passed to
         `save`) that selects the best checkpoint, which garbage collection
-        keeps beside the latest `keep`."""
+        keeps beside the latest `keep`. `layout`: the mesh's
+        ``TreeLayout`` (module docstring), None for one process."""
         if best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got "
                              f"{best_mode!r}")
@@ -104,6 +114,8 @@ class CheckpointManager:
         self._keep = keep
         self._best_metric = best_metric
         self._best_mode = best_mode
+        self._layout = layout
+        self._writes = layout is None or layout.writes
         # step -> metrics of the checkpoints on disk (None: saved without)
         self._metrics = {s: _load(self._dir, s)["metrics"]
                          for s in _steps(self._dir)}
@@ -114,19 +126,26 @@ class CheckpointManager:
         """Write `state` ({"params", "opt_state", "step"}) as checkpoint
         `step`. `extra`: small host-side state saved alongside, e.g. the
         plateau controller's counters."""
+        params, opt_state = state["params"], state["opt_state"]
+        if self._layout is not None:
+            params = self._layout.gather(params)
+            opt_state = {**opt_state,
+                         "mu": self._layout.gather(opt_state["mu"]),
+                         "nu": self._layout.gather(opt_state["nu"])}
         blob = {
-            "params": tree_map(_host, state["params"]),
-            "opt_state": tree_map(_host, state["opt_state"]),
+            "params": tree_map(_host, params),
+            "opt_state": tree_map(_host, opt_state),
             "step": int(state["step"]),
             "train_config": self._cfg.to_json(),
             "metrics": (None if metrics is None
                         else {k: float(v) for k, v in metrics.items()}),
             "extra": extra or {},
         }
-        final = _path(self._dir, step)
-        tmp = f"{final}.{os.getpid()}.tmp"
-        torch.save(blob, tmp)
-        os.replace(tmp, final)
+        if self._writes:
+            final = _path(self._dir, step)
+            tmp = f"{final}.{os.getpid()}.tmp"
+            torch.save(blob, tmp)
+            os.replace(tmp, final)
         self._metrics[step] = blob["metrics"]
         self._collect()
 
@@ -139,7 +158,8 @@ class CheckpointManager:
             kept.add(best)
         for s in steps:
             if s not in kept:
-                os.remove(_path(self._dir, s))
+                if self._writes:
+                    os.remove(_path(self._dir, s))
                 del self._metrics[s]
 
     def wait(self):
@@ -176,9 +196,14 @@ class CheckpointManager:
                 raise ValueError(
                     "checkpoint was trained with a different model config "
                     f"({mismatches}); pass strict_config=False to override")
-        state = {"params": _onto(state_like["params"], blob["params"]),
-                 "opt_state": _onto(state_like["opt_state"],
-                                    blob["opt_state"]),
+        params, opt_state = blob["params"], blob["opt_state"]
+        if self._layout is not None:
+            params = self._layout.shard(params)
+            opt_state = {**opt_state,
+                         "mu": self._layout.shard(opt_state["mu"]),
+                         "nu": self._layout.shard(opt_state["nu"])}
+        state = {"params": _onto(state_like["params"], params),
+                 "opt_state": _onto(state_like["opt_state"], opt_state),
                  "step": blob["step"]}
         return state, saved_cfg
 

@@ -10,7 +10,15 @@ card; ``ARSVT_PLATFORM=cpu`` selects the CPU. Data comes from
 `--data-dir` (a COCO root with train/ and valid/ splits, or a TrashNet
 folder-per-class tree, split or unsplit) through ``data/pipeline.py``, or
 without one from the synthetic classification set; detection needs a
-`--data-dir`. ``ARSVT_MULTIHOST`` raises (ROADMAP Queue A item 11).
+`--data-dir`.
+
+Multi-process (JAX ``train/cli.py:85-99, 148, 191-205``): with
+``ARSVT_MULTIHOST=1``, every process runs the same command line with
+``ARSVT_COORDINATOR_ADDRESS`` (host:port of rank 0),
+``ARSVT_NUM_PROCESSES`` and its own ``ARSVT_PROCESS_ID``, one a card
+(NCCL; gloo under ``ARSVT_PLATFORM=cpu``); ``--mesh-data`` /
+``--mesh-model`` lay the ranks out. Each data rank reads its own shard of
+the data at ``batch_size // data`` rows.
 """
 
 from __future__ import annotations
@@ -76,15 +84,28 @@ def config_from_args(args) -> TrainConfig:
     return cfg.with_overrides(**overrides)
 
 
-def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
-    """Returns (train_batches, eval_batches_fn) on one process.
+def make_data(cfg: TrainConfig, *, skip_batches: int = 0, mesh=None):
+    """Returns (train_batches, eval_batches_fn): the whole batch in one
+    process, this data rank's shard of `mesh` in several.
 
     `skip_batches`: fast-forward the train stream past the batches an
     interrupted run already consumed (one a step), so a resumed run sees
     the data an uninterrupted one would (skipping is index-level: nothing
     is decoded)."""
+    from arsvt_tpu_torch.parallel.multihost import (
+        data_shard,
+        local_batch,
+        process_count,
+    )
     from arsvt_tpu_torch.train.config import input_canvas
 
+    pidx, pcount = (data_shard(mesh) if mesh is not None
+                    and process_count() > 1 else (0, 1))
+    try:
+        local_bs = (local_batch(cfg.batch_size, mesh) if pcount > 1
+                    else cfg.batch_size)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if not cfg.data_dir:
         if cfg.task == "detect":
             raise SystemExit("--data-dir required for detection training")
@@ -94,7 +115,7 @@ def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
 
         size = input_canvas(cfg)
         train = synthetic_classification_batches(
-            batch_size=cfg.batch_size, image_size=size, seed=cfg.seed)
+            batch_size=local_bs, image_size=size, seed=cfg.seed + pidx)
         if skip_batches:
             # synthetic draws are cheap; replaying the stream keeps the
             # resumed data order identical to the uninterrupted run
@@ -103,7 +124,7 @@ def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
         def eval_batches():
             return itertools.islice(
                 synthetic_classification_batches(
-                    batch_size=cfg.batch_size, image_size=size, seed=9999),
+                    batch_size=local_bs, image_size=size, seed=9999 + pidx),
                 8,
             )
 
@@ -134,33 +155,34 @@ def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
             f"num_classes would silently contribute zero CE gradient)"
         )
     canvas = input_canvas(cfg)
+    host_shard = dict(process_index=pidx, process_count=pcount)
     if cfg.task == "detect":
         train = detection_batches(
-            train_ds, batch_size=cfg.batch_size, canvas=canvas,
+            train_ds, batch_size=local_bs, canvas=canvas,
             max_objects=cfg.max_objects, seed=cfg.seed,
-            skip_batches=skip_batches,
+            skip_batches=skip_batches, **host_shard,
         )
 
         def eval_batches():
             # padded to whole batches: the eval shape is fixed and the pad
             # rows carry valid=0, so they drop out of every metric
             return detection_batches(
-                val_ds, batch_size=cfg.batch_size, canvas=canvas,
+                val_ds, batch_size=local_bs, canvas=canvas,
                 max_objects=cfg.max_objects, seed=1, repeat=False,
                 shuffle=False, drop_remainder=False,
-                pad_to_equal_batches=True,
+                pad_to_equal_batches=True, **host_shard,
             )
     else:
         train = classification_batches(
-            train_ds, batch_size=cfg.batch_size, canvas=canvas,
-            seed=cfg.seed, skip_batches=skip_batches,
+            train_ds, batch_size=local_bs, canvas=canvas,
+            seed=cfg.seed, skip_batches=skip_batches, **host_shard,
         )
 
         def eval_batches():
             return classification_batches(
-                val_ds, batch_size=cfg.batch_size, canvas=canvas,
+                val_ds, batch_size=local_bs, canvas=canvas,
                 seed=1, repeat=False, shuffle=False, drop_remainder=False,
-                pad_to_equal_batches=True,
+                pad_to_equal_batches=True, **host_shard,
             )
 
     return train, eval_batches
@@ -169,22 +191,45 @@ def make_data(cfg: TrainConfig, *, skip_batches: int = 0):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if os.environ.get("ARSVT_MULTIHOST"):
-        raise NotImplementedError(
-            "ARSVT_MULTIHOST: the port trains on one device (ROADMAP Queue "
-            "A item 11, parallel); unset it for a single-device run")
+
+    # every process runs this command line with ARSVT_MULTIHOST=1 and the
+    # three coordinator variables (parallel/multihost.py)
+    multi = bool(os.environ.get("ARSVT_MULTIHOST"))
+    if multi:
+        from arsvt_tpu_torch.parallel.multihost import (
+            initialize_multihost,
+            process_count,
+            process_index,
+        )
+
+        if not initialize_multihost():
+            # never degrade silently to N independent trainings writing
+            # the same checkpoint_dir: the operator asked for several
+            raise SystemExit(
+                "ARSVT_MULTIHOST=1 but torch.distributed failed to "
+                "initialize (no ARSVT_COORDINATOR_ADDRESS / "
+                "ARSVT_NUM_PROCESSES / ARSVT_PROCESS_ID, or a "
+                "single-process group). Unset ARSVT_MULTIHOST for "
+                "single-process runs.")
+        print(f"multihost: process {process_index()}/{process_count()}",
+              file=sys.stderr)
 
     from arsvt_tpu_torch.train.trainer import Trainer
     from arsvt_tpu_torch.utils.logging import MetricLogger
 
-    logger = MetricLogger(out_dir=".")
+    # one metrics.jsonl: the first rank's (every rank logs the same
+    # global metrics)
+    rank0 = not multi or process_index() == 0
+    logger = MetricLogger(out_dir="." if rank0 else None, quiet=not rank0)
     try:
-        trainer = Trainer(cfg, logger=logger, device=platform_device())
+        trainer = Trainer(cfg, logger=logger,
+                          device=None if multi else platform_device())
         start = 0
         if args.resume:
             start = trainer.maybe_resume()
             print(f"resumed at step {start}", file=sys.stderr)
-        train_batches, eval_batches_fn = make_data(cfg, skip_batches=start)
+        train_batches, eval_batches_fn = make_data(
+            cfg, skip_batches=start, mesh=trainer.mesh)
         last = trainer.fit(train_batches, eval_batches_fn=eval_batches_fn)
     finally:
         logger.close()

@@ -16,6 +16,14 @@ the step's only wait on the card; metrics stay on the device.
 
 The state is a dict {"params", "opt_state", "step"} updated in place, as
 the classifier step's.
+
+Under a `mesh` a rank runs its part of the global step as the classifier
+step's rank does (``train/train_step.py``): its slice's microbatches, the
+global microbatch's augmentation draws cut to its rows, its dropout
+masks at its global rows and heads, its parameter shards; the losses
+take their normalisers and the triplet batch over the data axis
+(``objectives/detection_loss.py``), so the ranks' gradients and metrics
+sum to the one-process step's.
 """
 
 from __future__ import annotations
@@ -32,7 +40,6 @@ from arsvt_tpu_torch.data.augment import (
     draw_detection_augment,
     eval_preprocess,
 )
-from arsvt_tpu_torch.evaluation.classify import resolve_device
 from arsvt_tpu_torch.models.detector import apply_detector, init_detector
 from arsvt_tpu_torch.objectives.detection_loss import (
     DetectionLossConfig,
@@ -40,13 +47,20 @@ from arsvt_tpu_torch.objectives.detection_loss import (
 )
 from arsvt_tpu_torch.objectives.matcher import match_layers
 from arsvt_tpu_torch.ops.remat import check_policy
+from arsvt_tpu_torch.parallel.sharding import shard_params
+from arsvt_tpu_torch.parallel.tensor_parallel import model_parallel
 from arsvt_tpu_torch.train.accum import accumulated_value_and_grad
 from arsvt_tpu_torch.train.config import TrainConfig, resolve_detector
 from arsvt_tpu_torch.train.optim import fused_adamw_update, init_opt_state
-from arsvt_tpu_torch.train.train_step import _to_device
+from arsvt_tpu_torch.train.train_step import (
+    DataPlace,
+    _to_device,
+    mesh_device,
+    num_heads_for,
+)
 
 
-def make_detector_step_fns(cfg: TrainConfig, device=None):
+def make_detector_step_fns(cfg: TrainConfig, device=None, *, mesh=None):
     """Build (init_fn, train_step, eval_step) for the detection task.
 
     init_fn(seed=None) -> state, seeded from `cfg.seed` by default.
@@ -64,9 +78,11 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
     "valid": (B,) 0/1]}, numpy arrays or tensors.
 
     `device` None means the card; without one that raises unless the
-    caller passes device="cpu".
+    caller passes device="cpu". `mesh`: the rank's part of the step, as
+    `make_classifier_step_fns`'s (`draws` are the global microbatches').
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
+    tp = None if mesh is None else mesh.model_shard()
     if cfg.task != "detect":
         raise ValueError(f"make_detector_step_fns needs task='detect', got "
                          f"{cfg.task!r}")
@@ -92,12 +108,15 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
     def init_fn(seed: int | None = None) -> dict:
         params = init_detector(det_cfg, cfg.seed if seed is None else seed,
                                device=dev)
+        if mesh is not None:
+            params = shard_params(params, mesh, num_heads_for(cfg))
         return {"params": params, "opt_state": init_opt_state(params),
                 "step": 0}
 
-    def layer_losses(outputs, feats, targets):
+    def layer_losses(outputs, feats, targets, group=None):
         """Final-layer loss and parts plus the aux layers' totals, every
-        layer matched in one host round trip."""
+        layer matched in one host round trip; the parts' "total" is the
+        rank's share of the summed loss (`detection_loss`)."""
         aux = outputs.pop("aux", None)
         layers = [(outputs["class_logits"], outputs["boxes_cxcywh"])]
         if aux is not None:
@@ -107,12 +126,14 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
                                    targets["boxes"], targets["mask"],
                                    loss_cfg.matcher)
         total, parts = detection_loss(outputs, targets, loss_cfg, feats,
-                                      assignment=assignments[0])
+                                      assignment=assignments[0], group=group)
+        share = parts["total"]
         for (cl, bx), asg in zip(layers[1:], assignments[1:]):
-            total = total + detection_loss(
+            aux_total = detection_loss(
                 {"class_logits": cl, "boxes_cxcywh": bx}, targets, loss_cfg,
-                assignment=asg)[0]
-        return total, {k: v for k, v in parts.items() if k != "total"}
+                assignment=asg, group=group)[0]
+            total, share = total + aux_total, share + aux_total
+        return total, {**parts, "total": share}
 
     def train_step(state: dict, batch, step_seed: int | None = None, *,
                    draws=None):
@@ -124,6 +145,8 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
         step = state["step"]
         data = {k: _to_device(batch[k], dev)
                 for k in ("image", "boxes", "labels", "mask")}
+        place = DataPlace(mesh, batch, data["image"].shape[0],
+                          cfg.grad_accum)
 
         def loss_fn(mb, a):
             compute_params = policy.cast_to_compute(params)
@@ -132,27 +155,41 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
             if aug_cfg is not None:
                 d = (draws[a] if draws is not None else
                      draw_detection_augment(generator(seed, step, a),
-                                            images.shape[0], aug_cfg))
+                                            place.rows, aug_cfg))
                 images, boxes, mask = detection_train_augment(
-                    augment_input_cast(images), boxes, mask, d.to(dev),
-                    aug_cfg)
+                    augment_input_cast(images), boxes, mask,
+                    place.draws(d).to(dev), aug_cfg)
             outputs, feats = apply_detector(
                 compute_params, images.to(compute_dtype), det_cfg,
-                train=True, rng=Rng(seed, step, a), return_features=True,
-                return_aux=cfg.aux_loss, remat=cfg.remat,
-                remat_policy=cfg.remat_policy)
+                train=True, rng=Rng(seed, step, a, row0=place.row0),
+                return_features=True, return_aux=cfg.aux_loss,
+                remat=cfg.remat, remat_policy=cfg.remat_policy)
             targets = {"boxes": boxes, "labels": mb["labels"], "mask": mask}
-            return layer_losses(outputs, feats, targets)
+            return layer_losses(outputs, feats, targets, place.group)
 
-        (loss, parts), grads = accumulated_value_and_grad(
-            loss_fn, leaves, data, cfg.grad_accum)
+        with model_parallel(tp):
+            (_, parts), grads = accumulated_value_and_grad(
+                loss_fn, leaves, data, cfg.grad_accum)
+        grads = place.sum(grads)
+        parts = dict(zip(parts, place.sum(list(parts.values()))))
+        loss = parts.pop("total")
         params, opt_state, grad_norm = fused_adamw_update(
-            cfg, grads, state["opt_state"], params)
+            cfg, grads, state["opt_state"], params, mesh)
         new_state = {"params": params, "opt_state": opt_state,
                      "step": step + 1}
         return new_state, {"loss": loss, **parts, "grad_norm": grad_norm}
 
     def eval_step(params, batch) -> dict:
+        place = DataPlace(mesh, batch, 1, 1)
+        with model_parallel(tp):
+            metrics = _eval(params, batch, place.group)
+        if place.group is None:
+            return metrics
+        keys = [k for k in metrics if k != "outputs"]
+        summed = place.sum([metrics[k] for k in keys])
+        return {**dict(zip(keys, summed)), "outputs": metrics["outputs"]}
+
+    def _eval(params, batch, group) -> dict:
         with torch.inference_mode():
             compute_params = policy.cast_to_compute(params)
             images = to_unit_float(_to_device(batch["image"], dev))
@@ -168,7 +205,7 @@ def make_detector_step_fns(cfg: TrainConfig, device=None):
             if valid is not None:
                 valid = _to_device(valid, dev)
             total, parts = detection_loss(outputs, targets, loss_cfg, None,
-                                          image_weight=valid)
+                                          image_weight=valid, group=group)
             count = (torch.full((), images.shape[0], dtype=torch.int32,
                                 device=dev) if valid is None
                      else valid.to(torch.int32).sum())

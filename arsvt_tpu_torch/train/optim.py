@@ -15,6 +15,15 @@ parameters (updated in place); ``adam_count``, ``schedule_count`` and the
 inject counter ``count`` are host ints and ``lr_scale`` a host float, so
 a step needs no device-to-host copy. Schedules are evaluated on the host
 in float32, in optax's order of operations.
+
+Under a mesh (``parallel/``) the step functions have already summed the
+gradients over the data axis; under tensor parallelism the global norm
+sums the sharded leaves' squares over the model group and counts each
+replicated leaf once, and #7 updates the rank's local shards in its one
+launch. JAX turns its kernel off under TP (``arsvt_tpu/train/optim.py:
+156-161, 189-193``) only because a ``pallas_call`` on sharded leaves
+would all-gather them; the port's kernel takes each rank's shards as they
+are, so it stays on: a difference by design, with the same math.
 """
 
 from __future__ import annotations
@@ -148,9 +157,22 @@ def _safe_increment(count: int) -> int:
     return count + 1 if count < _INT32_MAX else _INT32_MAX
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every leaf's squares."""
-    return torch.sqrt(torch.stack([g.square().sum() for g in grads]).sum())
+def global_norm(grads: list, sharded: list | None = None,
+                model_group=None) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every leaf's squares. Under
+    tensor parallelism (`sharded`, a bool a leaf, and the `model_group`)
+    the shards' squares are summed over the group first."""
+    squares = [g.square().sum() for g in grads]
+    if sharded is None or model_group is None:
+        return torch.sqrt(torch.stack(squares).sum())
+    from arsvt_tpu_torch.parallel.data_parallel import total
+
+    local = torch.stack([q for q, s in zip(squares, sharded) if s]).sum()
+    rest = [q for q, s in zip(squares, sharded) if not s]
+    whole = total(local, model_group)
+    if rest:
+        whole = whole + torch.stack(rest).sum()
+    return torch.sqrt(whole)
 
 
 def adamw_scalars(cfg: TrainConfig, gnorm: torch.Tensor, count_inc: int,
@@ -172,19 +194,28 @@ def adamw_scalars(cfg: TrainConfig, gnorm: torch.Tensor, count_inc: int,
     return scalars
 
 
-def fused_adamw_update(cfg: TrainConfig, grads, opt_state: dict, params):
+def fused_adamw_update(cfg: TrainConfig, grads, opt_state: dict, params,
+                       mesh=None):
     """One-pass AdamW: returns (params, opt_state, grad_norm).
 
     `params`, ``mu`` and ``nu`` are updated in place; the returned state is
     a new dict with the counts advanced. The update is one launch of the
     kernel on CUDA tensors and its plain version on CPU tensors, whatever
-    ``cfg.fused_adamw`` says (JAX's two settings are the same math).
+    ``cfg.fused_adamw`` says (JAX's two settings are the same math). Under
+    a `mesh` with a model axis the leaves are the rank's shards and the
+    norm is the global one (module docstring).
     """
     g_leaves = tree_leaves(grads)
     p_leaves = tree_leaves(params)
     mu, nu = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
     decayed = tree_leaves(_wd_mask(params))
-    gnorm = global_norm(g_leaves)
+    if mesh is not None and mesh.model > 1:
+        from arsvt_tpu_torch.parallel.sharding import sharded_mask
+
+        gnorm = global_norm(g_leaves, tree_leaves(sharded_mask(params, mesh)),
+                            mesh.model_group)
+    else:
+        gnorm = global_norm(g_leaves)
     count_inc = _safe_increment(opt_state["adam_count"])
     scalars = adamw_scalars(cfg, gnorm, count_inc,
                             opt_state["schedule_count"],

@@ -26,6 +26,19 @@ training forward and backward, ``ARSVT_ENABLE_FUSED_MLP`` the fused-MLP
 kernels in training and eval; attention dropout runs in the kernels of
 either route.
 
+Under a `mesh` (``parallel/``; JAX ``train_step.py:42, 110-121``) a
+rank takes its slice of the batch (``parallel/sharding.py::shard_batch``
+or a multi-process feed), holds its shards of the parameters and Adam
+moments, and runs the one-process step of the global batch in its part:
+microbatch a of the rank is its slice's rows a::k, rows [b0, b0 + m) of
+the global microbatch; it draws the augmentation and mixup of the
+**global** microbatch from the same generator and takes its rows (mixup
+mixes across ranks, so the images are gathered over the data axis
+first), its dropout masks at its global rows and heads; its loss is the
+local mean times m over the global rows, so the gradients and metrics
+summed over the data axis (once a step, after accumulation) are the
+one-process step's.
+
 DeiT distillation (``distillation="hard"`` or ``"soft"``, a distilled
 student): a frozen teacher, loaded from its own checkpoint by
 `_load_teacher` and cast to the compute dtype once, sees the student's
@@ -64,6 +77,13 @@ from arsvt_tpu_torch.objectives.classification import (
     softmax_cross_entropy,
 )
 from arsvt_tpu_torch.ops.remat import check_policy
+from arsvt_tpu_torch.parallel.data_parallel import (
+    gather_rows,
+    rows_of,
+    sum_over,
+)
+from arsvt_tpu_torch.parallel.sharding import Replicated, shard_params
+from arsvt_tpu_torch.parallel.tensor_parallel import model_parallel
 from arsvt_tpu_torch.train.accum import accumulated_value_and_grad
 from arsvt_tpu_torch.train.config import TrainConfig, resolve_backbone
 from arsvt_tpu_torch.train.optim import fused_adamw_update, init_opt_state
@@ -78,7 +98,57 @@ def _to_device(x, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def make_classifier_step_fns(cfg: TrainConfig, device=None):
+class DataPlace:
+    """Where a rank's batch sits on the data axis: the data group (None:
+    the whole batch is here), the global microbatch rows, the rank's
+    first row in it and its share of the global mean."""
+
+    def __init__(self, mesh, batch, local_rows: int, accum: int):
+        micro = local_rows // accum
+        self.group = None
+        self.rows, self.row0 = micro, 0
+        if mesh is not None and mesh.data_group is not None and \
+                not isinstance(batch, Replicated):
+            self.group = mesh.data_group
+            self.rows = micro * mesh.data
+            self.row0 = micro * mesh.data_rank
+        self.micro = micro
+        self.share = micro / self.rows
+
+    def draws(self, draws):
+        """The rank's rows of draws made for the global microbatch."""
+        return draws if self.rows == self.micro else rows_of(
+            draws, self.row0, self.micro)
+
+    def sum(self, tensors: list) -> list:
+        """The step's gradients or metrics summed over the data axis."""
+        return tensors if self.group is None else sum_over(tensors,
+                                                           self.group)
+
+
+def num_heads_for(cfg: TrainConfig) -> dict:
+    """{top-level key: head count} of the config's model tree, for
+    ``parallel/sharding.py::shard_params``."""
+    if cfg.task == "detect":
+        from arsvt_tpu_torch.train.config import resolve_detector
+
+        det = resolve_detector(cfg)
+        return {"backbone": det.backbone.num_heads,
+                "detr": det.head.num_heads}
+    return {"backbone": resolve_backbone(cfg).num_heads}
+
+
+def mesh_device(mesh, device):
+    """The step's device: the mesh's, which `device` must not contradict."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def make_classifier_step_fns(cfg: TrainConfig, device=None, *, mesh=None):
     """Build (init_fn, train_step, eval_step) for classification.
 
     init_fn(seed=None) -> state, seeded from `cfg.seed` by default.
@@ -95,9 +165,12 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
     "valid": (B,) 0/1 for eval]}, numpy arrays or tensors.
 
     `device` None means the card; without one that raises unless the
-    caller passes device="cpu".
+    caller passes device="cpu". `mesh` (``parallel/mesh.py::make_mesh``)
+    runs the rank's part of the step (module docstring): the batch is
+    then the rank's, `draws` and `mixup_draws` the global microbatches'.
     """
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
+    tp = None if mesh is None else mesh.model_shard()
     if cfg.task != "classify":
         raise ValueError(f"make_classifier_step_fns needs task='classify', "
                          f"got {cfg.task!r}")
@@ -127,7 +200,7 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                 "distillation='hard'|'soft' requires distill_teacher "
                 "(checkpoint dir of a trained classifier)"
             )
-        teacher, teacher_bb = _load_teacher(cfg, backbone_cfg, dev)
+        teacher, teacher_bb = _load_teacher(cfg, backbone_cfg, dev, mesh)
         # cast once here, where JAX casts every microbatch: the weights
         # never change, so each cast gives the same bits
         teacher = policy.cast_to_compute(teacher)
@@ -146,6 +219,8 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
         params = init_image_classifier(
             backbone_cfg, num_classes, cfg.seed if seed is None else seed,
             device=dev)
+        if mesh is not None:
+            params = shard_params(params, mesh, num_heads_for(cfg))
         return {"params": params, "opt_state": init_opt_state(params),
                 "step": 0}
 
@@ -158,28 +233,39 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
         seed = cfg.seed if step_seed is None else step_seed
         data = {"image": _to_device(batch["image"], dev),
                 "label": _to_device(batch["label"], dev)}
+        place = DataPlace(mesh, batch, data["image"].shape[0],
+                          cfg.grad_accum)
 
         def loss_fn(mb, a):
+            loss, aux = rank_loss(mb, a)
+            return loss * place.share, {k: v * place.share
+                                        for k, v in aux.items()}
+
+        def rank_loss(mb, a):
             compute_params = policy.cast_to_compute(params)
             images = to_unit_float(mb["image"])
-            n = images.shape[0]
+            n = place.rows  # the global microbatch's
             gen = generator(seed, state["step"], a)
             if aug_cfg is not None:
                 d = (draws[a] if draws is not None else
                      draw_classification_augment(gen, n, aug_cfg))
                 images = classification_train_augment(
-                    augment_input_cast(images), d.to(dev), aug_cfg)
+                    augment_input_cast(images), place.draws(d).to(dev),
+                    aug_cfg)
             images = images.to(compute_dtype)
             labels = mb["label"]
             if cfg.mixup_alpha > 0.0:
                 m = (mixup_draws[a] if mixup_draws is not None else
                      draw_mixup(gen, n, cfg.mixup_alpha))
-                images, labels = mixup(images, labels, m,
+                images, labels = mixup(gather_rows(images, place.group),
+                                       gather_rows(labels, place.group), m,
                                        num_classes=num_classes)
+                images, labels = (t[place.row0:place.row0 + place.micro]
+                                  for t in (images, labels))
             hard = labels if labels.dim() == 1 else labels.argmax(dim=-1)
             logits = apply_image_classifier(
                 compute_params, images, backbone_cfg, num_classes,
-                train=True, rng=Rng(seed, state["step"], a),
+                train=True, rng=Rng(seed, state["step"], a, row0=place.row0),
                 remat=cfg.remat, remat_policy=cfg.remat_policy,
                 return_heads=distilling)
             if not distilling:
@@ -204,15 +290,33 @@ def make_classifier_step_fns(cfg: TrainConfig, device=None):
                 "loss_distill": dloss,
             }
 
-        (loss, aux), grads = accumulated_value_and_grad(
-            loss_fn, leaves, data, cfg.grad_accum)
+        with model_parallel(tp):
+            (loss, aux), grads = accumulated_value_and_grad(
+                loss_fn, leaves, data, cfg.grad_accum)
+        grads = place.sum(grads)
+        loss, *values = place.sum([loss, *aux.values()])
+        aux = dict(zip(aux, values))
         params, opt_state, grad_norm = fused_adamw_update(
-            cfg, grads, state["opt_state"], params)
+            cfg, grads, state["opt_state"], params, mesh)
         new_state = {"params": params, "opt_state": opt_state,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss, **aux, "grad_norm": grad_norm}
 
     def eval_step(params, batch) -> dict:
+        with model_parallel(tp):
+            metrics = _eval(params, batch)
+        place = DataPlace(mesh, batch, 1, 1)
+        if place.group is None:
+            return metrics
+        # the loss is a mean over valid rows: summed as loss x count
+        count = metrics["count"]
+        loss, correct, count, confusion = place.sum(
+            [metrics["loss"] * count, metrics["correct"], count,
+             metrics["confusion"]])
+        return {"loss": loss / torch.clamp(count, min=1), "correct": correct,
+                "count": count, "confusion": confusion}
+
+    def _eval(params, batch) -> dict:
         with torch.inference_mode():
             compute_params = policy.cast_to_compute(params)
             images = to_unit_float(_to_device(batch["image"], dev))
@@ -261,11 +365,12 @@ def distill_loss(logits_dist, t_logits, mode: str, temperature: float,
     return -(t * t) * (p_t * logp).sum(dim=-1).mean()
 
 
-def _load_teacher(cfg: TrainConfig, student_bb, device):
+def _load_teacher(cfg: TrainConfig, student_bb, device, mesh=None):
     """The frozen distillation teacher from its own checkpoint, on
     `device`: its architecture from the config stored there (an imported
     teacher keeps its ln_eps), its params only (its Adam moments are never
-    read). Returns (params, backbone_cfg)."""
+    read), sharded as the student under a `mesh` (JAX ``train_step.py:
+    278-308``). Returns (params, backbone_cfg)."""
     from arsvt_tpu_torch.train.checkpoint import (
         load_params_for_eval,
         peek_config,
@@ -286,4 +391,7 @@ def _load_teacher(cfg: TrainConfig, student_bb, device):
     params_like = init_image_classifier(teacher_bb, tcfg.num_classes,
                                         device=device)
     params, _ = load_params_for_eval(cfg.distill_teacher, tcfg, params_like)
+    if mesh is not None:
+        params = shard_params(params, mesh,
+                              {"backbone": teacher_bb.num_heads})
     return params, teacher_bb

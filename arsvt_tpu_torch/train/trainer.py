@@ -2,12 +2,24 @@
 steps, log cadence, in-training eval with the plateau schedule,
 checkpoints, resume and the emergency checkpoint on a crash.
 
+The mesh comes from ``cfg.mesh_data`` / ``mesh_model`` (JAX
+``trainer.py:37-48``) over the ranks of the default process group
+(``parallel/mesh.py``; one process with no group is the 1x1 mesh, the
+one-device step). Each rank feeds its local batch (`global_batch_from_
+local`); the ranks meet at a host barrier before the first step and
+before each evaluation, and multi-process evaluation stops at the
+shortest rank's stream, with a warning, where the streams are not padded
+to equal lengths (JAX ``trainer.py:147-156, 225-258``); the detector's
+outputs are gathered over the data axis so that every rank computes the
+same AP (JAX ``:320-340``). Checkpoints hold the gathered tree, written
+by the first rank, and restore on any grid.
+
 Differences from the JAX `Trainer`, by design:
-- one device (the card unless the caller asks for the CPU): a mesh of more
-  than one device raises (ROADMAP Queue A item 11), so there is no batch
-  sharding, host barrier or multi-host eval;
+- the device is the card unless the caller asks for the CPU;
 - the state is updated in place by the step functions (``train_step.py``),
-  and a checkpoint copies it to the host synchronously;
+  and a checkpoint copies it to the host synchronously; under a model
+  axis the emergency checkpoint on a crash is skipped (gathering the
+  shards needs every rank, and a crash may have stopped only one);
 - the step draws its dropout and augmentation from ``cfg.seed`` and the
   step number, as JAX's step folds its base key by step: a resumed run
   replays the uninterrupted one.
@@ -22,10 +34,21 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import warnings
 from typing import Callable, Iterator
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from arsvt_tpu_torch.parallel.data_parallel import gather_rows
+from arsvt_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from arsvt_tpu_torch.parallel.multihost import (
+    global_batch_from_local,
+    host_barrier,
+    process_count,
+)
+from arsvt_tpu_torch.parallel.sharding import Replicated, TreeLayout
 from arsvt_tpu_torch.train.checkpoint import CheckpointManager
 from arsvt_tpu_torch.train.config import TrainConfig
 from arsvt_tpu_torch.train.optim import PlateauState, set_lr_scale
@@ -34,29 +57,39 @@ from arsvt_tpu_torch.utils.logging import MetricLogger, Throughput
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, *, logger: MetricLogger | None = None,
-                 step_fns=None, device=None):
-        """`step_fns`: (init_fn, train_step, eval_step), by default those
-        of `cfg.task` on `device` (None: the card)."""
-        if cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1:
-            raise NotImplementedError(
-                f"mesh_data={cfg.mesh_data}, mesh_model={cfg.mesh_model}: "
-                "the port trains on one device (ROADMAP Queue A item 11, "
-                "parallel)")
+    def __init__(self, cfg: TrainConfig, *, mesh=None,
+                 logger: MetricLogger | None = None, step_fns=None,
+                 device=None):
+        """`mesh`: by default ``make_mesh`` of the config's (data, model)
+        on `device` (None: the rank's card). `step_fns`: (init_fn,
+        train_step, eval_step), by default those of `cfg.task` on the
+        mesh."""
         self.cfg = cfg
+        self.mesh = mesh or make_mesh(
+            MeshConfig(data=cfg.mesh_data, model=cfg.mesh_model),
+            device=device)
+        # a 1x1 mesh with no group is the one-device step itself
+        parallel = self.mesh.data_group is not None or self.mesh.model > 1
+        step_mesh = self.mesh if parallel else None
+        from arsvt_tpu_torch.train.train_step import num_heads_for
+
+        self._layout = (TreeLayout(self.mesh, num_heads_for(cfg))
+                        if parallel else None)
         if step_fns is None:
             if cfg.task == "detect":
                 from arsvt_tpu_torch.train.detect_step import (
                     make_detector_step_fns,
                 )
 
-                step_fns = make_detector_step_fns(cfg, device)
+                step_fns = make_detector_step_fns(cfg, self.mesh.device,
+                                                  mesh=step_mesh)
             else:
                 from arsvt_tpu_torch.train.train_step import (
                     make_classifier_step_fns,
                 )
 
-                step_fns = make_classifier_step_fns(cfg, device)
+                step_fns = make_classifier_step_fns(cfg, self.mesh.device,
+                                                    mesh=step_mesh)
         self.init_fn, self.train_step, self.eval_step = step_fns
         self.logger = logger or MetricLogger(quiet=True)
         self.state = None
@@ -79,6 +112,7 @@ class Trainer:
             self._ckpt = CheckpointManager(
                 self.cfg.checkpoint_dir, self.cfg,
                 keep=self.cfg.keep_checkpoints, best_metric="val_loss",
+                layout=self._layout,
             )
         return self._ckpt
 
@@ -112,7 +146,7 @@ class Trainer:
         except (KeyboardInterrupt, Exception):
             # persist the last completed step before propagating, so
             # --resume continues from here whatever the checkpoint cadence
-            if self.state is not None:
+            if self.state is not None and self.mesh.model == 1:
                 step_now = int(self.state["step"])
                 if step_now > start:
                     try:
@@ -132,9 +166,15 @@ class Trainer:
         self._last_metrics = {}
 
         for step in range(start, steps):
-            batch = next(train_batches)
+            # one process: the data axis's slice; several: the local rows
+            # each rank was fed (parallel/multihost.py)
+            batch = global_batch_from_local(next(train_batches), self.mesh)
+            if step == start:
+                # the ranks reach their first collective after unequal
+                # host work (data, restore, kernel builds): align them
+                host_barrier("first_train_step")
             self.state, metrics = self.train_step(self.state, batch)
-            meter.add(int(batch["image"].shape[0]))
+            meter.add(self._global_rows(batch))
 
             if (step + 1) % cfg.log_every == 0 or step + 1 == steps:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -179,7 +219,17 @@ class Trainer:
         'count' / 'confusion') get accuracy and the confusion matrix; other
         scalar metrics (detection loss parts) are averaged over batches,
         weighted by each batch's valid rows. Detection eval steps return
-        raw `outputs`, post-processed here for val mAP/AP50/AP75."""
+        raw `outputs`, post-processed here for val mAP/AP50/AP75.
+
+        Several processes: every rank must run the same number of eval
+        steps or a collective step deadlocks. Padded equal-count shards
+        (``data/pipeline.py`` pad_to_equal_batches, what the train CLI
+        feeds) guarantee that; as a backstop the ranks agree per batch
+        whether everyone still has one and stop together at the shortest
+        stream, with a warning, never a hang."""
+        multi = process_count() > 1
+        if multi:
+            host_barrier("evaluate")
         sums: dict = {}
         confusion = None
         total_correct = total_count = n_batches = 0
@@ -187,10 +237,22 @@ class Trainer:
         weight_total = 0.0
         ap_preds: list = []
         ap_gts: list = []
-        for batch in batches:
+        it = iter(batches)
+        while True:
+            batch = next(it, None)
+            if multi and not self._everyone_has(batch is not None):
+                if batch is not None:
+                    warnings.warn(
+                        "multi-process eval stopped at the shortest rank's "
+                        "stream: feed pad_to_equal_batches eval streams to "
+                        "cover every record", stacklevel=2)
+                break
+            if batch is None:
+                break
+            batch = global_batch_from_local(batch, self.mesh)
             m = self.eval_step(self.state["params"], batch)
             weight = (float(m["count"]) if "count" in m
-                      else float(batch["image"].shape[0]))
+                      else float(self._global_rows(batch)))
             weight_total += weight
             for k, v in m.items():
                 if k == "confusion":
@@ -208,8 +270,10 @@ class Trainer:
                             collect_batch_detections,
                         )
 
+                        v, det_batch = self._global_detections(v, batch)
                         _, ap_p, g = collect_batch_detections(
-                            v, batch, conf_threshold=0.5, nms_threshold=0.5)
+                            v, det_batch, conf_threshold=0.5,
+                            nms_threshold=0.5)
                         ap_preds.extend(ap_p)
                         ap_gts.extend(g)
                 else:
@@ -231,3 +295,34 @@ class Trainer:
             out["AP50"] = ap["AP50"]
             out["AP75"] = ap["AP75"]
         return out
+
+    # --------------------------------------------------------- the mesh
+    def _data_sharded(self, batch) -> bool:
+        return self.mesh.data_group is not None and not isinstance(
+            batch, Replicated)
+
+    def _global_rows(self, batch) -> int:
+        """Rows of the global batch this step ran (a rank holds 1/data)."""
+        rows = int(batch["image"].shape[0])
+        return rows * self.mesh.data if self._data_sharded(batch) else rows
+
+    def _everyone_has(self, has: bool) -> bool:
+        """Whether every process still has an eval batch (one all-gather
+        of a flag)."""
+        flags = [None] * dist.get_world_size()
+        dist.all_gather_object(flags, bool(has))
+        return all(flags)
+
+    def _global_detections(self, outputs, batch):
+        """Detector outputs and the ground truth of the global batch on
+        every rank (gathered over the data axis), so each rank computes
+        the same AP; the batch as it is on one rank."""
+        if not self._data_sharded(batch):
+            return outputs, batch
+        group = self.mesh.data_group
+        outputs = {k: gather_rows(v, group) for k, v in outputs.items()}
+        keys = ("boxes", "labels", "mask", "iscrowd", "valid")
+        small = {k: gather_rows(torch.as_tensor(np.asarray(batch[k]))
+                                .to(self.mesh.device), group).cpu().numpy()
+                 for k in keys if k in batch}
+        return outputs, small

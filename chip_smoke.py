@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, detector-serving,
 detector-training and opt-in training paths, its training entry point,
-the ViT-L/16@384 recipe and DeiT distillation from an imported teacher,
-on one NVIDIA card.
+the ViT-L/16@384 recipe, DeiT distillation from an imported teacher and
+data- and tensor-parallel training, on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only (build and check)
@@ -10,6 +10,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --int8      # phases 1, 2, 12 and 13 (no kernel line)
     python3 chip_smoke.py --vit-large # phases 1, 2 and 14 (no kernel line)
     python3 chip_smoke.py --distill   # phases 1, 2 and 15 (no kernel line)
+    python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -72,8 +73,11 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    calls; (f) a torch.profiler window over one bf16 forward; (g)
    ``vit_base_detector`` through (a) and (d);
 9. detector training through ``make_detector_step_fns``: (a) two fp32
-   ``deit_detector_ref`` steps of batch 4 with every dropout rate 0 on the
-   card against the same steps on the CPU (matched pairs, loss, update);
+   ``deit_detector_ref`` steps of batch 4 with the preset's residual and
+   positional dropout 0.1 (attention dropout 0) on the card against the
+   same steps on the CPU (matched pairs, loss, update; every mask a
+   function of the site's seed and global indices, the mask kernel's on
+   the card, its plain version's on the CPU);
    (b) 3 bf16 steps against 3 fp32 steps on the card, the configuration of
    (c); (c) the ``bench.py::bench_detect`` configuration (batch 32, bf16,
    detection augmentation on the 256 canvas, dropout 0.1 with attention
@@ -89,7 +93,7 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    timed steps, eval; (d) a torch.profiler window over one step;
 11. the training entry point, ``arsvt_tpu_torch.train.cli.main``, in
    temporary working directories, with attention dropout 0.1: (a) the
-   ``vit_base_bf16_flash`` preset (batch 512 as 16 x 32, bf16, crop/flip,
+   ``vit_base_bf16_flash`` preset (batch 128 as 4 x 32, bf16, crop/flip,
    fused AdamW) for 4 steps with checkpoints every 2 and an eval, a resume
    to step 6 against an uninterrupted 6-step run, and a run without
    dropout; (b) the same on the opt-in route; (c) fp32 steps with dropout
@@ -143,12 +147,26 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    bit, and a reference-layout ``deit_detector_ref`` ``.pth`` imported and
    served once on /detect; (b) the timm import with a seeded head as the
    teacher; (c) the ``deit_ref_400_16_224`` student, hard and soft, fp32
-   steps card vs CPU with attention dropout (no residual dropout, as
-   phase 9(a)); (d) bf16 steps (batch 64 as 2 x 32): ms/step, img/s,
+   steps card vs CPU with the preset's residual dropout and attention
+   dropout, as phase 9(a); (d) bf16 steps (batch 64 as 2 x 32): ms/step, img/s,
    peak memory beside the same steps without a teacher, busy share,
    TFLOP/s; (e) ``train.cli.main --distillation soft`` with a checkpoint
    and an eval; (f) ``utils.profiling``'s trace, StepTimer and
-   assert_all_finite on (d)'s steps.
+   assert_all_finite on (d)'s steps;
+16. data- and tensor-parallel training (see the comment above
+   `PAR_TOL_LOSS`): (a) `Trainer` on an NCCL group of one rank against
+   no group, to the bit; (b) two spawned gloo ranks on the card, DP = 2
+   and TP = 2 at full width (ViT-B/16 fp32 and bf16, deit_detector_ref
+   fp32, dropout 0.1) against one process, launches per rank; (c) the
+   three route switches' launch tables; (d) a DP = 2 step's time beside
+   one process's.
+
+Phase 3 also holds the dropout-mask kernel (``csrc/dropout_mask.cu``, the
+residual, positional and reference-attention masks) against
+``keep_mask`` with 0 mismatches at residual and attention views, with
+and without a parallel rank's offsets, and probes #1-#6's masks at such
+offsets; its row in the kernels record counts its launches over phases
+4-16.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -165,7 +183,7 @@ microbatch one #5 launch, one #6 call, one #8 call and one #9 call (two
 launches each in bf16), no #1 or #2; one AdamW launch per step; per eval
 forward one #1 launch and one #8 call per layer); each CLI run of
 11(a)-(b), with the same rule per route and step and 8 eval forwards of
-512 images per eval;
+128 images per eval;
 11(d) (per step 12 #1 and #2 calls, 6 #3 and #4 calls, one AdamW
 launch); each entry point of 12 ((b): #1 and #2 per layer and step, #1
 per layer and eval batch, one AdamW launch a step; (c) and (d): #1 per
@@ -184,7 +202,14 @@ each path of 15 ((a): 18 #3 a forward of the served import, its warm-up
 included; (b): #1 per layer and forward of the teacher; (c)-(f): per
 microbatch the student's 12 #3 forward and 12 #4 calls and the teacher's
 12 #1 launches (none in (d)'s steps without a teacher), no #2, one AdamW
-launch a step, 12 #3 calls per eval forward).
+launch a step, 12 #3 calls per eval forward). The mask kernel's launches
+are held in the same tables, `mask_sites` a training microbatch: 49 in
+``deit_detector_ref`` (9(c)-(e), 12(e); 73 under 14(g)'s remat, whose
+replays draw the encoder's residual sites again), 6 in
+``vit_base_detector`` (11(d): the decoder's reference self-attention),
+25 in the distillation student (15), 5 a policy's microbatch in 14(b)-(c)
+and 9 where it replays whole blocks, none on the ViT-B and ViT-L paths
+(no residual dropout; attention dropout runs inside #1-#6).
 Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
 every training launch of phase 11's dropout runs, of the detector's
@@ -246,6 +271,7 @@ from arsvt_tpu_torch.ops import (
     fused_adamw,
     fused_mlp,
 )
+from arsvt_tpu_torch.ops import dropout as dropout_ops
 from arsvt_tpu_torch.ops.quant import int8_matmul
 from arsvt_tpu_torch.ops.remat import REMAT_POLICIES
 from arsvt_tpu_torch.serving.artifact import load_artifact_engine
@@ -256,7 +282,11 @@ from arsvt_tpu_torch.serving.export import (
 )
 from arsvt_tpu_torch.serving.server import InferenceServer
 from arsvt_tpu_torch.train import detect_step, optim
-from arsvt_tpu_torch.train.config import TRAIN_PRESETS, TrainConfig
+from arsvt_tpu_torch.train.config import (
+    TRAIN_PRESETS,
+    TrainConfig,
+    resolve_detector,
+)
 from arsvt_tpu_torch.train.detect_step import make_detector_step_fns
 from arsvt_tpu_torch.train.optim import _wd_mask
 from arsvt_tpu_torch.train.train_step import make_classifier_step_fns
@@ -289,7 +319,14 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a record; a phase header carries the script's elapsed seconds
+    (the budget's breakdown)."""
+    if msg.startswith("# phase"):
+        msg = f"{msg} [t = {time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -639,7 +676,7 @@ def flash_bwd_bound(b, h, sq, sk, d, elem=2):
                                  "operations"), nbytes, flops
 
 
-def mask_probe(b, h, sq, sk, seed, device="cuda"):
+def mask_probe(b, h, sq, sk, seed, device="cuda", offsets=None):
     """Recover the keep mask each head-major kernel used, on the card.
 
     q = 0 makes p uniform (1/Sk) whatever k is; k = v = I (d = Sk) read
@@ -647,15 +684,16 @@ def mask_probe(b, h, sq, sk, seed, device="cuda"):
     Backward with dO = e_i (row i one-hot, Sq <= d): dv[j, i] = p_v[i, j],
     the dk/dv launch's mask. Backward with dO = 1: dq[i, j] = scale·p·
     (keep(i, j)/keep_prob - delta_i), the dq launch's, decoded against
-    delta_i = sum_j O[i, j]. Returns mismatches against `keep_mask` per
-    launch."""
+    delta_i = sum_j O[i, j]. `offsets` = (b0, H, h0) place the launch in a
+    global batch and head set, as a data- or tensor-parallel rank's.
+    Returns mismatches against `keep_mask` per launch."""
     from arsvt_tpu_torch.ops.dropout import keep_mask
 
     d = sk
     kp = 1.0 - DROPOUT_RATE
     q = torch.zeros(b, h, sq, d, device=device)
     eye = torch.eye(sk, device=device).expand(b, h, sk, sk).contiguous()
-    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed)
+    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed, offsets=offsets)
     o, lse = flash_attention.flash_attention_fwd(q, eye, eye, **kw)
     one_hot = torch.eye(sq, d, device=device).expand(b, h, sq, d)
     _, _, dv = flash_attention.flash_attention_bwd(
@@ -664,7 +702,8 @@ def mask_probe(b, h, sq, sk, seed, device="cuda"):
     dq, _, _ = flash_attention.flash_attention_bwd(q, eye, eye, o, ones, lse,
                                                    **kw)
     torch.cuda.synchronize()
-    want = keep_mask(seed, b, h, sq, sk, DROPOUT_RATE, device)
+    want = keep_mask(seed, b, h, sq, sk, DROPOUT_RATE, device,
+                     offsets=offsets)
     delta = o.sum(dim=-1, keepdim=True)
     got = {"fwd": o > 0,
            "bwd_dkdv": dv[..., :sq].transpose(-1, -2) > 0,
@@ -757,11 +796,18 @@ def phase_flash_train_checks() -> dict:
                             for n in ("dq", "dk", "dv"))
 
     # d = Sk = 96: #3 stages by cp.async; 33: element by element; 192: the
-    # wide kernels, three output slices drawing one mask
-    for shape in ((4, 5, 70, 96), (2, 3, 17, 33), (2, 3, 70, 192)):
-        mismatches = mask_probe(*shape, DROPOUT_SEED)
+    # wide kernels, three output slices drawing one mask; then the global
+    # offsets of a parallel rank (b0, H, h0), on both kernel families: a
+    # DP rank's rows 6.. and a TP rank's heads 12.. of deit_detector_ref's
+    # 25 (13 and 12 on two ranks)
+    for shape, offsets in (((4, 5, 70, 96), None), ((2, 3, 17, 33), None),
+                           ((2, 3, 70, 192), None),
+                           ((2, 12, 40, 40), (6, 25, 13)),
+                           ((2, 3, 17, 192), (1, 7, 4))):
+        mismatches = mask_probe(*shape, DROPOUT_SEED, offsets=offsets)
         log(json.dumps({"check": "dropout mask probe", "shape": shape,
-                        "rate": DROPOUT_RATE, "mismatches": mismatches}))
+                        "offsets": offsets, "rate": DROPOUT_RATE,
+                        "mismatches": mismatches}))
         check(all(v == 0 for v in mismatches.values()),
               f"a kernel's dropout mask differs from keep_mask at {shape}: "
               f"{mismatches}")
@@ -1111,7 +1157,7 @@ ENC_DROPOUT_NAMES = ("encoder_attention_fwd", "encoder_attention_bwd",
                      "encoder_attention_bwd_savep")
 
 
-def encoder_mask_probe(b, s, h, seed, device="cuda"):
+def encoder_mask_probe(b, s, h, seed, device="cuda", offsets=None):
     """Recover the keep mask each launch of #1, #2, #5 and #6 used.
 
     q = 0 makes p uniform (1/S); k = v = I in each head's 64 columns (S <=
@@ -1119,7 +1165,8 @@ def encoder_mask_probe(b, s, h, seed, device="cuda"):
     (S·keep_prob). The backwards with dO = e_i (row i one-hot): dv[j, i] =
     p_v[i, j], the dk/dv launch's mask; with dO = 1: dq[i, j] = p (keep(i,
     j)/keep_prob - delta_i) / 8, the dq launch's, decoded against delta_i =
-    sum_j O[i, j]. Returns mismatches against `keep_mask` per launch."""
+    sum_j O[i, j]. `offsets` = (b0, H, h0) as `mask_probe`'s. Returns
+    mismatches against `keep_mask` per launch."""
     from arsvt_tpu_torch.ops.dropout import keep_mask
 
     d = h * 64
@@ -1131,7 +1178,7 @@ def encoder_mask_probe(b, s, h, seed, device="cuda"):
     qkv = qkv.expand(b, s, 3 * d).contiguous()
     one_hot = head.expand(b, s, d).contiguous()
     ones = torch.ones(b, s, d, device=device)
-    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed)
+    kw = dict(dropout_rate=DROPOUT_RATE, seed=seed, offsets=offsets)
     ea = encoder_attention
     o, lse = ea.encoder_attention_fwd(qkv, h, **kw)
     _, _, dv = ea.encoder_attention_bwd(qkv, o, one_hot, lse, h, **kw)
@@ -1141,7 +1188,7 @@ def encoder_mask_probe(b, s, h, seed, device="cuda"):
     dq_p, _, _ = ea.encoder_attention_bwd_savep(qkv, probs, ones, h, **kw)
     if device == "cuda":
         torch.cuda.synchronize()
-    want = keep_mask(seed, b, h, s, s, DROPOUT_RATE, device)
+    want = keep_mask(seed, b, h, s, s, DROPOUT_RATE, device, offsets=offsets)
 
     def heads(x):  # (B, S, D) -> (B, H, S, S): each head's first S columns
         return x.view(b, s, h, 64).permute(0, 2, 1, 3)[..., :s]
@@ -1236,13 +1283,16 @@ def phase_encoder_dropout_checks(cfg) -> dict:
             for i, (c, dt) in enumerate(cases)]
     b32 = recs[0]
 
-    mismatches = encoder_mask_probe(4, 64, 3, DROPOUT_SEED)
-    log(json.dumps({"check": "encoder attention dropout mask probe",
-                    "shape": [4, 3, 64, 64], "rate": DROPOUT_RATE,
-                    "mismatches": mismatches}))
-    check(all(v == 0 for v in mismatches.values()),
-          f"an encoder-attention kernel's dropout mask differs from "
-          f"keep_mask: {mismatches}")
+    # one process, then a ViT-B TP rank's heads 6.. of 12 at rows 2..
+    for offsets in (None, (2, 12, 6)):
+        mismatches = encoder_mask_probe(4, 64, 3, DROPOUT_SEED,
+                                        offsets=offsets)
+        log(json.dumps({"check": "encoder attention dropout mask probe",
+                        "shape": [4, 3, 64, 64], "offsets": offsets,
+                        "rate": DROPOUT_RATE, "mismatches": mismatches}))
+        check(all(v == 0 for v in mismatches.values()),
+              f"an encoder-attention kernel's dropout mask differs from "
+              f"keep_mask at offsets {offsets}: {mismatches}")
 
     b = 32
     ea = encoder_attention
@@ -1545,6 +1595,59 @@ def _time_mlp(n, d, m, errs) -> tuple[dict, dict]:
                         "library": "cuBLAS MLP (matmul, tanh GELU, matmul)"}))
         recs.append(rec)
     return recs[0], recs[1]
+
+
+# The mask kernel (csrc/dropout_mask.cu) against `keep_mask` on the card:
+# one bool a element, so the limit is 0 mismatches. (name, (B, H, R, C),
+# (b0, H', h0)): residual views (B, 1, S, D) of ViT-B's training
+# microbatch and the DeiT-400 detector's (one process, and the second DP
+# rank of two), the DETR self-attention's probabilities (B, H, Q, Q) over
+# 8 heads (one process, and the second TP rank's 4 heads), and a view of
+# 25 heads of 16 at a TP rank's offset 13.
+MASK_CASES = [("vit_b_residual", (32, 1, 197, 768), None),
+              ("vit_b_residual_dp_rank1", (16, 1, 197, 768), (16, 1, 0)),
+              ("detector_residual", (32, 1, 198, 400), None),
+              ("detector_residual_dp_rank1", (16, 1, 198, 400), (16, 1, 0)),
+              ("detr_self_attention", (32, 8, 5, 5), None),
+              ("detr_self_attention_tp_rank1", (32, 4, 5, 5), (0, 8, 4)),
+              ("heads_tp_offset", (4, 12, 40, 40), (3, 25, 13))]
+MASK_TIMED = "detector_residual"
+
+
+def phase_mask_kernel_checks() -> dict:
+    """The dropout-mask kernel against its plain version (`keep_mask`, on
+    the card) at `MASK_CASES`, 0 mismatches; timed with CUDA events at
+    the detector's residual view beside its bound (the bytes it writes
+    over 3.35 TB/s) and the plain version. No single PyTorch call draws
+    this mask (torch.rand's bits are another generator's)."""
+    from arsvt_tpu_torch.ops.dropout import dropout_mask, keep_mask
+
+    out = None
+    for name, shape, offsets in MASK_CASES:
+        got = dropout_mask(DROPOUT_SEED, DROPOUT_RATE, shape, "cuda",
+                           offsets=offsets)
+        want = keep_mask(DROPOUT_SEED, *shape, DROPOUT_RATE, "cuda",
+                         offsets=offsets)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        rec = {"check": "dropout_mask kernel vs keep_mask", "case": name,
+               "shape": shape, "offsets": offsets, "mismatches": mismatches,
+               "kept_share": float(got.float().mean())}
+        if name == MASK_TIMED:
+            n = math.prod(shape)
+            rec.update(
+                ms=cuda_ms(lambda: dropout_mask(
+                    DROPOUT_SEED, DROPOUT_RATE, shape, "cuda"), iters=50),
+                plain_ms=cuda_ms(lambda: keep_mask(
+                    DROPOUT_SEED, *shape, DROPOUT_RATE, "cuda"), iters=3,
+                    warmup=1),
+                bound_ms=n / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, max_abs_err=float(mismatches))
+            out = rec
+        log(json.dumps(rec))
+        check(mismatches == 0,
+              f"dropout_mask differs from keep_mask at {name}: {mismatches}")
+    return out
 
 
 def adamw_leaves(tree, gen):
@@ -2000,6 +2103,9 @@ COUNTERS = (
     # and those of #3 and #4
     ("flash_attention_fwd_dropout", flash_attention, "DROPOUT_LAUNCHES"),
     ("flash_attention_bwd_dropout", flash_attention, "DROPOUT_LAUNCHES_BWD"),
+    # the port-only mask kernel of the residual, positional and reference-
+    # attention sites (`mask_sites` gives its launches a microbatch)
+    ("dropout_mask", dropout_ops, "LAUNCHES"),
 )
 
 
@@ -2010,6 +2116,22 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(module, attr) for name, module, attr in COUNTERS}
+
+
+def mask_sites(model, replays: int = 0) -> int:
+    """The mask kernel's launches in one training microbatch of `model` (a
+    BackboneConfig or a DetectorConfig): where the backbone's dropout is
+    on, its positional site and each layer's two residual sites, drawn
+    `replays` more times a layer under remat; where a DETR head's dropout
+    is on, its three residual sites a layer; where its attention dropout
+    is on, the probability mask of its reference self-attention a layer.
+    Attention dropout elsewhere runs inside #1-#6; eval draws nothing."""
+    bb = getattr(model, "backbone", model)
+    head = getattr(model, "head", None)
+    n = 1 + 2 * bb.depth * (1 + replays) if bb.dropout > 0 else 0
+    if head is not None:
+        n += head.depth * (3 * (head.dropout > 0) + (head.attn_dropout > 0))
+    return n
 
 
 def classifier_launches(depth: int, micro: int, steps: int,
@@ -2617,7 +2739,6 @@ def phase_detector(smi) -> dict:
 # init over the 3 steps, so each step is held: loss 2e-2, grad_norm 5e-2
 # relative (the classifier step's bf16 limits).
 DET_TRAIN_PRESET = "deit_detector_ref"
-DET_NODROP_PRESET = "deit_detector_ref_nodrop"
 TOL_DET_TRAIN_LOSS = 1e-5
 TOL_DET_TRAIN_NORM = 1e-4
 TOL_DET_TRAIN_UPDATE = 1e-4
@@ -2697,16 +2818,16 @@ def clone_state(state) -> dict:
 
 
 def phase_det_train_parity() -> dict:
-    """(a) 2 fp32 steps of batch 4 at `deit_detector_ref` with every
-    dropout rate 0, detection augmentation on, on the card and on the CPU
-    from the same init, batches and draws."""
-    cfg = DETECTOR_PRESETS[DET_TRAIN_PRESET]
-    DETECTOR_PRESETS[DET_NODROP_PRESET] = dataclasses.replace(
-        cfg, backbone=dataclasses.replace(cfg.backbone, dropout=0.0,
-                                          attn_dropout=0.0),
-        head=dataclasses.replace(cfg.head, dropout=0.0, attn_dropout=0.0))
-    tcfg = det_train_cfg(preset=DET_NODROP_PRESET, batch_size=4, bf16=False,
-                         attn_dropout=0.0, warmup_steps=1)
+    """(a) 2 fp32 steps of batch 4 at `deit_detector_ref` with the preset's
+    residual and positional dropout 0.1 (every mask a function of the
+    site's seed and global indices: the mask kernel on the card, its plain
+    version on the CPU) and attention dropout 0 (the plain (B, H, S, S)
+    attention masks would add ~20-30 s of the CPU's time; the
+    kernels' masks are held by phase 3's probes and 11(c)), detection
+    augmentation on, on the card and on the CPU from the same init,
+    batches and draws."""
+    tcfg = det_train_cfg(batch_size=4, bf16=False, warmup_steps=1,
+                         attn_dropout=0.0)
     rng = np.random.default_rng(9)
     batches = [det_random_batch(rng, 4) for _ in range(2)]
     runs = {}
@@ -2736,7 +2857,8 @@ def phase_det_train_parity() -> dict:
     same_matches = len(a_gpu) == len(a_cpu) and all(
         torch.equal(a, b) for a, b in zip(a_gpu, a_cpu))
     rec = {"check": "detector train step fp32 cuda vs cpu", "batch": 4,
-           "steps": 2, "dropout": 0.0, "augment": "detection",
+           "steps": 2, "dropout": 0.1, "attn_dropout": 0.0,
+           "augment": "detection",
            "metrics_cuda": m_gpu, "metrics_cpu": m_cpu,
            "max_rel_err": rel,
            "rel_l2_err_update": float((upd_gpu - upd_cpu).norm()
@@ -2869,12 +2991,15 @@ def phase_det_train_bench(smi: str):
     counts = read_counts()
     steps = steps_warm + steps_timed + 2 + 1
     forwards = steps + 1 + len(evs)
-    # every training launch runs the dropout branch, no eval launch does
+    # every training launch runs the dropout branch, no eval launch does;
+    # one microbatch a step, 49 mask sites each (25 in the backbone, 4 in
+    # each of the decoder's 6 layers)
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
                 "flash_attention_fwd": per_step * forwards,
                 "flash_attention_bwd": per_step * steps,
                 "flash_attention_fwd_dropout": per_step * steps,
-                "flash_attention_bwd_dropout": per_step * steps}
+                "flash_attention_bwd_dropout": per_step * steps,
+                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps}
     log(json.dumps({"launches": counts, "expected": expected,
                     "steps": steps, "eval_forwards": forwards - steps,
                     "path": "deit_detector_ref training",
@@ -2902,14 +3027,14 @@ def phase_detector_training(smi) -> dict:
 # arsvt_tpu_torch.train.cli``, driven in-process on the card, each run in a
 # directory of its own (the CLI writes metrics.jsonl and checkpoints/ into
 # its working directory). (a)/(b): the vit_base_bf16_flash preset (batch
-# 512 as 16 x 32, bf16) with attention dropout 0.1, crop/flip, fused
+# 128 as 4 x 32, bf16) with attention dropout 0.1, crop/flip, fused
 # AdamW and a warm-up of 10 steps (the preset's 500 would keep the loss
 # at log(6) to 6 digits over these few steps; within the linear warm-up
 # the learning rate does not depend on total_steps, which --steps sets, so
 # a 4-step run resumed to 6 follows the 6-step run), on the default and
 # the opt-in route: 4 steps with checkpoints every 2 and one eval at step
-# 4 (one, since the CLI's synthetic batches of 512 at 256² take seconds
-# each on the host, and an eval reads 8 of them), a resume to step 6 (no
+# 4 (one, since the CLI's synthetic batches at 256² take seconds each on
+# the host, and an eval reads 8 of them), a resume to step 6 (no
 # eval) held against an uninterrupted 6-step run (the same
 # weights, Adam state, batches and masks: the losses of steps 5-6 should
 # agree to the bit; TOL_RESUME allows a last-bit difference from a
@@ -2923,9 +3048,13 @@ def phase_detector_training(smi) -> dict:
 # routes' card runs against each other: one mask, so the loss within TOL_TRAIN_LOSS and the grad norm
 # within TOL_TRAIN_NORM (the save-probs backward reads P in bf16). (d)
 # `Trainer` with task="detect" on vit_base_detector.
+# batch 128 as 4 x 32, a quarter of the preset's 512 as 16 x 32: the host
+# makes the CLI's synthetic batches, seconds each at 512
+CLI_MICRO = 4
 CLI_ARGS = ["--train-preset", "vit_base_bf16_flash", "--attn-dropout", "0.1",
             "--augment", "crop_flip", "--fused-adamw", "true",
-            "--warmup-steps", "10", "--log-every", "1"]
+            "--batch-size", str(32 * CLI_MICRO), "--grad-accum",
+            str(CLI_MICRO), "--warmup-steps", "10", "--log-every", "1"]
 TOL_RESUME = 1e-6
 EVAL_BATCHES = 8  # train/cli.py::make_data's eval stream
 
@@ -2980,7 +3109,7 @@ def phase_cli(tmp, smi, opt_in: bool) -> dict:
     the dropout branches' counts included."""
     route = "opt-in" if opt_in else "default"
     base = os.path.join(tmp, route)
-    micro, depth = 16, PRESETS["vit_base_16_224"].depth
+    micro, depth = CLI_MICRO, PRESETS["vit_base_16_224"].depth
     total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
 
     def train_launches(steps, eval_forwards):
@@ -3090,7 +3219,10 @@ def phase_detect_trainer(tmp, smi) -> dict:
     counts = read_counts()
     depth, head_depth = det_cfg.backbone.depth, det_cfg.head.depth
     bwd = depth * steps * encoder_attention.BWD_LAUNCHES_PER_CALL
+    # one microbatch a step; its mask sites: the decoder's 6 reference
+    # self-attentions (no residual dropout in this preset)
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
+                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps,
                 "encoder_attention_fwd": depth * steps,
                 "encoder_attention_bwd": bwd,
                 "encoder_attention_fwd_dropout": depth * steps,
@@ -3501,7 +3633,9 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
                 "flash_attention_fwd": per_step * steps,
                 "flash_attention_bwd": per_step * steps,
                 "flash_attention_fwd_dropout": per_step * steps,
-                "flash_attention_bwd_dropout": per_step * steps})
+                "flash_attention_bwd_dropout": per_step * steps,
+                "dropout_mask": mask_sites(resolve_detector(
+                    TRAIN_PRESETS[DET_TRAIN_PRESET])) * steps})
     add_counts(total, counts)
     ckpt_dir = os.path.join(run, "checkpoints")
     ckpts = sorted(os.listdir(ckpt_dir))
@@ -4098,6 +4232,11 @@ REMAT_TABLE = {
     "all_but_mlp": (1, 1, 2, 1),
     "mlp_tail": (1, 1, 0, 0),
 }
+# the replays of a layer's two residual dropout sites: the policies that
+# recompute the whole block; all_but_mlp and mlp_tail replay only MLP pieces
+# inside it, and the residual dropout lies outside them
+REMAT_MASK_REPLAYS = {"none": 0, "full": 1, "dots": 1, "names": 1,
+                      "all_but_mlp": 0, "mlp_tail": 0}
 RECIPE_CLI_ARGS = ["--train-preset", "vit_large_384", "--batch-size", "32",
                    "--grad-accum", "2", "--steps", "2", "--eval-every", "2",
                    "--checkpoint-every", "2", "--log-every", "1"]
@@ -4212,8 +4351,10 @@ def phase_recipe_augment(smi) -> None:
 def remat_expected(route: str, policy: str, depth: int, micro: int,
                    dtype, dropout: bool = False) -> dict:
     """Launches of `micro` forward + backward passes of `depth` layers under
-    `policy` on `route`, from REMAT_TABLE; with `dropout` every launch of
-    #1, #2, #5 and #6 runs its dropout branch, the replays too."""
+    `policy` on `route`, from REMAT_TABLE; with `dropout` (residual and
+    attention) every launch of #1, #2, #5 and #6 runs its dropout branch,
+    the replays too, and the mask kernel draws each residual site again
+    where the policy replays the block around it (REMAT_MASK_REPLAYS)."""
     fwd1, fwd5, fwd8, bwd9 = (depth * micro * n
                               for n in REMAT_TABLE[policy])
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
@@ -4234,6 +4375,8 @@ def remat_expected(route: str, policy: str, depth: int, micro: int,
                      "encoder_attention_fwd_savep",
                      "encoder_attention_bwd_savep"):
             counts[f"{name}_dropout"] = counts[name]
+        counts["dropout_mask"] = micro * (
+            1 + 2 * depth * (1 + REMAT_MASK_REPLAYS[policy]))
     return counts
 
 
@@ -4598,7 +4741,8 @@ def phase_recipe_detector(smi) -> dict:
     counts = read_counts()
     enc, dec = det_cfg.backbone.depth, det_cfg.head.depth
     want = {"flash_attention_fwd": 2 * enc + dec,  # the encoder replays
-            "flash_attention_bwd": enc + dec, "fused_adamw": 1}
+            "flash_attention_bwd": enc + dec, "fused_adamw": 1,
+            "dropout_mask": mask_sites(resolve_detector(tcfg), replays=1)}
     got = {k: counts[k] for k in want}
     log(json.dumps({"check": "deit_detector_ref step, remat full, taps warp",
                     "seconds": seconds, "loss": float(m["loss"]),
@@ -4642,9 +4786,9 @@ def phase_vit_large(smi) -> dict:
 # the timm import with phase 4's seeded head, its bias centred on (c)'s
 # images, as the teacher, and how its argmax spreads over them. (c) the
 # DeiT-400 student (deit_ref_400_16_224: 25 heads of 16, CLS and DIST
-# heads seeded) with attention dropout 0.1 and no residual dropout, in
-# fp32, batch 4 as 2 x 2, 2 steps of each mode on the card against the
-# CPU at phase 11(c)'s limits. (d) bf16 with the preset's dropout and
+# heads seeded) with the preset's residual dropout 0.1 and attention
+# dropout 0.1, in fp32, batch 4 as 2 x 2, 2 steps of each mode on the card
+# against the CPU at phase 11(c)'s limits. (d) bf16 with the preset's dropout and
 # attention dropout 0.1, batch 64 as 2 x 32, crop/flip on the 256 canvas,
 # fused AdamW: the same steps without a teacher (peak memory's
 # reference), then 2 warm-up and 5 timed steps a mode: ms/step, img/s,
@@ -4655,12 +4799,6 @@ def phase_vit_large(smi) -> dict:
 # #4's kernels; StepTimer beside CUDA events over (d)'s timed steps;
 # assert_all_finite over the state.
 DISTILL_STUDENT = "deit_ref_400_16_224"
-# (c)'s student: residual dropout 0 (its masks come from a generator on the
-# tensor's device, whose streams differ between the card and the CPU, so
-# phase 9(a) runs this backbone without it), attention dropout 0.1 kept
-# (the kernels' Philox mask, the same bits on both, as in phase 11(c));
-# registered in PRESETS by phase 15
-DISTILL_STUDENT_NODROP = "deit_ref_400_16_224_nodrop"
 DISTILL_TEACHER = "vit_base_16_224"
 DISTILL_MODES = ("hard", "soft")
 DISTILL_CLI_ARGS = ["--train-preset", "vit_base_finetune", "--preset",
@@ -4953,8 +5091,10 @@ def distill_launches(micro: int, steps: int, eval_forwards: int,
     """The distillation path's launches over `micro` microbatches in
     `steps` steps and `eval_forwards` eval forwards: per microbatch the
     student's 12 #3 forward and 12 #4 calls, both on their dropout
-    branch, and the teacher's 12 #1 launches without dropout (no #2); per
-    step one #7 launch; per eval forward 12 #3 calls without dropout."""
+    branch, and the teacher's 12 #1 launches without dropout (no #2), and
+    the student's 25 mask sites (positional and residual; the teacher
+    draws none); per step one #7 launch; per eval forward 12 #3 calls
+    without dropout."""
     depth = PRESETS[DISTILL_STUDENT].depth
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     counts["flash_attention_fwd"] = depth * (micro + eval_forwards)
@@ -4963,6 +5103,7 @@ def distill_launches(micro: int, steps: int, eval_forwards: int,
         counts[name] = depth * micro
     if teacher:
         counts["encoder_attention_fwd"] = PRESETS[DISTILL_TEACHER].depth * micro
+    counts["dropout_mask"] = mask_sites(PRESETS[DISTILL_STUDENT]) * micro
     counts["fused_adamw"] = steps
     return counts
 
@@ -5164,13 +5305,11 @@ def phase_distill(smi) -> dict:
         log("# phase 15(b): the teacher")
         teacher, counts = phase_distill_teacher(timm_dir, tmp, smi)
         add_counts(total, counts)
-        PRESETS[DISTILL_STUDENT_NODROP] = dataclasses.replace(
-            PRESETS[DISTILL_STUDENT], dropout=0.0)
         for mode in DISTILL_MODES:
             log(f"# phase 15(c): {mode} distillation, card vs CPU")
             zero_counts()
             phase_train_parity(PRESETS[DISTILL_STUDENT], batch=4,
-                               preset=DISTILL_STUDENT_NODROP,
+                               preset=DISTILL_STUDENT,
                                distillation=mode, distill_teacher=teacher)
             counts = read_counts()
             add_counts(total, counts)
@@ -5182,6 +5321,269 @@ def phase_distill(smi) -> dict:
         add_counts(total, phase_distill_cli(teacher, tmp, smi))
     log(json.dumps({"phase": 15, "seconds": time.perf_counter() - t0,
                     "launches": {k: v for k, v in total.items() if v}}))
+    return total
+
+
+# Phase 16: data- and tensor-parallel training (``arsvt_tpu_torch/
+# parallel/``). (a) NCCL with world size 1: one bench-config ViT-B/16 step
+# (bf16, batch 64 as 2 x 32, crop/flip on the 256 canvas, attention dropout
+# 0.1) and one deit_detector_ref step (its preset's dropout) through
+# `Trainer` with mesh_data=1 over an NCCL group, held to the bit against
+# the same steps with no process group. (b) Two ranks on the one card:
+# NCCL takes no two ranks on one GPU, so two spawned processes initialise
+# gloo themselves on CUDA tensors (gloo sums them through the host) and
+# `make_mesh` takes that group; DP = 2 and TP = 2 at full width, residual
+# and attention dropout 0.1, ViT-B/16 in fp32 and in bf16 and
+# deit_detector_ref (25 heads: 13 and 12 on the TP ranks) in fp32, each
+# held against the one-process step on the global batch: fp32 loss and
+# gradient norm within PAR_TOL_LOSS, the first Adam moment (one step's
+# gradient) and the update within PAR_TOL_UPDATE (relative L2; an element
+# whose gradient lies within noise of zero, such as a key bias column,
+# whose exact gradient is 0, moves by up to 2 lr the other way, which at
+# full width stays under the limit: measured 2.7e-5 to 4.9e-5 on the H100);
+# bf16 within phase 7(a2)'s limits on the loss and the gradient norm (its
+# update, sign flips of bf16-rounded gradients, is recorded); each rank's launches equal the one-process step's (the
+# same layers and microbatches, on its rows and heads). (c) Each of the
+# three switches changes the route of one fp32 ViT-B step with attention
+# dropout: ARSVT_DISABLE_FUSED_ATTN sends the head_dim-64 layers to #3/#4
+# (#1 = #2 = 0), ARSVT_ATTN_JNP too (it sends CPU tensors to the plain
+# reference; on the card the attention stays on its kernels, so its launch
+# table is ARSVT_DISABLE_FUSED_ATTN's), ARSVT_DISABLE_LN_VJP runs
+# no `_LayerNorm` Function. (d) One DP = 2 step against one process,
+# host clock and CUDA events, recorded: on one card the two ranks share
+# the SMs and gloo crosses the host, so nothing is expected of it.
+PAR_TOL_LOSS = 1e-5
+PAR_TOL_UPDATE = 1e-4
+PAR_DETECT_PRESET = "deit_detector_ref"
+
+
+def par_classify_job(data: int, model: int, *, bf16: bool = False,
+                     timed: int = 0) -> dict:
+    """ViT-B/16 with residual and attention dropout 0.1: global batch 8 as
+    2 microbatches, crop/flip on the 256 canvas, a seeded random head."""
+    from arsvt_tpu_torch.parallel import dryrun
+
+    backbone = dataclasses.asdict(dataclasses.replace(
+        PRESETS["vit_base_16_224"], dropout=0.1, attn_dropout=0.1))
+    return dryrun.classify_job(
+        data, model, name=f"vit_b {'bf16' if bf16 else 'fp32'}",
+        device="cuda:0", image_size=256, batch=8, backbone=backbone,
+        timed=timed,
+        cfg=dict(preset="vit_base_16_224_dropout", batch_size=8,
+                 grad_accum=2, bf16=bf16, augment="crop_flip", canvas=256,
+                 warmup_steps=0, fused_adamw=True))
+
+
+def par_detect_job(data: int, model: int) -> dict:
+    """deit_detector_ref with its preset's dropout, global batch 4 with
+    1-25 boxes an image, detection augmentation on the 256 canvas, fp32."""
+    from arsvt_tpu_torch.parallel import dryrun
+
+    job = dryrun.detect_job(
+        data, model, name="deit_detector_ref fp32", device="cuda:0",
+        image_size=256, batch=4, train_preset=PAR_DETECT_PRESET,
+        cfg=dict(preset=PAR_DETECT_PRESET, task="detect", batch_size=4,
+                 bf16=False, augment="detection", canvas=256,
+                 max_objects=25, warmup_steps=0))
+    del job["backbone"], job["detr"]  # the registry's preset as it is
+    return job
+
+
+def phase_parallel_nccl(smi) -> dict:
+    """(a) NCCL, world size 1: Trainer steps with a group against the same
+    steps without one, to the bit. Returns the launches of the runs with
+    the group."""
+    import torch.distributed as dist
+
+    from arsvt_tpu_torch.parallel import dryrun
+    from arsvt_tpu_torch.train.trainer import Trainer
+
+    check(dist.is_nccl_available(), "this torch has no NCCL")
+    rng = np.random.default_rng(16)
+    classify = {"image": rng.integers(0, 256, (64, 256, 256, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 6, 64).astype(np.int32)}
+    # no warm-up: the one step's update is the full learning rate's
+    quiet = dict(log_every=1, eval_every=10**9, checkpoint_every=10**9,
+                 warmup_steps=0)
+    cases = [("vit_b bf16", train_cfg(batch_size=64, grad_accum=2,
+                                      bf16=True, attn_dropout=0.1, **quiet),
+              classify),
+             ("deit_detector_ref", det_train_cfg(batch_size=8, **quiet),
+              det_random_batch(rng, 8))]
+    total = dict.fromkeys([n for n, _, _ in dryrun.KERNEL_COUNTERS], 0)
+
+    def one_step(cfg, batch):
+        trainer = Trainer(cfg, device="cuda")
+        trainer.init_state()
+        if cfg.task == "classify":
+            set_head(trainer.state["params"], 768, 6, seed=1)
+        dryrun.kernel_counts(zero=True)
+        out = trainer.fit(iter([batch]), steps=1)
+        torch.cuda.synchronize()
+        params = [p.detach().cpu() for p in
+                  tree_leaves(trainer.state["params"])]
+        return out, params, dryrun.kernel_counts()
+
+    for name, cfg, batch in cases:
+        plain = one_step(cfg, batch)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            grouped = one_step(cfg, batch)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        same = all(torch.equal(a, b) for a, b in zip(plain[1], grouped[1]))
+        rec = {"check": "Trainer step on an NCCL group of 1 vs no group",
+               "case": name, "backend": backend,
+               "loss": [plain[0]["loss"], grouped[0]["loss"]],
+               "params_identical": same, "launches": grouped[2],
+               "launches_no_group": plain[2], "card": smi}
+        log(json.dumps(rec))
+        check(backend == "nccl", f"16(a) ran on {backend}")
+        check(same and plain[0]["loss"] == grouped[0]["loss"],
+              f"16(a) {name}: the NCCL step differs from the plain one")
+        check(plain[2] == grouped[2], f"16(a) {name} launches differ")
+        for k, v in grouped[2].items():
+            total[k] += v
+    return total
+
+
+def phase_parallel_ranks(smi) -> tuple[dict, dict]:
+    """(b) and (d): two gloo ranks on the card, DP = 2 and TP = 2, against
+    one process. Returns (rank 0's launches, the timing record)."""
+    from arsvt_tpu_torch.parallel import dryrun
+
+    jobs = [par_classify_job(2, 1, timed=2), par_classify_job(1, 2),
+            par_classify_job(1, 2, bf16=True), par_detect_job(2, 1),
+            par_detect_job(1, 2)]
+    t0 = time.perf_counter()
+    got = dryrun.run_grid(jobs, timeout=900)
+    seconds = time.perf_counter() - t0
+    total = dict.fromkeys([n for n, _, _ in dryrun.KERNEL_COUNTERS], 0)
+    timing = None
+    for job, g in zip(jobs, got):
+        want = dryrun.run_steps({**job, "timed": job.get("timed", 0)})
+        errs = dryrun.compare(g, want)
+        bf16 = job["cfg"]["bf16"]
+        rec = {"check": "two gloo ranks on the card vs one process",
+               "case": job["name"], "grid": [job["data"], job["model"]],
+               **errs, "launches_rank0": g["counts"],
+               "launches_one_process": want["counts"], "card": smi}
+        log(json.dumps(rec))
+        if bf16:
+            check(errs["loss"] <= TOL_BF16_LOSS
+                  and errs["grad_norm"] <= TOL_BF16_NORM,
+                  f"16(b) {job['name']} {job['data']}x{job['model']}: "
+                  f"{errs}")
+        else:
+            check(errs["loss"] <= PAR_TOL_LOSS
+                  and errs["grad_norm"] <= PAR_TOL_LOSS
+                  and errs["moment"] <= PAR_TOL_UPDATE
+                  and errs["update"] <= PAR_TOL_UPDATE,
+                  f"16(b) {job['name']} {job['data']}x{job['model']}: "
+                  f"{errs}")
+        check(g["counts"] == want["counts"] and all(
+            g["counts"][k] > 0 for k in ("fused_adamw", "dropout_mask")),
+            f"16(b) {job['name']} launches {g['counts']} != "
+            f"{want['counts']}")
+        for k, v in g["counts"].items():
+            total[k] += v
+        if job.get("timed"):
+            timing = {"timing": "one DP = 2 step (two gloo ranks on the "
+                                "card) vs one process", "case": job["name"],
+                      "dp2_rank0": g["timed"], "one_process": want["timed"],
+                      "card": smi}
+    log(json.dumps({"phase": "16(b)", "seconds_two_ranks": seconds}))
+    log(json.dumps(timing))
+    return total, timing
+
+
+def phase_parallel_switches(smi) -> dict:
+    """(c) each switch changes one fp32 ViT-B step's route. Returns the
+    launches."""
+    from arsvt_tpu_torch.ops import layernorm
+    from arsvt_tpu_torch.parallel import dryrun
+
+    tcfg = train_cfg(batch_size=2, bf16=False, attn_dropout=0.1,
+                     warmup_steps=0)
+    rng = np.random.default_rng(17)
+    batch = {"image": rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8),
+             "label": rng.integers(0, 6, 2).astype(np.int32)}
+    ln_calls = [0]
+    real_apply = layernorm._LayerNorm.apply
+
+    def counted(*args):
+        ln_calls[0] += 1
+        return real_apply(*args)
+
+    total = dict.fromkeys([n for n, _, _ in dryrun.KERNEL_COUNTERS], 0)
+    runs = {}
+    layernorm._LayerNorm.apply = counted
+    try:
+        for switch in (None, "ARSVT_DISABLE_FUSED_ATTN", "ARSVT_ATTN_JNP",
+                       "ARSVT_DISABLE_LN_VJP"):
+            if switch:
+                os.environ[switch] = "1"
+            try:
+                init_fn, step, _ = make_classifier_step_fns(tcfg)
+                state = init_fn()
+                set_head(state["params"], 768, 6, seed=1)
+                ln_calls[0] = 0
+                dryrun.kernel_counts(zero=True)
+                _, m = step(state, batch, step_seed=3)
+                loss = float(m["loss"])
+                runs[switch] = (dryrun.kernel_counts(), ln_calls[0], loss)
+            finally:
+                if switch:
+                    os.environ.pop(switch)
+    finally:
+        del layernorm._LayerNorm.apply  # the inherited classmethod again
+    for switch, (counts, ln, loss) in runs.items():
+        log(json.dumps({"check": "a switch's route on the card",
+                        "switch": switch, "launches": counts,
+                        "layer_norm_functions": ln, "loss": loss,
+                        "card": smi}))
+        for k, v in counts.items():
+            total[k] += v
+    base, fused_off, plain, ln_off = (runs[k] for k in runs)
+    depth = 12
+    check(base[0]["encoder_attention_fwd"] == depth
+          and base[0]["flash_attention_fwd"] == 0 and base[1] > 0,
+          f"16(c) default route {base}")
+    check(fused_off[0]["encoder_attention_fwd"] == 0
+          and fused_off[0]["encoder_attention_bwd"] == 0
+          and fused_off[0]["flash_attention_fwd"] == depth
+          and fused_off[0]["flash_attention_bwd"] == depth,
+          f"16(c) ARSVT_DISABLE_FUSED_ATTN {fused_off}")
+    check(plain[0] == fused_off[0], f"16(c) ARSVT_ATTN_JNP {plain}")
+    check(ln_off[1] == 0 and ln_off[0] == base[0],
+          f"16(c) ARSVT_DISABLE_LN_VJP {ln_off}")
+    for name, run in (("fused_off", fused_off), ("plain", plain),
+                      ("ln_off", ln_off)):
+        rel = abs(run[2] - base[2]) / abs(base[2])
+        check(rel <= TOL_TRAIN_LOSS, f"16(c) {name} loss {rel}")
+    return total
+
+
+def phase_parallel(smi) -> dict:
+    """Phase 16. Returns the launches of the paths it drives."""
+    from arsvt_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    log("# phase 16(a): Trainer on an NCCL group of one")
+    total = phase_parallel_nccl(smi)
+    log("# phase 16(b), (d): two gloo ranks on the card, DP = 2 and TP = 2")
+    counts, _ = phase_parallel_ranks(smi)
+    for k, v in counts.items():
+        total[k] += v
+    log("# phase 16(c): the three switches")
+    for k, v in phase_parallel_switches(smi).items():
+        total[k] += v
+    log(json.dumps({"phase": 16, "seconds": time.perf_counter() - t0,
+                    "launches": total}))
     return total
 
 
@@ -5236,7 +5638,8 @@ def phase_build_report(built: dict) -> None:
     bf16 kernel of the attention libraries, HGMMA in every bf16 kernel of
     the fused MLP's."""
     for row in ptxas_report(built):
-        if row["library"] in TENSOR_CORE_LIBRARIES + ("fused_adamw",):
+        if row["library"] in TENSOR_CORE_LIBRARIES + ("fused_adamw",
+                                                      "dropout_mask"):
             log(json.dumps({"ptxas": row}))
             check(not is_bf16_kernel(row["entry"]) or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0
@@ -5288,6 +5691,14 @@ def main() -> int:
         log("# --distill: phase 15 alone")
         phase_distill(smi)
         return 0
+    if "--parallel" in sys.argv[1:]:
+        log("# --parallel: phase 16 alone")
+        phase_parallel(smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if {"--disk", "--int8"} & set(sys.argv[1:]):
         log("# --disk / --int8: phase 12 (and 13) alone")
         with tempfile.TemporaryDirectory() as tmp:
@@ -5305,6 +5716,7 @@ def main() -> int:
     savep_fwd, savep_bwd = phase_savep_checks(cfg)
     dropout = phase_encoder_dropout_checks(cfg)
     mlp_fwd, mlp_bwd = phase_mlp_checks()
+    masks = phase_mask_kernel_checks()
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
         return 0
@@ -5366,6 +5778,9 @@ def main() -> int:
     log("# phase 15: DeiT distillation from an imported teacher")
     distill = phase_distill(smi)
 
+    log("# phase 16: data- and tensor-parallel training")
+    parallel = phase_parallel(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -5375,10 +5790,10 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-15
+    def paths(name):  # launches of every path's run, phases 4-16
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
-                + recipe[name] + distill[name]
+                + recipe[name] + distill[name] + parallel.get(name, 0)
                 + (launches if name == "encoder_attention_fwd" else 0))
 
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",
@@ -5419,6 +5834,14 @@ def main() -> int:
         # that ran the branch, counted by the wrappers over every path)
         row(f"{name} (dropout 0.1)", *sources[name], dropout[name],
             paths(f"{name}_dropout")) for name in ENC_DROPOUT_NAMES
+    ] + [
+        # the port-only mask kernel of the residual, positional and
+        # reference-attention sites; it replaces JAX's jax.random.bernoulli
+        # draw, not a Pallas kernel
+        {**row("dropout_mask", "dropout_mask.cu", "", masks,
+               paths("dropout_mask")),
+         "replaces": "arsvt_tpu/models/vit.py:140 (jax.random.bernoulli; "
+                     "no Pallas kernel)"},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

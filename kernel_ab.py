@@ -228,10 +228,32 @@ def legacy_adamw(lib: ctypes.CDLL):
 ADAMW = {"call": fused_adamw.fused_adamw}
 
 
+def without_offsets(lib: ctypes.CDLL, name: str, new):
+    """Attention entry `name` of a tree before interface 2
+    (``arsvt_attention_version``), called with interface 2's arguments:
+    the three mask offsets that come before the dtype and the stream are
+    dropped. Such a tree draws the one-process mask, which is what the
+    offsets (0, heads, 0) of these calls ask for."""
+    fn = getattr(lib, f"arsvt_{name}")
+    fn.argtypes = new.argtypes[:-5] + new.argtypes[-2:]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        return fn(*args[:-5], *args[-2:])
+
+    return call
+
+
+ATTENTION = ("encoder_attention_fwd", "encoder_attention_bwd",
+             "flash_attention_fwd", "flash_attention_bwd",
+             "encoder_attention_savep_fwd", "encoder_attention_savep_bwd")
+
+
 def bind(lib_paths: dict) -> None:
     """Point each wrapper at this tree's library: the wrapper's own loader
     sets the C signature, or, for #8 and #7 of a tree that predates their
-    interface 2, the adapters above."""
+    interface 2 and the attention kernels of one before theirs, the
+    adapters above."""
     real = build.load
     build.load = lambda name: ctypes.CDLL(str(lib_paths[name]))
     try:
@@ -248,6 +270,10 @@ def bind(lib_paths: dict) -> None:
             if name == "fused_mlp_fwd" and not hasattr(
                     lib, "arsvt_fused_mlp_version"):
                 fused_mlp._fwd_fn = fwd_without_scratch(lib)
+            if name in ATTENTION and not hasattr(
+                    lib, "arsvt_attention_version"):
+                setattr(module, fn, without_offsets(
+                    lib, name, getattr(module, fn)))
     finally:
         build.load = real
 

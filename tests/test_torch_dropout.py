@@ -8,6 +8,8 @@ a JAX masked-softmax formula fed the port's own mask, forward and
 gradients.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from arsvt_tpu_torch.core.prng import Rng
 from arsvt_tpu_torch.ops import flash_attention
 from arsvt_tpu_torch.ops.attention import merge_heads, sdpa_reference
 from arsvt_tpu_torch.ops.dropout import (
+    apply_mask,
     dropout,
     keep_bits,
     keep_mask,
@@ -89,9 +92,11 @@ def test_rng_streams():
              for i in range(8)}
     assert len(seeds) == 32 and all(0 <= s < 2**32 for s in seeds)
     assert r.seed32() == Rng(3, 5, 0).seed32()
-    g1, g2 = r.generator(), Rng(3, 5, 0).generator()
-    assert torch.equal(torch.rand(5, generator=g1),
-                       torch.rand(5, generator=g2))
+    # a slice's first global row rides beside the keys: same seed, kept
+    # through fold_in
+    at = r.at_row(6)
+    assert at.row0 == 6 and at.seed32() == r.seed32()
+    assert at.fold_in(1).row0 == 6 and at.fold_in(1).keys == (3, 5, 0, 1)
     with pytest.raises(ValueError, match="non-negative"):
         Rng(-1)
 
@@ -180,30 +185,46 @@ def test_packed_and_unpacked_draw_the_same_mask():
 
 
 def test_residual_dropout():
-    x = torch.ones(200, 500)
-    gen = torch.Generator().manual_seed(0)
-    y = dropout(x, RATE, gen, train=True)
+    """A residual site's mask is the kernels' rule over the (B, 1, S, D)
+    view: kept share, scale, identity cases, dtype."""
+    x = torch.ones(4, 50, 500)
+    rng = Rng(0, 1)
+    y = dropout(x, RATE, rng, train=True)
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.9) < 0.005
     np.testing.assert_allclose(y[kept].numpy(), 1 / 0.9, rtol=1e-6)
-    for kw in (dict(train=False), dict(train=True, generator=None)):
-        g = kw.pop("generator", gen)
-        assert dropout(x, RATE, g, **kw) is x
-    assert dropout(x, 0.0, gen, train=True) is x
+    want = keep_mask(rng.seed32(), 4, 1, 50, 500, RATE).reshape(x.shape)
+    assert torch.equal(kept, want)
+    assert dropout(x, RATE, rng, train=False) is x
+    assert dropout(x, RATE, None, train=True) is x
+    assert dropout(x, 0.0, rng, train=True) is x
     xb = x.bfloat16()
-    assert dropout(xb, RATE, gen, train=True).dtype == torch.bfloat16
+    assert dropout(xb, RATE, rng, train=True).dtype == torch.bfloat16
 
 
 def test_reference_attention_dropout():
+    """The reference draws the kernels' mask of its (B, H, Sq, Sk)
+    probabilities: it equals flash_attention with the same rng."""
     q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, 2, 5, 5, 8, seed=3))
     base = sdpa_reference(q, k, v)
     assert torch.equal(sdpa_reference(q, k, v, dropout_rate=RATE), base)
 
     def run(seed):
         return sdpa_reference(q, k, v, dropout_rate=RATE,
-                              generator=torch.Generator().manual_seed(seed))
+                              dropout_rng=Rng(seed))
 
     assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
+    # the mask and scaling of the kernels' plain versions, to the bit
+    probs = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k)
+                          * (1.0 / math.sqrt(q.shape[-1])), dim=-1)
+    keep = keep_mask(Rng(1).seed32(), *probs.shape, RATE)
+    assert torch.equal(run(1), torch.einsum(
+        "bhqk,bhkd->bhqd", apply_mask(probs, keep, RATE), v))
+    # the softmax differs from the kernels' by rounding only
+    np.testing.assert_allclose(
+        run(1).numpy(), flash_attention.flash_attention(
+            q, k, v, dropout_rate=RATE, dropout_rng=Rng(1)).numpy(),
+        atol=1e-6)
     # the mean over many masks is the undropped attention
     mean = torch.stack([run(s) for s in range(400)]).mean(dim=0)
     np.testing.assert_allclose(mean.numpy(), base.numpy(), atol=0.08)

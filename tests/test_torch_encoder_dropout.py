@@ -194,19 +194,23 @@ def test_rate_out_of_range_raises_and_cpu_counts_no_launch():
 def test_sources_carry_the_dropout_branch(name):
     """Each source (with the shared body it includes: the forward's is
     attention_fwd.cuh) draws encoder_tile.cuh's shared mask under a
-    template flag and takes the (seed, threshold, inv_keep, dropout)
-    arguments the wrapper passes."""
+    template flag, keyed on the global (b0 + b)·H + h0 + h, and takes the
+    (seed, threshold, inv_keep, dropout) arguments and the mask offsets
+    (b0, mask_heads, h0) the wrapper passes."""
     text = build.source_path(name).read_text()
     body = text + "".join(
         (build.CSRC_DIR / header).read_text()
         for header in re.findall(r'#include "(\w+\.cuh)"', text))
-    assert "keeps(drop, bh," in body and "kDrop" in body
+    assert "keeps(drop, mbh," in body and "kDrop" in body
+    assert "const uint32_t mbh = drop.bh(" in body
     head = text[text.index(f'extern "C" int arsvt_{name}'):]
     head = head[:head.index("{")]
     assert all(w in head for w in ("uint32_t seed", "uint32_t threshold",
-                                   "float inv_keep", "int dropout"))
+                                   "float inv_keep", "int dropout", "int b0",
+                                   "int mask_heads", "int h0"))
     tile = (build.CSRC_DIR / "encoder_tile.cuh").read_text()
     assert '#include "philox.cuh"' in tile and "philox_bits(" in tile
+    assert "(uint32_t)((b0 + b) * heads + h0 + h)" in tile
 
 
 _BLOCK_CFG = BackboneConfig(image_size=16, patch_size=8, embed_dim=D,

@@ -197,9 +197,17 @@ def test_custom_ops_pass_opcheck():
     assert sorted(ops) == sorted(library.KERNEL_OPS)
     gen = torch.Generator().manual_seed(0)
     qkv = torch.randn(2, 5, 3 * 128, generator=gen)
-    torch.library.opcheck(ops["encoder_attention_fwd"], (qkv, 2, 0.0, 0))
+    # the last three arguments are the mask offsets (b0, mask_heads, h0):
+    # the one-process call's, and a rank's of a parallel step
+    torch.library.opcheck(ops["encoder_attention_fwd"],
+                          (qkv, 2, 0.0, 0, 0, 2, 0))
+    torch.library.opcheck(ops["encoder_attention_fwd"],
+                          (qkv, 2, 0.1, 7, 4, 5, 1))
     q, k, v = (torch.randn(2, 3, n, 16, generator=gen) for n in (4, 7, 7))
-    torch.library.opcheck(ops["flash_attention_fwd"], (q, k, v, 6, 0.0, 0))
+    torch.library.opcheck(ops["flash_attention_fwd"],
+                          (q, k, v, 6, 0.0, 0, 0, 3, 0))
+    torch.library.opcheck(ops["flash_attention_fwd"],
+                          (q, k, v, 6, 0.1, 7, 2, 4, 1))
     x = torch.randn(9, 12, generator=gen)
     w1, b1 = torch.randn(12, 20, generator=gen), torch.randn(20, generator=gen)
     w2, b2 = torch.randn(20, 12, generator=gen), torch.randn(12, generator=gen)

@@ -57,6 +57,13 @@ MODULES = [
     "arsvt_tpu_torch.models.convert",
     "arsvt_tpu_torch.utils.flops",
     "arsvt_tpu_torch.utils.profiling",
+    "arsvt_tpu_torch.parallel",
+    "arsvt_tpu_torch.parallel.mesh",
+    "arsvt_tpu_torch.parallel.sharding",
+    "arsvt_tpu_torch.parallel.multihost",
+    "arsvt_tpu_torch.parallel.dryrun",
+    "arsvt_tpu_torch.parallel.tensor_parallel",
+    "arsvt_tpu_torch.parallel.data_parallel",
 ]
 
 _PROBE = """

@@ -253,7 +253,7 @@ def test_attention_bwd_sources_run_on_the_tensor_core_tiles(name,
     fwd = (build.CSRC_DIR / "attention_fwd.cuh").read_text()
     assert '#include "warp_tile.cuh"' in fwd
     assert "warp_mma_afrag" in body and "chunk_scores" in body
-    assert "enc::keeps(drop, bh," in body and "kDrop" in body
+    assert "enc::keeps(drop, mbh," in body and "kDrop" in body
     for source in (text, body):
         assert "asm" not in source  # no PTX of its own
         assert "atomic" not in source.replace("no atomics", "")

@@ -141,3 +141,123 @@ def test_augment_bf16_warps_in_bf16_as_jax(monkeypatch):
     monkeypatch.delenv("ARSVT_AUGMENT_BF16")
     assert _port_affine(img, key, cfg).dtype == torch.float32
     assert augment.augment_input_cast(torch.zeros(1)).dtype == torch.float32
+
+
+# ---------------------------------------------------------------- routes
+# The three switches that take a route off (JAX ``ops/dispatch.py:35-36,
+# 48-74``), each held by the route the port takes (the functions it calls;
+# on the card the launch table, ``chip_smoke.py`` phase 16(c)) and by the
+# logits and gradients against JAX's under the same switch, at a head_dim
+# 64 classifier's parity limits (``test_torch_vit.py``: fp32, summation
+# order: logits 2e-5; gradients 1e-4 of each leaf's largest value).
+ROUTE_SMALL = dict(image_size=32, patch_size=8, embed_dim=128, depth=2,
+                   num_heads=2, mlp_dim=256)
+
+
+def _classifier_pair():
+    from arsvt_tpu.models.classifier import (
+        init_image_classifier as jax_init,
+    )
+    from arsvt_tpu.models.vit import BackboneConfig as JaxBackboneConfig
+    from arsvt_tpu_torch.models.bridge import from_jax_params
+    from arsvt_tpu_torch.models.vit import BackboneConfig
+
+    jcfg = JaxBackboneConfig(**ROUTE_SMALL)
+    params = jax_init(jax.random.PRNGKey(0), jcfg, 6)
+    params["classifier"] = jax.tree_util.tree_map(
+        lambda x: 0.2 * jax.random.normal(jax.random.PRNGKey(7), x.shape,
+                                          x.dtype), params["classifier"])
+    cfg = BackboneConfig(**ROUTE_SMALL)
+    port = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg)
+    return jcfg, params, cfg, port
+
+
+def _spy(monkeypatch, module, name, calls):
+    real = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls[name] = calls.get(name, 0) + 1
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+
+
+@pytest.mark.parametrize("switch", [None, "ARSVT_DISABLE_FUSED_ATTN",
+                                    "ARSVT_ATTN_JNP", "ARSVT_DISABLE_LN_VJP"])
+def test_a_switch_takes_its_route_and_matches_jax(switch, monkeypatch):
+    from arsvt_tpu.models.classifier import (
+        apply_image_classifier as jax_apply,
+    )
+    from arsvt_tpu_torch.core.dtypes import named_leaves
+    from arsvt_tpu_torch.models import vit
+    from arsvt_tpu_torch.models.bridge import from_jax_params
+    from arsvt_tpu_torch.models.classifier import apply_image_classifier
+    from arsvt_tpu_torch.ops import attention, flash_attention, layernorm
+
+    for name in ("ARSVT_DISABLE_FUSED_ATTN", "ARSVT_ATTN_JNP",
+                 "ARSVT_DISABLE_LN_VJP"):
+        monkeypatch.delenv(name, raising=False)
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    calls = {}
+    _spy(monkeypatch, vit, "fused_encoder_attention", calls)
+    _spy(monkeypatch, flash_attention, "flash_self_attention_packed", calls)
+    _spy(monkeypatch, attention, "sdpa_reference", calls)
+    _spy(monkeypatch, layernorm._LayerNorm, "apply", calls)
+
+    jcfg, jparams, cfg, port = _classifier_pair()
+    x = np.random.default_rng(12).uniform(size=(3, 32, 32, 3)).astype(
+        np.float32)
+    w = np.random.default_rng(13).standard_normal((3, 6)).astype(np.float32)
+    leaves = [t.requires_grad_(True) for _, t in named_leaves(port)]
+    logits = apply_image_classifier(port, torch.from_numpy(x), cfg, 6)
+    grads = torch.autograd.grad((logits * torch.from_numpy(w)).sum(), leaves)
+
+    route = {"fused_encoder_attention": 0, "flash_self_attention_packed": 0,
+             "sdpa_reference": 0, "apply": 0}
+    route.update(calls)
+    want = {None: ("fused_encoder_attention", "apply"),
+            "ARSVT_DISABLE_FUSED_ATTN": ("flash_self_attention_packed",
+                                         "apply"),
+            "ARSVT_ATTN_JNP": ("sdpa_reference", "apply"),
+            "ARSVT_DISABLE_LN_VJP": ("fused_encoder_attention",)}[switch]
+    assert {k for k, v in route.items() if v} == set(want), route
+
+    def jax_loss(p):
+        return jnp.sum(jnp.asarray(w) * jax_apply(p, jnp.asarray(x), jcfg, 6))
+
+    ref = np.asarray(jax_apply(jparams, jnp.asarray(x), jcfg, 6))
+    np.testing.assert_allclose(logits.detach().numpy(), ref, atol=2e-5)
+    jgrads = from_jax_params(jax.tree_util.tree_map(
+        np.asarray, jax.grad(jax_loss)(jparams)), cfg)
+    for (name, a), g in zip(named_leaves(jgrads), grads):
+        scale = max(float(np.abs(a.numpy()).max()), 1e-6)
+        np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-4 * scale,
+                                   err_msg=f"{switch} {name}")
+
+
+def test_attn_jnp_takes_the_reference_for_cpu_tensors_only(monkeypatch):
+    """``ARSVT_ATTN_JNP`` sends CPU tensors to `sdpa_reference`; a tensor
+    on another device (the card's; here a meta tensor) stays on the head-
+    major kernels' route, and the fused head_dim-64 route is off on both,
+    as ``ARSVT_DISABLE_FUSED_ATTN`` takes it off."""
+    from arsvt_tpu_torch.ops import attention, flash_attention
+
+    monkeypatch.setenv("ARSVT_ATTN_JNP", "1")
+    taken = []
+    monkeypatch.setattr(flash_attention, "flash_self_attention_packed",
+                        lambda *a, **k: taken.append("kernel") or "kernel")
+    monkeypatch.setattr(flash_attention, "flash_attention",
+                        lambda *a, **k: taken.append("kernel") or "kernel")
+    monkeypatch.setattr(attention, "sdpa_reference",
+                        lambda q, *a, **k: taken.append("plain") or q)
+    for device in ("cpu", "meta"):
+        qkv = torch.zeros(1, 4, 24, device=device)
+        q = torch.zeros(1, 2, 4, 4, device=device)
+        attention.self_attention_from_qkv(qkv, 2)
+        attention.multi_head_attention(q, q, q)
+    assert taken == ["plain", "plain", "kernel", "kernel"]
+    assert not dispatch.use_fused_encoder_attention()
+    monkeypatch.delenv("ARSVT_ATTN_JNP")
+    assert not dispatch.force_plain_attention(torch.zeros(1))
+    assert dispatch.use_fused_encoder_attention()

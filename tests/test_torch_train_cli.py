@@ -131,8 +131,13 @@ def test_data_dir_and_detection_raise(tmp_path):
 
 
 def test_multihost_raises(monkeypatch):
+    """ARSVT_MULTIHOST without the coordinator variables is refused with
+    JAX's SystemExit, never run as independent single processes."""
     monkeypatch.setenv("ARSVT_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    for name in ("ARSVT_COORDINATOR_ADDRESS", "ARSVT_NUM_PROCESSES",
+                 "ARSVT_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit, match="ARSVT_MULTIHOST=1 but"):
         cli.main(ARGS + ["--steps", "1"])
 
 
