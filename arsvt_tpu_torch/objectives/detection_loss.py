@@ -10,9 +10,10 @@
 - triplet: batch-hard margin triplet on image-level features with
   dominant-class labels.
 
-The assignment comes from ``objectives/matcher.py`` (scipy on the host);
-a caller that matched several decoder layers at once passes each layer's
-`assignment` in.
+The assignment comes from ``objectives/matcher.py`` on the route of
+``cfg.matcher.backend`` (by default JAX's Jonker-Volgenant on the
+tensors' device, ``csrc/lap.cu`` on the card); a caller that matched
+several decoder layers at once passes each layer's `assignment` in.
 
 Under a data mesh (`group`, the data axis's process group) the batch is a
 rank's rows of the global microbatch, and every value JAX reduces over

@@ -3,17 +3,29 @@
 
 The cost matrices are built on the device, as JAX's `build_cost_matrix`:
 class + L1 (cxcywh) + GIoU terms, target slots that hold no real box at
-`_PAD_COST`. The assignment is solved on the host with scipy's
-``linear_sum_assignment``, the solver JAX keeps as its ``backend="scipy"``
-oracle; it finds the same optimum as JAX's on-device Jonker-Volgenant
-(`lap_rect`). `match_layers` stacks the costs of every decoder layer it
-is given, copies them to the host once, and copies the indices back
-once: the only device-to-host round trip of a detector train step.
+`_PAD_COST`. `MatcherConfig.backend` picks the solver, as in JAX:
+
+- ``"device"`` (the default): JAX's exact Jonker-Volgenant shortest
+  augmenting path (`lap_rect`, ``matcher.py:41-125``) on the device, so a
+  train step never waits for the host. On a CUDA tensor `lap_rect`
+  launches ``csrc/lap.cu`` (one warp a problem, every problem of a call
+  in one launch, counted in `LAUNCHES`); on a CPU tensor it runs
+  `lap_rect_plain`, JAX's scan and while loops on torch tensors, batched
+  the way vmap runs a while loop. Both do JAX's arithmetic in JAX's
+  order (subtractions and compares only), so integer-valued costs give
+  JAX's assignment, ties included. A failed build or launch raises.
+- ``"scipy"``: the oracle, scipy's ``linear_sum_assignment`` on the host
+  (`lap_scipy`) after one copy of the stacked costs.
+
+JAX sends every backend other than ``"scipy"`` down its device route; the
+port accepts the two names and raises on any other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -24,17 +36,37 @@ from arsvt_tpu_torch.objectives.boxes import (
     pairwise_giou,
     xyxy_to_cxcywh,
 )
+from arsvt_tpu_torch.ops import build
 
 # Pad cost: dominates any real cost while fp32 addition keeps the real
 # costs' differences (JAX's value).
 _PAD_COST = 1e4
+_INF = 1e30  # JAX's `_INF`, float32(1e30): the used columns in the argmin
+
+BACKENDS = ("device", "scipy")
+
+# Launches of ``csrc/lap.cu`` in this process (one a `lap_rect` call on a
+# CUDA tensor).
+LAUNCHES = 0
+
+# Shared memory a warp holds for one (q, m) problem (`smem_bytes`), at most
+# the H100's opt-in dynamic shared memory of one block.
+SMEM_LIMIT = 227 * 1024
+
+_fn = None
 
 
 @dataclasses.dataclass(frozen=True)
 class MatcherConfig:
-    cost_class: float = 1.0
+    cost_class: float = 1.0   # reference defaults (train.py:891-896)
     cost_bbox: float = 1.0
     cost_giou: float = 1.0
+    backend: str = "device"   # "device" | "scipy"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"MatcherConfig.backend must be one of "
+                             f"{BACKENDS}, got {self.backend!r}")
 
 
 def build_cost_matrix(class_logits, boxes_cxcywh, tgt_labels, tgt_boxes_xyxy,
@@ -57,14 +89,182 @@ def build_cost_matrix(class_logits, boxes_cxcywh, tgt_labels, tgt_boxes_xyxy,
                        torch.full_like(cost, _PAD_COST))
 
 
-def solve(cost: np.ndarray) -> np.ndarray:
-    """One (Q, M) cost -> target slot per query (Q,) int64; with Q > M the
-    queries left without a slot get M (JAX's out-of-range index)."""
-    q, m = cost.shape
-    rows, cols = linear_sum_assignment(cost)
-    out = np.full(q, m, np.int64)
-    out[rows] = cols
+def _check_rect(cost) -> tuple[list[int], int, int]:
+    *lead, q, m = cost.shape
+    if q > m:
+        raise ValueError(f"lap_rect needs q <= m rows, got a ({q}, {m}) "
+                         f"cost; solve the transpose")
+    return lead, q, m
+
+
+def lap_rect_plain(cost: torch.Tensor) -> torch.Tensor:
+    """JAX's `lap_rect` on torch tensors: costs (..., q, m) with q <= m ->
+    col_for_row (..., q) int64, every row a distinct column, minimising
+    the total.
+
+    One pass over the rows (JAX's `lax.scan`); for row i a tree grown
+    column by column until it reaches a free one (the `while_loop`), the
+    final dual update, the augmenting walk back along `way`, and the
+    inversion of p (column -> row). The problems of the leading dims run
+    together, as under vmap: a problem whose loop has ended keeps its
+    state until every loop has. The arithmetic is JAX's, in its order."""
+    lead, q, m = _check_rect(cost)
+    cost = cost.float().reshape(-1, q, m)
+    n, dev = cost.shape[0], cost.device
+    if n == 0 or q == 0:
+        return torch.zeros((*lead, q), dtype=torch.int64, device=dev)
+    at = torch.arange(n, device=dev)
+    u = torch.zeros(n, q, device=dev)
+    v = torch.zeros(n, m, device=dev)
+    p = torch.full((n, m), -1, dtype=torch.int64, device=dev)
+    for i in range(q):
+        minv = cost[:, i] - u[:, i:i + 1] - v
+        way = torch.full((n, m), -1, dtype=torch.int64, device=dev)
+        used = torch.zeros(n, m, dtype=torch.bool, device=dev)
+        tree = torch.zeros(n, q, dtype=torch.bool, device=dev)
+        tree[:, i] = True
+        j1 = minv.argmin(1)
+        live = p[at, j1] != -1
+        while bool(live.any()):
+            keep = live[:, None]
+            delta = minv[at, j1][:, None]
+            u_new = u + torch.where(tree, delta, 0.0)
+            v_new = v - torch.where(used, delta, 0.0)
+            minv_new = torch.where(used, minv, minv - delta)
+            used_new = used.clone()
+            used_new[at, j1] = True
+            row = p[at, j1].clamp(min=0)
+            tree_new = tree.clone()
+            tree_new[at, row] = True
+            cur = cost[at, row] - u_new[at, row][:, None] - v_new
+            improved = (cur < minv_new) & ~used_new
+            minv_new = torch.where(improved, cur, minv_new)
+            way_new = torch.where(improved, j1[:, None], way)
+            j1_new = torch.where(used_new, _INF, minv_new).argmin(1)
+            u = torch.where(keep, u_new, u)
+            v = torch.where(keep, v_new, v)
+            minv = torch.where(keep, minv_new, minv)
+            used = torch.where(keep, used_new, used)
+            tree = torch.where(keep, tree_new, tree)
+            way = torch.where(keep, way_new, way)
+            j1 = torch.where(live, j1_new, j1)
+            live = p[at, j1] != -1
+        # final dual update so the new matched edge becomes tight
+        delta = minv[at, j1][:, None]
+        u = u + torch.where(tree, delta, 0.0)
+        v = v - torch.where(used, delta, 0.0)
+        # augment: walk predecessors from the free column, shifting rows
+        j = j1
+        walking = way[at, j] != -1
+        while bool(walking.any()):
+            jprev = way[at, j]
+            moved = p[at, jprev.clamp(min=0)]
+            p[at[walking], j[walking]] = moved[walking]
+            j = torch.where(walking, jprev, j)
+            walking = way[at, j] != -1
+        p[at, j] = i
+    # invert p (col -> row); free columns (p = -1) land on the dropped q
+    col_for_row = torch.zeros(n, q + 1, dtype=torch.int64, device=dev)
+    cols = torch.arange(m, device=dev).expand(n, m)
+    col_for_row.scatter_(1, torch.where(p >= 0, p, q), cols)
+    return col_for_row[:, :q].reshape(*lead, q)
+
+
+def smem_bytes(q: int, m: int) -> int:
+    """Shared memory of one warp's problem in ``csrc/lap.cu``: v, minv, p
+    and way (m words each), u (q words), used (m bytes) and tree (q
+    bytes), rounded up to 16 bytes."""
+    return (4 * (4 * m + q) + m + q + 15) // 16 * 16
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("lap").arsvt_lap_rect
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(cost: torch.Tensor, out: torch.Tensor, n: int, q: int,
+            m: int) -> int:
+    fn = _kernel()
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        return fn(cost.data_ptr(), out.data_ptr(), n, q, m, SMEM_LIMIT,
+                  stream)
+
+
+def lap_rect(cost: torch.Tensor) -> torch.Tensor:
+    """Exact rectangular LAP, batched over the leading dims (JAX's
+    ``jax.vmap(lap_rect)``): costs (..., q, m) fp32 with q <= m ->
+    col_for_row (..., q) int64, every row a distinct column, minimising
+    the total. A CUDA tensor goes through ``csrc/lap.cu`` in one launch
+    (or raises), a CPU tensor through `lap_rect_plain`."""
+    lead, q, m = _check_rect(cost)
+    if cost.device.type == "cpu":
+        return lap_rect_plain(cost)
+    if cost.device.type != "cuda":
+        raise ValueError(f"lap_rect runs on cpu or cuda, got {cost.device}")
+    global LAUNCHES
+    n = math.prod(lead)
+    out = cost.new_empty((*lead, q), dtype=torch.int64)
+    if n == 0 or q == 0:
+        return out
+    if smem_bytes(q, m) > SMEM_LIMIT:
+        raise ValueError(f"lap_rect's kernel holds one ({q}, {m}) problem "
+                         f"in {smem_bytes(q, m)} bytes of shared memory, "
+                         f"past the {SMEM_LIMIT} a block has")
+    cost = cost.float().contiguous()
+    err = _launch(cost, out, n, q, m)
+    if err != 0:
+        raise RuntimeError(f"lap_rect kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
     return out
+
+
+def lap_single(cost: torch.Tensor) -> torch.Tensor:
+    """Exact square LAP (n, n); returns col_for_row (n,)."""
+    return lap_rect(cost)
+
+
+def lap_batch(cost: torch.Tensor) -> torch.Tensor:
+    """`lap_single` over a batch (B, n, n) -> (B, n), in one call."""
+    if cost.dim() != 3:
+        raise ValueError(f"lap_batch takes (B, n, n) costs, got "
+                         f"{tuple(cost.shape)}")
+    return lap_rect(cost)
+
+
+def lap_scipy(cost: np.ndarray) -> np.ndarray:
+    """The host oracle: costs (..., Q, M) -> target slot per query (...,
+    Q) int64 by scipy's ``linear_sum_assignment``, any Q and M; with Q > M
+    the queries left without a slot get M (JAX's out-of-range index)."""
+    cost = np.asarray(cost)
+    *lead, q, m = cost.shape
+    flat = cost.reshape(-1, q, m)
+    out = np.full((flat.shape[0], q), m, np.int64)
+    for b, c in enumerate(flat):
+        rows, cols = linear_sum_assignment(c)
+        out[b, rows] = cols
+    return out.reshape(*lead, q)
+
+
+def _assign_on_device(costs: torch.Tensor) -> torch.Tensor:
+    """The device route: one `lap_rect` call for every problem of
+    `costs` (..., Q, M); for Q > M the transpose (each slot picks its
+    query: the padded square's optimum), inverted on the device, with the
+    queries left without a slot at M (JAX ``matcher.py:216-223``)."""
+    q, m = costs.shape[-2:]
+    if q <= m:
+        return lap_rect(costs)
+    row_for_col = lap_rect(costs.transpose(-1, -2).contiguous())
+    slots = torch.arange(m, device=costs.device).expand_as(row_for_col)
+    idx = torch.full(costs.shape[:-1], m, dtype=torch.int64,
+                     device=costs.device)
+    return idx.scatter_(-1, row_for_col, slots)
 
 
 def match_layers(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
@@ -75,14 +275,19 @@ def match_layers(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
     query_matched (B, Q) bool), one per layer, on the targets' device:
     `target_for_query[b, q]` is the slot assigned to query q, and
     `query_matched` is True only where that slot holds a real target. The
-    costs are computed without a graph (the assignment is discrete)."""
+    costs are computed without a graph (the assignment is discrete) and
+    stacked (L, B, Q, M); the device route solves them in one `lap_rect`
+    call with no copy to the host, the scipy route copies them to the
+    host once and the indices back once."""
     with torch.no_grad():
         costs = torch.stack([
             build_cost_matrix(cl, bx, tgt_labels, tgt_boxes_xyxy.float(),
                               tgt_mask, cfg) for cl, bx in layers])
-        host = costs.cpu().numpy()  # (L, B, Q, M): the one copy to the host
-        idx = np.stack([[solve(c) for c in layer] for layer in host])
-        idx = torch.from_numpy(idx).to(tgt_labels.device)
+        if cfg.backend == "scipy":
+            host = costs.cpu().numpy()  # (L, B, Q, M): one copy to the host
+            idx = torch.from_numpy(lap_scipy(host)).to(tgt_labels.device)
+        else:
+            idx = _assign_on_device(costs)
         m = tgt_labels.shape[1]
         in_range = idx < m
         real = torch.gather(

@@ -48,16 +48,17 @@ LOSS_RTOL = 1e-6
 UPDATE_RTOL = 2e-3
 
 
-# the kernels' launch counters: (name, ops module, attribute)
+# the kernels' launch counters: (name, module under arsvt_tpu_torch, attribute)
 KERNEL_COUNTERS = (
-    ("encoder_attention_fwd", "encoder_attention", "LAUNCHES"),
-    ("encoder_attention_bwd", "encoder_attention", "BWD_LAUNCHES"),
-    ("flash_attention_fwd", "flash_attention", "LAUNCHES"),
-    ("flash_attention_bwd", "flash_attention", "LAUNCHES_BWD"),
-    ("fused_adamw", "fused_adamw", "LAUNCHES"),
-    ("fused_mlp_fwd", "fused_mlp", "LAUNCHES"),
-    ("fused_mlp_bwd", "fused_mlp", "BWD_LAUNCHES"),
-    ("dropout_mask", "dropout", "LAUNCHES"),
+    ("encoder_attention_fwd", "ops.encoder_attention", "LAUNCHES"),
+    ("encoder_attention_bwd", "ops.encoder_attention", "BWD_LAUNCHES"),
+    ("flash_attention_fwd", "ops.flash_attention", "LAUNCHES"),
+    ("flash_attention_bwd", "ops.flash_attention", "LAUNCHES_BWD"),
+    ("fused_adamw", "ops.fused_adamw", "LAUNCHES"),
+    ("fused_mlp_fwd", "ops.fused_mlp", "LAUNCHES"),
+    ("fused_mlp_bwd", "ops.fused_mlp", "BWD_LAUNCHES"),
+    ("dropout_mask", "ops.dropout", "LAUNCHES"),
+    ("lap", "objectives.matcher", "LAUNCHES"),
 )
 
 
@@ -67,7 +68,7 @@ def kernel_counts(zero: bool = False) -> dict:
 
     out = {}
     for name, module, attr in KERNEL_COUNTERS:
-        mod = importlib.import_module(f"arsvt_tpu_torch.ops.{module}")
+        mod = importlib.import_module(f"arsvt_tpu_torch.{module}")
         out[name] = getattr(mod, attr)
         if zero:
             setattr(mod, attr, 0)

@@ -8,11 +8,13 @@ cast of the parameters to the compute dtype -> forward (backbone + DETR
 decoder with aux outputs + triplet features, dropout drawn from
 ``Rng(seed, step, microbatch)``, the backbone's blocks rematerialised
 under ``remat_policy`` when ``remat``) -> Hungarian matching of the
-final and every aux layer (one copy of the stacked costs to the host,
-scipy, one copy of the indices back) -> `detection_loss` plus the summed
+final and every aux layer in one solve (``loss_cfg.matcher.backend``: on
+the default ``"device"`` route one launch of ``csrc/lap.cu`` on the card,
+no copy to the host; on ``"scipy"`` one copy of the stacked costs to the
+host and one of the indices back) -> `detection_loss` plus the summed
 aux-layer losses -> backward, accumulated over ``grad_accum``
-microbatches -> one AdamW update -> step + 1. The matcher's round trip is
-the step's only wait on the card; metrics stay on the device.
+microbatches -> one AdamW update -> step + 1. Metrics stay on the
+device.
 
 The state is a dict {"params", "opt_state", "step"} updated in place, as
 the classifier step's.
@@ -115,8 +117,8 @@ def make_detector_step_fns(cfg: TrainConfig, device=None, *, mesh=None):
 
     def layer_losses(outputs, feats, targets, group=None):
         """Final-layer loss and parts plus the aux layers' totals, every
-        layer matched in one host round trip; the parts' "total" is the
-        rank's share of the summed loss (`detection_loss`)."""
+        layer matched in one `match_layers` call; the parts' "total" is
+        the rank's share of the summed loss (`detection_loss`)."""
         aux = outputs.pop("aux", None)
         layers = [(outputs["class_logits"], outputs["boxes_cxcywh"])]
         if aux is not None:

@@ -81,10 +81,14 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    (b) 3 bf16 steps against 3 fp32 steps on the card, the configuration of
    (c); (c) the ``bench.py::bench_detect`` configuration (batch 32, bf16,
    detection augmentation on the 256 canvas, dropout 0.1 with attention
-   dropout in the kernels), 2 warm-up and 5 timed steps: images/s,
-   ms/step, peak memory; one step run twice from the same state; (d)
+   dropout in the kernels), 2 warm-up steps, then 5 timed steps a window
+   on each matcher route in turns (device, scipy, scipy, device, twice):
+   images/s, ms/step, the host's ms in ``match_layers``, peak memory; the
+   device route's ``match_layers`` under sync debug mode "error" (no
+   synchronising call), and the synchronising calls of one whole step on
+   each route, by place; one step run twice from the same state; (d)
    ``eval_step`` and ``evaluate_detector``; (e) a torch.profiler window
-   over one step;
+   over one step on each route (the busy share);
 10. ViT-B/16@224 training with ``ARSVT_ATTN_SAVE_PROBS`` and
    ``ARSVT_ENABLE_FUSED_MLP`` set in the process (and unset after; every
    other phase runs with both unset): (a) two fp32 steps on the card
@@ -161,7 +165,14 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    three route switches' launch tables; (d) a DP = 2 step's time beside
    one process's.
 
-Phase 3 also holds the dropout-mask kernel (``csrc/dropout_mask.cu``, the
+Phase 3 also holds the assignment kernel of the detector's matcher
+(``csrc/lap.cu``, JAX's on-device Jonker-Volgenant) against
+``lap_rect_plain`` on the card, equal assignments at the detector step's
+(6, 32, 5, 25), the ``vit_base_detector`` step's transposed (6, 32, 25,
+100), q = m = 64 over 256 problems, q = 1 and integer costs with ties,
+the optimum scipy's within 1e-5, timed beside scipy on the host; its row
+in the kernels record counts its launches over phases 4-16. It also
+holds the dropout-mask kernel (``csrc/dropout_mask.cu``, the
 residual, positional and reference-attention masks) against
 ``keep_mask`` with 0 mismatches at residual and attention views, with
 and without a parallel rank's offsets, and probes #1-#6's masks at such
@@ -178,17 +189,21 @@ cross-attention launches of the head-major kernel per forward, no other
 kernel); 8(g) (``vit_base_detector``: 12 encoder-attention and 6
 head-major launches per forward); 9(c)-(e) (detector training: 18
 head-major forward and 18 backward calls and one AdamW launch per step,
-18 forward calls per eval forward); 10(c) (opt-in training: per layer and
-microbatch one #5 launch, one #6 call, one #8 call and one #9 call (two
-launches each in bf16), no #1 or #2; one AdamW launch per step; per eval
+18 forward calls per eval forward, one lap launch per step on the device
+route and per eval forward, none on the scipy route); 10(c) (opt-in
+training: per layer and microbatch one #5 launch, one #6 call, one #8
+call and one #9 call (two launches each in bf16), no #1 or #2; one
+AdamW launch per step; per eval
 forward one #1 launch and one #8 call per layer); each CLI run of
 11(a)-(b), with the same rule per route and step and 8 eval forwards of
 128 images per eval;
 11(d) (per step 12 #1 and #2 calls, 6 #3 and #4 calls, one AdamW
-launch); each entry point of 12 ((b): #1 and #2 per layer and step, #1
+launch, one lap launch of the transposed problems); each entry point
+of 12 ((b): #1 and #2 per layer and step, #1
 per layer and eval batch, one AdamW launch a step; (c) and (d): #1 per
-layer and forward alone; (e): 18 #3 and #4 calls and one AdamW launch a
-step, 18 #3 calls per eval or served forward); each path of 13 ((a): #1
+layer and forward alone; (e): 18 #3 and #4 calls, one AdamW launch and
+one lap launch a step, 18 #3 calls per eval or served forward, one lap
+launch per eval forward); each path of 13 ((a): #1
 per layer and forward, int8 or bf16, in process and served; (b): 18 #3 a
 forward; (c): #1 per layer or 18 #3 per forward of each loaded artifact,
 its warm-up included; (d): #1 per layer and forward of the artifact served
@@ -197,7 +212,8 @@ in process; the subprocesses' launches are not counted); each path of 14
 backward call; (e)-(f): under full remat #1 twice and #2 once a layer and
 microbatch, #1 once a layer and eval forward, one AdamW launch a step,
 and without remat #1 once; (g): 24 #3 encoder launches (forward and
-replay) and 6 cross-attention launches, 18 #4 calls, one AdamW launch);
+replay) and 6 cross-attention launches, 18 #4 calls, one AdamW launch,
+one lap launch);
 each path of 15 ((a): 18 #3 a forward of the served import, its warm-up
 included; (b): #1 per layer and forward of the teacher; (c)-(f): per
 microbatch the student's 12 #3 forward and 12 #4 calls and the teacher's
@@ -264,6 +280,7 @@ from arsvt_tpu_torch.models.classifier import init_image_classifier
 from arsvt_tpu_torch.models.detector import init_detector
 from arsvt_tpu_torch.models.registry import DETECTOR_PRESETS, PRESETS
 from arsvt_tpu_torch.models.vit import apply_backbone, init_backbone
+from arsvt_tpu_torch.objectives import matcher
 from arsvt_tpu_torch.ops import (
     build,
     encoder_attention,
@@ -1650,6 +1667,121 @@ def phase_mask_kernel_checks() -> dict:
     return out
 
 
+# The assignment kernel (csrc/lap.cu) against its plain version
+# (`lap_rect_plain`, on the card, on the same tensors): both do JAX's
+# subtractions and compares in JAX's order, so the assignments must be
+# equal, ties included; the optimum is held to scipy's on the host within
+# TOL_LAP_OPTIMUM relative (float64 totals of the fp32 costs). (name,
+# shape (..., q, m), costs): the deit_detector_ref train step's (L, B, Q,
+# M) with 1-5 real slots an image and the rest at the pad cost (ties), the
+# vit_base_detector step's transposed problem (Q = 100 > M = 25: each slot
+# picks its query), q = m = 64 over 256 problems, one row, and integer
+# costs in {0, 1, 2, 3} with many ties.
+LAP_CASES = [("deit_detector_ref", (6, 32, 5, 25), "padded"),
+             ("vit_base_detector_transposed", (6, 32, 25, 100), "padded"),
+             ("square_64", (256, 64, 64), "uniform"),
+             ("one_row", (64, 1, 25), "uniform"),
+             ("integer_ties", (6, 32, 5, 25), "integer"),
+             ("integer_ties_square", (64, 16, 16), "integer")]
+LAP_TIMED = "deit_detector_ref"
+TOL_LAP_OPTIMUM = 1e-5
+
+
+def lap_costs(shape, kind, seed) -> torch.Tensor:
+    """fp32 costs on the card. "padded": uniform class + box costs in [-3,
+    5) and, as the matcher pads them, every slot past an image's 1-5 real
+    ones at 1e4 (on the last axis, or on the rows of a transposed
+    problem); "uniform": [0, 1); "integer": {0, 1, 2, 3}."""
+    rng = np.random.default_rng(seed)
+    if kind == "integer":
+        return torch.from_numpy(rng.integers(0, 4, shape).astype(
+            np.float32)).cuda()
+    cost = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    if kind == "padded":
+        q, m = shape[-2:]
+        real = rng.integers(1, 6, shape[:-2] + (1, 1))  # real slots an image
+        pad = (np.arange(m) >= real if q <= m  # the slots on the columns
+               else np.arange(q)[:, None] >= real)  # transposed: on the rows
+        cost = np.where(pad, np.float32(1e4), cost * 8 - 3)
+    return torch.from_numpy(np.ascontiguousarray(cost)).cuda()
+
+
+def scipy_totals(cost: np.ndarray, col_for_row=None) -> np.ndarray:
+    """float64 totals per problem of `col_for_row`, or of scipy's optimum."""
+    flat = cost.reshape(-1, *cost.shape[-2:]).astype(np.float64)
+    if col_for_row is None:
+        col_for_row = matcher.lap_scipy(flat)
+    picked = np.take_along_axis(
+        flat, col_for_row.reshape(flat.shape[0], -1, 1), -1)
+    return picked[..., 0].sum(-1)
+
+
+def phase_lap_checks() -> dict:
+    """The assignment kernel against its plain version on the card at
+    `LAP_CASES`: equal assignments, the optimum scipy's; timed at the
+    detector step's shape (CUDA events, host-paced and held) beside its
+    bound (each cost read once, each index written once, over 3.35 TB/s),
+    the plain version and scipy on the host on the same costs (no PyTorch
+    call solves an assignment)."""
+    before = matcher.LAUNCHES
+    out = None
+    for i, (name, shape, kind) in enumerate(LAP_CASES):
+        cost = lap_costs(shape, kind, seed=40 + i)
+        got = matcher.lap_rect(cost)
+        want = matcher.lap_rect_plain(cost)
+        torch.cuda.synchronize()
+        host = cost.cpu().numpy()
+        got_np = got.cpu().numpy()
+        mismatches = int((got != want).sum())
+        distinct = all(len(set(r)) == len(r) for r in
+                       got_np.reshape(-1, shape[-2]).tolist())
+        mine, best = scipy_totals(host, got_np), scipy_totals(host)
+        rel = float(np.max(np.abs(mine - best) / np.maximum(np.abs(best),
+                                                               1e-30)))
+        rec = {"check": "lap kernel vs lap_rect_plain", "case": name,
+               "shape": shape, "costs": kind, "mismatches": mismatches,
+               "max_rel_err_optimum_vs_scipy": rel,
+               "smem_bytes_per_problem": matcher.smem_bytes(*shape[-2:])}
+        if name == LAP_TIMED:
+            n, q, m = math.prod(shape[:-2]), shape[-2], shape[-1]
+            nbytes = n * q * m * 4 + n * q * 8
+            t0 = time.perf_counter()
+            for _ in range(5):
+                matcher.lap_scipy(host)
+            scipy_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+            def scipy_round_trip():
+                idx = matcher.lap_scipy(cost.cpu().numpy())
+                torch.from_numpy(idx).cuda()
+                torch.cuda.synchronize()
+
+            t0 = time.perf_counter()
+            for _ in range(5):
+                scipy_round_trip()
+            round_trip_ms = (time.perf_counter() - t0) / 5 * 1e3
+            rec.update(
+                ms=cuda_ms(lambda: matcher.lap_rect(cost), iters=200),
+                device_ms=device_ms(lambda: matcher.lap_rect(cost),
+                                    iters=200),
+                host_us=host_us(lambda: matcher.lap_rect(cost), iters=50),
+                plain_ms=cuda_ms(lambda: matcher.lap_rect_plain(cost),
+                                 iters=3, warmup=1),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_bytes=nbytes, library_ms=None,
+                scipy_host_ms=scipy_ms,
+                scipy_with_copies_ms=round_trip_ms,
+                max_abs_err=float(mismatches))
+            out = rec
+        log(json.dumps(rec))
+        check(mismatches == 0 and distinct,
+              f"lap_rect differs from lap_rect_plain at {name}: {rec}")
+        check(rel <= TOL_LAP_OPTIMUM,
+              f"lap_rect's optimum differs from scipy's at {name}: {rec}")
+    log(json.dumps({"check": "lap launches in phase 3",
+                    "launches": matcher.LAUNCHES - before}))
+    return out
+
+
 def adamw_leaves(tree, gen):
     """Random (g, m, v, p) for every leaf of `tree`, on the card."""
     out = []
@@ -2106,6 +2238,9 @@ COUNTERS = (
     # the port-only mask kernel of the residual, positional and reference-
     # attention sites (`mask_sites` gives its launches a microbatch)
     ("dropout_mask", dropout_ops, "LAUNCHES"),
+    # the port-only assignment kernel of the detector's matcher (one launch
+    # a `match_layers` or eval `match` call on the device route)
+    ("lap", matcher, "LAUNCHES"),
 )
 
 
@@ -2787,18 +2922,35 @@ def det_random_batch(rng, n: int, size: int = 256, m: int = 25) -> dict:
 
 class RecordMatches:
     """Record the assignments `make_detector_step_fns` gets from the
-    matcher (and the host time spent in it: the wait for the forward, the
-    copy, the solves), by wrapping the name its module calls."""
+    matcher and the host time spent in it, by wrapping the name its module
+    calls. `backend` sends the step's matching down that route (the
+    step's `loss_cfg.matcher` with its backend replaced); `sync_debug`
+    runs each call under ``torch.cuda.set_sync_debug_mode`` ("error": a
+    synchronising call raises). The assignments stay on the device while
+    recording (a copy would be a wait of its own) and come to the host
+    after a synchronize at exit."""
+
+    def __init__(self, backend: str | None = None,
+                 sync_debug: str | None = None):
+        self.backend, self.sync_debug = backend, sync_debug
 
     def __enter__(self):
         self.orig = detect_step.match_layers
         self.assignments, self.seconds = [], 0.0
 
-        def recording(*args, **kw):
+        def recording(layers, labels, boxes, mask, cfg):
+            if self.backend is not None:
+                cfg = dataclasses.replace(cfg, backend=self.backend)
             t0 = time.perf_counter()
-            out = self.orig(*args, **kw)
+            if self.sync_debug is not None:
+                torch.cuda.set_sync_debug_mode(self.sync_debug)
+            try:
+                out = self.orig(layers, labels, boxes, mask, cfg)
+            finally:
+                if self.sync_debug is not None:
+                    torch.cuda.set_sync_debug_mode(0)
             self.seconds += time.perf_counter() - t0
-            self.assignments.append(torch.stack([i for i, _ in out]).cpu())
+            self.assignments.append(torch.stack([i for i, _ in out]))
             return out
 
         detect_step.match_layers = recording
@@ -2806,6 +2958,41 @@ class RecordMatches:
 
     def __exit__(self, *exc):
         detect_step.match_layers = self.orig
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.assignments = [a.cpu() for a in self.assignments]
+
+
+def sync_calls(fn) -> list[str]:
+    """Run `fn` under ``torch.cuda.set_sync_debug_mode("warn")``; returns
+    one "file:line function" a synchronising call, the innermost frame of
+    the port or of this script on the Python stack when it warned (a
+    backward's op warns at the call that ran the backward)."""
+    import traceback
+    import warnings
+
+    calls = []
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if os.path.abspath(f.filename).startswith(here)]
+        where = (f"{os.path.relpath(frames[-1].filename, here)}:"
+                 f"{frames[-1].lineno} {frames[-1].name}" if frames
+                 else f"{filename}:{lineno}")
+        calls.append(where)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return calls
 
 
 def clone_state(state) -> dict:
@@ -2912,11 +3099,52 @@ def phase_det_train_bf16() -> dict:
     return rec
 
 
+# 9(c)'s matcher routes, timed in turns (host speed moves between calls,
+# and within one; ROADMAP "Budget"): the device route (csrc/lap.cu, the
+# default) and the scipy oracle (one copy to the host a step).
+DET_ROUTE_ORDER = ("device", "scipy", "scipy", "device") * 2
+
+
+def det_route_window(step, state, batch, backend: str, steps: int):
+    """`steps` timed steps with the matcher on `backend`: (state, losses,
+    ms per step, match_layers host ms per step, lap launches)."""
+    torch.cuda.synchronize()
+    launches = matcher.LAUNCHES
+    losses = []
+    with RecordMatches(backend) as matches:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return (state, losses, dt / steps * 1e3, matches.seconds / steps * 1e3,
+            matcher.LAUNCHES - launches)
+
+
+def det_step_syncs(step, state, batch, backend: str) -> tuple[dict, dict]:
+    """One whole step on `backend`: (state, its synchronising calls by
+    place)."""
+    out, after = {}, [state]
+
+    def one():
+        after[0] = step(state, batch)[0]
+
+    with RecordMatches(backend):  # its exit's copy is not the step's
+        calls = sync_calls(one)
+    for where in calls:
+        out[where] = out.get(where, 0) + 1
+    return after[0], out
+
+
 def phase_det_train_bench(smi: str):
-    """(c) the bench configuration: 2 warm-up and 5 timed steps on the
-    fixed batch; one step run twice from the same state and seed; (d)
-    eval_step and evaluate_detector over two batches; (e) a profile of one
-    step. Returns the launch counts of (c)-(e)."""
+    """(c) the bench configuration on both matcher routes: 2 warm-up
+    steps, then 5 timed steps a window in the order `DET_ROUTE_ORDER`;
+    the device route's `match_layers` under sync debug mode "error" for
+    one step, and each route's synchronising calls in one whole step;
+    one step run twice from the same state and seed; (d) eval_step and
+    evaluate_detector over two batches; (e) a profile of one step on each
+    route. Returns the launch counts of (c)-(e)."""
     steps_warm, steps_timed = 2, 5
     tcfg = det_train_cfg()
     init_fn, step, eval_step = make_detector_step_fns(tcfg)
@@ -2931,28 +3159,62 @@ def phase_det_train_bench(smi: str):
     for _ in range(steps_warm):
         state, m = step(state, batch)
         losses.append(m["loss"])
-    torch.cuda.synchronize()
-    with RecordMatches() as matches:
-        t0 = time.perf_counter()
-        for _ in range(steps_timed):
-            state, m = step(state, batch)
-            losses.append(m["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+    routes = {r: {"ms_per_step": [], "match_layers_ms_per_step": [],
+                  "lap_launches": []} for r in DET_ROUTE_ORDER}
+    in_order = []
+    for backend in DET_ROUTE_ORDER:
+        state, window, window_ms, match_ms, launched = det_route_window(
+            step, state, batch, backend, steps_timed)
+        in_order.append(window_ms)
+        losses += window
+        routes[backend]["ms_per_step"].append(window_ms)
+        routes[backend]["match_layers_ms_per_step"].append(match_ms)
+        routes[backend]["lap_launches"].append(launched)
+    device_steps = steps_warm + steps_timed * DET_ROUTE_ORDER.count("device")
+    scipy_steps = steps_timed * DET_ROUTE_ORDER.count("scipy")
     losses = [float(v) for v in losses]
     last = {k: float(m[k]) for k in DET_METRICS}
+    ms = {r: float(np.mean(v["ms_per_step"])) for r, v in routes.items()}
     rec = {"timing": "detector train step deit_detector_ref bench config",
            "batch": tcfg.batch_size, "dtype": "bfloat16",
            "augment": "detection", "canvas": 256, "attn_dropout": 0.1,
-           "steps_timed": steps_timed,
-           "ms_per_step": dt / steps_timed * 1e3,
-           "train_images_per_s": tcfg.batch_size * steps_timed / dt,
-           "match_layers_ms_per_step": matches.seconds / steps_timed * 1e3,
+           "steps_timed_per_window": steps_timed,
+           "route_order": DET_ROUTE_ORDER, "routes": routes,
+           # each neighbouring pair of windows holds one of each route
+           "device_minus_scipy_ms_by_pair": [
+               (a - b) * (1 if r == "device" else -1) for r, a, b in zip(
+                   DET_ROUTE_ORDER[::2], in_order[::2], in_order[1::2])],
+           "ms_per_step": ms["device"],
+           "train_images_per_s": tcfg.batch_size / ms["device"] * 1e3,
+           "ms_per_step_scipy": ms["scipy"],
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "losses": losses, "last_metrics": last, "card": smi}
     log(json.dumps(rec))
     check(all(np.isfinite(losses)) and all(np.isfinite(list(last.values()))),
           f"non-finite detector train metrics {rec}")
+    windows = len(DET_ROUTE_ORDER) // 2
+    check(routes["device"]["lap_launches"] == [steps_timed] * windows
+          and routes["scipy"]["lap_launches"] == [0] * windows,
+          f"lap launches per window {routes}")
+
+    # the device route's matcher never waits for the card; what the whole
+    # step still waits for, on each route
+    with RecordMatches("device", sync_debug="error") as strict:
+        state, m = step(state, batch)
+    device_steps += 1
+    check(len(strict.assignments) == 1, "the matcher ran no time")
+    syncs = {}
+    for backend in ("device", "scipy"):
+        state, syncs[backend] = det_step_syncs(step, state, batch, backend)
+    device_steps += 1
+    scipy_steps += 1
+    log(json.dumps({"check": "synchronising calls of one detector train "
+                             "step, by place",
+                    "match_layers_device_route_under_error_mode": "none",
+                    "device_route": syncs["device"],
+                    "device_route_total": sum(syncs["device"].values()),
+                    "scipy_route": syncs["scipy"],
+                    "scipy_route_total": sum(syncs["scipy"].values())}))
 
     # the same state, batch and seed give the same step
     base = clone_state(state)
@@ -2963,6 +3225,7 @@ def phase_det_train_bench(smi: str):
     log(json.dumps({"check": "detector train step repeated", "losses":
                     repeat}))
     check(repeat[0] == repeat[1], f"a repeated step differs: {repeat}")
+    device_steps += 2
 
     log("# phase 9(d): detector eval_step and evaluate_detector")
     rng = np.random.default_rng(10)
@@ -2984,30 +3247,54 @@ def phase_det_train_bench(smi: str):
                                            "total_predictions",
                                            "predictions_per_image")}}))
 
-    log("# phase 9(e): profile of one detector train step")
-    prof = phase_train_profile(state, step, batch, rec["ms_per_step"],
+    log("# phase 9(e): profile of one detector train step on each route")
+    prof = phase_train_profile(state, step, batch, ms["device"],
                                title="detector train step deit_detector_ref "
-                                     "bench config")
+                                     "bench config, device matcher")
+    with RecordMatches("scipy"):
+        prof_scipy = phase_train_profile(
+            state, step, batch, ms["scipy"],
+            title="detector train step deit_detector_ref bench config, "
+                  "scipy matcher")
+    device_steps += 1
+    scipy_steps += 1
+    log(json.dumps({"timing": "detector train step by matcher route",
+                    "ms_per_step": ms, "match_layers_ms_per_step": {
+                        r: float(np.mean(v["match_layers_ms_per_step"]))
+                        for r, v in routes.items()},
+                    "device_busy_share": {
+                        "device": prof["device_busy_share"],
+                        "scipy": prof_scipy["device_busy_share"]},
+                    "synchronising_calls_per_step": {
+                        r: sum(v.values()) for r, v in syncs.items()},
+                    "card": smi}))
     counts = read_counts()
-    steps = steps_warm + steps_timed + 2 + 1
-    forwards = steps + 1 + len(evs)
+    steps = device_steps + scipy_steps
+    evals = 1 + len(evs)
+    forwards = steps + evals
     # every training launch runs the dropout branch, no eval launch does;
     # one microbatch a step, 49 mask sites each (25 in the backbone, 4 in
-    # each of the decoder's 6 layers)
+    # each of the decoder's 6 layers); one lap launch a device-route step
+    # and an eval forward (its loss matches the final layer)
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
                 "flash_attention_fwd": per_step * forwards,
                 "flash_attention_bwd": per_step * steps,
                 "flash_attention_fwd_dropout": per_step * steps,
                 "flash_attention_bwd_dropout": per_step * steps,
-                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps}
+                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps,
+                "lap": device_steps + evals}
     log(json.dumps({"launches": counts, "expected": expected,
-                    "steps": steps, "eval_forwards": forwards - steps,
+                    "steps": steps, "device_route_steps": device_steps,
+                    "scipy_route_steps": scipy_steps,
+                    "eval_forwards": evals,
                     "path": "deit_detector_ref training",
                     "per_step": {"flash_attention_fwd": per_step,
                                  "flash_attention_bwd": per_step,
+                                 "lap": 1,
                                  "kernels": prof["kernels_per_step"]}}))
     check(counts["flash_attention_bwd"] > 0,
           "flash_attention_bwd never launched")
+    check(counts["lap"] > 0, "lap never launched")
     check(counts == expected, f"detector training launches {counts} != "
                               f"{expected}")
     return counts
@@ -3230,7 +3517,10 @@ def phase_detect_trainer(tmp, smi) -> dict:
                 "flash_attention_fwd": head_depth * steps,
                 "flash_attention_bwd": head_depth * steps,
                 "flash_attention_fwd_dropout": head_depth * steps,
-                "flash_attention_bwd_dropout": head_depth * steps}
+                "flash_attention_bwd_dropout": head_depth * steps,
+                # Q = 100 > M = 25: the transposed problems, one launch a
+                # microbatch
+                "lap": steps}
     ckpts = os.listdir(tcfg.checkpoint_dir)
     rec = {"check": "Trainer task=detect vit_base_detector, attention "
                     "dropout 0.1", "batch": tcfg.batch_size, "steps": steps,
@@ -3635,7 +3925,8 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
                 "flash_attention_fwd_dropout": per_step * steps,
                 "flash_attention_bwd_dropout": per_step * steps,
                 "dropout_mask": mask_sites(resolve_detector(
-                    TRAIN_PRESETS[DET_TRAIN_PRESET])) * steps})
+                    TRAIN_PRESETS[DET_TRAIN_PRESET])) * steps,
+                "lap": steps})
     add_counts(total, counts)
     ckpt_dir = os.path.join(run, "checkpoints")
     ckpts = sorted(os.listdir(ckpt_dir))
@@ -3652,7 +3943,8 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
     res, counts, secs_eval = run_cli(
         run, ["--checkpoint-dir", ckpt_dir, "--data-dir", coco, "--split",
               "valid", "--out", out], base=[], main=eval_cli.main,
-        expect={**zeros, "flash_attention_fwd": per_step * n_batches})
+        expect={**zeros, "flash_attention_fwd": per_step * n_batches,
+                "lap": n_batches})
     add_counts(total, counts)
     params, tcfg = load_inference_bundle(ckpt_dir)
     _, _, eval_step = make_detector_step_fns(tcfg)
@@ -4742,7 +5034,8 @@ def phase_recipe_detector(smi) -> dict:
     enc, dec = det_cfg.backbone.depth, det_cfg.head.depth
     want = {"flash_attention_fwd": 2 * enc + dec,  # the encoder replays
             "flash_attention_bwd": enc + dec, "fused_adamw": 1,
-            "dropout_mask": mask_sites(resolve_detector(tcfg), replays=1)}
+            "dropout_mask": mask_sites(resolve_detector(tcfg), replays=1),
+            "lap": 1}
     got = {k: counts[k] for k in want}
     log(json.dumps({"check": "deit_detector_ref step, remat full, taps warp",
                     "seconds": seconds, "loss": float(m["loss"]),
@@ -5485,8 +5778,10 @@ def phase_parallel_ranks(smi) -> tuple[dict, dict]:
                   and errs["update"] <= PAR_TOL_UPDATE,
                   f"16(b) {job['name']} {job['data']}x{job['model']}: "
                   f"{errs}")
+        launched = ("fused_adamw", "dropout_mask") + (
+            ("lap",) if job["cfg"].get("task") == "detect" else ())
         check(g["counts"] == want["counts"] and all(
-            g["counts"][k] > 0 for k in ("fused_adamw", "dropout_mask")),
+            g["counts"][k] > 0 for k in launched),
             f"16(b) {job['name']} launches {g['counts']} != "
             f"{want['counts']}")
         for k, v in g["counts"].items():
@@ -5638,8 +5933,8 @@ def phase_build_report(built: dict) -> None:
     bf16 kernel of the attention libraries, HGMMA in every bf16 kernel of
     the fused MLP's."""
     for row in ptxas_report(built):
-        if row["library"] in TENSOR_CORE_LIBRARIES + ("fused_adamw",
-                                                      "dropout_mask"):
+        if row["library"] in TENSOR_CORE_LIBRARIES + (
+                "fused_adamw", "dropout_mask", "lap"):
             log(json.dumps({"ptxas": row}))
             check(not is_bf16_kernel(row["entry"]) or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0
@@ -5717,6 +6012,7 @@ def main() -> int:
     dropout = phase_encoder_dropout_checks(cfg)
     mlp_fwd, mlp_bwd = phase_mlp_checks()
     masks = phase_mask_kernel_checks()
+    lap = phase_lap_checks()
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
         return 0
@@ -5842,6 +6138,15 @@ def main() -> int:
                paths("dropout_mask")),
          "replaces": "arsvt_tpu/models/vit.py:140 (jax.random.bernoulli; "
                      "no Pallas kernel)"},
+        # the port-only assignment kernel of the detector's matcher; it
+        # replaces JAX's lap_rect, plain JAX that XLA compiles, not a
+        # Pallas kernel; no PyTorch call solves an assignment, so scipy's
+        # host time on the same costs stands beside it
+        {**row("lap", "lap.cu", "", lap, paths("lap")),
+         "replaces": "arsvt_tpu/objectives/matcher.py:41 (lap_rect, plain "
+                     "JAX under jit; no Pallas kernel)",
+         "device_ms": lap["device_ms"],
+         "scipy_host_ms": lap["scipy_host_ms"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
 """The port's matcher, detection loss and triplet loss against the JAX
 package on the CPU, on the same numpy inputs.
 
-The port solves the assignment with scipy on the host, JAX with its
-on-device Jonker-Volgenant; both find an optimum, so the total cost of the
-two assignments must agree, and the assignment itself wherever the
-optimum is unique (every real target slot: random costs never tie).
-Queries left on padded slots tie among those slots, so only matched
-queries are compared slot for slot.
+The port solves the assignment on either of JAX's backends: ``device``
+(JAX's Jonker-Volgenant, `lap_rect_plain` on the CPU) or ``scipy`` on the
+host. Each finds an optimum, so the total cost of the port's and JAX's
+assignments must agree, and the assignment itself wherever the optimum is
+unique (every real target slot: random costs never tie). On the scipy
+route queries left on padded slots tie among those slots, so only matched
+queries are compared slot for slot (``tests/test_torch_lap.py`` holds the
+device route's whole assignment to JAX's).
 """
 
 import jax
@@ -71,15 +73,17 @@ def _total(cost, tfq, matched):
                          if matched[i, j]) for i in range(b)])
 
 
+@pytest.mark.parametrize("backend", matcher.BACKENDS)
 @pytest.mark.parametrize("q,m", [(5, 25), (10, 4), (7, 7)],
                          ids=["q<m", "q>m", "square"])
-def test_match_finds_jax_optimum(q, m):
+def test_match_finds_jax_optimum(q, m, backend):
     b = 6
     logits, boxes, labels, tboxes, mask = _problem(b, q, m, seed=q * m)
     jt, jm = jax.jit(jax_matcher.match)(
         *(jnp.asarray(a) for a in (logits, boxes, labels, tboxes, mask)))
     jt, jm = np.asarray(jt), np.asarray(jm)
-    tt, tm = matcher.match(*_t(logits, boxes, labels, tboxes, mask))
+    tt, tm = matcher.match(*_t(logits, boxes, labels, tboxes, mask),
+                           matcher.MatcherConfig(backend=backend))
     tt, tm = tt.numpy(), tm.numpy()
     assert tt.shape == (b, q) and tm.dtype == np.bool_
     cost = matcher.build_cost_matrix(
@@ -104,11 +108,12 @@ def test_match_layers_copies_once_and_equals_per_layer_match(monkeypatch):
     real_cpu = torch.Tensor.cpu
     monkeypatch.setattr(torch.Tensor, "cpu",
                         lambda t: copies.append(t.shape) or real_cpu(t))
-    got = matcher.match_layers(layers, *_t(labels, tboxes, mask))
+    scipy = matcher.MatcherConfig(backend="scipy")
+    got = matcher.match_layers(layers, *_t(labels, tboxes, mask), scipy)
     assert copies == [(3, 2, 5, 8)]  # the stacked costs, once
     monkeypatch.undo()
     for (cl, bx), (tt, tm) in zip(layers, got):
-        rt, rm = matcher.match(cl, bx, *_t(labels, tboxes, mask))
+        rt, rm = matcher.match(cl, bx, *_t(labels, tboxes, mask), scipy)
         assert torch.equal(tt, rt) and torch.equal(tm, rm)
 
 
