@@ -19,7 +19,7 @@ import math
 import torch
 
 from arsvt_tpu_torch.ops.dispatch import force_plain_attention
-from arsvt_tpu_torch.ops.dropout import apply_mask, call_dropout, dropout_mask
+from arsvt_tpu_torch.ops.dropout import SiteDropout, call_dropout
 
 
 def split_heads(qkv_flat: torch.Tensor, num_heads: int):
@@ -56,10 +56,9 @@ def sdpa_reference(q, k, v, *, mask=None, dropout_rate: float = 0.0,
     probs = torch.softmax(scores, dim=-1)
     rate, seed, offsets = call_dropout(dropout_rate, dropout_rng,
                                        q.shape[1], head_range)
-    if rate > 0.0:
-        probs = apply_mask(probs, dropout_mask(seed, rate, probs.shape,
-                                               probs.device, offsets=offsets),
-                           rate)
+    if rate > 0.0:  # one launch each way on the card (`SiteDropout`)
+        probs = SiteDropout.apply(probs, seed, rate, offsets,
+                                  tuple(probs.shape), "mul")
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)

@@ -20,14 +20,18 @@ heads h0.. of H (a rank of a data- or tensor-parallel step) keys element
 
 The residual and positional sites (JAX: ``jax.random.bernoulli`` at
 ``arsvt_tpu/models/vit.py:140-145``) and the reference attention draw by
-the same rule, through `dropout_mask`: a (B, S, D) activation is viewed as
-(B, 1, S, D), so its key word is the global batch row, its counter (token,
-feature); reference attention probabilities as (B, H, Sq, Sk), the layout
-of #3/#4, so the reference and the kernels drop the same probabilities.
-On a CUDA tensor `dropout_mask` launches ``csrc/dropout_mask.cu`` (a
-port-only kernel: eager int64 Philox costs about 220 elementwise passes a
-site), on a CPU tensor it runs `keep_mask`. The mask is a function of
-(site seed, global index) alone, on every device and every world size.
+the same rule: a (B, S, D) activation is viewed as (B, 1, S, D), so its
+key word is the global batch row, its counter (token, feature); reference
+attention probabilities as (B, H, Sq, Sk), the layout of #3/#4, so the
+reference and the kernels drop the same probabilities. Each such site is
+`SiteDropout`, one launch of ``csrc/dropout_mask.cu``'s apply kernel each
+way (`dropout_apply`: keep ? x·s : +0, the mask drawn in the kernel): the
+backward is the same function of the gradient, so the mask is replayed
+from the seed and no tensor is saved. On a CPU tensor `dropout_apply` runs
+`dropout_apply_plain`, the eager where over `keep_mask`. `dropout_mask`
+writes the mask alone (the kernel probes and checks; no training path).
+The mask is a function of (site seed, global index) alone, on every device
+and every world size.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from arsvt_tpu_torch.ops import build
 
@@ -49,8 +54,19 @@ _MASK32 = 0xFFFFFFFF
 # Launches of the mask kernel in this process (one a `dropout_mask` call on
 # the card), counted as the other wrappers count theirs.
 LAUNCHES = 0
+# Launches of the apply kernel (one a `dropout_apply` call on the card: a
+# site's forward, its replay under remat, or its backward).
+APPLY_LAUNCHES = 0
+
+# the site's scale rule: x / (1 - rate) (the residual and positional
+# sites) or x * inv_keep(rate) (the reference attention, as the kernels'
+# plain versions)
+SCALE_MODES = ("div", "mul")
+# the apply kernel's dtype codes (csrc/dropout_mask.cu)
+_APPLY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
+_apply_fn = None
 
 
 def keep_threshold(rate: float) -> int:
@@ -195,13 +211,118 @@ def dropout_mask(seed: int, rate: float, shape, device="cpu", *,
     return out
 
 
-def site_mask(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
-    """The keep mask of a residual or positional site: x (B, ..., D) viewed
-    as (B, 1, R, D), R the product of the middle dims, keyed on the global
-    batch row ``rng.row0 + b`` with counter (token, feature)."""
+def kernel_scale(rate: float, scale_mode: str) -> float:
+    """The scale s with which the apply kernel's x·s reproduces the eager
+    site on the card: PyTorch's CUDA division by a host scalar
+    multiplies by the fp32 reciprocal (``aten/src/ATen/native/cuda/
+    BinaryDivTrueKernel.cu``), so x / (1 - rate) is x · fp32(1 /
+    fp32(1 - rate)), and x * inv_keep(rate) is that product. Both are one
+    fp32 multiply (``chip_smoke.py`` phase 3(a) holds the bits)."""
+    if scale_mode == "div":
+        one_minus = np.float32(1.0 - rate)
+        return float(np.float32(1.0) / one_minus)
+    if scale_mode == "mul":
+        return inv_keep(rate)
+    raise ValueError(f"scale_mode must be one of {SCALE_MODES}, got "
+                     f"{scale_mode!r}")
+
+
+def dropout_apply_plain(x: torch.Tensor, seed: int, rate: float, offsets,
+                        view, scale_mode: str) -> torch.Tensor:
+    """The eager site: x where `keep_mask` of the (B, H, R, C) `view` at
+    `offsets` keeps, scaled by x / (1 - rate) ("div") or `apply_mask`'s
+    x * inv_keep(rate) ("mul"); +0 where dropped."""
+    if scale_mode not in SCALE_MODES:
+        raise ValueError(f"scale_mode must be one of {SCALE_MODES}, got "
+                         f"{scale_mode!r}")
+    b, h, r, c = view
+    keep = keep_mask(seed, b, h, r, c, rate, x.device,
+                     offsets=offsets).view(x.shape)
+    if scale_mode == "mul":
+        return apply_mask(x, keep, rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _apply_kernel():
+    global _apply_fn
+    if _apply_fn is None:
+        fn = build.load("dropout_mask").arsvt_dropout_apply
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
+            ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _apply_fn = fn
+    return _apply_fn
+
+
+def dropout_apply(x: torch.Tensor, seed: int, rate: float, offsets, view,
+                  scale_mode: str) -> torch.Tensor:
+    """keep ? x·s : +0 over x viewed as `view` = (B, H, R, C) at `offsets`
+    = (b0, H', h0) (`mask_offsets`), in x's dtype: on the card one launch
+    of the apply kernel (counted; fp32 and bf16), on the CPU
+    `dropout_apply_plain`."""
+    if x.device.type == "cpu":
+        return dropout_apply_plain(x, seed, rate, offsets, view, scale_mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout_apply runs on cpu or cuda, got "
+                         f"{x.device}")
+    if x.dtype not in _APPLY_DTYPES:
+        raise TypeError(f"dropout_apply takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    b, h, r, c = (int(n) for n in view)
+    if b * h * r * c != x.numel():
+        raise ValueError(f"view {tuple(view)} does not hold x of shape "
+                         f"{tuple(x.shape)}")
+    global APPLY_LAUNCHES
+    threshold = keep_threshold(rate)
+    scale = kernel_scale(rate, scale_mode)
+    b0, total, h0 = mask_offsets(offsets, h)
+    x = x.contiguous()  # a copy where x is a strided view, not a fallback
+    out = torch.empty_like(x)
+    fn = _apply_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(out.data_ptr(), x.data_ptr(), _APPLY_DTYPES[x.dtype], b, h,
+                 r, c, int(seed) & _MASK32, threshold, b0, total, h0, scale,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"dropout_apply kernel launch failed: CUDA error "
+                           f"{err}")
+    APPLY_LAUNCHES += 1
+    return out
+
+
+class SiteDropout(torch.autograd.Function):
+    """One dropout site: `dropout_apply` on x forward and on the gradient
+    backward (dx = keep ? g·s : +0, the eager where's and scale's
+    backward to the bit), so a site is one launch each way on the card.
+    It saves no tensor, only (seed, rate, offsets, view, scale_mode): the
+    backward draws the mask again."""
+
+    @staticmethod
+    def forward(ctx, x, seed, rate, offsets, view, scale_mode):
+        ctx.site = (seed, rate, offsets, view, scale_mode)
+        return dropout_apply(x, seed, rate, offsets, view, scale_mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return (dropout_apply(grad, *ctx.site),) + (None,) * 5
+
+
+def site_view(x: torch.Tensor) -> tuple[int, int, int, int]:
+    """A residual or positional site's view of x (B, ..., D): (B, 1, R, D),
+    R the product of the middle dims."""
     b, d = x.shape[0], x.shape[-1]
     rows = x[0].numel() // d if x.dim() > 1 else 1
-    mask = dropout_mask(rng.seed32(), rate, (b, 1, rows, d), x.device,
+    return b, 1, rows, d
+
+
+def site_mask(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
+    """The keep mask of a residual or positional site (`site_view`), keyed
+    on the global batch row ``rng.row0 + b`` with counter (token,
+    feature)."""
+    mask = dropout_mask(rng.seed32(), rate, site_view(x), x.device,
                         offsets=(rng.row0, 1, 0))
     return mask.reshape(x.shape)
 
@@ -211,9 +332,9 @@ def dropout(x: torch.Tensor, rate: float, rng, *,
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), in x's dtype; the identity unless training
     with a rate and an rng (JAX: unless training with a key). The mask is
-    the site mask of the rng (`site_mask`)."""
+    the site mask of the rng (`site_mask`), drawn and applied by
+    `SiteDropout`."""
     if not train or rate == 0.0 or rng is None:
         return x
-    keep = site_mask(x, rate, rng)
-    k = 1.0 - rate
-    return torch.where(keep, x / k, torch.zeros_like(x)).to(x.dtype)
+    return SiteDropout.apply(x, rng.seed32(), rate, (rng.row0, 1, 0),
+                             site_view(x), "div")

@@ -57,6 +57,7 @@ KERNEL_COUNTERS = (
     ("fused_adamw", "ops.fused_adamw", "LAUNCHES"),
     ("fused_mlp_fwd", "ops.fused_mlp", "LAUNCHES"),
     ("fused_mlp_bwd", "ops.fused_mlp", "BWD_LAUNCHES"),
+    ("dropout_apply", "ops.dropout", "APPLY_LAUNCHES"),
     ("dropout_mask", "ops.dropout", "LAUNCHES"),
     ("lap", "objectives.matcher", "LAUNCHES"),
 )

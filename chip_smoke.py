@@ -11,6 +11,8 @@ data- and tensor-parallel training, on one NVIDIA card.
     python3 chip_smoke.py --vit-large # phases 1, 2 and 14 (no kernel line)
     python3 chip_smoke.py --distill   # phases 1, 2 and 15 (no kernel line)
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
+    python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
+        # of the checkout PARENT and of this tree in turns (no kernel line)
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -76,8 +78,8 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    ``deit_detector_ref`` steps of batch 4 with the preset's residual and
    positional dropout 0.1 (attention dropout 0) on the card against the
    same steps on the CPU (matched pairs, loss, update; every mask a
-   function of the site's seed and global indices, the mask kernel's on
-   the card, its plain version's on the CPU);
+   function of the site's seed and global indices, drawn in the apply
+   kernel on the card, by its plain version on the CPU);
    (b) 3 bf16 steps against 3 fp32 steps on the card, the configuration of
    (c); (c) the ``bench.py::bench_detect`` configuration (batch 32, bf16,
    detection augmentation on the 256 canvas, dropout 0.1 with attention
@@ -172,12 +174,28 @@ Phase 3 also holds the assignment kernel of the detector's matcher
 100), q = m = 64 over 256 problems, q = 1 and integer costs with ties,
 the optimum scipy's within 1e-5, timed beside scipy on the host; its row
 in the kernels record counts its launches over phases 4-16. It also
-holds the dropout-mask kernel (``csrc/dropout_mask.cu``, the
-residual, positional and reference-attention masks) against
-``keep_mask`` with 0 mismatches at residual and attention views, with
-and without a parallel rank's offsets, and probes #1-#6's masks at such
-offsets; its row in the kernels record counts its launches over phases
-4-16.
+holds the two entries of ``csrc/dropout_mask.cu``, the residual,
+positional and reference-attention sites, at residual and attention
+views with and without a parallel rank's offsets (`MASK_CASES`): the
+mask-only kernel against ``keep_mask``, 0 mismatches, and probes of
+#1-#6's masks at such offsets; (a) the apply kernel (one launch a site
+each way: keep ? x·s : +0, the mask drawn in the kernel) against its
+plain version on the same CUDA tensors, bf16 and fp32, both scale rules
+(x / (1 - rate) and x * inv_keep), forward and backward through
+``SiteDropout``, Inf and NaN planted, 0 differing elements as bits, its
+mask equal to the mask kernel's, and the "div" rule also as a true
+division in plain PyTorch to record which PyTorch's x / k is; (b) the
+site at the detector's residual view (32, 1, 198, 400), bf16 and fp32,
+held on the device and host-paced: the fused forward, its backward
+launch and forward + backward under autograd, against the parent's path
+rebuilt from the mask kernel and the eager where, the mask kernel alone
+and ``torch.nn.functional.dropout``, beside the byte and integer
+bounds (the rule's multiplies on the FMA pipe, its logic on the ALU
+pipe, all of it over the issue rate), with each kernel's registers and
+integer opcodes (cuobjdump), and the bf16 forward at C = 512 and at 4x
+the rows, to show what holds it back.
+The apply kernel's row in the kernels record counts its launches over
+phases 4-16; the mask kernel's row reads 0 there.
 
 Kernel launch counts are zeroed just before each path and read just after
 it: phases 4-5 (classify serving: one encoder-attention forward launch per
@@ -218,14 +236,16 @@ each path of 15 ((a): 18 #3 a forward of the served import, its warm-up
 included; (b): #1 per layer and forward of the teacher; (c)-(f): per
 microbatch the student's 12 #3 forward and 12 #4 calls and the teacher's
 12 #1 launches (none in (d)'s steps without a teacher), no #2, one AdamW
-launch a step, 12 #3 calls per eval forward). The mask kernel's launches
-are held in the same tables, `mask_sites` a training microbatch: 49 in
-``deit_detector_ref`` (9(c)-(e), 12(e); 73 under 14(g)'s remat, whose
-replays draw the encoder's residual sites again), 6 in
-``vit_base_detector`` (11(d): the decoder's reference self-attention),
-25 in the distillation student (15), 5 a policy's microbatch in 14(b)-(c)
-and 9 where it replays whole blocks, none on the ViT-B and ViT-L paths
-(no residual dropout; attention dropout runs inside #1-#6).
+launch a step, 12 #3 calls per eval forward). The apply kernel's
+launches are held in the same tables, `site_launches` a training
+microbatch (one a site's forward or replay, `mask_sites`, and one its
+backward): 98 in ``deit_detector_ref`` (49 sites: 9(c)-(e), 12(e); 110
+under 14(g)'s remat, whose replays draw each encoder layer's attention
+residual site again), 12 in ``vit_base_detector`` (11(d): the decoder's
+reference self-attention), 50 in the distillation student (15), 10 a
+policy's microbatch in 14(b)-(c) and 12 where it replays whole blocks,
+none on the ViT-B and ViT-L paths (no residual dropout; attention
+dropout runs inside #1-#6); the mask-only kernel launches on no path.
 Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
 every training launch of phase 11's dropout runs, of the detector's
@@ -240,6 +260,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -1634,9 +1655,10 @@ MASK_TIMED = "detector_residual"
 def phase_mask_kernel_checks() -> dict:
     """The dropout-mask kernel against its plain version (`keep_mask`, on
     the card) at `MASK_CASES`, 0 mismatches; timed with CUDA events at
-    the detector's residual view beside its bound (the bytes it writes
-    over 3.35 TB/s) and the plain version. No single PyTorch call draws
-    this mask (torch.rand's bits are another generator's)."""
+    the detector's residual view, host-paced and held on the device
+    (`device_ms`), beside its bound (`philox_bound`) and the plain
+    version. No single PyTorch call draws this mask (torch.rand's bits are
+    another generator's)."""
     from arsvt_tpu_torch.ops.dropout import dropout_mask, keep_mask
 
     out = None
@@ -1652,18 +1674,316 @@ def phase_mask_kernel_checks() -> dict:
                "kept_share": float(got.float().mean())}
         if name == MASK_TIMED:
             n = math.prod(shape)
+
+            def launch():
+                dropout_mask(DROPOUT_SEED, DROPOUT_RATE, shape, "cuda")
+
             rec.update(
-                ms=cuda_ms(lambda: dropout_mask(
-                    DROPOUT_SEED, DROPOUT_RATE, shape, "cuda"), iters=50),
+                ms=device_ms(launch, iters=200),
+                host_paced_ms=cuda_ms(launch, iters=200),
                 plain_ms=cuda_ms(lambda: keep_mask(
                     DROPOUT_SEED, *shape, DROPOUT_RATE, "cuda"), iters=3,
                     warmup=1),
-                bound_ms=n / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=None, max_abs_err=float(mismatches))
+                **philox_bound(n, n), library_ms=None,
+                max_abs_err=float(mismatches))
             out = rec
         log(json.dumps(rec))
         check(mismatches == 0,
               f"dropout_mask differs from keep_mask at {name}: {mismatches}")
+    return out
+
+
+# The mask rule's integer work an element (csrc/dropout_mask.cu::RowBits,
+# the row's share hoisted): 27 32-bit multiplies (IMAD, IMAD.HI; a hi/lo
+# pair fused into one IMAD.WIDE takes two issue slots, so the count
+# stands) and 17 logic operations (16 three-input xors as LOP3, the
+# compare). On sm_90 the multiplies run on the FMA pipe and the logic on
+# the integer ALU pipe, each 64 a clock an SM (CUDA C Programming Guide,
+# compute capability 9.0), and the two overlap; an SM issues 128 a clock
+# (4 schedulers of 32 lanes). So the multiplies set the bound. The H100
+# SXM has 132 SMs at a 1,980 MHz boost clock. The scale, the select and
+# the dtype conversions are left out: the bound stays a least time.
+PHILOX_MULS, PHILOX_LOGIC = 27, 17
+SM_CLOCK_HZ = 1.98e9
+PIPE_OPS_PER_S = 64 * 132 * SM_CLOCK_HZ
+ISSUE_PER_S = 128 * 132 * SM_CLOCK_HZ
+
+
+def philox_bound(elements: int, nbytes: int) -> dict:
+    """The least time of drawing `elements` mask bits and moving `nbytes`:
+    the larger of the bytes over 3.35 TB/s and the rule's integer work,
+    itself the largest of its multiplies over the FMA pipe, its logic over
+    the ALU pipe and all of it over the issue rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    pipes = {"fma_pipe_ms": PHILOX_MULS * elements / PIPE_OPS_PER_S * 1e3,
+             "alu_pipe_ms": PHILOX_LOGIC * elements / PIPE_OPS_PER_S * 1e3,
+             "issue_ms": (PHILOX_MULS + PHILOX_LOGIC) * elements
+             / ISSUE_PER_S * 1e3}
+    t_ops = max(pipes.values())
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes, "int_bound_ms": t_ops,
+            "int_bound_by": max(pipes, key=pipes.get), **pipes}
+
+
+# The apply kernel (csrc/dropout_mask.cu::arsvt_dropout_apply) against its
+# plain version (`dropout_apply_plain`, eager on the same CUDA tensors) at
+# every `MASK_CASES` view, in bf16 and fp32, under both scale rules,
+# forward and backward through `SiteDropout` (the plain version's through
+# autograd), with +-Inf and NaN planted on every 7th element (kept and
+# dropped places alike): compared as bits, so the limit is 0 differing
+# elements; the mask it applies (to ones) equals `dropout_mask`'s. The
+# "div" rule is also run as a true division (`true_division`) to record
+# which of the two PyTorch's x / (1 - rate) on the card is.
+APPLY_DTYPES = (torch.bfloat16, torch.float32)
+APPLY_TIMED = (32, 1, 198, 400)  # the detector's residual view
+# Two views beside it that isolate what holds the bf16 forward back: C =
+# 512 fills each 64-thread block's lanes (C / 8 = 50 of 64 at C = 400),
+# and 4x the rows gives 4x the blocks in one launch, so the launch's fixed
+# ramp and drain weigh a quarter as much.
+APPLY_PROBES = {"full_lanes": (32, 1, 198, 512),
+                "rows_x4": (128, 1, 198, 400)}
+
+
+def apply_geometry(view, registers: int) -> dict:
+    """The vector route's launch at `view` (csrc/dropout_mask.cu::
+    launch_apply) for a kernel of `registers` a thread: threads a block,
+    the share of its lanes with 8 columns, blocks, blocks resident an SM
+    (sm_90: at most 32 blocks, 2,048 threads and 65,536 registers, taken
+    8 a thread at a time) and waves over 132 SMs."""
+    b, h, r, c = view
+    units = c // 8
+    threads = 256 if units >= 256 else (units + 31) // 32 * 32
+    blocks = -(-units // threads) * b * h * r
+    resident = min(32, 2048 // threads,
+                   65536 // (-(-registers // 8) * 8 * threads))
+    return {"threads": threads, "lane_share": units / (
+        threads * -(-units // threads)), "blocks": blocks,
+        "resident_blocks_per_sm": resident,
+        "waves": blocks / (132 * resident)}
+
+
+def vec_kernel_sass(sass: dict, dtype) -> dict:
+    """`sass_int_ops`'s record of the apply kernel's vector route in
+    `dtype`, with its FMA-pipe issue slots an element (IMAD.WIDE two, the
+    other IMADs one; 8 elements a thread, its row set-up included)."""
+    tag = "I13__nv_bfloat16Lb1E" if dtype == torch.bfloat16 else "IfLb1E"
+    rec = next(v for k, v in sass.items() if "apply_kernel" + tag in k)
+    return {**rec, "fma_slots_per_element": (
+        rec["imad_hi"] + 2 * rec["imad_wide"] + rec["imad"]) / 8}
+
+
+def planted(shape, dtype, seed) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(math.prod(shape), generator=gen)
+    n = x[::7].numel()
+    x[::7] = torch.tensor([math.inf, -math.inf, math.nan]).repeat(
+        n // 3 + 1)[:n]
+    return x.view(shape).to(dtype).cuda()
+
+
+def differing(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements whose bits differ (NaN payloads and the sign of zero
+    count)."""
+    kind = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(kind) != b.view(kind)).sum())
+
+
+def true_division(x, keep, k: float) -> torch.Tensor:
+    """The site with x / k a true fp32 division: a divisor on the device
+    is not the host scalar that PyTorch turns into a reciprocal product."""
+    q = x.float() / torch.tensor(k, dtype=torch.float32, device=x.device)
+    return torch.where(keep, q.to(x.dtype), torch.zeros_like(x))
+
+
+def phase_apply_kernel_checks() -> float:
+    """(a) the apply kernel against its plain version, bits, at every case,
+    dtype and scale rule, forward and backward. Returns the largest
+    absolute difference over them (Inf - Inf and NaN read as 0: the bits
+    decide those)."""
+    from arsvt_tpu_torch.ops.dropout import (
+        SiteDropout,
+        dropout_apply,
+        dropout_apply_plain,
+        dropout_mask,
+    )
+
+    worst = 0.0
+    for i, (name, view, offsets) in enumerate(MASK_CASES):
+        applied = dropout_apply(torch.ones(view, device="cuda"),
+                                DROPOUT_SEED, DROPOUT_RATE, offsets, view,
+                                "mul") != 0
+        mask = dropout_mask(DROPOUT_SEED, DROPOUT_RATE, view, "cuda",
+                            offsets=offsets)
+        rec = {"check": "dropout_apply kernel vs plain, bits", "case": name,
+               "shape": view, "offsets": offsets,
+               "mask_mismatches": int((applied != mask).sum()),
+               "differing_fwd_bwd": {}, "true_division_differing": {}}
+        for dtype in APPLY_DTYPES:
+            x, g = planted(view, dtype, 2 * i), planted(view, dtype, 2 * i + 1)
+            for mode in ("div", "mul"):
+                args = (DROPOUT_SEED, DROPOUT_RATE, offsets, view, mode)
+                want = dropout_apply_plain(x, *args)
+                got = dropout_apply(x, *args)
+                fwd = differing(got, want)
+                xa = x.clone().requires_grad_(True)
+                (ga,) = torch.autograd.grad(SiteDropout.apply(xa, *args), xa,
+                                            g)
+                xb = x.clone().requires_grad_(True)
+                (gb,) = torch.autograd.grad(dropout_apply_plain(xb, *args),
+                                            xb, g)
+                key = f"{str(dtype).split('.')[-1]} {mode}"
+                rec["differing_fwd_bwd"][key] = [fwd, differing(ga, gb)]
+                for a, b in ((got, want), (ga, gb)):
+                    worst = max(worst, float((a.float() - b.float()).abs()
+                                             .nan_to_num(0.0).max()))
+                if mode == "div":
+                    rec["true_division_differing"][key] = differing(
+                        true_division(x, mask, 1.0 - DROPOUT_RATE), want)
+        torch.cuda.synchronize()
+        log(json.dumps(rec))
+        check(rec["mask_mismatches"] == 0 and all(
+            v == [0, 0] for v in rec["differing_fwd_bwd"].values()),
+            f"dropout_apply differs from its plain version at {name}: {rec}")
+    return worst
+
+
+def sass_int_ops(name: str) -> dict:
+    """{kernel: registers, stack, local bytes and the count of each integer
+    opcode and of all instructions} of library `name` (cuobjdump)."""
+    import re
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    lib = str(build.library_path(name))
+    run = functools.partial(subprocess.run, capture_output=True, text=True,
+                            check=True, timeout=300)
+    out, kernel = {}, None
+    for line in run([tool, "-res-usage", lib]).stdout.splitlines():
+        name = re.search(r"Function (\S+?):", line)
+        kernel = name.group(1) if name else kernel
+        use = re.search(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+                        line)
+        if use and kernel:
+            out[kernel] = {"registers": int(use.group(1)),
+                           "stack": int(use.group(2)),
+                           "local": int(use.group(3))}
+    for part in run([tool, "-sass", lib]).stdout.split("Function : ")[1:]:
+        ops = re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", part)
+        out.setdefault(part.split()[0], {}).update(
+            instructions=len(ops),
+            imad_hi=sum(o.startswith("IMAD.HI") for o in ops),
+            imad_wide=sum(o.startswith("IMAD.WIDE") for o in ops),
+            imad=sum(o.startswith("IMAD") and not o.startswith(
+                ("IMAD.HI", "IMAD.WIDE")) for o in ops),
+            lop3=sum(o.startswith("LOP3") for o in ops),
+            other_int=sum(o.startswith(("IADD3", "ISETP", "SEL", "SHF"))
+                          for o in ops))
+    return out
+
+
+def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
+    """(b) the site at the detector's residual view, bf16 and fp32, in one
+    call with CUDA events, each held on the device (`device_ms`: the
+    launches queued behind a spin kernel) and host-paced: the fused
+    forward (one apply launch), the backward's launch, forward + backward
+    through `SiteDropout` under autograd; the parent's site path rebuilt
+    from what remains (`dropout_mask` then the eager where, forward and
+    forward + backward), the mask kernel alone; torch.nn.functional.dropout
+    on the same tensor (other bits, the same work) forward and forward +
+    backward; the plain version; both bounds; the kernels' registers,
+    spills and integer opcodes. Returns the bf16 record, with (a)'s
+    `max_abs_err`."""
+    from arsvt_tpu_torch.ops.dropout import (
+        SiteDropout,
+        dropout_apply,
+        dropout_apply_plain,
+        dropout_mask,
+    )
+
+    view, n, k = APPLY_TIMED, math.prod(APPLY_TIMED), 1.0 - DROPOUT_RATE
+    sass = sass_int_ops("dropout_mask")
+    args = (DROPOUT_SEED, DROPOUT_RATE, (0, 1, 0), view, "div")
+    out = None
+    for dtype in APPLY_DTYPES:
+        gen = torch.Generator().manual_seed(31)
+        x, g = (torch.randn(view, generator=gen).to(dtype).cuda()
+                for _ in range(2))
+        xr = x.clone().requires_grad_(True)
+
+        def mask():
+            return dropout_mask(DROPOUT_SEED, DROPOUT_RATE, view, "cuda")
+
+        def parent_fwd(t=x):
+            return torch.where(mask(), t / k, torch.zeros_like(t))
+
+        paths = {
+            "fused_fwd": lambda: dropout_apply(x, *args),
+            "fused_bwd_launch": lambda: dropout_apply(g, *args),
+            "fused_fwd_bwd": lambda: torch.autograd.grad(
+                SiteDropout.apply(xr, *args), xr, g),
+            "parent_mask_kernel": mask,
+            "parent_fwd": parent_fwd,
+            "parent_fwd_bwd": lambda: torch.autograd.grad(
+                parent_fwd(xr), xr, g),
+            "library_fwd": lambda: F.dropout(x, DROPOUT_RATE, training=True),
+            "library_fwd_bwd": lambda: torch.autograd.grad(
+                F.dropout(xr, DROPOUT_RATE, training=True), xr, g),
+        }
+        times = {}
+        for key, fn in paths.items():  # a 1 ms hold a call: autograd's
+            times[key] = {             # host time stays inside it
+                "device_ms": device_ms(fn, iters=100, hold_cycles=2_000_000),
+                "host_paced_ms": cuda_ms(fn, iters=100)}
+        bound = philox_bound(n, 2 * n * x.element_size())
+        rec = {"timing": "dropout site at the detector's residual view",
+               "dtype": str(dtype), "shape": view, "elements": n,
+               "times": times,
+               "plain_ms": cuda_ms(lambda: dropout_apply_plain(x, *args),
+                                   iters=3, warmup=1),
+               **bound, "muls_logic_per_element": [PHILOX_MULS,
+                                                   PHILOX_LOGIC],
+               "pipe_ops_per_s": PIPE_OPS_PER_S,
+               "issue_per_s": ISSUE_PER_S,
+               "sm_clock_ghz": SM_CLOCK_HZ / 1e9,
+               "int_bound_share": bound["int_bound_ms"]
+               / times["fused_fwd"]["device_ms"],
+               "fused_fwd_vs_parent_mask_kernel": times["fused_fwd"][
+                   "device_ms"] / times["parent_mask_kernel"]["device_ms"],
+               "card": smi}
+        vec = vec_kernel_sass(sass, dtype)
+        rec["sass_fma_slots_per_element"] = vec["fma_slots_per_element"]
+        rec["geometry"] = apply_geometry(view, vec["registers"])
+        if dtype == torch.bfloat16:
+            rec["probes"] = {}
+            for key, shape in APPLY_PROBES.items():
+                xp = torch.randn(shape, generator=gen).to(dtype).cuda()
+                pargs = (*args[:3], shape, "div")
+                ms = device_ms(lambda: dropout_apply(xp, *pargs), iters=100,
+                               hold_cycles=2_000_000)
+                size = math.prod(shape)
+                rec["probes"][key] = {
+                    "shape": shape, "device_ms": ms,
+                    "ns_per_k_elements": ms * 1e9 / size,
+                    "int_bound_share": philox_bound(size, 4 * size)[
+                        "int_bound_ms"] / ms,
+                    **apply_geometry(shape, vec["registers"])}
+            t1 = times["fused_fwd"]["device_ms"]
+            fixed = (4 * t1 - rec["probes"]["rows_x4"]["device_ms"]) / 3
+            rec.update(ns_per_k_elements=t1 * 1e9 / n,
+                       launch_fixed_ms=fixed,  # t = fixed + rows x rate
+                       steady_int_bound_share=bound["int_bound_ms"]
+                       / (t1 - fixed))
+        log(json.dumps(rec))
+        if dtype == torch.bfloat16:
+            out = {**rec, "ms": times["fused_fwd"]["device_ms"],
+                   "host_paced_ms": times["fused_fwd"]["host_paced_ms"],
+                   "library_ms": times["library_fwd"]["device_ms"],
+                   "max_abs_err": max_abs_err}
+        check(dtype != torch.bfloat16 or times["fused_fwd"]["device_ms"]
+              < times["parent_mask_kernel"]["device_ms"],
+              f"the fused forward is slower than the mask kernel alone: "
+              f"{times}")
+    log(json.dumps({"sass": "dropout_mask", "kernels": sass}))
     return out
 
 
@@ -2235,8 +2555,11 @@ COUNTERS = (
     # and those of #3 and #4
     ("flash_attention_fwd_dropout", flash_attention, "DROPOUT_LAUNCHES"),
     ("flash_attention_bwd_dropout", flash_attention, "DROPOUT_LAUNCHES_BWD"),
-    # the port-only mask kernel of the residual, positional and reference-
-    # attention sites (`mask_sites` gives its launches a microbatch)
+    # the port-only kernels of the residual, positional and reference-
+    # attention sites: the apply kernel, one launch a site each way
+    # (`site_launches` a microbatch), and the mask-only kernel, off every
+    # training path (phase 3's probes and checks alone)
+    ("dropout_apply", dropout_ops, "APPLY_LAUNCHES"),
     ("dropout_mask", dropout_ops, "LAUNCHES"),
     # the port-only assignment kernel of the detector's matcher (one launch
     # a `match_layers` or eval `match` call on the device route)
@@ -2254,19 +2577,28 @@ def read_counts() -> dict:
 
 
 def mask_sites(model, replays: int = 0) -> int:
-    """The mask kernel's launches in one training microbatch of `model` (a
+    """The dropout sites' forwards in one training microbatch of `model` (a
     BackboneConfig or a DetectorConfig): where the backbone's dropout is
-    on, its positional site and each layer's two residual sites, drawn
-    `replays` more times a layer under remat; where a DETR head's dropout
-    is on, its three residual sites a layer; where its attention dropout
-    is on, the probability mask of its reference self-attention a layer.
-    Attention dropout elsewhere runs inside #1-#6; eval draws nothing."""
+    on, its positional site and each layer's two residual sites, and
+    `replays` sites a layer more under remat (a policy that replays whole
+    blocks replays the attention's residual site; the MLP's, which ends
+    the block and saves nothing, the replay stops short of); where a DETR
+    head's dropout is on, its three residual sites a layer; where its
+    attention dropout is on, the probabilities of its reference
+    self-attention a layer. Attention dropout elsewhere runs inside #1-#6;
+    eval draws nothing."""
     bb = getattr(model, "backbone", model)
     head = getattr(model, "head", None)
-    n = 1 + 2 * bb.depth * (1 + replays) if bb.dropout > 0 else 0
+    n = 1 + bb.depth * (2 + replays) if bb.dropout > 0 else 0
     if head is not None:
         n += head.depth * (3 * (head.dropout > 0) + (head.attn_dropout > 0))
     return n
+
+
+def site_launches(model, replays: int = 0) -> int:
+    """The apply kernel's launches in one training microbatch: one a site's
+    forward and replay (`mask_sites`), one a site's backward."""
+    return mask_sites(model, replays) + mask_sites(model)
 
 
 def classifier_launches(depth: int, micro: int, steps: int,
@@ -3265,6 +3597,10 @@ def phase_det_train_bench(smi: str):
                     "device_busy_share": {
                         "device": prof["device_busy_share"],
                         "scipy": prof_scipy["device_busy_share"]},
+                    "kernels_per_step": {
+                        "device": prof["kernels_per_step"],
+                        "scipy": prof_scipy["kernels_per_step"]},
+                    "peak_memory_gb": rec["peak_memory_gb"],
                     "synchronising_calls_per_step": {
                         r: sum(v.values()) for r, v in syncs.items()},
                     "card": smi}))
@@ -3273,15 +3609,17 @@ def phase_det_train_bench(smi: str):
     evals = 1 + len(evs)
     forwards = steps + evals
     # every training launch runs the dropout branch, no eval launch does;
-    # one microbatch a step, 49 mask sites each (25 in the backbone, 4 in
-    # each of the decoder's 6 layers); one lap launch a device-route step
-    # and an eval forward (its loss matches the final layer)
+    # one microbatch a step, 49 dropout sites each (25 in the backbone, 4
+    # in each of the decoder's 6 layers), one apply launch each way; one
+    # lap launch a device-route step and an eval forward (its loss
+    # matches the final layer)
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
                 "flash_attention_fwd": per_step * forwards,
                 "flash_attention_bwd": per_step * steps,
                 "flash_attention_fwd_dropout": per_step * steps,
                 "flash_attention_bwd_dropout": per_step * steps,
-                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps,
+                "dropout_apply": site_launches(resolve_detector(tcfg))
+                * steps,
                 "lap": device_steps + evals}
     log(json.dumps({"launches": counts, "expected": expected,
                     "steps": steps, "device_route_steps": device_steps,
@@ -3298,6 +3636,63 @@ def phase_det_train_bench(smi: str):
     check(counts == expected, f"detector training launches {counts} != "
                               f"{expected}")
     return counts
+
+
+# 9(c) of another tree, in a subprocess of its own: that tree's
+# chip_smoke.py and package, with its build module and native loader
+# pointed at this tree's build directory (ARSVT_AB_BUILD_DIR). Libraries
+# are named by a hash of their source, headers and flags, so the kernels
+# the two trees share are loaded as built and the others compiled there;
+# nothing is written into the other tree (no bytecode either).
+DET_AB_CHILD = (
+    "import os, pathlib, subprocess, torch\n"
+    "from arsvt_tpu_torch.data import native_loader\n"
+    "from arsvt_tpu_torch.ops import build\n"
+    "build.BUILD_DIR = native_loader.BUILD_DIR = pathlib.Path(\n"
+    "    os.environ['ARSVT_AB_BUILD_DIR'])\n"
+    "import chip_smoke as cs\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "cs.phase_det_train_bench(subprocess.run(['nvidia-smi', "
+    "'--query-gpu=name,power.limit', '--format=csv,noheader'], "
+    "capture_output=True, text=True).stdout.strip())\n")
+
+
+def phase_detector_ab(parent: str, smi: str) -> None:
+    """9(c) of `parent` (a checkout of the parent commit, read and never
+    written) and of this tree, in turns (parent, this, this, parent), one
+    subprocess each: ms/step, busy share, kernels a step and peak memory
+    of each run, side by side."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    env = {**os.environ, "PYTHONDONTWRITEBYTECODE": "1",
+           "ARSVT_AB_BUILD_DIR": str(build.BUILD_DIR)}
+    runs = []
+    for tree in (parent, here, here, parent):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", DET_AB_CHILD], cwd=tree,
+            env={**env, "PYTHONPATH": tree}, capture_output=True,
+            text=True, timeout=900)
+        check(out.returncode == 0,
+              f"9(c) of {tree} failed:\n{out.stdout[-3000:]}"
+              f"{out.stderr[-3000:]}")
+        recs = [json.loads(line) for line in out.stdout.splitlines()
+                if line.startswith("{")]
+        bench = next(r for r in recs if r.get("timing", "").startswith(
+            "detector train step deit_detector_ref bench"))
+        route = next(r for r in recs if r.get("timing")
+                     == "detector train step by matcher route")
+        runs.append({"tree": "parent" if tree == parent else "this",
+                     "ms_per_step": route["ms_per_step"],
+                     "windows_ms": bench["routes"]["device"]["ms_per_step"],
+                     "device_busy_share": route["device_busy_share"],
+                     "kernels_per_step": next(
+                         r["kernels_per_step"] for r in recs
+                         if "kernels_per_step" in r),
+                     "peak_memory_gb": bench["peak_memory_gb"],
+                     "seconds": time.perf_counter() - t0})
+        log(json.dumps({"detector_ab": runs[-1], "card": smi}))
 
 
 def phase_detector_training(smi) -> dict:
@@ -3506,10 +3901,11 @@ def phase_detect_trainer(tmp, smi) -> dict:
     counts = read_counts()
     depth, head_depth = det_cfg.backbone.depth, det_cfg.head.depth
     bwd = depth * steps * encoder_attention.BWD_LAUNCHES_PER_CALL
-    # one microbatch a step; its mask sites: the decoder's 6 reference
+    # one microbatch a step; its dropout sites: the decoder's 6 reference
     # self-attentions (no residual dropout in this preset)
     expected = {**dict.fromkeys(counts, 0), "fused_adamw": steps,
-                "dropout_mask": mask_sites(resolve_detector(tcfg)) * steps,
+                "dropout_apply": site_launches(resolve_detector(tcfg))
+                * steps,
                 "encoder_attention_fwd": depth * steps,
                 "encoder_attention_bwd": bwd,
                 "encoder_attention_fwd_dropout": depth * steps,
@@ -3924,7 +4320,7 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
                 "flash_attention_bwd": per_step * steps,
                 "flash_attention_fwd_dropout": per_step * steps,
                 "flash_attention_bwd_dropout": per_step * steps,
-                "dropout_mask": mask_sites(resolve_detector(
+                "dropout_apply": site_launches(resolve_detector(
                     TRAIN_PRESETS[DET_TRAIN_PRESET])) * steps,
                 "lap": steps})
     add_counts(total, counts)
@@ -4524,9 +4920,12 @@ REMAT_TABLE = {
     "all_but_mlp": (1, 1, 2, 1),
     "mlp_tail": (1, 1, 0, 0),
 }
-# the replays of a layer's two residual dropout sites: the policies that
-# recompute the whole block; all_but_mlp and mlp_tail replay only MLP pieces
-# inside it, and the residual dropout lies outside them
+# the residual dropout sites a layer replays: one (the attention's) under
+# the policies that recompute the whole block, whose non-reentrant
+# checkpoint stops its replay at the last tensor the backward saved, so
+# the MLP's site, which ends the block and saves nothing, is not drawn
+# again; all_but_mlp and mlp_tail replay only MLP pieces inside the block,
+# and the residual dropout lies outside them
 REMAT_MASK_REPLAYS = {"none": 0, "full": 1, "dots": 1, "names": 1,
                       "all_but_mlp": 0, "mlp_tail": 0}
 RECIPE_CLI_ARGS = ["--train-preset", "vit_large_384", "--batch-size", "32",
@@ -4645,8 +5044,9 @@ def remat_expected(route: str, policy: str, depth: int, micro: int,
     """Launches of `micro` forward + backward passes of `depth` layers under
     `policy` on `route`, from REMAT_TABLE; with `dropout` (residual and
     attention) every launch of #1, #2, #5 and #6 runs its dropout branch,
-    the replays too, and the mask kernel draws each residual site again
-    where the policy replays the block around it (REMAT_MASK_REPLAYS)."""
+    the replays too, and the apply kernel runs each site forward and
+    backward and a layer's attention residual site again where the policy
+    replays the block around it (REMAT_MASK_REPLAYS)."""
     fwd1, fwd5, fwd8, bwd9 = (depth * micro * n
                               for n in REMAT_TABLE[policy])
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
@@ -4667,8 +5067,9 @@ def remat_expected(route: str, policy: str, depth: int, micro: int,
                      "encoder_attention_fwd_savep",
                      "encoder_attention_bwd_savep"):
             counts[f"{name}_dropout"] = counts[name]
-        counts["dropout_mask"] = micro * (
-            1 + 2 * depth * (1 + REMAT_MASK_REPLAYS[policy]))
+        sites = 1 + 2 * depth  # positional, two residual a layer
+        counts["dropout_apply"] = micro * (
+            2 * sites + depth * REMAT_MASK_REPLAYS[policy])
     return counts
 
 
@@ -5034,8 +5435,9 @@ def phase_recipe_detector(smi) -> dict:
     enc, dec = det_cfg.backbone.depth, det_cfg.head.depth
     want = {"flash_attention_fwd": 2 * enc + dec,  # the encoder replays
             "flash_attention_bwd": enc + dec, "fused_adamw": 1,
-            "dropout_mask": mask_sites(resolve_detector(tcfg), replays=1),
-            "lap": 1}
+            "dropout_apply": site_launches(resolve_detector(tcfg),
+                                           replays=1),
+            "dropout_mask": 0, "lap": 1}
     got = {k: counts[k] for k in want}
     log(json.dumps({"check": "deit_detector_ref step, remat full, taps warp",
                     "seconds": seconds, "loss": float(m["loss"]),
@@ -5385,9 +5787,9 @@ def distill_launches(micro: int, steps: int, eval_forwards: int,
     `steps` steps and `eval_forwards` eval forwards: per microbatch the
     student's 12 #3 forward and 12 #4 calls, both on their dropout
     branch, and the teacher's 12 #1 launches without dropout (no #2), and
-    the student's 25 mask sites (positional and residual; the teacher
-    draws none); per step one #7 launch; per eval forward 12 #3 calls
-    without dropout."""
+    the student's 25 dropout sites, one apply launch each way
+    (positional and residual; the teacher draws none); per step one #7
+    launch; per eval forward 12 #3 calls without dropout."""
     depth = PRESETS[DISTILL_STUDENT].depth
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     counts["flash_attention_fwd"] = depth * (micro + eval_forwards)
@@ -5396,7 +5798,7 @@ def distill_launches(micro: int, steps: int, eval_forwards: int,
         counts[name] = depth * micro
     if teacher:
         counts["encoder_attention_fwd"] = PRESETS[DISTILL_TEACHER].depth * micro
-    counts["dropout_mask"] = mask_sites(PRESETS[DISTILL_STUDENT]) * micro
+    counts["dropout_apply"] = site_launches(PRESETS[DISTILL_STUDENT]) * micro
     counts["fused_adamw"] = steps
     return counts
 
@@ -5778,7 +6180,7 @@ def phase_parallel_ranks(smi) -> tuple[dict, dict]:
                   and errs["update"] <= PAR_TOL_UPDATE,
                   f"16(b) {job['name']} {job['data']}x{job['model']}: "
                   f"{errs}")
-        launched = ("fused_adamw", "dropout_mask") + (
+        launched = ("fused_adamw", "dropout_apply") + (
             ("lap",) if job["cfg"].get("task") == "detect" else ())
         check(g["counts"] == want["counts"] and all(
             g["counts"][k] > 0 for k in launched),
@@ -5986,6 +6388,11 @@ def main() -> int:
         log("# --distill: phase 15 alone")
         phase_distill(smi)
         return 0
+    if "--detector-ab" in sys.argv[1:]:
+        log("# --detector-ab: phase 9(c) of a parent tree and of this one")
+        phase_detector_ab(sys.argv[sys.argv.index("--detector-ab") + 1],
+                          smi)
+        return 0
     if "--parallel" in sys.argv[1:]:
         log("# --parallel: phase 16 alone")
         phase_parallel(smi)
@@ -6012,6 +6419,11 @@ def main() -> int:
     dropout = phase_encoder_dropout_checks(cfg)
     mlp_fwd, mlp_bwd = phase_mlp_checks()
     masks = phase_mask_kernel_checks()
+    log("# phase 3(a): the dropout apply kernel against its plain version")
+    apply_err = phase_apply_kernel_checks()
+    log("# phase 3(b): the dropout site timed at the detector's residual "
+        "view")
+    applied = phase_apply_kernel_timing(smi, apply_err)
     lap = phase_lap_checks()
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
@@ -6092,6 +6504,10 @@ def main() -> int:
                 + recipe[name] + distill[name] + parallel.get(name, 0)
                 + (launches if name == "encoder_attention_fwd" else 0))
 
+    # every dropout site of phases 4-16 went through the apply kernel
+    check(paths("dropout_apply") > 0 and paths("dropout_mask") == 0,
+          f"dropout sites: apply {paths('dropout_apply')}, mask-only "
+          f"{paths('dropout_mask')} launches over phases 4-16")
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",
                                          "flash_attention.py:533"),
                "encoder_attention_bwd": ("encoder_attention_bwd.cu",
@@ -6131,13 +6547,26 @@ def main() -> int:
         row(f"{name} (dropout 0.1)", *sources[name], dropout[name],
             paths(f"{name}_dropout")) for name in ENC_DROPOUT_NAMES
     ] + [
-        # the port-only mask kernel of the residual, positional and
-        # reference-attention sites; it replaces JAX's jax.random.bernoulli
-        # draw, not a Pallas kernel
+        # the port-only kernels of the residual, positional and reference-
+        # attention sites: the apply kernel, one launch a site each way
+        # (it replaces JAX's dropout, jax.random.bernoulli and a where that
+        # XLA fuses, not a Pallas kernel), and the mask-only kernel, off
+        # every training path since the apply kernel (0 launches there);
+        # "ms" held on the device, beside the host-paced time
+        {**row("dropout_apply", "dropout_mask.cu", "", applied,
+               paths("dropout_apply")),
+         "replaces": "arsvt_tpu/models/vit.py:140 (dropout: "
+                     "jax.random.bernoulli and where; no Pallas kernel)",
+         "host_paced_ms": applied["host_paced_ms"],
+         "int_bound_ms": applied["int_bound_ms"],
+         "bytes_bound_ms": applied["bytes_bound_ms"]},
         {**row("dropout_mask", "dropout_mask.cu", "", masks,
                paths("dropout_mask")),
          "replaces": "arsvt_tpu/models/vit.py:140 (jax.random.bernoulli; "
-                     "no Pallas kernel)"},
+                     "no Pallas kernel)",
+         "host_paced_ms": masks["host_paced_ms"],
+         "int_bound_ms": masks["int_bound_ms"],
+         "bytes_bound_ms": masks["bytes_bound_ms"]},
         # the port-only assignment kernel of the detector's matcher; it
         # replaces JAX's lap_rect, plain JAX that XLA compiles, not a
         # Pallas kernel; no PyTorch call solves an assignment, so scipy's
