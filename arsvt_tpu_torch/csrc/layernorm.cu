@@ -1,0 +1,573 @@
+// LayerNorm over the last axis, forward and backward (ops/layernorm.py),
+// with fp32 statistics and the closed-form backward of the JAX package's
+// custom VJP.
+//
+// It replaces no Pallas kernel: JAX's LayerNorm (arsvt_tpu/ops/layernorm.py:
+// 22-58, `_ln_fwd_math` and `_ln_vjp_bwd`) is jit code that XLA fuses into
+// one pass each way. The port ran the same math as eager PyTorch ops, about
+// 12 launches forward and 18 backward, most of them reading and writing an
+// fp32 temporary of the whole (rows, D) tensor.
+//
+// arsvt_layer_norm_fwd: y = (x - mean) * rstd * scale + bias, each op in
+// fp32 in that order and y rounded once to x's dtype; mean and rstd fp32
+// (rows,), the statistics in two passes over the row held in registers
+// (mean, then the mean of (x - mean)^2, never E[x^2] - mean^2), rstd =
+// rsqrtf(var + eps).
+//
+// arsvt_layer_norm_bwd, two launches: (1) dx per row, rstd * ((gs -
+// mean(gs)) - x̂ * mean(gs * x̂)) with gs = g * scale and x̂ = (x - mean) *
+// rstd, rounded once to x's dtype; each block also sums the column partials
+// of g * x̂ and of g over its rows and writes them to an fp32 (blocks, D)
+// scratch; (2) the scratch summed over blocks into dscale and dbias, in
+// scale's dtype. Every sum runs in a fixed order (warp shuffles, the warps
+// of a block one after another, the blocks in index order): no float
+// atomics, and two runs give the same bits.
+//
+// Types: x (and g, y, dx) fp32 or bf16; scale and bias each fp32 or bf16
+// (a training step casts the weights to the compute dtype; serving keeps
+// them fp32). Products and sums are _rn operations, so nvcc contracts no
+// a * b + c into an FMA that the eager ops round twice.
+//
+// Bound on an H100 SXM: bytes. A forward reads x once and writes y (4 bytes
+// an element in bf16, 8 in fp32) plus 8 bytes a row; a backward reads x and
+// g and writes dx (6 bytes an element in bf16, 12 in fp32). The arithmetic,
+// some 10 fp32 operations an element each way, is far below the card's
+// rate. So the design keeps every element's one read and one write and
+// nothing else in device memory: the row stays in registers between its
+// passes.
+//
+// Design: for D <= 1,024 (every preset: 32 ... 1,024) one warp a row, 8 rows
+// a block; a lane holds its share of the row, at most 32 values, loaded as
+// 16-byte vectors where D is a multiple of 8 (bf16) or 4 (fp32) and the
+// pointers are 16-byte aligned, element by element otherwise. Wider rows
+// (an imported checkpoint may be wider) take a block a row, 256 threads,
+// which reads the row from memory once a pass; its backward keeps the
+// block's column partials in shared memory (D <= 16,384). The backward's
+// grid is fixed by the rows and the card (`arsvt_layer_norm_bwd_blocks`),
+// so the scratch and the order of every sum are too.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxWarpD = 1024;            // the warp path's widest row
+constexpr int kPerLane = kMaxWarpD / 32;   // values a lane holds
+constexpr int kMaxBlockD = 16384;          // the block path's widest row
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// scale or bias, fp32 or bf16
+struct Param {
+  const void* p;
+  int bf16;
+  __device__ __forceinline__ float operator[](int i) const {
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                : static_cast<const float*>(p)[i];
+  }
+};
+
+// every lane ends with the same bits: each step adds a pair in both orders
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// the block's sum, the warps' sums added in warp order by every thread
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // the previous call's readers are done with red
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t = __fadd_rn(t, red[w]);
+  return t;
+}
+
+// kVec values from p: one 16-byte load, or one element where kVec == 1
+template <typename T, int kVec>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr (kVec == 1) {
+    out[0] = to_f(p[0]);
+  } else {
+    static_assert(kVec * sizeof(T) == 16, "a vector is 16 bytes");
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) out[j] = to_f(v[j]);
+  }
+}
+
+template <typename T, int kVec>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
+  if constexpr (kVec == 1) {
+    p[0] = from_f<T>(in[0]);
+  } else {
+    uint4 raw;
+    T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[j] = from_f<T>(in[j]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
+struct FwdArgs {
+  void* y;
+  float* mean;
+  float* rstd;
+  const void* x;
+  Param scale, bias;
+  int64_t rows;
+  int d;
+  float eps;
+};
+
+__device__ __forceinline__ float normed(float x, float mean, float rstd,
+                                        float s, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), s), b);
+}
+
+// one warp a row; lane `lane` holds elements (i * 32 + lane) * kVec + j
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads) ln_fwd_warp(FwdArgs a) {
+  constexpr int kLoads = kPerLane / kVec;
+  const int lane = threadIdx.x & 31;
+  const float fd = (float)a.d;
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       row < a.rows; row += (int64_t)gridDim.x * kWarps) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.d;
+    float v[kLoads][kVec];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = (i * 32 + lane) * kVec;
+      if (e < a.d) {
+        load_vec<T, kVec>(xr + e, v[i]);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) s = __fadd_rn(s, v[i][j]);
+      }
+    }
+    const float mean = __fdiv_rn(warp_sum(s), fd);
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      if ((i * 32 + lane) * kVec < a.d) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float t = __fsub_rn(v[i][j], mean);
+          q = __fadd_rn(q, __fmul_rn(t, t));
+        }
+      }
+    }
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), fd), a.eps));
+    T* yr = static_cast<T*>(a.y) + row * a.d;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = (i * 32 + lane) * kVec;
+      if (e < a.d) {
+        float o[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          o[j] = normed(v[i][j], mean, rstd, a.scale[e + j], a.bias[e + j]);
+        store_vec<T, kVec>(yr + e, o);
+      }
+    }
+    if (lane == 0) {
+      a.mean[row] = mean;
+      a.rstd[row] = rstd;
+    }
+  }
+}
+
+// one block a row, any D; each pass reads the row from memory
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ln_fwd_block(FwdArgs a) {
+  __shared__ float red[kWarps];
+  const float fd = (float)a.d;
+  for (int64_t row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.d;
+    float s = 0.f;
+    for (int c = threadIdx.x; c < a.d; c += kThreads)
+      s = __fadd_rn(s, to_f(xr[c]));
+    const float mean = __fdiv_rn(block_sum(s, red), fd);
+    float q = 0.f;
+    for (int c = threadIdx.x; c < a.d; c += kThreads) {
+      const float t = __fsub_rn(to_f(xr[c]), mean);
+      q = __fadd_rn(q, __fmul_rn(t, t));
+    }
+    const float rstd =
+        rsqrtf(__fadd_rn(__fdiv_rn(block_sum(q, red), fd), a.eps));
+    T* yr = static_cast<T*>(a.y) + row * a.d;
+    for (int c = threadIdx.x; c < a.d; c += kThreads)
+      yr[c] = from_f<T>(normed(to_f(xr[c]), mean, rstd, a.scale[c],
+                               a.bias[c]));
+    if (threadIdx.x == 0) {
+      a.mean[row] = mean;
+      a.rstd[row] = rstd;
+    }
+  }
+}
+
+struct BwdArgs {
+  void* dx;
+  float* part_gx;  // (blocks, d): column sums of g * x̂ over a block's rows
+  float* part_g;   // (blocks, d): column sums of g
+  const void* x;
+  const void* g;
+  const float* mean;
+  const float* rstd;
+  Param scale;
+  int64_t rows;
+  int d;
+};
+
+__device__ __forceinline__ float dx_of(float xh, float gs, float rstd,
+                                       float m1, float m2) {
+  return __fmul_rn(rstd, __fsub_rn(__fsub_rn(gs, m1), __fmul_rn(xh, m2)));
+}
+
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads) ln_bwd_warp(BwdArgs a) {
+  constexpr int kLoads = kPerLane / kVec;
+  __shared__ float col_gx[kMaxWarpD], col_g[kMaxWarpD];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float fd = (float)a.d;
+  float acc_gx[kLoads][kVec], acc_g[kLoads][kVec];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc_gx[i][j] = acc_g[i][j] = 0.f;
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + warp; row < a.rows;
+       row += (int64_t)gridDim.x * kWarps) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.d;
+    const T* gr = static_cast<const T*>(a.g) + row * a.d;
+    const float mean = a.mean[row], rstd = a.rstd[row];
+    float xv[kLoads][kVec], gv[kLoads][kVec];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = (i * 32 + lane) * kVec;
+      if (e < a.d) {
+        load_vec<T, kVec>(xr + e, xv[i]);
+        load_vec<T, kVec>(gr + e, gv[i]);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(xv[i][j], mean), rstd);
+          const float gs = __fmul_rn(gv[i][j], a.scale[e + j]);
+          s1 = __fadd_rn(s1, gs);
+          s2 = __fadd_rn(s2, __fmul_rn(gs, xh));
+          acc_gx[i][j] = __fadd_rn(acc_gx[i][j], __fmul_rn(gv[i][j], xh));
+          acc_g[i][j] = __fadd_rn(acc_g[i][j], gv[i][j]);
+        }
+      }
+    }
+    const float m1 = __fdiv_rn(warp_sum(s1), fd);
+    const float m2 = __fdiv_rn(warp_sum(s2), fd);
+    T* dr = static_cast<T*>(a.dx) + row * a.d;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = (i * 32 + lane) * kVec;
+      if (e < a.d) {
+        float o[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(xv[i][j], mean), rstd);
+          const float gs = __fmul_rn(gv[i][j], a.scale[e + j]);
+          o[j] = dx_of(xh, gs, rstd, m1, m2);
+        }
+        store_vec<T, kVec>(dr + e, o);
+      }
+    }
+  }
+  // the warps' column partials, added in warp order; each warp's lanes
+  // cover every column once
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int e = (i * 32 + lane) * kVec;
+        if (e < a.d) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            col_gx[e + j] =
+                w == 0 ? acc_gx[i][j] : __fadd_rn(col_gx[e + j], acc_gx[i][j]);
+            col_g[e + j] =
+                w == 0 ? acc_g[i][j] : __fadd_rn(col_g[e + j], acc_g[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* pgx = a.part_gx + (int64_t)blockIdx.x * a.d;
+  float* pg = a.part_g + (int64_t)blockIdx.x * a.d;
+  for (int c = threadIdx.x; c < a.d; c += kThreads) {
+    pgx[c] = col_gx[c];
+    pg[c] = col_g[c];
+  }
+}
+
+// one block a row, any D up to kMaxBlockD; thread t owns columns t + k *
+// kThreads of the block's partials in shared memory
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ln_bwd_block(BwdArgs a) {
+  extern __shared__ float cols[];  // [2][d]
+  __shared__ float red[kWarps];
+  float* col_gx = cols;
+  float* col_g = cols + a.d;
+  const float fd = (float)a.d;
+  for (int c = threadIdx.x; c < a.d; c += kThreads) col_gx[c] = col_g[c] = 0.f;
+  for (int64_t row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.d;
+    const T* gr = static_cast<const T*>(a.g) + row * a.d;
+    const float mean = a.mean[row], rstd = a.rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x; c < a.d; c += kThreads) {
+      const float g = to_f(gr[c]);
+      const float xh = __fmul_rn(__fsub_rn(to_f(xr[c]), mean), rstd);
+      const float gs = __fmul_rn(g, a.scale[c]);
+      s1 = __fadd_rn(s1, gs);
+      s2 = __fadd_rn(s2, __fmul_rn(gs, xh));
+      col_gx[c] = __fadd_rn(col_gx[c], __fmul_rn(g, xh));
+      col_g[c] = __fadd_rn(col_g[c], g);
+    }
+    const float m1 = __fdiv_rn(block_sum(s1, red), fd);
+    const float m2 = __fdiv_rn(block_sum(s2, red), fd);
+    T* dr = static_cast<T*>(a.dx) + row * a.d;
+    for (int c = threadIdx.x; c < a.d; c += kThreads) {
+      const float xh = __fmul_rn(__fsub_rn(to_f(xr[c]), mean), rstd);
+      const float gs = __fmul_rn(to_f(gr[c]), a.scale[c]);
+      dr[c] = from_f<T>(dx_of(xh, gs, rstd, m1, m2));
+    }
+  }
+  float* pgx = a.part_gx + (int64_t)blockIdx.x * a.d;
+  float* pg = a.part_g + (int64_t)blockIdx.x * a.d;
+  for (int c = threadIdx.x; c < a.d; c += kThreads) {
+    pgx[c] = col_gx[c];
+    pg[c] = col_g[c];
+  }
+}
+
+// dscale[c] = sum_b part_gx[b][c], dbias[c] = sum_b part_g[b][c]: 32
+// columns a block, 32 row groups summing every 32nd block row in order,
+// then the groups in order
+__global__ void __launch_bounds__(1024)
+    ln_bwd_cols(const float* __restrict__ part_gx,
+                const float* __restrict__ part_g, void* dscale, void* dbias,
+                int out_bf16, int nb, int d) {
+  __shared__ float s_gx[32][33], s_g[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
+  float a = 0.f, b = 0.f;
+  if (c < d) {
+    for (int r = ty; r < nb; r += 32) {
+      a = __fadd_rn(a, part_gx[(int64_t)r * d + c]);
+      b = __fadd_rn(b, part_g[(int64_t)r * d + c]);
+    }
+  }
+  s_gx[ty][tx] = a;
+  s_g[ty][tx] = b;
+  __syncthreads();
+  if (ty == 0 && c < d) {
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sa = __fadd_rn(sa, s_gx[i][tx]);
+      sb = __fadd_rn(sb, s_g[i][tx]);
+    }
+    if (out_bf16) {
+      static_cast<__nv_bfloat16*>(dscale)[c] = __float2bfloat16_rn(sa);
+      static_cast<__nv_bfloat16*>(dbias)[c] = __float2bfloat16_rn(sb);
+    } else {
+      static_cast<float*>(dscale)[c] = sa;
+      static_cast<float*>(dbias)[c] = sb;
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+template <typename T>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if (a.d > kMaxWarpD) {
+    const int64_t blocks = a.rows < 65535 ? a.rows : 65535;
+    ln_fwd_block<T><<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  } else {
+    const int64_t want = cdiv(a.rows, kWarps);
+    const unsigned blocks = (unsigned)(want < 65535 ? want : 65535);
+    if (a.d % kVec == 0 && aligned16(a.x) && aligned16(a.y))
+      ln_fwd_warp<T, kVec><<<blocks, kThreads, 0, st>>>(a);
+    else
+      ln_fwd_warp<T, 1><<<blocks, kThreads, 0, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// the backward's first kernel for (d, dtype, alignment); sets the dynamic
+// shared memory the block path needs
+template <typename T>
+const void* bwd_kernel(int d, bool vec, size_t* smem) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  *smem = 0;
+  if (d > kMaxWarpD) {
+    *smem = 2 * sizeof(float) * (size_t)d;
+    return (const void*)ln_bwd_block<T>;
+  }
+  return vec ? (const void*)ln_bwd_warp<T, kVec>
+             : (const void*)ln_bwd_warp<T, 1>;
+}
+
+// blocks of the backward's first kernel: as many as fit on the card at
+// once, no more than the rows need
+template <typename T>
+int bwd_blocks(int64_t rows, int d, bool vec) {
+  size_t smem = 0;
+  const void* fn = bwd_kernel<T>(d, vec, &smem);
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  const int64_t fit = (int64_t)(per_sm > 0 ? per_sm : 1) * sm_count();
+  const int64_t need = d > kMaxWarpD ? rows : cdiv(rows, kWarps);
+  return (int)(need < fit ? need : fit);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, void* dscale, void* dbias,
+                       int scale_bf16, int blocks, bool vec,
+                       cudaStream_t st) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if (a.d > kMaxWarpD) {
+    const size_t smem = 2 * sizeof(float) * (size_t)a.d;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          (const void*)ln_bwd_block<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    ln_bwd_block<T><<<blocks, kThreads, smem, st>>>(a);
+  } else if (vec) {
+    ln_bwd_warp<T, kVec><<<blocks, kThreads, 0, st>>>(a);
+  } else {
+    ln_bwd_warp<T, 1><<<blocks, kThreads, 0, st>>>(a);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_bwd_cols<<<(unsigned)cdiv(a.d, 32), 1024, 0, st>>>(
+      a.part_gx, a.part_g, dscale, dbias, scale_bf16, blocks, a.d);
+  return cudaGetLastError();
+}
+
+bool bwd_vec(int d, int x_dtype, const void* dx, const void* x,
+             const void* g) {
+  const int vec = x_dtype == 1 ? 8 : 4;
+  return d % vec == 0 && aligned16(dx) && aligned16(x) && aligned16(g);
+}
+
+}  // namespace
+
+// y (rows, d) in x's dtype, mean and rstd fp32 (rows,); x contiguous (rows,
+// d); scale and bias (d,). Dtype codes: 0 fp32, 1 bf16.
+extern "C" int arsvt_layer_norm_fwd(void* y, void* mean, void* rstd,
+                                    const void* x, const void* scale,
+                                    const void* bias, int64_t rows, int d,
+                                    int x_dtype, int scale_dtype,
+                                    int bias_dtype, float eps, void* stream) {
+  if (y == nullptr || mean == nullptr || rstd == nullptr || x == nullptr ||
+      scale == nullptr || bias == nullptr || rows < 1 || d < 1 ||
+      (x_dtype != 0 && x_dtype != 1) || (scale_dtype != 0 && scale_dtype != 1)
+      || (bias_dtype != 0 && bias_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs a{y,    static_cast<float*>(mean), static_cast<float*>(rstd),
+                  x,    Param{scale, scale_dtype}, Param{bias, bias_dtype},
+                  rows, d, eps};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(x_dtype == 1 ? launch_fwd<__nv_bfloat16>(a, st)
+                            : launch_fwd<float>(a, st));
+}
+
+// The backward's first kernel's grid for these rows, d and dtype (16-byte
+// aligned pointers): the rows of the scratch that arsvt_layer_norm_bwd
+// takes. 0 where the card refuses (d past the block path's shared memory).
+extern "C" int arsvt_layer_norm_bwd_blocks(int64_t rows, int d, int x_dtype) {
+  if (rows < 1 || d < 1 || d > kMaxBlockD || (x_dtype != 0 && x_dtype != 1))
+    return 0;
+  const bool vec = d % (x_dtype == 1 ? 8 : 4) == 0;
+  return x_dtype == 1 ? bwd_blocks<__nv_bfloat16>(rows, d, vec)
+                      : bwd_blocks<float>(rows, d, vec);
+}
+
+// dx (rows, d) in x's dtype; dscale and dbias (d,) in scale's dtype; scratch
+// fp32 (2, blocks, d) with blocks = arsvt_layer_norm_bwd_blocks(rows, d,
+// x_dtype), the grid of the first kernel (any grid gives the right sums;
+// that one fills the card, and a fixed one fixes their order; the
+// alignment picks only the load width, which leaves the order of the
+// column sums as it is); x and g (rows, d) in one dtype; mean and rstd
+// fp32 (rows,).
+extern "C" int arsvt_layer_norm_bwd(void* dx, void* dscale, void* dbias,
+                                    void* scratch, int blocks, const void* x,
+                                    const void* g, const void* mean,
+                                    const void* rstd, const void* scale,
+                                    int64_t rows, int d, int x_dtype,
+                                    int scale_dtype, void* stream) {
+  if (dx == nullptr || dscale == nullptr || dbias == nullptr ||
+      scratch == nullptr || x == nullptr || g == nullptr || mean == nullptr ||
+      rstd == nullptr || scale == nullptr || rows < 1 || d < 1 ||
+      d > kMaxBlockD || blocks < 1 || (x_dtype != 0 && x_dtype != 1) ||
+      (scale_dtype != 0 && scale_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(scratch);
+  const BwdArgs a{dx,
+                  part,
+                  part + (int64_t)blocks * d,
+                  x,
+                  g,
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(rstd),
+                  Param{scale, scale_dtype},
+                  rows,
+                  d};
+  const bool vec = bwd_vec(d, x_dtype, dx, x, g);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(x_dtype == 1
+                   ? launch_bwd<__nv_bfloat16>(a, dscale, dbias, scale_dtype,
+                                               blocks, vec, st)
+                   : launch_bwd<float>(a, dscale, dbias, scale_dtype, blocks,
+                                       vec, st));
+}

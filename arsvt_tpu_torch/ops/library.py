@@ -11,7 +11,12 @@ implementation that gives only the output shapes and dtypes:
 - ``arsvt::flash_attention_fwd`` (#3, ``ops/flash_attention.py``): q
   (B, H, Sq, d), k and v (B, H, Sk, d) -> O like q, lse (B, H, 1, Sq) fp32;
 - ``arsvt::fused_mlp_fwd`` (#8, ``ops/fused_mlp.py``): x (N, D) -> out
-  (N, D) in x's dtype, u (N, M) bf16.
+  (N, D) in x's dtype, u (N, M) bf16;
+- ``arsvt::layer_norm_fwd`` (``ops/layernorm.py``, a port-only kernel):
+  x (..., D), scale, bias (D,), eps -> y like x, mean and rstd fp32 of
+  shape x.shape[:-1];
+- ``arsvt::gelu_tanh_fwd`` (``ops/mlp.py``, a port-only kernel): u -> h
+  like u.
 
 The real implementation of each is the module's wrapper, for every
 device: on a CUDA tensor it launches the kernel (and adds to the module's
@@ -28,7 +33,7 @@ import torch
 
 NAMESPACE = "arsvt"
 KERNEL_OPS = ("encoder_attention_fwd", "flash_attention_fwd",
-              "fused_mlp_fwd")
+              "fused_mlp_fwd", "layer_norm_fwd", "gelu_tanh_fwd")
 
 
 def kernel_op(name: str, schema: str):
@@ -47,6 +52,8 @@ def register_all() -> dict:
         encoder_attention,
         flash_attention,
         fused_mlp,
+        layernorm,
+        mlp,
     )
 
     namespace = getattr(torch.ops, NAMESPACE)

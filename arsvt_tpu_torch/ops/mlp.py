@@ -2,9 +2,20 @@
 
 By default both products stay ``torch.matmul``, as the JAX package leaves
 them to XLA, and `gelu_tanh` has the JAX package's compact VJP: it saves
-only u and applies the closed-form derivative in fp32. With
-``ARSVT_ENABLE_FUSED_MLP`` set (``ops/dispatch.py``), `gelu_mlp` runs fc1 →
-GELU → fc2 as the fused kernels of ``ops/fused_mlp.py`` instead, in
+only u and applies the closed-form derivative in fp32. Both directions of
+the GELU are kernels of ``csrc/gelu_tanh.cu`` (JAX's is jit code that XLA
+fuses; no Pallas kernel stands behind it): `gelu_tanh_fwd` (one launch,
+counted in `LAUNCHES`; also the custom op ``arsvt::gelu_tanh_fwd`` of
+``ops/library.py`` that the model code reaches) and `gelu_tanh_bwd` (one
+launch, `BWD_LAUNCHES`). On a CUDA tensor each launches its kernel or
+raises; on a CPU tensor it runs its ``*_plain`` version, the eager chain
+the kernel reproduces to the bit (the forward rounds to u's dtype after
+every op, as eager PyTorch and JAX's XLA do). fc1's bias add stays an
+eager add before it, so the ``mlp_u`` tag and the remat policies see
+fc1's product as they did.
+
+With ``ARSVT_ENABLE_FUSED_MLP`` set (``ops/dispatch.py``), `gelu_mlp` runs
+fc1 → GELU → fc2 as the fused kernels of ``ops/fused_mlp.py`` instead, in
 training and eval, wherever it is called: the ViT blocks and the DETR
 head's FFN. The remat policies reach in here: fc1's product carries the
 ``mlp_u`` tag of ``remat_policy="names"``, and ``remat_tail`` (the
@@ -13,36 +24,144 @@ head's FFN. The remat policies reach in here: fc1's product carries the
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from arsvt_tpu_torch.ops import build
 from arsvt_tpu_torch.ops.dispatch import use_fused_mlp
 from arsvt_tpu_torch.ops.fused_mlp import fused_gelu_mlp
+from arsvt_tpu_torch.ops.library import kernel_op
 from arsvt_tpu_torch.ops.remat import checkpoint_name, remat_call
 
 _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches in this process: one a forward call, one a backward call.
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+_fwd_fn = None
+_bwd_fn = None
+
+
+def gelu_tanh_fwd_plain(u: torch.Tensor) -> torch.Tensor:
+    """The eager chain in u's dtype, each op rounded to it."""
+    t = torch.tanh(_C * (u + _A * u * u * u))
+    return 0.5 * u * (1.0 + t)
+
+
+def gelu_tanh_bwd_plain(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g times the closed-form derivative at u, in fp32, rounded once to
+    u's dtype."""
+    uf = u.float()
+    t = torch.tanh(_C * (uf + _A * uf * uf * uf))
+    d = 0.5 * (1.0 + t) + 0.5 * uf * (1.0 - t * t) * _C * (
+        1.0 + 3.0 * _A * uf * uf)
+    return (g.float() * d).to(u.dtype)
+
+
+def _kernel(name: str, argc: int):
+    fn = getattr(build.load("gelu_tanh"), name)
+    fn.argtypes = [ctypes.c_void_p] * argc + [ctypes.c_int64, ctypes.c_int,
+                                              ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _cuda_code(tensors, what: str) -> int:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} runs on cpu or cuda with every input on "
+                         "one device")
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{what} takes float32 or bfloat16 tensors of one "
+                        f"dtype, got {[t.dtype for t in tensors]}")
+    return _DTYPE_CODES[dtype]
+
+
+def gelu_tanh_fwd(u: torch.Tensor) -> torch.Tensor:
+    """gelu(u) in u's dtype (float32 or bfloat16 on the card)."""
+    global LAUNCHES, _fwd_fn
+    if u.device.type == "cpu":
+        return gelu_tanh_fwd_plain(u)
+    code = _cuda_code((u,), "gelu_tanh forward")
+    if _fwd_fn is None:
+        _fwd_fn = _kernel("arsvt_gelu_tanh_fwd", 2)
+    u = u.contiguous()  # a copy where u is a strided view, not a fallback
+    h = torch.empty_like(u)
+    if u.numel() == 0:
+        return h
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = _fwd_fn(h.data_ptr(), u.data_ptr(), u.numel(), code, stream)
+    if err != 0:
+        raise RuntimeError(f"gelu_tanh forward kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return h
+
+
+def gelu_tanh_bwd(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g * gelu'(u) in u's dtype; g of u's shape and dtype on the card."""
+    global BWD_LAUNCHES, _bwd_fn
+    if g.shape != u.shape:
+        raise ValueError(f"gelu_tanh backward: g {tuple(g.shape)} is not u's "
+                         f"shape {tuple(u.shape)}")
+    if u.device.type == "cpu" and g.device.type == "cpu":
+        return gelu_tanh_bwd_plain(u, g)
+    code = _cuda_code((u, g), "gelu_tanh backward")
+    if _bwd_fn is None:
+        _bwd_fn = _kernel("arsvt_gelu_tanh_bwd", 3)
+    u, g = u.contiguous(), g.contiguous()
+    du = torch.empty_like(u)
+    if u.numel() == 0:
+        return du
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = _bwd_fn(du.data_ptr(), u.data_ptr(), g.data_ptr(), u.numel(),
+                      code, stream)
+    if err != 0:
+        raise RuntimeError(f"gelu_tanh backward kernel launch failed: CUDA "
+                           f"error {err}")
+    BWD_LAUNCHES += 1
+    return du
+
+
+@kernel_op("gelu_tanh_fwd", "(Tensor u) -> Tensor")
+def gelu_tanh_fwd_op(u):
+    """`gelu_tanh_fwd` as the custom op ``arsvt::gelu_tanh_fwd``
+    (``ops/library.py``): what the model code calls."""
+    return gelu_tanh_fwd(u)
+
+
+@gelu_tanh_fwd_op.register_fake
+def _(u):
+    return u.new_empty(u.shape)
 
 
 class _GeluTanh(torch.autograd.Function):
+    """Saves only u, as JAX's custom VJP does."""
+
     @staticmethod
     def forward(ctx, u):
         ctx.save_for_backward(u)
-        t = torch.tanh(_C * (u + _A * u * u * u))
-        return 0.5 * u * (1.0 + t)
+        return gelu_tanh_fwd_op(u)
 
     @staticmethod
     def backward(ctx, g):
         (u,) = ctx.saved_tensors
-        uf = u.float()
-        t = torch.tanh(_C * (uf + _A * uf * uf * uf))
-        d = 0.5 * (1.0 + t) + 0.5 * uf * (1.0 - t * t) * _C * (
-            1.0 + 3.0 * _A * uf * uf)
-        return (g.float() * d).to(u.dtype)
+        return gelu_tanh_bwd(u, g)
 
 
 def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
-    """The tanh approximation of GELU, in u's dtype — not the erf GELU."""
-    return _GeluTanh.apply(u)
+    """The tanh approximation of GELU, in u's dtype — not the erf GELU.
+    Without a gradient to take it is the custom op alone."""
+    if torch.is_grad_enabled() and u.requires_grad:
+        return _GeluTanh.apply(u)
+    return gelu_tanh_fwd_op(u)
 
 
 def _tail(u, w2, b2):

@@ -60,6 +60,10 @@ KERNEL_COUNTERS = (
     ("dropout_apply", "ops.dropout", "APPLY_LAUNCHES"),
     ("dropout_mask", "ops.dropout", "LAUNCHES"),
     ("lap", "objectives.matcher", "LAUNCHES"),
+    ("layer_norm_fwd", "ops.layernorm", "LAUNCHES"),
+    ("layer_norm_bwd", "ops.layernorm", "BWD_LAUNCHES"),
+    ("gelu_tanh_fwd", "ops.mlp", "LAUNCHES"),
+    ("gelu_tanh_bwd", "ops.mlp", "BWD_LAUNCHES"),
 )
 
 

@@ -13,6 +13,9 @@ data- and tensor-parallel training, on one NVIDIA card.
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
         # of the checkout PARENT and of this tree in turns (no kernel line)
+    python3 chip_smoke.py --ab PARENT  # phases 1, 2, then a B = 1
+        # /classify p50, 7(b) and 9(c) with their profiles and the
+        # vit_large_384 step of PARENT and of this tree in turns
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -65,7 +68,9 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    crop/flip on the 256 canvas, fused AdamW), 2 warm-up and 5 timed
    steps: images/s and ms/step; (c) one ``eval_step`` and
    ``evaluate_classifier`` over two batches; (d) a torch.profiler window
-   over one bf16 train step;
+   over one bf16 train step (no eager LayerNorm or GELU op in it: every
+   profile of a step fails on a ``rsqrt`` or ``tanh`` kernel of
+   PyTorch's);
 8. detector serving, ``deit_detector_ref`` (DeiT-400 backbone, 6-layer
    DETR head) from a seeded init through ``StreamingDetector``: (a) fp32
    on the card against the plain path on the CPU, raw logits and boxes;
@@ -195,10 +200,27 @@ pipe, all of it over the issue rate), with each kernel's registers and
 integer opcodes (cuobjdump), and the bf16 forward at C = 512 and at 4x
 the rows, to show what holds it back.
 The apply kernel's row in the kernels record counts its launches over
-phases 4-16; the mask kernel's row reads 0 there.
+phases 4-16; the mask kernel's row reads 0 there. (c) holds the
+port-only LayerNorm and GELU kernels (``csrc/layernorm.cu``,
+``csrc/gelu_tanh.cu``) against their plain versions on the same CUDA
+tensors (see the comment above `NORM_WIDTHS`: LayerNorm at every preset
+width and 770, 1,536 and 4,096 on 1 to 9,232 rows, both dtypes of x and
+of the parameters, the backward's bits repeated; GELU to the bit with
+Inf and NaN planted) and times them at ViT-B's, the detector's and
+ViT-L's shapes beside their bounds, the plain versions and
+F.layer_norm / F.gelu(approximate="tanh"); their two rows in the
+kernels record count the forward and backward launches over phases
+4-16.
 
 Kernel launch counts are zeroed just before each path and read just after
-it: phases 4-5 (classify serving: one encoder-attention forward launch per
+it, every table exact, the LayerNorm and GELU kernels in each as
+`norm_launches` counts them (2 depth + 1 LayerNorms and depth GELUs a
+ViT forward, 4 LayerNorms and a GELU a DETR layer and its final
+LayerNorm, once more over the intermediate layers in training; two
+launches a LayerNorm backward, one a GELU backward; the block remat
+policies replay both LayerNorms of a block, every policy the unfused
+GELU; no GELU kernel on the fused-MLP route; none of LayerNorm under
+``ARSVT_DISABLE_LN_VJP``): phases 4-5 (classify serving: one encoder-attention forward launch per
 layer and forward, no training kernel); 7(b)-(c) (training: forward
 launches = layers x (microbatches x steps + eval forwards), backward
 launches = layers x microbatches x steps x 2 kernels per call, one AdamW
@@ -270,6 +292,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -310,6 +333,8 @@ from arsvt_tpu_torch.ops import (
     fused_mlp,
 )
 from arsvt_tpu_torch.ops import dropout as dropout_ops
+from arsvt_tpu_torch.ops import layernorm as ln_ops
+from arsvt_tpu_torch.ops import mlp as mlp_ops
 from arsvt_tpu_torch.ops.quant import int8_matmul
 from arsvt_tpu_torch.ops.remat import REMAT_POLICIES
 from arsvt_tpu_torch.serving.artifact import load_artifact_engine
@@ -1987,6 +2012,316 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
     return out
 
 
+# Phase 3(c): the LayerNorm and GELU kernels (csrc/layernorm.cu,
+# csrc/gelu_tanh.cu; port-only: JAX's are jit code that XLA fuses) against
+# their plain versions (the eager chains the port ran before) on the same
+# CUDA tensors.
+#
+# LayerNorm at every preset width (32 ... 1,024) and 770 (the element-wise
+# route), 1,536 and 4,096 (the block-a-row route), on 1, 197, 6,304 and
+# 9,232 rows, x in bf16 and fp32, scale and bias in both, plus a row
+# pointer off 16 bytes (the element-wise loads): y, mean, rstd, dx, dscale
+# and dbias. The backward of both sides runs from the kernel's statistics,
+# so it is held alone. Limits: the statistics and the sums are the same
+# fp32 arithmetic summed in another order, so an fp32 output is held at
+# TOL_NORM_FP32 of the tensor's largest magnitude; a bf16 output may flip
+# its last rounding (2^-7 of the value: one bf16 ulp) on top of that. Two
+# backward runs must give the same bits (no atomics).
+#
+# GELU at the same rows x 768, 1,600, 3,072 and 4,096, and a length of
+# 1,001 (the tail) and a pointer off 16 bytes (element-wise route), u and
+# g in bf16 and fp32, with +Inf, -Inf and NaN planted: the kernel repeats
+# the eager chain op by op, so forward and backward are held to the bit
+# (NaN where the plain version gives NaN); a difference, if tanhf differs
+# from the one PyTorch's tanh was built with, is counted and held to one
+# ulp.
+#
+# Then each timed in bf16 (the training dtype; the weights cast) at the
+# main paths' shapes: ViT-B's (6,304, 768) and (6,304, 3,072), the
+# detector's (6,336, 400) and (6,336, 1,600), ViT-L's (9,232, 1,024) and
+# (9,232, 4,096) rows x width: held on the device (`device_ms`) and
+# host-paced, forward and backward, beside the plain version (the parent's
+# eager path), the bound and the library calls F.layer_norm and
+# F.gelu(approximate="tanh") with their autograd backward (timed only).
+NORM_WIDTHS = (32, 192, 256, 384, 400, 768, 1024, 770, 1536, 4096)
+NORM_ROWS = (1, 197, 6304, 9232)
+GELU_WIDTHS = (768, 1600, 3072, 4096)
+NORM_DTYPES = (torch.bfloat16, torch.float32)
+NORM_EPS = 1e-6
+TOL_NORM_FP32 = 1e-5
+TOL_NORM_BF16 = 2.0 ** -7
+NORM_TIMED = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
+              "vit_l": (9232, 1024, 4096)}
+# fp32 operations an element outside the tensor cores (tanhf counted as
+# one, so a lower bound): LayerNorm forward 8, backward 17; GELU forward
+# 9, backward 19
+FP32_OPS_PER_S = 67e12  # H100 SXM data sheet
+LN_OPS = (8, 17)
+GELU_OPS = (9, 19)
+
+
+def norm_bound(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Units in the last place between two tensors of one float dtype, by
+    their bit patterns in sign-magnitude order (+0 and -0 one apart); 0
+    where both are NaN, 2^40 where one is."""
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    sign = 1 << (8 * a.element_size() - 1)
+
+    def key(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & (sign - 1)) - 1, i)
+
+    d = (key(a) - key(b)).abs()
+    nan_a, nan_b = a.isnan(), b.isnan()
+    d = torch.where(nan_a & nan_b, 0, d)
+    return torch.where(nan_a ^ nan_b, 2 ** 40, d)
+
+
+def held(got, ref) -> dict:
+    """got against ref at the limit of their dtype (see above)."""
+    diff = (got.float() - ref.float()).abs()
+    top = float(ref.float().abs().max())
+    allowed = TOL_NORM_FP32 * top + (TOL_NORM_BF16 * ref.float().abs()
+                                     if ref.dtype == torch.bfloat16 else 0)
+    u = ulps(got, ref)
+    return {"ok": bool((diff <= allowed).all()), "dtype": str(ref.dtype),
+            "elements": ref.numel(), "max_abs_err": float(diff.max()),
+            "max_rel_to_top": float(diff.max()) / max(top, 1e-30),
+            "max_ulps": int(u.max()), "over_1_ulp": int((u > 1).sum())}
+
+
+def ln_inputs(rows, d, xdt, sdt, gen, offset=0):
+    """x (rows, d) in xdt, `offset` elements into its storage; scale, bias
+    (d,) in sdt; g like x."""
+    x = torch.randn(rows * d + offset, generator=gen, device="cuda") * 3
+    x = (x + 0.5).to(xdt)[offset:].view(rows, d)
+    scale, bias = (torch.randn(d, generator=gen, device="cuda").to(sdt)
+                   for _ in range(2))
+    g = torch.randn(rows, d, generator=gen, device="cuda").to(xdt)
+    return x, scale, bias, g
+
+
+def ln_case(rows, d, xdt, sdt, gen, offset=0) -> dict:
+    """One LayerNorm case, forward and backward, and the backward twice."""
+    x, scale, bias, g = ln_inputs(rows, d, xdt, sdt, gen, offset)
+    y, mean, rstd = ln_ops.layer_norm_fwd(x, scale, bias, NORM_EPS)
+    yp, mp, rp = ln_ops.layer_norm_fwd_plain(x, scale, bias, NORM_EPS)
+    got = ln_ops.layer_norm_bwd(x, g, scale, mean, rstd)
+    again = ln_ops.layer_norm_bwd(x, g, scale, mean, rstd)
+    ref = ln_ops.layer_norm_bwd_plain(x, g, scale, mean, rstd)
+    out = {"y": held(y, yp), "mean": held(mean, mp), "rstd": held(rstd, rp)}
+    out.update({k: held(a, b) for k, a, b in zip(("dx", "dscale", "dbias"),
+                                                got, ref)})
+    out["backward_bits_repeat"] = all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
+    return out
+
+
+def gelu_case(u, g) -> dict:
+    """One GELU case: forward and backward against the plain chains, bit
+    for bit."""
+    out = {}
+    for way, got, ref in (
+            ("fwd", mlp_ops.gelu_tanh_fwd(u), mlp_ops.gelu_tanh_fwd_plain(u)),
+            ("bwd", mlp_ops.gelu_tanh_bwd(u, g),
+             mlp_ops.gelu_tanh_bwd_plain(u, g))):
+        u_ = ulps(got, ref)
+        same = (got == ref) | (got.isnan() & ref.isnan())
+        diff = torch.where(same, 0.0, (got.float() - ref.float()).abs())
+        out.update({f"{way}_differing": int((u_ > 0).sum()),
+                    f"{way}_max_ulps": int(u_.max()),
+                    f"{way}_max_abs_err": float(diff.max())})
+    return out
+
+
+def planted_u(n, dtype, gen, offset=0):
+    """n values of u (4 sigma, as a GELU input) and g, `offset` elements
+    into their storage, with +Inf, -Inf and NaN planted at the start and
+    the end."""
+    u = torch.randn(n + offset, generator=gen, device="cuda") * 4
+    specials = torch.tensor([math.inf, -math.inf, math.nan], device="cuda")
+    u[offset:offset + 3] = specials
+    u[-3:] = specials
+    g = torch.randn(n + offset, generator=gen, device="cuda")
+    return u.to(dtype)[offset:], g.to(dtype)[offset:]
+
+
+def phase_norm_kernel_checks() -> dict:
+    """3(c), the checks. Returns the largest forward and backward errors of
+    each kernel for the kernels record."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    t0 = time.perf_counter()
+    worst = {"ln_fwd": 0.0, "ln_bwd": 0.0}
+    cases = [(r, d, xdt, sdt, 0) for d in NORM_WIDTHS for r in NORM_ROWS
+             for xdt in NORM_DTYPES for sdt in NORM_DTYPES]
+    cases += [(197, 768, xdt, xdt, 1) for xdt in NORM_DTYPES]  # unaligned
+    by_output = {}  # (output, its dtype): ulps and errors over all cases
+    for rows, d, xdt, sdt, offset in cases:
+        rec = ln_case(rows, d, xdt, sdt, gen, offset)
+        what = (f"LayerNorm rows={rows} D={d} x {xdt} scale {sdt} offset "
+                f"{offset}")
+        bad = [k for k, v in rec.items()
+               if k != "backward_bits_repeat" and not v["ok"]]
+        check(not bad, f"{what}: {bad} outside the limit: {rec}")
+        check(rec["backward_bits_repeat"],
+              f"{what}: two backward runs differ")
+        worst["ln_fwd"] = max(worst["ln_fwd"], rec["y"]["max_abs_err"])
+        worst["ln_bwd"] = max(worst["ln_bwd"], *(
+            rec[k]["max_abs_err"] for k in ("dx", "dscale", "dbias")))
+        for k, v in rec.items():
+            if k == "backward_bits_repeat":
+                continue
+            a = by_output.setdefault(f"{k} {v['dtype']}", dict.fromkeys((
+                "elements", "max_ulps", "over_1_ulp", "max_rel_to_top"), 0))
+            a["elements"] += v["elements"]
+            a["over_1_ulp"] += v["over_1_ulp"]
+            for m in ("max_ulps", "max_rel_to_top"):
+                a[m] = max(a[m], v[m])
+    log(json.dumps({"check": "LayerNorm kernels against their plain "
+                    "versions", "cases": len(cases), "rows": NORM_ROWS,
+                    "widths": NORM_WIDTHS, "by_output": by_output,
+                    "tol_fp32_of_top": TOL_NORM_FP32,
+                    "tol_bf16_of_value": TOL_NORM_BF16,
+                    "backward_bits_repeat": True,
+                    "seconds": time.perf_counter() - t0}))
+
+    t0 = time.perf_counter()
+    worst.update(gelu_fwd=0.0, gelu_bwd=0.0)
+    inputs = [(f"{r}x{w}", r * w, 0) for w in GELU_WIDTHS for r in NORM_ROWS]
+    inputs += [("tail_1001", 1001, 0), ("unaligned", 197 * 768, 1)]
+    totals = {}
+    for dtype in NORM_DTYPES:
+        tot = totals.setdefault(str(dtype), dict.fromkeys((
+            "elements", "fwd_differing", "fwd_max_ulps", "bwd_differing",
+            "bwd_max_ulps"), 0))
+        for name, n, offset in inputs:
+            u, g = planted_u(n, dtype, gen, offset)
+            rec = gelu_case(u, g)
+            check(rec["fwd_max_ulps"] <= 1 and rec["bwd_max_ulps"] <= 1,
+                  f"GELU {name} {dtype}: more than one ulp from the plain "
+                  f"chain: {rec}")
+            tot["elements"] += n
+            for k in ("fwd_differing", "bwd_differing"):
+                tot[k] += rec[k]
+            for k in ("fwd_max_ulps", "bwd_max_ulps"):
+                tot[k] = max(tot[k], rec[k])
+            for k in ("fwd", "bwd"):
+                worst[f"gelu_{k}"] = max(worst[f"gelu_{k}"],
+                                         rec[f"{k}_max_abs_err"])
+    log(json.dumps({"check": "GELU kernels against the eager chains, +Inf, "
+                    "-Inf and NaN planted", "inputs": [i[0] for i in inputs],
+                    "by_dtype": totals,
+                    "bit_equal": all(t["fwd_differing"] == 0 == t[
+                        "bwd_differing"] for t in totals.values()),
+                    "seconds": time.perf_counter() - t0}))
+    return worst
+
+
+def norm_times(fns: dict) -> dict:
+    """{path: {device_ms, host_paced_ms}}: each held on the device behind
+    a 1 ms spin a call (autograd's host time stays inside it) and
+    host-paced."""
+    return {k: {"device_ms": device_ms(fn, iters=30,
+                                       hold_cycles=2_000_000),
+                "host_paced_ms": cuda_ms(fn, iters=30)}
+            for k, fn in fns.items()}
+
+
+def phase_norm_kernel_timing(smi: str, worst: dict) -> tuple[dict, dict]:
+    """3(c), the times. Returns the LayerNorm and GELU records of the
+    kernels line (ViT-B's shapes, the default training path's), each
+    shape's in `shapes`."""
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    dt = torch.bfloat16
+    ln_rows, gelu_rows = {}, {}
+    for cell, (rows, d, m) in NORM_TIMED.items():
+        x, scale, bias, g = ln_inputs(rows, d, dt, dt, gen)
+        xr, sr, br = (t.clone().requires_grad_(True) for t in (x, scale,
+                                                              bias))
+        y_lib = F.layer_norm(xr, (d,), sr, br, NORM_EPS)
+        _, mean, rstd = ln_ops.layer_norm_fwd(x, scale, bias, NORM_EPS)
+        t = norm_times({
+            "fwd": lambda: ln_ops.layer_norm_fwd(x, scale, bias, NORM_EPS),
+            "bwd": lambda: ln_ops.layer_norm_bwd(x, g, scale, mean, rstd),
+            "plain_fwd": lambda: ln_ops.layer_norm_fwd_plain(
+                x, scale, bias, NORM_EPS),
+            "plain_bwd": lambda: ln_ops.layer_norm_bwd_plain(
+                x, g, scale, mean, rstd),
+            "library_fwd": lambda: F.layer_norm(x, (d,), scale, bias,
+                                                NORM_EPS),
+            "library_bwd": lambda: torch.autograd.grad(
+                y_lib, (xr, sr, br), g, retain_graph=True)})
+        n, e = rows * d, x.element_size()
+        ln_rows[cell] = {
+            "rows": rows, "width": d, "times": t,
+            "fwd": norm_bound(2 * n * e + 2 * d * e + 8 * rows,
+                              LN_OPS[0] * n),
+            "bwd": norm_bound(3 * n * e + 3 * d * e + 8 * rows,
+                              LN_OPS[1] * n)}
+        u = torch.randn(rows, m, generator=gen, device="cuda").mul(4).to(dt)
+        gu = torch.randn(rows, m, generator=gen, device="cuda").to(dt)
+        ur = u.clone().requires_grad_(True)
+        h_lib = F.gelu(ur, approximate="tanh")
+        t = norm_times({
+            "fwd": lambda: mlp_ops.gelu_tanh_fwd(u),
+            "bwd": lambda: mlp_ops.gelu_tanh_bwd(u, gu),
+            "plain_fwd": lambda: mlp_ops.gelu_tanh_fwd_plain(u),
+            "plain_bwd": lambda: mlp_ops.gelu_tanh_bwd_plain(u, gu),
+            "library_fwd": lambda: F.gelu(u, approximate="tanh"),
+            "library_bwd": lambda: torch.autograd.grad(
+                h_lib, ur, gu, retain_graph=True)})
+        n = rows * m
+        gelu_rows[cell] = {
+            "rows": rows, "width": m, "times": t,
+            "fwd": norm_bound(2 * n * e, GELU_OPS[0] * n),
+            "bwd": norm_bound(3 * n * e, GELU_OPS[1] * n)}
+        del x, g, xr, y_lib, u, gu, ur, h_lib
+    out = []
+    for name, table, errs in (("layer_norm", ln_rows, ("ln_fwd", "ln_bwd")),
+                              ("gelu_tanh", gelu_rows,
+                               ("gelu_fwd", "gelu_bwd"))):
+        for rec in table.values():
+            for way in ("fwd", "bwd"):
+                t = rec["times"]
+                rec[way].update(
+                    device_ms=t[way]["device_ms"],
+                    host_paced_ms=t[way]["host_paced_ms"],
+                    plain_ms=t[f"plain_{way}"]["device_ms"],
+                    library_ms=t[f"library_{way}"]["device_ms"],
+                    bound_share=rec[way]["bound_ms"] / t[way]["device_ms"],
+                    vs_plain=t[f"plain_{way}"]["device_ms"]
+                    / t[way]["device_ms"],
+                    vs_library=t[f"library_{way}"]["device_ms"]
+                    / t[way]["device_ms"])
+        log(json.dumps({"timing": f"{name} kernels, bf16, forward and "
+                        "backward", "shapes": table, "card": smi}))
+        head = table["vit_b"]
+        out.append({
+            "ms": head["fwd"]["device_ms"],
+            "host_paced_ms": head["fwd"]["host_paced_ms"],
+            "plain_ms": head["fwd"]["plain_ms"],
+            "bound_ms": head["fwd"]["bound_ms"],
+            "bound_by": head["fwd"]["bound_by"],
+            "library_ms": head["fwd"]["library_ms"],
+            "max_abs_err": worst[errs[0]],
+            "backward": {k: head["bwd"][k] for k in (
+                "device_ms", "host_paced_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} | {"max_abs_err": worst[errs[1]]},
+            "shapes": {c: {w: {k: v[w][k] for k in (
+                "device_ms", "host_paced_ms", "plain_ms", "bound_ms",
+                "library_ms")} for w in ("fwd", "bwd")}
+                for c, v in table.items()}})
+    return out[0], out[1]
+
+
 # The assignment kernel (csrc/lap.cu) against its plain version
 # (`lap_rect_plain`, on the card, on the same tensors): both do JAX's
 # subtractions and compares in JAX's order, so the assignments must be
@@ -2564,7 +2899,57 @@ COUNTERS = (
     # the port-only assignment kernel of the detector's matcher (one launch
     # a `match_layers` or eval `match` call on the device route)
     ("lap", matcher, "LAUNCHES"),
+    # the port-only LayerNorm and GELU kernels (`norm_launches`)
+    ("layer_norm_fwd", ln_ops, "LAUNCHES"),
+    ("layer_norm_bwd", ln_ops, "BWD_LAUNCHES"),
+    ("gelu_tanh_fwd", mlp_ops, "LAUNCHES"),
+    ("gelu_tanh_bwd", mlp_ops, "BWD_LAUNCHES"),
 )
+NORM_NAMES = ("layer_norm_fwd", "layer_norm_bwd", "gelu_tanh_fwd",
+              "gelu_tanh_bwd")
+
+
+def norm_launches(model, *, forwards: int = 0, micro: int = 0,
+                  policy: str = "none", fused_mlp: bool = False,
+                  aux: bool = False, ln_vjp: bool = True) -> dict:
+    """The LayerNorm and GELU kernels' launches in `forwards` forwards
+    without a gradient and `micro` training microbatches of `model` (a
+    BackboneConfig or a DetectorConfig; a microbatch is a forward, the
+    replays of remat `policy` and a backward). A backbone runs 2 depth + 1
+    LayerNorms and depth GELUs a forward, a DETR head 4 LayerNorms and a
+    GELU a layer and its final LayerNorm, once more over the stacked
+    intermediate layers with `aux` (training, two layers or more). A
+    LayerNorm backward is two launches, a GELU backward one. The policies
+    that replay whole blocks (full, dots, names: JAX saves neither op's
+    output) replay both LayerNorms of a block, every policy but none
+    replays the GELU; on the fused-MLP route (`fused_mlp`) a GELU runs
+    inside #8 and #9 instead, except in the backbone's training forwards
+    under mlp_tail, which keeps the unfused tail. Without the custom
+    backward (``ARSVT_DISABLE_LN_VJP``, `ln_vjp` False) no LayerNorm
+    kernel runs."""
+    bb = getattr(model, "backbone", model)
+    head = getattr(model, "head", None)
+    ln = 2 * bb.depth + 1
+    gelu = 0 if fused_mlp else bb.depth
+    train_gelu = bb.depth if policy == "mlp_tail" else gelu
+    gelu_replay = (bb.depth if policy == "mlp_tail"
+                   or (policy != "none" and not fused_mlp) else 0)
+    ln_replay = 2 * bb.depth if policy in ("full", "dots", "names") else 0
+    train_ln = ln
+    if head is not None:
+        ln += 4 * head.depth + 1
+        train_ln = ln + (aux and head.depth >= 2)
+        gelu += 0 if fused_mlp else head.depth
+        train_gelu += 0 if fused_mlp else head.depth
+    if not ln_vjp:
+        ln = train_ln = ln_replay = 0
+    return {
+        "layer_norm_fwd": ln * forwards + (train_ln + ln_replay) * micro,
+        "layer_norm_bwd":
+            ln_ops.BWD_LAUNCHES_PER_CALL * train_ln * micro,
+        "gelu_tanh_fwd": gelu * forwards + (train_gelu + gelu_replay) * micro,
+        "gelu_tanh_bwd": train_gelu * micro,
+    }
 
 
 def zero_counts() -> None:
@@ -2611,8 +2996,12 @@ def classifier_launches(depth: int, micro: int, steps: int,
     layer. One AdamW launch a step; each backward call launches two
     kernels, and so does each bf16 call of #8. With attention `dropout`,
     every training launch of #1/#2 or #5/#6 runs the dropout branch; eval
-    forwards never do."""
+    forwards never do. The LayerNorm and GELU kernels as `norm_launches`
+    counts them (no GELU kernel on the opt-in route)."""
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    counts.update(norm_launches(types.SimpleNamespace(depth=depth),
+                                forwards=eval_forwards, micro=micro * steps,
+                                fused_mlp=opt_in))
     layers = depth * micro * steps
     counts["fused_adamw"] = steps
     counts["encoder_attention_fwd"] = depth * eval_forwards
@@ -2726,10 +3115,16 @@ PROFILE_CATEGORIES = (
     # the ViT steps run #2 alone, the detector steps #4 alone
     ("attention backward kernels (#2, #4)", ("attn::attention_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
+    # the port-only kernels of csrc/layernorm.cu and csrc/gelu_tanh.cu
+    ("LayerNorm kernels", ("ln_fwd_", "ln_bwd_")),
+    ("GELU kernels", ("gelu_kernel<",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copies and casts", ("copy",)),
     ("reductions", ("reduce_kernel",)),
 )
+
+
+EAGER_NORM_MARKS = ("rsqrt_kernel_cuda", "tanh_kernel_cuda")
 
 
 def phase_train_profile(state, step, batch, wall_ms: float,
@@ -2750,6 +3145,10 @@ def phase_train_profile(state, step, batch, wall_ms: float,
             rec[0] += e.time_range.elapsed_us()
             rec[1] += 1
     busy_us = sum(v[0] for v in per_name.values())
+    # the eager LayerNorm and GELU chains' own ops (rsqrt, tanh): no other
+    # op of a step launches these, so none should run
+    eager = {k: v[1] for k, v in per_name.items()
+             if any(m in k for m in EAGER_NORM_MARKS)}
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     by_category: dict[str, float] = {}
     for name, (us, _) in per_name.items():
@@ -2761,10 +3160,13 @@ def phase_train_profile(state, step, batch, wall_ms: float,
            # None: the profiler saw no device time (not measured)
            "device_busy_share": busy_us / 1e3 / wall_ms if busy_us else None,
            "kernels_per_step": sum(v[1] for v in per_name.values()),
+           "eager_norm_kernels_per_step": sum(eager.values()),
            "ms_by_category": by_category,
            "top": [{"name": k[:80], "ms": v[0] / 1e3, "calls": v[1]}
                    for k, v in top]}
     log(json.dumps(rec))
+    check(not eager, f"{title}: the eager LayerNorm or GELU chain ran: "
+                     f"{eager}")
     return rec
 
 
@@ -3151,7 +3553,8 @@ def phase_detector(smi) -> dict:
               jpeg_bytes(rng.integers(0, 256, (180, 240, 3),
                                       dtype=np.uint8)),
               png_bytes(rng.integers(0, 256, (300, 200, 3), dtype=np.uint8))]
-    launched = {"flash_attention_fwd": 0, "encoder_attention_fwd": 0}
+    launched = dict.fromkeys(("flash_attention_fwd", "encoder_attention_fwd")
+                             + NORM_NAMES, 0)
     with tempfile.TemporaryDirectory() as tmp:
         cfg = DETECTOR_PRESETS["deit_detector_ref"]
         params = init_detector(cfg, seed=0)
@@ -3169,10 +3572,12 @@ def phase_detector(smi) -> dict:
         forwards += phase_detect_profile(engine, images[0])
         counts = read_counts()
         per_forward = {"flash_attention_fwd":
-                       cfg.backbone.depth + cfg.head.depth}
+                       cfg.backbone.depth + cfg.head.depth,
+                       **norm_launches(cfg, forwards=1)}
         check_detector_counts("deit_detector_ref", counts, forwards,
                               per_forward)
-        launched["flash_attention_fwd"] += counts["flash_attention_fwd"]
+        for k in launched:
+            launched[k] += counts[k]
         del engine, params
 
         log("# phase 8(g): vit_base_detector")
@@ -3186,7 +3591,8 @@ def phase_detector(smi) -> dict:
         counts = read_counts()
         check_detector_counts("vit_base_detector", counts, forwards, {
             "encoder_attention_fwd": cfg.backbone.depth,
-            "flash_attention_fwd": cfg.head.depth})
+            "flash_attention_fwd": cfg.head.depth,
+            **norm_launches(cfg, forwards=1)})
         for k in launched:
             launched[k] += counts[k]
     return launched
@@ -3620,7 +4026,10 @@ def phase_det_train_bench(smi: str):
                 "flash_attention_bwd_dropout": per_step * steps,
                 "dropout_apply": site_launches(resolve_detector(tcfg))
                 * steps,
-                "lap": device_steps + evals}
+                "lap": device_steps + evals,
+                **norm_launches(det_cfg, forwards=evals,
+                                micro=steps * tcfg.grad_accum,
+                                aux=tcfg.aux_loss)}
     log(json.dumps({"launches": counts, "expected": expected,
                     "steps": steps, "device_route_steps": device_steps,
                     "scipy_route_steps": scipy_steps,
@@ -3693,6 +4102,89 @@ def phase_detector_ab(parent: str, smi: str) -> None:
                      "peak_memory_gb": bench["peak_memory_gb"],
                      "seconds": time.perf_counter() - t0})
         log(json.dumps({"detector_ab": runs[-1], "card": smi}))
+
+
+# --ab PARENT: the paths the LayerNorm and GELU kernels changed, of the
+# checkout PARENT and of this tree in turns (parent, this, this, parent),
+# each in a subprocess as DET_AB_CHILD runs 9(c), through functions both
+# trees' chip_smoke.py have: a B = 1 /classify p50 over 100 requests
+# (ViT-B/16, bf16, a seeded head), 7(b)'s default ViT-B bench step with
+# 7(d)'s profile, 9(c) and the vit_large_384 preset's step as 14(e) times
+# it (1 warm-up and 3 timed steps) with a profile.
+TREE_AB_CHILD = DET_AB_CHILD.rsplit("cs.phase_det_train_bench", 1)[0] + (
+    "import json, numpy as np\n"
+    "smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', "
+    "'--format=csv,noheader'], capture_output=True, text=True)"
+    ".stdout.strip()\n"
+    "def profiled(name, ms, peak, prof):\n"
+    "    print(json.dumps({'ab': name, 'ms_per_step': ms, "
+    "'peak_memory_gb': peak, 'device_busy_ms': "
+    "prof['device_busy_ms_per_step'], 'device_busy_share': "
+    "prof['device_busy_share'], 'kernels_per_step': "
+    "prof['kernels_per_step'], 'ms_by_category': prof['ms_by_category']}),"
+    " flush=True)\n"
+    "cfg = cs.PRESETS['vit_base_16_224']\n"
+    "params = cs.seeded_head(cs.init_image_classifier(cfg, 6, seed=0), "
+    "cfg.embed_dim, 6, seed=1)\n"
+    "srv = cs.InferenceServer(classifier=cs.StreamingClassifier(params, cfg, "
+    "6, device='cuda'))\n"
+    "body = cs.png_bytes(np.random.default_rng(17).integers(0, 256, "
+    "(224, 224, 3), dtype=np.uint8))\n"
+    "print(json.dumps({'ab': 'classify_b1', **cs.serve_latency(srv, body, "
+    "100)}), flush=True)\n"
+    "del srv, params\n"
+    "rec, _, state, step, batch = cs.phase_train_bench(cfg, smi)\n"
+    "profiled('vit_b_train', rec['ms_per_step'], rec['peak_memory_gb'], "
+    "cs.phase_train_profile(state, step, batch, rec['ms_per_step']))\n"
+    "del state, step, batch\n"
+    "cs.phase_det_train_bench(smi)\n"
+    "tcfg = cs.TRAIN_PRESETS['vit_large_384']\n"
+    "init_fn, step, _ = cs.make_classifier_step_fns(tcfg)\n"
+    "state = cs.fresh_vitl_state(init_fn)\n"
+    "batch = cs.batch_of(tcfg, torch.Generator(device='cuda').manual_seed("
+    "18), tcfg.batch_size)\n"
+    "state, ms, losses, peak = cs.time_steps(step, state, batch, 1, 3)\n"
+    "profiled('vit_l_train', ms, peak, cs.phase_train_profile(state, step, "
+    "batch, ms, title='train step vit_large_384 as it stands'))\n")
+
+
+def phase_tree_ab(parent: str, smi: str) -> None:
+    """The paths of TREE_AB_CHILD for `parent` (a checkout of the parent
+    commit, read and never written) and this tree, in turns (parent, this,
+    this, parent), one subprocess each, side by side: ms/step, device-busy
+    ms and share, kernels a step and peak memory of each training path,
+    the /classify p50."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    env = {**os.environ, "PYTHONDONTWRITEBYTECODE": "1",
+           "ARSVT_AB_BUILD_DIR": str(build.BUILD_DIR)}
+    for tree in (parent, here, here, parent):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", TREE_AB_CHILD], cwd=tree,
+            env={**env, "PYTHONPATH": tree}, capture_output=True,
+            text=True, timeout=1500)
+        check(out.returncode == 0,
+              f"the A/B paths of {tree} failed:\n{out.stdout[-3000:]}"
+              f"{out.stderr[-3000:]}")
+        recs = [json.loads(line) for line in out.stdout.splitlines()
+                if line.startswith("{")]
+        run = {r["ab"]: {k: v for k, v in r.items() if k != "ab"}
+               for r in recs if "ab" in r}
+        route = next(r for r in recs if r.get("timing")
+                     == "detector train step by matcher route")
+        det_prof = next(r for r in recs if r.get("profile", "").startswith(
+            "detector train step deit_detector_ref bench config, device"))
+        run["detector_train"] = {
+            "ms_per_step": route["ms_per_step"]["device"],
+            "peak_memory_gb": route["peak_memory_gb"],
+            "device_busy_ms": det_prof["device_busy_ms_per_step"],
+            "device_busy_share": route["device_busy_share"]["device"],
+            "kernels_per_step": route["kernels_per_step"]["device"],
+            "ms_by_category": det_prof["ms_by_category"]}
+        log(json.dumps({"tree_ab": "parent" if tree == parent else "this",
+                        **run, "seconds": time.perf_counter() - t0,
+                        "card": smi}))
 
 
 def phase_detector_training(smi) -> dict:
@@ -3916,7 +4408,9 @@ def phase_detect_trainer(tmp, smi) -> dict:
                 "flash_attention_bwd_dropout": head_depth * steps,
                 # Q = 100 > M = 25: the transposed problems, one launch a
                 # microbatch
-                "lap": steps}
+                "lap": steps,
+                **norm_launches(det_cfg, micro=steps * tcfg.grad_accum,
+                                aux=tcfg.aux_loss)}
     ckpts = os.listdir(tcfg.checkpoint_dir)
     rec = {"check": "Trainer task=detect vit_base_detector, attention "
                     "dropout 0.1", "batch": tcfg.batch_size, "steps": steps,
@@ -4107,7 +4601,8 @@ def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi) -> dict:
     res, counts, secs = run_cli(
         run, ["--checkpoint-dir", ckpt_dir, "--data-dir", tree, "--split",
               "valid", "--out", out], base=[], main=eval_cli.main,
-        expect={**zeros, "encoder_attention_fwd": bb.depth * n_batches})
+        expect={**zeros, "encoder_attention_fwd": bb.depth * n_batches,
+                **norm_launches(bb, forwards=n_batches)})
     with open(out) as f:
         saved = json.load(f)
     check(saved["step"] == 3 and saved["split"] == "valid",
@@ -4271,7 +4766,9 @@ def serve_classifier(ckpt_dir, picks, tmp, smi) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     expected = {**dict.fromkeys(counts, 0),
-                "encoder_attention_fwd": depth * forwards}
+                "encoder_attention_fwd": depth * forwards,
+                **norm_launches(PRESETS["vit_base_16_224"],
+                                forwards=forwards)}
     diffs = [float(np.abs(np.asarray(a["probs"]) - d[2]).max())
              for a, d in zip(answers, direct)]
     rec = {"check": "InferenceServer.from_checkpoint /classify vs "
@@ -4322,7 +4819,9 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
                 "flash_attention_bwd_dropout": per_step * steps,
                 "dropout_apply": site_launches(resolve_detector(
                     TRAIN_PRESETS[DET_TRAIN_PRESET])) * steps,
-                "lap": steps})
+                "lap": steps,
+                **norm_launches(det_cfg, micro=steps, aux=TRAIN_PRESETS[
+                    DET_TRAIN_PRESET].aux_loss)})
     add_counts(total, counts)
     ckpt_dir = os.path.join(run, "checkpoints")
     ckpts = sorted(os.listdir(ckpt_dir))
@@ -4340,7 +4839,8 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
         run, ["--checkpoint-dir", ckpt_dir, "--data-dir", coco, "--split",
               "valid", "--out", out], base=[], main=eval_cli.main,
         expect={**zeros, "flash_attention_fwd": per_step * n_batches,
-                "lap": n_batches})
+                "lap": n_batches, **norm_launches(det_cfg,
+                                                  forwards=n_batches)})
     add_counts(total, counts)
     params, tcfg = load_inference_bundle(ckpt_dir)
     _, _, eval_step = make_detector_step_fns(tcfg)
@@ -4401,7 +4901,8 @@ def phase_disk_detector(tmp, coco, smi) -> dict:
             np.asarray(data["boxes"], np.float32).reshape(-1, 4),
             ref_det["boxes"], atol=1e-4, rtol=0),
             f"/detect differs from detect_path: {data} vs {ref_det}")
-    check(counts == {**zeros, "flash_attention_fwd": per_step * forwards},
+    check(counts == {**zeros, "flash_attention_fwd": per_step * forwards,
+                     **norm_launches(det_cfg, forwards=forwards)},
           f"served detector launches {counts}")
     return total
 
@@ -4592,7 +5093,8 @@ def phase_int8_classify(cfg, params, seeded_ckpt, smi) -> dict:
     check(rec["rel_l2_logits"] < TOL_INT8_REL_CLF
           and rec["argmax_agreement"] >= TOL_INT8_AGREE,
           f"int8 classify outside JAX's limits: {rec}")
-    check(counts == {**zeros, "encoder_attention_fwd": 2 * 13 * cfg.depth},
+    check(counts == {**zeros, "encoder_attention_fwd": 2 * 13 * cfg.depth,
+                     **norm_launches(cfg, forwards=2 * 13)},
           f"int8 classify launches {counts}")
     del trees
     phase_int8_products(smi)
@@ -4609,7 +5111,8 @@ def phase_int8_classify(cfg, params, seeded_ckpt, smi) -> dict:
         counts = read_counts()
         add_counts(total, counts)
         check(counts == {**zeros, "encoder_attention_fwd":
-                         cfg.depth * (1 + INT8_REQUESTS)},
+                         cfg.depth * (1 + INT8_REQUESTS),
+                         **norm_launches(cfg, forwards=1 + INT8_REQUESTS)},
               f"served {quantize} launches {counts}")
     log(json.dumps({"check": "/classify latency from the checkpoint",
                     "requests": INT8_REQUESTS, "served": served,
@@ -4657,7 +5160,8 @@ def phase_int8_detect(smi) -> tuple[dict, dict]:
           f"int8 detect outside JAX's limits: {rec}")
     per_forward = cfg.backbone.depth + cfg.head.depth
     check(counts == {**dict.fromkeys(counts, 0),
-                     "flash_attention_fwd": 2 * per_forward},
+                     "flash_attention_fwd": 2 * per_forward,
+                     **norm_launches(cfg, forwards=2)},
           f"int8 detect launches {counts}")
     return counts, params
 
@@ -4684,10 +5188,11 @@ def export_timed(fn, path) -> dict:
             "bytes": os.path.getsize(path)}
 
 
-def load_counted(path, forwards_per_call, launch_name, depth):
+def load_counted(path, forwards_per_call, launch_name, depth, model):
     """load_artifact_engine on the card, with the launches of its warm-up
     and of `forwards_per_call` calls checked: `depth` of `launch_name` a
-    forward and no other kernel."""
+    forward, the LayerNorm and GELU kernels of `model`'s forward, and no
+    other kernel."""
     torch.cuda.synchronize()
     zero_counts()  # the loaded artifact's path starts here
     t0 = time.perf_counter()
@@ -4698,7 +5203,8 @@ def load_counted(path, forwards_per_call, launch_name, depth):
     counts = read_counts()
     forwards = 1 + len(results)  # the warm-up
     check(counts == {**dict.fromkeys(counts, 0),
-                     launch_name: depth * forwards},
+                     launch_name: depth * forwards,
+                     **norm_launches(model, forwards=forwards)},
           f"artifact {path} launches {counts}")
     return engine, results, counts, load_s
 
@@ -4754,7 +5260,7 @@ def phase_export(cfg, params, det_params, seeded_ckpt, cli_path, smi,
                 params, cfg, 6, quantize=quantize), path)
         art, outs, counts, rec["load_s"] = load_counted(
             path, lambda e: [e.infer_batch(batch[:b]) for b in sizes],
-            "encoder_attention_fwd", cfg.depth)
+            "encoder_attention_fwd", cfg.depth, clf_cfg)
         add_counts(total, counts)
         del art
         engine = StreamingClassifier(clf_params, clf_cfg, 6,
@@ -4792,7 +5298,8 @@ def phase_export(cfg, params, det_params, seeded_ckpt, cli_path, smi,
             det_params, det_cfg, quantize=quantize), path)
         art, outs, counts, rec["load_s"] = load_counted(
             path, lambda e: [e._run(batch[:b]) for b in sizes],
-            "flash_attention_fwd", det_cfg.backbone.depth + det_cfg.head.depth)
+            "flash_attention_fwd", det_cfg.backbone.depth + det_cfg.head.depth,
+            det_cfg)
         add_counts(total, counts)
         del art
         engine = StreamingDetector(det_params, det_cfg, quantize=quantize,
@@ -4836,7 +5343,9 @@ def serve_artifact(cli_path, smi, tmp) -> dict:
     counts = read_counts()
     check(status == 200 and health["backend"] == "cuda", f"{health}")
     check(counts == {**dict.fromkeys(counts, 0),
-                     "encoder_attention_fwd": 2 * depth},
+                     "encoder_attention_fwd": 2 * depth,
+                     **norm_launches(PRESETS["vit_base_16_224"],
+                                     forwards=2)},
           f"from_artifact launches {counts}")
     log("# phase 13(d): the server's main() --artifact as a subprocess")
     served_subprocess(["--artifact", cli_path], body, answer, tmp, smi)
@@ -5070,6 +5579,9 @@ def remat_expected(route: str, policy: str, depth: int, micro: int,
         sites = 1 + 2 * depth  # positional, two residual a layer
         counts["dropout_apply"] = micro * (
             2 * sites + depth * REMAT_MASK_REPLAYS[policy])
+    counts.update(norm_launches(types.SimpleNamespace(depth=depth),
+                                micro=micro, policy=policy,
+                                fused_mlp=route != "default"))
     return counts
 
 
@@ -5215,8 +5727,13 @@ def phase_remat_cost(smi) -> None:
 def remat_launches(depth, micro, steps, eval_forwards, replay=2) -> dict:
     """The default route's launches under full remat: #1 `replay` times a
     layer and microbatch (forward and replay) plus once a layer and eval
-    forward, #2 one call a layer and microbatch, #7 once a step."""
+    forward, #2 one call a layer and microbatch, #7 once a step; `replay`
+    1 is the run without remat. The LayerNorm and GELU kernels as
+    `norm_launches` counts them."""
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    counts.update(norm_launches(types.SimpleNamespace(depth=depth),
+                                forwards=eval_forwards, micro=micro * steps,
+                                policy="full" if replay == 2 else "none"))
     counts["encoder_attention_fwd"] = depth * (micro * steps * replay
                                                + eval_forwards)
     counts["encoder_attention_bwd"] = (
@@ -5437,7 +5954,9 @@ def phase_recipe_detector(smi) -> dict:
             "flash_attention_bwd": enc + dec, "fused_adamw": 1,
             "dropout_apply": site_launches(resolve_detector(tcfg),
                                            replays=1),
-            "dropout_mask": 0, "lap": 1}
+            "dropout_mask": 0, "lap": 1,
+            **norm_launches(det_cfg, micro=1, policy=tcfg.remat_policy,
+                            aux=tcfg.aux_loss)}
     got = {k: counts[k] for k in want}
     log(json.dumps({"check": "deit_detector_ref step, remat full, taps warp",
                     "seconds": seconds, "loss": float(m["loss"]),
@@ -5777,6 +6296,7 @@ def phase_distill_import(tmp, smi) -> tuple[str, dict]:
     check(status == 200 and "labels" in data, f"/detect {status} {data}")
     want = dict.fromkeys(counts, 0)
     want["flash_attention_fwd"] = 2 * per_forward  # warm-up and request
+    want.update(norm_launches(det, forwards=2))
     check(counts == want, f"imported detector launches {counts} != {want}")
     return jobs["timm"][3], counts
 
@@ -5789,9 +6309,16 @@ def distill_launches(micro: int, steps: int, eval_forwards: int,
     branch, and the teacher's 12 #1 launches without dropout (no #2), and
     the student's 25 dropout sites, one apply launch each way
     (positional and residual; the teacher draws none); per step one #7
-    launch; per eval forward 12 #3 calls without dropout."""
+    launch; per eval forward 12 #3 calls without dropout. The LayerNorm
+    and GELU kernels of the student's microbatches and eval forwards and of
+    the teacher's forwards, as `norm_launches` counts them."""
     depth = PRESETS[DISTILL_STUDENT].depth
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    counts.update(norm_launches(PRESETS[DISTILL_STUDENT],
+                                forwards=eval_forwards, micro=micro))
+    if teacher:
+        add_counts(counts, norm_launches(PRESETS[DISTILL_TEACHER],
+                                         forwards=micro))
     counts["flash_attention_fwd"] = depth * (micro + eval_forwards)
     for name in ("flash_attention_fwd_dropout", "flash_attention_bwd",
                  "flash_attention_bwd_dropout"):
@@ -5843,6 +6370,7 @@ def phase_distill_teacher(timm_dir, tmp, smi) -> tuple[str, dict]:
           f"the teacher answers one class on (c)'s images: {spread}")
     want = dict.fromkeys(counts, 0)
     want["encoder_attention_fwd"] = 2 * bb.depth
+    want.update(norm_launches(bb, forwards=2))
     check(counts == want, f"teacher forward launches {counts} != {want}")
     return teacher, counts
 
@@ -6103,9 +6631,9 @@ def phase_parallel_nccl(smi) -> dict:
                  warmup_steps=0)
     cases = [("vit_b bf16", train_cfg(batch_size=64, grad_accum=2,
                                       bf16=True, attn_dropout=0.1, **quiet),
-              classify),
+              classify, PRESETS["vit_base_16_224"]),
              ("deit_detector_ref", det_train_cfg(batch_size=8, **quiet),
-              det_random_batch(rng, 8))]
+              det_random_batch(rng, 8), DETECTOR_PRESETS[DET_TRAIN_PRESET])]
     total = dict.fromkeys([n for n, _, _ in dryrun.KERNEL_COUNTERS], 0)
 
     def one_step(cfg, batch):
@@ -6120,7 +6648,7 @@ def phase_parallel_nccl(smi) -> dict:
                   tree_leaves(trainer.state["params"])]
         return out, params, dryrun.kernel_counts()
 
-    for name, cfg, batch in cases:
+    for name, cfg, batch, model in cases:
         plain = one_step(cfg, batch)
         dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                                 f"{free_port()}", world_size=1, rank=0,
@@ -6141,6 +6669,11 @@ def phase_parallel_nccl(smi) -> dict:
         check(same and plain[0]["loss"] == grouped[0]["loss"],
               f"16(a) {name}: the NCCL step differs from the plain one")
         check(plain[2] == grouped[2], f"16(a) {name} launches differ")
+        norms = norm_launches(model, micro=cfg.grad_accum,
+                              aux=cfg.task == "detect" and cfg.aux_loss)
+        check({k: grouped[2][k] for k in NORM_NAMES} == norms,
+              f"16(a) {name} LayerNorm and GELU launches {grouped[2]} != "
+              f"{norms}")
         for k, v in grouped[2].items():
             total[k] += v
     return total
@@ -6180,7 +6713,7 @@ def phase_parallel_ranks(smi) -> tuple[dict, dict]:
                   and errs["update"] <= PAR_TOL_UPDATE,
                   f"16(b) {job['name']} {job['data']}x{job['model']}: "
                   f"{errs}")
-        launched = ("fused_adamw", "dropout_apply") + (
+        launched = ("fused_adamw", "dropout_apply") + NORM_NAMES + (
             ("lap",) if job["cfg"].get("task") == "detect" else ())
         check(g["counts"] == want["counts"] and all(
             g["counts"][k] > 0 for k in launched),
@@ -6247,16 +6780,22 @@ def phase_parallel_switches(smi) -> dict:
             total[k] += v
     base, fused_off, plain, ln_off = (runs[k] for k in runs)
     depth = 12
+    norms = norm_launches(PRESETS["vit_base_16_224"], micro=tcfg.grad_accum)
     check(base[0]["encoder_attention_fwd"] == depth
-          and base[0]["flash_attention_fwd"] == 0 and base[1] > 0,
+          and base[0]["flash_attention_fwd"] == 0 and base[1] > 0
+          and {k: base[0][k] for k in NORM_NAMES} == norms,
           f"16(c) default route {base}")
     check(fused_off[0]["encoder_attention_fwd"] == 0
           and fused_off[0]["encoder_attention_bwd"] == 0
           and fused_off[0]["flash_attention_fwd"] == depth
-          and fused_off[0]["flash_attention_bwd"] == depth,
+          and fused_off[0]["flash_attention_bwd"] == depth
+          and {k: fused_off[0][k] for k in NORM_NAMES} == norms,
           f"16(c) ARSVT_DISABLE_FUSED_ATTN {fused_off}")
     check(plain[0] == fused_off[0], f"16(c) ARSVT_ATTN_JNP {plain}")
-    check(ln_off[1] == 0 and ln_off[0] == base[0],
+    # no LayerNorm kernel under the switch, every other launch as before
+    check(ln_off[1] == 0 and ln_off[0] == {
+        **base[0], **norm_launches(PRESETS["vit_base_16_224"],
+                                   micro=tcfg.grad_accum, ln_vjp=False)},
           f"16(c) ARSVT_DISABLE_LN_VJP {ln_off}")
     for name, run in (("fused_off", fused_off), ("plain", plain),
                       ("ln_off", ln_off)):
@@ -6336,7 +6875,8 @@ def phase_build_report(built: dict) -> None:
     the fused MLP's."""
     for row in ptxas_report(built):
         if row["library"] in TENSOR_CORE_LIBRARIES + (
-                "fused_adamw", "dropout_mask", "lap"):
+                "fused_adamw", "dropout_mask", "lap", "layernorm",
+                "gelu_tanh"):
             log(json.dumps({"ptxas": row}))
             check(not is_bf16_kernel(row["entry"]) or (
                 row["spill_stores"] == 0 and row["spill_loads"] == 0
@@ -6388,6 +6928,11 @@ def main() -> int:
         log("# --distill: phase 15 alone")
         phase_distill(smi)
         return 0
+    if "--ab" in sys.argv[1:]:
+        log("# --ab: the LayerNorm and GELU paths of a parent tree and of "
+            "this one")
+        phase_tree_ab(sys.argv[sys.argv.index("--ab") + 1], smi)
+        return 0
     if "--detector-ab" in sys.argv[1:]:
         log("# --detector-ab: phase 9(c) of a parent tree and of this one")
         phase_detector_ab(sys.argv[sys.argv.index("--detector-ab") + 1],
@@ -6425,6 +6970,10 @@ def main() -> int:
         "view")
     applied = phase_apply_kernel_timing(smi, apply_err)
     lap = phase_lap_checks()
+    log("# phase 3(c): the LayerNorm and GELU kernels against their plain "
+        "versions")
+    ln_rec, gelu_rec = phase_norm_kernel_timing(smi,
+                                                phase_norm_kernel_checks())
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
         return 0
@@ -6444,14 +6993,16 @@ def main() -> int:
     forwards += phase_server(cfg, params, direct, bodies)
     serving = read_counts()
     launches = serving["encoder_attention_fwd"]
-    log(json.dumps({"launches": launches, "forwards": forwards,
+    log(json.dumps({"launches": serving, "forwards": forwards,
                     "depth": cfg.depth}))
     check(launches > 0, "encoder_attention_fwd never launched")
     check(launches == cfg.depth * forwards,
           f"LAUNCHES {launches} != depth {cfg.depth} x {forwards} forwards")
-    check(all(v == 0 for k, v in serving.items()
-              if k != "encoder_attention_fwd"),
-          f"classify serving launched another kernel: {serving}")
+    # and a LayerNorm kernel a LayerNorm, a GELU kernel a GELU
+    expected = {**dict.fromkeys(serving, 0), "encoder_attention_fwd":
+                launches, **norm_launches(cfg, forwards=forwards)}
+    check(serving == expected,
+          f"classify serving launches {serving} != {expected}")
     log("# phase 6: profile of the bf16 forward")
     phase_profile(direct, batch)
 
@@ -6502,8 +7053,12 @@ def main() -> int:
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
                 + recipe[name] + distill[name] + parallel.get(name, 0)
-                + (launches if name == "encoder_attention_fwd" else 0))
+                + serving[name])
 
+    # every LayerNorm and unfused GELU of phases 4-16 ran its kernels
+    check(all(paths(name) > 0 for name in NORM_NAMES),
+          f"LayerNorm and GELU launches over phases 4-16: "
+          f"{ {name: paths(name) for name in NORM_NAMES} }")
     # every dropout site of phases 4-16 went through the apply kernel
     check(paths("dropout_apply") > 0 and paths("dropout_mask") == 0,
           f"dropout sites: apply {paths('dropout_apply')}, mask-only "
@@ -6576,6 +7131,23 @@ def main() -> int:
                      "JAX under jit; no Pallas kernel)",
          "device_ms": lap["device_ms"],
          "scipy_host_ms": lap["scipy_host_ms"]},
+    ] + [
+        # the port-only LayerNorm and GELU kernels (JAX's are jit code that
+        # XLA fuses, not Pallas kernels): "ms" and the rest are the
+        # forward's at ViT-B's training shape, held on the device;
+        # "backward" the same for the backward's launches; "launches" the
+        # forwards', "launches_bwd" the backwards' over phases 4-16
+        {**row(name, source, "", rec, paths(f"{name}_fwd")),
+         "replaces": replaces, "launches_bwd": paths(f"{name}_bwd"),
+         "host_paced_ms": rec["host_paced_ms"],
+         "backward": rec["backward"], "shapes": rec["shapes"]}
+        for name, source, rec, replaces in (
+            ("layer_norm", "layernorm.cu", ln_rec,
+             "arsvt_tpu/ops/layernorm.py:22 (_ln_fwd_math and its custom "
+             "VJP, jit code that XLA fuses; no Pallas kernel)"),
+            ("gelu_tanh", "gelu_tanh.cu", gelu_rec,
+             "arsvt_tpu/ops/mlp.py:21 (gelu_tanh and its custom VJP, jit "
+             "code that XLA fuses; no Pallas kernel)"))
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -161,24 +161,39 @@ def test_the_graph_calls_the_kernels_as_custom_ops(classifier, detector,
                                                    monkeypatch):
     """The attention kernels (#3 at head_dim 16: two encoder layers, and
     the detector's two cross-attention layers) are custom ops in the
-    graph; with ARSVT_ENABLE_FUSED_MLP set while tracing, so is #8, baked
-    in; the int8 graph runs its products as torch._int_mm."""
+    graph; so are the LayerNorm and GELU kernels (2 depth + 1 LayerNorms
+    and depth GELUs in the classifier, plus the DETR head's 4 LayerNorms
+    and a GELU a layer and its final LayerNorm in the detector), on the
+    int8 route too; with ARSVT_ENABLE_FUSED_MLP set while tracing, #8 is
+    baked in and no GELU op is left; the int8 graph runs its products as
+    torch._int_mm."""
     _, cfg, _, params = classifier
     _, dcfg, _, dparams = detector
-    code = export.export_classifier(params, cfg, 6, quantize="int8",
-                                    device="cpu").graph_module.code
-    assert code.count("torch.ops.arsvt.flash_attention_fwd.default(") == 2
-    assert "torch.ops.aten._int_mm.default(" in code
+    ln, gelu = ("torch.ops.arsvt.layer_norm_fwd.default(",
+                "torch.ops.arsvt.gelu_tanh_fwd.default(")
+    for quantize in (None, "int8"):
+        code = export.export_classifier(params, cfg, 6, quantize=quantize,
+                                        device="cpu").graph_module.code
+        assert code.count("torch.ops.arsvt.flash_attention_fwd.default(") \
+            == 2
+        assert code.count(ln) == 2 * cfg.depth + 1
+        assert code.count(gelu) == cfg.depth
+        assert ("torch.ops.aten._int_mm.default(" in code) == bool(quantize)
     code = export.export_detector(dparams, dcfg,
                                   device="cpu").graph_module.code
     assert code.count("torch.ops.arsvt.flash_attention_fwd.default(") == 4
     assert "_int_mm" not in code and "fused_mlp_fwd" not in code
+    bb, head = dcfg.backbone, dcfg.head
+    assert code.count(ln) == 2 * bb.depth + 1 + 4 * head.depth + 1
+    assert code.count(gelu) == bb.depth + head.depth
     monkeypatch.delenv("ARSVT_DISABLE_PALLAS", raising=False)
     monkeypatch.setenv("ARSVT_ENABLE_FUSED_MLP", "1")
     ep = export.export_classifier(params, cfg, 6,
                                   compute_dtype=torch.float32, device="cpu")
     assert ep.graph_module.code.count(
         "torch.ops.arsvt.fused_mlp_fwd.default(") == 2
+    assert ep.graph_module.code.count(ln) == 2 * cfg.depth + 1
+    assert gelu not in ep.graph_module.code
     engine = StreamingClassifier(params, cfg, 6, compute_dtype=torch.float32,
                                  device="cpu")
     monkeypatch.delenv("ARSVT_ENABLE_FUSED_MLP")
@@ -212,6 +227,10 @@ def test_custom_ops_pass_opcheck():
     w1, b1 = torch.randn(12, 20, generator=gen), torch.randn(20, generator=gen)
     w2, b2 = torch.randn(20, 12, generator=gen), torch.randn(12, generator=gen)
     torch.library.opcheck(ops["fused_mlp_fwd"], (x, w1, b1, w2, b2))
+    scale, bias = torch.randn(12, generator=gen), torch.randn(12,
+                                                              generator=gen)
+    torch.library.opcheck(ops["layer_norm_fwd"], (x, scale, bias, 1e-5))
+    torch.library.opcheck(ops["gelu_tanh_fwd"], (x,))
 
 
 def test_classifier_artifact_respects_normalize_contract(classifier,
