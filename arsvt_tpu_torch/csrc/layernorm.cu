@@ -19,9 +19,16 @@
 // rstd, rounded once to x's dtype; each block also sums the column partials
 // of g * x̂ and of g over its rows and writes them to an fp32 (blocks, D)
 // scratch; (2) the scratch summed over blocks into dscale and dbias, in
-// scale's dtype. Every sum runs in a fixed order (warp shuffles, the warps
-// of a block one after another, the blocks in index order): no float
-// atomics, and two runs give the same bits.
+// scale's dtype, launched as (1)'s programmatic dependent
+// (cudaLaunchAttributeProgrammaticStreamSerialization): (1) lets it launch
+// as soon as every block of (1) has started, and it waits
+// (griddepcontrol.wait) for (1)'s end and writes before it reads, so its
+// launch overlaps (1). Every sum runs in a fixed order (warp shuffles, the
+// warps of a block one after another, the blocks in index order): no float
+// atomics, and two runs give the same bits. One launch, the last block to
+// finish found by an integer ticket and summing the partials itself (in
+// two levels of groups), measured slower on an H100: that block's serial
+// sums took longer than the second launch (norm_variants.py times both).
 //
 // Types: x (and g, y, dx) fp32 or bf16; scale and bias each fp32 or bf16
 // (a training step casts the weights to the compute dtype; serving keeps
@@ -37,14 +44,22 @@
 // passes.
 //
 // Design: for D <= 1,024 (every preset: 32 ... 1,024) one warp a row, 8 rows
-// a block; a lane holds its share of the row, at most 32 values, loaded as
-// 16-byte vectors where D is a multiple of 8 (bf16) or 4 (fp32) and the
-// pointers are 16-byte aligned, element by element otherwise. Wider rows
-// (an imported checkpoint may be wider) take a block a row, 256 threads,
-// which reads the row from memory once a pass; its backward keeps the
-// block's column partials in shared memory (D <= 16,384). The backward's
-// grid is fixed by the rows and the card (`arsvt_layer_norm_bwd_blocks`),
-// so the scratch and the order of every sum are too.
+// a block. The forward's lane holds its share of the row, at most 32
+// values, loaded as 16-byte vectors where D is a multiple of 8 (bf16) or 4
+// (fp32) and the pointers are 16-byte aligned, element by element
+// otherwise. The backward's vector route is instantiated for the number of
+// 16-byte vectors a lane holds (kLoads: in bf16 2 for D = 384 and 400, 3
+// for 768, 4 for 1,024), so no register holds a column past D and, in bf16
+// up to D = 768, two 256-thread blocks fit an SM; it stages scale in
+// shared memory once a block, as fp32, and requests the next row's x, g,
+// mean and rstd before it reduces and writes the current one, so a warp
+// keeps a row in flight. Its element-wise route holds 32 values a lane.
+// Wider rows (an imported checkpoint may be wider) take a block a row, 256
+// threads, which reads the row from memory once a pass; its backward keeps
+// the block's column partials in shared memory (D <= 16,384). The
+// backward's grid is fixed by the rows and the card
+// (`arsvt_layer_norm_bwd_blocks`), so the scratch and the order of every
+// sum are too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -246,38 +261,111 @@ __device__ __forceinline__ float dx_of(float xh, float gs, float rstd,
   return __fmul_rn(rstd, __fsub_rn(__fsub_rn(gs, m1), __fmul_rn(xh, m2)));
 }
 
+// Lets the column-sum kernel, launched after this one as its programmatic
+// dependent, start its launch now; it waits for this grid's end and
+// writes (griddepcontrol.wait) before it reads the partials.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The warp's column sums acc (lane `lane` holds columns (i * 32 + lane) *
+// kVec + j) of every warp, added in warp order into the block's partials.
+template <int kVec, int kLoads>
+__device__ __forceinline__ void block_partials(const float (&acc)[kLoads][kVec],
+                                               float (*red)[kLoads * kVec * 32],
+                                               float* out, int d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int e = (i * 32 + lane) * kVec;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) red[warp][e + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float t = red[0][c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, red[w][c]);
+    out[c] = t;
+  }
+  __syncthreads();  // red is free again
+}
+
+// kVec values of one 16-byte vector
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kThreads) ln_bwd_warp(BwdArgs a) {
-  constexpr int kLoads = kPerLane / kVec;
-  __shared__ float col_gx[kMaxWarpD], col_g[kMaxWarpD];
+__device__ __forceinline__ float val(const uint4& raw, int j) {
+  return to_f(reinterpret_cast<const T*>(&raw)[j]);
+}
+
+// The vector route, D <= 1,024 a multiple of kVec, 16-byte aligned: one
+// warp a row, 8 rows a block; lane `lane` holds the kLoads vectors (i * 32
+// + lane) * kVec of a row, kLoads the fewest that cover D (2 for D = 384
+// and 400 in bf16, 3 for 768, 4 for 1,024). The block stages scale in
+// shared memory once, as fp32. While a warp reduces and writes its row, the
+// next row's x, g, mean and rstd are already on their way to its
+// registers.
+template <typename T, int kVec, int kLoads>
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 2 && kLoads <= 3 ? 2 : 1)
+    ln_bwd_vec(BwdArgs a) {
+  constexpr int kWidth = kLoads * kVec * 32;
+  __shared__ float s_scale[kWidth];
+  __shared__ float red[kWarps][kWidth];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float fd = (float)a.d;
+  for (int c = threadIdx.x; c < a.d; c += kThreads) s_scale[c] = a.scale[c];
   float acc_gx[kLoads][kVec], acc_g[kLoads][kVec];
 #pragma unroll
   for (int i = 0; i < kLoads; ++i)
 #pragma unroll
     for (int j = 0; j < kVec; ++j) acc_gx[i][j] = acc_g[i][j] = 0.f;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + warp; row < a.rows;
-       row += (int64_t)gridDim.x * kWarps) {
-    const T* xr = static_cast<const T*>(a.x) + row * a.d;
-    const T* gr = static_cast<const T*>(a.g) + row * a.d;
-    const float mean = a.mean[row], rstd = a.rstd[row];
-    float xv[kLoads][kVec], gv[kLoads][kVec];
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  int64_t row = (int64_t)blockIdx.x * kWarps + warp;
+  uint4 nx[kLoads], ng[kLoads];
+  float nmean = 0.f, nrstd = 0.f;
+  auto fetch = [&](int64_t r) {
+    if (r >= a.rows) return;
+    const uint4* xr = reinterpret_cast<const uint4*>(
+        static_cast<const T*>(a.x) + r * a.d);
+    const uint4* gr = reinterpret_cast<const uint4*>(
+        static_cast<const T*>(a.g) + r * a.d);
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      if ((i * 32 + lane) * kVec < a.d) {
+        nx[i] = xr[i * 32 + lane];
+        ng[i] = gr[i * 32 + lane];
+      }
+    }
+    nmean = a.mean[r];
+    nrstd = a.rstd[r];
+  };
+  fetch(row);
+  launch_dependents();
+  __syncthreads();  // s_scale
+  for (; row < a.rows; row += step) {
+    uint4 cx[kLoads], cg[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      cx[i] = nx[i];
+      cg[i] = ng[i];
+    }
+    const float mean = nmean, rstd = nrstd;
+    fetch(row + step);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int e = (i * 32 + lane) * kVec;
       if (e < a.d) {
-        load_vec<T, kVec>(xr + e, xv[i]);
-        load_vec<T, kVec>(gr + e, gv[i]);
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
-          const float xh = __fmul_rn(__fsub_rn(xv[i][j], mean), rstd);
-          const float gs = __fmul_rn(gv[i][j], a.scale[e + j]);
+          const float g = val<T, kVec>(cg[i], j);
+          const float xh = __fmul_rn(__fsub_rn(val<T, kVec>(cx[i], j), mean),
+                                     rstd);
+          const float gs = __fmul_rn(g, s_scale[e + j]);
           s1 = __fadd_rn(s1, gs);
           s2 = __fadd_rn(s2, __fmul_rn(gs, xh));
-          acc_gx[i][j] = __fadd_rn(acc_gx[i][j], __fmul_rn(gv[i][j], xh));
-          acc_g[i][j] = __fadd_rn(acc_g[i][j], gv[i][j]);
+          acc_gx[i][j] = __fadd_rn(acc_gx[i][j], __fmul_rn(g, xh));
+          acc_g[i][j] = __fadd_rn(acc_g[i][j], g);
         }
       }
     }
@@ -291,40 +379,72 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_warp(BwdArgs a) {
         float o[kVec];
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
-          const float xh = __fmul_rn(__fsub_rn(xv[i][j], mean), rstd);
-          const float gs = __fmul_rn(gv[i][j], a.scale[e + j]);
+          const float xh = __fmul_rn(
+              __fsub_rn(val<T, kVec>(cx[i], j), mean), rstd);
+          const float gs = __fmul_rn(val<T, kVec>(cg[i], j), s_scale[e + j]);
           o[j] = dx_of(xh, gs, rstd, m1, m2);
         }
         store_vec<T, kVec>(dr + e, o);
       }
     }
   }
-  // the warps' column partials, added in warp order; each warp's lanes
-  // cover every column once
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+  block_partials<kVec, kLoads>(acc_gx, red,
+                               a.part_gx + (int64_t)blockIdx.x * a.d, a.d);
+  block_partials<kVec, kLoads>(acc_g, red,
+                               a.part_g + (int64_t)blockIdx.x * a.d, a.d);
+}
+
+// The element-wise route, any D <= 1,024 (not a multiple of the vector, or
+// an unaligned pointer): one warp a row, lane `lane` holding elements i *
+// 32 + lane.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ln_bwd_warp(BwdArgs a) {
+  constexpr int kLoads = kPerLane;
+  __shared__ float red[kWarps][kMaxWarpD];
+  const int lane = threadIdx.x & 31;
+  const float fd = (float)a.d;
+  float acc_gx[kLoads][1], acc_g[kLoads][1];
 #pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const int e = (i * 32 + lane) * kVec;
-        if (e < a.d) {
+  for (int i = 0; i < kLoads; ++i) acc_gx[i][0] = acc_g[i][0] = 0.f;
+  launch_dependents();
+  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       row < a.rows; row += (int64_t)gridDim.x * kWarps) {
+    const T* xr = static_cast<const T*>(a.x) + row * a.d;
+    const T* gr = static_cast<const T*>(a.g) + row * a.d;
+    const float mean = a.mean[row], rstd = a.rstd[row];
+    float xv[kLoads], gv[kLoads];
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            col_gx[e + j] =
-                w == 0 ? acc_gx[i][j] : __fadd_rn(col_gx[e + j], acc_gx[i][j]);
-            col_g[e + j] =
-                w == 0 ? acc_g[i][j] : __fadd_rn(col_g[e + j], acc_g[i][j]);
-          }
-        }
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = i * 32 + lane;
+      if (e < a.d) {
+        xv[i] = to_f(xr[e]);
+        gv[i] = to_f(gr[e]);
+        const float xh = __fmul_rn(__fsub_rn(xv[i], mean), rstd);
+        const float gs = __fmul_rn(gv[i], a.scale[e]);
+        s1 = __fadd_rn(s1, gs);
+        s2 = __fadd_rn(s2, __fmul_rn(gs, xh));
+        acc_gx[i][0] = __fadd_rn(acc_gx[i][0], __fmul_rn(gv[i], xh));
+        acc_g[i][0] = __fadd_rn(acc_g[i][0], gv[i]);
       }
     }
-    __syncthreads();
+    const float m1 = __fdiv_rn(warp_sum(s1), fd);
+    const float m2 = __fdiv_rn(warp_sum(s2), fd);
+    T* dr = static_cast<T*>(a.dx) + row * a.d;
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = i * 32 + lane;
+      if (e < a.d) {
+        const float xh = __fmul_rn(__fsub_rn(xv[i], mean), rstd);
+        const float gs = __fmul_rn(gv[i], a.scale[e]);
+        dr[e] = from_f<T>(dx_of(xh, gs, rstd, m1, m2));
+      }
+    }
   }
-  float* pgx = a.part_gx + (int64_t)blockIdx.x * a.d;
-  float* pg = a.part_g + (int64_t)blockIdx.x * a.d;
-  for (int c = threadIdx.x; c < a.d; c += kThreads) {
-    pgx[c] = col_gx[c];
-    pg[c] = col_g[c];
-  }
+  block_partials<1, kLoads>(acc_gx, red,
+                            a.part_gx + (int64_t)blockIdx.x * a.d, a.d);
+  block_partials<1, kLoads>(acc_g, red, a.part_g + (int64_t)blockIdx.x * a.d,
+                            a.d);
 }
 
 // one block a row, any D up to kMaxBlockD; thread t owns columns t + k *
@@ -337,6 +457,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_block(BwdArgs a) {
   float* col_g = cols + a.d;
   const float fd = (float)a.d;
   for (int c = threadIdx.x; c < a.d; c += kThreads) col_gx[c] = col_g[c] = 0.f;
+  launch_dependents();
   for (int64_t row = blockIdx.x; row < a.rows; row += gridDim.x) {
     const T* xr = static_cast<const T*>(a.x) + row * a.d;
     const T* gr = static_cast<const T*>(a.g) + row * a.d;
@@ -370,12 +491,14 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_block(BwdArgs a) {
 
 // dscale[c] = sum_b part_gx[b][c], dbias[c] = sum_b part_g[b][c]: 32
 // columns a block, 32 row groups summing every 32nd block row in order,
-// then the groups in order
+// then the groups in order. Launched as the row kernel's programmatic
+// dependent: it waits here for that grid's end and its writes.
 __global__ void __launch_bounds__(1024)
     ln_bwd_cols(const float* __restrict__ part_gx,
                 const float* __restrict__ part_g, void* dscale, void* dbias,
                 int out_bf16, int nb, int d) {
   __shared__ float s_gx[32][33], s_g[32][33];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
   float a = 0.f, b = 0.f;
@@ -435,8 +558,18 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the backward's first kernel for (d, dtype, alignment); sets the dynamic
-// shared memory the block path needs
+// the vector route's kernel for kLoads = 1 ... kMaxLoads
+template <typename T, int kLoads = 1>
+const void* vec_kernel(int loads) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kMaxLoads = kPerLane / kVec;
+  if constexpr (kLoads < kMaxLoads)
+    if (loads > kLoads) return vec_kernel<T, kLoads + 1>(loads);
+  return (const void*)ln_bwd_vec<T, kVec, kLoads>;
+}
+
+// the backward's kernel for (d, dtype, alignment) and its dynamic shared
+// memory
 template <typename T>
 const void* bwd_kernel(int d, bool vec, size_t* smem) {
   constexpr int kVec = 16 / (int)sizeof(T);
@@ -445,16 +578,18 @@ const void* bwd_kernel(int d, bool vec, size_t* smem) {
     *smem = 2 * sizeof(float) * (size_t)d;
     return (const void*)ln_bwd_block<T>;
   }
-  return vec ? (const void*)ln_bwd_warp<T, kVec>
-             : (const void*)ln_bwd_warp<T, 1>;
+  if (vec) return vec_kernel<T>((int)cdiv(d / kVec, 32));
+  return (const void*)ln_bwd_warp<T>;
 }
 
-// blocks of the backward's first kernel: as many as fit on the card at
-// once, no more than the rows need
+// blocks of the backward: as many as fit on the card at once (for the
+// 16-byte aligned route), no more than the rows need; 0 where the card
+// refuses
 template <typename T>
-int bwd_blocks(int64_t rows, int d, bool vec) {
+int bwd_blocks(int64_t rows, int d) {
+  constexpr int kVec = 16 / (int)sizeof(T);
   size_t smem = 0;
-  const void* fn = bwd_kernel<T>(d, vec, &smem);
+  const void* fn = bwd_kernel<T>(d, d % kVec == 0, &smem);
   if (smem > 48 * 1024 &&
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
@@ -468,30 +603,36 @@ int bwd_blocks(int64_t rows, int d, bool vec) {
   return (int)(need < fit ? need : fit);
 }
 
+// the row kernel, then the column sums as its programmatic dependent
 template <typename T>
 cudaError_t launch_bwd(const BwdArgs& a, void* dscale, void* dbias,
                        int scale_bf16, int blocks, bool vec,
                        cudaStream_t st) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  if (a.d > kMaxWarpD) {
-    const size_t smem = 2 * sizeof(float) * (size_t)a.d;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          (const void*)ln_bwd_block<T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    ln_bwd_block<T><<<blocks, kThreads, smem, st>>>(a);
-  } else if (vec) {
-    ln_bwd_warp<T, kVec><<<blocks, kThreads, 0, st>>>(a);
-  } else {
-    ln_bwd_warp<T, 1><<<blocks, kThreads, 0, st>>>(a);
+  size_t smem = 0;
+  const void* fn = bwd_kernel<T>(a.d, vec, &smem);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaGetLastError();
+  void* args[] = {const_cast<BwdArgs*>(&a)};
+  cudaError_t err =
+      cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, smem, st);
   if (err != cudaSuccess) return err;
-  ln_bwd_cols<<<(unsigned)cdiv(a.d, 32), 1024, 0, st>>>(
-      a.part_gx, a.part_g, dscale, dbias, scale_bf16, blocks, a.d);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cdiv(a.d, 32));
+  cfg.blockDim = dim3(1024);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ln_bwd_cols,
+                           static_cast<const float*>(a.part_gx),
+                           static_cast<const float*>(a.part_g), dscale, dbias,
+                           scale_bf16, blocks, a.d);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 bool bwd_vec(int d, int x_dtype, const void* dx, const void* x,
@@ -522,24 +663,22 @@ extern "C" int arsvt_layer_norm_fwd(void* y, void* mean, void* rstd,
                             : launch_fwd<float>(a, st));
 }
 
-// The backward's first kernel's grid for these rows, d and dtype (16-byte
-// aligned pointers): the rows of the scratch that arsvt_layer_norm_bwd
-// takes. 0 where the card refuses (d past the block path's shared memory).
+// The backward's first kernel's grid for these rows, d and dtype: as many
+// blocks as fit on the card at once on the 16-byte aligned route (any
+// grid gives the right sums; this one fills the card, and a fixed one
+// fixes their order, whichever route runs), no more than the rows need;
+// the rows of the scratch that arsvt_layer_norm_bwd takes. 0 where the
+// card refuses (d past the block path's shared memory).
 extern "C" int arsvt_layer_norm_bwd_blocks(int64_t rows, int d, int x_dtype) {
   if (rows < 1 || d < 1 || d > kMaxBlockD || (x_dtype != 0 && x_dtype != 1))
     return 0;
-  const bool vec = d % (x_dtype == 1 ? 8 : 4) == 0;
-  return x_dtype == 1 ? bwd_blocks<__nv_bfloat16>(rows, d, vec)
-                      : bwd_blocks<float>(rows, d, vec);
+  return x_dtype == 1 ? bwd_blocks<__nv_bfloat16>(rows, d)
+                      : bwd_blocks<float>(rows, d);
 }
 
 // dx (rows, d) in x's dtype; dscale and dbias (d,) in scale's dtype; scratch
 // fp32 (2, blocks, d) with blocks = arsvt_layer_norm_bwd_blocks(rows, d,
-// x_dtype), the grid of the first kernel (any grid gives the right sums;
-// that one fills the card, and a fixed one fixes their order; the
-// alignment picks only the load width, which leaves the order of the
-// column sums as it is); x and g (rows, d) in one dtype; mean and rstd
-// fp32 (rows,).
+// x_dtype); x and g (rows, d) in one dtype; mean and rstd fp32 (rows,).
 extern "C" int arsvt_layer_norm_bwd(void* dx, void* dscale, void* dbias,
                                     void* scratch, int blocks, const void* x,
                                     const void* g, const void* mean,

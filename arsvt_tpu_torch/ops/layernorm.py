@@ -11,8 +11,9 @@ jit code that XLA fuses; no Pallas kernel stands behind them):
   also the custom op ``arsvt::layer_norm_fwd`` (``ops/library.py``) that
   the model code reaches;
 - `layer_norm_bwd`: dx and the column partials of dscale and dbias in one
-  launch, their sum over blocks in a second (two counted in
-  `BWD_LAUNCHES` a call), deterministic.
+  launch, their sum over blocks in a second that launches while the first
+  runs and waits for it on the card (two counted in `BWD_LAUNCHES` a
+  call), deterministic.
 
 On a CUDA tensor each wrapper launches its kernel or raises, for a failed
 build, a failed launch and a dtype the kernel does not take alike; on a
@@ -42,6 +43,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fwd_fn = None
 _bwd_fn = None
 _blocks_fn = None
+_grids: dict[tuple, int] = {}  # (device, rows, D, dtype code) -> blocks
 
 
 def layer_norm_fwd_plain(x, scale, bias, eps: float):
@@ -120,6 +122,22 @@ def _bwd_kernels():
     return _blocks_fn, _bwd_fn
 
 
+def _bwd_blocks(device, rows: int, d: int, code: int) -> int:
+    """The backward's grid on `device` (the rows of its scratch), asked of
+    the kernel library once a shape."""
+    key = (device.index if device.index is not None else
+           torch.cuda.current_device(), rows, d, code)
+    blocks = _grids.get(key)
+    if blocks is None:
+        with torch.cuda.device(device):
+            blocks = _blocks_fn(rows, d, code)
+        if blocks < 1:
+            raise ValueError(f"the LayerNorm backward kernel takes D up to "
+                             f"16,384 on this card, got D={d}")
+        _grids[key] = blocks
+    return blocks
+
+
 def layer_norm_fwd(x, scale, bias, eps: float):
     """x (..., D) in float32 or bfloat16, scale and bias (D,) each in either
     -> (y like x, mean and rstd fp32 of shape x.shape[:-1])."""
@@ -175,27 +193,23 @@ def layer_norm_bwd(x, g, scale, mean, rstd):
         raise TypeError(f"LayerNorm backward takes g in x's dtype and fp32 "
                         f"statistics, got x {x.dtype}, g {g.dtype}, mean "
                         f"{mean.dtype}, rstd {rstd.dtype}")
-    blocks_fn, fn = _bwd_kernels()
+    _bwd_kernels()
     x2, g2, scale = x2.contiguous(), g2.contiguous(), scale.contiguous()
     mean, rstd = mean.contiguous(), rstd.contiguous()
     rows = x2.shape[0]
     dx = torch.empty_like(x2)
-    dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
+    dscale = x2.new_empty((d,), dtype=scale.dtype)
     dbias = torch.empty_like(dscale)
     if rows == 0:
         return dx.reshape(x.shape), dscale.zero_(), dbias.zero_()
-    blocks = blocks_fn(rows, d, codes[0])
-    if blocks < 1:
-        raise ValueError(f"the LayerNorm backward kernel takes D up to "
-                         f"16,384 on this card, got D={d}")
-    scratch = torch.empty((2, blocks, d), dtype=torch.float32,
-                          device=x.device)
+    blocks = _bwd_blocks(x.device, rows, d, codes[0])
+    scratch = x2.new_empty((2, blocks, d), dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-                 scratch.data_ptr(), blocks, x2.data_ptr(), g2.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), rows, d,
-                 *codes, stream)
+        err = _bwd_fn(dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+                      scratch.data_ptr(), blocks, x2.data_ptr(),
+                      g2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                      scale.data_ptr(), rows, d, *codes, stream)
     if err != 0:
         raise RuntimeError(f"LayerNorm backward kernel launch failed: CUDA "
                            f"error {err}")

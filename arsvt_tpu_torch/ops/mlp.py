@@ -14,6 +14,17 @@ every op, as eager PyTorch and JAX's XLA do). fc1's bias add stays an
 eager add before it, so the ``mlp_u`` tag and the remat policies see
 fc1's product as they did.
 
+The bf16 forward has two routes of the kernel, with the same bits: from
+`TABLE_MIN_ELEMENTS` elements up a lookup in a table of the chain at all
+65,536 bf16 inputs, held in each SM's shared memory (`TABLE_ROUTE_LAUNCHES`
+counts these launches among `LAUNCHES`); below it, and in fp32, the
+chain's arithmetic. The table is filled on the card by the kernel's own
+arithmetic at the first table-route call on a device (one launch, counted
+apart in `TABLE_LAUNCHES`, then one wait for the stream), kept for the
+process, and never filled while a CUDA graph is being captured: a capture
+before it exists takes the arithmetic route. `gelu_tanh_table_plain` and
+`gelu_tanh_gather_plain` are the table and its lookup in plain PyTorch.
+
 With ``ARSVT_ENABLE_FUSED_MLP`` set (``ops/dispatch.py``), `gelu_mlp` runs
 fc1 → GELU → fc2 as the fused kernels of ``ops/fused_mlp.py`` instead, in
 training and eval, wherever it is called: the ViT blocks and the DETR
@@ -38,12 +49,26 @@ _C = 0.7978845608028654  # sqrt(2/pi)
 _A = 0.044715
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches in this process: one a forward call, one a backward call.
+# Kernel launches in this process: one a forward call (either route), one
+# a backward call, one a table filled.
 LAUNCHES = 0
+TABLE_ROUTE_LAUNCHES = 0
+TABLE_LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+# The bf16 forward takes the table route from this many elements up:
+# below it the arithmetic route is faster, since the table route fills 128
+# KB of shared memory on every SM it runs on. On an H100 the table route
+# won from (394, 3,072) up and lost at B = 1 serving's (197, 3,072)
+# (chip_smoke.py phase 3(c) times both routes by size).
+TABLE_MIN_ELEMENTS = 1 << 20
+TABLE_SIZE = 1 << 16  # one entry a bf16 bit pattern
 
 _fwd_fn = None
 _bwd_fn = None
+_table_fn = None
+_table_fwd_fn = None
+_tables: dict[int, torch.Tensor] = {}  # device index -> the filled table
 
 
 def gelu_tanh_fwd_plain(u: torch.Tensor) -> torch.Tensor:
@@ -62,12 +87,37 @@ def gelu_tanh_bwd_plain(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float() * d).to(u.dtype)
 
 
-def _kernel(name: str, argc: int):
+def gelu_tanh_table_plain(dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """The forward chain at every bf16 input: entry i is
+    `gelu_tanh_fwd_plain` of the bf16 whose bits, read as an unsigned
+    16-bit integer, are i."""
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the GELU table is bfloat16's (2^16 inputs), not "
+                        f"{dtype}'s")
+    bits = torch.arange(TABLE_SIZE, dtype=torch.int32)
+    signed = torch.where(bits >= TABLE_SIZE // 2, bits - TABLE_SIZE, bits)
+    return gelu_tanh_fwd_plain(signed.to(torch.int16).view(torch.bfloat16))
+
+
+def gelu_tanh_gather_plain(table: torch.Tensor,
+                           u: torch.Tensor) -> torch.Tensor:
+    """The table route's lookup: table[bits(u)], u's bf16 bits read as an
+    unsigned 16-bit index."""
+    index = u.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    return table[index]
+
+
+def _kernel(name: str, argtypes):
     fn = getattr(build.load("gelu_tanh"), name)
-    fn.argtypes = [ctypes.c_void_p] * argc + [ctypes.c_int64, ctypes.c_int,
-                                              ctypes.c_void_p]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _elementwise(argc: int):
+    return [ctypes.c_void_p] * argc + [ctypes.c_int64, ctypes.c_int,
+                                       ctypes.c_void_p]
 
 
 def _cuda_code(tensors, what: str) -> int:
@@ -82,24 +132,88 @@ def _cuda_code(tensors, what: str) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def gelu_tanh_fwd(u: torch.Tensor) -> torch.Tensor:
-    """gelu(u) in u's dtype (float32 or bfloat16 on the card)."""
-    global LAUNCHES, _fwd_fn
+def _capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _launch(what: str, device, fn, *args) -> None:
+    """fn(*args, stream) on `device`'s current stream; raises on an error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _table(u: torch.Tensor) -> torch.Tensor:
+    """The filled table of u's device: filled here by its first caller, who
+    then waits for the stream, so every later caller on any stream finds it
+    written."""
+    global TABLE_LAUNCHES, _table_fn
+    index = _device_index(u.device)
+    table = _tables.get(index)
+    if table is None:
+        if _capturing():
+            raise RuntimeError("the GELU table is not filled during a CUDA "
+                               "graph capture")
+        if _table_fn is None:
+            _table_fn = _kernel("arsvt_gelu_tanh_table",
+                                [ctypes.c_void_p, ctypes.c_void_p])
+        table = u.new_empty(TABLE_SIZE)
+        _launch("gelu_tanh table", u.device, _table_fn, table.data_ptr())
+        TABLE_LAUNCHES += 1
+        torch.cuda.current_stream(u.device).synchronize()
+        _tables[index] = table
+    return table
+
+
+def forward_route(u: torch.Tensor) -> str:
+    """The route a CUDA tensor u takes: "table" for bf16 from
+    `TABLE_MIN_ELEMENTS` elements up, unless a CUDA graph is being captured
+    before the device's table exists; else "arithmetic"."""
+    if u.dtype != torch.bfloat16 or u.numel() < TABLE_MIN_ELEMENTS:
+        return "arithmetic"
+    if _device_index(u.device) not in _tables and _capturing():
+        return "arithmetic"
+    return "table"
+
+
+def gelu_tanh_fwd(u: torch.Tensor, route: str | None = None) -> torch.Tensor:
+    """gelu(u) in u's dtype (float32 or bfloat16 on the card). `route`
+    ("table", bf16 only, or "arithmetic") overrides `forward_route`; both
+    give the same bits."""
+    global LAUNCHES, TABLE_ROUTE_LAUNCHES, _fwd_fn, _table_fwd_fn
     if u.device.type == "cpu":
         return gelu_tanh_fwd_plain(u)
     code = _cuda_code((u,), "gelu_tanh forward")
-    if _fwd_fn is None:
-        _fwd_fn = _kernel("arsvt_gelu_tanh_fwd", 2)
+    route = forward_route(u) if route is None else route
+    if route not in ("table", "arithmetic"):
+        raise ValueError(f"gelu_tanh forward routes are 'table' and "
+                         f"'arithmetic', got {route!r}")
+    if route == "table" and u.dtype != torch.bfloat16:
+        raise TypeError(f"the GELU table route takes bfloat16, got {u.dtype}")
     u = u.contiguous()  # a copy where u is a strided view, not a fallback
     h = torch.empty_like(u)
     if u.numel() == 0:
         return h
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _fwd_fn(h.data_ptr(), u.data_ptr(), u.numel(), code, stream)
-    if err != 0:
-        raise RuntimeError(f"gelu_tanh forward kernel launch failed: CUDA "
-                           f"error {err}")
+    if route == "table":
+        table = _table(u)
+        if _table_fwd_fn is None:
+            _table_fwd_fn = _kernel(
+                "arsvt_gelu_tanh_fwd_table",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p])
+        _launch("gelu_tanh forward", u.device, _table_fwd_fn, h.data_ptr(),
+                u.data_ptr(), table.data_ptr(), u.numel())
+        TABLE_ROUTE_LAUNCHES += 1
+    else:
+        if _fwd_fn is None:
+            _fwd_fn = _kernel("arsvt_gelu_tanh_fwd", _elementwise(2))
+        _launch("gelu_tanh forward", u.device, _fwd_fn, h.data_ptr(),
+                u.data_ptr(), u.numel(), code)
     LAUNCHES += 1
     return h
 
@@ -114,18 +228,13 @@ def gelu_tanh_bwd(u: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return gelu_tanh_bwd_plain(u, g)
     code = _cuda_code((u, g), "gelu_tanh backward")
     if _bwd_fn is None:
-        _bwd_fn = _kernel("arsvt_gelu_tanh_bwd", 3)
+        _bwd_fn = _kernel("arsvt_gelu_tanh_bwd", _elementwise(3))
     u, g = u.contiguous(), g.contiguous()
     du = torch.empty_like(u)
     if u.numel() == 0:
         return du
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _bwd_fn(du.data_ptr(), u.data_ptr(), g.data_ptr(), u.numel(),
-                      code, stream)
-    if err != 0:
-        raise RuntimeError(f"gelu_tanh backward kernel launch failed: CUDA "
-                           f"error {err}")
+    _launch("gelu_tanh backward", u.device, _bwd_fn, du.data_ptr(),
+            u.data_ptr(), g.data_ptr(), u.numel(), code)
     BWD_LAUNCHES += 1
     return du
 

@@ -13,9 +13,10 @@ data- and tensor-parallel training, on one NVIDIA card.
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
         # of the checkout PARENT and of this tree in turns (no kernel line)
-    python3 chip_smoke.py --ab PARENT  # phases 1, 2, then a B = 1
-        # /classify p50, 7(b) and 9(c) with their profiles and the
-        # vit_large_384 step of PARENT and of this tree in turns
+    python3 chip_smoke.py --ab PARENT  # phases 1, 2, then the LayerNorm
+        # and GELU kernels held at 3(c)'s timed shapes, a B = 1 /classify
+        # p50, 7(b) and 9(c) with their profiles and the vit_large_384
+        # step of PARENT and of this tree in turns
 
 Run from the root of a checkout on a machine with a Hopper card and the
 CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
@@ -206,11 +207,15 @@ port-only LayerNorm and GELU kernels (``csrc/layernorm.cu``,
 tensors (see the comment above `NORM_WIDTHS`: LayerNorm at every preset
 width and 770, 1,536 and 4,096 on 1 to 9,232 rows, both dtypes of x and
 of the parameters, the backward's bits repeated; GELU to the bit with
-Inf and NaN planted) and times them at ViT-B's, the detector's and
-ViT-L's shapes beside their bounds, the plain versions and
-F.layer_norm / F.gelu(approximate="tanh"); their two rows in the
-kernels record count the forward and backward launches over phases
-4-16.
+Inf and NaN planted, the bf16 forward on both its routes, at every shape
+and at all 65,536 bf16 inputs, the table the card filled equal to the
+chain) and times them at ViT-B's, the detector's, ViT-L's and B = 1
+serving's shapes beside their bounds, the plain versions and
+F.layer_norm / F.gelu(approximate="tanh"), with the bf16 GELU forward's
+two routes by size and each kernel's registers and spills (cuobjdump);
+their two rows in the kernels record count the forward and backward
+launches over phases 4-16, the GELU's also its table-route launches and
+the table's fill there (the main path fills its own: exactly once).
 
 Kernel launch counts are zeroed just before each path and read just after
 it, every table exact, the LayerNorm and GELU kernels in each as
@@ -2047,11 +2052,15 @@ NORM_WIDTHS = (32, 192, 256, 384, 400, 768, 1024, 770, 1536, 4096)
 NORM_ROWS = (1, 197, 6304, 9232)
 GELU_WIDTHS = (768, 1600, 3072, 4096)
 NORM_DTYPES = (torch.bfloat16, torch.float32)
+GELU_ROUTES = ("table", "arithmetic")  # the bf16 forward's (ops/mlp.py)
 NORM_EPS = 1e-6
 TOL_NORM_FP32 = 1e-5
 TOL_NORM_BF16 = 2.0 ** -7
 NORM_TIMED = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
-              "vit_l": (9232, 1024, 4096)}
+              "vit_l": (9232, 1024, 4096), "serve_b1": (197, 768, 3072)}
+# The bf16 GELU forward's two routes timed at rows x 3,072 from B = 1
+# serving's 197 up, where `mlp_ops.TABLE_MIN_ELEMENTS` switches them
+GELU_ROUTE_ROWS = (197, 394, 591, 788, 1182, 1576, 3152)
 # fp32 operations an element outside the tensor cores (tanhf counted as
 # one, so a lower bound): LayerNorm forward 8, backward 17; GELU forward
 # 9, backward 19
@@ -2125,21 +2134,71 @@ def ln_case(rows, d, xdt, sdt, gen, offset=0) -> dict:
     return out
 
 
+def gelu_routes(dtype) -> tuple:
+    """The forward's routes of the kernel in `dtype` (ops/mlp.py)."""
+    return GELU_ROUTES if dtype == torch.bfloat16 else ("arithmetic",)
+
+
 def gelu_case(u, g) -> dict:
-    """One GELU case: forward and backward against the plain chains, bit
-    for bit."""
+    """One GELU case: the forward on each of its routes and the backward
+    against the plain chains, bit for bit ("fwd" the worst route)."""
     out = {}
-    for way, got, ref in (
-            ("fwd", mlp_ops.gelu_tanh_fwd(u), mlp_ops.gelu_tanh_fwd_plain(u)),
-            ("bwd", mlp_ops.gelu_tanh_bwd(u, g),
-             mlp_ops.gelu_tanh_bwd_plain(u, g))):
+    fwd_ref = mlp_ops.gelu_tanh_fwd_plain(u)
+    ways = [(f"fwd_{r}", mlp_ops.gelu_tanh_fwd(u, route=r), fwd_ref)
+            for r in gelu_routes(u.dtype)]
+    ways.append(("bwd", mlp_ops.gelu_tanh_bwd(u, g),
+                 mlp_ops.gelu_tanh_bwd_plain(u, g)))
+    for way, got, ref in ways:
         u_ = ulps(got, ref)
         same = (got == ref) | (got.isnan() & ref.isnan())
         diff = torch.where(same, 0.0, (got.float() - ref.float()).abs())
         out.update({f"{way}_differing": int((u_ > 0).sum()),
                     f"{way}_max_ulps": int(u_.max()),
                     f"{way}_max_abs_err": float(diff.max())})
+    for k in ("differing", "max_ulps", "max_abs_err"):
+        out[f"fwd_{k}"] = max(out[f"fwd_{r}_{k}"]
+                              for r in gelu_routes(u.dtype))
     return out
+
+
+def all_bf16() -> torch.Tensor:
+    """The 65,536 bf16 values in the order of their bits read as unsigned
+    16-bit integers."""
+    bits = torch.arange(mlp_ops.TABLE_SIZE, dtype=torch.int32)
+    signed = torch.where(bits >= mlp_ops.TABLE_SIZE // 2,
+                         bits - mlp_ops.TABLE_SIZE, bits)
+    return signed.to(torch.int16).view(torch.bfloat16)
+
+
+def gelu_table_checks(gen) -> dict:
+    """Every bf16 input through both forward routes against the plain
+    chain on the card, 0 differing elements (NaN where it gives NaN); the
+    table the card filled equal to that chain in index order; the two
+    routes equal to the bit (NaN payloads too); a random tensor's lookup
+    by `gelu_tanh_gather_plain` equal to the table route."""
+    u = all_bf16().cuda()
+    ref = mlp_ops.gelu_tanh_fwd_plain(u)
+    builds = mlp_ops.TABLE_LAUNCHES
+    got = {r: mlp_ops.gelu_tanh_fwd(u, route=r) for r in GELU_ROUTES}
+    table = mlp_ops._tables[torch.cuda.current_device()]
+    rec = {f"{r}_vs_plain": int((ulps(h, ref) > 0).sum())
+           for r, h in got.items()}
+    rec["filled_table_vs_plain"] = int((ulps(table, ref) > 0).sum())
+    rec["table_vs_arithmetic_bits"] = differing(got["table"],
+                                                got["arithmetic"])
+    rec["nan_elements"] = int(ref.isnan().sum())
+    rec["inf_elements"] = int(ref.isinf().sum())
+    x = planted_u(1 << 20, torch.bfloat16, gen)[0]
+    rec["gather_vs_table_route_bits"] = differing(
+        mlp_ops.gelu_tanh_gather_plain(table, x),
+        mlp_ops.gelu_tanh_fwd(x, route="table"))
+    rec["table_launches"] = mlp_ops.TABLE_LAUNCHES
+    check(all(v == 0 for k, v in rec.items()
+              if k.endswith(("_plain", "_bits"))),
+          f"GELU over every bf16 input: {rec}")
+    check(mlp_ops.TABLE_LAUNCHES - builds <= 1,
+          f"the GELU table filled more than once: {rec}")
+    return rec
 
 
 def planted_u(n, dtype, gen, offset=0):
@@ -2194,14 +2253,19 @@ def phase_norm_kernel_checks() -> dict:
                     "seconds": time.perf_counter() - t0}))
 
     t0 = time.perf_counter()
+    rec = gelu_table_checks(gen)
+    log(json.dumps({"check": "GELU forward over all 65,536 bf16 inputs, "
+                    "both routes, and the table", **rec,
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
     worst.update(gelu_fwd=0.0, gelu_bwd=0.0)
     inputs = [(f"{r}x{w}", r * w, 0) for w in GELU_WIDTHS for r in NORM_ROWS]
     inputs += [("tail_1001", 1001, 0), ("unaligned", 197 * 768, 1)]
     totals = {}
     for dtype in NORM_DTYPES:
-        tot = totals.setdefault(str(dtype), dict.fromkeys((
-            "elements", "fwd_differing", "fwd_max_ulps", "bwd_differing",
-            "bwd_max_ulps"), 0))
+        ways = [f"fwd_{r}" for r in gelu_routes(dtype)] + ["bwd"]
+        tot = totals.setdefault(str(dtype), {"elements": 0} | {
+            f"{w}_{k}": 0 for w in ways for k in ("differing", "max_ulps")})
         for name, n, offset in inputs:
             u, g = planted_u(n, dtype, gen, offset)
             rec = gelu_case(u, g)
@@ -2209,18 +2273,19 @@ def phase_norm_kernel_checks() -> dict:
                   f"GELU {name} {dtype}: more than one ulp from the plain "
                   f"chain: {rec}")
             tot["elements"] += n
-            for k in ("fwd_differing", "bwd_differing"):
-                tot[k] += rec[k]
-            for k in ("fwd_max_ulps", "bwd_max_ulps"):
-                tot[k] = max(tot[k], rec[k])
+            for w in ways:
+                tot[f"{w}_differing"] += rec[f"{w}_differing"]
+                tot[f"{w}_max_ulps"] = max(tot[f"{w}_max_ulps"],
+                                           rec[f"{w}_max_ulps"])
             for k in ("fwd", "bwd"):
                 worst[f"gelu_{k}"] = max(worst[f"gelu_{k}"],
                                          rec[f"{k}_max_abs_err"])
     log(json.dumps({"check": "GELU kernels against the eager chains, +Inf, "
                     "-Inf and NaN planted", "inputs": [i[0] for i in inputs],
                     "by_dtype": totals,
-                    "bit_equal": all(t["fwd_differing"] == 0 == t[
-                        "bwd_differing"] for t in totals.values()),
+                    "bit_equal": all(v == 0 for t in totals.values()
+                                     for k, v in t.items()
+                                     if k.endswith("_differing")),
                     "seconds": time.perf_counter() - t0}))
     return worst
 
@@ -2272,6 +2337,8 @@ def phase_norm_kernel_timing(smi: str, worst: dict) -> tuple[dict, dict]:
         h_lib = F.gelu(ur, approximate="tanh")
         t = norm_times({
             "fwd": lambda: mlp_ops.gelu_tanh_fwd(u),
+            **{f"fwd_{r}": functools.partial(mlp_ops.gelu_tanh_fwd, u,
+                                             route=r) for r in GELU_ROUTES},
             "bwd": lambda: mlp_ops.gelu_tanh_bwd(u, gu),
             "plain_fwd": lambda: mlp_ops.gelu_tanh_fwd_plain(u),
             "plain_bwd": lambda: mlp_ops.gelu_tanh_bwd_plain(u, gu),
@@ -2281,6 +2348,7 @@ def phase_norm_kernel_timing(smi: str, worst: dict) -> tuple[dict, dict]:
         n = rows * m
         gelu_rows[cell] = {
             "rows": rows, "width": m, "times": t,
+            "route": mlp_ops.forward_route(u),
             "fwd": norm_bound(2 * n * e, GELU_OPS[0] * n),
             "bwd": norm_bound(3 * n * e, GELU_OPS[1] * n)}
         del x, g, xr, y_lib, u, gu, ur, h_lib
@@ -2303,6 +2371,11 @@ def phase_norm_kernel_timing(smi: str, worst: dict) -> tuple[dict, dict]:
                     / t[way]["device_ms"])
         log(json.dumps({"timing": f"{name} kernels, bf16, forward and "
                         "backward", "shapes": table, "card": smi}))
+        for cell, rec in table.items():
+            rec["fwd"]["registers"] = norm_registers(
+                NORM_KERNEL_NAMES[name]["fwd"], rec)
+            rec["bwd"]["registers"] = norm_registers(
+                NORM_KERNEL_NAMES[name]["bwd"], rec)
         head = table["vit_b"]
         out.append({
             "ms": head["fwd"]["device_ms"],
@@ -2317,9 +2390,68 @@ def phase_norm_kernel_timing(smi: str, worst: dict) -> tuple[dict, dict]:
                 "bound_by", "library_ms")} | {"max_abs_err": worst[errs[1]]},
             "shapes": {c: {w: {k: v[w][k] for k in (
                 "device_ms", "host_paced_ms", "plain_ms", "bound_ms",
-                "library_ms")} for w in ("fwd", "bwd")}
+                "library_ms", "registers")} for w in ("fwd", "bwd")}
                 for c, v in table.items()}})
+    out[1]["routes"] = {c: {"route": v["route"]} | {
+        r: v["times"][f"fwd_{r}"]["device_ms"] for r in GELU_ROUTES}
+        for c, v in gelu_rows.items()}
+    out[1]["route_crossover"] = gelu_route_times(gen)
     return out[0], out[1]
+
+
+# The kernels each record's registers are read from (cuobjdump's names
+# hold these): the GELU forward's arithmetic and table kernels, its
+# backward; the LayerNorm forward's and backward's vector-route kernels.
+NORM_KERNEL_NAMES = {
+    "gelu_tanh": {"fwd": ("gelu_kernelI13__nv_bfloat16Lb0E",
+                          "table_fwd_kernel"),
+                  "bwd": ("gelu_kernelI13__nv_bfloat16Lb1E",)},
+    "layer_norm": {"fwd": ("ln_fwd_warpI13__nv_bfloat16Li8E",),
+                   "bwd": ("ln_bwd_vecI13__nv_bfloat16",)},
+}
+_norm_sass: dict = {}
+
+
+def norm_registers(marks, rec) -> dict:
+    """{kernel: registers, stack, local bytes} of the bf16 kernels whose
+    names hold `marks` (for the LayerNorm backward, the instantiation of
+    the record's width: kLoads 16-byte vectors a lane), from cuobjdump."""
+    for lib in ("gelu_tanh", "layernorm"):
+        if lib not in _norm_sass:
+            _norm_sass[lib] = sass_int_ops(lib)
+    found = {}
+    for lib in _norm_sass.values():
+        for k, v in lib.items():
+            if any(m in k for m in marks) and "registers" in v:
+                short = k.split("_cu_")[-1][8:]
+                if "ln_bwd_vec" in k and f"Li8ELi{-(-rec['width'] // 256)}E" \
+                        not in k:
+                    continue
+                found[short] = {m: v[m] for m in ("registers", "stack",
+                                                  "local")}
+    check(found and all(v["stack"] == 0 and v["local"] == 0
+                        for v in found.values()),
+          f"bf16 LayerNorm/GELU kernels {marks}: a spill or stack frame, or "
+          f"none found: {found}")
+    return found
+
+
+def gelu_route_times(gen) -> dict:
+    """The bf16 GELU forward's held device ms on each route at rows x
+    3,072 (`GELU_ROUTE_ROWS`), beside the route the wrapper picks."""
+    out = {}
+    for rows in GELU_ROUTE_ROWS:
+        u = torch.randn(rows, 3072, generator=gen, device="cuda").mul(4).to(
+            torch.bfloat16)
+        out[rows] = {"elements": u.numel(),
+                     "picked": mlp_ops.forward_route(u)} | {
+            r: device_ms(functools.partial(mlp_ops.gelu_tanh_fwd, u, route=r),
+                         iters=50, hold_cycles=2_000_000)
+            for r in GELU_ROUTES}
+    log(json.dumps({"timing": "bf16 GELU forward by route, rows x 3,072",
+                    "table_min_elements": mlp_ops.TABLE_MIN_ELEMENTS,
+                    "rows": out}))
+    return out
 
 
 # The assignment kernel (csrc/lap.cu) against its plain version
@@ -3117,7 +3249,7 @@ PROFILE_CATEGORIES = (
     ("AdamW kernel", ("fused_adamw_kernel",)),
     # the port-only kernels of csrc/layernorm.cu and csrc/gelu_tanh.cu
     ("LayerNorm kernels", ("ln_fwd_", "ln_bwd_")),
-    ("GELU kernels", ("gelu_kernel<",)),
+    ("GELU kernels", ("gelu_kernel<", "table_fwd_kernel", "table_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("copies and casts", ("copy",)),
     ("reductions", ("reduce_kernel",)),
@@ -4107,15 +4239,55 @@ def phase_detector_ab(parent: str, smi: str) -> None:
 # --ab PARENT: the paths the LayerNorm and GELU kernels changed, of the
 # checkout PARENT and of this tree in turns (parent, this, this, parent),
 # each in a subprocess as DET_AB_CHILD runs 9(c), through functions both
-# trees' chip_smoke.py have: a B = 1 /classify p50 over 100 requests
-# (ViT-B/16, bf16, a seeded head), 7(b)'s default ViT-B bench step with
-# 7(d)'s profile, 9(c) and the vit_large_384 preset's step as 14(e) times
-# it (1 warm-up and 3 timed steps) with a profile.
+# trees' chip_smoke.py have: the four bf16 kernels held on the device at
+# 3(c)'s timed shapes (`NORM_AB_SHAPES`, through each tree's wrappers)
+# beside F.layer_norm and F.gelu(tanh) and their autograd backwards, a B
+# = 1 /classify p50 over 100 requests (ViT-B/16, bf16, a seeded head),
+# 7(b)'s default ViT-B bench step with 7(d)'s profile, 9(c) and the
+# vit_large_384 preset's step as 14(e) times it (1 warm-up and 3 timed
+# steps) with a profile.
+NORM_AB_SHAPES = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
+                  "vit_l": (9232, 1024, 4096), "serve_b1": (197, 768, 3072)}
 TREE_AB_CHILD = DET_AB_CHILD.rsplit("cs.phase_det_train_bench", 1)[0] + (
     "import json, numpy as np\n"
+    "import torch.nn.functional as F\n"
     "smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', "
     "'--format=csv,noheader'], capture_output=True, text=True)"
     ".stdout.strip()\n"
+    "gen = torch.Generator(device='cuda').manual_seed(35)\n"
+    "bf = torch.bfloat16\n"
+    "def held(fn):\n"
+    "    return cs.device_ms(fn, iters=50, hold_cycles=2_000_000)\n"
+    "kern = {}\n"
+    f"for cell, (rows, d, m) in {NORM_AB_SHAPES!r}.items():\n"
+    "    x, scale, bias, g = cs.ln_inputs(rows, d, bf, bf, gen)\n"
+    "    _, mean, rstd = cs.ln_ops.layer_norm_fwd(x, scale, bias, "
+    "cs.NORM_EPS)\n"
+    "    xr, sr, br = (t.clone().requires_grad_(True) for t in (x, scale, "
+    "bias))\n"
+    "    y = F.layer_norm(xr, (d,), sr, br, cs.NORM_EPS)\n"
+    "    u = torch.randn(rows, m, generator=gen, device='cuda').mul(4)"
+    ".to(bf)\n"
+    "    gu = torch.randn(rows, m, generator=gen, device='cuda').to(bf)\n"
+    "    ur = u.clone().requires_grad_(True)\n"
+    "    h = F.gelu(ur, approximate='tanh')\n"
+    "    kern[cell] = {\n"
+    "        'ln_fwd': held(lambda: cs.ln_ops.layer_norm_fwd(x, scale, "
+    "bias, cs.NORM_EPS)),\n"
+    "        'ln_bwd': held(lambda: cs.ln_ops.layer_norm_bwd(x, g, scale, "
+    "mean, rstd)),\n"
+    "        'gelu_fwd': held(lambda: cs.mlp_ops.gelu_tanh_fwd(u)),\n"
+    "        'gelu_bwd': held(lambda: cs.mlp_ops.gelu_tanh_bwd(u, gu)),\n"
+    "        'library_ln_fwd': held(lambda: F.layer_norm(x, (d,), scale, "
+    "bias, cs.NORM_EPS)),\n"
+    "        'library_ln_bwd': held(lambda: torch.autograd.grad(y, (xr, sr, "
+    "br), g, retain_graph=True)),\n"
+    "        'library_gelu_fwd': held(lambda: F.gelu(u, "
+    "approximate='tanh')),\n"
+    "        'library_gelu_bwd': held(lambda: torch.autograd.grad(h, ur, gu, "
+    "retain_graph=True))}\n"
+    "    del x, g, xr, y, u, gu, ur, h\n"
+    "print(json.dumps({'ab': 'kernels_device_ms', **kern}), flush=True)\n"
     "def profiled(name, ms, peak, prof):\n"
     "    print(json.dumps({'ab': name, 'ms_per_step': ms, "
     "'peak_memory_gb': peak, 'device_busy_ms': "
@@ -4158,6 +4330,7 @@ def phase_tree_ab(parent: str, smi: str) -> None:
     parent = os.path.abspath(parent)
     env = {**os.environ, "PYTHONDONTWRITEBYTECODE": "1",
            "ARSVT_AB_BUILD_DIR": str(build.BUILD_DIR)}
+    runs = []
     for tree in (parent, here, here, parent):
         t0 = time.perf_counter()
         out = subprocess.run(
@@ -4185,6 +4358,15 @@ def phase_tree_ab(parent: str, smi: str) -> None:
         log(json.dumps({"tree_ab": "parent" if tree == parent else "this",
                         **run, "seconds": time.perf_counter() - t0,
                         "card": smi}))
+        runs.append(("parent" if tree == parent else "this", run))
+    # each kernel's held ms, this tree's two runs over the parent's two
+    kern = {t: [r["kernels_device_ms"] for n, r in runs if n == t]
+            for t in ("parent", "this")}
+    ratios = {c: {k: sum(r[c][k] for r in kern["this"])
+                  / sum(r[c][k] for r in kern["parent"])
+                  for k in kern["this"][0][c]} for c in NORM_AB_SHAPES}
+    log(json.dumps({"tree_ab": "kernels, this / parent (held device ms, "
+                    "two runs each)", "ratios": ratios, "card": smi}))
 
 
 def phase_detector_training(smi) -> dict:
@@ -6986,6 +7168,12 @@ def main() -> int:
               for shape in ((224, 224, 3), (180, 240, 3), (300, 200, 3),
                             (224, 224, 3))]
 
+    # the bf16 GELU forward's table route and the table's fills over phases
+    # 4-16, in this process (both outside the exact launch tables: which
+    # route a forward takes depends on its size, not on the path); the
+    # table phase 3(c) filled is dropped, so the main path fills its own
+    gelu_table_before = (mlp_ops.TABLE_ROUTE_LAUNCHES, mlp_ops.TABLE_LAUNCHES)
+    mlp_ops._tables.clear()
     zero_counts()  # the serving path starts here
     log("# phase 4: ViT-B/16@224 StreamingClassifier")
     direct, forwards = phase_model(cfg, params, images, batch)
@@ -7059,6 +7247,14 @@ def main() -> int:
     check(all(paths(name) > 0 for name in NORM_NAMES),
           f"LayerNorm and GELU launches over phases 4-16: "
           f"{ {name: paths(name) for name in NORM_NAMES} }")
+    gelu_table = {"launches_table_route": mlp_ops.TABLE_ROUTE_LAUNCHES
+                  - gelu_table_before[0],
+                  "table_fills": mlp_ops.TABLE_LAUNCHES
+                  - gelu_table_before[1]}
+    check(0 < gelu_table["launches_table_route"] <= paths("gelu_tanh_fwd")
+          and gelu_table["table_fills"] == 1,
+          f"the bf16 GELU forward's table route over phases 4-16: "
+          f"{gelu_table} of {paths('gelu_tanh_fwd')} forward launches")
     # every dropout site of phases 4-16 went through the apply kernel
     check(paths("dropout_apply") > 0 and paths("dropout_mask") == 0,
           f"dropout sites: apply {paths('dropout_apply')}, mask-only "
@@ -7140,7 +7336,9 @@ def main() -> int:
         {**row(name, source, "", rec, paths(f"{name}_fwd")),
          "replaces": replaces, "launches_bwd": paths(f"{name}_bwd"),
          "host_paced_ms": rec["host_paced_ms"],
-         "backward": rec["backward"], "shapes": rec["shapes"]}
+         "backward": rec["backward"], "shapes": rec["shapes"],
+         **({"routes": rec["routes"], **gelu_table}
+            if name == "gelu_tanh" else {})}
         for name, source, rec, replaces in (
             ("layer_norm", "layernorm.cu", ln_rec,
              "arsvt_tpu/ops/layernorm.py:22 (_ln_fwd_math and its custom "
