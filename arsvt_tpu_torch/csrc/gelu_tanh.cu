@@ -23,11 +23,18 @@
 // Bound on an H100 SXM: bytes. The forward reads u and writes h (4 bytes
 // an element in bf16, 8 in fp32), the backward reads u and g and writes du
 // (6 and 12 bytes). The backward's ~19 fp32 operations and a tanhf an
-// element stay below the card's rate. The forward's chain does not in
-// bf16: its eight roundings (a convert and a shift each), nine _rn
-// operations and a tanhf come to ~50 instructions an element, which at
-// (6,304, 3,072) take longer to issue on 132 SMs than the bytes take to
-// move.
+// element stay below the card's rate: what holds it back is how the bytes
+// stream. A grid-stride loop over two waves of resident blocks, the
+// forward's launch, left it at about 81% of the byte bound at (6,304,
+// 3,072); a table of gelu'(u) in shared memory (a lookup and a product an
+// element), fed through registers or a cp.async ring, was no faster. One
+// 16-byte vector of u and g a thread, on as many 256-thread blocks as the
+// vectors need, streams as fast as PyTorch's own elementwise kernels, so
+// the backward launches that way (norm_variants.py times each of these).
+// The forward's chain does not stay below the card's rate in bf16: its
+// eight roundings (a convert and a shift each), nine _rn operations and a
+// tanhf come to ~50 instructions an element, which at (6,304, 3,072) take
+// longer to execute on 132 SMs than the bytes take to move.
 //
 // So the bf16 forward has two routes, both this arithmetic and so the same
 // bits:
@@ -53,7 +60,9 @@
 // arithmetic kernel: a grid-stride loop over 16-byte vectors (8 bf16 or 4
 // fp32 values a thread an iteration) where every pointer is 16-byte
 // aligned, the last n mod 8 (or 4) elements one a thread; element by
-// element for an unaligned pointer.
+// element for an unaligned pointer. The forward caps its grid at twice
+// what the card holds at once; the backward's grid covers every vector
+// (or element) once, so its loop runs once a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,14 +178,15 @@ cudaError_t launch(void* out, const void* u, const void* g, int64_t n,
   constexpr int kVec = 16 / (int)sizeof(T);
   const bool vec = (uintptr_t)out % 16 == 0 && (uintptr_t)u % 16 == 0 &&
                    (!kBwd || (uintptr_t)g % 16 == 0);
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
   const int64_t work = vec ? (n + kVec - 1) / kVec : n;
-  const int64_t want = (work + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sms * 16;  // resident at 8 blocks an SM, twice
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
-  gelu_kernel<T, kBwd><<<blocks, kThreads, 0, st>>>(
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if constexpr (!kBwd) {  // resident at 8 blocks an SM, twice
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    if (blocks > (int64_t)sms * 16) blocks = (int64_t)sms * 16;
+  }
+  gelu_kernel<T, kBwd><<<(unsigned)blocks, kThreads, 0, st>>>(
       static_cast<T*>(out), static_cast<const T*>(u),
       static_cast<const T*>(g), n, vec ? 1 : 0);
   return cudaGetLastError();

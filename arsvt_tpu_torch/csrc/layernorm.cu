@@ -43,27 +43,34 @@
 // nothing else in device memory: the row stays in registers between its
 // passes.
 //
-// Design: for D <= 1,024 (every preset: 32 ... 1,024) one warp a row, 8 rows
-// a block. The forward's lane holds its share of the row, at most 32
-// values, loaded as 16-byte vectors where D is a multiple of 8 (bf16) or 4
-// (fp32) and the pointers are 16-byte aligned, element by element
-// otherwise. The backward's vector route is instantiated for the number of
-// 16-byte vectors a lane holds (kLoads: in bf16 2 for D = 384 and 400, 3
-// for 768, 4 for 1,024), so no register holds a column past D and, in bf16
-// up to D = 768, two 256-thread blocks fit an SM; it stages scale in
-// shared memory once a block, as fp32, and requests the next row's x, g,
-// mean and rstd before it reduces and writes the current one, so a warp
-// keeps a row in flight. Its element-wise route holds 32 values a lane.
-// Wider rows (an imported checkpoint may be wider) take a block a row, 256
-// threads, which reads the row from memory once a pass; its backward keeps
-// the block's column partials in shared memory (D <= 16,384). The
-// backward's grid is fixed by the rows and the card
-// (`arsvt_layer_norm_bwd_blocks`), so the scratch and the order of every
-// sum are too.
+// Design: for D <= 1,024 (every preset: 32 ... 1,024) one warp a row.
+// Both directions have a vector route, taken where D is a multiple of 8
+// (bf16) or 4 (fp32) and the pointers are 16-byte aligned, and an
+// element-wise route otherwise. The vector routes are instantiated for the
+// number of 16-byte vectors a lane holds (kLoads: in bf16 1 for D = 192, 2
+// for 384 and 400, 3 for 768, 4 for 1,024), so no register holds a column
+// past D; the element routes hold 32 values a lane. Each direction stages
+// its parameters in shared memory once a block, as fp32 (the forward scale
+// and bias, the backward scale), and asks for a warp's next row before it
+// reduces and writes the current one. The forward runs on a grid of as
+// many blocks as the card holds at once (`fwd_capacity`, asked of the
+// runtime once a device), each warp taking every step-th row. A lane's
+// sums run in the order of its elements and the lanes' in warp_sum's, as
+// before, so y, mean and rstd keep their bits. The backward's grid is fixed
+// by the rows and the card (`arsvt_layer_norm_bwd_blocks`) and, in bf16 up
+// to D = 768, two 256-thread blocks fit an SM. Wider rows (an imported
+// checkpoint may be wider) take a block a row, 256 threads, which reads
+// the row from memory once a pass; its backward keeps the block's column
+// partials in shared memory (D <= 16,384). norm_variants.py times the
+// forward without the prefetch (at D = 768 ptxas then spills, at 48
+// registers), with more blocks an SM asked of ptxas (it spills) and on a
+// grid of a warp a row beside the shipped kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -119,20 +126,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// kVec values from p: one 16-byte load, or one element where kVec == 1
-template <typename T, int kVec>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  if constexpr (kVec == 1) {
-    out[0] = to_f(p[0]);
-  } else {
-    static_assert(kVec * sizeof(T) == 16, "a vector is 16 bytes");
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) out[j] = to_f(v[j]);
-  }
-}
-
 template <typename T, int kVec>
 __device__ __forceinline__ void store_vec(T* p, const float* in) {
   if constexpr (kVec == 1) {
@@ -162,24 +155,120 @@ __device__ __forceinline__ float normed(float x, float mean, float rstd,
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), s), b);
 }
 
-// one warp a row; lane `lane` holds elements (i * 32 + lane) * kVec + j
+// kVec values of T as loaded: one 16-byte vector, or one element
 template <typename T, int kVec>
-__global__ void __launch_bounds__(kThreads) ln_fwd_warp(FwdArgs a) {
-  constexpr int kLoads = kPerLane / kVec;
+using Raw = std::conditional_t<kVec == 1, T, uint4>;
+
+template <typename T, int kVec>
+__device__ __forceinline__ Raw<T, kVec> load_raw(const T* p) {
+  if constexpr (kVec == 1)
+    return *p;
+  else
+    return *reinterpret_cast<const uint4*>(p);
+}
+
+// value j of a loaded vector, as fp32
+template <typename T, int kVec>
+__device__ __forceinline__ float val(const Raw<T, kVec>& raw, int j) {
+  if constexpr (kVec == 1)
+    return to_f(raw);
+  else
+    return to_f(reinterpret_cast<const T*>(&raw)[j]);
+}
+
+// kVec fp32 values of a shared-memory array from element e, e a multiple
+// of kVec: 16-byte loads where kVec is a multiple of 4
+template <int kVec>
+__device__ __forceinline__ void load_shared(const float* p, float* out) {
+  if constexpr (kVec % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < kVec; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      out[j] = v.x;
+      out[j + 1] = v.y;
+      out[j + 2] = v.z;
+      out[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) out[j] = p[j];
+  }
+}
+
+// p's d values into dst as fp32, by the block: 16-byte loads where p is
+// 16-byte aligned and d a multiple of the vector, one element a thread
+// otherwise
+__device__ __forceinline__ void stage(float* dst, Param p, int d) {
+  const int per = p.bf16 ? 8 : 4;
+  if ((uintptr_t)p.p % 16 == 0 && d % per == 0) {
+    const uint4* v = static_cast<const uint4*>(p.p);
+    for (int i = threadIdx.x; i < d / per; i += kThreads) {
+      const uint4 raw = v[i];
+      if (p.bf16) {
+        const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dst[i * 8 + j] = __bfloat162float(b[j]);
+      } else {
+        const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[i * 4 + j] = f[j];
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < d; c += kThreads) dst[c] = p[c];
+  }
+}
+
+// Row r's x as a lane holds it (vectors (i * 32 + lane) * kVec); nothing
+// past the rows
+template <typename T, int kVec, int kLoads>
+__device__ __forceinline__ void load_row(Raw<T, kVec> (&out)[kLoads],
+                                         const FwdArgs& a, int64_t r,
+                                         int lane) {
+  if (r >= a.rows) return;
+  const T* xr = static_cast<const T*>(a.x) + r * a.d;
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i)
+    if ((i * 32 + lane) * kVec < a.d)
+      out[i] = load_raw<T, kVec>(xr + (i * 32 + lane) * kVec);
+}
+
+// D <= 1,024: one warp a row, 8 rows a block, on a grid sized to what the
+// card holds at once, each warp taking rows row, row + step, ... Lane
+// `lane` holds the kLoads vectors (i * 32 + lane) * kVec of a row, kLoads
+// the fewest that cover D on the vector route (16-byte vectors, kVec 8 in
+// bf16 and 4 in fp32: 1 ... 4 loads in bf16), 32 on the element route
+// (kVec 1). The block stages scale and bias in shared memory once, as
+// fp32, while its warps' first rows are on their way; a warp asks for its
+// next row's x before it reduces and writes the current one. The sums run
+// in the element order of a lane (i, then j), then across lanes by
+// warp_sum.
+template <typename T, int kVec, int kLoads>
+__global__ void __launch_bounds__(kThreads) ln_fwd_rows(FwdArgs a) {
+  constexpr int kWidth = kLoads * kVec * 32;
+  __shared__ __align__(16) float s_scale[kWidth];
+  __shared__ __align__(16) float s_bias[kWidth];
   const int lane = threadIdx.x & 31;
   const float fd = (float)a.d;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       row < a.rows; row += (int64_t)gridDim.x * kWarps) {
-    const T* xr = static_cast<const T*>(a.x) + row * a.d;
-    float v[kLoads][kVec];
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  Raw<T, kVec> nx[kLoads];
+  load_row<T, kVec, kLoads>(nx, a, row, lane);
+  stage(s_scale, a.scale, a.d);
+  stage(s_bias, a.bias, a.d);
+  __syncthreads();
+  for (; row < a.rows; row += step) {
+    Raw<T, kVec> cx[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) cx[i] = nx[i];
+    load_row<T, kVec, kLoads>(nx, a, row + step, lane);
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
-      const int e = (i * 32 + lane) * kVec;
-      if (e < a.d) {
-        load_vec<T, kVec>(xr + e, v[i]);
+      if ((i * 32 + lane) * kVec < a.d) {
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) s = __fadd_rn(s, v[i][j]);
+        for (int j = 0; j < kVec; ++j)
+          s = __fadd_rn(s, val<T, kVec>(cx[i], j));
       }
     }
     const float mean = __fdiv_rn(warp_sum(s), fd);
@@ -189,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_warp(FwdArgs a) {
       if ((i * 32 + lane) * kVec < a.d) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
-          const float t = __fsub_rn(v[i][j], mean);
+          const float t = __fsub_rn(val<T, kVec>(cx[i], j), mean);
           q = __fadd_rn(q, __fmul_rn(t, t));
         }
       }
@@ -200,10 +289,12 @@ __global__ void __launch_bounds__(kThreads) ln_fwd_warp(FwdArgs a) {
     for (int i = 0; i < kLoads; ++i) {
       const int e = (i * 32 + lane) * kVec;
       if (e < a.d) {
-        float o[kVec];
+        float sc[kVec], bi[kVec], o[kVec];
+        load_shared<kVec>(s_scale + e, sc);
+        load_shared<kVec>(s_bias + e, bi);
 #pragma unroll
         for (int j = 0; j < kVec; ++j)
-          o[j] = normed(v[i][j], mean, rstd, a.scale[e + j], a.bias[e + j]);
+          o[j] = normed(val<T, kVec>(cx[i], j), mean, rstd, sc[j], bi[j]);
         store_vec<T, kVec>(yr + e, o);
       }
     }
@@ -289,12 +380,6 @@ __device__ __forceinline__ void block_partials(const float (&acc)[kLoads][kVec],
     out[c] = t;
   }
   __syncthreads();  // red is free again
-}
-
-// kVec values of one 16-byte vector
-template <typename T, int kVec>
-__device__ __forceinline__ float val(const uint4& raw, int j) {
-  return to_f(reinterpret_cast<const T*>(&raw)[j]);
 }
 
 // The vector route, D <= 1,024 a multiple of kVec, 16-byte aligned: one
@@ -541,21 +626,59 @@ int sm_count() {
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+constexpr int kMaxDevices = 64;
+
+// The blocks of ln_fwd_rows<T, kVec, kLoads> that the current device
+// holds at once (its SMs times the blocks an SM holds), asked of the
+// runtime once a device; 0 on an error.
+template <typename T, int kVec, int kLoads>
+int fwd_capacity() {
+  static int held[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  if (held[dev] == 0) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ln_fwd_rows<T, kVec, kLoads>, kThreads, 0) !=
+        cudaSuccess)
+      return 0;
+    held[dev] = per_sm * sm_count();
+  }
+  return held[dev];
+}
+
+// One launch of the row kernel: as many blocks as the card holds at once,
+// no more than the rows need.
+template <typename T, int kVec, int kLoads>
+cudaError_t launch_rows(const FwdArgs& a, cudaStream_t st) {
+  const int fit = fwd_capacity<T, kVec, kLoads>();
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const int64_t want = cdiv(a.rows, kWarps);
+  ln_fwd_rows<T, kVec, kLoads>
+      <<<(unsigned)(want < fit ? want : fit), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// the vector route for kLoads = `loads` (1 ... kPerLane / kVec)
+template <typename T, int kLoads = 1>
+cudaError_t launch_fwd_vec(const FwdArgs& a, int loads, cudaStream_t st) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if constexpr (kLoads < kPerLane / kVec)
+    if (loads > kLoads) return launch_fwd_vec<T, kLoads + 1>(a, loads, st);
+  return launch_rows<T, kVec, kLoads>(a, st);
+}
+
 template <typename T>
 cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
   constexpr int kVec = 16 / (int)sizeof(T);
   if (a.d > kMaxWarpD) {
     const int64_t blocks = a.rows < 65535 ? a.rows : 65535;
     ln_fwd_block<T><<<(unsigned)blocks, kThreads, 0, st>>>(a);
-  } else {
-    const int64_t want = cdiv(a.rows, kWarps);
-    const unsigned blocks = (unsigned)(want < 65535 ? want : 65535);
-    if (a.d % kVec == 0 && aligned16(a.x) && aligned16(a.y))
-      ln_fwd_warp<T, kVec><<<blocks, kThreads, 0, st>>>(a);
-    else
-      ln_fwd_warp<T, 1><<<blocks, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (a.d % kVec == 0 && aligned16(a.x) && aligned16(a.y))
+    return launch_fwd_vec<T>(a, (int)cdiv(a.d / kVec, 32), st);
+  return launch_rows<T, 1, kPerLane>(a, st);
 }
 
 // the vector route's kernel for kLoads = 1 ... kMaxLoads

@@ -681,20 +681,34 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------------- host
 
-// Launches kLaunch: one block per SM, or one per tile where there are
-// fewer. The first call sets the kernel's shared memory, and checks that
-// it was built with the registers that setmaxnreg hands out (otherwise
-// the consumers' increase could never be granted and the block would
-// hang; the ragged route does not use setmaxnreg).
+constexpr int kMaxDevices = 64;
+
+// A kernel's set-up on one device: its SM count, and whether its shared
+// memory was allowed there.
+struct DeviceSetup {
+  int sms;
+  bool ready;
+};
+
+// The current device's set-up of gemm_bf16_kernel<kLaunch, kRagged>, made
+// at its first launch on that device: the SM count, a check that the
+// kernel was built with the registers that setmaxnreg hands out
+// (otherwise the consumers' increase could never be granted and the block
+// would hang; the ragged route does not use setmaxnreg), and its dynamic
+// shared memory allowed. Both are properties of a device, so they are
+// kept a device, never once a process.
 template <int kLaunch, bool kRagged>
-cudaError_t launch_kernel(const Params& p, cudaStream_t stream) {
-  static int sms = 0;
-  static const cudaError_t ready = [] {
-    int device;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   device);
+cudaError_t device_setup(int* sms) {
+  static DeviceSetup setup[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceSetup& s = setup[device];
+  if (!s.ready) {
+    int count = 0;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                 device);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, gemm_bf16_kernel<kLaunch, kRagged>);
@@ -703,11 +717,24 @@ cudaError_t launch_kernel(const Params& p, cudaStream_t stream) {
                         (int)(128 * (kConsumers * kConsumerRegs +
                                      kProducerRegs)))
       return cudaErrorInvalidConfiguration;
-    return cudaFuncSetAttribute(gemm_bf16_kernel<kLaunch, kRagged>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kSmemBytes);
-  }();
-  if (ready != cudaSuccess) return ready;
+    err = cudaFuncSetAttribute(gemm_bf16_kernel<kLaunch, kRagged>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    s.sms = count;
+    s.ready = true;
+  }
+  *sms = s.sms;
+  return cudaSuccess;
+}
+
+// Launches kLaunch on the current device: one block per SM, or one per
+// tile where there are fewer.
+template <int kLaunch, bool kRagged>
+cudaError_t launch_kernel(const Params& p, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = device_setup<kLaunch, kRagged>(&sms);
+  if (err != cudaSuccess) return err;
   const int total = tiles(kLaunch, p.n, p.D, p.M);
   gemm_bf16_kernel<kLaunch, kRagged>
       <<<total < sms ? total : sms, kThreads, kSmemBytes, stream>>>(p);

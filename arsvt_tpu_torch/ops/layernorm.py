@@ -151,7 +151,7 @@ def layer_norm_fwd(x, scale, bias, eps: float):
     fn = _fwd_kernel()
     scale, bias = scale.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
-    mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    mean = x.new_empty(x.shape[:-1], dtype=torch.float32)
     rstd = torch.empty_like(mean)
     rows = mean.numel()
     if rows == 0:

@@ -417,31 +417,39 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 HOLD_CYCLES_PER_CALL = 500_000
 
 
+# Times `device_ms` takes a measurement again behind a spin four times as
+# long when the host fell behind the spin
+HOLD_RETRIES = 2
+
+
 def device_ms(fn, iters: int, warmup: int = 5,
               hold_cycles: int = HOLD_CYCLES_PER_CALL) -> float:
     """Per-call device time: the calls are queued behind a spin kernel
     that holds the card for `hold_cycles` a call while the host enqueues
     them, so no launch waits on the host (`cuda_ms` at B=1 reads the
-    host's pace instead). Raises if the host did not finish enqueuing
-    before the spin ended."""
+    host's pace instead). Where the host did not finish enqueuing before
+    the spin ended (a slow host), the measurement is taken again behind a
+    spin four times as long, up to `HOLD_RETRIES` times; then it
+    raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    held, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-    held.record()
-    torch.cuda._sleep(hold_cycles * iters)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    end.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.synchronize()
-    check(enqueue_ms < held.elapsed_time(start),
-          f"the host took {enqueue_ms:.2f} ms to enqueue, longer than the "
-          f"{held.elapsed_time(start):.2f} ms hold")
-    return start.elapsed_time(end) / iters
+    for attempt in range(HOLD_RETRIES + 1):
+        held, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        held.record()
+        torch.cuda._sleep(hold_cycles * 4 ** attempt * iters)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms < held.elapsed_time(start):
+            return start.elapsed_time(end) / iters
+    check(False, f"the host took {enqueue_ms:.2f} ms to enqueue, longer "
+          f"than the {held.elapsed_time(start):.2f} ms hold")
 
 
 def host_us(fn, iters: int, warmup: int = 5) -> float:
@@ -2022,24 +2030,28 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
 # their plain versions (the eager chains the port ran before) on the same
 # CUDA tensors.
 #
-# LayerNorm at every preset width (32 ... 1,024) and 770 (the element-wise
-# route), 1,536 and 4,096 (the block-a-row route), on 1, 197, 6,304 and
-# 9,232 rows, x in bf16 and fp32, scale and bias in both, plus a row
-# pointer off 16 bytes (the element-wise loads): y, mean, rstd, dx, dscale
-# and dbias. The backward of both sides runs from the kernel's statistics,
-# so it is held alone. Limits: the statistics and the sums are the same
-# fp32 arithmetic summed in another order, so an fp32 output is held at
-# TOL_NORM_FP32 of the tensor's largest magnitude; a bf16 output may flip
-# its last rounding (2^-7 of the value: one bf16 ulp) on top of that. Two
-# backward runs must give the same bits (no atomics).
+# LayerNorm at every preset width (32 ... 1,024: 192, 384, 400, 768 and
+# 1,024 each a count of 16-byte vectors a lane the forward and backward are
+# instantiated for) and 770 (the element-wise route), 1,280, 1,536 and
+# 4,096 (the block-a-row route), on 1, 197, 6,304 and 9,232 rows, x in
+# bf16 and fp32, scale and bias in both, plus a row pointer off 16 bytes
+# (the element-wise loads): y, mean, rstd, dx, dscale and dbias. The
+# backward of both sides runs from the kernel's statistics, so it is held
+# alone. Limits: the statistics and the sums are the same fp32 arithmetic
+# summed in another order, so an fp32 output is held at TOL_NORM_FP32 of
+# the tensor's largest magnitude; a bf16 output may flip its last rounding
+# (2^-7 of the value: one bf16 ulp) on top of that. Two forward runs and
+# two backward runs must each give the same bits (no atomics).
 #
 # GELU at the same rows x 768, 1,600, 3,072 and 4,096, and a length of
 # 1,001 (the tail) and a pointer off 16 bytes (element-wise route), u and
 # g in bf16 and fp32, with +Inf, -Inf and NaN planted: the kernel repeats
 # the eager chain op by op, so forward and backward are held to the bit
-# (NaN where the plain version gives NaN); a difference, if tanhf differs
-# from the one PyTorch's tanh was built with, is counted and held to one
-# ulp.
+# (NaN where the plain version gives NaN) on every route; a forward
+# difference, if tanhf differs from the one PyTorch's tanh was built with,
+# is counted and held to one ulp, a backward one fails. The bf16 backward
+# also at all 65,536 u crossed with `GELU_GRAD_G_SPECIAL` (±0, subnormals,
+# ±Inf, NaN) and seeded normals.
 #
 # Then each timed in bf16 (the training dtype; the weights cast) at the
 # main paths' shapes: ViT-B's (6,304, 768) and (6,304, 3,072), the
@@ -2048,7 +2060,7 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
 # host-paced, forward and backward, beside the plain version (the parent's
 # eager path), the bound and the library calls F.layer_norm and
 # F.gelu(approximate="tanh") with their autograd backward (timed only).
-NORM_WIDTHS = (32, 192, 256, 384, 400, 768, 1024, 770, 1536, 4096)
+NORM_WIDTHS = (32, 192, 256, 384, 400, 768, 1024, 770, 1280, 1536, 4096)
 NORM_ROWS = (1, 197, 6304, 9232)
 GELU_WIDTHS = (768, 1600, 3072, 4096)
 NORM_DTYPES = (torch.bfloat16, torch.float32)
@@ -2061,6 +2073,11 @@ NORM_TIMED = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
 # The bf16 GELU forward's two routes timed at rows x 3,072 from B = 1
 # serving's 197 up, where `mlp_ops.TABLE_MIN_ELEMENTS` switches them
 GELU_ROUTE_ROWS = (197, 394, 591, 788, 1182, 1576, 3152)
+# The g each bf16 u meets in the backward's check over all inputs: ±0, the
+# smallest and largest subnormals, ±Inf, NaN, then seeded normals (4 sigma)
+GELU_GRAD_G_SPECIAL = (0.0, -0.0, 2.0 ** -133, -(2.0 ** -126 - 2.0 ** -133),
+                       math.inf, -math.inf, math.nan)
+GELU_GRAD_G_SEEDED = 57
 # fp32 operations an element outside the tensor cores (tanhf counted as
 # one, so a lower bound): LayerNorm forward 8, backward 17; GELU forward
 # 9, backward 19
@@ -2119,9 +2136,10 @@ def ln_inputs(rows, d, xdt, sdt, gen, offset=0):
 
 
 def ln_case(rows, d, xdt, sdt, gen, offset=0) -> dict:
-    """One LayerNorm case, forward and backward, and the backward twice."""
+    """One LayerNorm case, forward and backward, each twice."""
     x, scale, bias, g = ln_inputs(rows, d, xdt, sdt, gen, offset)
     y, mean, rstd = ln_ops.layer_norm_fwd(x, scale, bias, NORM_EPS)
+    fwd_again = ln_ops.layer_norm_fwd(x, scale, bias, NORM_EPS)
     yp, mp, rp = ln_ops.layer_norm_fwd_plain(x, scale, bias, NORM_EPS)
     got = ln_ops.layer_norm_bwd(x, g, scale, mean, rstd)
     again = ln_ops.layer_norm_bwd(x, g, scale, mean, rstd)
@@ -2131,6 +2149,8 @@ def ln_case(rows, d, xdt, sdt, gen, offset=0) -> dict:
                                                 got, ref)})
     out["backward_bits_repeat"] = all(torch.equal(a, b)
                                       for a, b in zip(got, again))
+    out["forward_bits_repeat"] = all(
+        differing(a, b) == 0 for a, b in zip((y, mean, rstd), fwd_again))
     return out
 
 
@@ -2201,6 +2221,27 @@ def gelu_table_checks(gen) -> dict:
     return rec
 
 
+def gelu_grad_checks(gen) -> dict:
+    """The bf16 backward over all 65,536 u, each crossed with every g of
+    `GELU_GRAD_G_SPECIAL` and `GELU_GRAD_G_SEEDED` seeded normals, against
+    the plain chain on the card: 0 differing elements (NaN where it gives
+    NaN)."""
+    u0 = all_bf16().cuda()
+    g0 = torch.cat([torch.tensor(GELU_GRAD_G_SPECIAL, device="cuda"),
+                    torch.randn(GELU_GRAD_G_SEEDED, generator=gen,
+                                device="cuda") * 4]).to(torch.bfloat16)
+    u = u0.repeat(g0.numel())
+    g = g0.repeat_interleave(u0.numel())
+    ref = mlp_ops.gelu_tanh_bwd_plain(u, g)
+    rec = {"elements": u.numel(), "g_values": g0.numel(),
+           "kernel_vs_plain": int((ulps(mlp_ops.gelu_tanh_bwd(u, g), ref)
+                                   > 0).sum()),
+           "nan_elements": int(ref.isnan().sum())}
+    check(rec["kernel_vs_plain"] == 0,
+          f"GELU backward over every bf16 input: {rec}")
+    return rec
+
+
 def planted_u(n, dtype, gen, offset=0):
     """n values of u (4 sigma, as a GELU input) and g, `offset` elements
     into their storage, with +Inf, -Inf and NaN planted at the start and
@@ -2228,15 +2269,17 @@ def phase_norm_kernel_checks() -> dict:
         what = (f"LayerNorm rows={rows} D={d} x {xdt} scale {sdt} offset "
                 f"{offset}")
         bad = [k for k, v in rec.items()
-               if k != "backward_bits_repeat" and not v["ok"]]
+               if not k.endswith("_bits_repeat") and not v["ok"]]
         check(not bad, f"{what}: {bad} outside the limit: {rec}")
         check(rec["backward_bits_repeat"],
               f"{what}: two backward runs differ")
+        check(rec["forward_bits_repeat"],
+              f"{what}: two forward runs differ")
         worst["ln_fwd"] = max(worst["ln_fwd"], rec["y"]["max_abs_err"])
         worst["ln_bwd"] = max(worst["ln_bwd"], *(
             rec[k]["max_abs_err"] for k in ("dx", "dscale", "dbias")))
         for k, v in rec.items():
-            if k == "backward_bits_repeat":
+            if k.endswith("_bits_repeat"):
                 continue
             a = by_output.setdefault(f"{k} {v['dtype']}", dict.fromkeys((
                 "elements", "max_ulps", "over_1_ulp", "max_rel_to_top"), 0))
@@ -2249,6 +2292,7 @@ def phase_norm_kernel_checks() -> dict:
                     "widths": NORM_WIDTHS, "by_output": by_output,
                     "tol_fp32_of_top": TOL_NORM_FP32,
                     "tol_bf16_of_value": TOL_NORM_BF16,
+                    "forward_bits_repeat": True,
                     "backward_bits_repeat": True,
                     "seconds": time.perf_counter() - t0}))
 
@@ -2256,6 +2300,11 @@ def phase_norm_kernel_checks() -> dict:
     rec = gelu_table_checks(gen)
     log(json.dumps({"check": "GELU forward over all 65,536 bf16 inputs, "
                     "both routes, and the table", **rec,
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    rec = gelu_grad_checks(gen)
+    log(json.dumps({"check": "GELU backward over all 65,536 bf16 inputs "
+                    "crossed with special and seeded g", **rec,
                     "seconds": time.perf_counter() - t0}))
     t0 = time.perf_counter()
     worst.update(gelu_fwd=0.0, gelu_bwd=0.0)
@@ -2269,9 +2318,9 @@ def phase_norm_kernel_checks() -> dict:
         for name, n, offset in inputs:
             u, g = planted_u(n, dtype, gen, offset)
             rec = gelu_case(u, g)
-            check(rec["fwd_max_ulps"] <= 1 and rec["bwd_max_ulps"] <= 1,
-                  f"GELU {name} {dtype}: more than one ulp from the plain "
-                  f"chain: {rec}")
+            check(rec["fwd_max_ulps"] <= 1 and rec["bwd_differing"] == 0,
+                  f"GELU {name} {dtype}: the forward more than one ulp from "
+                  f"the plain chain, or the backward off it: {rec}")
             tot["elements"] += n
             for w in ways:
                 tot[f"{w}_differing"] += rec[f"{w}_differing"]
@@ -2406,7 +2455,7 @@ NORM_KERNEL_NAMES = {
     "gelu_tanh": {"fwd": ("gelu_kernelI13__nv_bfloat16Lb0E",
                           "table_fwd_kernel"),
                   "bwd": ("gelu_kernelI13__nv_bfloat16Lb1E",)},
-    "layer_norm": {"fwd": ("ln_fwd_warpI13__nv_bfloat16Li8E",),
+    "layer_norm": {"fwd": ("ln_fwd_rowsI13__nv_bfloat16Li8E",),
                    "bwd": ("ln_bwd_vecI13__nv_bfloat16",)},
 }
 _norm_sass: dict = {}
@@ -2414,8 +2463,9 @@ _norm_sass: dict = {}
 
 def norm_registers(marks, rec) -> dict:
     """{kernel: registers, stack, local bytes} of the bf16 kernels whose
-    names hold `marks` (for the LayerNorm backward, the instantiation of
-    the record's width: kLoads 16-byte vectors a lane), from cuobjdump."""
+    names hold `marks` (for the LayerNorm's vector routes, the
+    instantiation of the record's width: kLoads 16-byte vectors a lane),
+    from cuobjdump."""
     for lib in ("gelu_tanh", "layernorm"):
         if lib not in _norm_sass:
             _norm_sass[lib] = sass_int_ops(lib)
@@ -2424,8 +2474,8 @@ def norm_registers(marks, rec) -> dict:
         for k, v in lib.items():
             if any(m in k for m in marks) and "registers" in v:
                 short = k.split("_cu_")[-1][8:]
-                if "ln_bwd_vec" in k and f"Li8ELi{-(-rec['width'] // 256)}E" \
-                        not in k:
+                if ("ln_bwd_vec" in k or "ln_fwd_rows" in k) and \
+                        f"Li8ELi{-(-rec['width'] // 256)}E" not in k:
                     continue
                 found[short] = {m: v[m] for m in ("registers", "stack",
                                                   "local")}
@@ -4257,7 +4307,12 @@ TREE_AB_CHILD = DET_AB_CHILD.rsplit("cs.phase_det_train_bench", 1)[0] + (
     "gen = torch.Generator(device='cuda').manual_seed(35)\n"
     "bf = torch.bfloat16\n"
     "def held(fn):\n"
-    "    return cs.device_ms(fn, iters=50, hold_cycles=2_000_000)\n"
+    "    for hold in (2_000_000, 8_000_000, 32_000_000):\n"
+    "        try:\n"
+    "            return cs.device_ms(fn, iters=50, hold_cycles=hold)\n"
+    "        except RuntimeError:\n"
+    "            if hold == 32_000_000:\n"
+    "                raise\n"
     "kern = {}\n"
     f"for cell, (rows, d, m) in {NORM_AB_SHAPES!r}.items():\n"
     "    x, scale, bias, g = cs.ln_inputs(rows, d, bf, bf, gen)\n"
