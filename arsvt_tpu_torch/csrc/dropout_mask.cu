@@ -1,8 +1,8 @@
 // The dropout sites of the residual, positional and reference-attention
-// paths (ops/dropout.py): two entries on one mask rule.
+// paths (ops/dropout.py).
 //
-// arsvt_dropout_apply, the main path's kernel (ops/dropout.py::
-// dropout_apply, one launch a site's forward and one its backward):
+// arsvt_dropout_apply (ops/dropout.py::dropout_apply, one launch a site's
+// forward and one its backward):
 // out = keep ? in * s : +0 over a (B, H, R, C) view, in the input's dtype
 // (fp32 or bf16). It replaces no TPU kernel: JAX's dropout
 // (arsvt_tpu/models/vit.py:140-145) and its reference attention
@@ -12,10 +12,6 @@
 // ran two or three passes. The backward is the same function of the
 // gradient (dx = keep ? g * s : +0), so it replays the mask from the seed
 // and nothing is saved.
-//
-// arsvt_dropout_mask writes the keep mask alone (ops/dropout.py::
-// dropout_mask): kernel #1-#6's mask probes and the mask checks use it; no
-// training path does.
 //
 // The rule, shared with the attention kernels (encoder_tile.cuh::keeps):
 // element (b, h, r, c) of the view is kept iff
@@ -48,52 +44,13 @@
 // contraction): the eager path's bits to the last place (chip_smoke.py
 // phase 3(a)).
 //
-// The mask kernel: one thread an element, a flat grid-stride loop with
-// 32-bit index arithmetic. Both entries refuse views of 2^31 elements or
-// more.
+// It refuses views of 2^31 elements or more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "encoder_tile.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(256)
-    mask_kernel(uint8_t* __restrict__ out, uint32_t n, uint32_t heads,
-                uint32_t rows, uint32_t cols, enc::Dropout drop) {
-  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const uint32_t c = i % cols, t = i / cols;
-    const uint32_t r = t % rows, bh = t / rows;
-    const uint32_t h = bh % heads, b = bh / heads;
-    out[i] = enc::keeps(drop, drop.bh((int)b, (int)h), (int)r, (int)c);
-  }
-}
-
-}  // namespace
-
-// out: a contiguous (batch, heads, rows, cols) uint8 (torch.bool) tensor on
-// the device. Keep iff philox_bits(seed, (b0 + b) * mask_heads + h0 + h,
-// r, c) < threshold.
-extern "C" int arsvt_dropout_mask(void* out, int batch, int heads, int rows,
-                                  int cols, uint32_t seed,
-                                  uint32_t threshold, int b0, int mask_heads,
-                                  int h0, void* stream) {
-  const uint64_t n = (uint64_t)batch * heads * rows * cols;
-  if (batch < 1 || heads < 1 || rows < 1 || cols < 1 || n > 0x7FFFFFFFull ||
-      b0 < 0 || h0 < 0 || h0 + heads > mask_heads)
-    return (int)cudaErrorInvalidValue;
-  const enc::Dropout drop{seed, threshold, 1.0f, b0, mask_heads, h0};
-  const uint32_t threads = 256;
-  const uint64_t want = (n + threads - 1) / threads;
-  const uint32_t blocks = (uint32_t)(want < 132u * 16u ? want : 132u * 16u);
-  mask_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), (uint32_t)n, (uint32_t)heads,
-      (uint32_t)rows, (uint32_t)cols, drop);
-  return (int)cudaGetLastError();
-}
 
 namespace {
 
@@ -226,7 +183,8 @@ cudaError_t launch_apply(void* out, const void* in, const Site& s, bool vec,
 
 // out, in: contiguous (batch, heads, rows, cols) tensors of one dtype on
 // the device (dtype 0: fp32, 1: bf16), not overlapping. out = keep ? in *
-// scale : +0, one fp32 product rounded once, keep as arsvt_dropout_mask's.
+// scale : +0, one fp32 product rounded once, keep iff philox_bits(seed,
+// (b0 + b) * mask_heads + h0 + h, r, c) < threshold.
 extern "C" int arsvt_dropout_apply(void* out, const void* in, int dtype,
                                    int batch, int heads, int rows, int cols,
                                    uint32_t seed, uint32_t threshold, int b0,

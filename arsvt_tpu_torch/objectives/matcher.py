@@ -1,21 +1,26 @@
 """Hungarian (bipartite) matching (counterpart of
 ``arsvt_tpu/objectives/matcher.py``).
 
-The cost matrices are built on the device, as JAX's `build_cost_matrix`:
-class + L1 (cxcywh) + GIoU terms, target slots that hold no real box at
-`_PAD_COST`. `MatcherConfig.backend` picks the solver, as in JAX:
+The cost matrices are JAX's `build_cost_matrix`: class + L1 (cxcywh) +
+GIoU terms, target slots that hold no real box at `_PAD_COST`.
+`MatcherConfig.backend` picks the solver, as in JAX:
 
 - ``"device"`` (the default): JAX's exact Jonker-Volgenant shortest
   augmenting path (`lap_rect`, ``matcher.py:41-125``) on the device, so a
-  train step never waits for the host. On a CUDA tensor `lap_rect`
-  launches ``csrc/lap.cu`` (one warp a problem, every problem of a call
-  in one launch, counted in `LAUNCHES`); on a CPU tensor it runs
-  `lap_rect_plain`, JAX's scan and while loops on torch tensors, batched
-  the way vmap runs a while loop. Both do JAX's arithmetic in JAX's
-  order (subtractions and compares only), so integer-valued costs give
-  JAX's assignment, ties included. A failed build or launch raises.
+  train step never waits for the host. On CUDA tensors `match_layers`
+  makes one launch of ``csrc/lap.cu``'s fused entry (`assign_layers`,
+  counted in `LAUNCHES`), which builds every decoder layer's costs into
+  shared memory, solves them there and writes the assignments; on CPU
+  tensors it runs that entry's plain version, `match_layers_plain` (the
+  eager `build_cost_matrix`, `lap_rect_plain` and the gather). `lap_rect`
+  solves given costs: on a CUDA tensor the kernel's solve-only entry
+  (counted in `SOLVE_LAUNCHES`), on a CPU tensor `lap_rect_plain`, JAX's
+  scan and while loops on torch tensors, batched the way vmap runs a while
+  loop. The solvers do JAX's arithmetic in JAX's order (subtractions and
+  compares only), so integer-valued costs give JAX's assignment, ties
+  included. A failed build or launch raises.
 - ``"scipy"``: the oracle, scipy's ``linear_sum_assignment`` on the host
-  (`lap_scipy`) after one copy of the stacked costs.
+  (`lap_scipy`) after one copy of the stacked eager costs.
 
 JAX sends every backend other than ``"scipy"`` down its device route; the
 port accepts the two names and raises on any other.
@@ -45,15 +50,23 @@ _INF = 1e30  # JAX's `_INF`, float32(1e30): the used columns in the argmin
 
 BACKENDS = ("device", "scipy")
 
-# Launches of ``csrc/lap.cu`` in this process (one a `lap_rect` call on a
-# CUDA tensor).
+# Launches of ``csrc/lap.cu``'s fused entry in this process (one an
+# `assign_layers` call on CUDA tensors: a `match_layers` call) and of its
+# solve-only entry (one a `lap_rect` call on a CUDA tensor).
 LAUNCHES = 0
+SOLVE_LAUNCHES = 0
 
-# Shared memory a warp holds for one (q, m) problem (`smem_bytes`), at most
+# Shared memory a block may hold (`smem_bytes`, `match_smem_bytes`), at most
 # the H100's opt-in dynamic shared memory of one block.
 SMEM_LIMIT = 227 * 1024
+# Decoder layers and classes (C + 1) a fused launch takes, and columns of a
+# problem (the kernel keeps each lane's columns in registers), at most.
+MAX_LAYERS = 32
+MAX_CLASSES = 1024
+MAX_COLUMNS = 256
 
 _fn = None
+_match_fn = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,11 +183,32 @@ def lap_rect_plain(cost: torch.Tensor) -> torch.Tensor:
     return col_for_row[:, :q].reshape(*lead, q)
 
 
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _state_bytes(m: int) -> int:
+    # the solver's p and way, m words each (the rest is in registers)
+    return _round16(8 * m)
+
+
 def smem_bytes(q: int, m: int) -> int:
-    """Shared memory of one warp's problem in ``csrc/lap.cu``: v, minv, p
-    and way (m words each), u (q words), used (m bytes) and tree (q
-    bytes), rounded up to 16 bytes."""
-    return (4 * (4 * m + q) + m + q + 15) // 16 * 16
+    """Shared memory of one (q, m) problem in ``csrc/lap.cu``'s solve-only
+    entry (a block): its costs and the solver's p and way, each rounded up
+    to 16 bytes."""
+    return _round16(4 * q * m) + _state_bytes(m)
+
+
+def match_smem_bytes(q: int, m: int, classes: int) -> int:
+    """Shared memory of the fused entry's smallest block, one image and
+    one layer of Q = q queries, M = m slots and C + 1 = `classes`: the
+    image's 11 target words a slot, then the layer's (Q, M) cost tile, its
+    11 query words a query, its staged logits (Q, C + 1) and boxes (Q, 4)
+    and the solver's p and way (max(Q, M) words each), each rounded up to
+    16 bytes. A block takes as many layers as fit, up to 8."""
+    return (_round16(44 * m) + _round16(4 * q * m) + _round16(44 * q)
+            + _round16(4 * q * classes) + _round16(16 * q)
+            + _state_bytes(max(q, m)))
 
 
 def _kernel():
@@ -201,14 +235,15 @@ def lap_rect(cost: torch.Tensor) -> torch.Tensor:
     """Exact rectangular LAP, batched over the leading dims (JAX's
     ``jax.vmap(lap_rect)``): costs (..., q, m) fp32 with q <= m ->
     col_for_row (..., q) int64, every row a distinct column, minimising
-    the total. A CUDA tensor goes through ``csrc/lap.cu`` in one launch
-    (or raises), a CPU tensor through `lap_rect_plain`."""
+    the total. A CUDA tensor goes through ``csrc/lap.cu``'s solve-only
+    entry in one launch (or raises), a CPU tensor through
+    `lap_rect_plain`."""
     lead, q, m = _check_rect(cost)
     if cost.device.type == "cpu":
         return lap_rect_plain(cost)
     if cost.device.type != "cuda":
         raise ValueError(f"lap_rect runs on cpu or cuda, got {cost.device}")
-    global LAUNCHES
+    global SOLVE_LAUNCHES
     n = math.prod(lead)
     out = cost.new_empty((*lead, q), dtype=torch.int64)
     if n == 0 or q == 0:
@@ -217,11 +252,14 @@ def lap_rect(cost: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"lap_rect's kernel holds one ({q}, {m}) problem "
                          f"in {smem_bytes(q, m)} bytes of shared memory, "
                          f"past the {SMEM_LIMIT} a block has")
+    if m > MAX_COLUMNS:
+        raise ValueError(f"lap_rect's kernel takes at most {MAX_COLUMNS} "
+                         f"columns, got {m}")
     cost = cost.float().contiguous()
     err = _launch(cost, out, n, q, m)
     if err != 0:
         raise RuntimeError(f"lap_rect kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    SOLVE_LAUNCHES += 1
     return out
 
 
@@ -252,19 +290,142 @@ def lap_scipy(cost: np.ndarray) -> np.ndarray:
     return out.reshape(*lead, q)
 
 
-def _assign_on_device(costs: torch.Tensor) -> torch.Tensor:
-    """The device route: one `lap_rect` call for every problem of
-    `costs` (..., Q, M); for Q > M the transpose (each slot picks its
-    query: the padded square's optimum), inverted on the device, with the
-    queries left without a slot at M (JAX ``matcher.py:216-223``)."""
+def assign_plain(costs: torch.Tensor) -> torch.Tensor:
+    """`lap_rect_plain` for every problem of `costs` (..., Q, M) -> the
+    slot of each query (..., Q); for Q > M the transpose (each slot picks
+    its query: the padded square's optimum), inverted, with the queries
+    left without a slot at M (JAX ``matcher.py:216-223``)."""
     q, m = costs.shape[-2:]
     if q <= m:
-        return lap_rect(costs)
-    row_for_col = lap_rect(costs.transpose(-1, -2).contiguous())
+        return lap_rect_plain(costs)
+    row_for_col = lap_rect_plain(costs.transpose(-1, -2))
     slots = torch.arange(m, device=costs.device).expand_as(row_for_col)
     idx = torch.full(costs.shape[:-1], m, dtype=torch.int64,
                      device=costs.device)
     return idx.scatter_(-1, row_for_col, slots)
+
+
+def _stacked_costs(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask, cfg):
+    return torch.stack([
+        build_cost_matrix(cl, bx, tgt_labels, tgt_boxes_xyxy.float(),
+                          tgt_mask, cfg) for cl, bx in layers])
+
+
+def _matched(idx, tgt_mask):
+    """in_range & the slot is real: (L, B, Q) bool."""
+    m = tgt_mask.shape[1]
+    real = torch.gather(tgt_mask[None].expand(idx.shape[0], -1, -1), 2,
+                        idx.clamp(max=m - 1))
+    return (idx < m) & real
+
+
+def match_layers_plain(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
+                       cfg: MatcherConfig = MatcherConfig()):
+    """The fused kernel's plain version: each layer's `build_cost_matrix`,
+    stacked (L, B, Q, M), `assign_plain` and the gather. Returns
+    (target_for_query (L, B, Q) int64, query_matched (L, B, Q) bool, the
+    costs (L, B, Q, M) fp32)."""
+    with torch.no_grad():
+        costs = _stacked_costs(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
+                               cfg)
+        idx = assign_plain(costs)
+        return idx, _matched(idx, tgt_mask), costs
+
+
+def _match_kernel():
+    global _match_fn
+    if _match_fn is None:
+        fn = build.load("lap").arsvt_match_layers
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                                ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _match_fn = fn
+    return _match_fn
+
+
+def _match_launch(logits, boxes, labels, tgt_boxes, tgt_mask, cfg, idx,
+                  matched, costs) -> int:
+    """One launch of ``arsvt_match_layers``: per-layer pointers travel in
+    two host arrays, so the layers need no stacking copy."""
+    fn = _match_kernel()
+    layers = len(logits)
+    batch, q, classes = logits[0].shape
+    ptrs = ctypes.c_void_p * layers
+    dev = tgt_mask.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return fn(ptrs(*(t.data_ptr() for t in logits)),
+                  ptrs(*(t.data_ptr() for t in boxes)), layers,
+                  labels.data_ptr(), int(labels.dtype == torch.int64),
+                  tgt_boxes.data_ptr(), tgt_mask.data_ptr(), batch, q,
+                  tgt_mask.shape[1], classes, cfg.cost_class, cfg.cost_bbox,
+                  cfg.cost_giou, idx.data_ptr(), matched.data_ptr(),
+                  None if costs is None else costs.data_ptr(), SMEM_LIMIT,
+                  stream)
+
+
+def assign_layers(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
+                  cfg: MatcherConfig = MatcherConfig(), *,
+                  return_costs: bool = False):
+    """The device route of `match_layers`: `layers` is a list of
+    (class_logits (B, Q, C+1), boxes_cxcywh (B, Q, 4)). Returns
+    (target_for_query (L, B, Q) int64, query_matched (L, B, Q) bool, the
+    costs (L, B, Q, M) fp32 or None unless `return_costs`). On CUDA
+    tensors one launch of ``csrc/lap.cu``'s fused entry (counted in
+    `LAUNCHES`), which builds, solves and gathers every layer and image
+    (or raises); on CPU tensors `match_layers_plain`. The head's fp32
+    logits and boxes, fp32 target boxes, int32 or int64 labels and a bool
+    mask go to the kernel as they are; other dtypes are cast first."""
+    dev = layers[0][0].device
+    if dev.type == "cpu":
+        idx, matched, costs = match_layers_plain(
+            layers, tgt_labels, tgt_boxes_xyxy, tgt_mask, cfg)
+        return idx, matched, costs if return_costs else None
+    if dev.type != "cuda":
+        raise ValueError(f"assign_layers runs on cpu or cuda, got {dev}")
+    global LAUNCHES
+    batch, q, classes = layers[0][0].shape
+    m = tgt_labels.shape[-1]
+    if q < 1 or m < 1:
+        raise ValueError(f"assign_layers needs queries and slots, got Q = "
+                         f"{q}, M = {m}")
+    if (not 1 <= len(layers) <= MAX_LAYERS or classes > MAX_CLASSES
+            or max(q, m) > MAX_COLUMNS):
+        raise ValueError(f"the fused matcher takes 1 to {MAX_LAYERS} layers "
+                         f"of at most {MAX_CLASSES} classes and "
+                         f"{MAX_COLUMNS} queries or slots, got {len(layers)} "
+                         f"of {classes} and ({q}, {m})")
+    need = match_smem_bytes(q, m, classes)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"the fused matcher holds a ({q}, {m}) problem of "
+                         f"{classes} classes in {need} bytes of shared "
+                         f"memory, past the {SMEM_LIMIT} a block has")
+    for cl, bx in layers:
+        if (tuple(cl.shape) != (batch, q, classes)
+                or tuple(bx.shape) != (batch, q, 4)):
+            raise ValueError(f"every layer needs ({batch}, {q}, {classes}) "
+                             f"logits and ({batch}, {q}, 4) boxes, got "
+                             f"{tuple(cl.shape)} and {tuple(bx.shape)}")
+    logits = [cl.float().contiguous() for cl, _ in layers]
+    boxes = [bx.float().contiguous() for _, bx in layers]
+    labels = (tgt_labels if tgt_labels.dtype in (torch.int32, torch.int64)
+              else tgt_labels.long()).contiguous()
+    tgt_boxes = tgt_boxes_xyxy.float().contiguous()
+    mask = tgt_mask.bool().contiguous()
+    lead = (len(layers), batch, q)
+    idx = logits[0].new_empty(lead, dtype=torch.int64)
+    matched = logits[0].new_empty(lead, dtype=torch.bool)
+    costs = logits[0].new_empty((*lead, m)) if return_costs else None
+    err = _match_launch(logits, boxes, labels, tgt_boxes, mask, cfg, idx,
+                        matched, costs)
+    if err != 0:
+        raise RuntimeError(f"the fused matcher's launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return idx, matched, costs
 
 
 def match_layers(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
@@ -275,25 +436,21 @@ def match_layers(layers, tgt_labels, tgt_boxes_xyxy, tgt_mask,
     query_matched (B, Q) bool), one per layer, on the targets' device:
     `target_for_query[b, q]` is the slot assigned to query q, and
     `query_matched` is True only where that slot holds a real target. The
-    costs are computed without a graph (the assignment is discrete) and
-    stacked (L, B, Q, M); the device route solves them in one `lap_rect`
-    call with no copy to the host, the scipy route copies them to the
-    host once and the indices back once."""
+    costs are computed without a graph (the assignment is discrete). The
+    device route is `assign_layers` (one launch on the card, no copy to
+    the host); the scipy route stacks the eager costs (L, B, Q, M),
+    copies them to the host once and the indices back once."""
     with torch.no_grad():
-        costs = torch.stack([
-            build_cost_matrix(cl, bx, tgt_labels, tgt_boxes_xyxy.float(),
-                              tgt_mask, cfg) for cl, bx in layers])
         if cfg.backend == "scipy":
+            costs = _stacked_costs(layers, tgt_labels, tgt_boxes_xyxy,
+                                   tgt_mask, cfg)
             host = costs.cpu().numpy()  # (L, B, Q, M): one copy to the host
             idx = torch.from_numpy(lap_scipy(host)).to(tgt_labels.device)
+            matched = _matched(idx, tgt_mask)
         else:
-            idx = _assign_on_device(costs)
-        m = tgt_labels.shape[1]
-        in_range = idx < m
-        real = torch.gather(
-            tgt_mask[None].expand(len(layers), -1, -1), 2,
-            idx.clamp(max=m - 1))
-        return [(i, r) for i, r in zip(idx, in_range & real)]
+            idx, matched, _ = assign_layers(layers, tgt_labels,
+                                            tgt_boxes_xyxy, tgt_mask, cfg)
+        return list(zip(idx, matched))
 
 
 def match(class_logits, boxes_cxcywh, tgt_labels, tgt_boxes_xyxy, tgt_mask,

@@ -28,9 +28,7 @@ reference and the kernels drop the same probabilities. Each such site is
 way (`dropout_apply`: keep ? x·s : +0, the mask drawn in the kernel): the
 backward is the same function of the gradient, so the mask is replayed
 from the seed and no tensor is saved. On a CPU tensor `dropout_apply` runs
-`dropout_apply_plain`, the eager where over `keep_mask`. `dropout_mask`
-writes the mask alone (the kernel probes and checks; no training path).
-The mask is a function of (site seed, global index) alone, on every device
+`dropout_apply_plain`, the eager where over `keep_mask`. The mask is a function of (site seed, global index) alone, on every device
 and every world size.
 """
 
@@ -51,9 +49,6 @@ PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 _MASK32 = 0xFFFFFFFF
 
-# Launches of the mask kernel in this process (one a `dropout_mask` call on
-# the card), counted as the other wrappers count theirs.
-LAUNCHES = 0
 # Launches of the apply kernel (one a `dropout_apply` call on the card: a
 # site's forward, its replay under remat, or its backward).
 APPLY_LAUNCHES = 0
@@ -65,7 +60,6 @@ SCALE_MODES = ("div", "mul")
 # the apply kernel's dtype codes (csrc/dropout_mask.cu)
 _APPLY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_fn = None
 _apply_fn = None
 
 
@@ -169,45 +163,6 @@ def keep_mask(seed: int, batch: int, heads: int, sq: int, sk: int,
         bh = ((b0 + b) * total + h0 + torch.arange(
             heads, dtype=torch.int64, device=device))[:, None, None]
         out[b] = keep_bits(seed, bh, row, col) < threshold
-    return out
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("dropout_mask").arsvt_dropout_mask
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-            ctypes.c_uint32, ctypes.c_uint32] + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def dropout_mask(seed: int, rate: float, shape, device="cpu", *,
-                 offsets=None) -> torch.Tensor:
-    """The keep mask of a (B, H, R, C) view at `offsets` = (b0, H', h0),
-    as `keep_mask` gives it: on the card from ``csrc/dropout_mask.cu``
-    (one launch, counted), on the CPU from `keep_mask` itself."""
-    b, h, r, c = (int(n) for n in shape)
-    device = torch.device(device)
-    if device.type == "cpu":
-        return keep_mask(seed, b, h, r, c, rate, device, offsets=offsets)
-    if device.type != "cuda":
-        raise ValueError(f"dropout_mask runs on cpu or cuda, got {device}")
-    global LAUNCHES
-    threshold = keep_threshold(rate)
-    b0, total, h0 = mask_offsets(offsets, h)
-    out = torch.empty((b, h, r, c), dtype=torch.bool, device=device)
-    fn = _kernel()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(out.data_ptr(), b, h, r, c, int(seed) & _MASK32, threshold,
-                 b0, total, h0, stream)
-    if err != 0:
-        raise RuntimeError(f"dropout_mask kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
     return out
 
 
@@ -318,22 +273,13 @@ def site_view(x: torch.Tensor) -> tuple[int, int, int, int]:
     return b, 1, rows, d
 
 
-def site_mask(x: torch.Tensor, rate: float, rng) -> torch.Tensor:
-    """The keep mask of a residual or positional site (`site_view`), keyed
-    on the global batch row ``rng.row0 + b`` with counter (token,
-    feature)."""
-    mask = dropout_mask(rng.seed32(), rate, site_view(x), x.device,
-                        offsets=(rng.row0, 1, 0))
-    return mask.reshape(x.shape)
-
-
 def dropout(x: torch.Tensor, rate: float, rng, *,
             train: bool) -> torch.Tensor:
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), in x's dtype; the identity unless training
     with a rate and an rng (JAX: unless training with a key). The mask is
-    the site mask of the rng (`site_mask`), drawn and applied by
-    `SiteDropout`."""
+    the site's (`site_view`, keyed on the global batch row ``rng.row0 + b``
+    with counter (token, feature)), drawn and applied by `SiteDropout`."""
     if not train or rate == 0.0 or rng is None:
         return x
     return SiteDropout.apply(x, rng.seed32(), rate, (rng.row0, 1, 0),

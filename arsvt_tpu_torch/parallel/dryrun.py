@@ -58,8 +58,8 @@ KERNEL_COUNTERS = (
     ("fused_mlp_fwd", "ops.fused_mlp", "LAUNCHES"),
     ("fused_mlp_bwd", "ops.fused_mlp", "BWD_LAUNCHES"),
     ("dropout_apply", "ops.dropout", "APPLY_LAUNCHES"),
-    ("dropout_mask", "ops.dropout", "LAUNCHES"),
     ("lap", "objectives.matcher", "LAUNCHES"),
+    ("lap_solve", "objectives.matcher", "SOLVE_LAUNCHES"),
     ("layer_norm_fwd", "ops.layernorm", "LAUNCHES"),
     ("layer_norm_bwd", "ops.layernorm", "BWD_LAUNCHES"),
     ("gelu_tanh_fwd", "ops.mlp", "LAUNCHES"),

@@ -12,7 +12,9 @@ data- and tensor-parallel training, on one NVIDIA card.
     python3 chip_smoke.py --distill   # phases 1, 2 and 15 (no kernel line)
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
-        # of the checkout PARENT and of this tree in turns (no kernel line)
+        # of the checkout PARENT and of this tree in turns, the host's ms
+        # in match_layers a step below the parent's in each pair (no
+        # kernel line)
     python3 chip_smoke.py --ab PARENT  # phases 1, 2, then the LayerNorm
         # and GELU kernels held at 3(c)'s timed shapes, a B = 1 /classify
         # p50, 7(b) and 9(c) with their profiles and the vit_large_384
@@ -91,7 +93,8 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    detection augmentation on the 256 canvas, dropout 0.1 with attention
    dropout in the kernels), 2 warm-up steps, then 5 timed steps a window
    on each matcher route in turns (device, scipy, scipy, device, twice):
-   images/s, ms/step, the host's ms in ``match_layers``, peak memory; the
+   images/s, ms/step, the host's ms in ``match_layers``, peak memory, the
+   kernels one ``match_layers`` call launches (at most 3) and its host ms; the
    device route's ``match_layers`` under sync debug mode "error" (no
    synchronising call), and the synchronising calls of one whole step on
    each route, by place; one step run twice from the same state; (d)
@@ -173,35 +176,42 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    three route switches' launch tables; (d) a DP = 2 step's time beside
    one process's.
 
-Phase 3 also holds the assignment kernel of the detector's matcher
-(``csrc/lap.cu``, JAX's on-device Jonker-Volgenant) against
-``lap_rect_plain`` on the card, equal assignments at the detector step's
+Phase 3 also holds the detector matcher's kernel (``csrc/lap.cu``, JAX's
+on-device Jonker-Volgenant). Its solve-only entry is held against
+``lap_rect_plain`` on the card: equal assignments at the detector step's
 (6, 32, 5, 25), the ``vit_base_detector`` step's transposed (6, 32, 25,
 100), q = m = 64 over 256 problems, q = 1 and integer costs with ties,
-the optimum scipy's within 1e-5, timed beside scipy on the host; its row
-in the kernels record counts its launches over phases 4-16. It also
-holds the two entries of ``csrc/dropout_mask.cu``, the residual,
+the optimum scipy's within 1e-5, timed beside scipy on the host. Its
+fused entry, which builds every layer's costs and solves them in one
+launch, is held against ``match_layers_plain`` (see the comment above
+`MATCH_CASES`: costs within 4 ulps, pads exactly 1e4, assignments equal
+to ``lap_rect_plain``'s on its own costs) at the ``deit_detector_ref`` and
+``vit_base_detector`` steps' shapes and one eval layer, and timed beside
+the parent's route (the eager build, the solve-only entry and the
+gather), the byte bound and an empty kernel's held time; its row in the
+kernels record counts the fused entry's launches over phases 4-16, the
+solve-only entry's 0 there. Phase 3 also
+holds ``csrc/dropout_mask.cu``'s apply kernel, the residual,
 positional and reference-attention sites, at residual and attention
-views with and without a parallel rank's offsets (`MASK_CASES`): the
-mask-only kernel against ``keep_mask``, 0 mismatches, and probes of
-#1-#6's masks at such offsets; (a) the apply kernel (one launch a site
+views with and without a parallel rank's offsets (`MASK_CASES`),
+and probes of
+#1-#6's masks at such offsets against ``keep_mask``; (a) the apply kernel (one launch a site
 each way: keep ? x·s : +0, the mask drawn in the kernel) against its
 plain version on the same CUDA tensors, bf16 and fp32, both scale rules
 (x / (1 - rate) and x * inv_keep), forward and backward through
 ``SiteDropout``, Inf and NaN planted, 0 differing elements as bits, its
-mask equal to the mask kernel's, and the "div" rule also as a true
+mask equal to ``keep_mask``'s on the card, and the "div" rule also as a true
 division in plain PyTorch to record which PyTorch's x / k is; (b) the
 site at the detector's residual view (32, 1, 198, 400), bf16 and fp32,
 held on the device and host-paced: the fused forward, its backward
-launch and forward + backward under autograd, against the parent's path
-rebuilt from the mask kernel and the eager where, the mask kernel alone
-and ``torch.nn.functional.dropout``, beside the byte and integer
+launch and forward + backward under autograd, beside
+``torch.nn.functional.dropout`` and the byte and integer
 bounds (the rule's multiplies on the FMA pipe, its logic on the ALU
 pipe, all of it over the issue rate), with each kernel's registers and
 integer opcodes (cuobjdump), and the bf16 forward at C = 512 and at 4x
 the rows, to show what holds it back.
 The apply kernel's row in the kernels record counts its launches over
-phases 4-16; the mask kernel's row reads 0 there. (c) holds the
+phases 4-16. (c) holds the
 port-only LayerNorm and GELU kernels (``csrc/layernorm.cu``,
 ``csrc/gelu_tanh.cu``) against their plain versions on the same CUDA
 tensors (see the comment above `NORM_WIDTHS`: LayerNorm at every preset
@@ -272,7 +282,7 @@ residual site again), 12 in ``vit_base_detector`` (11(d): the decoder's
 reference self-attention), 50 in the distillation student (15), 10 a
 policy's microbatch in 14(b)-(c) and 12 where it replays whole blocks,
 none on the ViT-B and ViT-L paths (no residual dropout; attention
-dropout runs inside #1-#6); the mask-only kernel launches on no path.
+dropout runs inside #1-#6).
 Beside each total, #1,
 #2, #3, #4, #5 and #6 count the launches that ran their dropout branch:
 every training launch of phase 11's dropout runs, of the detector's
@@ -288,6 +298,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import inspect
 import io
 import json
 import math
@@ -1673,13 +1684,12 @@ def _time_mlp(n, d, m, errs) -> tuple[dict, dict]:
     return recs[0], recs[1]
 
 
-# The mask kernel (csrc/dropout_mask.cu) against `keep_mask` on the card:
-# one bool a element, so the limit is 0 mismatches. (name, (B, H, R, C),
-# (b0, H', h0)): residual views (B, 1, S, D) of ViT-B's training
-# microbatch and the DeiT-400 detector's (one process, and the second DP
-# rank of two), the DETR self-attention's probabilities (B, H, Q, Q) over
-# 8 heads (one process, and the second TP rank's 4 heads), and a view of
-# 25 heads of 16 at a TP rank's offset 13.
+# The dropout sites' views, each (name, (B, H, R, C), (b0, H', h0)):
+# residual views (B, 1, S, D) of ViT-B's training microbatch and the
+# DeiT-400 detector's (one process, and the second DP rank of two), the
+# DETR self-attention's probabilities (B, H, Q, Q) over 8 heads (one
+# process, and the second TP rank's 4 heads), and a view of 25 heads of 16
+# at a TP rank's offset 13.
 MASK_CASES = [("vit_b_residual", (32, 1, 197, 768), None),
               ("vit_b_residual_dp_rank1", (16, 1, 197, 768), (16, 1, 0)),
               ("detector_residual", (32, 1, 198, 400), None),
@@ -1687,48 +1697,6 @@ MASK_CASES = [("vit_b_residual", (32, 1, 197, 768), None),
               ("detr_self_attention", (32, 8, 5, 5), None),
               ("detr_self_attention_tp_rank1", (32, 4, 5, 5), (0, 8, 4)),
               ("heads_tp_offset", (4, 12, 40, 40), (3, 25, 13))]
-MASK_TIMED = "detector_residual"
-
-
-def phase_mask_kernel_checks() -> dict:
-    """The dropout-mask kernel against its plain version (`keep_mask`, on
-    the card) at `MASK_CASES`, 0 mismatches; timed with CUDA events at
-    the detector's residual view, host-paced and held on the device
-    (`device_ms`), beside its bound (`philox_bound`) and the plain
-    version. No single PyTorch call draws this mask (torch.rand's bits are
-    another generator's)."""
-    from arsvt_tpu_torch.ops.dropout import dropout_mask, keep_mask
-
-    out = None
-    for name, shape, offsets in MASK_CASES:
-        got = dropout_mask(DROPOUT_SEED, DROPOUT_RATE, shape, "cuda",
-                           offsets=offsets)
-        want = keep_mask(DROPOUT_SEED, *shape, DROPOUT_RATE, "cuda",
-                         offsets=offsets)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        rec = {"check": "dropout_mask kernel vs keep_mask", "case": name,
-               "shape": shape, "offsets": offsets, "mismatches": mismatches,
-               "kept_share": float(got.float().mean())}
-        if name == MASK_TIMED:
-            n = math.prod(shape)
-
-            def launch():
-                dropout_mask(DROPOUT_SEED, DROPOUT_RATE, shape, "cuda")
-
-            rec.update(
-                ms=device_ms(launch, iters=200),
-                host_paced_ms=cuda_ms(launch, iters=200),
-                plain_ms=cuda_ms(lambda: keep_mask(
-                    DROPOUT_SEED, *shape, DROPOUT_RATE, "cuda"), iters=3,
-                    warmup=1),
-                **philox_bound(n, n), library_ms=None,
-                max_abs_err=float(mismatches))
-            out = rec
-        log(json.dumps(rec))
-        check(mismatches == 0,
-              f"dropout_mask differs from keep_mask at {name}: {mismatches}")
-    return out
 
 
 # The mask rule's integer work an element (csrc/dropout_mask.cu::RowBits,
@@ -1770,7 +1738,8 @@ def philox_bound(elements: int, nbytes: int) -> dict:
 # forward and backward through `SiteDropout` (the plain version's through
 # autograd), with +-Inf and NaN planted on every 7th element (kept and
 # dropped places alike): compared as bits, so the limit is 0 differing
-# elements; the mask it applies (to ones) equals `dropout_mask`'s. The
+# elements; the mask it applies (to ones) equals `keep_mask`'s on the card
+# (0 mismatches: one bool an element). The
 # "div" rule is also run as a true division (`true_division`) to record
 # which of the two PyTorch's x / (1 - rate) on the card is.
 APPLY_DTYPES = (torch.bfloat16, torch.float32)
@@ -1843,7 +1812,7 @@ def phase_apply_kernel_checks() -> float:
         SiteDropout,
         dropout_apply,
         dropout_apply_plain,
-        dropout_mask,
+        keep_mask,
     )
 
     worst = 0.0
@@ -1851,8 +1820,8 @@ def phase_apply_kernel_checks() -> float:
         applied = dropout_apply(torch.ones(view, device="cuda"),
                                 DROPOUT_SEED, DROPOUT_RATE, offsets, view,
                                 "mul") != 0
-        mask = dropout_mask(DROPOUT_SEED, DROPOUT_RATE, view, "cuda",
-                            offsets=offsets)
+        mask = keep_mask(DROPOUT_SEED, *view, DROPOUT_RATE, "cuda",
+                         offsets=offsets)
         rec = {"check": "dropout_apply kernel vs plain, bits", "case": name,
                "shape": view, "offsets": offsets,
                "mask_mismatches": int((applied != mask).sum()),
@@ -1924,9 +1893,7 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
     call with CUDA events, each held on the device (`device_ms`: the
     launches queued behind a spin kernel) and host-paced: the fused
     forward (one apply launch), the backward's launch, forward + backward
-    through `SiteDropout` under autograd; the parent's site path rebuilt
-    from what remains (`dropout_mask` then the eager where, forward and
-    forward + backward), the mask kernel alone; torch.nn.functional.dropout
+    through `SiteDropout` under autograd; torch.nn.functional.dropout
     on the same tensor (other bits, the same work) forward and forward +
     backward; the plain version; both bounds; the kernels' registers,
     spills and integer opcodes. Returns the bf16 record, with (a)'s
@@ -1935,10 +1902,9 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
         SiteDropout,
         dropout_apply,
         dropout_apply_plain,
-        dropout_mask,
     )
 
-    view, n, k = APPLY_TIMED, math.prod(APPLY_TIMED), 1.0 - DROPOUT_RATE
+    view, n = APPLY_TIMED, math.prod(APPLY_TIMED)
     sass = sass_int_ops("dropout_mask")
     args = (DROPOUT_SEED, DROPOUT_RATE, (0, 1, 0), view, "div")
     out = None
@@ -1947,22 +1913,11 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
         x, g = (torch.randn(view, generator=gen).to(dtype).cuda()
                 for _ in range(2))
         xr = x.clone().requires_grad_(True)
-
-        def mask():
-            return dropout_mask(DROPOUT_SEED, DROPOUT_RATE, view, "cuda")
-
-        def parent_fwd(t=x):
-            return torch.where(mask(), t / k, torch.zeros_like(t))
-
         paths = {
             "fused_fwd": lambda: dropout_apply(x, *args),
             "fused_bwd_launch": lambda: dropout_apply(g, *args),
             "fused_fwd_bwd": lambda: torch.autograd.grad(
                 SiteDropout.apply(xr, *args), xr, g),
-            "parent_mask_kernel": mask,
-            "parent_fwd": parent_fwd,
-            "parent_fwd_bwd": lambda: torch.autograd.grad(
-                parent_fwd(xr), xr, g),
             "library_fwd": lambda: F.dropout(x, DROPOUT_RATE, training=True),
             "library_fwd_bwd": lambda: torch.autograd.grad(
                 F.dropout(xr, DROPOUT_RATE, training=True), xr, g),
@@ -1985,8 +1940,6 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
                "sm_clock_ghz": SM_CLOCK_HZ / 1e9,
                "int_bound_share": bound["int_bound_ms"]
                / times["fused_fwd"]["device_ms"],
-               "fused_fwd_vs_parent_mask_kernel": times["fused_fwd"][
-                   "device_ms"] / times["parent_mask_kernel"]["device_ms"],
                "card": smi}
         vec = vec_kernel_sass(sass, dtype)
         rec["sass_fma_slots_per_element"] = vec["fma_slots_per_element"]
@@ -2017,10 +1970,6 @@ def phase_apply_kernel_timing(smi: str, max_abs_err: float) -> dict:
                    "host_paced_ms": times["fused_fwd"]["host_paced_ms"],
                    "library_ms": times["library_fwd"]["device_ms"],
                    "max_abs_err": max_abs_err}
-        check(dtype != torch.bfloat16 or times["fused_fwd"]["device_ms"]
-              < times["parent_mask_kernel"]["device_ms"],
-              f"the fused forward is slower than the mask kernel alone: "
-              f"{times}")
     log(json.dumps({"sass": "dropout_mask", "kernels": sass}))
     return out
 
@@ -2554,13 +2503,13 @@ def scipy_totals(cost: np.ndarray, col_for_row=None) -> np.ndarray:
 
 
 def phase_lap_checks() -> dict:
-    """The assignment kernel against its plain version on the card at
-    `LAP_CASES`: equal assignments, the optimum scipy's; timed at the
-    detector step's shape (CUDA events, host-paced and held) beside its
-    bound (each cost read once, each index written once, over 3.35 TB/s),
-    the plain version and scipy on the host on the same costs (no PyTorch
-    call solves an assignment)."""
-    before = matcher.LAUNCHES
+    """The solve-only entry (``arsvt_lap_rect``) against its plain version
+    on the card at `LAP_CASES`: equal assignments, the optimum scipy's;
+    timed at the detector step's shape (CUDA events, host-paced and held)
+    beside its bound (each cost read once, each index written once, over
+    3.35 TB/s), the plain version and scipy on the host on the same costs
+    (no PyTorch call solves an assignment). Returns the timed record."""
+    before = matcher.SOLVE_LAUNCHES
     out = None
     for i, (name, shape, kind) in enumerate(LAP_CASES):
         cost = lap_costs(shape, kind, seed=40 + i)
@@ -2575,8 +2524,9 @@ def phase_lap_checks() -> dict:
         mine, best = scipy_totals(host, got_np), scipy_totals(host)
         rel = float(np.max(np.abs(mine - best) / np.maximum(np.abs(best),
                                                                1e-30)))
-        rec = {"check": "lap kernel vs lap_rect_plain", "case": name,
-               "shape": shape, "costs": kind, "mismatches": mismatches,
+        rec = {"check": "lap solve-only entry vs lap_rect_plain",
+               "case": name, "shape": shape, "costs": kind,
+               "mismatches": mismatches,
                "max_rel_err_optimum_vs_scipy": rel,
                "smem_bytes_per_problem": matcher.smem_bytes(*shape[-2:])}
         if name == LAP_TIMED:
@@ -2614,7 +2564,190 @@ def phase_lap_checks() -> dict:
               f"lap_rect differs from lap_rect_plain at {name}: {rec}")
         check(rel <= TOL_LAP_OPTIMUM,
               f"lap_rect's optimum differs from scipy's at {name}: {rec}")
-    log(json.dumps({"check": "lap launches in phase 3",
+    log(json.dumps({"check": "lap solve-only launches in phase 3",
+                    "launches": matcher.SOLVE_LAUNCHES - before}))
+    return out
+
+
+# The fused entry (csrc/lap.cu::arsvt_match_layers, the main path's) against
+# its plain version (`match_layers_plain`: the eager build_cost_matrix of
+# each layer, lap_rect_plain and the gather) on the card. (name, (L, B, Q,
+# M)): the deit_detector_ref step's shape, the vit_base_detector step's (Q
+# > M: the transpose built, solved and inverted in the kernel) and one
+# eval forward's single layer, on seeded detector-like inputs
+# (`match_inputs`). The costs: the kernel repeats each eager op's
+# arithmetic and rounding, with the softmax's and the L1's sums in the order
+# PyTorch's kernels take them, so they are held at TOL_MATCH_ULPS of the
+# plain costs and the pads at exactly 1e4. The assignments: equal to
+# lap_rect_plain's on the kernel's own costs (ties included); where they
+# differ from the plain route's, optimal under the plain costs within
+# TOL_LAP_OPTIMUM of scipy's optimum.
+MATCH_CASES = [("deit_detector_ref", (6, 32, 5, 25)),
+               ("vit_base_detector", (6, 32, 100, 25)),
+               ("eval_one_layer", (1, 32, 5, 25))]
+MATCH_TIMED = "deit_detector_ref"
+MATCH_CLASSES = 7  # the presets' C + 1
+TOL_MATCH_ULPS = 4
+
+
+def match_inputs(shape, seed) -> tuple:
+    """(layers, labels, target boxes, mask) on the card: per layer logits
+    N(0, 4) (B, Q, C + 1) and sigmoid boxes (B, Q, 4); int32 labels, xyxy
+    target boxes and 0-5 real slots an image (image 0 all pads, image 1
+    one real target)."""
+    n_layers, b, q, m = shape
+    rng = np.random.default_rng(seed)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    layers = [(card((rng.standard_normal((b, q, MATCH_CLASSES)) * 2)
+                    .astype(np.float32)),
+               card((1 / (1 + np.exp(-rng.standard_normal((b, q, 4)))))
+                    .astype(np.float32))) for _ in range(n_layers)]
+    lo = rng.uniform(0.0, 0.6, (b, m, 2))
+    wh = rng.uniform(0.05, 0.4, (b, m, 2))
+    real = rng.integers(0, 6, (b, 1))
+    real[0, 0] = 0
+    real[1:2, 0] = 1
+    return (layers,
+            card(rng.integers(0, MATCH_CLASSES - 1, (b, m)).astype(np.int32)),
+            card(np.concatenate([lo, lo + wh], -1).astype(np.float32)),
+            card(np.arange(m)[None, :] < real))
+
+
+def parent_match_route(layers, labels, tboxes, mask):
+    """The parent's device route of `match_layers` for Q <= M: the eager
+    costs of each layer, stacked, the solve-only entry and the gather."""
+    with torch.no_grad():
+        costs = torch.stack([matcher.build_cost_matrix(cl, bx, labels,
+                                                       tboxes, mask)
+                             for cl, bx in layers])
+        idx = matcher.lap_rect(costs)
+        m = mask.shape[1]
+        real = torch.gather(mask[None].expand(len(layers), -1, -1), 2,
+                            idx.clamp(max=m - 1))
+        return idx, (idx < m) & real
+
+
+def match_bytes(shape) -> int:
+    """The fused entry's least bytes: logits and boxes read once (fp32),
+    int32 labels, xyxy boxes and the mask once, the int64 slots and bool
+    matches written once."""
+    n_layers, b, q, m = shape
+    return (n_layers * b * q * (MATCH_CLASSES + 4) * 4 + b * m * (4 + 16 + 1)
+            + n_layers * b * q * (8 + 1))
+
+
+def slot_totals(cost: np.ndarray, slots: np.ndarray) -> np.ndarray:
+    """Each problem's total of cost (n, Q, M) over its queries' slots (n,
+    Q), the queries without a slot (M) left out."""
+    m = cost.shape[-1]
+    picked = np.take_along_axis(cost, np.minimum(slots, m - 1)[..., None],
+                                -1)[..., 0]
+    return np.where(slots < m, picked, 0.0).sum(-1)
+
+
+def phase_match_checks(smi: str) -> dict:
+    """The fused entry at `MATCH_CASES` against its plain version; timed at
+    the bench shape in one call, host-paced, held (`device_ms`) and the
+    host's us a call, beside the parent's route (the eager build, the
+    solve-only entry and the gather, as `parent_match_route` rebuilds it),
+    the byte bound, an empty kernel's held time (the floor a launch sets)
+    and the plain version; the kernels' registers and local memory
+    (cuobjdump). Returns the timed record, with the solve-only entry's
+    (`phase_lap_checks`) under "solve_only"."""
+    solve_only = phase_lap_checks()
+    before = matcher.LAUNCHES
+    out = None
+    for i, (name, shape) in enumerate(MATCH_CASES):
+        layers, labels, tboxes, mask = match_inputs(shape, seed=60 + i)
+        idx, matched, costs = matcher.assign_layers(
+            layers, labels, tboxes, mask, return_costs=True)
+        p_idx, _, p_costs = matcher.match_layers_plain(layers, labels,
+                                                       tboxes, mask)
+        own = matcher.assign_plain(costs)
+        torch.cuda.synchronize()
+        pad = ~mask[None, :, None, :].expand_as(costs)
+        u = ulps(costs, p_costs)
+        differ = (idx != p_idx).any(-1)  # problems whose assignment moved
+        rec = {"check": "fused matcher vs match_layers_plain", "case": name,
+               "shape": shape, "classes": MATCH_CLASSES,
+               "real_slots_per_image": mask.sum(1).tolist()[:8],
+               "cost_max_ulps": int(u.max()),
+               "cost_entries_over_0_ulps": int((u > 0).sum()),
+               "cost_max_abs_err": float((costs - p_costs).abs().max()),
+               "pads_exact": bool((costs[pad] == 1e4).all()),
+               "mismatches_vs_own_costs": int((idx != own).sum()),
+               "matched_mismatches": int(
+                   (matched != matcher._matched(idx, mask)).sum()),
+               "problems_differing_from_plain_route": int(differ.sum()),
+               "smem_bytes": matcher.match_smem_bytes(*shape[2:],
+                                                      MATCH_CLASSES)}
+        rel = 0.0
+        if rec["problems_differing_from_plain_route"]:
+            plain = p_costs[differ].cpu().numpy().astype(np.float64)
+            mine = slot_totals(plain, idx[differ].cpu().numpy())
+            best = slot_totals(plain, matcher.lap_scipy(plain))
+            rel = float(np.max(np.abs(mine - best)
+                               / np.maximum(np.abs(best), 1e-30)))
+        rec["max_rel_err_optimum_vs_scipy_on_plain_costs"] = rel
+        rec["device_ms"] = device_ms(lambda: matcher.assign_layers(
+            layers, labels, tboxes, mask), iters=20, hold_cycles=2_000_000)
+        if name == MATCH_TIMED:
+            args = (layers, labels, tboxes, mask)
+
+            def fused():
+                return matcher.assign_layers(*args)
+
+            def parent():
+                return parent_match_route(*args)
+
+            def empty():
+                torch.cuda._sleep(0)
+
+            nbytes = match_bytes(shape)
+            times = {}
+            # the parent's route is ~340 launches a call: two calls fill
+            # the launch queue the hold can take, behind a 4 ms hold each
+            for key, fn, iters, hold in (
+                    ("fused", fused, 50, HOLD_CYCLES_PER_CALL),
+                    ("parent_route", parent, 2, 8_000_000),
+                    ("empty_kernel", empty, 50, HOLD_CYCLES_PER_CALL)):
+                times[key] = {"device_ms": device_ms(fn, iters=iters,
+                                                     hold_cycles=hold),
+                              "host_paced_ms": cuda_ms(fn, iters=20),
+                              "host_us": host_us(fn, iters=20)}
+            sass = {k.split("_cu_")[-1]: {f: v[f] for f in
+                                          ("registers", "stack", "local")}
+                    for k, v in sass_int_ops("lap").items()
+                    if "registers" in v}
+            rec.update(times=times,
+                       plain_ms=cuda_ms(lambda: matcher.match_layers_plain(
+                           *args), iters=3, warmup=1),
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes", bound_bytes=nbytes,
+                       library_ms=None, registers=sass, card=smi)
+            out = {**rec, "ms": times["fused"]["device_ms"],
+                   "host_paced_ms": times["fused"]["host_paced_ms"],
+                   "host_us": times["fused"]["host_us"],
+                   "parent_route_ms": times["parent_route"]["device_ms"],
+                   "floor_ms": times["empty_kernel"]["device_ms"],
+                   "max_abs_err": rec["cost_max_abs_err"],
+                   "solve_only": solve_only}
+        log(json.dumps(rec))
+        check(rec["cost_max_ulps"] <= TOL_MATCH_ULPS and rec["pads_exact"],
+              f"the fused matcher's costs at {name}: {rec}")
+        check(rec["mismatches_vs_own_costs"] == 0
+              and rec["matched_mismatches"] == 0,
+              f"the fused matcher's assignments at {name}: {rec}")
+        check(rel <= TOL_LAP_OPTIMUM,
+              f"the fused matcher's optimum at {name}: {rec}")
+    check(out["times"]["fused"]["device_ms"]
+          < out["times"]["parent_route"]["device_ms"],
+          f"the fused matcher is slower than the parent's route: "
+          f"{out['times']}")
+    log(json.dumps({"check": "fused matcher launches in phase 3",
                     "launches": matcher.LAUNCHES - before}))
     return out
 
@@ -3072,15 +3205,15 @@ COUNTERS = (
     # and those of #3 and #4
     ("flash_attention_fwd_dropout", flash_attention, "DROPOUT_LAUNCHES"),
     ("flash_attention_bwd_dropout", flash_attention, "DROPOUT_LAUNCHES_BWD"),
-    # the port-only kernels of the residual, positional and reference-
+    # the port-only kernel of the residual, positional and reference-
     # attention sites: the apply kernel, one launch a site each way
-    # (`site_launches` a microbatch), and the mask-only kernel, off every
-    # training path (phase 3's probes and checks alone)
+    # (`site_launches` a microbatch)
     ("dropout_apply", dropout_ops, "APPLY_LAUNCHES"),
-    ("dropout_mask", dropout_ops, "LAUNCHES"),
-    # the port-only assignment kernel of the detector's matcher (one launch
-    # a `match_layers` or eval `match` call on the device route)
+    # the port-only matcher kernel (csrc/lap.cu): its fused entry, one
+    # launch a `match_layers` or eval `match` call on the device route, and
+    # its solve-only entry, off every path (phase 3's checks alone)
     ("lap", matcher, "LAUNCHES"),
+    ("lap_solve", matcher, "SOLVE_LAUNCHES"),
     # the port-only LayerNorm and GELU kernels (`norm_launches`)
     ("layer_norm_fwd", ln_ops, "LAUNCHES"),
     ("layer_norm_bwd", ln_ops, "BWD_LAUNCHES"),
@@ -3297,6 +3430,8 @@ PROFILE_CATEGORIES = (
     # the ViT steps run #2 alone, the detector steps #4 alone
     ("attention backward kernels (#2, #4)", ("attn::attention_bwd_",)),
     ("AdamW kernel", ("fused_adamw_kernel",)),
+    # the port-only matcher kernel (csrc/lap.cu)
+    ("matcher kernel", ("match_kernel<", "solve_kernel<")),
     # the port-only kernels of csrc/layernorm.cu and csrc/gelu_tanh.cu
     ("LayerNorm kernels", ("ln_fwd_", "ln_bwd_")),
     ("GELU kernels", ("gelu_kernel<", "table_fwd_kernel", "table_kernel")),
@@ -3927,7 +4062,7 @@ def clone_state(state) -> dict:
 def phase_det_train_parity() -> dict:
     """(a) 2 fp32 steps of batch 4 at `deit_detector_ref` with the preset's
     residual and positional dropout 0.1 (every mask a function of the
-    site's seed and global indices: the mask kernel on the card, its plain
+    site's seed and global indices: the apply kernel on the card, its plain
     version on the CPU) and attention dropout 0 (the plain (B, H, S, S)
     attention masks would add ~20-30 s of the CPU's time; the
     kernels' masks are held by phase 3's probes and 11(c)), detection
@@ -4064,7 +4199,11 @@ def phase_det_train_bench(smi: str):
     one step, and each route's synchronising calls in one whole step;
     one step run twice from the same state and seed; (d) eval_step and
     evaluate_detector over two batches; (e) a profile of one step on each
-    route. Returns the launch counts of (c)-(e)."""
+    route; before them, outside the counted path, `match_layers_calls`.
+    Returns the launch counts of (c)-(e)."""
+    calls = match_layers_calls()
+    check(0 < calls["kernels_per_call"] <= 3,
+          f"match_layers launched no kernel or more than 3 a call: {calls}")
     steps_warm, steps_timed = 2, 5
     tcfg = det_train_cfg()
     init_fn, step, eval_step = make_detector_step_fns(tcfg)
@@ -4188,6 +4327,10 @@ def phase_det_train_bench(smi: str):
                     "kernels_per_step": {
                         "device": prof["kernels_per_step"],
                         "scipy": prof_scipy["kernels_per_step"]},
+                    "match_layers_kernels_per_call": calls[
+                        "kernels_per_call"],
+                    "match_layers_host_ms_per_call": calls[
+                        "host_ms_per_call"],
                     "peak_memory_gb": rec["peak_memory_gb"],
                     "synchronising_calls_per_step": {
                         r: sum(v.values()) for r, v in syncs.items()},
@@ -4229,6 +4372,64 @@ def phase_det_train_bench(smi: str):
     return counts
 
 
+def match_layers_calls() -> dict:
+    """The kernels one `match_layers` call launches on the default route at
+    the bench step's shape (6 layers, B = 32, Q = 5, M = 25, C + 1 = 7;
+    seeded inputs on the card), counted by torch.profiler over 10 calls
+    after a warm-up cycle of 10 (the profiler drops events at the start of
+    its first cycle), and the host's ms a call over 50 calls, each made on
+    an idle card. --detector-ab runs it in each tree
+    (`DET_AB_CHILD` ships its source), so it imports what it uses and calls
+    only `match_layers`, which every tree has."""
+    import json
+    import time
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from arsvt_tpu_torch.objectives.matcher import match_layers
+
+    n_layers, b, q, m, classes = 6, 32, 5, 25, 7
+    rng = np.random.default_rng(29)
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    layers = [(card((rng.standard_normal((b, q, classes)) * 2)
+                    .astype(np.float32)),
+               card((1 / (1 + np.exp(-rng.standard_normal((b, q, 4)))))
+                    .astype(np.float32))) for _ in range(n_layers)]
+    lo = rng.uniform(0.0, 0.6, (b, m, 2))
+    targets = (card(rng.integers(0, classes - 1, (b, m)).astype(np.int32)),
+               card(np.concatenate([lo, lo + 0.2], -1).astype(np.float32)),
+               card(np.arange(m)[None, :] < rng.integers(0, 6, (b, 1))))
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                match_layers(layers, *targets)
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = sum(e.device_type == DeviceType.CUDA
+                  for e in prof.events()) / calls
+    total = 0.0
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        match_layers(layers, *targets)
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rec = {"timing": "match_layers calls", "shape": [n_layers, b, q, m],
+           "classes": classes, "kernels_per_call": kernels,
+           "host_ms_per_call": total / 50 * 1e3}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 # 9(c) of another tree, in a subprocess of its own: that tree's
 # chip_smoke.py and package, with its build module and native loader
 # pointed at this tree's build directory (ARSVT_AB_BUILD_DIR). Libraries
@@ -4246,7 +4447,8 @@ DET_AB_CHILD = (
     "torch.backends.cudnn.allow_tf32 = False\n"
     "cs.phase_det_train_bench(subprocess.run(['nvidia-smi', "
     "'--query-gpu=name,power.limit', '--format=csv,noheader'], "
-    "capture_output=True, text=True).stdout.strip())\n")
+    "capture_output=True, text=True).stdout.strip())\n"
+    + inspect.getsource(match_layers_calls) + "match_layers_calls()\n")
 
 
 def phase_detector_ab(parent: str, smi: str) -> None:
@@ -4281,9 +4483,23 @@ def phase_detector_ab(parent: str, smi: str) -> None:
                      "kernels_per_step": next(
                          r["kernels_per_step"] for r in recs
                          if "kernels_per_step" in r),
+                     "match_layers_ms_per_step": route[
+                         "match_layers_ms_per_step"]["device"],
+                     "match_layers_kernels_per_call": next(
+                         r["kernels_per_call"] for r in recs
+                         if r.get("timing") == "match_layers calls"),
                      "peak_memory_gb": bench["peak_memory_gb"],
                      "seconds": time.perf_counter() - t0})
         log(json.dumps({"detector_ab": runs[-1], "card": smi}))
+    # the host's ms in match_layers a step, this tree against the parent in
+    # each pair (parent, this) and (this, parent)
+    pairs = [(runs[1], runs[0]), (runs[2], runs[3])]
+    log(json.dumps({"detector_ab_match_layers_ms_per_step": [
+        [t["match_layers_ms_per_step"], p["match_layers_ms_per_step"]]
+        for t, p in pairs], "card": smi}))
+    check(all(t["match_layers_ms_per_step"] < p["match_layers_ms_per_step"]
+              for t, p in pairs),
+          f"match_layers' host ms a step is not below the parent's: {runs}")
 
 
 # --ab PARENT: the paths the LayerNorm and GELU kernels changed, of the
@@ -6191,7 +6407,7 @@ def phase_recipe_detector(smi) -> dict:
             "flash_attention_bwd": enc + dec, "fused_adamw": 1,
             "dropout_apply": site_launches(resolve_detector(tcfg),
                                            replays=1),
-            "dropout_mask": 0, "lap": 1,
+            "lap_solve": 0, "lap": 1,
             **norm_launches(det_cfg, micro=1, policy=tcfg.remat_policy,
                             aux=tcfg.aux_loss)}
     got = {k: counts[k] for k in want}
@@ -7200,13 +7416,13 @@ def main() -> int:
     savep_fwd, savep_bwd = phase_savep_checks(cfg)
     dropout = phase_encoder_dropout_checks(cfg)
     mlp_fwd, mlp_bwd = phase_mlp_checks()
-    masks = phase_mask_kernel_checks()
     log("# phase 3(a): the dropout apply kernel against its plain version")
     apply_err = phase_apply_kernel_checks()
     log("# phase 3(b): the dropout site timed at the detector's residual "
         "view")
     applied = phase_apply_kernel_timing(smi, apply_err)
-    lap = phase_lap_checks()
+    log("# phase 3: the matcher's kernel, its solve-only and fused entries")
+    lap = phase_match_checks(smi)
     log("# phase 3(c): the LayerNorm and GELU kernels against their plain "
         "versions")
     ln_rec, gelu_rec = phase_norm_kernel_timing(smi,
@@ -7310,10 +7526,14 @@ def main() -> int:
           and gelu_table["table_fills"] == 1,
           f"the bf16 GELU forward's table route over phases 4-16: "
           f"{gelu_table} of {paths('gelu_tanh_fwd')} forward launches")
-    # every dropout site of phases 4-16 went through the apply kernel
-    check(paths("dropout_apply") > 0 and paths("dropout_mask") == 0,
-          f"dropout sites: apply {paths('dropout_apply')}, mask-only "
-          f"{paths('dropout_mask')} launches over phases 4-16")
+    # every dropout site of phases 4-16 went through the apply kernel, every
+    # matching through the fused entry
+    check(paths("dropout_apply") > 0,
+          f"dropout sites: {paths('dropout_apply')} apply launches over "
+          f"phases 4-16")
+    check(paths("lap") > 0 and paths("lap_solve") == 0,
+          f"matching: {paths('lap')} fused and {paths('lap_solve')} "
+          f"solve-only launches over phases 4-16")
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",
                                          "flash_attention.py:533"),
                "encoder_attention_bwd": ("encoder_attention_bwd.cu",
@@ -7353,12 +7573,11 @@ def main() -> int:
         row(f"{name} (dropout 0.1)", *sources[name], dropout[name],
             paths(f"{name}_dropout")) for name in ENC_DROPOUT_NAMES
     ] + [
-        # the port-only kernels of the residual, positional and reference-
+        # the port-only kernel of the residual, positional and reference-
         # attention sites: the apply kernel, one launch a site each way
         # (it replaces JAX's dropout, jax.random.bernoulli and a where that
-        # XLA fuses, not a Pallas kernel), and the mask-only kernel, off
-        # every training path since the apply kernel (0 launches there);
-        # "ms" held on the device, beside the host-paced time
+        # XLA fuses, not a Pallas kernel); "ms" held on the device, beside
+        # the host-paced time
         {**row("dropout_apply", "dropout_mask.cu", "", applied,
                paths("dropout_apply")),
          "replaces": "arsvt_tpu/models/vit.py:140 (dropout: "
@@ -7366,22 +7585,24 @@ def main() -> int:
          "host_paced_ms": applied["host_paced_ms"],
          "int_bound_ms": applied["int_bound_ms"],
          "bytes_bound_ms": applied["bytes_bound_ms"]},
-        {**row("dropout_mask", "dropout_mask.cu", "", masks,
-               paths("dropout_mask")),
-         "replaces": "arsvt_tpu/models/vit.py:140 (jax.random.bernoulli; "
-                     "no Pallas kernel)",
-         "host_paced_ms": masks["host_paced_ms"],
-         "int_bound_ms": masks["int_bound_ms"],
-         "bytes_bound_ms": masks["bytes_bound_ms"]},
-        # the port-only assignment kernel of the detector's matcher; it
-        # replaces JAX's lap_rect, plain JAX that XLA compiles, not a
-        # Pallas kernel; no PyTorch call solves an assignment, so scipy's
-        # host time on the same costs stands beside it
+        # the port-only matcher kernel: its fused entry (the row's numbers,
+        # held on the device, at the deit_detector_ref step's (6, 32, 5,
+        # 25); launches the fused entry's over phases 4-16) and its
+        # solve-only entry ("solve_only", timed on that step's padded
+        # costs; 0 launches there). It replaces JAX's match and lap_rect,
+        # plain JAX that XLA compiles, not a Pallas kernel; no PyTorch
+        # call solves an assignment, so scipy's host time stands beside it
         {**row("lap", "lap.cu", "", lap, paths("lap")),
-         "replaces": "arsvt_tpu/objectives/matcher.py:41 (lap_rect, plain "
-                     "JAX under jit; no Pallas kernel)",
-         "device_ms": lap["device_ms"],
-         "scipy_host_ms": lap["scipy_host_ms"]},
+         "replaces": "arsvt_tpu/objectives/matcher.py:173 (match and "
+                     "lap_rect at :41, plain JAX under jit; no Pallas "
+                     "kernel)",
+         "host_paced_ms": lap["host_paced_ms"], "host_us": lap["host_us"],
+         "parent_route_ms": lap["parent_route_ms"],
+         "floor_ms": lap["floor_ms"],
+         "solve_only": {k: lap["solve_only"][k] for k in (
+             "device_ms", "ms", "host_us", "plain_ms", "bound_ms",
+             "scipy_host_ms")},
+         "launches_solve_only": paths("lap_solve")},
     ] + [
         # the port-only LayerNorm and GELU kernels (JAX's are jit code that
         # XLA fuses, not Pallas kernels): "ms" and the rest are the

@@ -238,10 +238,10 @@ def test_kernel_scale_is_the_eager_product():
 def test_launches_count_only_on_the_card():
     """A CPU tensor runs the plain version and counts nothing, forward or
     backward; a device other than cpu or cuda raises."""
-    n, masks = dropout_ops.APPLY_LAUNCHES, dropout_ops.LAUNCHES
+    n = dropout_ops.APPLY_LAUNCHES
     x = torch.randn(2, 5, 8, requires_grad=True)
     torch.autograd.grad(dropout(x, RATE, Rng(1), train=True).sum(), x)
-    assert dropout_ops.APPLY_LAUNCHES == n and dropout_ops.LAUNCHES == masks
+    assert dropout_ops.APPLY_LAUNCHES == n
     with pytest.raises(ValueError, match="cpu or cuda"):
         dropout_apply(torch.empty(2, 8, device="meta"), SEED, RATE,
                       (0, 1, 0), (2, 1, 1, 8), "div")

@@ -6,9 +6,10 @@ its `match`, on the same numpy inputs.
 `lap_rect_plain` does JAX's arithmetic in JAX's order, so integer-valued
 costs, ties included, give JAX's assignment exactly; random fp32 costs
 give it too, and the optimum scipy finds. On a CUDA tensor `lap_rect`
-launches ``csrc/lap.cu`` or raises: it never takes the plain version or
-scipy (held here with the loader monkeypatched, since the CPU has no
-card).
+launches ``csrc/lap.cu``'s solve-only entry or raises: it never takes the
+plain version or scipy (held here with the loader monkeypatched, since
+the CPU has no card). The fused entry's tests are in
+``test_torch_match_fused.py``.
 """
 
 import jax
@@ -143,8 +144,8 @@ def test_match_layers_device_route_solves_all_layers_at_once(monkeypatch):
         logits.shape).astype(np.float32)), torch.from_numpy(boxes))
         for _ in range(4)]
     calls, copies = [], []
-    real_lap, real_cpu = matcher.lap_rect, torch.Tensor.cpu
-    monkeypatch.setattr(matcher, "lap_rect", lambda cost: calls.append(
+    real_lap, real_cpu = matcher.lap_rect_plain, torch.Tensor.cpu
+    monkeypatch.setattr(matcher, "lap_rect_plain", lambda cost: calls.append(
         tuple(cost.shape)) or real_lap(cost))
     monkeypatch.setattr(torch.Tensor, "cpu",
                         lambda t: copies.append(t.shape) or real_cpu(t))
@@ -220,26 +221,28 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(matcher, "_fn", None)
     monkeypatch.setattr(matcher.build, "load", no_nvcc)
-    before = matcher.LAUNCHES
+    before = matcher.SOLVE_LAUNCHES
     with pytest.raises(RuntimeError, match="building lap"):
         matcher.lap_rect(cost)
     # a launch that fails raises too, uncounted
     monkeypatch.setattr(matcher, "_launch", lambda *a: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         matcher.lap_rect(cost)
-    assert matcher.LAUNCHES == before
+    assert matcher.SOLVE_LAUNCHES == before
     # a launch that succeeds is counted, one for all the problems
     seen = []
     monkeypatch.setattr(matcher, "_launch",
                         lambda c, out, n, q, m: seen.append((n, q, m)) or 0)
     matcher.lap_rect(cost.reshape(1, 3, 5, 25))
-    assert seen == [(3, 5, 25)] and matcher.LAUNCHES == before + 1
+    assert seen == [(3, 5, 25)] and matcher.SOLVE_LAUNCHES == before + 1
 
 
 def test_cuda_route_raises_past_the_shared_memory_bound(monkeypatch):
     _refuse_plain(monkeypatch)
-    m = matcher.SMEM_LIMIT // 17 + 16
-    assert matcher.smem_bytes(1, m) > matcher.SMEM_LIMIT
+    n = matcher.MAX_COLUMNS  # the costs (4 q m bytes) pass the bound first
+    assert matcher.smem_bytes(n, n) > matcher.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
-        matcher.lap_rect(_on_cuda(np.zeros((1, m), np.float32)))
+        matcher.lap_rect(_on_cuda(np.zeros((n, n), np.float32)))
+    with pytest.raises(ValueError, match="columns"):
+        matcher.lap_rect(_on_cuda(np.zeros((1, n + 1), np.float32)))
     assert matcher.smem_bytes(25, 100) <= matcher.SMEM_LIMIT // 4

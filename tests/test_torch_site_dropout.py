@@ -4,9 +4,11 @@ over the (B, 1, S, D) view, the reference attention over the (B, H, Sq,
 Sk) probabilities of the head-major kernels, and the kernels themselves,
 with the offsets (b0, H, h0) of a data- or tensor-parallel rank. So a
 rank's mask is the rows and heads of the one-process mask, on every
-device (the card's mask kernel draws ``keep_mask``'s bits: ``chip_smoke.py``
-phase 3), and a forward on a slice of the batch, told its first row,
-equals those rows of the forward on the whole batch.
+device (the card's apply kernel draws ``keep_mask``'s bits: ``chip_smoke.py``
+phase 3(a)), and a forward on a slice of the batch, told its first row,
+equals those rows of the forward on the whole batch. The masks are read
+through ``keep_mask`` and through the sites themselves: `dropout_apply`
+and `dropout` on ones keep exactly the mask's elements (``y != 0``).
 
 JAX draws these masks with ``jax.random.bernoulli``, whose bits the port
 cannot reproduce (ROADMAP: random draws are held by statistics); the kept
@@ -22,9 +24,8 @@ from arsvt_tpu_torch.ops import build, dropout as dropout_ops
 from arsvt_tpu_torch.ops.attention import sdpa_reference
 from arsvt_tpu_torch.ops.dropout import (
     dropout,
-    dropout_mask,
+    dropout_apply,
     keep_mask,
-    site_mask,
 )
 from arsvt_tpu_torch.ops.encoder_attention import encoder_attention_fwd
 from arsvt_tpu_torch.ops.flash_attention import flash_attention_fwd
@@ -40,8 +41,12 @@ def test_a_data_rank_draws_the_rows_of_the_whole_mask(b0):
     """Rows [b0, b0 + 3) of a 9-row microbatch, at the offset b0, are the
     one-process mask's rows b0.. (residual view and attention view)."""
     whole = keep_mask(SEED, 9, 1, 17, 40, RATE)
-    part = dropout_mask(SEED, RATE, (3, 1, 17, 40), offsets=(b0, 1, 0))
+    part = keep_mask(SEED, 3, 1, 17, 40, RATE, offsets=(b0, 1, 0))
     assert torch.equal(part, whole[b0:b0 + 3])
+    view = (3, 1, 17, 40)
+    applied = dropout_apply(torch.ones(view), SEED, RATE, (b0, 1, 0), view,
+                            "mul") != 0
+    assert torch.equal(applied, whole[b0:b0 + 3])
     heads = keep_mask(SEED, 9, 4, 11, 11, RATE)
     assert torch.equal(keep_mask(SEED, 3, 4, 11, 11, RATE,
                                  offsets=(b0, 4, 0)), heads[b0:b0 + 3])
@@ -61,9 +66,9 @@ def test_site_mask_is_keyed_on_the_global_row():
     with the row (every rank holds the same Rng)."""
     x = torch.ones(8, 5, 12)
     rng = Rng(7, 2, 1).fold_in(1, 3)
-    whole = site_mask(x, RATE, rng)
+    whole = dropout(x, RATE, rng, train=True) != 0
     for b0 in (0, 4):
-        part = site_mask(x[b0:b0 + 4], RATE, rng.at_row(b0))
+        part = dropout(x[b0:b0 + 4], RATE, rng.at_row(b0), train=True) != 0
         assert torch.equal(part, whole[b0:b0 + 4])
     y = dropout(x, RATE, rng.at_row(4), train=True)
     np.testing.assert_array_equal((y[:4] != 0).numpy(), whole[4:].numpy())
@@ -148,24 +153,31 @@ def test_a_slice_of_the_batch_is_rows_of_the_whole_forward(heads):
 
 
 def test_mask_wrapper_takes_cpu_or_cuda_only():
-    """On a CPU tensor the plain version; another device raises (on a
-    CUDA tensor the kernel launches or raises: no fallback)."""
-    n = dropout_ops.LAUNCHES
-    dropout_mask(SEED, RATE, (1, 1, 2, 3), "cpu")
-    assert dropout_ops.LAUNCHES == n  # the plain version counts nothing
+    """The site's wrapper: on a CPU tensor the plain version, its mask
+    `keep_mask`'s; another device raises (on a CUDA tensor the kernel
+    launches or raises: no fallback)."""
+    n = dropout_ops.APPLY_LAUNCHES
+    view = (1, 1, 2, 3)
+    kept = dropout_apply(torch.ones(view), SEED, RATE, None, view, "mul")
+    assert dropout_ops.APPLY_LAUNCHES == n  # the plain version counts nothing
+    assert torch.equal(kept != 0, keep_mask(SEED, *view, RATE))
     with pytest.raises(ValueError, match="cpu or cuda"):
-        dropout_mask(SEED, RATE, (1, 1, 2, 3), "meta")
+        dropout_apply(torch.ones(view, device="meta"), SEED, RATE, None,
+                      view, "mul")
 
 
 def test_mask_kernel_source_draws_the_kernels_rule():
-    """csrc/dropout_mask.cu draws encoder_tile.cuh's `keeps` at the global
-    key word `drop.bh(b, h)` and takes the offsets."""
+    """csrc/dropout_mask.cu's one entry, the apply kernel, draws the
+    kernels' rule (encoder_tile.cuh's Dropout) at the global key word
+    `drop.bh(b, h)` and takes the offsets; the mask-only entry is gone."""
     text = build.source_path("dropout_mask").read_text()
     assert '#include "encoder_tile.cuh"' in text
-    assert "enc::keeps(drop, drop.bh(" in text
-    head = text[text.index('extern "C" int arsvt_dropout_mask'):]
+    assert "s.drop.bh(" in text and "enc::Dropout drop" in text
+    head = text[text.index('extern "C" int arsvt_dropout_apply'):]
     head = head[:head.index("{")]
     for word in ("uint32_t seed", "uint32_t threshold", "int b0",
                  "int mask_heads", "int h0"):
         assert word in head
+    assert text.count('extern "C"') == 1
+    assert "arsvt_dropout_mask" not in text
     assert "dropout_mask" in build.kernel_names()
