@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, detector-serving,
 detector-training and opt-in training paths, its training entry point,
-the ViT-L/16@384 recipe, DeiT distillation from an imported teacher and
-data- and tensor-parallel training, on one NVIDIA card.
+the ViT-L/16@384 recipe, DeiT distillation from an imported teacher,
+data- and tensor-parallel training and every other preset of the
+registry, on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only (build and check)
@@ -11,6 +12,11 @@ data- and tensor-parallel training, on one NVIDIA card.
     python3 chip_smoke.py --vit-large # phases 1, 2 and 14 (no kernel line)
     python3 chip_smoke.py --distill   # phases 1, 2 and 15 (no kernel line)
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
+    python3 chip_smoke.py --presets   # phases 1, 2, 3(d)'s timing and 17
+        # (no kernel line)
+    python3 chip_smoke.py --generalization  # phases 1, 2, then
+        # benchmarks/classification_generalization_demo.py's configuration
+        # (see the comment above `GEN_PRESET`; not in the default run)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
         # of the checkout PARENT and of this tree in turns, the host's ms
         # in match_layers a step below the parent's in each pair (no
@@ -50,14 +56,22 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    (also at the edges of their 64-row tiles, S in {1, 63, 64, 65, 128},
    at B = 1 and at ViT-L's S = 577) and the fused-MLP kernels (#8, #9) at
    the ``bench_train`` microbatch (B = 32, n = 6,304 rows) and odd sizes
-   (n = 591 and 594, D = 400, M = 1,600), at ViT-L's width (D = 1,024, M
-   = 4,096, n = 9,232 and 1,731), in bf16 at ViT-H's (D = 1,280, M
-   = 5,120, n = 257), and on their ragged route at (D, M) = (12, 20),
-   (37, 75) and (100, 300) in both dtypes (timed at D = 770, M = 3,070
-   beside D = 776, M = 3,072); the dropout branches of #1,
+   (n = 591 and 594, D = 400, M = 1,600), at the opt-in steps of phase
+   17 (n = 1,576, (D, M) = (192, 768) and (384, 1,536)), at ViT-L's
+   width (D = 1,024, M = 4,096, n = 9,232 and 1,731), in bf16 at ViT-H's
+   (D = 1,280, M = 5,120, n = 257), and on their ragged route at (D, M)
+   = (12, 20), (37, 75) and (100, 300) in both dtypes (timed at D =
+   770, M = 3,070 beside D = 776, M = 3,072); the dropout branches of #1,
    #2, #5 and #6 at dropout 0.1 (B = 32, S = 65 and an odd shape, bf16
    and fp32), a probe that reads back the mask of each of their six
-   launches, and their times beside dropout 0;
+   launches, and their times beside dropout 0; (d) the shapes of phase
+   17's presets: #1/#2 at (B, S, D, H) = (8, 197, 192, 3), (8, 197, 384,
+   6) and (8, 145, 192, 3) with dropout 0 and 0.1 (#5/#6 with them, the
+   mask probe at 6 heads), #5/#6 at the first, #3/#4 at detector_demo_96's
+   cross-attention (B = 4 and 1, 4 heads of 48, 10 queries over 145 keys),
+   #7 on vit_tiny_16_224's leaf set, the fused matcher at (3, 4, 10, 25)
+   and (3, 4, 10, 8), LayerNorm and GELU at their rows and widths; #1 and
+   #2 held at vit_tiny_16_224's B = 1 and 8 beside SDPA and the bound;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
@@ -122,8 +136,8 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    ``evaluation.cli.main`` on its checkpoint against
    ``evaluate_classifier`` in fp32 on the CPU, and on a params-only copy
    with phase 4's seeded head; (d) ``InferenceServer.from_checkpoint``
-   answering /classify as ``classify_path`` does, then ``python -m
-   arsvt_tpu_torch.serving.server --checkpoint-dir`` as a subprocess; (e)
+   answering /classify as ``classify_path`` does (the server's main() as
+   a subprocess: 13(d)); (e)
    ``deit_detector_ref`` trained from the COCO root, the eval CLI against
    ``evaluate_detector``, /detect from its checkpoint against
    ``detect_path``;
@@ -134,9 +148,10 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    without; (b) ``deit_detector_ref`` int8 against bf16; (c) both models
    exported with ``torch.export`` in bf16 and int8, loaded by
    ``load_artifact_engine`` and held against the in-process engines at B =
-   1 and 8, and the bf16 classify artifact moved to the CPU; (d) ``python
-   -m arsvt_tpu_torch.serving.export`` on phase 12's seeded checkpoint and
-   ``python -m arsvt_tpu_torch.serving.server --artifact``;
+   1 and 8, and the bf16 classify artifact moved to the CPU; (d) the
+   export CLI's main() in process on phase 12's seeded checkpoint and
+   ``python -m arsvt_tpu_torch.serving.server --artifact`` as a
+   subprocess;
 14. the ViT-L/16@384 recipe, ``TRAIN_PRESETS["vit_large_384"]`` (see the
    comment above `VITL`): (a) RandAugment (both-rotate lane forced), the
    classify pipeline with jitter, the taps, flat, patch, shear and
@@ -146,7 +161,7 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    4, dropout 0.1) on both routes, and a remat step card vs CPU (mixup,
    label smoothing, no dropout); (c) their
    launches held to the policy table; (d) peak memory and ms/step per
-   policy at full depth, 16 images; (e) the preset as it stands (batch
+   policy at 12 of the 24 layers, 16 images; (e) the preset as it stands (batch
    256, full remat, RandAugment, mixup, bf16): ms/step, img/s, peak
    memory, busy share, model TFLOP/s; #7 on one more step's own update
    (the 304 M-parameter tree and its gradients) and #1/#2 at the
@@ -174,7 +189,17 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    and TP = 2 at full width (ViT-B/16 fp32 and bf16, deit_detector_ref
    fp32, dropout 0.1) against one process, launches per rank; (c) the
    three route switches' launch tables; (d) a DP = 2 step's time beside
-   one process's.
+   one process's;
+17. the presets no other phase runs, at full width and depth through
+   their entry points (see the comment above `PRESET_REQUESTS`): (a)
+   vit_tiny_16_224, BASELINE config #1: the train CLI's vit_tiny_eval
+   from a TrashNet tree, the eval CLI on its checkpoint against the CPU,
+   StreamingClassifier card vs CPU and bf16 vs fp32, /classify p50/p99 at
+   B = 1 beside ViT-B/16's, an fp32 step card vs CPU on each route; (b)
+   vit_small_16_224 and (c) vit_demo_8_96 (96 px, patch 8, on the demo's
+   112 canvas): the forwards and the steps; (d) detector_demo_96:
+   StreamingDetector card vs CPU, bf16 vs fp32, post_process, two fp32
+   steps card vs CPU with the matched pairs equal.
 
 Phase 3 also holds the detector matcher's kernel (``csrc/lap.cu``, JAX's
 on-device Jonker-Volgenant). Its solve-only entry is held against
@@ -189,7 +214,7 @@ to ``lap_rect_plain``'s on its own costs) at the ``deit_detector_ref`` and
 ``vit_base_detector`` steps' shapes and one eval layer, and timed beside
 the parent's route (the eager build, the solve-only entry and the
 gather), the byte bound and an empty kernel's held time; its row in the
-kernels record counts the fused entry's launches over phases 4-16, the
+kernels record counts the fused entry's launches over phases 4-17, the
 solve-only entry's 0 there. Phase 3 also
 holds ``csrc/dropout_mask.cu``'s apply kernel, the residual,
 positional and reference-attention sites, at residual and attention
@@ -211,7 +236,7 @@ pipe, all of it over the issue rate), with each kernel's registers and
 integer opcodes (cuobjdump), and the bf16 forward at C = 512 and at 4x
 the rows, to show what holds it back.
 The apply kernel's row in the kernels record counts its launches over
-phases 4-16. (c) holds the
+phases 4-17. (c) holds the
 port-only LayerNorm and GELU kernels (``csrc/layernorm.cu``,
 ``csrc/gelu_tanh.cu``) against their plain versions on the same CUDA
 tensors (see the comment above `NORM_WIDTHS`: LayerNorm at every preset
@@ -224,7 +249,7 @@ serving's shapes beside their bounds, the plain versions and
 F.layer_norm / F.gelu(approximate="tanh"), with the bf16 GELU forward's
 two routes by size and each kernel's registers and spills (cuobjdump);
 their two rows in the kernels record count the forward and backward
-launches over phases 4-16, the GELU's also its table-route launches and
+launches over phases 4-17, the GELU's also its table-route launches and
 the table's fill there (the main path fills its own: exactly once).
 
 Kernel launch counts are zeroed just before each path and read just after
@@ -273,7 +298,11 @@ each path of 15 ((a): 18 #3 a forward of the served import, its warm-up
 included; (b): #1 per layer and forward of the teacher; (c)-(f): per
 microbatch the student's 12 #3 forward and 12 #4 calls and the teacher's
 12 #1 launches (none in (d)'s steps without a teacher), no #2, one AdamW
-launch a step, 12 #3 calls per eval forward). The apply kernel's
+launch a step, 12 #3 calls per eval forward); each path of 17 (the
+rules above at each preset's depth: #1 once a layer and forward, #1 and
+#2 or #5, #6, #8 and #9 a layer and microbatch, #3 and #4 once a DETR
+layer, one AdamW launch a step, one lap launch a detector step). The
+apply kernel's
 launches are held in the same tables, `site_launches` a training
 microbatch (one a site's forward or replay, `mask_sites`, and one its
 backward): 98 in ``deit_detector_ref`` (49 sites: 9(c)-(e), 12(e); 110
@@ -516,10 +545,20 @@ def shares(ms, bound_ms, library_ms) -> dict:
             "factor": None if library_ms is None else ms / library_ms}
 
 
+# (B, S, D, H) of the microbatch of phase 17's presets at head_dim 64
+# (B = 8): vit_tiny_16_224 (3 heads), vit_small_16_224 (6 heads) and
+# vit_demo_8_96 (S = 145, the backbone of detector_demo_96 too), with
+# D % 128 != 0 where JAX's router takes its packed kernel instead.
+PRESET_ENC_SHAPES = {"vit_tiny_16_224": (8, 197, 192, 3),
+                     "vit_small_16_224": (8, 197, 384, 6),
+                     "vit_demo_8_96": (8, 145, 192, 3)}
+
+
 # (B, S, D, H) at the edges of #1's tiles beside the ViT-B shapes: one
 # query row and key, and ViT-L/16@384's S = 577 (ten row tiles, ten key
-# chunks) at its width, D = 1,024 in 16 heads.
-ENC_EDGE_CASES = [(2, 1, 128, 2), (2, 577, 1024, 16)]
+# chunks) at its width, D = 1,024 in 16 heads; then the presets' shapes.
+ENC_EDGE_CASES = [(2, 1, 128, 2), (2, 577, 1024, 16),
+                  *PRESET_ENC_SHAPES.values()]
 
 
 def phase_kernel_checks(cfg) -> dict:
@@ -595,6 +634,13 @@ FLASH_PATH_SHAPES = {
 }
 
 
+# (name, B, H, Sq, Sk, d, kv_len) of detector_demo_96's DETR
+# cross-attention (10 queries over the 145 tokens, 4 heads of 48) in
+# phase 17's train step (B = 4) and at serving's B = 1
+PRESET_FLASH_CASES = [("detector_demo_96_cross_B4", 4, 4, 10, 145, 48, 145),
+                      ("detector_demo_96_cross_B1", 1, 4, 10, 145, 48, 145)]
+
+
 def seeded_heads(b, h, sq, sk, d, dtype, seed):
     """q (B, H, Sq, d), k and v (B, H, Sk, d) on the card."""
     gen = torch.Generator().manual_seed(seed)
@@ -656,7 +702,7 @@ def phase_flash_checks() -> dict:
              for b in (1, 8)]
     cases += [("odd_kv_len", 3, 2, 17, 33, 50, 20),
               ("one_query", 2, 4, 1, 77, 128, 77)]
-    cases += flash_edge_cases() + FLASH_WIDE_CASES
+    cases += flash_edge_cases() + FLASH_WIDE_CASES + PRESET_FLASH_CASES
     errs = {}
     for i, (name, b, h, sq, sk, d, kv_len) in enumerate(cases):
         for j, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -835,6 +881,7 @@ def phase_flash_train_checks() -> dict:
               for name, shape in FLASH_TRAIN_SHAPES.items()]
     cases += [(*case, 0.0) for case in FLASH_WIDE_CASES]
     cases += [("wide_d192_dropout", 2, 2, 65, 198, 192, 150, DROPOUT_RATE)]
+    cases += [(*case, 0.0) for case in PRESET_FLASH_CASES]
     errs = {}
     for i, (name, b, h, sq, sk, d, kv_len, rate) in enumerate(cases):
         for j, dtype in enumerate((torch.bfloat16, torch.float32)):
@@ -1012,9 +1059,11 @@ def bwd_bound(b, s, d, num_heads, elem=2):
                                  "operations"), nbytes, flops
 
 
-def library_attention_bwd_ms(qkv, dout, num_heads) -> float:
+def library_attention_bwd_ms(qkv, dout, num_heads, timer=None) -> float:
     """The backward of `F.scaled_dot_product_attention` through autograd,
-    timed as (forward + backward) less forward: a yardstick only."""
+    timed as (forward + backward) less forward by `timer` (host-paced
+    `cuda_ms` by default, or `device_ms`): a yardstick only."""
+    timer = timer or cuda_ms
     b, s, three_d = qkv.shape
     d = three_d // 3
     q, k, v = (t.contiguous().requires_grad_(True) for t in qkv.view(
@@ -1027,14 +1076,67 @@ def library_attention_bwd_ms(qkv, dout, num_heads) -> float:
     def fwd_bwd():
         torch.autograd.grad(fwd(), (q, k, v), g)
 
-    return cuda_ms(fwd_bwd, iters=20) - cuda_ms(fwd, iters=20)
+    return timer(fwd_bwd, iters=20) - timer(fwd, iters=20)
+
+
+def phase_preset_attention_timing(smi: str) -> None:
+    """#1 at vit_tiny_16_224's B = 1 (the sorter loop) and B = 8 (its eval
+    batch) and #2 at its B = 8, bf16: held device ms and host-paced ms
+    beside the byte bound, the plain versions and SDPA on the same
+    operands (for #2 SDPA's forward + backward less its forward)."""
+    cfg = PRESETS["vit_tiny_16_224"]
+    d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
+    ea = encoder_attention
+    for b in (1, 8):
+        qkv = seeded_qkv(b, s, d, torch.bfloat16, seed=40 + b)
+        calls = {"kernel": lambda: ea.encoder_attention_fwd(qkv, h),
+                 "library": lambda: library_attention(qkv, h)}
+        held = {k: device_ms(fn, iters=100) for k, fn in calls.items()}
+        paced = {k: cuda_ms(fn, iters=200) for k, fn in calls.items()}
+        bound_ms, bound_by, nbytes, flops = attention_bound(b, s, d, h)
+        log(json.dumps({
+            "timing": "encoder_attention_fwd", "preset": "vit_tiny_16_224",
+            "B": b, "S": s, "D": d, "H": h, "dtype": "bfloat16",
+            "device_ms": held["kernel"], "ms": paced["kernel"],
+            "plain_ms": cuda_ms(lambda: ea.encoder_attention_fwd_plain(
+                qkv, h), iters=50),
+            "library_device_ms": held["library"],
+            "library_ms": paced["library"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "device_bound_share": bound_ms / held["kernel"],
+            "device_factor": held["kernel"] / held["library"],
+            "card": smi}))
+        if b != 8:
+            continue
+        out, lse = ea.encoder_attention_fwd(qkv, h)
+        gen = torch.Generator().manual_seed(41)
+        dout = torch.randn(b, s, d, generator=gen).to(torch.bfloat16).cuda()
+
+        def bwd():
+            return ea.encoder_attention_bwd(qkv, out, dout, lse, h)
+
+        dev = device_ms(bwd, iters=50)
+        lib_dev = library_attention_bwd_ms(qkv, dout, h, timer=device_ms)
+        bound_ms, bound_by, nbytes, flops = bwd_bound(b, s, d, h)
+        log(json.dumps({
+            "timing": "encoder_attention_bwd", "preset": "vit_tiny_16_224",
+            "B": b, "S": s, "D": d, "H": h, "dtype": "bfloat16",
+            "device_ms": dev, "ms": cuda_ms(bwd, iters=50),
+            "plain_ms": cuda_ms(lambda: ea.encoder_attention_bwd_plain(
+                qkv, out, dout, lse, h), iters=5),
+            "library_device_ms": lib_dev,
+            "library_ms": library_attention_bwd_ms(qkv, dout, h),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "device_bound_share": bound_ms / dev,
+            "device_factor": dev / lib_dev, "card": smi}))
 
 
 # (B, S, D, H) at the edges of #2's tiles of 64 queries and 64 keys (one
-# row; one short of, at and one past a tile; two tiles) and ViT-L/16@384's
-# S = 577 at its width
+# row; one short of, at and one past a tile; two tiles), ViT-L/16@384's
+# S = 577 at its width and the presets' shapes
 BWD_EDGE_CASES = [(2, 1, 128, 2), (2, 63, 128, 2), (2, 64, 128, 2),
-                  (2, 65, 128, 2), (2, 128, 128, 2), (2, 577, 1024, 16)]
+                  (2, 65, 128, 2), (2, 128, 128, 2), (2, 577, 1024, 16),
+                  *PRESET_ENC_SHAPES.values()]
 
 
 def phase_bwd_checks(cfg) -> dict:
@@ -1128,10 +1230,11 @@ def savep_bound(b, s, d, num_heads, backward: bool):
 
 # (B, S, D, H) at the edges of #5's and #6's tiles of 64 rows and 64
 # keys (one row; one short of, at and one past a tile; two tiles), ViT-B
-# at B = 1 and ViT-L/16@384's S = 577 at its width
+# at B = 1, ViT-L/16@384's S = 577 at its width and the opt-in step of
+# phase 17(a) (vit_tiny_16_224, 3 heads)
 SAVEP_EDGE_CASES = [(2, 1, 128, 2), (2, 63, 128, 2), (2, 64, 128, 2),
                     (2, 65, 128, 2), (2, 128, 128, 2), (1, 197, 768, 12),
-                    (2, 577, 1024, 16)]
+                    (2, 577, 1024, 16), PRESET_ENC_SHAPES["vit_tiny_16_224"]]
 
 
 def phase_savep_checks(cfg) -> tuple[dict, dict]:
@@ -1356,26 +1459,30 @@ def _dropout_case(cfg_case, i, dtype, rate):
 
 def phase_encoder_dropout_checks(cfg) -> dict:
     """#1, #2, #5 and #6 with dropout 0.1 against their plain versions at
-    the bench_train microbatch (B=32), one row past a 64-row tile (S = 65)
-    and an odd shape, bf16 and fp32; the probe of each launch's mask; then
-    each timed at B=32 in bf16 with dropout 0.1 beside dropout 0. Returns
-    {kernel name: record} at B=32 bf16 with dropout."""
+    the bench_train microbatch (B=32), one row past a 64-row tile (S = 65),
+    an odd shape and the presets' microbatches, bf16 and fp32; the probe
+    of each launch's mask; then each timed at B=32 in bf16 with dropout
+    0.1 beside dropout 0. Returns {kernel name: record} at B=32 bf16 with
+    dropout."""
     d, h, s = cfg.embed_dim, cfg.num_heads, cfg.seq_len
     cases = [((32, s, d, h), torch.bfloat16), ((32, s, d, h), torch.float32),
              ((3, 17, 128, 2), torch.bfloat16),
              ((3, 17, 128, 2), torch.float32),
              ((2, 65, 128, 2), torch.bfloat16),
              ((2, 65, 128, 2), torch.float32)]
+    cases += [(c, dt) for c in PRESET_ENC_SHAPES.values()
+              for dt in (torch.bfloat16, torch.float32)]
     recs = [_dropout_case(c, i, dt, DROPOUT_RATE)
             for i, (c, dt) in enumerate(cases)]
     b32 = recs[0]
 
-    # one process, then a ViT-B TP rank's heads 6.. of 12 at rows 2..
-    for offsets in (None, (2, 12, 6)):
-        mismatches = encoder_mask_probe(4, 64, 3, DROPOUT_SEED,
+    # one process, then a ViT-B TP rank's heads 6.. of 12 at rows 2..; then
+    # vit_small_16_224's 6 heads at its microbatch (the probe reads S <= 64)
+    for b_, h_, offsets in ((4, 3, None), (4, 3, (2, 12, 6)), (8, 6, None)):
+        mismatches = encoder_mask_probe(b_, 64, h_, DROPOUT_SEED,
                                         offsets=offsets)
         log(json.dumps({"check": "encoder attention dropout mask probe",
-                        "shape": [4, 3, 64, 64], "offsets": offsets,
+                        "shape": [b_, h_, 64, 64], "offsets": offsets,
                         "rate": DROPOUT_RATE, "mismatches": mismatches}))
         check(all(v == 0 for v in mismatches.values()),
               f"an encoder-attention kernel's dropout mask differs from "
@@ -1465,13 +1572,17 @@ TOL_MLP_FP32 = 1e-5
 TOL_MLP_FP32_DU = 1e-3
 TOL_MLP_BF16 = 2.0 ** -7
 TOL_U_ABS = 2.0 ** -10
+# (n, D, M) of phase 17's opt-in steps: a microbatch of 8 x 197 rows of
+# vit_tiny_16_224 and of vit_small_16_224 (D = 192 is not a multiple of
+# the bf16 kernels' 128-wide tile)
+PRESET_MLP_SHAPES = [(1576, 192, 768), (1576, 384, 1536)]
 # (n, D, M): the bench_train microbatch (32 x 197 rows of ViT-B), three
 # images of it, and three of the DeiT-400 backbone's MLP; ViT-L's
 # microbatch (16 x 577 rows, D = 1,024; fp32 in two slices of 512
 # columns) and an odd n at that width; one image of ViT-H/14's MLP (D =
 # 1,280, M = 5,120), past the fp32 row-tile kernel's bound on D, which
 # bf16 does not have; widths that are not multiples of 8 (the kernels'
-# ragged route), in both dtypes
+# ragged route), in both dtypes; then the opt-in steps of phase 17
 MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (6304, 768, 3072, torch.float32),
              (591, 768, 3072, torch.bfloat16),
@@ -1487,7 +1598,9 @@ MLP_CASES = [(6304, 768, 3072, torch.bfloat16),
              (591, 37, 75, torch.bfloat16),
              (591, 37, 75, torch.float32),
              (1234, 100, 300, torch.bfloat16),
-             (1234, 100, 300, torch.float32)]
+             (1234, 100, 300, torch.float32),
+             *((n, d, m, dt) for n, d, m in PRESET_MLP_SHAPES
+               for dt in (torch.bfloat16, torch.float32))]
 # (n, D, M) timed on the ragged route in bf16, beside the aligned
 # neighbour it rounds up to
 MLP_RAGGED_TIMED = [(6304, 770, 3070), (6304, 776, 3072)]
@@ -2017,6 +2130,11 @@ GELU_ROUTES = ("table", "arithmetic")  # the bf16 forward's (ops/mlp.py)
 NORM_EPS = 1e-6
 TOL_NORM_FP32 = 1e-5
 TOL_NORM_BF16 = 2.0 ** -7
+# (rows, D, M) of phase 17's presets: a microbatch of 8 images of
+# vit_tiny_16_224, vit_small_16_224 and vit_demo_8_96, and
+# detector_demo_96's DETR head at B = 4 (10 queries, ffn 512)
+PRESET_NORM_SHAPES = ((1576, 192, 768), (1576, 384, 1536), (1160, 192, 768),
+                      (40, 192, 512))
 NORM_TIMED = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
               "vit_l": (9232, 1024, 4096), "serve_b1": (197, 768, 3072)}
 # The bf16 GELU forward's two routes timed at rows x 3,072 from B = 1
@@ -2212,6 +2330,8 @@ def phase_norm_kernel_checks() -> dict:
     cases = [(r, d, xdt, sdt, 0) for d in NORM_WIDTHS for r in NORM_ROWS
              for xdt in NORM_DTYPES for sdt in NORM_DTYPES]
     cases += [(197, 768, xdt, xdt, 1) for xdt in NORM_DTYPES]  # unaligned
+    cases += [(r, d, xdt, sdt, 0) for r, d, _ in PRESET_NORM_SHAPES
+              for xdt in NORM_DTYPES for sdt in NORM_DTYPES]
     by_output = {}  # (output, its dtype): ulps and errors over all cases
     for rows, d, xdt, sdt, offset in cases:
         rec = ln_case(rows, d, xdt, sdt, gen, offset)
@@ -2238,7 +2358,9 @@ def phase_norm_kernel_checks() -> dict:
                 a[m] = max(a[m], v[m])
     log(json.dumps({"check": "LayerNorm kernels against their plain "
                     "versions", "cases": len(cases), "rows": NORM_ROWS,
-                    "widths": NORM_WIDTHS, "by_output": by_output,
+                    "widths": NORM_WIDTHS,
+                    "preset_shapes": PRESET_NORM_SHAPES,
+                    "by_output": by_output,
                     "tol_fp32_of_top": TOL_NORM_FP32,
                     "tol_bf16_of_value": TOL_NORM_BF16,
                     "forward_bits_repeat": True,
@@ -2259,6 +2381,7 @@ def phase_norm_kernel_checks() -> dict:
     worst.update(gelu_fwd=0.0, gelu_bwd=0.0)
     inputs = [(f"{r}x{w}", r * w, 0) for w in GELU_WIDTHS for r in NORM_ROWS]
     inputs += [("tail_1001", 1001, 0), ("unaligned", 197 * 768, 1)]
+    inputs += [(f"{r}x{m}", r * m, 0) for r, _, m in PRESET_NORM_SHAPES]
     totals = {}
     for dtype in NORM_DTYPES:
         ways = [f"fwd_{r}" for r in gelu_routes(dtype)] + ["bwd"]
@@ -2584,7 +2707,13 @@ def phase_lap_checks() -> dict:
 # TOL_LAP_OPTIMUM of scipy's optimum.
 MATCH_CASES = [("deit_detector_ref", (6, 32, 5, 25)),
                ("vit_base_detector", (6, 32, 100, 25)),
-               ("eval_one_layer", (1, 32, 5, 25))]
+               ("eval_one_layer", (1, 32, 5, 25)),
+               # phase 17(d)'s detector_demo_96 step (3 decoder layers, 10
+               # queries, 25 slots), its eval forward, and the slots of
+               # benchmarks/detection_generalization_demo.py (8)
+               ("detector_demo_96", (3, 4, 10, 25)),
+               ("detector_demo_96_eval", (1, 4, 10, 25)),
+               ("detector_demo_96_8_slots", (3, 4, 10, 8))]
 MATCH_TIMED = "deit_detector_ref"
 MATCH_CLASSES = 7  # the presets' C + 1
 TOL_MATCH_ULPS = 4
@@ -2790,25 +2919,9 @@ def offset_leaf(n, gen, which: str):
 ADAMW_HOLD_CYCLES = 8_000_000
 
 
-def phase_adamw_checks(cfg) -> dict:
-    """#7 against its plain version on the ViT-B leaf set, odd sizes and
-    two leaves that are views one float into their storage (all four
-    operands: a scalar head, then float4s; p alone: mixed 16-byte phases,
-    scalar throughout); then timed on the ViT-B leaf set, host-paced, held
-    (device ms) and on the host alone (us a call), beside the fused
-    torch.optim.AdamW step on the same leaves."""
-    tree = init_image_classifier(cfg, 6, seed=0)
-    odd = {"a": torch.zeros(7), "b": torch.zeros(1000, 3),
-           "c": torch.zeros(13, 129), "d": torch.zeros(2049)}
-    gen = torch.Generator().manual_seed(11)
-    vit = adamw_leaves(tree, gen)
-    vflags = tree_leaves(_wd_mask(tree))
-    leaves = vit + adamw_leaves(odd, gen) + [
-        offset_leaf(100_003, gen, "gmvp"), offset_leaf(70_001, gen, "p")]
-    decayed = vflags + tree_leaves(_wd_mask(odd)) + [True, False]
-    n = sum(p.numel() for *_, p in leaves)
-    scalars = torch.tensor([0.5, 0.1, 0.001, 1e-3], device="cuda")
-    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
+def adamw_case(name, leaves, decayed, scalars, hyper) -> float:
+    """#7 over `leaves` against its plain version, leaf by leaf; logs the
+    case and returns its largest error."""
     work = [tuple(t.clone() for t in leaf) for leaf in leaves]
     fused_adamw.fused_adamw(scalars, *zip(*work), decayed, **hyper)
     torch.cuda.synchronize()
@@ -2818,10 +2931,40 @@ def phase_adamw_checks(cfg) -> dict:
             scalars, g, m, v, p, **{**hyper, "wd": hyper["wd"] if dflag
                                     else 0.0})
         err = max(err, max_err(p2, rp), max_err(m2, rm), max_err(v2, rv))
-    log(json.dumps({"check": "fused_adamw", "leaves": len(leaves),
-                    "params": n, "max_abs_err": err}))
-    check(err <= TOL_ADAMW, f"fused_adamw disagrees with its plain version: "
-                            f"{err}")
+    log(json.dumps({"check": "fused_adamw", "case": name,
+                    "leaves": len(leaves),
+                    "params": sum(p.numel() for *_, p in leaves),
+                    "max_abs_err": err}))
+    check(err <= TOL_ADAMW, f"fused_adamw disagrees with its plain version "
+                            f"on {name}: {err}")
+    return err
+
+
+def phase_adamw_checks(cfg) -> dict:
+    """#7 against its plain version on the ViT-B leaf set, odd sizes and
+    two leaves that are views one float into their storage (all four
+    operands: a scalar head, then float4s; p alone: mixed 16-byte phases,
+    scalar throughout), and on the ViT-Tiny leaf set; then timed on the
+    ViT-B leaf set, host-paced, held (device ms) and on the host alone (us
+    a call), beside the fused torch.optim.AdamW step on the same
+    leaves."""
+    tree = init_image_classifier(cfg, 6, seed=0)
+    odd = {"a": torch.zeros(7), "b": torch.zeros(1000, 3),
+           "c": torch.zeros(13, 129), "d": torch.zeros(2049)}
+    gen = torch.Generator().manual_seed(11)
+    vit = adamw_leaves(tree, gen)
+    vflags = tree_leaves(_wd_mask(tree))
+    leaves = vit + adamw_leaves(odd, gen) + [
+        offset_leaf(100_003, gen, "gmvp"), offset_leaf(70_001, gen, "p")]
+    decayed = vflags + tree_leaves(_wd_mask(odd)) + [True, False]
+    scalars = torch.tensor([0.5, 0.1, 0.001, 1e-3], device="cuda")
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
+    err = adamw_case("vit_base_16_224, odd sizes, offset views", leaves,
+                     decayed, scalars, hyper)
+    # vit_tiny_16_224's leaf set alone, as phase 17's steps update it
+    tiny = init_image_classifier(PRESETS["vit_tiny_16_224"], 6, seed=0)
+    adamw_case("vit_tiny_16_224", adamw_leaves(tiny, gen),
+               tree_leaves(_wd_mask(tiny)), scalars, hyper)
 
     # timing on the ViT-B leaf set alone
     n_vit = sum(p.numel() for *_, p in vit)
@@ -2873,9 +3016,10 @@ def top2_margin(probs: np.ndarray) -> np.ndarray:
     return top[..., -1] - top[..., -2]
 
 
-def phase_model(cfg, params, images, batch):
-    """fp32 on the card against the CPU plain path; bf16 against fp32.
-    Returns (bf16 classifier, number of CUDA forwards run)."""
+def phase_model(cfg, params, images, batch, name="vit_base_16_224"):
+    """fp32 on the card against the CPU plain path; bf16 against fp32, for
+    the preset `name`. Returns (bf16 classifier, number of CUDA forwards
+    run)."""
     n = 6
     cpu = StreamingClassifier(params, cfg, n, compute_dtype=torch.float32,
                               device="cpu")
@@ -2894,11 +3038,11 @@ def phase_model(cfg, params, images, batch):
     probs_cpu = np.stack([r[2] for r in ref] + list(probs_cpu_b))
     probs32 = np.stack([r[2] for r in p32] + list(probs32_b))
     probs16 = np.stack([r[2] for r in p16] + list(probs16_b))
-    for name, p in (("fp32", probs32), ("bf16", probs16)):
-        check(p.shape == (len(images) + len(batch), n), f"{name} shape")
-        check(bool(np.isfinite(p).all()), f"{name} non-finite probs")
+    for dtype, p in (("fp32", probs32), ("bf16", probs16)):
+        check(p.shape == (len(images) + len(batch), n), f"{dtype} shape")
+        check(bool(np.isfinite(p).all()), f"{dtype} non-finite probs")
         check(bool(np.allclose(p.sum(-1), 1.0, atol=1e-4)),
-              f"{name} probs do not sum to 1")
+              f"{dtype} probs do not sum to 1")
     e32 = float(np.abs(probs32 - probs_cpu).max())
     e16 = float(np.abs(probs16 - probs32).max())
     # argmax must agree wherever the reference's top two are further
@@ -2909,7 +3053,7 @@ def phase_model(cfg, params, images, batch):
     agree32 = probs32.argmax(-1) == probs_cpu.argmax(-1)
     agree16 = probs16.argmax(-1) == probs32.argmax(-1)
     log(json.dumps({
-        "check": "vit_base_16_224 classify", "images": len(probs32),
+        "check": f"{name} classify", "images": len(probs32),
         "max_abs_err_probs_fp32_cuda_vs_cpu": e32,
         "max_abs_err_probs_bf16_vs_fp32": e16,
         "argmax_fp32_vs_cpu": f"{int(agree32.sum())}/{len(agree32)}",
@@ -2934,7 +3078,8 @@ def phase_model(cfg, params, images, batch):
             t.append(time.perf_counter() - t0)
         forwards += 11
         log(json.dumps({"timing": "StreamingClassifier.infer_batch bf16",
-                        "B": b, "p50_ms": float(np.median(t) * 1e3),
+                        "preset": name, "B": b,
+                        "p50_ms": float(np.median(t) * 1e3),
                         "min_ms": float(np.min(t) * 1e3)}))
     return gpu16, forwards
 
@@ -2981,14 +3126,15 @@ def parity_batches(batch: int) -> list[dict]:
 
 
 def phase_train_parity(cfg, route: str = "default", batch: int = 8,
-                       **overrides) -> dict:
+                       batches=None, **overrides) -> dict:
     """(a) 2 fp32 steps of `batch` as 2 microbatches, crop/flip, on the
-    card and on the CPU from the same init, batches and draws, on the
-    route the caller's switches select; `overrides` change the config
-    (phase 11(c): attention dropout; phase 15(c): a distilled student,
-    whose loss_distill is held as the loss)."""
+    card and on the CPU from the same init, batches (`parity_batches`
+    unless given) and draws, on the route the caller's switches select;
+    `overrides` change the config (phase 11(c): attention dropout; phase
+    15(c): a distilled student, whose loss_distill is held as the loss;
+    phase 17: the preset and its canvas)."""
     tcfg = train_cfg(batch_size=batch, grad_accum=2, bf16=False, **overrides)
-    batches = parity_batches(batch)
+    batches = batches or parity_batches(batch)
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -3303,16 +3449,17 @@ def site_launches(model, replays: int = 0) -> int:
 
 def classifier_launches(depth: int, micro: int, steps: int,
                         eval_forwards: int, opt_in: bool,
-                        dropout: bool = False) -> dict:
+                        dropout: bool = False,
+                        dtype=torch.bfloat16) -> dict:
     """Launches of the classifier's training path: `steps` steps of `micro`
     microbatches, then `eval_forwards` eval forwards. Default route: #1
     and #2 per layer and microbatch. Opt-in route (both switches): #5, #6,
     #8 and #9 per layer and microbatch, and each eval forward #1 and #8 per
     layer. One AdamW launch a step; each backward call launches two
-    kernels, and so does each bf16 call of #8. With attention `dropout`,
-    every training launch of #1/#2 or #5/#6 runs the dropout branch; eval
-    forwards never do. The LayerNorm and GELU kernels as `norm_launches`
-    counts them (no GELU kernel on the opt-in route)."""
+    kernels, and so does each call of #8 in bf16 (`dtype`; one in fp32). With
+    attention `dropout`, every training launch of #1/#2 or #5/#6 runs the
+    dropout branch; eval forwards never do. The LayerNorm and GELU kernels as
+    `norm_launches` counts them (no GELU kernel on the opt-in route)."""
     counts = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     counts.update(norm_launches(types.SimpleNamespace(depth=depth),
                                 forwards=eval_forwards, micro=micro * steps,
@@ -3325,7 +3472,7 @@ def classifier_launches(depth: int, micro: int, steps: int,
         counts["encoder_attention_bwd_savep"] = (
             layers * encoder_attention.SAVEP_BWD_LAUNCHES_PER_CALL)
         counts["fused_mlp_fwd"] = (layers + depth * eval_forwards) * (
-            fused_mlp.FWD_LAUNCHES_PER_CALL[torch.bfloat16])
+            fused_mlp.FWD_LAUNCHES_PER_CALL[dtype])
         counts["fused_mlp_bwd"] = layers * fused_mlp.BWD_LAUNCHES_PER_CALL
     else:
         counts["encoder_attention_fwd"] += layers
@@ -4059,7 +4206,7 @@ def clone_state(state) -> dict:
             "step": state["step"]}
 
 
-def phase_det_train_parity() -> dict:
+def phase_det_train_parity(tcfg=None, size: int = 256) -> dict:
     """(a) 2 fp32 steps of batch 4 at `deit_detector_ref` with the preset's
     residual and positional dropout 0.1 (every mask a function of the
     site's seed and global indices: the apply kernel on the card, its plain
@@ -4067,11 +4214,13 @@ def phase_det_train_parity() -> dict:
     attention masks would add ~20-30 s of the CPU's time; the
     kernels' masks are held by phase 3's probes and 11(c)), detection
     augmentation on, on the card and on the CPU from the same init,
-    batches and draws."""
-    tcfg = det_train_cfg(batch_size=4, bf16=False, warmup_steps=1,
-                         attn_dropout=0.0)
+    batches and draws; or (phase 17(d)) the config `tcfg` on images of
+    `size`."""
+    tcfg = tcfg or det_train_cfg(batch_size=4, bf16=False, warmup_steps=1,
+                                 attn_dropout=0.0)
     rng = np.random.default_rng(9)
-    batches = [det_random_batch(rng, 4) for _ in range(2)]
+    batches = [det_random_batch(rng, 4, size, tcfg.max_objects)
+               for _ in range(2)]
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -4098,9 +4247,10 @@ def phase_det_train_parity() -> dict:
                   for a, b in zip(m_gpu, m_cpu)) for k in DET_METRICS}
     same_matches = len(a_gpu) == len(a_cpu) and all(
         torch.equal(a, b) for a, b in zip(a_gpu, a_cpu))
-    rec = {"check": "detector train step fp32 cuda vs cpu", "batch": 4,
-           "steps": 2, "dropout": 0.1, "attn_dropout": 0.0,
-           "augment": "detection",
+    rec = {"check": "detector train step fp32 cuda vs cpu",
+           "preset": tcfg.preset, "batch": 4, "steps": 2,
+           "dropout": resolve_detector(tcfg).head.dropout,
+           "attn_dropout": tcfg.attn_dropout, "augment": tcfg.augment,
            "metrics_cuda": m_gpu, "metrics_cpu": m_cpu,
            "max_rel_err": rel,
            "rel_l2_err_update": float((upd_gpu - upd_cpu).norm()
@@ -4914,16 +5064,15 @@ def phase_entry_point(cfg, smi) -> dict:
 # config. (d) InferenceServer.from_checkpoint on the card: four of the
 # tree's JPEGs through /classify against classify_path on the same files
 # (the PIL route, the decoder the server uses for request bodies), #1 at
-# depth x forwards and no other kernel; then `python -m
-# arsvt_tpu_torch.serving.server --checkpoint-dir` as a subprocess:
-# /healthz with backend cuda and one /classify against the in-process
-# answer. (e) train.cli.main on the COCO root with deit_detector_ref's
-# recipe (batch 8, 2 steps, checkpoint at 2): #3 and #4 with their
-# dropout branches and #7 once a step; the eval CLI's mAP/AP50/AP75
-# against evaluate_detector in-process on the card over the same batches;
-# from_checkpoint's /detect against detect_path on the same files, served
-# from a params-only copy with a seeded class head (the trained one's
-# scores stay under the 0.5 threshold).
+# depth x forwards and no other kernel (13(d) runs `python -m
+# arsvt_tpu_torch.serving.server` as a subprocess). (e) train.cli.main on
+# the COCO root with deit_detector_ref's recipe (batch 8, 2 steps,
+# checkpoint at 2): #3 and #4 with their dropout branches and #7 once a
+# step; the eval CLI's mAP/AP50/AP75 against evaluate_detector in-process
+# on the card over the same batches; from_checkpoint's /detect against
+# detect_path on the same files, served from a params-only copy with a
+# seeded class head (the trained one's scores stay under the 0.5
+# threshold).
 DISK_SIZES = ((224, 224), (180, 240), (300, 200))  # (height, width)
 DISK_PER_CLASS = 16
 DISK_CANVAS = 256  # vit_base_finetune's canvas
@@ -5014,9 +5163,10 @@ def phase_disk_data(tmp, smi) -> tuple[str, str, list[str]]:
     return tree, coco, paths
 
 
-def cpu_fp32_probs(params, batches, backbone_cfg, num_classes):
+def cpu_fp32_probs(params, batches, backbone_cfg, num_classes,
+                   normalize: bool = True):
     """evaluate_classifier's arithmetic on the CPU in fp32, per image:
-    (probs (N, C), labels (N,))."""
+    (probs (N, C), labels (N,)); `normalize` as its normalize_inputs."""
     from arsvt_tpu_torch.data.augment import eval_preprocess
     from arsvt_tpu_torch.models.classifier import apply_image_classifier
 
@@ -5024,7 +5174,8 @@ def cpu_fp32_probs(params, batches, backbone_cfg, num_classes):
     with torch.inference_mode():
         for b in batches:
             x = to_unit_float(torch.from_numpy(b["image"]), torch.float32)
-            x = eval_preprocess(x, size=backbone_cfg.image_size)
+            if normalize:
+                x = eval_preprocess(x, size=backbone_cfg.image_size)
             logits = apply_image_classifier(params, x, backbone_cfg,
                                             num_classes)
             probs.append(torch.softmax(logits, -1).numpy())
@@ -5038,9 +5189,11 @@ def confusion(pred, labels, n) -> np.ndarray:
     return out
 
 
-def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi) -> dict:
-    """(c) on one checkpoint: the eval CLI on the card (launches exact)
-    against evaluate_classifier in fp32 on the CPU. Returns the launches."""
+def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi,
+                    step: int = 3) -> dict:
+    """(c) on one checkpoint of `step`: the eval CLI on the card (launches
+    exact) against evaluate_classifier in fp32 on the CPU. Returns the
+    launches."""
     from arsvt_tpu_torch.data.pipeline import classification_batches
     from arsvt_tpu_torch.evaluation import cli as eval_cli
     from arsvt_tpu_torch.serving.loading import load_inference_bundle
@@ -5058,7 +5211,7 @@ def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi) -> dict:
                 **norm_launches(bb, forwards=n_batches)})
     with open(out) as f:
         saved = json.load(f)
-    check(saved["step"] == 3 and saved["split"] == "valid",
+    check(saved["step"] == step and saved["split"] == "valid",
           f"eval CLI --out {saved}")
 
     def batches():
@@ -5066,10 +5219,12 @@ def eval_cli_vs_cpu(run, ckpt_dir, tree, val, title, smi) -> dict:
             val, batch_size=EVAL_CLI_BATCH, canvas=input_canvas(tcfg),
             repeat=False, shuffle=False, drop_remainder=False)
 
+    # the train step's eval contract: an augmented config normalizes
+    normalize = tcfg.augment != "none"
     ref = evaluate_classifier(params, batches(), bb, n,
                               compute_dtype=torch.float32,
-                              normalize_inputs=True, device="cpu")
-    probs, labels = cpu_fp32_probs(params, batches(), bb, n)
+                              normalize_inputs=normalize, device="cpu")
+    probs, labels = cpu_fp32_probs(params, batches(), bb, n, normalize)
     pred = probs.argmax(-1)
     conf_cpu = np.asarray(ref["confusion_matrix"])
     check((confusion(pred, labels, n) == conf_cpu).all(),
@@ -5129,8 +5284,8 @@ def free_port() -> int:
 
 def served_subprocess(source, body, answer, tmp, smi) -> None:
     """`python -m arsvt_tpu_torch.serving.server` on `source`
-    (["--checkpoint-dir", dir] in 12(d), ["--artifact", file] in 13(d)):
-    /healthz, then one /classify against the in-process `answer`."""
+    (["--artifact", file] in 13(d)): /healthz, then one /classify against
+    the in-process `answer`."""
     port = free_port()
     url = f"http://127.0.0.1:{port}"
     env = {k: v for k, v in os.environ.items() if k != "ARSVT_PLATFORM"}
@@ -5182,9 +5337,9 @@ def served_subprocess(source, body, answer, tmp, smi) -> None:
             proc.wait(timeout=30)
 
 
-def serve_classifier(ckpt_dir, picks, tmp, smi) -> dict:
-    """(d) in process, then as a subprocess. Returns the in-process
-    launches."""
+def serve_classifier(ckpt_dir, picks, smi) -> dict:
+    """(d) in process (13(d) runs the server's main() as a subprocess).
+    Returns the launches."""
     depth = PRESETS["vit_base_16_224"].depth
     bodies = []
     for path in picks:
@@ -5242,9 +5397,6 @@ def serve_classifier(ckpt_dir, picks, tmp, smi) -> dict:
           f"{rec}")
     check(counts == expected, f"served checkpoint launches {counts} != "
                               f"{expected}")
-    log("# phase 12(d): the server's main() as a subprocess")
-    served_subprocess(["--checkpoint-dir", ckpt_dir], bodies[0], answers[0],
-                      tmp, smi)
     return counts
 
 
@@ -5407,7 +5559,7 @@ def phase_disk(smi, tmp) -> tuple[dict, str]:
     log("# phase 12(d): InferenceServer.from_checkpoint, /classify")
     # one file of each of four classes, at the three sizes
     picks = [paths[c * DISK_PER_CLASS + c] for c in range(4)]
-    add_counts(total, serve_classifier(seeded, picks, tmp, smi))
+    add_counts(total, serve_classifier(seeded, picks, smi))
 
     log("# phase 12(e): deit_detector_ref from the COCO root")
     add_counts(total, phase_disk_detector(tmp, coco, smi))
@@ -5439,9 +5591,10 @@ def phase_disk(smi, tmp) -> tuple[dict, str]:
 # shapes: probs within TOL_ARTIFACT_PROBS and classes equal; boxes within
 # TOL_ARTIFACT_BOXES, labels and valid equal); the loaded artifacts'
 # launches of #1 and #3; the bf16 classify artifact moved to the CPU
-# against the CPU engine. (d) python -m arsvt_tpu_torch.serving.export on
-# phase 12's seeded checkpoint, then the artifact through from_artifact in
-# process and python -m arsvt_tpu_torch.serving.server --artifact:
+# against the CPU engine. (d) the export CLI (serving/export.py's main(),
+# in this process) on phase 12's seeded checkpoint, then the artifact
+# through from_artifact in process and, as a subprocess, python -m
+# arsvt_tpu_torch.serving.server --artifact:
 # /healthz and one /classify against the in-process answer.
 TOL_INT8_REL_CLF = 0.08
 TOL_INT8_REL_DET = 0.1
@@ -5663,21 +5816,20 @@ def load_counted(path, forwards_per_call, launch_name, depth, model):
 
 
 def export_cli(seeded_ckpt, smi, tmp) -> str:
-    """(d) `python -m arsvt_tpu_torch.serving.export` on phase 12's seeded
-    checkpoint (bf16). Returns the artifact's path."""
+    """(d) the export CLI, `arsvt_tpu_torch.serving.export.main`, in this
+    process on phase 12's seeded checkpoint (bf16; 13(c) exports in
+    process too, and the served artifact below starts a process of its
+    own). Returns the artifact's path."""
+    from arsvt_tpu_torch.serving import export
+
     out = os.path.join(tmp, "cli.pt2")
-    env = {k: v for k, v in os.environ.items() if k != "ARSVT_PLATFORM"}
-    root = os.path.dirname(os.path.abspath(__file__))
+    printed = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "arsvt_tpu_torch.serving.export",
-         "--checkpoint-dir", seeded_ckpt, "--out", out], cwd=root, env=env,
-        capture_output=True, text=True, timeout=SERVER_START_S)
+    with contextlib.redirect_stdout(printed):
+        export.main(["--checkpoint-dir", seeded_ckpt, "--out", out])
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0,
-          f"the export CLI failed:\n{proc.stderr[-3000:]}")
-    manifest = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(json.dumps({"check": "python -m arsvt_tpu_torch.serving.export",
+    manifest = json.loads(printed.getvalue().strip().splitlines()[-1])
+    log(json.dumps({"check": "the export CLI (serving/export.py main)",
                     "manifest": manifest, "seconds": seconds,
                     "bytes": os.path.getsize(out), "card": smi}))
     check(manifest["task"] == "classify" and manifest["normalize_inputs"]
@@ -5705,7 +5857,7 @@ def phase_export(cfg, params, det_params, seeded_ckpt, cli_path, smi,
         name = quantize or "bf16"
         if quantize is None:  # the CLI's artifact, of the checkpoint
             path, clf_params, clf_cfg = cli_path, ckpt_params, ckpt_cfg
-            rec = {"export": "python -m arsvt_tpu_torch.serving.export"}
+            rec = {"export": "the export CLI (serving/export.py main)"}
         else:
             path, clf_params, clf_cfg = (
                 os.path.join(tmp, f"classify_{name}.pt2"), params, cfg)
@@ -5814,7 +5966,7 @@ def phase_int8_export(cfg, params, seeded_ckpt, smi, tmp) -> dict:
     log("# phase 13(b): deit_detector_ref int8 against bf16")
     counts, det_params = phase_int8_detect(smi)
     add_counts(total, counts)
-    log("# phase 13(d): the export CLI")
+    log("# phase 13(d): the export CLI, in process")
     cli_path = export_cli(seeded_ckpt, smi, tmp)
     log("# phase 13(c): artifacts exported and loaded on the card")
     add_counts(total, phase_export(cfg, params, det_params, seeded_ckpt,
@@ -5847,15 +5999,19 @@ TENSOR_CORE_LIBRARIES = ATTENTION_TILE_LIBRARIES + MLP_LIBRARIES
 # cut to 2 layers, B = 4, residual and attention dropout 0.1, fp32: each
 # remat policy against no remat on the card (loss and gradients), on both
 # routes, and one remat step on the card against the CPU; (c) the launches
-# of (b), held to the table `REMAT_TABLE`; (d) ViT-L at full depth, bf16,
-# one microbatch of 16: peak memory and ms/step for no remat and each
-# policy; (e) the preset as it stands (batch 256 as one microbatch), one
-# warm and 3 timed steps, profiled once, and bench.py's ViT-L
-# configuration (batch 32 as 2 x 16, no remat); (f) train.cli.main with
-# the preset, batch 32 as 2 x 16, 2 steps, a checkpoint and an eval at
-# 384; (g) one deit_detector_ref step with remat and the taps warp.
+# of (b), held to the table `REMAT_TABLE`; (d) ViT-L's width at 12 of its
+# 24 layers, bf16, one microbatch of 16: peak memory and ms/step for no
+# remat and each policy; (e) the preset as it stands (batch 256 as one
+# microbatch), one warm and 3 timed steps, profiled once, and bench.py's
+# ViT-L configuration (batch 32 as 2 x 16, no remat) at 12 layers; (f)
+# train.cli.main with the preset, batch 32 as 2 x 16, 2 steps, a
+# checkpoint and an eval at 384; (g) one deit_detector_ref step with remat
+# and the taps warp.
 VITL = "vit_large_16_384"
 VITL_D2 = "vit_large_16_384_depth2"  # registered in PRESETS by phase 14
+# ViT-L's width at half its depth: 14(d)'s policies and 14(e)'s bench.py
+# configuration (registered in PRESETS by phase 14)
+VITL_D12 = "vit_large_16_384_depth12"
 # augmentation card against CPU in fp32: the same formulas, the band
 # products and reductions summed in other orders: 1e-4 on [0, 1] pixels
 TOL_AUG = 1e-4
@@ -6147,14 +6303,15 @@ def time_steps(step, state, batch, warm: int, timed: int):
 
 
 def phase_remat_cost(smi) -> None:
-    """14(d)."""
-    cfg = PRESETS[VITL]
+    """14(d), at VITL_D12."""
+    cfg = PRESETS[VITL_D12]
     gen = torch.Generator(device="cuda").manual_seed(17)
     batch = {"image": torch.rand((16, 384, 384, 3), generator=gen,
                                  device="cuda"),
              "label": torch.randint(0, 6, (16,), generator=gen,
                                     device="cuda")}
-    base = TrainConfig(preset=VITL, batch_size=16, grad_accum=1, bf16=True,
+    base = TrainConfig(preset=VITL_D12, batch_size=16, grad_accum=1,
+                       bf16=True,
                        augment="none", warmup_steps=1, total_steps=10**6)
     init_fn, _, _ = make_classifier_step_fns(base)
     state = fresh_vitl_state(init_fn)
@@ -6168,8 +6325,8 @@ def phase_remat_cost(smi) -> None:
         check(all(np.isfinite(losses)), f"remat cost {policy}: {losses}")
         rows[policy] = {"ms_per_step": ms, "peak_memory_gb": peak,
                         "peak_over_state_gb": peak - state_gb}
-    log(json.dumps({"timing": "remat policies, ViT-L/16@384 24 layers, bf16, "
-                    "one microbatch of 16, default route",
+    log(json.dumps({"timing": f"remat policies, ViT-L/16@384 {cfg.depth} "
+                    "layers, bf16, one microbatch of 16, default route",
                     "state_gb": state_gb, "policies": rows, "card": smi}))
     order = sorted(rows, key=lambda k: rows[k]["peak_memory_gb"])
     log(json.dumps({"peak_memory_order": order}))
@@ -6236,8 +6393,9 @@ def phase_recipe_train(smi) -> dict:
     check_recipe_attention(cfg, tcfg.batch_size // tcfg.grad_accum)
 
     log("# phase 14(e): bench.py's ViT-L configuration, 32 as 2 x 16, no "
-        "remat")
-    bcfg = tcfg.with_overrides(batch_size=32, grad_accum=2, remat=False)
+        "remat, 12 layers")
+    bcfg = tcfg.with_overrides(preset=VITL_D12, batch_size=32, grad_accum=2,
+                               remat=False)
     init_fn, step, _ = make_classifier_step_fns(bcfg)
     state = fresh_vitl_state(init_fn)
     batch = batch_of(tcfg, gen, 32)
@@ -6245,13 +6403,16 @@ def phase_recipe_train(smi) -> dict:
     state, ms, losses, peak = time_steps(step, state, batch, 1, 3)
     counts = read_counts()
     add_counts(total, counts)
-    want = remat_launches(cfg.depth, 2, 4, 0, replay=1)
+    half = PRESETS[VITL_D12]
+    want = remat_launches(half.depth, 2, 4, 0, replay=1)
     check(counts == want, f"bench ViT-L launches {counts} != {want}")
     log(json.dumps({"timing": "train step vit_large_384, bench.py:350-355 "
-                    "(batch 32 as 2 x 16, no remat)", "ms_per_step": ms,
+                    "(batch 32 as 2 x 16, no remat) at 12 of ViT-L's 24 "
+                    "layers", "ms_per_step": ms,
                     "train_images_per_s": 32 / ms * 1e3,
                     "peak_memory_gb": peak,
-                    "model_tflop_per_s_3x": 3 * gflop * 32 / ms,
+                    "model_tflop_per_s_3x":
+                        3 * backbone_fwd_gflops(half) * 32 / ms,
                     "losses": losses, "card": smi}))
     check(all(np.isfinite(losses)), f"bench ViT-L losses {losses}")
     return total
@@ -6428,7 +6589,8 @@ def phase_vit_large(smi) -> dict:
     phase_recipe_augment(smi)
     log("# phase 14(b)-(c): remat policies at ViT-L width, depth 2")
     add_counts(total, phase_remat_checks())
-    log("# phase 14(d): remat cost per policy, ViT-L 24 layers, 16 images")
+    log("# phase 14(d): remat cost per policy, ViT-L 12 layers, 16 images")
+    PRESETS[VITL_D12] = dataclasses.replace(PRESETS[VITL], depth=12)
     phase_remat_cost(smi)
     log("# phase 14(e): TRAIN_PRESETS['vit_large_384'] as it stands")
     add_counts(total, phase_recipe_train(smi))
@@ -6458,7 +6620,7 @@ def phase_vit_large(smi) -> dict:
 # against the CPU at phase 11(c)'s limits. (d) bf16 with the preset's dropout and
 # attention dropout 0.1, batch 64 as 2 x 32, crop/flip on the 256 canvas,
 # fused AdamW: the same steps without a teacher (peak memory's
-# reference), then 2 warm-up and 5 timed steps a mode: ms/step, img/s,
+# reference), then 1 warm-up and 3 timed steps a mode: ms/step, img/s,
 # peak memory, the busy share, the student's TFLOP/s (the Trainer's
 # count) and the teacher's forward GFLOP. (e) train.cli.main with
 # --distillation soft for 2 steps, a checkpoint and an eval. (f) one step
@@ -6838,7 +7000,7 @@ def phase_distill_bench(teacher, tmp, smi) -> dict:
 
     total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     cfg = PRESETS[DISTILL_STUDENT]
-    micro, warm, timed = 2, 2, 5
+    micro, warm, timed = 2, 1, 3
     base = train_cfg(preset=DISTILL_STUDENT, batch_size=64, grad_accum=micro,
                      bf16=True)
     gen = torch.Generator(device="cuda").manual_seed(25)
@@ -7276,6 +7438,359 @@ def phase_parallel(smi) -> dict:
     return total
 
 
+# Phase 17: the four presets of arsvt_tpu_torch/models/registry.py that no
+# other phase runs, at full width and depth through their entry points,
+# each part's launches held exactly. (a) vit_tiny_16_224, BASELINE config
+# #1 (the vit_tiny_eval train preset, batch 8, bf16): train.cli.main from
+# a TrashNet tree for 2 steps with a checkpoint; evaluation.cli.main on it
+# (and on a copy with a seeded head) against evaluate_classifier in fp32
+# on the CPU (phase 12(c)'s rule); StreamingClassifier fp32 card vs CPU
+# and bf16 vs fp32 at B = 1 and 8 (phase 4's limits); /classify p50 and
+# p99 at B = 1 over PRESET_REQUESTS requests on the server's clock beside
+# ViT-B/16's; an fp32 step (2 microbatches of 4) card vs CPU on each route
+# (phase 7(a)'s limits, TOL_TRAIN_*). (b) vit_small_16_224: phase 4's
+# forwards and one fp32 step on each route. (c) vit_demo_8_96 (96 px,
+# patch 8, S = 145): phase 4's forwards, and an fp32 crop/flip step on the
+# demo's 112 canvas with batches of `synthetic_shape_image`. (d)
+# detector_demo_96: StreamingDetector fp32 card vs CPU, bf16 vs fp32 and
+# post_process (phase 8's limits); two fp32 steps of batch 4 card vs CPU
+# (TOL_DET_TRAIN_*, matched pairs equal) on the device matcher, in
+# benchmarks/detection_generalization_demo.py's configuration (no
+# dropout, no augmentation) with 25 box slots.
+PRESET_REQUESTS = 100
+PRESET_CLI_STEPS = 2
+PRESET_CLI_ARGS = ["--train-preset", "vit_tiny_eval", "--steps",
+                   str(PRESET_CLI_STEPS), "--eval-every",
+                   str(PRESET_CLI_STEPS), "--checkpoint-every",
+                   str(PRESET_CLI_STEPS), "--log-every", "1"]
+DEMO_CANVAS = 112  # benchmarks/classification_generalization_demo.py's
+
+
+def held_path(total: dict, name: str, fn, expected):
+    """Run `fn` with every count zeroed just before it and read just after
+    it; hold the launches to `expected` (a dict of the counts that are not
+    0, or a function of what `fn` returned that gives one) exactly, and add
+    them to `total`. Returns what `fn` returned."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**dict.fromkeys(counts, 0),
+            **(expected(out) if callable(expected) else expected)}
+    log(json.dumps({"launches": {k: v for k, v in counts.items() if v},
+                    "path": name}))
+    check(counts == want, f"{name}: launches {counts} != {want}")
+    add_counts(total, counts)
+    return out
+
+
+def serving_launches(cfg, forwards: int) -> dict:
+    """A classifier's forwards without a gradient: #1 once a layer, the
+    LayerNorm and GELU kernels as `norm_launches` counts them."""
+    return {"encoder_attention_fwd": cfg.depth * forwards,
+            **norm_launches(cfg, forwards=forwards)}
+
+
+def preset_forwards(total: dict, name: str, seed: int) -> None:
+    """Phase 4's StreamingClassifier checks for the preset `name` with a
+    seeded head, on seeded images of its size."""
+    cfg = PRESETS[name]
+    params = seeded_head(init_image_classifier(cfg, 6, seed=0),
+                         cfg.embed_dim, 6, seed=1)
+    rng = np.random.default_rng(seed)
+    size = cfg.image_size
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for _ in range(4)]
+    batch = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+    held_path(total, f"{name} StreamingClassifier",
+              lambda: phase_model(cfg, params, images, batch, name=name),
+              lambda out: serving_launches(cfg, out[1]))
+
+
+def preset_steps(total: dict, name: str, **kw) -> None:
+    """One fp32 card-vs-CPU step pair (phase 7(a)) of the preset `name` on
+    the default route and on the opt-in route, each with its launches."""
+    cfg = PRESETS[name]
+    for route, opt_in in (("default", False), ("opt-in", True)):
+        with switches(opt_in):
+            held_path(total, f"{name} fp32 steps, {route} route",
+                      lambda: phase_train_parity(cfg, route=route,
+                                                 preset=name, **kw),
+                      classifier_launches(cfg.depth, 2, 2, 0, opt_in,
+                                          dtype=torch.float32))
+
+
+def demo_batches(batch: int) -> list[dict]:
+    """Two uint8 batches of `synthetic_shape_image` on the demo's canvas."""
+    from arsvt_tpu_torch.data.synthetic import synthetic_shape_image
+
+    rng = np.random.default_rng(6)
+    out = []
+    for _ in range(2):
+        labels = rng.integers(0, 6, batch)
+        out.append({"image": np.stack([
+            (synthetic_shape_image(int(c), DEMO_CANVAS, rng) * 255).astype(
+                np.uint8) for c in labels]),
+            "label": labels.astype(np.int32)})
+    return out
+
+
+def preset_latency(total: dict, smi: str) -> dict:
+    """/classify at B = 1, PRESET_REQUESTS requests one at a time through
+    InferenceServer, vit_tiny_16_224 then vit_base_16_224 (seeded heads),
+    on the server's clock and the client's."""
+    body = png_bytes(np.random.default_rng(17).integers(
+        0, 256, (224, 224, 3), dtype=np.uint8))
+    out = {}
+    for name in ("vit_tiny_16_224", "vit_base_16_224"):
+        cfg = PRESETS[name]
+        params = seeded_head(init_image_classifier(cfg, 6, seed=0),
+                             cfg.embed_dim, 6, seed=1)
+        out[name] = held_path(
+            total, f"{name} /classify latency",
+            lambda: serve_latency(InferenceServer(
+                classifier=StreamingClassifier(params, cfg, 6,
+                                               device="cuda")),
+                body, PRESET_REQUESTS),
+            serving_launches(cfg, 1 + PRESET_REQUESTS))
+    log(json.dumps({"timing": "/classify B = 1, one request in flight",
+                    "requests": PRESET_REQUESTS, **out, "card": smi}))
+    return out
+
+
+def phase_preset_tiny(total: dict, tmp: str, smi: str) -> None:
+    """17(a): vit_tiny_16_224, BASELINE config #1."""
+    from arsvt_tpu_torch.data.folder import open_classification_split
+
+    cfg = PRESETS["vit_tiny_16_224"]
+    tree = os.path.join(tmp, "trashnet")
+    write_trashnet(tree)
+    val = open_classification_split(tree, "valid")
+    run = os.path.join(tmp, "vit_tiny_eval")
+    tcfg = TRAIN_PRESETS["vit_tiny_eval"]
+    last, counts, secs = run_cli(
+        run, ["--data-dir", tree], base=PRESET_CLI_ARGS,
+        expect=classifier_launches(
+            cfg.depth, tcfg.grad_accum, PRESET_CLI_STEPS,
+            math.ceil(len(val) / tcfg.batch_size), False))
+    add_counts(total, counts)
+    ckpt_dir = os.path.join(run, "checkpoints")
+    ckpts = sorted(os.listdir(ckpt_dir))
+    log(json.dumps({"check": "train.cli vit_tiny_eval from a TrashNet tree",
+                    "last_metrics": last, "seconds": secs,
+                    "checkpoints": ckpts, "card": smi}))
+    check(np.isfinite(last["loss"]), f"vit_tiny_eval CLI loss {last}")
+    check(ckpts == [f"step_{PRESET_CLI_STEPS:09d}.pt"], f"checkpoints {ckpts}")
+    log("# phase 17(a): evaluation.cli on its checkpoint")
+    add_counts(total, eval_cli_vs_cpu(run, ckpt_dir, tree, val,
+                                      "vit_tiny_eval", smi,
+                                      step=PRESET_CLI_STEPS))
+    seeded = params_only_checkpoint(
+        ckpt_dir, os.path.join(tmp, "seeded", "checkpoints"),
+        "classifier/head", seed=1)
+    add_counts(total, eval_cli_vs_cpu(run, seeded, tree, val,
+                                      "vit_tiny_eval_seeded_head", smi,
+                                      step=PRESET_CLI_STEPS))
+    log("# phase 17(a): StreamingClassifier, /classify, fp32 steps")
+    preset_forwards(total, "vit_tiny_16_224", seed=40)
+    preset_latency(total, smi)
+    preset_steps(total, "vit_tiny_16_224")
+
+
+def phase_preset_detector(total: dict) -> None:
+    """17(d): detector_demo_96."""
+    cfg = DETECTOR_PRESETS["detector_demo_96"]
+    params = init_detector(cfg, seed=0)
+    rng = np.random.default_rng(43)
+    size = cfg.backbone.image_size
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for _ in range(3)]
+    per_forward = {"encoder_attention_fwd": cfg.backbone.depth,
+                   "flash_attention_fwd": cfg.head.depth,
+                   **norm_launches(cfg, forwards=1)}
+
+    def serve():
+        _, forwards, raw = phase_detector_parity("detector_demo_96", cfg,
+                                                 params, images)
+        phase_post_process(raw)
+        return forwards
+
+    held_path(total, "detector_demo_96 StreamingDetector", serve,
+              lambda forwards: {k: v * forwards
+                                for k, v in per_forward.items()})
+    tcfg = TrainConfig(
+        preset="detector_demo_96", task="detect", batch_size=4,
+        image_size=size, canvas=size, augment="none", learning_rate=3e-4,
+        weight_decay=1e-4, warmup_steps=1, total_steps=6000,
+        schedule="cosine", bf16=False, aux_loss=True, w_triplet=0.0,
+        grad_clip_norm=0.1, fused_adamw=True)
+    steps, depth = 2, cfg.backbone.depth
+    held_path(total, "detector_demo_96 fp32 steps",
+              lambda: phase_det_train_parity(tcfg, size),
+              {"encoder_attention_fwd": depth * steps,
+               "encoder_attention_bwd":
+                   depth * steps * encoder_attention.BWD_LAUNCHES_PER_CALL,
+               "flash_attention_fwd": cfg.head.depth * steps,
+               "flash_attention_bwd": cfg.head.depth * steps,
+               "fused_adamw": steps, "lap": steps,
+               **norm_launches(cfg, micro=steps, aux=tcfg.aux_loss)})
+
+
+def phase_presets(smi: str) -> dict:
+    """Phase 17. Returns the launches of every path it drives."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    seconds = {}
+
+    def part(key):
+        seconds[key] = time.perf_counter() - t0 - sum(seconds.values())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log("# phase 17(a): vit_tiny_16_224 (vit_tiny_eval), BASELINE "
+            "config #1")
+        phase_preset_tiny(total, tmp, smi)
+    part("a")
+    log("# phase 17(b): vit_small_16_224")
+    preset_forwards(total, "vit_small_16_224", seed=44)
+    preset_steps(total, "vit_small_16_224")
+    part("b")
+    log("# phase 17(c): vit_demo_8_96")
+    preset_forwards(total, "vit_demo_8_96", seed=45)
+    preset_steps(total, "vit_demo_8_96", canvas=DEMO_CANVAS,
+                 batches=demo_batches(8))
+    part("c")
+    log("# phase 17(d): detector_demo_96")
+    phase_preset_detector(total)
+    part("d")
+    log(json.dumps({"phase": 17, "seconds": time.perf_counter() - t0,
+                    "seconds_by_part": seconds,
+                    "launches": {k: v for k, v in total.items() if v},
+                    "card": smi}))
+    return total
+
+
+# --generalization: benchmarks/classification_generalization_demo.py's
+# configuration on the port, unchanged (its lines 42-48 and 85-93): a
+# vit_demo_8_96 classifier trained from init seed 0 with crop/flip (step
+# seed 1) for GEN_STEPS steps of GEN_BATCH images drawn with replacement
+# (numpy seed 2) from GEN_TRAIN_IMAGES `synthetic_shape_image`s on a
+# GEN_CANVAS canvas (pool seed 0), then evaluate_classifier on
+# GEN_VAL_IMAGES held-out ones (pool seed 10,000) and on the first
+# GEN_VAL_IMAGES of the train pool. JAX's run reached val top-1 0.9995
+# (classification_generalization.json); the port must reach
+# GEN_MIN_VAL_TOP1.
+GEN_PRESET = "vit_demo_8_96"
+GEN_SIZE = 96
+GEN_CANVAS = DEMO_CANVAS
+GEN_BATCH = 256
+GEN_STEPS = 4000
+GEN_GRAD_ACCUM = 1
+GEN_TRAIN_IMAGES = 16384
+GEN_VAL_IMAGES = 2048
+GEN_POOL_SEEDS = (0, 10_000)  # train, val
+GEN_INIT_SEED = 0
+GEN_STEP_SEED = 1
+GEN_ORDER_SEED = 2
+GEN_LOG_EVERY = 250
+GEN_MIN_VAL_TOP1 = 0.98
+
+
+def generalization_config() -> TrainConfig:
+    return TrainConfig(
+        preset=GEN_PRESET, num_classes=6, batch_size=GEN_BATCH,
+        image_size=GEN_SIZE, canvas=GEN_CANVAS, augment="crop_flip",
+        learning_rate=3e-4, weight_decay=0.05,
+        warmup_steps=min(400, GEN_STEPS // 10), total_steps=GEN_STEPS,
+        schedule="cosine", bf16=True, grad_accum=GEN_GRAD_ACCUM)
+
+
+def generalization_pool(n: int, seed: int) -> tuple:
+    """The demo's `make_pool`: n uint8 images on the canvas and labels."""
+    from arsvt_tpu_torch.data.synthetic import synthetic_shape_image
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 6, size=(n,)).astype(np.int32)
+    images = np.empty((n, GEN_CANVAS, GEN_CANVAS, 3), np.uint8)
+    for i, label in enumerate(labels):
+        images[i] = (synthetic_shape_image(int(label), GEN_CANVAS, rng)
+                     * 255).astype(np.uint8)
+    return images, labels
+
+
+def phase_generalization(smi: str) -> dict:
+    """--generalization: train and evaluate as the JAX demo does; the pools
+    live on the card and each step's rows are gathered there. Fails below
+    GEN_MIN_VAL_TOP1."""
+    from arsvt_tpu_torch.train.config import resolve_backbone
+
+    t0 = time.perf_counter()
+    (tr_images, tr_labels), (va_images, va_labels) = (
+        generalization_pool(n, seed) for n, seed in zip(
+            (GEN_TRAIN_IMAGES, GEN_VAL_IMAGES), GEN_POOL_SEEDS))
+    pool_s = time.perf_counter() - t0
+    cfg = generalization_config()
+    init_fn, step, _ = make_classifier_step_fns(cfg)
+    state = init_fn(GEN_INIT_SEED)
+    images = torch.from_numpy(tr_images).cuda()
+    labels = torch.from_numpy(tr_labels).cuda()
+    order = np.random.default_rng(GEN_ORDER_SEED)
+    bb = resolve_backbone(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    trace = []
+    for t in range(GEN_STEPS):
+        idx = torch.from_numpy(order.integers(0, GEN_TRAIN_IMAGES,
+                                              GEN_BATCH)).cuda()
+        state, m = step(state, {"image": images[idx], "label": labels[idx]},
+                        step_seed=GEN_STEP_SEED)
+        if t == 0 or (t + 1) % GEN_LOG_EVERY == 0:
+            trace.append({"step": t + 1,
+                          **{k: float(v) for k, v in m.items()}})
+            log(json.dumps({"generalization": trace[-1]}))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {**dict.fromkeys(counts, 0), **classifier_launches(
+        bb.depth, GEN_GRAD_ACCUM, GEN_STEPS, 0, False)}
+    check(counts == want, f"generalization launches {counts} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def batches_of(x, y):
+        for s in range(0, len(x), GEN_BATCH):
+            yield {"image": x[s:s + GEN_BATCH], "label": y[s:s + GEN_BATCH]}
+
+    val = evaluate_classifier(state["params"],
+                              batches_of(va_images, va_labels), bb, 6,
+                              normalize_inputs=True)
+    train = evaluate_classifier(
+        state["params"], batches_of(tr_images[:GEN_VAL_IMAGES],
+                                    tr_labels[:GEN_VAL_IMAGES]),
+        bb, 6, normalize_inputs=True)
+    rec = {"generalization": "benchmarks/classification_generalization_"
+                             "demo.py's configuration on the port",
+           "config": {"preset": cfg.preset, "steps": GEN_STEPS,
+                      "batch_size": GEN_BATCH, "grad_accum": GEN_GRAD_ACCUM,
+                      "train_images": GEN_TRAIN_IMAGES,
+                      "val_images": GEN_VAL_IMAGES, "augment": cfg.augment,
+                      "canvas": GEN_CANVAS, "bf16": cfg.bf16},
+           "val_top1": val["top1"],
+           "val_per_class_accuracy": val["per_class_accuracy"],
+           "val_confusion_matrix": val["confusion_matrix"],
+           "train_split_top1": train["top1"],
+           "final_train_metrics": trace[-1], "train_seconds": train_s,
+           "ms_per_step": train_s / GEN_STEPS * 1e3,
+           "peak_memory_gb": peak, "pool_seconds": pool_s,
+           "launches": {k: v for k, v in counts.items() if v},
+           "card": smi}
+    log(json.dumps(rec))
+    check(val["top1"] >= GEN_MIN_VAL_TOP1,
+          f"val top-1 {val['top1']} < {GEN_MIN_VAL_TOP1}")
+    return rec
+
+
 def is_bf16_kernel(entry: str) -> bool:
     """A bf16 kernel by its mangled name: T = __nv_bfloat16 opens the
     template arguments (fp32 instantiations may take bf16 pointers, never
@@ -7391,6 +7906,21 @@ def main() -> int:
         phase_detector_ab(sys.argv[sys.argv.index("--detector-ab") + 1],
                           smi)
         return 0
+    if "--generalization" in sys.argv[1:]:
+        log("# --generalization: benchmarks/classification_generalization_"
+            "demo.py's configuration")
+        phase_generalization(smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--presets" in sys.argv[1:]:
+        log("# --presets: the presets' attention timing and phase 17 alone")
+        phase_preset_attention_timing(smi)
+        log("# phase 17: the presets the card had not run")
+        phase_presets(smi)
+        return 0
     if "--parallel" in sys.argv[1:]:
         log("# --parallel: phase 16 alone")
         phase_parallel(smi)
@@ -7427,6 +7957,8 @@ def main() -> int:
         "versions")
     ln_rec, gelu_rec = phase_norm_kernel_timing(smi,
                                                 phase_norm_kernel_checks())
+    log("# phase 3(d): #1 and #2 timed at vit_tiny_16_224's shapes")
+    phase_preset_attention_timing(smi)
     if "--kernels" in sys.argv[1:]:
         log("# --kernels: stopping after phase 3")
         return 0
@@ -7440,7 +7972,7 @@ def main() -> int:
                             (224, 224, 3))]
 
     # the bf16 GELU forward's table route and the table's fills over phases
-    # 4-16, in this process (both outside the exact launch tables: which
+    # 4-17, in this process (both outside the exact launch tables: which
     # route a forward takes depends on its size, not on the path); the
     # table phase 3(c) filled is dropped, so the main path fills its own
     gelu_table_before = (mlp_ops.TABLE_ROUTE_LAUNCHES, mlp_ops.TABLE_LAUNCHES)
@@ -7499,6 +8031,9 @@ def main() -> int:
     log("# phase 16: data- and tensor-parallel training")
     parallel = phase_parallel(smi)
 
+    log("# phase 17: the presets the card had not run")
+    presets = phase_presets(smi)
+
     def row(name, source, replaces, rec, launched):
         return {"name": name, "route": "cuda",
                 "source": f"arsvt_tpu_torch/csrc/{source}",
@@ -7508,15 +8043,15 @@ def main() -> int:
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
 
-    def paths(name):  # launches of every path's run, phases 4-16
+    def paths(name):  # launches of every path's run, phases 4-17
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
                 + recipe[name] + distill[name] + parallel.get(name, 0)
-                + serving[name])
+                + presets[name] + serving[name])
 
-    # every LayerNorm and unfused GELU of phases 4-16 ran its kernels
+    # every LayerNorm and unfused GELU of phases 4-17 ran its kernels
     check(all(paths(name) > 0 for name in NORM_NAMES),
-          f"LayerNorm and GELU launches over phases 4-16: "
+          f"LayerNorm and GELU launches over phases 4-17: "
           f"{ {name: paths(name) for name in NORM_NAMES} }")
     gelu_table = {"launches_table_route": mlp_ops.TABLE_ROUTE_LAUNCHES
                   - gelu_table_before[0],
@@ -7524,16 +8059,16 @@ def main() -> int:
                   - gelu_table_before[1]}
     check(0 < gelu_table["launches_table_route"] <= paths("gelu_tanh_fwd")
           and gelu_table["table_fills"] == 1,
-          f"the bf16 GELU forward's table route over phases 4-16: "
+          f"the bf16 GELU forward's table route over phases 4-17: "
           f"{gelu_table} of {paths('gelu_tanh_fwd')} forward launches")
-    # every dropout site of phases 4-16 went through the apply kernel, every
+    # every dropout site of phases 4-17 went through the apply kernel, every
     # matching through the fused entry
     check(paths("dropout_apply") > 0,
           f"dropout sites: {paths('dropout_apply')} apply launches over "
-          f"phases 4-16")
+          f"phases 4-17")
     check(paths("lap") > 0 and paths("lap_solve") == 0,
           f"matching: {paths('lap')} fused and {paths('lap_solve')} "
-          f"solve-only launches over phases 4-16")
+          f"solve-only launches over phases 4-17")
     sources = {"encoder_attention_fwd": ("encoder_attention_fwd.cu",
                                          "flash_attention.py:533"),
                "encoder_attention_bwd": ("encoder_attention_bwd.cu",
@@ -7587,7 +8122,7 @@ def main() -> int:
          "bytes_bound_ms": applied["bytes_bound_ms"]},
         # the port-only matcher kernel: its fused entry (the row's numbers,
         # held on the device, at the deit_detector_ref step's (6, 32, 5,
-        # 25); launches the fused entry's over phases 4-16) and its
+        # 25); launches the fused entry's over phases 4-17) and its
         # solve-only entry ("solve_only", timed on that step's padded
         # costs; 0 launches there). It replaces JAX's match and lap_rect,
         # plain JAX that XLA compiles, not a Pallas kernel; no PyTorch
@@ -7608,7 +8143,7 @@ def main() -> int:
         # XLA fuses, not Pallas kernels): "ms" and the rest are the
         # forward's at ViT-B's training shape, held on the device;
         # "backward" the same for the backward's launches; "launches" the
-        # forwards', "launches_bwd" the backwards' over phases 4-16
+        # forwards', "launches_bwd" the backwards' over phases 4-17
         {**row(name, source, "", rec, paths(f"{name}_fwd")),
          "replaces": replaces, "launches_bwd": paths(f"{name}_bwd"),
          "host_paced_ms": rec["host_paced_ms"],
