@@ -14,9 +14,14 @@ registry, on one NVIDIA card.
     python3 chip_smoke.py --parallel  # phases 1, 2 and 16 (no kernel line)
     python3 chip_smoke.py --presets   # phases 1, 2, 3(d)'s timing and 17
         # (no kernel line)
-    python3 chip_smoke.py --generalization  # phases 1, 2, then
-        # benchmarks/classification_generalization_demo.py's configuration
-        # (see the comment above `GEN_PRESET`; not in the default run)
+    python3 chip_smoke.py --generalization  # phases 1, 2, then both
+        # parts below (neither is in the default run)
+    python3 chip_smoke.py --generalization classification  # phases 1, 2,
+        # then benchmarks/classification_generalization_demo.py's
+        # configuration (see the comment above `GEN_PRESET`)
+    python3 chip_smoke.py --generalization detection  # phases 1, 2, then
+        # benchmarks/detection_generalization_demo.py's configuration (see
+        # the comment above `DET_GEN_PRESET`)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
         # of the checkout PARENT and of this tree in turns, the host's ms
         # in match_layers a step below the parent's in each pair (no
@@ -70,8 +75,13 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    mask probe at 6 heads), #5/#6 at the first, #3/#4 at detector_demo_96's
    cross-attention (B = 4 and 1, 4 heads of 48, 10 queries over 145 keys),
    #7 on vit_tiny_16_224's leaf set, the fused matcher at (3, 4, 10, 25)
-   and (3, 4, 10, 8), LayerNorm and GELU at their rows and widths; #1 and
-   #2 held at vit_tiny_16_224's B = 1 and 8 beside SDPA and the bound;
+   and (3, 4, 10, 8), LayerNorm and GELU at their rows and widths; and the
+   shapes of the detection demo's batch of 64 (--generalization
+   detection): #1/#2 at (64, 145, 192, 3), #3/#4 at (64, 4, 10, 145, 48),
+   the fused matcher at (3, 64, 10, 8) and (1, 64, 10, 8), #7 on
+   detector_demo_96's leaf set, LayerNorm and GELU at 9,280 rows of 192
+   (768) and 640 of 192 (512); #1 and #2 held at vit_tiny_16_224's B = 1
+   and 8 beside SDPA and the bound;
 4. ViT-B/16@224 from a seeded init (with a seeded random head) through
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
@@ -552,13 +562,16 @@ def shares(ms, bound_ms, library_ms) -> dict:
 PRESET_ENC_SHAPES = {"vit_tiny_16_224": (8, 197, 192, 3),
                      "vit_small_16_224": (8, 197, 384, 6),
                      "vit_demo_8_96": (8, 145, 192, 3)}
+# and detector_demo_96's backbone at the detection demo's batch of 64
+# (--generalization detection)
+DEMO_ENC_SHAPE = (64, 145, 192, 3)
 
 
 # (B, S, D, H) at the edges of #1's tiles beside the ViT-B shapes: one
 # query row and key, and ViT-L/16@384's S = 577 (ten row tiles, ten key
 # chunks) at its width, D = 1,024 in 16 heads; then the presets' shapes.
 ENC_EDGE_CASES = [(2, 1, 128, 2), (2, 577, 1024, 16),
-                  *PRESET_ENC_SHAPES.values()]
+                  *PRESET_ENC_SHAPES.values(), DEMO_ENC_SHAPE]
 
 
 def phase_kernel_checks(cfg) -> dict:
@@ -636,9 +649,12 @@ FLASH_PATH_SHAPES = {
 
 # (name, B, H, Sq, Sk, d, kv_len) of detector_demo_96's DETR
 # cross-attention (10 queries over the 145 tokens, 4 heads of 48) in
-# phase 17's train step (B = 4) and at serving's B = 1
+# phase 17's train step (B = 4), at serving's B = 1 and in the detection
+# demo's steps (B = 64, --generalization detection)
 PRESET_FLASH_CASES = [("detector_demo_96_cross_B4", 4, 4, 10, 145, 48, 145),
-                      ("detector_demo_96_cross_B1", 1, 4, 10, 145, 48, 145)]
+                      ("detector_demo_96_cross_B1", 1, 4, 10, 145, 48, 145),
+                      ("detector_demo_96_cross_B64", 64, 4, 10, 145, 48,
+                       145)]
 
 
 def seeded_heads(b, h, sq, sk, d, dtype, seed):
@@ -1133,10 +1149,10 @@ def phase_preset_attention_timing(smi: str) -> None:
 
 # (B, S, D, H) at the edges of #2's tiles of 64 queries and 64 keys (one
 # row; one short of, at and one past a tile; two tiles), ViT-L/16@384's
-# S = 577 at its width and the presets' shapes
+# S = 577 at its width, the presets' shapes and the detection demo's
 BWD_EDGE_CASES = [(2, 1, 128, 2), (2, 63, 128, 2), (2, 64, 128, 2),
                   (2, 65, 128, 2), (2, 128, 128, 2), (2, 577, 1024, 16),
-                  *PRESET_ENC_SHAPES.values()]
+                  *PRESET_ENC_SHAPES.values(), DEMO_ENC_SHAPE]
 
 
 def phase_bwd_checks(cfg) -> dict:
@@ -2132,9 +2148,10 @@ TOL_NORM_FP32 = 1e-5
 TOL_NORM_BF16 = 2.0 ** -7
 # (rows, D, M) of phase 17's presets: a microbatch of 8 images of
 # vit_tiny_16_224, vit_small_16_224 and vit_demo_8_96, and
-# detector_demo_96's DETR head at B = 4 (10 queries, ffn 512)
+# detector_demo_96's DETR head at B = 4 (10 queries, ffn 512); then
+# detector_demo_96's backbone and head at the detection demo's B = 64
 PRESET_NORM_SHAPES = ((1576, 192, 768), (1576, 384, 1536), (1160, 192, 768),
-                      (40, 192, 512))
+                      (40, 192, 512), (9280, 192, 768), (640, 192, 512))
 NORM_TIMED = {"vit_b": (6304, 768, 3072), "detector": (6336, 400, 1600),
               "vit_l": (9232, 1024, 4096), "serve_b1": (197, 768, 3072)}
 # The bf16 GELU forward's two routes timed at rows x 3,072 from B = 1
@@ -2710,10 +2727,13 @@ MATCH_CASES = [("deit_detector_ref", (6, 32, 5, 25)),
                ("eval_one_layer", (1, 32, 5, 25)),
                # phase 17(d)'s detector_demo_96 step (3 decoder layers, 10
                # queries, 25 slots), its eval forward, and the slots of
-               # benchmarks/detection_generalization_demo.py (8)
+               # benchmarks/detection_generalization_demo.py (8), then
+               # that demo's step and eval forward at its batch of 64
                ("detector_demo_96", (3, 4, 10, 25)),
                ("detector_demo_96_eval", (1, 4, 10, 25)),
-               ("detector_demo_96_8_slots", (3, 4, 10, 8))]
+               ("detector_demo_96_8_slots", (3, 4, 10, 8)),
+               ("detection_demo_B64", (3, 64, 10, 8)),
+               ("detection_demo_B64_eval", (1, 64, 10, 8))]
 MATCH_TIMED = "deit_detector_ref"
 MATCH_CLASSES = 7  # the presets' C + 1
 TOL_MATCH_ULPS = 4
@@ -2961,10 +2981,14 @@ def phase_adamw_checks(cfg) -> dict:
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
     err = adamw_case("vit_base_16_224, odd sizes, offset views", leaves,
                      decayed, scalars, hyper)
-    # vit_tiny_16_224's leaf set alone, as phase 17's steps update it
+    # vit_tiny_16_224's and detector_demo_96's leaf sets alone, as phase
+    # 17's steps and --generalization's update them
     tiny = init_image_classifier(PRESETS["vit_tiny_16_224"], 6, seed=0)
     adamw_case("vit_tiny_16_224", adamw_leaves(tiny, gen),
                tree_leaves(_wd_mask(tiny)), scalars, hyper)
+    demo = init_detector(DETECTOR_PRESETS["detector_demo_96"], seed=0)
+    adamw_case("detector_demo_96", adamw_leaves(demo, gen),
+               tree_leaves(_wd_mask(demo)), scalars, hyper)
 
     # timing on the ViT-B leaf set alone
     n_vit = sum(p.numel() for *_, p in vit)
@@ -7694,6 +7718,8 @@ GEN_STEP_SEED = 1
 GEN_ORDER_SEED = 2
 GEN_LOG_EVERY = 250
 GEN_MIN_VAL_TOP1 = 0.98
+# --generalization's parts, in the order a bare --generalization runs them
+GEN_PARTS = ("classification", "detection")
 
 
 def generalization_config() -> TrainConfig:
@@ -7788,6 +7814,191 @@ def phase_generalization(smi: str) -> dict:
     log(json.dumps(rec))
     check(val["top1"] >= GEN_MIN_VAL_TOP1,
           f"val top-1 {val['top1']} < {GEN_MIN_VAL_TOP1}")
+    return rec
+
+
+# --generalization detection: benchmarks/detection_generalization_demo.py's
+# configuration on the port, unchanged (its lines 46-50 and 101-115, with
+# DEMO_AUG=detection, the value of JAX's two 6,000-step artifacts): a
+# detector_demo_96 trained from init seed 0 with the detection augmentation
+# through the default shear_matmul warp (step seed 1) for DET_GEN_STEPS
+# steps of DET_GEN_BATCH images drawn with replacement (numpy seed 2, every
+# step's rows drawn before the first step) from DET_GEN_TRAIN_IMAGES
+# images of `make_synthetic_coco` (seed 0), then evaluate_detector at
+# confidence and NMS 0.5 on DET_GEN_VAL_IMAGES held-out images (seed 1) and
+# on the first DET_GEN_TRAIN_EVAL_IMAGES of the train split. JAX reached
+# val mAP 0.5715 / AP50 0.942 (detection_generalization_shear.json) and
+# 0.587 / 0.947 with its taps warp (detection_generalization_taps.json);
+# the port must reach DET_GEN_MIN_MAP and DET_GEN_MIN_AP50 (its draws come
+# from another generator than jax.random: another sample of the same
+# training, and the two warps alone moved JAX's mAP by 0.016).
+DET_GEN_PRESET = "detector_demo_96"
+DET_GEN_CANVAS = 96
+DET_GEN_BATCH = 64
+DET_GEN_STEPS = 6000
+DET_GEN_TRAIN_IMAGES = 4000
+DET_GEN_VAL_IMAGES = 1024
+DET_GEN_MAX_OBJECTS = 8
+DET_GEN_COCO = {"image_size": 96, "max_boxes": 3}  # make_synthetic_coco's
+DET_GEN_DATA_SEEDS = (0, 1)  # train, valid
+DET_GEN_INIT_SEED = 0
+DET_GEN_STEP_SEED = 1
+DET_GEN_ORDER_SEED = 2
+DET_GEN_TRAIN_EVAL_IMAGES = 128
+DET_GEN_THRESHOLDS = {"conf_threshold": 0.5, "nms_threshold": 0.5}
+DET_GEN_LOG_EVERY = 250
+DET_GEN_MIN_MAP = 0.52
+DET_GEN_MIN_AP50 = 0.90
+
+
+def detection_generalization_config() -> TrainConfig:
+    return TrainConfig(
+        preset=DET_GEN_PRESET, task="detect", num_classes=6,
+        batch_size=DET_GEN_BATCH, image_size=DET_GEN_CANVAS,
+        canvas=DET_GEN_CANVAS, augment="detection", learning_rate=3e-4,
+        weight_decay=1e-4, warmup_steps=min(500, DET_GEN_STEPS // 10),
+        total_steps=DET_GEN_STEPS, schedule="cosine", bf16=True,
+        max_objects=DET_GEN_MAX_OBJECTS, aux_loss=True, w_triplet=0.0,
+        grad_clip_norm=0.1, warp_variant="")
+
+
+def detection_generalization_split(root: str, split: str, n: int,
+                                   seed: int) -> tuple:
+    """The demo's `make_synthetic_coco` and `load_split` for one split
+    under `root`: (uint8 images on the canvas, {"boxes", "labels",
+    "mask"} padded to DET_GEN_MAX_OBJECTS), numpy."""
+    from arsvt_tpu_torch.data.coco import CocoDataset
+    from arsvt_tpu_torch.data.pipeline import load_letterboxed
+    from arsvt_tpu_torch.data.synthetic import make_synthetic_coco
+
+    make_synthetic_coco(root, splits=(split,), images_per_split=n,
+                        seed=seed, **DET_GEN_COCO)
+    ds = CocoDataset(os.path.join(root, split))
+    images, _ = load_letterboxed([r.path for r in ds.records],
+                                 DET_GEN_CANVAS, records=ds.records,
+                                 dtype=np.uint8)
+    targets = [ds.padded_target(i, DET_GEN_MAX_OBJECTS)
+               for i in range(len(ds))]
+    return images, {k: np.stack([t[k] for t in targets])
+                    for k in ("boxes", "labels", "mask")}
+
+
+def detection_generalization_order(n: int) -> np.ndarray:
+    """Every step's DET_GEN_BATCH row indices, (DET_GEN_STEPS, batch)
+    int64, drawn up front by the demo's own call, once a step, from its
+    order rng."""
+    rng = np.random.default_rng(DET_GEN_ORDER_SEED)
+    return np.stack([rng.integers(0, n, DET_GEN_BATCH)
+                     for _ in range(DET_GEN_STEPS)])
+
+
+def detection_generalization_launches(steps: int, eval_forwards: int) -> dict:
+    """A detector_demo_96 demo step (one microbatch) and eval forward: #1
+    and #2 once a backbone layer, #3 and #4 once a decoder layer, one #7
+    launch a step (the port's update is the fused kernel whatever
+    `fused_adamw` says), one lap launch a step and an eval forward (its
+    loss matches the final layer), the LayerNorm and GELU kernels as
+    `norm_launches` counts them with the aux layers; no dropout site."""
+    cfg = DETECTOR_PRESETS[DET_GEN_PRESET]
+    bb, head = cfg.backbone.depth, cfg.head.depth
+    return {"encoder_attention_fwd": bb * (steps + eval_forwards),
+            "encoder_attention_bwd":
+                bb * steps * encoder_attention.BWD_LAUNCHES_PER_CALL,
+            "flash_attention_fwd": head * (steps + eval_forwards),
+            "flash_attention_bwd": head * steps,
+            "fused_adamw": steps, "lap": steps + eval_forwards,
+            **norm_launches(cfg, forwards=eval_forwards, micro=steps,
+                            aux=True)}
+
+
+def phase_detection_generalization(smi: str) -> dict:
+    """--generalization detection: train and evaluate as the JAX demo does;
+    the uint8 pools and targets live on the card and each step gathers its
+    rows there; the launches of the training and of the evaluation held
+    exactly. Fails below DET_GEN_MIN_MAP or DET_GEN_MIN_AP50."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="arsvt_det_demo_") as tmp:
+        (tr_images, tr_t), (va_images, va_t) = (
+            detection_generalization_split(tmp, split, n, seed)
+            for split, n, seed in zip(
+                ("train", "valid"),
+                (DET_GEN_TRAIN_IMAGES, DET_GEN_VAL_IMAGES),
+                DET_GEN_DATA_SEEDS))
+    data_s = time.perf_counter() - t0
+    cfg = detection_generalization_config()
+    init_fn, step, eval_step = make_detector_step_fns(cfg)
+    state = init_fn(DET_GEN_INIT_SEED)
+    order = torch.from_numpy(
+        detection_generalization_order(len(tr_images))).cuda()
+    train = {k: torch.from_numpy(v).cuda()
+             for k, v in {"image": tr_images, **tr_t}.items()}
+    val = {k: torch.from_numpy(v).cuda()
+           for k, v in {"image": va_images, **va_t}.items()}
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    trace = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal state
+        t0 = time.perf_counter()
+        for t in range(DET_GEN_STEPS):
+            idx = order[t]
+            state, m = step(state, {k: v[idx] for k, v in train.items()},
+                            step_seed=DET_GEN_STEP_SEED)
+            if t == 0 or (t + 1) % DET_GEN_LOG_EVERY == 0:
+                trace.append({"step": t + 1,
+                              **{k: float(v) for k, v in m.items()}})
+                log(json.dumps({"detection_generalization": trace[-1]}))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    train_s = held_path(total, "detection demo training", run,
+                        detection_generalization_launches(DET_GEN_STEPS, 0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def batches_of(pool, limit):
+        for s in range(0, limit, DET_GEN_BATCH):
+            yield {k: v[s:s + DET_GEN_BATCH] for k, v in pool.items()}
+
+    def evaluate():
+        return [evaluate_detector(eval_step, state["params"],
+                                  batches_of(pool, limit), num_classes=6,
+                                  **DET_GEN_THRESHOLDS)
+                for pool, limit in ((val, DET_GEN_VAL_IMAGES),
+                                    (train, DET_GEN_TRAIN_EVAL_IMAGES))]
+
+    forwards = (math.ceil(DET_GEN_VAL_IMAGES / DET_GEN_BATCH)
+                + math.ceil(DET_GEN_TRAIN_EVAL_IMAGES / DET_GEN_BATCH))
+    result, train_split = held_path(
+        total, "detection demo evaluation", evaluate,
+        detection_generalization_launches(0, forwards))
+    rec = {"detection_generalization": "benchmarks/detection_"
+                                       "generalization_demo.py's "
+                                       "configuration on the port",
+           "config": {"preset": cfg.preset, "steps": DET_GEN_STEPS,
+                      "batch_size": DET_GEN_BATCH,
+                      "train_images": DET_GEN_TRAIN_IMAGES,
+                      "val_images": DET_GEN_VAL_IMAGES,
+                      "augment": cfg.augment, "aux_loss": cfg.aux_loss,
+                      "warp_variant": augment.warp_variant(cfg),
+                      "bf16": cfg.bf16, **DET_GEN_THRESHOLDS},
+           "val": {k: v for k, v in result.items()
+                   if k != "class_prediction_counts"},
+           "train_split": {k: train_split[k]
+                           for k in ("mAP", "AP50", "AP75")},
+           "final_train_metrics": trace[-1], "loss_trace": trace,
+           "train_seconds": train_s,
+           "ms_per_step": train_s / DET_GEN_STEPS * 1e3,
+           "peak_memory_gb": peak, "data_seconds": data_s,
+           "eval_forwards": forwards,
+           "launches": {k: v for k, v in total.items() if v},
+           "card": smi}
+    log(json.dumps(rec))
+    check(result["mAP"] >= DET_GEN_MIN_MAP and
+          result["AP50"] >= DET_GEN_MIN_AP50,
+          f"val mAP {result['mAP']} / AP50 {result['AP50']} below "
+          f"{DET_GEN_MIN_MAP} / {DET_GEN_MIN_AP50}")
     return rec
 
 
@@ -7907,9 +8118,18 @@ def main() -> int:
                           smi)
         return 0
     if "--generalization" in sys.argv[1:]:
-        log("# --generalization: benchmarks/classification_generalization_"
-            "demo.py's configuration")
-        phase_generalization(smi)
+        parts = GEN_PARTS
+        after = sys.argv[sys.argv.index("--generalization") + 1:][:1]
+        if after and after[0] in GEN_PARTS:
+            parts = tuple(after)
+        if "classification" in parts:
+            log("# --generalization classification: benchmarks/"
+                "classification_generalization_demo.py's configuration")
+            phase_generalization(smi)
+        if "detection" in parts:
+            log("# --generalization detection: benchmarks/"
+                "detection_generalization_demo.py's configuration")
+            phase_detection_generalization(smi)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -338,21 +338,28 @@ def _demo_source():
         return ast.parse(f.read())
 
 
-def _evaluate(node, names: dict):
-    """The value of an expression of the demo's source: constants, its
-    module constants, `int`/`float`/`min`, `//`, and `os.environ.get(name,
-    default)` as its default (the demo's configuration without a knob)."""
+def _evaluate(node, names: dict, env=None):
+    """The value of an expression of a demo's source: constants, tuples,
+    its module constants, `int`/`float`/`min`, `//`, attributes as their
+    source text, and `os.environ.get(name, default)` as `env`'s value for
+    the name, else its default (the demo's configuration without a
+    knob)."""
     if isinstance(node, ast.Constant):
         return node.value
     if isinstance(node, ast.Name):
         return names[node.id]
+    if isinstance(node, ast.Tuple):
+        return tuple(_evaluate(e, names, env) for e in node.elts)
+    if isinstance(node, ast.Attribute):
+        return ast.unparse(node)
     if isinstance(node, ast.BinOp) and isinstance(node.op, ast.FloorDiv):
-        return _evaluate(node.left, names) // _evaluate(node.right, names)
+        return (_evaluate(node.left, names, env)
+                // _evaluate(node.right, names, env))
     assert isinstance(node, ast.Call), ast.dump(node)
     fn = ast.unparse(node.func)
-    args = [_evaluate(a, names) for a in node.args]
+    args = [_evaluate(a, names, env) for a in node.args]
     if fn == "os.environ.get":
-        return args[1]
+        return (env or {}).get(args[0], args[1])
     return {"int": int, "float": float, "min": min}[fn](*args)
 
 
