@@ -1,5 +1,6 @@
 """Dynamic micro-batching for the HTTP classify path (copy of
-``arsvt_tpu/serving/batching.py``).
+``arsvt_tpu/serving/batching.py``, except that a batch is counted in the
+stats before its waiters wake).
 
 Requests queue; a single worker drains up to `max_batch` of them within
 `window_ms`, pads the stack to the fixed `max_batch` shape, runs the
@@ -140,14 +141,16 @@ class MicroBatcher:
                         idx, probs = self._infer_batch(images)
                 else:
                     idx, probs = self._infer_batch(images)
-                for i, it in enumerate(items):
-                    it.result = (int(idx[i]), np.asarray(probs[i]))
-                    it.event.set()
+                # counted before any waiter wakes, so /stats read after the
+                # last answer counts its batch
                 self._stats["requests"] += n
                 self._stats["batches"] += 1
                 self._stats["max_batch_seen"] = max(
                     self._stats["max_batch_seen"], n
                 )
+                for i, it in enumerate(items):
+                    it.result = (int(idx[i]), np.asarray(probs[i]))
+                    it.event.set()
             except Exception as e:  # propagate to every waiter
                 for it in items:
                     it.error = e

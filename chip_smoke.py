@@ -25,6 +25,10 @@ registry, on one NVIDIA card.
     python3 chip_smoke.py --generalization reference  # phases 1, 2, then
         # benchmarks/recipe_ablation.py's row bs64_lr3e4 (see the comment
         # above `REF_GEN_ABLATION`; not in a bare --generalization run)
+    python3 chip_smoke.py --serving-load  # phases 1, 2, then
+        # benchmarks/serving_load.py's configuration, 30 s a run: bf16
+        # and int8 at max_batch 8, bf16 at max_batch 1 (see the comment
+        # above `LOAD_CLIENTS`; not in the default run)
     python3 chip_smoke.py --detector-ab PARENT  # phases 1, 2, then 9(c)
         # of the checkout PARENT and of this tree in turns, the host's ms
         # in match_layers a step below the parent's in each pair (no
@@ -94,6 +98,11 @@ CUDA toolkit. It imports nothing of JAX or ``arsvt_tpu``. Phases:
    ``StreamingClassifier``: fp32 on the card against the plain path on the
    CPU, then bf16 on the card against the fp32 run;
 5. the HTTP server: /classify single and micro-batched, /healthz, /stats;
+   (c) the micro-batched server (bf16, max_batch 8, a 3 ms window) under
+   16 closed-loop clients posting serving_load.py's JPEG for 5 s: no
+   error, the batcher's count of requests equal to the answers, every
+   answer within the bf16 tolerance of the unbatched server's, the
+   launches exact, images/s and the batch cycle beside the forward alone;
 6. a torch.profiler window over bf16 forwards at B=1 and B=8: the device's
    busy share and the kernels by device time;
 7. ViT-B/16@224 training through ``make_classifier_step_fns``: (a) two
@@ -279,7 +288,9 @@ launches a LayerNorm backward, one a GELU backward; the block remat
 policies replay both LayerNorms of a block, every policy the unfused
 GELU; no GELU kernel on the fused-MLP route; none of LayerNorm under
 ``ARSVT_DISABLE_LN_VJP``): phases 4-5 (classify serving: one encoder-attention forward launch per
-layer and forward, no training kernel); 7(b)-(c) (training: forward
+layer and forward, no training kernel; in 5(c) and ``--serving-load`` a
+forward a batch, the server's warm-up and the forward alone's, the bf16
+GELU on its table route at a batch of 8); 7(b)-(c) (training: forward
 launches = layers x (microbatches x steps + eval forwards), backward
 launches = layers x microbatches x steps x 2 kernels per call, one AdamW
 launch per step); 8(a)-(f) (``deit_detector_ref``: 12 encoder + 6
@@ -345,6 +356,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import http.client
 import inspect
 import io
 import json
@@ -3830,6 +3842,425 @@ def phase_profile(clf, batch) -> None:
             "top": [{"name": k[:80], "us": v[0], "calls": v[1] / reps}
                     for k, v in top],
         }))
+
+
+# The micro-batched /classify server under sustained load, at
+# benchmarks/serving_load.py's configuration: its argparse defaults
+# (:81-86) but the 30 s of benchmarks/tpu_revalidate.sh:38; closed-loop
+# clients on one HTTPConnection each, reconnecting after an error
+# (`_client_loop`, :57-77, its timeout and the main thread's join
+# timeout); the JPEG body of `_jpeg_frame` (:46-54: uniform pixels from
+# default_rng(7), 640 x 480 at quality 90); vit_base_16_224 with 6 classes
+# from seed 0 (:103-104); three sequential warm-up requests (:116-120);
+# /stats read once, after the clients stop (:141-145). The one departure:
+# the head is seeded (`seeded_head`, seed `LOAD_HEAD_SEED`), since the zero
+# head of `init_image_classifier` makes every answer uniform and would
+# hide faults. `python3 chip_smoke.py --serving-load` makes `LOAD_RUNS`
+# for `LOAD_DURATION_S` each (serving_load.py's --quantize int8 and
+# --max-batch 1 as the second and third); phase 5(c) makes the first for
+# `LOAD_SMOKE_S`.
+LOAD_CLIENTS = 16
+LOAD_DURATION_S = 30.0
+LOAD_SMOKE_S = 5.0
+LOAD_MAX_BATCH = 8
+LOAD_WINDOW_MS = 3.0
+LOAD_PRESET = "vit_base_16_224"
+LOAD_CLASSES = 6
+LOAD_INIT_SEED = 0
+LOAD_HEAD_SEED = 1
+LOAD_FRAME = {"side_w": 640, "side_h": 480, "quality": 90}
+LOAD_FRAME_SEED = 7
+LOAD_WARMUPS = 3
+LOAD_CLIENT_TIMEOUT_S = 60
+LOAD_JOIN_S = 30
+LOAD_RUNS = ((None, LOAD_MAX_BATCH), ("int8", LOAD_MAX_BATCH), (None, 1))
+# host-paced forwards of the engine alone at a run's batch, and decodes of
+# the body alone, timed before the load
+LOAD_ALONE_REPS = 10
+# the lock probe's sleep, and how long it reads the idle process
+LOAD_PROBE_S = 0.001
+LOAD_PROBE_IDLE_S = 0.3
+
+
+def load_params() -> dict:
+    """The served model: `LOAD_PRESET` from `LOAD_INIT_SEED` with a seeded
+    head (phases 4-17 serve and train it too)."""
+    cfg = PRESETS[LOAD_PRESET]
+    return seeded_head(init_image_classifier(cfg, LOAD_CLASSES,
+                                             seed=LOAD_INIT_SEED),
+                       cfg.embed_dim, LOAD_CLASSES, seed=LOAD_HEAD_SEED)
+
+
+def load_frame() -> bytes:
+    """serving_load.py's `_jpeg_frame()`: uniform pixels saved as JPEG."""
+    rng = np.random.default_rng(LOAD_FRAME_SEED)
+    buf = io.BytesIO()
+    Image.fromarray(
+        (rng.uniform(size=(LOAD_FRAME["side_h"], LOAD_FRAME["side_w"], 3))
+         * 255).astype(np.uint8)
+    ).save(buf, format="JPEG", quality=LOAD_FRAME["quality"])
+    return buf.getvalue()
+
+
+def load_client(port, body, keep_going, latencies, errors, payloads):
+    """serving_load.py's `_client_loop`, keeping each parsed answer: POST
+    `body` to /classify while `keep_going(requests made)` holds; a status
+    other than 200 or an exception is an error (and a new connection
+    after an exception), never retried into a success."""
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=LOAD_CLIENT_TIMEOUT_S)
+    made = 0
+    while keep_going(made):
+        made += 1
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/classify", body,
+                         {"Content-Type": "image/jpeg"})
+            resp = conn.getresponse()
+            payload = resp.read()
+            if resp.status != 200:
+                errors.append(payload[:200])
+                continue
+        except Exception as e:  # noqa: BLE001 - record and reconnect
+            errors.append(repr(e)[:200])
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=LOAD_CLIENT_TIMEOUT_S)
+            continue
+        latencies.append(time.perf_counter() - t0)
+        payloads.append(json.loads(payload))
+    conn.close()
+
+
+def drive_clients(port, body, clients, *, duration_s=None, requests=None):
+    """`clients` closed-loop `load_client`s against 127.0.0.1:`port`, for
+    `duration_s` seconds or `requests` requests each. Returns (wall s from
+    the first start to the last join, latencies s, errors, payloads)."""
+    stop = threading.Event()
+    if requests is None:
+        def keep_going(made):
+            return not stop.is_set()
+    else:
+        def keep_going(made):
+            return made < requests
+    latencies, errors, payloads = [], [], []
+    threads = [threading.Thread(target=load_client, daemon=True, args=(
+        port, body, keep_going, latencies, errors, payloads))
+        for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if duration_s is not None:
+        time.sleep(duration_s)
+        stop.set()
+    for t in threads:
+        t.join(timeout=LOAD_JOIN_S)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "a load client did not finish")
+    return wall, latencies, errors, payloads
+
+
+def load_result(latencies, errors, wall, stats, *, max_batch, quantize,
+                backend) -> dict:
+    """serving_load.py's result line (:147-163): its keys, formulas and
+    rounding; `backend` the engine's device type."""
+    lat = np.asarray(sorted(latencies)) * 1e3
+
+    def pct(q):
+        return round(float(np.percentile(lat, q)), 2) if lat.size else None
+
+    return {
+        "clients": LOAD_CLIENTS,
+        "duration_s": round(wall, 1),
+        "requests_ok": int(lat.size),
+        "errors": len(errors),
+        "qps": round(lat.size / wall, 1),
+        "p50_ms": pct(50),
+        "p90_ms": pct(90),
+        "p99_ms": pct(99),
+        "max_batch": max_batch,
+        "batch_window_ms": LOAD_WINDOW_MS,
+        "batcher": stats.get("batching"),
+        "preset": LOAD_PRESET,
+        "quantize": quantize,
+        "backend": backend,
+    }
+
+
+class HostTimes:
+    """The wall and the calling thread's CPU seconds of each call of the
+    functions it wraps: a thread whose wall time runs past its CPU time
+    waited (for the interpreter lock, a core, the card or a lock)."""
+
+    def __init__(self):
+        self.wall: list[float] = []
+        self.cpu: list[float] = []
+
+    def wrap(self, fn):
+        def timed(*args):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args)
+            finally:
+                self.wall.append(time.perf_counter() - t0)
+                self.cpu.append(time.thread_time() - c0)
+        return timed
+
+    def clear(self) -> None:
+        self.wall.clear()
+        self.cpu.clear()
+
+    def summary(self) -> dict | None:
+        """The wall ms's median, 90th percentile and maximum, the mean of
+        both (a thread's CPU clock may tick in 10 ms steps, so only a mean
+        over many calls reads it)."""
+        if not self.wall:
+            return None
+        wall = np.asarray(self.wall) * 1e3
+        return {"p50_ms": float(np.median(wall)),
+                "p90_ms": float(np.percentile(wall, 90)),
+                "max_ms": float(wall.max()),
+                "mean_ms": float(wall.mean()),
+                "cpu_mean_ms": float(np.mean(self.cpu) * 1e3),
+                "calls": len(self.wall)}
+
+
+class LockProbe:
+    """A thread that sleeps `LOAD_PROBE_S` at a time and records by how
+    much each wake-up overran: beyond the host timer's own slack (read
+    with the process idle), the time it waited for the interpreter lock,
+    as every thread of the process does after each release."""
+
+    def __init__(self):
+        self.late_s: list[float] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            time.sleep(LOAD_PROBE_S)
+            self.late_s.append(time.perf_counter() - t0 - LOAD_PROBE_S)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        check(not self._thread.is_alive(), "the lock probe did not stop")
+
+    def summary(self) -> dict:
+        late = np.asarray(self.late_s) * 1e3
+        return {"p50_ms": float(np.median(late)),
+                "p90_ms": float(np.percentile(late, 90)),
+                "p99_ms": float(np.percentile(late, 99)),
+                "mean_ms": float(late.mean()), "wakes": int(late.size)}
+
+
+class TimedEngine:
+    """The engine, with each forward the server asks of it (the batcher's
+    `infer_batch`, the unbatched `__call__`) timed into `times`."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.times = HostTimes()
+        self.infer_batch = self.times.wrap(engine.infer_batch)
+        self._call = self.times.wrap(engine)
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def __call__(self, image):
+        return self._call(image)
+
+
+def alone_times(fn, reps: int) -> dict:
+    """`HostTimes.summary` of `reps` calls of `fn` after one untimed."""
+    fn()
+    times = HostTimes()
+    timed = times.wrap(fn)
+    for _ in range(reps):
+        timed()
+    return times.summary()
+
+
+def unbatched_answer(engine, body) -> dict:
+    """The body's answer from an unbatched server of `engine`."""
+    srv = InferenceServer(classifier=engine)
+    host, port = srv.start_background(port=0)
+    try:
+        status, data = post(f"http://{host}:{port}/classify", body)
+    finally:
+        srv.shutdown()
+    check(status == 200, f"unbatched /classify status {status}")
+    return data
+
+
+def serving_load_run(engine, body, ref, *, quantize, max_batch: int,
+                     duration_s: float, smi: str, total: dict) -> dict:
+    """One run: the engine's forward alone at the run's batch and the
+    body's decode alone, then a fresh `InferenceServer` of it under
+    `LOAD_CLIENTS` closed-loop clients for `duration_s`, its launches
+    held exactly (a forward for the server's warm-up of the padded batch,
+    then one a batch; one a request unbatched). Every answer is 200 and
+    within `TOL_PROBS_BF16` of `ref`, the body's unbatched answer in the
+    same precision. Returns the run's record."""
+    cfg = PRESETS[LOAD_PRESET]
+    image = decoded(body, cfg.image_size)
+    batch = np.stack([image] * max_batch)
+
+    forward_alone = held_path(
+        total, f"serving load {quantize or 'bf16'} x {max_batch}: the "
+        f"forward alone",
+        lambda: alone_times(lambda: engine.infer_batch(batch),
+                            LOAD_ALONE_REPS),
+        serving_launches(cfg, 1 + LOAD_ALONE_REPS))
+    prep_alone = alone_times(lambda: decoded(body, cfg.image_size),
+                             LOAD_ALONE_REPS)
+    route = mlp_ops.forward_route(torch.empty(
+        (max_batch * (cfg.image_size // cfg.patch_size) ** 2 + max_batch,
+         cfg.mlp_dim), dtype=torch.bfloat16, device="cuda"))
+    timed = TimedEngine(engine)
+    table_before = (mlp_ops.TABLE_ROUTE_LAUNCHES, mlp_ops.TABLE_LAUNCHES)
+    torch.cuda.synchronize()
+    zero_counts()
+    srv = InferenceServer(classifier=timed, max_batch=max_batch,
+                          batch_window_ms=LOAD_WINDOW_MS)
+    # the server's own decode (PIL, the float conversion), alone and then
+    # in each handler thread under load
+    decode_alone = alone_times(lambda: srv._decode(body), LOAD_ALONE_REPS)
+    decode = HostTimes()
+    srv._decode = decode.wrap(srv._decode)
+    host, port = srv.start_background(port=0)
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        for _ in range(LOAD_WARMUPS):
+            conn.request("POST", "/classify", body,
+                         {"Content-Type": "image/jpeg"})
+            resp = conn.getresponse()
+            resp.read()
+            check(resp.status == 200, f"warm-up status {resp.status}")
+        conn.close()
+        with LockProbe() as idle:
+            time.sleep(LOAD_PROBE_IDLE_S)
+        timed.times.clear()
+        decode.clear()
+        cpu0 = time.process_time()
+        with LockProbe() as busy:
+            wall, latencies, errors, payloads = drive_clients(
+                port, body, LOAD_CLIENTS, duration_s=duration_s)
+        process_cpu_s = time.process_time() - cpu0
+        stats = get(f"http://{host}:{port}/stats")
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(total, counts)
+    table = (mlp_ops.TABLE_ROUTE_LAUNCHES - table_before[0],
+             mlp_ops.TABLE_LAUNCHES - table_before[1])
+
+    result = load_result(latencies, errors, wall, stats, max_batch=max_batch,
+                         quantize=quantize, backend=engine.device.type)
+    served = len(latencies)
+    batching = stats.get("batching")
+    if batching is None:
+        batches = served
+        forwards = LOAD_WARMUPS + served
+    else:
+        batches = batching["batches"] - LOAD_WARMUPS
+        forwards = 1 + batching["batches"]
+    under_load = timed.times.summary()
+    cycle_ms = wall * 1e3 / batches if batches else None
+    probs = np.asarray([p["probs"] for p in payloads])
+    err = float(np.abs(probs - np.asarray(ref["probs"])).max()) \
+        if served else None
+    clear = top2_margin(np.asarray(ref["probs"])) > 2 * TOL_PROBS_BF16
+    classes = sorted({p["class"] for p in payloads})
+    rec = {
+        "serving_load": f"{'int8' if quantize else 'bf16'} x {max_batch}",
+        **result,
+        "card": smi,
+        "server_classify": stats["classify"],
+        "images_per_s": served / wall,
+        # a connection the listen backlog dropped is retried after ~1 s
+        "requests_over_1s": int(sum(t >= 1.0 for t in latencies)),
+        "batches": batches,
+        "batch_cycle_ms": cycle_ms,
+        "forward_alone_ms": forward_alone["p50_ms"],
+        "cycle_over_forward": cycle_ms / forward_alone["p50_ms"]
+        if cycle_ms else None,
+        # wall and thread CPU ms: the forward alone and under load (the
+        # batcher's thread), the server's decode alone and under load (the
+        # handler threads), decode and letterbox alone
+        "forward": {"alone": forward_alone, "under_load": under_load},
+        "forward_busy_share": sum(timed.times.wall) / wall,
+        "decode": {"alone": decode_alone, "under_load": decode.summary()},
+        "decode_letterbox_alone": prep_alone,
+        # the process's CPU seconds a second of load, all threads
+        "process_cores_busy": process_cpu_s / wall,
+        # ms a 1 ms sleep overran, the process idle and under load
+        "lock_probe": {"idle": idle.summary(), "under_load": busy.summary()},
+        "host_cores": os.cpu_count(),
+        "switch_interval_s": sys.getswitchinterval(),
+        "max_abs_err_probs_vs_unbatched": err,
+        "classes": classes, "class_unbatched": ref["class"],
+        "gelu_forward_route": route,
+        "launches": {k: v for k, v in counts.items() if v},
+        "forwards": forwards,
+    }
+    log(json.dumps(rec))
+    check(not errors, f"{len(errors)} errors under load, first "
+          f"{errors[:1]}")
+    check(served > 0 and len(payloads) == served,
+          f"{served} answers, {len(payloads)} payloads")
+    if batching is not None:
+        check(batching["requests"] == LOAD_WARMUPS + served,
+              f"the batcher counted {batching['requests']} requests, "
+              f"{LOAD_WARMUPS} warm-ups and {served} answers were served")
+        check(batching["avg_batch"] > 1, f"no coalescing: {batching}")
+    check(len(timed.times.wall) == batches,
+          f"{len(timed.times.wall)} forwards under load, {batches} batches")
+    check(err <= TOL_PROBS_BF16,
+          f"probs under load {err} from the unbatched answer")
+    check(not clear or classes == [ref["class"]],
+          f"classes under load {classes} != {ref['class']}")
+    want = {**dict.fromkeys(counts, 0),
+            **serving_launches(cfg, forwards)}
+    check(counts == want, f"serving load launches {counts} != {want}")
+    want_table = (cfg.depth * forwards if route == "table" else 0, 0)
+    check(table == want_table, f"GELU table-route launches and fills "
+          f"{table} != {want_table}")
+    return rec
+
+
+def phase_serving_load(params, smi: str, runs, duration_s: float) -> dict:
+    """`runs` of (quantize, max_batch), `duration_s` each, each on a fresh
+    engine on the card (a fresh latency window for /stats). Returns the
+    launches."""
+    total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
+    cfg = PRESETS[LOAD_PRESET]
+    body = load_frame()
+    for quantize, max_batch in runs:
+        t0 = time.perf_counter()
+        engine = held_path(
+            total, f"serving load {quantize or 'bf16'}: the engine's "
+            f"warm-up",
+            lambda: StreamingClassifier(params, cfg, LOAD_CLASSES,
+                                        quantize=quantize, device="cuda"),
+            serving_launches(cfg, 1))
+        ref = held_path(total, f"serving load {quantize or 'bf16'}: the "
+                        f"body's unbatched answer",
+                        lambda: unbatched_answer(engine, body),
+                        serving_launches(cfg, 1))
+        serving_load_run(engine, body, ref, quantize=quantize,
+                         max_batch=max_batch, duration_s=duration_s,
+                         smi=smi, total=total)
+        log(json.dumps({"serving_load_run_s": time.perf_counter() - t0,
+                        "body_bytes": len(body), "unbatched": ref}))
+    return total
 
 
 # Detector raw outputs. fp32 card against fp32 CPU: the same arithmetic in
@@ -8341,8 +8772,7 @@ def main() -> int:
         build.load(name)
     phase_build_report(built)
     cfg = PRESETS["vit_base_16_224"]
-    params = seeded_head(init_image_classifier(cfg, 6, seed=0),
-                         cfg.embed_dim, 6, seed=1)
+    params = load_params()
     if "--vit-large" in sys.argv[1:]:
         log("# --vit-large: phase 14 alone")
         phase_vit_large(smi)
@@ -8378,6 +8808,16 @@ def main() -> int:
             log("# --generalization reference: benchmarks/"
                 "recipe_ablation.py's row bs64_lr3e4")
             phase_reference_generalization(smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--serving-load" in sys.argv[1:]:
+        log("# --serving-load: benchmarks/serving_load.py's configuration")
+        t0 = time.perf_counter()
+        phase_serving_load(params, smi, LOAD_RUNS, LOAD_DURATION_S)
+        log(json.dumps({"serving_load_s": time.perf_counter() - t0}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8462,6 +8902,11 @@ def main() -> int:
                 launches, **norm_launches(cfg, forwards=forwards)}
     check(serving == expected,
           f"classify serving launches {serving} != {expected}")
+    log("# phase 5(c): the micro-batched server under load, "
+        f"{LOAD_SMOKE_S:g} s")
+    t0 = time.perf_counter()
+    load = phase_serving_load(params, smi, LOAD_RUNS[:1], LOAD_SMOKE_S)
+    log(json.dumps({"phase_5c_s": time.perf_counter() - t0}))
     log("# phase 6: profile of the bf16 forward")
     phase_profile(direct, batch)
 
@@ -8515,7 +8960,7 @@ def main() -> int:
         return (train[name] + detect.get(name, 0) + det_train[name]
                 + opt_in[name] + entry[name] + disk[name] + int8[name]
                 + recipe[name] + distill[name] + parallel.get(name, 0)
-                + presets[name] + serving[name])
+                + presets[name] + serving[name] + load[name])
 
     # every LayerNorm and unfused GELU of phases 4-17 ran its kernels
     check(all(paths(name) > 0 for name in NORM_NAMES),
