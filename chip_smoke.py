@@ -25,6 +25,15 @@ registry, on one NVIDIA card.
     python3 chip_smoke.py --generalization reference  # phases 1, 2, then
         # benchmarks/recipe_ablation.py's row bs64_lr3e4 (see the comment
         # above `REF_GEN_ABLATION`; not in a bare --generalization run)
+    python3 chip_smoke.py --generalization reference --ref-seeds 11,12
+        # the same row from step seed 11 and order seed 12
+    python3 chip_smoke.py --generalization classification_accum  # phases
+        # 1, 2, then the classification demo with DEMO_GRAD_ACCUM=8 (see
+        # the comment above `GEN_ACCUM_GRAD_ACCUM`; not in a bare
+        # --generalization run)
+    python3 chip_smoke.py --checkpoint-bytes  # phases 1, 2, then one
+        # Trainer step of the detection demo's configuration and the size
+        # of its checkpoint (see `phase_checkpoint_bytes`; no kernel line)
     python3 chip_smoke.py --serving-load  # phases 1, 2, then
         # benchmarks/serving_load.py's configuration, 30 s a run: bf16
         # and int8 at max_batch 8, bf16 at max_batch 1 (see the comment
@@ -8175,19 +8184,29 @@ GEN_STEP_SEED = 1
 GEN_ORDER_SEED = 2
 GEN_LOG_EVERY = 250
 GEN_MIN_VAL_TOP1 = 0.98
+# --generalization classification_accum: the same demo with
+# DEMO_GRAD_ACCUM=8 (its line 46), each step's 256 images as 8
+# microbatches of 32; JAX's run is classification_generalization_accum.json
+# (val top-1 0.9995), and the port must reach the same GEN_MIN_VAL_TOP1
+GEN_ACCUM_GRAD_ACCUM = 8
+# JAX's record of each run, by its grad_accum (read, never written)
+GEN_JAX_RECORDS = {GEN_GRAD_ACCUM: "classification_generalization.json",
+                   GEN_ACCUM_GRAD_ACCUM:
+                       "classification_generalization_accum.json"}
 # --generalization's parts, in the order a bare --generalization runs them,
-# and the parts it runs only when named (the reference recipe: ~50 min)
+# and the parts it runs only when named (the reference recipe: ~50 min;
+# the accumulated demo)
 GEN_PARTS = ("classification", "detection")
-GEN_PARTS_NAMED = ("reference",)
+GEN_PARTS_NAMED = ("reference", "classification_accum")
 
 
-def generalization_config() -> TrainConfig:
+def generalization_config(grad_accum: int = GEN_GRAD_ACCUM) -> TrainConfig:
     return TrainConfig(
         preset=GEN_PRESET, num_classes=6, batch_size=GEN_BATCH,
         image_size=GEN_SIZE, canvas=GEN_CANVAS, augment="crop_flip",
         learning_rate=3e-4, weight_decay=0.05,
         warmup_steps=min(400, GEN_STEPS // 10), total_steps=GEN_STEPS,
-        schedule="cosine", bf16=True, grad_accum=GEN_GRAD_ACCUM)
+        schedule="cosine", bf16=True, grad_accum=grad_accum)
 
 
 def generalization_pool(n: int, seed: int) -> tuple:
@@ -8203,10 +8222,25 @@ def generalization_pool(n: int, seed: int) -> tuple:
     return images, labels
 
 
-def phase_generalization(smi: str) -> dict:
-    """--generalization: train and evaluate as the JAX demo does; the pools
-    live on the card and each step's rows are gathered there. Fails below
-    GEN_MIN_VAL_TOP1."""
+def generalization_jax(grad_accum: int) -> dict:
+    """JAX's val top-1 and per-class accuracy for the demo at
+    `grad_accum`, from its record in GEN_JAX_RECORDS (an accuracy
+    reference only: its seconds are a TPU's)."""
+    name = GEN_JAX_RECORDS[grad_accum]
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           name)) as f:
+        rec = json.load(f)
+    # the unaccumulated run's record names no grad_accum: the demo's 1
+    return {"record": name,
+            "grad_accum": rec["config"].get("grad_accum", GEN_GRAD_ACCUM),
+            "val_top1": rec["val"]["top1"],
+            "val_per_class_accuracy": rec["val"]["per_class_accuracy"]}
+
+
+def phase_generalization(smi: str, grad_accum: int = GEN_GRAD_ACCUM) -> dict:
+    """--generalization: train and evaluate as the JAX demo does, each step
+    as `grad_accum` microbatches; the pools live on the card and each
+    step's rows are gathered there. Fails below GEN_MIN_VAL_TOP1."""
     from arsvt_tpu_torch.train.config import resolve_backbone
 
     t0 = time.perf_counter()
@@ -8214,7 +8248,7 @@ def phase_generalization(smi: str) -> dict:
         generalization_pool(n, seed) for n, seed in zip(
             (GEN_TRAIN_IMAGES, GEN_VAL_IMAGES), GEN_POOL_SEEDS))
     pool_s = time.perf_counter() - t0
-    cfg = generalization_config()
+    cfg = generalization_config(grad_accum)
     init_fn, step, _ = make_classifier_step_fns(cfg)
     state = init_fn(GEN_INIT_SEED)
     images = torch.from_numpy(tr_images).cuda()
@@ -8239,7 +8273,7 @@ def phase_generalization(smi: str) -> dict:
     train_s = time.perf_counter() - t0
     counts = read_counts()
     want = {**dict.fromkeys(counts, 0), **classifier_launches(
-        bb.depth, GEN_GRAD_ACCUM, GEN_STEPS, 0, False)}
+        bb.depth, grad_accum, GEN_STEPS, 0, False)}
     check(counts == want, f"generalization launches {counts} != {want}")
     peak = torch.cuda.max_memory_allocated() / 1e9
 
@@ -8257,7 +8291,7 @@ def phase_generalization(smi: str) -> dict:
     rec = {"generalization": "benchmarks/classification_generalization_"
                              "demo.py's configuration on the port",
            "config": {"preset": cfg.preset, "steps": GEN_STEPS,
-                      "batch_size": GEN_BATCH, "grad_accum": GEN_GRAD_ACCUM,
+                      "batch_size": GEN_BATCH, "grad_accum": grad_accum,
                       "train_images": GEN_TRAIN_IMAGES,
                       "val_images": GEN_VAL_IMAGES, "augment": cfg.augment,
                       "canvas": GEN_CANVAS, "bf16": cfg.bf16},
@@ -8269,7 +8303,9 @@ def phase_generalization(smi: str) -> dict:
            "ms_per_step": train_s / GEN_STEPS * 1e3,
            "peak_memory_gb": peak, "pool_seconds": pool_s,
            "launches": {k: v for k, v in counts.items() if v},
-           "card": smi}
+           "launches_per_step": {k: v / GEN_STEPS
+                                 for k, v in counts.items() if v},
+           "jax": generalization_jax(grad_accum), "card": smi}
     log(json.dumps(rec))
     check(val["top1"] >= GEN_MIN_VAL_TOP1,
           f"val top-1 {val['top1']} < {GEN_MIN_VAL_TOP1}")
@@ -8534,6 +8570,9 @@ REF_GEN_DATA_SEEDS = (0, 1)  # train, valid
 REF_GEN_INIT_SEED = 0
 REF_GEN_STEP_SEED = 1
 REF_GEN_ORDER_SEED = 2
+# `--ref-seeds STEP,ORDER` replaces the two seeds above for one run, to
+# repeat the row from other random streams; the data and init stay
+REF_GEN_SEEDS_FLAG = "--ref-seeds"
 REF_GEN_LOG_EVERY = 500
 REF_GEN_TRAIN_EVAL_IMAGES = 256
 REF_GEN_THRESHOLDS = {"conf_threshold": 0.5, "nms_threshold": 0.5}
@@ -8556,6 +8595,19 @@ REF_GEN_JAX_ROWS = ("bs64_lr3e4", "bs64", "lr3e4_cosine", "faithful")
 def reference_generalization_config() -> TrainConfig:
     return TRAIN_PRESETS[REF_GEN_TRAIN_PRESET].with_overrides(
         **REF_GEN_OVERRIDES)
+
+
+def reference_generalization_seeds(argv) -> tuple:
+    """(step seed, order seed) of the run: `--ref-seeds STEP,ORDER` in
+    `argv`, else REF_GEN_STEP_SEED and REF_GEN_ORDER_SEED."""
+    if REF_GEN_SEEDS_FLAG not in argv:
+        return REF_GEN_STEP_SEED, REF_GEN_ORDER_SEED
+    value = argv[argv.index(REF_GEN_SEEDS_FLAG) + 1:][:1]
+    seeds = value[0].split(",") if value else []
+    if len(seeds) != 2 or not all(x.strip().isdigit() for x in seeds):
+        raise SystemExit(f"{REF_GEN_SEEDS_FLAG} takes STEP,ORDER (two "
+                         f"non-negative integers), not {value}")
+    return int(seeds[0]), int(seeds[1])
 
 
 def reference_generalization_launches(steps: int,
@@ -8616,7 +8668,9 @@ def reference_generalization_jax() -> dict:
     return out
 
 
-def phase_reference_generalization(smi: str) -> dict:
+def phase_reference_generalization(
+        smi: str, step_seed: int = REF_GEN_STEP_SEED,
+        order_seed: int = REF_GEN_ORDER_SEED) -> dict:
     """--generalization reference: train and evaluate as the JAX ablation
     row does; the uint8 pools and targets live on the card and each step
     gathers its rows there; the launches of the training and of the
@@ -8629,11 +8683,11 @@ def phase_reference_generalization(smi: str) -> dict:
     cfg = reference_generalization_config()
     order = torch.from_numpy(detection_generalization_order(
         len(train["image"]), REF_GEN_STEPS, REF_GEN_BATCH,
-        REF_GEN_ORDER_SEED)).cuda()
+        order_seed)).cuda()
     total = dict.fromkeys((name for name, _, _ in COUNTERS), 0)
     state, eval_step, trace, train_s, peak = train_detection_demo(
         total, "reference recipe", "reference_generalization", cfg, train,
-        order, init_seed=REF_GEN_INIT_SEED, step_seed=REF_GEN_STEP_SEED,
+        order, init_seed=REF_GEN_INIT_SEED, step_seed=step_seed,
         log_every=REF_GEN_LOG_EVERY,
         launches=reference_generalization_launches)
     (result, train_split), forwards = evaluate_detection_demo(
@@ -8648,6 +8702,8 @@ def phase_reference_generalization(smi: str) -> dict:
                       "steps": len(order),
                       "train_images": REF_GEN_TRAIN_IMAGES,
                       "val_images": REF_GEN_VAL_IMAGES,
+                      "init_seed": REF_GEN_INIT_SEED,
+                      "step_seed": step_seed, "order_seed": order_seed,
                       "warp_variant": augment.warp_variant(cfg),
                       **{k: getattr(cfg, k) for k in (
                           "batch_size", "learning_rate", "schedule",
@@ -8674,6 +8730,62 @@ def phase_reference_generalization(smi: str) -> dict:
           f"val mAP {result['mAP']} / AP50 {result['AP50']} / mean loss "
           f"over steps {REF_GEN_LATE_STEPS} {late}: below {REF_GEN_MIN_MAP}"
           f" / {REF_GEN_MIN_AP50} or above {REF_GEN_MAX_LATE_LOSS}")
+    return rec
+
+
+# --checkpoint-bytes: the state a run of the detection demo would carry
+# from one call to the next to resume (JAX's 40,000-step run is longer
+# than a call). One Trainer step of `detection_generalization_config()` on
+# a random batch at its shapes, checkpointed by the Trainer's own path
+# (params, AdamW state, step and config in one `torch.save` file), beside
+# the parameters and two fp32 Adam moments that file must hold; a copy to
+# the card's machine carries 256 MiB and what a call brings back 64 MiB.
+CKPT_CARRY_MIB = 64
+
+
+def phase_checkpoint_bytes(smi: str) -> dict:
+    """Write the detection demo's checkpoint after one step through
+    `Trainer.fit` and record its size; fails unless it restores to the
+    trained state."""
+    from arsvt_tpu_torch.train.checkpoint import CheckpointManager
+    from arsvt_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="arsvt_ckpt_") as root:
+        cfg = detection_generalization_config().with_overrides(
+            checkpoint_dir=root, checkpoint_every=1, log_every=1,
+            eval_every=10**9)
+        trainer = Trainer(cfg, device="cuda")
+        trainer.init_state()
+        batch = det_random_batch(np.random.default_rng(0), cfg.batch_size,
+                                 size=cfg.canvas, m=cfg.max_objects)
+        trainer.fit(iter([batch]), steps=1)
+        torch.cuda.synchronize()
+        files = sorted(os.listdir(root))
+        check(files == ["step_000000001.pt"],
+              f"checkpoint files after one step: {files}")
+        size = os.path.getsize(os.path.join(root, files[0]))
+        restored, _ = CheckpointManager(root, cfg).restore(trainer.state)
+
+    def trees(state):
+        return (state["params"], state["opt_state"]["mu"],
+                state["opt_state"]["nu"])
+
+    same = all(torch.equal(a.cpu(), b.cpu())
+               for x, y in zip(trees(trainer.state), trees(restored))
+               for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    n = sum(t.numel() for t in tree_leaves(trainer.state["params"]))
+    estimate = 3 * 4 * n  # fp32 params, mu and nu
+    rec = {"checkpoint_bytes": f"{cfg.preset} after one Trainer step",
+           "file": files[0], "bytes": size, "mib": size / 2**20,
+           "parameters": n, "params_and_moments_bytes": estimate,
+           "params_and_moments_mib": estimate / 2**20,
+           "over_estimate": size - estimate,
+           "fits_mib": CKPT_CARRY_MIB,
+           "fits": size < CKPT_CARRY_MIB * 2**20,
+           "restored_step": int(restored["step"]), "card": smi}
+    log(json.dumps(rec))
+    check(same and int(restored["step"]) == 1,
+          "the checkpoint does not restore the trained state")
     return rec
 
 
@@ -8745,6 +8857,16 @@ def phase_build_report(built: dict) -> None:
               f"a bf16 kernel of {name} has no {unit.upper()}: {counts}")
 
 
+def finish(smi: str) -> int:
+    """The run's last two lines: the card's name and power limit, then
+    the result the caller reads."""
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -8800,29 +8922,33 @@ def main() -> int:
             log("# --generalization classification: benchmarks/"
                 "classification_generalization_demo.py's configuration")
             phase_generalization(smi)
+        if "classification_accum" in parts:
+            log("# --generalization classification_accum: benchmarks/"
+                "classification_generalization_demo.py's configuration with"
+                f" DEMO_GRAD_ACCUM={GEN_ACCUM_GRAD_ACCUM}")
+            phase_generalization(smi, GEN_ACCUM_GRAD_ACCUM)
         if "detection" in parts:
             log("# --generalization detection: benchmarks/"
                 "detection_generalization_demo.py's configuration")
             phase_detection_generalization(smi)
         if "reference" in parts:
+            step_seed, order_seed = reference_generalization_seeds(
+                sys.argv[1:])
             log("# --generalization reference: benchmarks/"
-                "recipe_ablation.py's row bs64_lr3e4")
-            phase_reference_generalization(smi)
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+                "recipe_ablation.py's row bs64_lr3e4, step seed "
+                f"{step_seed}, order seed {order_seed}")
+            phase_reference_generalization(smi, step_seed, order_seed)
+        return finish(smi)
+    if "--checkpoint-bytes" in sys.argv[1:]:
+        log("# --checkpoint-bytes: the detection demo's checkpoint")
+        phase_checkpoint_bytes(smi)
+        return finish(smi)
     if "--serving-load" in sys.argv[1:]:
         log("# --serving-load: benchmarks/serving_load.py's configuration")
         t0 = time.perf_counter()
         phase_serving_load(params, smi, LOAD_RUNS, LOAD_DURATION_S)
         log(json.dumps({"serving_load_s": time.perf_counter() - t0}))
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish(smi)
     if "--presets" in sys.argv[1:]:
         log("# --presets: the presets' attention timing and phase 17 alone")
         phase_preset_attention_timing(smi)
@@ -8832,11 +8958,7 @@ def main() -> int:
     if "--parallel" in sys.argv[1:]:
         log("# --parallel: phase 16 alone")
         phase_parallel(smi)
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish(smi)
     if {"--disk", "--int8"} & set(sys.argv[1:]):
         log("# --disk / --int8: phase 12 (and 13) alone")
         with tempfile.TemporaryDirectory() as tmp:
@@ -9071,11 +9193,7 @@ def main() -> int:
              "arsvt_tpu/ops/mlp.py:21 (gelu_tanh and its custom VJP, jit "
              "code that XLA fuses; no Pallas kernel)"))
     ]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(smi)
 
 
 if __name__ == "__main__":

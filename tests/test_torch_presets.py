@@ -14,6 +14,7 @@ and write its artifact)."""
 import ast
 import dataclasses
 import functools
+import json
 import os
 
 import jax
@@ -363,19 +364,21 @@ def _evaluate(node, names: dict, env=None):
     return {"int": int, "float": float, "min": min}[fn](*args)
 
 
-def _demo_config():
+def _demo_config(env=None):
     """(module constants, TrainConfig keywords, make_pool seeds, the seeds
-    of the init key, the step key and the order rng) of the demo."""
+    of the init key, the step key and the order rng) of the demo, run with
+    the environment `env` (None: no knob set)."""
     tree = _demo_source()
     names = {}
     for node in tree.body:
         if (isinstance(node, ast.Assign) and len(node.targets) == 1
                 and isinstance(node.targets[0], ast.Name)
                 and node.targets[0].id.isupper()):
-            names[node.targets[0].id] = _evaluate(node.value, names)
+            names[node.targets[0].id] = _evaluate(node.value, names, env)
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)]
     config = next(c for c in calls if ast.unparse(c.func) == "TrainConfig")
-    kwargs = {k.arg: _evaluate(k.value, names) for k in config.keywords}
+    kwargs = {k.arg: _evaluate(k.value, names, env)
+              for k in config.keywords}
     pools = [(_evaluate(c.args[0], names), _evaluate(c.keywords[0].value,
                                                      names))
              for c in calls if ast.unparse(c.func) == "make_pool"]
@@ -411,3 +414,52 @@ def test_generalization_mode_runs_the_jax_demo_configuration():
     assert keys == [cs.GEN_INIT_SEED] and rng_key == cs.GEN_STEP_SEED
     assert seeds["np.random.default_rng"] == cs.GEN_ORDER_SEED
     assert cs.GEN_PRESET == kwargs["preset"] == "vit_demo_8_96"
+
+
+# JAX's accumulated run: classification_generalization_accum.json
+ACCUM_ENV = {"DEMO_GRAD_ACCUM": "8"}
+
+
+@pytest.mark.parametrize("part", ["config", "parts", "jax_record"])
+def test_classification_accum_runs_the_jax_accumulated_demo(part):
+    """``--generalization classification_accum``: the demo's configuration
+    with DEMO_GRAD_ACCUM=8 (its source read with `ast`: every TrainConfig
+    field it sets, grad_accum 8 among them, every other field at its
+    default, the pools and seeds of the unaccumulated run); a part run
+    only when named; JAX's record of that run beside it."""
+    if part == "config":
+        names, kwargs, *rest = _demo_config(ACCUM_ENV)
+        assert names["GRAD_ACCUM"] == kwargs["grad_accum"] == (
+            cs.GEN_ACCUM_GRAD_ACCUM) == 8
+        assert names["BS"] // names["GRAD_ACCUM"] == 32
+        port = cs.generalization_config(cs.GEN_ACCUM_GRAD_ACCUM)
+        assert all(getattr(port, k) == v for k, v in kwargs.items()), (
+            {k: (getattr(port, k), v) for k, v in kwargs.items()})
+        default = TrainConfig()
+        assert all(getattr(port, f.name) == getattr(default, f.name)
+                   for f in dataclasses.fields(TrainConfig)
+                   if f.name not in kwargs)
+        # only grad_accum differs from the unaccumulated run
+        assert dataclasses.replace(port, grad_accum=cs.GEN_GRAD_ACCUM) == (
+            cs.generalization_config())
+        assert rest == list(_demo_config()[2:])
+    elif part == "parts":
+        assert "classification_accum" in cs.GEN_PARTS_NAMED
+        assert "classification_accum" not in cs.GEN_PARTS
+        assert not set(cs.GEN_PARTS) & set(cs.GEN_PARTS_NAMED)
+    else:
+        names, kwargs, *_ = _demo_config(ACCUM_ENV)
+        rec = cs.generalization_jax(cs.GEN_ACCUM_GRAD_ACCUM)
+        assert rec["record"] == "classification_generalization_accum.json"
+        assert rec["grad_accum"] == cs.GEN_ACCUM_GRAD_ACCUM
+        assert rec["val_top1"] >= cs.GEN_MIN_VAL_TOP1
+        with open(os.path.join(REPO, rec["record"])) as f:
+            config = json.load(f)["config"]
+        assert (config["preset"], config["steps"], config["batch_size"],
+                config["train_images"], config["val_images"],
+                config["augment"]) == (
+            kwargs["preset"], names["STEPS"], names["BS"],
+            names["TRAIN_IMAGES"], names["VAL_IMAGES"], kwargs["augment"])
+        plain = cs.generalization_jax(cs.GEN_GRAD_ACCUM)
+        assert plain["record"] == "classification_generalization.json"
+        assert plain["grad_accum"] == cs.GEN_GRAD_ACCUM

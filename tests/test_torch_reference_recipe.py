@@ -286,6 +286,66 @@ def test_chip_smoke_runs_the_jax_ablation_row(part):
             k: 10 * step[k] + 3 * forward[k] for k in step}
 
 
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv", [(), ("--ref-seeds", "11,12"),
+                                  ("--ref-seeds", "21,22")])
+def test_ref_seeds_replace_only_the_step_and_order_seeds(argv, monkeypatch):
+    """``--generalization reference --ref-seeds STEP,ORDER``: without the
+    option the run takes the ablation's step and order seeds; with it,
+    those two seeds alone change, and the data, its seeds and the init
+    seed reach `phase_reference_generalization`'s training as before."""
+    abl = _ablation()
+    args = ("--generalization", "reference", *argv)
+    want = ((abl["step_key"], abl["order_seed"]) if not argv
+            else tuple(int(v) for v in argv[1].split(",")))
+    assert cs.reference_generalization_seeds(list(args)) == want
+    seen = {}
+
+    def pools(prefix, counts, seeds, **split):
+        seen["data"] = (counts, seeds, split)
+        return {"image": np.zeros((counts[0], 1), np.uint8)}, {}, 0.0
+
+    def order(n, steps, batch, seed):
+        seen["order"] = (n, steps, batch, seed)
+        return np.zeros((steps, batch), np.int64)
+
+    def train(total, path, tag, cfg, train, order, **kw):
+        seen["train"] = (cfg, kw["init_seed"], kw["step_seed"])
+        raise _Stop
+
+    monkeypatch.setattr(cs, "detection_pools", pools)
+    monkeypatch.setattr(cs, "detection_generalization_order", order)
+    monkeypatch.setattr(cs, "train_detection_demo", train)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda t, *a, **k: t)
+    with pytest.raises(_Stop):
+        cs.phase_reference_generalization("card", *want)
+    assert seen["data"] == (
+        (cs.REF_GEN_TRAIN_IMAGES, cs.REF_GEN_VAL_IMAGES),
+        cs.REF_GEN_DATA_SEEDS,
+        {"canvas": cs.REF_GEN_CANVAS, "max_objects": cs.REF_GEN_MAX_OBJECTS,
+         "coco": cs.REF_GEN_COCO})
+    assert seen["order"] == (cs.REF_GEN_TRAIN_IMAGES, cs.REF_GEN_STEPS,
+                             cs.REF_GEN_BATCH, want[1])
+    cfg, init_seed, step_seed = seen["train"]
+    assert cfg == cs.reference_generalization_config()
+    assert (init_seed, step_seed) == (abl["init_key"], want[0])
+    # the defaults stay the ablation's
+    assert (cs.REF_GEN_STEP_SEED, cs.REF_GEN_ORDER_SEED) == (
+        abl["step_key"], abl["order_seed"])
+
+
+@pytest.mark.parametrize("value", [None, "11", "11,x", "1,2,3", "-1,2"])
+def test_ref_seeds_refuse_a_malformed_value(value):
+    """`--ref-seeds` takes exactly two non-negative integers."""
+    args = ["--generalization", "reference", "--ref-seeds"]
+    with pytest.raises(SystemExit):
+        cs.reference_generalization_seeds(
+            args if value is None else args + [value])
+
+
 def test_floors_separate_the_jax_rows():
     """The floors sit between JAX's bs64_lr3e4 (the mAP floor at most half
     its mAP) and the best of the rows that did not learn, as
@@ -368,86 +428,87 @@ def _no_dropout(det):
         head=dataclasses.replace(det.head, dropout=0.0, attn_dropout=0.0))
 
 
+def recipe_steps(root: str, **jax_overrides) -> list:
+    """STEPS steps of the row's configuration at full width (batch
+    STEP_BATCH, fp32, then `jax_overrides`) on both sides from JAX's init
+    (init key 0, step key 1), under the dropout the two registries hold,
+    each batch drawn as the ablation draws its rows (order seed 2) from
+    STEP_IMAGES images of its train split under `root`, JAX's per-image
+    augmentation draws fed to the port. Returns each step's metrics,
+    parameters, updates and first moments on both sides, as (port, jax)
+    pairs."""
+    abl = _ablation()
+    jcfg = _jax_config(batch_size=STEP_BATCH, bf16=False, **jax_overrides)
+    kw = dataclasses.asdict(jcfg)
+    images, targets = _port_split(root, "train", STEP_IMAGES)
+    det = registry.DETECTOR_PRESETS[cs.REF_GEN_TRAIN_PRESET]
+    with jax.default_matmul_precision("highest"):
+        jinit, jstep, _ = jax_make_detector_step_fns(jcfg)
+        _, step, _ = make_detector_step_fns(TrainConfig(**kw), device="cpu")
+        jstate = jinit(jax.random.PRNGKey(abl["init_key"]))
+        state = {"params": bridge.detector_from_jax_params(
+                     jax.tree_util.tree_map(np.asarray, jstate["params"]),
+                     det),
+                 "opt_state": bridge.detector_opt_state_from_jax(
+                     _jax_opt_dict(jstate["opt_state"]), det),
+                 "step": 0}
+        base_rng = jax.random.PRNGKey(abl["step_key"])
+        aug = JaxAugConfig(image_size=det.backbone.image_size,
+                           warp_variant=kw["warp_variant"])
+        order = np.random.default_rng(abl["order_seed"])
+        out = []
+        for t in range(STEPS):
+            idx = order.integers(0, len(images), STEP_BATCH)
+            batch = {"image": images[idx],
+                     **{k: v[idx] for k, v in targets.items()}}
+            before = (_flat(bridge.detector_to_jax_params(state["params"])),
+                      _flat(jstate["params"]))
+            jstate, jm = jstep(jstate,
+                               jax.tree_util.tree_map(jnp.asarray, batch),
+                               base_rng)
+            # one microbatch: the step key's second half, split an image
+            _, aug_rng = jax.random.split(jax.random.fold_in(base_rng, t))
+            draws = [_stack_draws([_jax_draws(k, aug) for k in
+                                   jax.random.split(aug_rng, STEP_BATCH)])]
+            state, m = step(state, batch, step_seed=abl["step_key"],
+                            draws=draws)
+            after = (_flat(bridge.detector_to_jax_params(state["params"])),
+                     _flat(jstate["params"]))
+            out.append({
+                "metrics": ({k: float(v) for k, v in m.items()},
+                            {k: float(v) for k, v in jm.items()}),
+                "params": after,
+                "update": (after[0] - before[0], after[1] - before[1]),
+                "mu": (_flat(bridge.detector_to_jax_params(
+                           state["opt_state"]["mu"])),
+                       _flat(_jax_opt_dict(jstate["opt_state"])["mu"])),
+            })
+    return out
+
+
 @pytest.fixture(scope="module")
 def two_steps(tmp_path_factory):
-    """STEPS steps of the row's configuration at full width (batch
-    STEP_BATCH, fp32) on both sides from JAX's init (init key 0, step key
-    1), dropout 0 everywhere on both sides (the preset's residual dropout
-    set to 0 in both registries, attention dropout 0 in the config: the
-    two packages draw their masks from different generators), each batch
-    drawn as the ablation draws its rows (order seed 2) from STEP_IMAGES
-    images of its train split, JAX's per-image augmentation draws fed to the port.
-    Returns each step's metrics, parameters, updates and first moments on
-    both sides, as (port, jax) pairs."""
-    abl = _ablation()
-    jcfg = _jax_config(batch_size=STEP_BATCH, bf16=False, attn_dropout=0.0)
-    kw = dataclasses.asdict(jcfg)
-    images, targets = _port_split(str(tmp_path_factory.mktemp("ref_coco")),
-                                  "train", STEP_IMAGES)
+    """`recipe_steps` with dropout 0 everywhere on both sides (the
+    preset's residual dropout set to 0 in both registries, attention
+    dropout 0 in the config: the two packages draw their masks from
+    different generators; test_torch_recipe_dropout.py holds the steps
+    with the recipe's dropout, JAX's masks replayed)."""
     name = cs.REF_GEN_TRAIN_PRESET
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(jax_registry.DETECTOR_PRESETS, name,
                    _no_dropout(jax_registry.DETECTOR_PRESETS[name]))
         mp.setitem(registry.DETECTOR_PRESETS, name,
                    _no_dropout(registry.DETECTOR_PRESETS[name]))
-        det = registry.DETECTOR_PRESETS[name]
-        with jax.default_matmul_precision("highest"):
-            jinit, jstep, _ = jax_make_detector_step_fns(jcfg)
-            _, step, _ = make_detector_step_fns(TrainConfig(**kw),
-                                                device="cpu")
-            jstate = jinit(jax.random.PRNGKey(abl["init_key"]))
-            state = {"params": bridge.detector_from_jax_params(
-                         jax.tree_util.tree_map(np.asarray,
-                                                jstate["params"]), det),
-                     "opt_state": bridge.detector_opt_state_from_jax(
-                         _jax_opt_dict(jstate["opt_state"]), det),
-                     "step": 0}
-            base_rng = jax.random.PRNGKey(abl["step_key"])
-            aug = JaxAugConfig(image_size=det.backbone.image_size,
-                               warp_variant=kw["warp_variant"])
-            order = np.random.default_rng(abl["order_seed"])
-            out = []
-            for t in range(STEPS):
-                idx = order.integers(0, len(images), STEP_BATCH)
-                batch = {"image": images[idx],
-                         **{k: v[idx] for k, v in targets.items()}}
-                before = (
-                    _flat(bridge.detector_to_jax_params(state["params"])),
-                    _flat(jstate["params"]))
-                jstate, jm = jstep(
-                    jstate, jax.tree_util.tree_map(jnp.asarray, batch),
-                    base_rng)
-                # one microbatch: the step key's second half, split an
-                # image
-                _, aug_rng = jax.random.split(jax.random.fold_in(base_rng, t))
-                draws = [_stack_draws([_jax_draws(k, aug) for k in
-                                       jax.random.split(aug_rng,
-                                                        STEP_BATCH)])]
-                state, m = step(state, batch, step_seed=abl["step_key"],
-                                draws=draws)
-                after = (
-                    _flat(bridge.detector_to_jax_params(state["params"])),
-                    _flat(jstate["params"]))
-                out.append({
-                    "metrics": ({k: float(v) for k, v in m.items()},
-                                {k: float(v) for k, v in jm.items()}),
-                    "params": after,
-                    "update": (after[0] - before[0], after[1] - before[1]),
-                    "mu": (_flat(bridge.detector_to_jax_params(
-                               state["opt_state"]["mu"])),
-                           _flat(_jax_opt_dict(jstate["opt_state"])["mu"])),
-                })
-    return out
+        return recipe_steps(str(tmp_path_factory.mktemp("ref_coco")),
+                            attn_dropout=0.0)
 
 
-@pytest.mark.parametrize("quantity", ["loss", "grad_norm", "first_moment",
-                                      "update", "params"])
-def test_recipe_steps_match_jax(quantity, two_steps):
-    """Each step: the loss and its parts, the triplet term among them and
-    not 0 (test_torch_detect_train's limits), the gradient norm before
-    clipping, Adam's first moment, the update and the parameters after
-    it."""
-    for t, rec in enumerate(two_steps):
+def check_recipe_steps(quantity: str, steps: list) -> None:
+    """Each step of `recipe_steps`: the loss and its parts, the triplet
+    term among them and not 0 (test_torch_detect_train's limits), the
+    gradient norm before clipping, Adam's first moment, the update and
+    the parameters after it."""
+    for t, rec in enumerate(steps):
         port, ref = rec[{"loss": "metrics", "grad_norm": "metrics",
                          "first_moment": "mu"}.get(quantity, quantity)]
         if quantity == "loss":
@@ -476,3 +537,10 @@ def test_recipe_steps_match_jax(quantity, two_steps):
         else:
             assert np.linalg.norm(port - ref) / np.linalg.norm(ref) <= (
                 RL2_PARAMS), f"step {t}"
+
+
+@pytest.mark.parametrize("quantity", ["loss", "grad_norm", "first_moment",
+                                      "update", "params"])
+def test_recipe_steps_match_jax(quantity, two_steps):
+    """`check_recipe_steps` on the steps with dropout 0."""
+    check_recipe_steps(quantity, two_steps)
